@@ -1,0 +1,22 @@
+"""Model families: ``get_model(cfg)`` returns the family's functions."""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+from pytorch_distributed_tpu_torch.config import ModelConfig
+
+
+class ModelApi(NamedTuple):
+    init: Callable[..., dict]
+    head: Callable[..., object]
+
+
+def get_model(cfg: ModelConfig) -> ModelApi:
+    if cfg.family == "gpt2":
+        from pytorch_distributed_tpu_torch.models import gpt2
+
+        return ModelApi(gpt2.init, gpt2.head)
+    raise NotImplementedError(
+        f"model family {cfg.family!r} is not ported yet (gpt2 only)"
+    )

@@ -1,0 +1,104 @@
+"""GPT-2 parameters and LM head as plain tensor functions.
+
+Params are a dict of tensors with the JAX package's leaf names and
+layouts, except that the per-layer leaves are a Python LIST of per-layer
+dicts (the JAX tree stacks them along a leading [L] axis for its
+``scan``; here the layer loop is a Python loop). ``interop.py`` converts
+between the two. Shapes (E=n_embd, V=vocab, C=n_ctx, F=inner_dim,
+H=n_head, D=head_dim):
+
+  wte [V, E]; wpe [C, E]
+  blocks[l]: ln_1 {scale[E], bias[E]}, ln_2 same,
+             attn/c_attn {kernel[E, 3, H, D], bias[3, H, D]},
+             attn/c_proj {kernel[E, E], bias[E]},
+             mlp/c_fc {kernel[E, F], bias[F]}, mlp/c_proj {kernel[F, E], bias[E]}
+  ln_f {scale[E], bias[E]}
+
+The LM head is tied to wte (no separate leaf).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from pytorch_distributed_tpu_torch.config import ModelConfig
+from pytorch_distributed_tpu_torch.ops.layers import layer_norm
+from pytorch_distributed_tpu_torch.utils.device import resolve_device
+
+Params = dict[str, Any]
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def init(generator: torch.Generator, cfg: ModelConfig,
+         device: str | torch.device | None = None) -> Params:
+    """GPT-2 initialisation: linear kernels N(0, 0.02), wte N(0, 0.02),
+    wpe N(0, 0.01), LayerNorm scale 1 / bias 0, zero biases; draws in f32
+    from ``generator`` on the generator's own device (so one seed gives the
+    same weights wherever they are placed), stored in ``cfg.param_dtype``
+    on ``device`` (None: the GPU, ``utils.device.resolve_device``)."""
+    if cfg.family != "gpt2":
+        raise ValueError(f"gpt2.init got a {cfg.family!r} config")
+    if cfg.n_experts:
+        raise NotImplementedError("MoE GPT-2 is not ported yet")
+    device = resolve_device(device)
+    pdt = _dtype(cfg.param_dtype)
+    e, v, c, f = cfg.n_embd, cfg.vocab_size, cfg.n_ctx, cfg.inner_dim
+    h, d = cfg.n_head, cfg.head_dim
+
+    def normal(shape, std):
+        x = torch.randn(shape, generator=generator, device=generator.device,
+                        dtype=torch.float32)
+        return (x * std).to(device, pdt)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=pdt, device=device)
+
+    def ln():
+        return {"scale": torch.ones(e, dtype=pdt, device=device),
+                "bias": zeros(e)}
+
+    params: Params = {"wte": normal((v, e), 0.02), "wpe": normal((c, e), 0.01)}
+    params["blocks"] = [
+        {
+            "ln_1": ln(),
+            "attn": {
+                "c_attn": {"kernel": normal((e, 3, h, d), 0.02),
+                           "bias": zeros((3, h, d))},
+                "c_proj": {"kernel": normal((e, e), 0.02), "bias": zeros(e)},
+            },
+            "ln_2": ln(),
+            "mlp": {
+                "c_fc": {"kernel": normal((e, f), 0.02), "bias": zeros(f)},
+                "c_proj": {"kernel": normal((f, e), 0.02), "bias": zeros(e)},
+            },
+        }
+        for _ in range(cfg.n_layer)
+    ]
+    params["ln_f"] = ln()
+    return params
+
+
+def final_norm(params: Params, x: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    return layer_norm(x, params["ln_f"], eps=cfg.layer_norm_epsilon)
+
+
+def head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """ln_f, then the tied head ``x @ wte^T`` ACCUMULATED AND RETURNED in
+    float32: the activations and the head weight are rounded to the
+    activation dtype (as the JAX package's ``wte.astype(x.dtype)``) and the
+    product runs on their exact f32 values, so a bf16 model's logits are
+    not rounded to bf16 (which would flip near-tied argmaxes). A placed
+    params dict (``serving/engine``) carries the rounded head weight as
+    ``head_w`` so it is not recast per call."""
+    x = final_norm(params, x, cfg)
+    w = params.get("head_w")
+    if w is None:
+        w = params["wte"].to(x.dtype).float()
+    logits = x.float() @ w.t()
+    return logits.to(_dtype(cfg.logits_dtype))

@@ -1,0 +1,57 @@
+"""Core layer primitives as plain tensor functions over param dicts.
+
+Conventions shared with the JAX package's ``ops/layers.py``:
+
+- Dense kernels are stored ``[in_features, out...]``, so weights convert
+  between the packages without a transpose, and ``y = x @ kernel + bias``.
+- Normalisation statistics are computed in float32 whatever the
+  activation dtype, then cast back.
+- The matmul runs in the activation dtype. The JAX package casts the
+  kernel per call (``x @ w.astype(x.dtype)``, which XLA fuses); eager
+  PyTorch would re-read every weight for that cast on each call, so the
+  serving engine casts the weights ONCE when it places them on the device
+  (``serving/engine``), which gives the same values.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def dense(x: torch.Tensor, params: dict) -> torch.Tensor:
+    """y = x @ kernel + bias; kernel [in, out...] (trailing output dims
+    are kept, e.g. the merged QKV kernel [E, 3, H, D]); bias optional."""
+    w = params["kernel"]
+    y = x @ w.reshape(w.shape[0], -1).to(x.dtype)
+    y = y.reshape(*x.shape[:-1], *w.shape[1:])
+    bias = params.get("bias")
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def layer_norm(x: torch.Tensor, params: dict, *, eps: float) -> torch.Tensor:
+    """LayerNorm with learned scale/bias: normalised and scaled in float32
+    (one fused kernel), then cast back to x's dtype."""
+    y = F.layer_norm(x.float(), x.shape[-1:], params["scale"].float(),
+                     params["bias"].float(), eps)
+    return y.to(x.dtype)
+
+
+_ACTIVATIONS = {
+    # "gelu_new" is HF's tanh-approximated gelu (GPT-2's activation).
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu": lambda x: F.gelu(x, approximate="none"),
+    "relu": F.relu,
+    "silu": F.silu,
+}
+
+
+def activation(name: str):
+    try:
+        return _ACTIVATIONS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown activation {name!r}; known: {sorted(_ACTIVATIONS)}"
+        ) from None

@@ -1,0 +1,203 @@
+"""Paged single-query decode attention: the Hopper kernel and its plain
+version.
+
+The port of the JAX package's ``ops/paged_kernel.py`` (the Pallas kernel
+``_paged_kernel``). Each batch row's K/V lives in fixed-size pages of a
+shared pool ``[P, page, Hkv, D]`` addressed through a per-row block
+table; one query token per row attends over keys ``0..lengths[b]``
+(inclusive — ``lengths`` is the row's query position).
+
+- ``paged_decode_attention`` is the entry point. On a CUDA tensor it
+  launches the hand-written kernel in ``csrc/paged_attention.cu`` (built
+  at first use, ``ops/_build.py``) or raises; on a CPU tensor, and only
+  there, it runs ``paged_decode_attention_reference``.
+- ``paged_decode_attention_reference`` is the plain PyTorch version:
+  ``gather_attention`` (each row's pages gathered into a contiguous view,
+  then the masked softmax — the one plain paged attention of the port,
+  which the forward pass also runs for prefill) at one query token, as
+  the JAX package's reference is.
+- ``launches`` counts kernel launches (CPU calls never bump it), so a run
+  can show that its decode steps went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+NEG_INF = -1e30  # finite mask: -inf would NaN a fully masked softmax
+
+# Kernel launches since import (or since a caller last reset it).
+launches = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+_GROUPS = (1, 2, 4, 8)
+
+
+def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor):
+    """[P, page, ...] pool + [B, n_pages] tables -> the [B, n_pages*page,
+    ...] contiguous per-row view (unallocated entries point at the
+    scratch page, whose contents the length mask excludes)."""
+    b, n_pages = block_tables.shape
+    page = pool.shape[1]
+    return pool[block_tables.long()].reshape(
+        (b, n_pages * page) + tuple(pool.shape[2:])
+    )
+
+
+def gather_attention(q, k_pages, v_pages, block_tables,
+                     pos) -> torch.Tensor:
+    """q [B, T, H, D] at positions pos[b]..pos[b]+T-1 against paged pools
+    [P, page, Hkv, D]: gather each row's page view, then the dense masked
+    softmax with f32 scores (key j of row b is valid iff j <= pos[b] + i).
+    Returns [B, T, H, D] in the pool dtype. The plain attention of every
+    paged step: prefill chunks, the gather decode path, and (at T = 1) the
+    kernel's plain version."""
+    ck = gather_pages(k_pages, block_tables)
+    cv = gather_pages(v_pages, block_tables)
+    b, t, h, d = q.shape
+    s, hkv = ck.shape[1], ck.shape[2]
+    if hkv != h:
+        ck = ck.repeat_interleave(h // hkv, dim=2)
+        cv = cv.repeat_interleave(h // hkv, dim=2)
+    scores = torch.einsum("bthd,bshd->bhts", q.float(), ck.float()) / (d**0.5)
+    qpos = torch.arange(t, device=q.device)
+    kpos = torch.arange(s, device=q.device)
+    valid = kpos[None, None, :] <= (
+        pos.long()[:, None, None] + qpos[None, :, None]
+    )  # [B, T, S]
+    scores = torch.where(valid[:, None], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(cv.dtype)
+    return torch.einsum("bhts,bshd->bthd", w, cv)
+
+
+def paged_decode_attention_reference(q, k_pages, v_pages, block_tables,
+                                     lengths) -> torch.Tensor:
+    """Plain PyTorch version: ``gather_attention`` at the T = 1 shape (as
+    the JAX package's reference restates its decode gather branch);
+    [B, H, D] -> [B, H, D] in q's dtype."""
+    out = gather_attention(q[:, None], k_pages, v_pages, block_tables, lengths)
+    return out[:, 0].to(q.dtype)
+
+
+def _kernel():
+    """The built kernel's C entry point, its signature declared once (every
+    pointer and the stream as c_void_p, or ctypes would cut them to 32
+    bits)."""
+    from pytorch_distributed_tpu_torch.ops import _build
+
+    fn = _build.load("paged_attention").pdt_paged_decode_attention
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+            ctypes.c_float, ctypes.c_void_p,
+        ]
+    return fn
+
+
+def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
+    if q.dim() != 3 or k_pages.dim() != 4:
+        raise ValueError(
+            f"expected q [B, H, D] and pools [P, page, Hkv, D], got "
+            f"{tuple(q.shape)} and {tuple(k_pages.shape)}"
+        )
+    b, h, d = q.shape
+    n_pool, page, hkv, dk = k_pages.shape
+    if v_pages.shape != k_pages.shape:
+        raise ValueError(
+            f"k_pages {tuple(k_pages.shape)} and v_pages "
+            f"{tuple(v_pages.shape)} differ"
+        )
+    if dk != d:
+        raise ValueError(f"head dim of q ({d}) and pools ({dk}) differ")
+    if h % hkv:
+        raise ValueError(
+            f"query heads {h} must be a multiple of kv heads {hkv}"
+        )
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        raise ValueError(
+            f"block_tables must be [B={b}, n_pages], got "
+            f"{tuple(block_tables.shape)}"
+        )
+    if tuple(lengths.shape) != (b,):
+        raise ValueError(f"lengths must be [B={b}], got {tuple(lengths.shape)}")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError(
+            f"block_tables and lengths must be int32, got "
+            f"{block_tables.dtype} and {lengths.dtype}"
+        )
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise ValueError(
+            f"q, k_pages and v_pages must share a dtype, got {q.dtype}, "
+            f"{k_pages.dtype}, {v_pages.dtype}"
+        )
+    devices = {t.device for t in (q, k_pages, v_pages, block_tables, lengths)}
+    if len(devices) != 1:
+        raise ValueError(f"all inputs must be on one device, got {devices}")
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [B, H, D], one query token per row
+    k_pages: torch.Tensor,  # [P, page, Hkv, D]
+    v_pages: torch.Tensor,  # [P, page, Hkv, D]
+    block_tables: torch.Tensor,  # [B, n_pages] int32 page ids
+    lengths: torch.Tensor,  # [B] int32: the row's position (keys <= it valid)
+) -> torch.Tensor:
+    """Paged single-query attention, [B, H, D] -> [B, H, D] in q's dtype.
+    Key j of row b is attended iff j <= lengths[b] (lengths >= 0); table
+    entries past a row's depth are never read by the kernel. Page ids must
+    lie in [0, P): a CPU call raises otherwise, and the kernel, which
+    cannot check without a device sync, clamps them into the pool (as a
+    JAX gather does) so it never reads out of bounds."""
+    global launches
+    _check(q, k_pages, v_pages, block_tables, lengths)
+    if q.device.type == "cpu":
+        n_pool = k_pages.shape[0]
+        if block_tables.numel() and (
+            int(block_tables.min()) < 0 or int(block_tables.max()) >= n_pool
+        ):
+            raise ValueError(
+                f"block_tables holds page ids outside [0, {n_pool})"
+            )
+        return paged_decode_attention_reference(
+            q, k_pages, v_pages, block_tables, lengths
+        )
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"paged_decode_attention runs on cuda (kernel) or cpu (plain "
+            f"version), got device {q.device}"
+        )
+    b, h, d = q.shape
+    n_pool, page, hkv, _ = k_pages.shape
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(
+            f"the kernel takes {sorted(map(str, _DTYPE_CODES))}, got {q.dtype}"
+        )
+    if d not in _HEAD_DIMS or h // hkv not in _GROUPS:
+        raise ValueError(
+            f"the kernel takes head_dim in {_HEAD_DIMS} and query-head "
+            f"groups in {_GROUPS}, got head_dim {d}, group {h // hkv}"
+        )
+    tensors = (q, k_pages, v_pages, block_tables, lengths)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the kernel takes contiguous tensors only")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError("q and the pools must be 16-byte aligned")
+    fn = _kernel()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            b, h, hkv, d, n_pool, page, block_tables.shape[1],
+            _DTYPE_CODES[q.dtype], 1.0 / (d**0.5), stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"paged decode kernel launch failed: cudaError {err}"
+        )
+    launches += 1
+    return out

@@ -1,0 +1,965 @@
+"""Continuous batching over a paged KV cache: the serving engine.
+
+The port of the core of the JAX package's ``BatchedDecodeEngine`` and
+``PagedBatchedDecodeEngine`` (``serving/engine.py``). A fixed set of
+``slots`` rows decode together, one token per row per tick; requests are
+admitted into free rows, prefilled in chunks, decoded and retired by a
+host-side scheduler, and their K/V lives in a pool of fixed-size pages
+(``models/decode``) with a per-row block table:
+
+- **Pages, not rows**: the pool is ``[L, pool_pages, page_size, Hkv,
+  D]``; a row holds only the pages its depth needs. When the pool runs
+  dry mid-decode the youngest (lowest-priority) other row is PREEMPTED —
+  its tokens so far become a resume entry, its pages return to the pool,
+  and it re-admits later and continues token-identically.
+- **Prefix sharing**: full prefill chunks are published to the block
+  pool's sha1-chained prefix cache (``serving/block_pool``); a later
+  prompt with the same prefix maps those pages instead of recomputing
+  them, copy-on-write by construction.
+- **Chunked prefill**: each tick advances every mid-prefill row by one
+  ``prefill_chunk``-token chunk (one batched forward), so a long prompt
+  never stalls the rows that are decoding.
+- **Decode tick**: one forward over ALL ``slots`` rows at [slots, 1]; free
+  and mid-prefill rows ride along with position 0 and an all-zero table
+  (the scratch page) and their output is discarded. With
+  ``paged_attention="kernel"`` its attention is the hand-written paged
+  decode kernel (``ops/paged_kernel``), once per layer per tick.
+- **Tiers** (``serving/scheduler``): interactive requests admit first and
+  may preempt lower tiers; batch requests admit only with pool headroom
+  and sit out ticks while an interactive row is live.
+
+``paged_attention``: "auto" (default) is "kernel" on a CUDA device and the
+plain gather path on the CPU, as the JAX package's "auto" picks its kernel
+only on a TPU; "kernel" and "gather" force one. On a CPU device "kernel"
+runs the kernel's plain version.
+
+Weights are placed once per params object (``_place_params``): moved to
+the engine's device, matmul kernels and biases cast to ``cfg.dtype``
+(the JAX package casts them inside every matmul, which XLA fuses), the
+embeddings kept in ``cfg.param_dtype`` (``wte[ids] + wpe[pos]`` is summed
+there, then cast), and the tied head's weight kept as the f32 values of
+its ``cfg.dtype`` rounding, for the f32-accumulated logits.
+
+Left out of this port, relative to the JAX engines: speculative decoding,
+LoRA adapters, multi-turn sessions, int8 KV and weights, quarantine
+retries (a row with non-finite logits is FAILED with its reason),
+fault injection, snapshot/restore, disaggregated roles and KV handoff,
+tensor parallelism, and the dense and serial engines.
+
+Not thread-safe: one dispatcher per engine.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from pytorch_distributed_tpu_torch.config import ModelConfig
+from pytorch_distributed_tpu_torch.models import decode
+from pytorch_distributed_tpu_torch.serving.block_pool import BlockPool
+from pytorch_distributed_tpu_torch.serving.lifecycle import (
+    ABORTED,
+    DONE,
+    EXPIRED,
+    FAILED,
+    AdmissionQueueFull,
+    PagePoolExhausted,
+    RequestResult,
+)
+from pytorch_distributed_tpu_torch.serving.scheduler import (
+    BATCH,
+    INTERACTIVE,
+    PRIORITIES,
+    STANDARD,
+    TIER_NAME,
+    TIER_RANK,
+    check_priority,
+    preemption_key,
+    queue_key,
+)
+from pytorch_distributed_tpu_torch.utils.device import resolve_device
+from pytorch_distributed_tpu_torch.utils.logging import log_event
+
+
+def kv_bytes_per_position(cfg: ModelConfig) -> int:
+    """K+V bytes one cache position costs across all layers."""
+    itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    return cfg.n_layer * 2 * cfg.kv_heads * cfg.head_dim * itemsize
+
+
+@dataclasses.dataclass
+class _Pending:
+    """A queued request; after a preemption, also its resume entry: ``gen``
+    then holds the tokens generated so far, and admission prefills the
+    whole prompt + gen prefix."""
+
+    rid: int
+    prompt: np.ndarray  # [Tp] int32
+    max_new: int  # TOTAL new-token budget (not remaining)
+    eos_id: int | None
+    greedy: bool
+    t: float
+    k: int
+    p: float
+    seed: int
+    deadline: float | None = None  # engine-clock absolute deadline
+    gen: list = dataclasses.field(default_factory=list)  # resume prefix
+    tier: int = TIER_RANK[STANDARD]
+
+
+@dataclasses.dataclass
+class _PagedSlot:
+    """One occupied row: ``pos`` is the prefill cursor (next position to
+    prefill) until it reaches ``prefill_len``; after that the row is
+    decode-ready and ``pos`` is its next KV write offset."""
+
+    rid: int
+    prompt: np.ndarray
+    max_new: int
+    eos_id: int | None
+    pos: int
+    generated: list
+    greedy: bool
+    t: float
+    k: int
+    p: float
+    seed: int
+    deadline: float | None
+    tier: int
+    prefix: np.ndarray  # prompt + resume tokens to prefill
+    prefill_len: int  # len(prefix)
+    table: np.ndarray  # [max_pages] int32 page ids (0 = scratch)
+    pids: list  # pages held
+    n_pages: int  # allocated table entries
+    resume_base: int  # len(resume gen) riding ahead of fresh tokens
+    chain_key: str  # prefix-cache chain key at pos (one digest per publish)
+
+    @property
+    def ready(self) -> bool:
+        return self.pos >= self.prefill_len
+
+
+class PagedBatchedDecodeEngine:
+    """Continuous-batching decode over a paged KV pool (module docstring).
+
+    Knobs: ``page_size`` (tokens per page; divides ``max_len``),
+    ``pool_pages`` (pool capacity including the scratch page 0; default
+    ``slots * max_len / page_size + 1``), ``prefill_chunk`` (a page
+    multiple dividing ``max_len``; default the largest such <= 64),
+    ``queue_limit`` (bounded admission queue: ``submit`` past it raises
+    ``AdmissionQueueFull``), ``batch_admit_free_frac`` (free-pool fraction
+    below which BATCH requests stop admitting), ``clock`` (the deadline
+    clock, ``time.monotonic`` by default), ``device`` (None = "cuda")."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        *,
+        slots: int,
+        max_len: int,
+        page_size: int = 16,
+        pool_pages: int | None = None,
+        prefill_chunk: int | None = None,
+        paged_attention: str = "auto",
+        queue_limit: int | None = None,
+        batch_admit_free_frac: float = 0.25,
+        clock=None,
+        device=None,
+    ) -> None:
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        if max_len > cfg.n_ctx:
+            raise ValueError(f"max_len {max_len} exceeds n_ctx {cfg.n_ctx}")
+        if cfg.family != "gpt2":
+            raise NotImplementedError(
+                f"the engine serves the gpt2 family only, got {cfg.family!r}"
+            )
+        if cfg.n_experts:
+            raise NotImplementedError(
+                "the engine does not serve MoE configs: expert capacity "
+                "couples batch rows, so a row's output would depend on its "
+                "neighbours"
+            )
+        if page_size < 1 or max_len % page_size:
+            raise ValueError(
+                f"page_size ({page_size}) must be a positive divisor of "
+                f"max_len ({max_len}): the block table addresses exactly "
+                "max_len/page_size pages per row"
+            )
+        self.cfg = cfg
+        self.slots = int(slots)
+        self.max_len = int(max_len)
+        self.page_size = int(page_size)
+        self.max_pages = max_len // page_size
+        if prefill_chunk is None:
+            # Largest page multiple <= 64 that divides max_len: the chunk is
+            # both the per-tick prefill quantum and the prefix-sharing grain.
+            prefill_chunk = page_size
+            while (
+                prefill_chunk * 2 <= min(64, max_len)
+                and max_len % (prefill_chunk * 2) == 0
+            ):
+                prefill_chunk *= 2
+        if (
+            prefill_chunk < page_size
+            or prefill_chunk % page_size
+            or max_len % prefill_chunk
+        ):
+            raise ValueError(
+                f"prefill_chunk ({prefill_chunk}) must be a multiple of "
+                f"page_size ({page_size}) that divides max_len "
+                f"({max_len}) — chunk starts are page-aligned and the "
+                "padded final chunk must stay inside the row's table"
+            )
+        self.chunk = int(prefill_chunk)
+        if pool_pages is None:
+            pool_pages = slots * self.max_pages + 1
+        if pool_pages < self.max_pages + 1:
+            raise ValueError(
+                f"pool_pages ({pool_pages}) must be >= max_len/page_size "
+                f"+ 1 = {self.max_pages + 1} (one full-length row plus "
+                "the scratch page), or a single deep request could "
+                "never be served"
+            )
+        self.pool_pages = int(pool_pages)
+        if not 0.0 <= batch_admit_free_frac <= 1.0:
+            raise ValueError(
+                f"batch_admit_free_frac must be in [0, 1], got "
+                f"{batch_admit_free_frac}"
+            )
+        self.batch_admit_free_frac = float(batch_admit_free_frac)
+        if queue_limit is not None and queue_limit < 1:
+            raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
+        self.queue_limit = queue_limit
+        self.device = resolve_device(device)
+        if paged_attention == "auto":
+            paged_attention = (
+                "kernel" if self.device.type == "cuda" else "gather"
+            )
+        if paged_attention == "kernel_interpret":
+            raise ValueError(
+                "paged_attention='kernel_interpret' is the JAX package's "
+                "Pallas interpret mode; this port has no interpreter — use "
+                "'kernel' (on a CPU device it runs the kernel's plain "
+                "version) or 'gather'"
+            )
+        if paged_attention not in ("gather", "kernel"):
+            raise ValueError(
+                f"paged_attention must be 'auto', 'gather' or 'kernel', "
+                f"got {paged_attention!r}"
+            )
+        self.paged_attention = paged_attention
+        self._clock = clock or time.monotonic
+        self.pool = BlockPool(self.pool_pages, self.page_size, self.chunk)
+        self._cache = decode.init_paged_cache(
+            cfg, self.pool_pages, self.page_size, device=self.device
+        )
+        self._queue: collections.deque[_Pending] = collections.deque()
+        self._slots: list[_PagedSlot | None] = [None] * self.slots
+        self._next_rid = 0
+        self._placed: tuple[Any, Any] | None = None
+        self.results: dict[int, RequestResult] = {}
+        self.counters: dict[str, int] = {
+            "done": 0, "failed": 0, "aborted": 0, "expired": 0,
+            "preemptions": 0, "preempt_priority": 0, "batch_yield_ticks": 0,
+            "prefill_ticks": 0, "decode_ticks": 0,
+        }
+        log_event(
+            "pool_build",
+            pool_pages=self.pool_pages,
+            page_size=self.page_size,
+            prefill_chunk=self.chunk,
+            slots=self.slots,
+            device=str(self.device),
+            pool_hbm_bytes=self.cache_hbm_bytes()["allocated"],
+        )
+
+    # -- params and forward -------------------------------------------------
+
+    def _place_params(self, params):
+        """The params on this engine's device with the matmul weights cast
+        to ``cfg.dtype`` once (see the module docstring); memoized on the
+        identity of ``params``."""
+        if self._placed is not None and self._placed[0] is params:
+            return self._placed[1]
+        dev, dtype = self.device, getattr(torch, self.cfg.dtype)
+        pdt = getattr(torch, self.cfg.param_dtype)
+
+        def mat(p):
+            return {kk: vv.to(dev, dtype).contiguous() for kk, vv in p.items()}
+
+        def norm(p):
+            return {kk: vv.to(dev, pdt) for kk, vv in p.items()}
+
+        wte = params["wte"].to(dev, pdt)
+        placed = {
+            "wte": wte,
+            "wpe": params["wpe"].to(dev, pdt),
+            "head_w": wte.to(dtype).float(),
+            "ln_f": norm(params["ln_f"]),
+            "blocks": [
+                {
+                    "ln_1": norm(bp["ln_1"]),
+                    "ln_2": norm(bp["ln_2"]),
+                    "attn": {kk: mat(vv) for kk, vv in bp["attn"].items()},
+                    "mlp": {kk: mat(vv) for kk, vv in bp["mlp"].items()},
+                }
+                for bp in params["blocks"]
+            ],
+        }
+        self._placed = (params, placed)
+        return placed
+
+    @torch.no_grad()
+    def _forward(self, params, ids, pos, tables):
+        """One forward over the pool; numpy operands in, logits out."""
+        dev = self.device
+        logits, _ = decode.forward(
+            params,
+            torch.from_numpy(ids).to(dev),
+            self.cfg,
+            self._cache,
+            torch.from_numpy(pos).to(dev),
+            block_tables=torch.from_numpy(tables).to(dev),
+            paged_impl=self.paged_attention,
+        )
+        return logits
+
+    def _sample(self, last, rows):
+        """Sample one token per logits row; ``rows`` are the (slot-like)
+        objects those rows belong to (None = discarded lane). Returns host
+        arrays (tokens, nonfinite flags) with ONE device->host copy."""
+        greedy = [r is None or r.greedy for r in rows]
+        t = [1.0 if r is None else r.t for r in rows]
+        k = [self.cfg.vocab_size if r is None else r.k for r in rows]
+        p = [2.0 if r is None else r.p for r in rows]
+        seeds = [
+            0 if r is None or r.greedy
+            else decode.sample_seed(r.seed, len(r.generated))
+            for r in rows
+        ]
+        toks = decode.sample_token_rows(last, greedy, t, k, p, seeds)
+        bad = decode.nonfinite_rows(last)
+        host = torch.stack([toks, bad.long()]).cpu().numpy()
+        return host[0], host[1].astype(bool)
+
+    # -- request API ---------------------------------------------------------
+
+    def submit(
+        self,
+        prompt,
+        max_new_tokens: int,
+        *,
+        temperature: float = 0.0,
+        top_k: int | None = None,
+        top_p: float | None = None,
+        eos_id: int | None = None,
+        seed: int | None = None,
+        priority: str = STANDARD,
+        timeout_s: float | None = None,
+    ) -> int:
+        """Queue one single-sequence request ([Tp] or [1, Tp] token ids)
+        and return its request id. A later ``step`` admits it; its
+        terminal ``RequestResult`` lands in ``results[rid]`` — collect it
+        with ``pop_result(rid)``. ``temperature > 0`` samples (``seed``
+        required: the request's tokens are a pure function of it);
+        ``timeout_s`` is a deadline on the engine clock; ``priority`` is
+        the SLO tier (``serving/scheduler``)."""
+        prompt = np.asarray(prompt)
+        if prompt.ndim == 2 and prompt.shape[0] == 1:
+            prompt = prompt[0]
+        if prompt.ndim != 1:
+            raise ValueError(
+                f"the engine serves one sequence per request (one slot "
+                f"row); got prompt shape {prompt.shape}"
+            )
+        tp = prompt.shape[0]
+        if tp == 0:
+            raise ValueError(
+                "empty prompt: need at least one token to prefill"
+            )
+        if max_new_tokens <= 0:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {max_new_tokens}"
+            )
+        if tp + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({tp}) + max_new_tokens ({max_new_tokens}) exceeds "
+                f"max_len {self.max_len}: the KV cache holds max_len "
+                "positions, so the request cannot fit"
+            )
+        if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
+            raise ValueError(
+                f"prompt token ids must lie in [0, {self.cfg.vocab_size})"
+            )
+        if temperature > 0.0 and seed is None:
+            raise ValueError("temperature sampling requires a seed")
+        if timeout_s is not None and timeout_s <= 0:
+            raise ValueError(f"timeout_s must be > 0, got {timeout_s}")
+        tier = check_priority(priority)
+        if self.queue_limit is not None and len(self._queue) >= self.queue_limit:
+            raise AdmissionQueueFull(
+                f"admission queue full: {len(self._queue)} queued >= "
+                f"queue_limit {self.queue_limit} — shed load upstream or "
+                "retry after draining"
+            )
+        rid = self._next_rid
+        self._next_rid += 1
+        t, k, p = decode.sampling_scalars(
+            temperature, top_k, top_p, self.cfg.vocab_size
+        )
+        deadline = None if timeout_s is None else self._clock() + timeout_s
+        self._queue.append(_Pending(
+            rid=rid, prompt=prompt.astype(np.int32),
+            max_new=int(max_new_tokens), eos_id=eos_id,
+            greedy=not temperature > 0.0, t=t, k=k, p=p,
+            seed=0 if seed is None else int(seed), deadline=deadline,
+            tier=tier,
+        ))
+        log_event(
+            "submit", rid=rid, t=round(self._clock(), 6), prompt_len=tp,
+            max_new=int(max_new_tokens),
+            deadline=None if deadline is None else round(deadline, 6),
+            priority=priority if tier != TIER_RANK[STANDARD] else None,
+        )
+        return rid
+
+    def has_work(self) -> bool:
+        return bool(self._queue) or any(s is not None for s in self._slots)
+
+    def queued_rids(self) -> list[int]:
+        return [q.rid for q in self._queue]
+
+    def active_rids(self) -> list[int]:
+        return [s.rid for s in self._slots if s is not None]
+
+    def abort(self, rid: int) -> bool:
+        """Cancel one request: a queued entry is removed, an active row is
+        freed (its pages released). It retires ABORTED with its clean
+        partial output. True on transition, False if already terminal;
+        unknown rids raise KeyError."""
+        for q in self._queue:
+            if q.rid == rid:
+                self._queue.remove(q)
+                self._finish_pending(q, ABORTED, "abort() while queued")
+                return True
+        for i, s in enumerate(self._slots):
+            if s is not None and s.rid == rid:
+                self._slots[i] = None
+                self._on_slot_freed(s)
+                self._finish_slot(s, ABORTED, "abort() mid-decode")
+                return True
+        if rid in self.results:
+            return False
+        raise KeyError(
+            f"unknown rid {rid}: never submitted, or already delivered "
+            "via pop_result"
+        )
+
+    def step(self, params) -> list[int]:
+        """One scheduler tick: expire overdue requests, admit queued ones
+        and advance every mid-prefill row one chunk, then advance every
+        decode-ready row one token. Returns the rids that reached a
+        terminal state this tick."""
+        params = self._place_params(params)
+        finished: list[int] = []
+        self._expire(finished)
+        self._admit(params, finished)
+        if any(s is not None for s in self._slots):
+            self._decode_tick(params, finished)
+        return finished
+
+    def run(
+        self, params, requests=None, *,
+        max_ticks: int | None = None,
+        timeout_s: float | None = None,
+    ) -> dict[int, RequestResult]:
+        """Submit ``requests`` (iterable of ``submit`` kwarg dicts), then
+        drive ``step`` until idle, or until ``max_ticks`` ticks or
+        ``timeout_s`` (engine clock) pass. Returns {rid: RequestResult}
+        for everything that reached a terminal state during the drive."""
+        before = set(self.results)
+        for req in requests or ():
+            self.submit(**req)
+        deadline = None if timeout_s is None else self._clock() + timeout_s
+        ticks = 0
+        while self.has_work():
+            if max_ticks is not None and ticks >= max_ticks:
+                log_event("run_guard", reason="max_ticks", ticks=ticks)
+                break
+            if deadline is not None and self._clock() >= deadline:
+                log_event("run_guard", reason="timeout", ticks=ticks)
+                break
+            self.step(params)
+            ticks += 1
+        return {
+            rid: out for rid, out in self.results.items()
+            if rid not in before
+        }
+
+    def pop_result(self, rid: int) -> RequestResult:
+        """Deliver and release one request's terminal result (KeyError for
+        unknown or not-yet-terminal rids)."""
+        return self.results.pop(rid)
+
+    def peek_tokens(self, rid: int) -> np.ndarray | None:
+        """Tokens so far (prompt + generated) of a live or terminal
+        request; None for unknown rids."""
+        for s in self._slots:
+            if s is not None and s.rid == rid:
+                return self._partial_tokens(s.prompt, s.generated)
+        for q in self._queue:
+            if q.rid == rid:
+                return self._partial_tokens(q.prompt, q.gen)
+        res = self.results.get(rid)
+        return None if res is None else np.asarray(res.tokens)
+
+    def warmup(self, params) -> None:
+        """Place the params and run one prefill chunk and one decode step
+        on the scratch page (all-zero tables), so the first request pays
+        no one-time cost (the kernel build and load, library handles).
+        Idle engines only."""
+        if self.has_work():
+            raise RuntimeError("warmup requires an idle engine")
+        params = self._place_params(params)
+        for t in (self.chunk, 1):
+            self._forward(
+                params, np.zeros((self.slots, t), np.int32),
+                np.zeros((self.slots,), np.int32),
+                np.zeros((self.slots, self.max_pages), np.int32),
+            )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- introspection -------------------------------------------------------
+
+    def stats(self) -> dict[str, Any]:
+        """Scheduler occupancy, page-pool pressure and a copy of the
+        monotonic ``counters``; pure host bookkeeping."""
+        free_slots = sum(1 for s in self._slots if s is None)
+        by_tier = {name: 0 for name in PRIORITIES}
+        for q in self._queue:
+            by_tier[TIER_NAME[q.tier]] += 1
+        ps = self.pool.stats
+        return {
+            "engine": type(self).__name__,
+            "device": str(self.device),
+            "paged_attention": self.paged_attention,
+            "queue_depth": len(self._queue),
+            "queue_depth_by_tier": by_tier,
+            "slots": self.slots,
+            "active_rows": self.slots - free_slots,
+            "free_slots": free_slots,
+            "pool_pages": self.pool_pages,
+            "free_pages": self.pool.free_pages(),
+            "pages_in_use": self.pool.pages_in_use(),
+            "prefix_hit_rate": round(
+                ps["prefix_hits"] / max(1, ps["prefix_queries"]), 4
+            ),
+            "counters": dict(self.counters),
+        }
+
+    def cache_hbm_bytes(self) -> dict[str, int]:
+        """Allocated pool bytes and the peak referenced by live rows."""
+        per = kv_bytes_per_position(self.cfg)
+        return {
+            "allocated": self.pool_pages * self.page_size * per,
+            "peak_in_use": (
+                self.pool.stats["peak_pages_in_use"] * self.page_size * per
+            ),
+        }
+
+    # -- bookkeeping ---------------------------------------------------------
+
+    def _partial_tokens(self, prompt, gen) -> np.ndarray:
+        return np.concatenate(
+            [np.asarray(prompt, np.int32), np.asarray(gen, np.int32)]
+        )
+
+    def _pending_from_slot(self, s: _PagedSlot) -> _Pending:
+        """An in-flight row as a resume entry: its generated tokens become
+        part of the prefix its re-admission prefills."""
+        return _Pending(
+            rid=s.rid, prompt=s.prompt, max_new=s.max_new, eos_id=s.eos_id,
+            greedy=s.greedy, t=s.t, k=s.k, p=s.p, seed=s.seed,
+            deadline=s.deadline, gen=list(s.generated), tier=s.tier,
+        )
+
+    def _finish(self, rid, state, tokens, reason, finished=None) -> None:
+        self.results[rid] = RequestResult(
+            rid=rid, state=state, tokens=tokens, reason=reason
+        )
+        self.counters[state.lower()] += 1
+        if finished is not None:
+            finished.append(rid)
+        log_event(
+            "retire", rid=rid, state=state, t=round(self._clock(), 6),
+            n_tokens=len(tokens), reason=reason or None,
+        )
+
+    def _finish_pending(self, q: _Pending, state, reason,
+                        finished=None) -> None:
+        self._finish(q.rid, state, self._partial_tokens(q.prompt, q.gen),
+                     reason, finished)
+
+    def _finish_slot(self, s: _PagedSlot, state, reason,
+                     finished=None) -> None:
+        self._finish(s.rid, state,
+                     self._partial_tokens(s.prompt, s.generated), reason,
+                     finished)
+
+    def _fail_slot(self, row: int, phase: str, finished) -> None:
+        """Non-finite logits on a row: FAIL it (the JAX engine retries once
+        in quarantine first); its neighbours are untouched."""
+        s = self._slots[row]
+        self._slots[row] = None
+        self._on_slot_freed(s)
+        self._finish_slot(
+            s, FAILED, f"non-finite logits ({phase})", finished
+        )
+
+    def _requeue(self, pendings) -> None:
+        """Merge resume entries back into the queue in ascending-rid (=
+        submit) order."""
+        if pendings:
+            self._queue = collections.deque(
+                sorted(list(self._queue) + list(pendings),
+                       key=lambda q: q.rid)
+            )
+
+    def _expire(self, finished: list[int]) -> None:
+        now = self._clock()
+        for q in [q for q in self._queue
+                  if q.deadline is not None and now >= q.deadline]:
+            self._queue.remove(q)
+            self._finish_pending(
+                q, EXPIRED, f"deadline passed at t={now:.3f} while queued",
+                finished,
+            )
+        for i, s in enumerate(self._slots):
+            if s is not None and s.deadline is not None and now >= s.deadline:
+                self._slots[i] = None
+                self._on_slot_freed(s)
+                self._finish_slot(
+                    s, EXPIRED, f"deadline passed at t={now:.3f} mid-decode",
+                    finished,
+                )
+
+    def _on_slot_freed(self, s: _PagedSlot) -> None:
+        self.pool.release(s.pids)
+        s.pids = []
+
+    def _maybe_retire(self, row: int, finished: list[int]) -> None:
+        s = self._slots[row]
+        hit_eos = s.eos_id is not None and s.generated[-1] == s.eos_id
+        if len(s.generated) < s.max_new and not hit_eos:
+            return
+        self._slots[row] = None
+        self._on_slot_freed(s)
+        self._finish_slot(s, DONE, "", finished)
+
+    # -- scheduler -----------------------------------------------------------
+
+    def _queue_key(self, q: _Pending):
+        return queue_key(q.tier, q.deadline, q.rid)
+
+    def _batch_headroom(self) -> bool:
+        """BATCH admission gate: at least ``batch_admit_free_frac`` of the
+        pool is allocatable (free or LRU-reclaimable)."""
+        return (
+            self.pool.allocatable_pages()
+            >= self.batch_admit_free_frac * (self.pool_pages - 1)
+        )
+
+    def _admit(self, params, finished: list[int]) -> None:
+        free = [i for i, s in enumerate(self._slots) if s is None]
+        ordered = None
+        blocked: set[int] = set()
+        while self._queue:
+            # Priority-ordered admission; BATCH entries are SKIPPED (not
+            # blocking) while the pool lacks headroom.
+            if ordered is None:
+                ordered = sorted(self._queue, key=self._queue_key)
+            req = None
+            headroom = None
+            for cand in ordered:
+                if cand.rid in blocked:
+                    continue
+                if cand.tier == TIER_RANK[BATCH]:
+                    if headroom is None:
+                        headroom = self._batch_headroom()
+                    if not headroom:
+                        continue
+                req = cand
+                break
+            if req is None:
+                break
+            if not free:
+                # No free slot: an INTERACTIVE arrival may preempt a
+                # strictly-lower-priority row; everyone else waits.
+                n0 = len(self._queue)
+                row = self._preempt_lower_priority(req.tier)
+                if len(self._queue) != n0:
+                    ordered = None
+                if row is None:
+                    break
+                free.append(row)
+            slot = self._try_allocate(req)
+            while slot is None:
+                # Page shortage: preempt strictly-lower-priority rows.
+                n0 = len(self._queue)
+                row = self._preempt_lower_priority(req.tier)
+                if len(self._queue) != n0:
+                    ordered = None
+                if row is None:
+                    break
+                free.append(row)
+                slot = self._try_allocate(req)
+            if slot is None:
+                # The head waits for pages while decode runs and rows
+                # retire. With NO live rows nothing can retire, so only
+                # then do later entries go around it this tick.
+                if any(s is not None for s in self._slots):
+                    break
+                blocked.add(req.rid)
+                continue
+            self._queue.remove(req)
+            if ordered is not None:
+                ordered.remove(req)
+            row = free.pop(0)
+            self._slots[row] = slot
+            log_event(
+                "admit", rid=slot.rid, row=row,
+                cached_tokens=slot.pos or None,
+                resume_prefix=slot.resume_base or None,
+                priority=(
+                    TIER_NAME[slot.tier]
+                    if slot.tier != TIER_RANK[STANDARD] else None
+                ),
+                t=round(self._clock(), 6),
+            )
+        self._chunk_prefill_tick(params, finished)
+
+    def _preempt_lower_priority(self, tier: int) -> int | None:
+        """Preempt the lowest-priority-then-youngest row whose tier is
+        strictly below an INTERACTIVE arrival's; returns the freed row, or
+        None when the arrival may not preempt or nothing is outranked."""
+        if tier != TIER_RANK[INTERACTIVE]:
+            return None
+        cands = [
+            (preemption_key(s.tier, s.rid), i)
+            for i, s in enumerate(self._slots)
+            if s is not None and s.tier > tier
+        ]
+        if not cands:
+            return None
+        (_, rid), row = max(cands)
+        s = self._slots[row]
+        self._slots[row] = None
+        self._on_slot_freed(s)
+        self.counters["preempt_priority"] += 1
+        log_event(
+            "preempt_priority", rid=rid, row=row, depth=s.pos,
+            victim_tier=TIER_NAME[s.tier], for_tier=TIER_NAME[tier],
+            t=round(self._clock(), 6),
+        )
+        self._requeue([self._pending_from_slot(s)])
+        return row
+
+    def _try_allocate(self, req: _Pending) -> _PagedSlot | None:
+        """A slot for ``req`` if the pool covers its prefill extent: shared
+        prefix pages from the prefix cache, private pages for the rest,
+        rounded up to the chunk the padded final prefill writes."""
+        prefix = self._partial_tokens(req.prompt, req.gen)
+        plen = prefix.shape[0]
+        cached, shared, chain_key = self.pool.match_prefix(prefix, plen - 1)
+        ext = -(-plen // self.chunk) * self.chunk  # padded prefill extent
+        fresh = self.pool.alloc(ext // self.page_size - len(shared))
+        if fresh is None:
+            # Deferred: undo the match so retries do not inflate the stats.
+            self.pool.cancel_match(cached, shared)
+            return None
+        if cached:
+            log_event(
+                "prefix_hit", rid=req.rid, cached_tokens=cached,
+                prompt_len=plen, t=round(self._clock(), 6),
+            )
+        pids = list(shared) + fresh
+        table = np.zeros((self.max_pages,), np.int32)
+        table[: len(pids)] = pids
+        return _PagedSlot(
+            rid=req.rid, prompt=req.prompt, max_new=req.max_new,
+            eos_id=req.eos_id, pos=cached, generated=list(req.gen),
+            greedy=req.greedy, t=req.t, k=req.k, p=req.p, seed=req.seed,
+            deadline=req.deadline, tier=req.tier,
+            prefix=prefix, prefill_len=plen, table=table, pids=pids,
+            n_pages=len(pids), resume_base=len(req.gen), chain_key=chain_key,
+        )
+
+    def _chunk_prefill_tick(self, params, finished: list[int]) -> None:
+        """Advance every mid-prefill row by ONE chunk in one forward."""
+        rows = [
+            (i, s) for i, s in enumerate(self._slots)
+            if s is not None and not s.ready
+        ]
+        if rows and any(
+            s is not None and s.ready and s.tier == TIER_RANK[INTERACTIVE]
+            for s in self._slots
+        ):
+            # BATCH prefill yields to a generating interactive row.
+            rows = [(i, s) for i, s in rows if s.tier != TIER_RANK[BATCH]]
+        if not rows:
+            return
+        n = len(rows)
+        chunks = np.zeros((n, self.chunk), np.int32)
+        valid = np.ones((n,), np.int64)
+        start = np.zeros((n,), np.int32)
+        tables = np.zeros((n, self.max_pages), np.int32)
+        for j, (_, s) in enumerate(rows):
+            v = min(self.chunk, s.prefill_len - s.pos)
+            chunks[j, :v] = s.prefix[s.pos : s.pos + v]
+            valid[j] = v
+            start[j] = s.pos
+            tables[j] = s.table
+        self.counters["prefill_ticks"] += 1
+        logits = self._forward(params, chunks, start, tables)
+        last = logits[torch.arange(n, device=self.device),
+                      torch.from_numpy(valid - 1).to(self.device)]
+        # Only rows on their final chunk keep the sampled token.
+        toks, bad = self._sample(
+            last,
+            [s if s.pos + valid[j] >= s.prefill_len else None
+             for j, (_, s) in enumerate(rows)],
+        )
+        for j, (row, s) in enumerate(rows):
+            if bad[j]:
+                self._fail_slot(row, "prefill", finished)
+                continue
+            v = int(valid[j])
+            if v == self.chunk:
+                # A full chunk lies inside the prefix: publish its pages
+                # for prefix sharing (clean chunks only).
+                cp = self.chunk // self.page_size
+                first = s.pos // self.page_size
+                s.chain_key = self.pool.register_chunk(
+                    s.prefix, s.pos, s.table[first : first + cp].tolist(),
+                    prev_key=s.chain_key,
+                )
+            s.pos += v
+            if s.pos >= s.prefill_len:
+                s.generated.append(int(toks[j]))
+                self._maybe_retire(row, finished)
+
+    def _decode_tick(self, params, finished: list[int]) -> None:
+        # BATCH rows sit out the tick while an interactive row is live
+        # (their lanes stay on the scratch page; their tokens are delayed,
+        # never changed).
+        interactive_live = any(
+            s is not None and s.tier == TIER_RANK[INTERACTIVE]
+            for s in self._slots
+        )
+        self._ensure_decode_pages(finished, skip_batch=interactive_live)
+        ready = []
+        yielded = False
+        for i, s in enumerate(self._slots):
+            if s is None or not s.ready:
+                continue
+            if interactive_live and s.tier == TIER_RANK[BATCH]:
+                yielded = True
+                continue
+            ready.append((i, s))
+        if yielded:
+            self.counters["batch_yield_ticks"] += 1
+        if not ready:
+            return
+        b = self.slots
+        toks = np.zeros((b, 1), np.int32)
+        pos = np.zeros((b,), np.int32)
+        tables = np.zeros((b, self.max_pages), np.int32)
+        lane_rows: list[_PagedSlot | None] = [None] * b
+        for i, s in ready:
+            # Free and mid-prefill lanes stay all-zero: table 0 -> the
+            # scratch page, so their garbage never touches a live page.
+            toks[i, 0] = s.generated[-1]
+            pos[i] = s.pos
+            tables[i] = s.table
+            lane_rows[i] = s
+        self.counters["decode_ticks"] += 1
+        logits = self._forward(params, toks, pos, tables)
+        out, bad = self._sample(logits[:, -1], lane_rows)
+        for i, s in ready:
+            if bad[i]:
+                self._fail_slot(i, "decode", finished)
+                continue
+            s.generated.append(int(out[i]))
+            s.pos += 1
+            self._maybe_retire(i, finished)
+
+    def _ensure_decode_pages(self, finished, skip_batch: bool = False):
+        """Grow each decode-ready row's table to cover its next write.
+        Pool exhaustion preempts the lowest-priority-then-youngest OTHER
+        row (its tokens so far requeue as a resume entry; no token is
+        lost). ``skip_batch``: yielding batch rows do not advance, so they
+        do not grow."""
+        for i in range(self.slots):
+            # Re-read the live slot list: a preemption fired for an earlier
+            # row may have freed this one.
+            s = self._slots[i]
+            if s is None or not s.ready:
+                continue
+            if skip_batch and s.tier == TIER_RANK[BATCH]:
+                continue
+            if s.pos // self.page_size < s.n_pages:
+                continue
+            while True:
+                got = self.pool.alloc(1)
+                if got is not None:
+                    s.table[s.n_pages] = got[0]
+                    s.pids += got
+                    s.n_pages += 1
+                    break
+                others = [
+                    o.tier for o in self._slots
+                    if o is not None and o.rid != s.rid
+                ]
+                if others and max(others) < s.tier:
+                    # Every neighbour outranks this row: it yields its own
+                    # pages.
+                    self._preempt_row(i)
+                    break
+                if not self._preempt_one(exclude_rid=s.rid):
+                    raise PagePoolExhausted(
+                        f"no KV page available for rid {s.rid} at depth "
+                        f"{s.pos} and nothing left to preempt — "
+                        f"pool_pages={self.pool_pages} cannot hold one "
+                        "row this deep"
+                    )
+
+    def _preempt_one(self, *, exclude_rid: int) -> bool:
+        cands = [
+            (preemption_key(s.tier, s.rid), i)
+            for i, s in enumerate(self._slots)
+            if s is not None and s.rid != exclude_rid
+        ]
+        if not cands:
+            return False
+        self._preempt_row(max(cands)[1])
+        return True
+
+    def _preempt_row(self, row: int) -> None:
+        """Convert one active row to a resume entry, pages released."""
+        s = self._slots[row]
+        self._slots[row] = None
+        self._on_slot_freed(s)
+        self.counters["preemptions"] += 1
+        log_event(
+            "preempt", rid=s.rid, row=row, depth=s.pos,
+            generated=len(s.generated) - s.resume_base,
+            t=round(self._clock(), 6),
+        )
+        self._requeue([self._pending_from_slot(s)])
