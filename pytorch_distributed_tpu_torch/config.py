@@ -3,8 +3,9 @@
 The same frozen dataclass, field names, defaults and presets as the JAX
 package's ``config.ModelConfig`` / ``model_config``, so one set of keyword
 arguments describes a model to both packages (the tests build each side's
-config from the same dict). Only the model config is here: the mesh and
-training configs arrive with the slices that use them.
+config from the same dict). ``TrainConfig`` likewise mirrors the JAX
+package's training config; the mesh and data configs arrive with the
+slices that use them.
 """
 
 from __future__ import annotations
@@ -146,6 +147,98 @@ _LLAMA_PRESETS: dict[str, dict[str, Any]] = {
         n_kv_head=8, n_inner=14336, rope_theta=500000.0,
     ),
 }
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training config: the JAX package's ``config.TrainConfig`` field for
+    field, with the same defaults. The port's single-device step
+    (``train/trainer.make_train_step``) reads the optimizer, schedule and
+    accumulation fields; the checkpoint, preemption, logging and anomaly-
+    guard fields are carried so a config round-trips between the packages,
+    and ``make_train_step`` refuses ``anomaly_guard`` (not ported yet)."""
+
+    global_batch_size: int = 32
+    micro_batch_size: int = 8
+    num_steps: int = 20
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    grad_clip_norm: float | None = None
+    # Exclude rank<2 params (norm scales, biases) from weight decay.
+    decay_exclude_1d: bool = False
+    # Gradient-accumulation buffer dtype (A > 1 only).
+    accum_dtype: str = "float32"
+    # Cosine anneal to min_lr_ratio * learning_rate over num_steps, after
+    # warmup_steps of linear warmup.
+    lr_schedule: str = "cosine"
+    min_lr_ratio: float = 0.1
+    warmup_steps: int = 0
+
+    seed: int = 42
+    log_every_n_steps: int = 10
+    save_every_n_steps: int | None = None
+    checkpoint_dir: str = "checkpoints"
+    keep_checkpoints: int | None = None
+    async_checkpoint: bool = False
+
+    def __post_init__(self) -> None:
+        if self.keep_checkpoints is not None and self.keep_checkpoints < 1:
+            raise ValueError(
+                f"keep_checkpoints must be >= 1 or None, got "
+                f"{self.keep_checkpoints}"
+            )
+        if self.accum_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"unknown accum_dtype: {self.accum_dtype!r} "
+                "(implemented: float32, bfloat16)"
+            )
+        if self.anomaly_guard:
+            # The JAX package's GuardConfig checks, restated.
+            if self.guard_spike_factor <= 1.0:
+                raise ValueError(f"spike_factor must be > 1, got "
+                                 f"{self.guard_spike_factor}")
+            if not 0.0 < self.guard_ema_decay < 1.0:
+                raise ValueError(f"ema_decay must be in (0, 1), got "
+                                 f"{self.guard_ema_decay}")
+            if self.guard_warmup_steps < 1:
+                raise ValueError(f"warmup_steps must be >= 1, got "
+                                 f"{self.guard_warmup_steps}")
+            if (self.guard_rollback_after is not None
+                    and self.guard_rollback_after < 1):
+                raise ValueError(
+                    f"rollback_after must be >= 1 or None, got "
+                    f"{self.guard_rollback_after}"
+                )
+            if self.guard_max_rollbacks < 1:
+                raise ValueError(
+                    f"guard_max_rollbacks must be >= 1, got "
+                    f"{self.guard_max_rollbacks}"
+                )
+
+    # Traced anomaly guard (JAX package: train/guard.py); not ported.
+    anomaly_guard: bool = False
+    guard_spike_factor: float = 3.0
+    guard_ema_decay: float = 0.98
+    guard_warmup_steps: int = 10
+    guard_rollback_after: int | None = 3
+    guard_max_rollbacks: int = 8
+    guard_skip_window: bool = False
+    metrics_path: str | None = None
+    save_on_preemption: bool = False
+    preemption_sync_every_n_steps: int = 1
+
+    def grad_accum_steps(self, data_parallel_size: int = 1) -> int:
+        """Micro-batches per optimizer step: global // (micro * dp)."""
+        denom = self.micro_batch_size * data_parallel_size
+        if self.global_batch_size % denom != 0:
+            raise ValueError(
+                f"global_batch_size={self.global_batch_size} must be divisible "
+                f"by micro_batch_size*dp={denom}"
+            )
+        return self.global_batch_size // denom
 
 
 def model_config(name: str, **overrides: Any) -> ModelConfig:

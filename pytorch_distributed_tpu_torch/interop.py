@@ -7,6 +7,19 @@ directions go through numpy, so this module imports neither JAX nor the
 JAX package: pass ``jax.device_get(params)`` (or any tree of numpy
 arrays) in, get numpy arrays back out. Kernels keep their [in, out...]
 layout on both sides, so nothing is transposed and a round trip is exact.
+
+bfloat16 leaves cross as their 16-bit payload: numpy has no bfloat16 of
+its own (JAX's comes from ``ml_dtypes``, which this module does not
+import), so a bf16 array is viewed as int16 and reinterpreted as
+``torch.bfloat16``, and back. ``params_to_jax`` returns ml_dtypes bfloat16
+arrays when that type is registered with numpy (JAX has loaded it), else
+the raw uint16 payload.
+
+``opt_state_from_jax`` / ``opt_state_to_jax`` convert the optimizer state
+of the JAX chain (``train/optim.make_optimizer``: a tuple holding a
+``ScaleByAdamState(count, mu, nu)`` and a ``ScaleByScheduleState(count)``)
+to and from the port's ``train/optim`` state, with mu and nu in the same
+per-layer layout as the params.
 """
 
 from __future__ import annotations
@@ -20,7 +33,21 @@ from pytorch_distributed_tpu_torch.config import ModelConfig
 
 
 def _to_torch(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, copy=True))
+    x = np.array(x, copy=True)
+    if x.dtype.name == "bfloat16":  # ml_dtypes: carry the payload exactly
+        return torch.from_numpy(x.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(x)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    payload = t.view(torch.int16).numpy().view(np.uint16)
+    try:
+        return payload.view(np.dtype("bfloat16"))
+    except TypeError:  # no bfloat16 registered with numpy: the payload
+        return payload
 
 
 def _map(tree, fn):
@@ -63,8 +90,7 @@ def params_to_jax(params: dict, cfg: ModelConfig) -> dict[str, Any]:
             f"{len(params['blocks'])} blocks for n_layer={cfg.n_layer}"
         )
 
-    def to_np(t: torch.Tensor) -> np.ndarray:
-        return t.detach().cpu().numpy()
+    to_np = _to_numpy
 
     def stack(path):
         return np.stack([to_np(_get(bp, path)) for bp in params["blocks"]])
@@ -99,3 +125,49 @@ def _get(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+def _adam_and_schedule(state):
+    """The ScaleByAdamState and ScaleByScheduleState of a JAX chain state,
+    found by their fields (optax is not imported here)."""
+    adam = [s for s in state if getattr(s, "_fields", ()) == ("count", "mu",
+                                                               "nu")]
+    sched = [s for s in state if getattr(s, "_fields", ()) == ("count",)]
+    if len(adam) != 1 or len(sched) != 1:
+        raise ValueError(
+            "expected the JAX optimizer chain's state: one "
+            "ScaleByAdamState(count, mu, nu) and one "
+            "ScaleByScheduleState(count)"
+        )
+    return adam[0], sched[0]
+
+
+def opt_state_from_jax(state, cfg: ModelConfig) -> dict:
+    """JAX optax chain state (numpy leaves) -> the port's optimizer state
+    (``train/optim.Optimizer.init`` layout)."""
+    adam, sched = _adam_and_schedule(state)
+    return {
+        "count": int(adam.count),
+        "mu": params_from_jax(adam.mu, cfg),
+        "nu": params_from_jax(adam.nu, cfg),
+        "schedule_count": int(sched.count),
+    }
+
+
+def opt_state_to_jax(opt_state: dict, cfg: ModelConfig, like):
+    """The port's optimizer state -> the JAX chain state, built on ``like``
+    (a JAX chain state of the same optimizer, e.g. ``tx.init(params)``
+    after ``jax.device_get``) so the optax types need not be imported."""
+    adam, sched = _adam_and_schedule(like)
+    new_adam = adam._replace(
+        count=np.asarray(opt_state["count"], np.int32),
+        mu=params_to_jax(opt_state["mu"], cfg),
+        nu=params_to_jax(opt_state["nu"], cfg),
+    )
+    new_sched = sched._replace(
+        count=np.asarray(opt_state["schedule_count"], np.int32)
+    )
+    out = []
+    for s in like:
+        out.append(new_adam if s is adam else new_sched if s is sched else s)
+    return type(like)(out)

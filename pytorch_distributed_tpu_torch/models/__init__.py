@@ -10,13 +10,16 @@ from pytorch_distributed_tpu_torch.config import ModelConfig
 class ModelApi(NamedTuple):
     init: Callable[..., dict]
     head: Callable[..., object]
+    # (params, input_ids [B, T], cfg) -> logits [B, T, V]: the training
+    # forward (the JAX ModelApi's ``apply``).
+    apply: Callable[..., object]
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family == "gpt2":
         from pytorch_distributed_tpu_torch.models import gpt2
 
-        return ModelApi(gpt2.init, gpt2.head)
+        return ModelApi(gpt2.init, gpt2.head, gpt2.apply)
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported yet (gpt2 only)"
     )

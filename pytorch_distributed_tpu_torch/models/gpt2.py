@@ -1,4 +1,6 @@
-"""GPT-2 parameters and LM head as plain tensor functions.
+"""GPT-2 parameters, forward pass and LM head as plain tensor functions
+(the port of the JAX package's ``models/gpt2.py``: ``init``, ``_block``,
+``apply``, ``final_norm``, ``head``).
 
 Params are a dict of tensors with the JAX package's leaf names and
 layouts, except that the per-layer leaves are a Python LIST of per-layer
@@ -14,17 +16,26 @@ H=n_head, D=head_dim):
              mlp/c_fc {kernel[E, F], bias[F]}, mlp/c_proj {kernel[F, E], bias[E]}
   ln_f {scale[E], bias[E]}
 
-The LM head is tied to wte (no separate leaf).
+The LM head is tied to wte (no separate leaf). ``apply`` is the training
+forward: a Python loop over ``params["blocks"]``, each block wrapped by
+``ops.remat.apply_remat(cfg.remat)``, attention through
+``ops.attention.multi_head_attention(impl=cfg.attention_impl)``. It is
+deterministic: dropout is not ported yet, and the trainer refuses a
+config with any ``*_pdrop > 0``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch.config import ModelConfig
-from pytorch_distributed_tpu_torch.ops.layers import layer_norm
+from pytorch_distributed_tpu_torch.ops.attention import multi_head_attention
+from pytorch_distributed_tpu_torch.ops.layers import activation, dense, layer_norm
+from pytorch_distributed_tpu_torch.ops.remat import apply_remat, checkpoint_name
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
@@ -83,6 +94,49 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     return params
 
 
+def _block(x: torch.Tensor, bp: Params, cfg: ModelConfig) -> torch.Tensor:
+    """Pre-norm residual block: x + attn(ln_1(x)); x + mlp(ln_2(x)). The
+    projections the ``names`` remat policy keeps are tagged as in the JAX
+    model (``qkv``, ``attn_proj``, ``mlp_fc``; the naive attention output
+    ``attn_out``); ``mlp_proj`` is not kept."""
+    eps = cfg.layer_norm_epsilon
+    b, t = x.shape[:2]
+    a = layer_norm(x, bp["ln_1"], eps=eps)
+    with checkpoint_name("qkv"):
+        qkv = dense(a, bp["attn"]["c_attn"])  # [B, T, 3, H, D]
+    q, k, v = qkv.unbind(2)
+    a = multi_head_attention(
+        q, k, v, impl=cfg.attention_impl, causal=True, out_name="attn_out"
+    ).reshape(b, t, -1)
+    with checkpoint_name("attn_proj"):
+        a = dense(a, bp["attn"]["c_proj"])
+    x = x + a
+    m = layer_norm(x, bp["ln_2"], eps=eps)
+    with checkpoint_name("mlp_fc"):
+        m = dense(m, bp["mlp"]["c_fc"])
+    m = activation(cfg.activation_function)(m)
+    m = dense(m, bp["mlp"]["c_proj"])
+    return x + m
+
+
+def apply(params: Params, input_ids: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    """Forward pass: [B, T] token ids -> [B, T, V] logits in
+    ``cfg.logits_dtype``: wte + wpe (cast to ``cfg.dtype``), n_layer
+    pre-norm blocks (each under ``cfg.remat``), ln_f, tied head."""
+    if cfg.n_experts:
+        raise NotImplementedError("MoE GPT-2 is not ported yet")
+    t = input_ids.shape[1]
+    if t > cfg.n_ctx:
+        raise ValueError(f"sequence length {t} exceeds n_ctx {cfg.n_ctx}")
+    x = F.embedding(input_ids, params["wte"]) + params["wpe"][:t]
+    x = x.to(_dtype(cfg.dtype))
+    block = apply_remat(functools.partial(_block, cfg=cfg), cfg.remat)
+    for bp in params["blocks"]:
+        x = block(x, bp)
+    return head(params, x, cfg)
+
+
 def final_norm(params: Params, x: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     return layer_norm(x, params["ln_f"], eps=cfg.layer_norm_epsilon)
@@ -93,12 +147,19 @@ def head(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     float32: the activations and the head weight are rounded to the
     activation dtype (as the JAX package's ``wte.astype(x.dtype)``) and the
     product runs on their exact f32 values, so a bf16 model's logits are
-    not rounded to bf16 (which would flip near-tied argmaxes). A placed
+    not rounded to bf16 (which would flip near-tied argmaxes) unless
+    ``cfg.logits_dtype`` asks for it. A placed
     params dict (``serving/engine``) carries the rounded head weight as
     ``head_w`` so it is not recast per call."""
     x = final_norm(params, x, cfg)
+    out = _dtype(cfg.logits_dtype)
+    if out == x.dtype and "head_w" not in params:
+        # Logits in the activation dtype (the training path's bf16 logits):
+        # one product in that dtype, accumulated in f32 and rounded once,
+        # as the JAX package's f32-accumulated einsum then cast.
+        return x @ params["wte"].to(x.dtype).t()
     w = params.get("head_w")
     if w is None:
         w = params["wte"].to(x.dtype).float()
     logits = x.float() @ w.t()
-    return logits.to(_dtype(cfg.logits_dtype))
+    return logits.to(out)

@@ -6,11 +6,13 @@ Conventions shared with the JAX package's ``ops/layers.py``:
   between the packages without a transpose, and ``y = x @ kernel + bias``.
 - Normalisation statistics are computed in float32 whatever the
   activation dtype, then cast back.
-- The matmul runs in the activation dtype. The JAX package casts the
-  kernel per call (``x @ w.astype(x.dtype)``, which XLA fuses); eager
-  PyTorch would re-read every weight for that cast on each call, so the
-  serving engine casts the weights ONCE when it places them on the device
-  (``serving/engine``), which gives the same values.
+- The matmul runs in the activation dtype. ``dense`` casts the kernel
+  per call (``x @ w.to(x.dtype)``), as the JAX package does, so training
+  keeps f32 master weights and autograd returns their gradients in f32
+  (the cast's backward). Serving alone casts the weights ONCE when it
+  places them on the device (``serving/engine``), which gives the same
+  values without re-reading every weight per decode step; those pre-cast
+  weights are for inference only.
 """
 
 from __future__ import annotations
@@ -18,12 +20,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from pytorch_distributed_tpu_torch.ops.remat import product
+
 
 def dense(x: torch.Tensor, params: dict) -> torch.Tensor:
     """y = x @ kernel + bias; kernel [in, out...] (trailing output dims
-    are kept, e.g. the merged QKV kernel [E, 3, H, D]); bias optional."""
+    are kept, e.g. the merged QKV kernel [E, 3, H, D]); bias optional.
+    The product is kept by ``names`` remat under a saved tag
+    (``ops/remat.product``)."""
     w = params["kernel"]
-    y = x @ w.reshape(w.shape[0], -1).to(x.dtype)
+    y = product(x, w.reshape(w.shape[0], -1).to(x.dtype))
     y = y.reshape(*x.shape[:-1], *w.shape[1:])
     bias = params.get("bias")
     if bias is not None:

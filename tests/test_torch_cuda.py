@@ -109,3 +109,92 @@ def test_engine_kernel_path_matches_gather_path_on_the_card(cuda):
     for rid, res in outs["kernel"].items():
         assert res.state == "DONE"
         np.testing.assert_array_equal(res.tokens, outs["gather"][rid].tokens)
+
+
+# -- flash attention: K1 (forward) and K2 (backward) --------------------------
+
+FLASH_TOL = {
+    # f32: summation order only. bf16: the plain version rounds the softmax
+    # weights and dS to bf16 (as the TPU kernels do) and the kernels keep
+    # them in f32; against the plain version in f32 on the same values the
+    # kernels may differ by their one bf16 rounding of each output.
+    torch.float32: dict(atol=1e-5, rtol=1e-5),
+    torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
+}
+
+
+def _flash_case(dev, b, h, hkv, t, d, dtype, seed=0):
+    from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (
+        torch.randn(b, n, t, d, generator=g, device=dev).to(dtype)
+        for n in (h, hkv, hkv, h)
+    )
+    return fk, q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b, h, hkv, t, d, causal", [
+    (2, 4, 4, 256, 64, True), (1, 8, 2, 200, 64, True),
+    (1, 8, 1, 77, 128, False), (2, 4, 4, 64, 128, True),
+    (1, 8, 8, 1, 64, True),
+])
+def test_flash_kernels_match_plain_versions(cuda, b, h, hkv, t, d, causal,
+                                            dtype):
+    fk, q, k, v, do = _flash_case(cuda, b, h, hkv, t, d, dtype)
+    before = dict(fk.launches)
+    o, lse = fk.flash_forward(q, k, v, causal)
+    grads = fk.flash_backward(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert fk.launches == {"forward": before["forward"] + 1,
+                           "backward": before["backward"] + 1}
+    o_ref, lse_ref = fk.flash_forward_reference(q, k, v, causal)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(o.float(), o_ref.float(), **tol)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
+    refs = fk.flash_backward_reference(q, k, v, o, lse, do, causal)
+    for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert a.dtype == dtype and a.shape == r.shape, name
+        torch.testing.assert_close(a.float(), r.float(), msg=name,
+                                   atol=tol["atol"] * 10, rtol=tol["rtol"])
+    if dtype == torch.bfloat16:
+        f = [x.float() for x in (q, k, v, o, lse, do)]
+        exact = fk.flash_backward_reference(*f, causal)
+        for name, a, r in zip(("dq", "dk", "dv"), grads, exact):
+            torch.testing.assert_close(a.float(), r, msg=name, atol=1e-4,
+                                       rtol=2.0**-8)
+
+
+def test_flash_mha_trains_through_the_kernels(cuda):
+    fk, q, k, v, do = _flash_case(cuda, 2, 4, 2, 130, 64, torch.float32)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = dict(fk.launches)
+    o, _ = fk.flash_mha(*leaves)
+    got = torch.autograd.grad((o * do).sum(), leaves)
+    assert fk.launches == {"forward": before["forward"] + 1,
+                           "backward": before["backward"] + 1}
+    ref_leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o_ref, _ = fk.flash_forward_reference(*ref_leaves)
+    want = torch.autograd.grad((o_ref * do).sum(), ref_leaves)
+    torch.testing.assert_close(o, o_ref, atol=1e-5, rtol=1e-5)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+    # An expanded gradient (head dim stride 0) is made contiguous first.
+    o, _ = fk.flash_mha(*leaves)
+    got = torch.autograd.grad(o.sum(), leaves)
+    o_ref, _ = fk.flash_forward_reference(*ref_leaves)
+    want = torch.autograd.grad(o_ref.sum(), ref_leaves)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+
+
+def test_flash_kernels_refuse_what_they_do_not_take(cuda):
+    fk, q, k, v, do = _flash_case(cuda, 1, 4, 4, 64, 64, torch.float32)
+    with pytest.raises(ValueError, match="head_dim"):
+        fk.flash_forward(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="kernel takes"):
+        fk.flash_forward(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous head dim"):
+        fk.flash_forward(q.transpose(2, 3), k.transpose(2, 3),
+                         v.transpose(2, 3))
