@@ -11,9 +11,11 @@ with no final line):
    versions; TF32 off for matmuls and convolutions.
 2. build — compiles every kernel from ``csrc/`` (one nvcc per source, all
    started together), with seconds and the ptxas register / spill lines.
-3. kernel — the paged decode kernel against its plain version at the
-   GPT-2 124M, Llama-3.2-1B and a head_dim-128 decode shape (8 rows, 16-
-   token pages, max_len 1024), in f32 and bf16 (``TOLERANCES``), with
+3. kernel — the paged decode kernels K3 (pages in q's dtype) and K4
+   (int8 pages made by the port's ``quantize_kv``, with their f32 scale
+   pools) against their plain versions at the GPT-2 124M, Llama-3.2-1B
+   and a head_dim-128 decode shape (8 rows, 16-token pages, max_len
+   1024), q in f32 and bf16 (``TOLERANCES``, ``Q8_TOLERANCES``), with
    kernel, plain and bound times (CUDA events, median of 25 launches, L2
    flushed before each).
 4. serve — GPT-2 124M at full width (random weights from ``--seed``)
@@ -21,21 +23,37 @@ with no final line):
    tokens, two sharing a 256-token prefix, 64 new tokens each, 12 greedy
    and 4 sampled) on 8 slots, max_len 1024, 16-token pages. Once in f32
    through the kernel and once through the gather path (tokens must agree
-   on >= 15 of 16 requests), then once in bf16 (the preset's dtype) — the
-   main path, whose kernel launches are counted from zero and must equal
-   n_layer x decode ticks, and whose kernel inputs at its deepest decode
-   tick are replayed against the plain version for the kernels line. The
-   bf16 drive then runs twice more for the spread of its host-clock
-   metrics (tick ms, tok/s, TTFT).
-5. profile — ``torch.profiler`` over 10 decode ticks of the bf16 engine
-   (device busy share, kernels by device time, host ops by CPU time).
-6. flash — the flash forward (K1) and backward (K2) kernels against their
+   on >= 15 of 16 requests: serve_f32), then once in bf16 (the preset's
+   dtype) — the main path of K3, whose launches are counted from zero and
+   must equal n_layer x decode ticks (K4's 0), and whose kernel inputs at
+   its deepest decode tick are replayed against the plain version for the
+   kernels line. The bf16 drive then runs twice more for the spread of its
+   host-clock metrics (tick ms, tok/s, TTFT: serve_spread); profile —
+   ``torch.profiler`` over 10 decode ticks of the bf16 engine (device busy
+   share, kernels by device time, host ops by CPU time).
+5. int8 serving — the same requests with ``kv_quant="int8",
+   weight_quant="int8"``: in f32 through K4 and through the int8 gather
+   path (>= 15/16 identical: serve_q8_f32); then in bf16 — the main path
+   of K4 (serve_q8, with serve_q8_spread and its kernels-line replay,
+   scale pools included): K4 launches == n_layer x decode ticks, K3 0;
+   the int8 pool exactly 68/128 of the bf16 pool (serve_q8_pool);
+   profile_q8; then q8_quality — the f32 drive's sequences teacher-forced
+   through ``decode.forward`` with f32 weights and pool and with int8
+   ones: relative logit MSE <= ``Q8_QUALITY`` (argmax agreement printed).
+6. serve_llama — Llama-3.2-1B at full width (16 layers, 32 heads over 8
+   KV heads, head_dim 64, vocab 128256; weights drawn on the card from
+   ``--seed``), 8 slots, max_len 1024, 16-token pages, the same request
+   shapes: int8 f32 K4 vs int8 gather (>= 15/16 identical:
+   serve_llama_q8_f32), then bf16 through K3 and bf16 int8 through K4,
+   each with launches == 16 x decode ticks and the other kernel's 0;
+   profile_llama and profile_llama_q8.
+7. flash — the flash forward (K1) and backward (K2) kernels against their
    plain versions at the GPT-2 124M training shape (B=8, H=12, T=1024,
    D=64, causal), a Llama-3.2-1B shape (B=1, H=32, Hkv=8, T=2048, D=64,
    causal) and a head_dim-128 non-causal shape with a ragged T, in f32
    and bf16 (``FLASH_TOLERANCES``), with kernel, plain, bound and
    ``scaled_dot_product_attention`` (forward; backward) times.
-7. train — the training main path: GPT-2 124M at full width, bf16
+8. train — the training main path: GPT-2 124M at full width, bf16
    activations over f32 params, flash attention, ``names`` remat, bf16
    logits, no dropout, AdamW (lr 3e-4, wd 0.1, cosine), B=8, T=1024, one
    fixed batch from ``--seed``; 3 warmup steps, then 3 timed windows of 10
@@ -44,13 +62,13 @@ with no final line):
    equal n_layer x steps; the loss must fall. Layer 0's flash inputs at
    the last warmup step are replayed against the plain versions for the
    kernels line.
-8. train_profile — ``torch.profiler`` over 2 training steps; then
+9. train_profile — ``torch.profiler`` over 2 training steps; then
    train_remat — the same step under remat "none" and "full" (ms/step,
    peak memory, K1 launches n_layer resp. 2 n_layer per step).
-9. train_parity — one f32 step at full width (B=2, T=1024) through the
+10. train_parity — one f32 step at full width (B=2, T=1024) through the
    kernels and the same step with naive attention, from the same weights.
-10. The kernels line (K3, K1, K2), then ``{"ok": true, "device": {...}}``
-    last.
+11. The kernels line (K3, K4, K1, K2), then ``{"ok": true, "device":
+    {...}}`` last.
 """
 
 from __future__ import annotations
@@ -81,6 +99,22 @@ TOLERANCES = {
     torch.bfloat16: dict(atol=3e-3, rtol=1e-2),
 }
 BF16_VS_F32 = dict(atol=1e-5, rtol=2.0**-8)
+# K4 (int8 pages) vs its plain version. f32: the kernel scales q.k_int by
+# the token's scale where the plain version dequantizes each element
+# first, so only rounding order differs. In bf16 the plain version
+# rounds every dequantized K and V element to bf16 (as the JAX reference
+# does) and its softmax weights, while K4 keeps all of it in f32: the
+# largest differences measured on an H100 are 9.8e-4 at the main path's
+# inputs and 7.8e-3 (one bf16 ulp in [1, 2), at outputs below 0.5) at
+# the kernel phase's unit-variance pages, so K4 is held to about 3x the
+# latter. It is also held tightly to the plain version with q in f32 on
+# the same int8 pages and scales (``BF16_VS_F32``), where dequantization
+# is exact on both sides and what is left is K4's one bf16 rounding of
+# its output.
+Q8_TOLERANCES = {
+    torch.float32: dict(atol=1e-5, rtol=0.0),
+    torch.bfloat16: dict(atol=2.4e-2, rtol=1e-2),
+}
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense tensor cores
 # Flash kernels vs their plain versions. f32 differs in summation order
 # only (gradients sum over up to T keys or queries, hence their larger
@@ -128,11 +162,12 @@ def time_ms(fn, flush: torch.Tensor, n: int = 25) -> float:
 
 def paged_bound(q, k_pages, tables, lengths) -> tuple[float, str]:
     """Least time for paged decode attention on these inputs: the keys
-    0..lengths[b] of each (row, KV head) read once for K and V, q read and
-    o written once, the table entries of those keys' pages and the
-    lengths read once, over the HBM rate; or its multiply-adds (q.k and
-    p.v, f32 on the CUDA cores) over the f32 rate — whichever is
-    larger."""
+    0..lengths[b] of each (row, KV head) read once for K and V (D x
+    itemsize bytes each; for int8 pages D bytes plus the token's 4-byte
+    scale), q read and o written once, the table entries of those keys'
+    pages and the lengths read once, over the HBM rate; or its
+    multiply-adds (q.k and p.v, f32 on the CUDA cores) over the f32 rate
+    — whichever is larger."""
     b, h, d = q.shape
     page, hkv = k_pages.shape[1], k_pages.shape[2]
     n_pages = tables.shape[1]
@@ -140,8 +175,11 @@ def paged_bound(q, k_pages, tables, lengths) -> tuple[float, str]:
                       n_pages * page - 1)
     tokens = int((lens + 1).sum())
     item = q.element_size()
+    row_bytes = d * k_pages.element_size()
+    if k_pages.dtype == torch.int8:
+        row_bytes += 4  # the f32 scale
     nbytes = (
-        tokens * hkv * d * item * 2 + 2 * q.numel() * item
+        tokens * hkv * row_bytes * 2 + 2 * q.numel() * item
         + int((lens // page + 1).sum()) * 4 + b * 4
     )
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -161,64 +199,87 @@ def check_close(got, want, atol, rtol, what) -> float:
 
 
 def check_kernel(pk, args, what) -> dict:
-    """One launch of the kernel on ``args`` against its plain version on
-    the same inputs (``TOLERANCES``), and for bf16 also against the plain
-    version in f32 on the same values (``BF16_VS_F32``). Returns the
+    """One launch of the kernel (K3, or K4 when ``args`` carry the scale
+    pools) on ``args`` against its plain version on the same inputs
+    (``TOLERANCES``, ``Q8_TOLERANCES``), and for bf16 also against the
+    plain version in f32 on the same values (``BF16_VS_F32``: bf16 -> f32
+    is exact; int8 pages and f32 scales stay as they are). Returns the
     largest differences and the tolerances used."""
     out = pk.paged_decode_attention(*args)
     torch.cuda.synchronize()
-    tol = TOLERANCES[args[0].dtype]
+    tol = (Q8_TOLERANCES if len(args) > 5 else TOLERANCES)[args[0].dtype]
     err = check_close(out, pk.paged_decode_attention_reference(*args),
                       what=what, **tol)
     res = dict(max_abs_err=err, **tol)
     if args[0].dtype == torch.bfloat16:
-        q, k, v = (t.float() for t in args[:3])
-        exact = pk.paged_decode_attention_reference(q, k, v, *args[3:])
+        exact = pk.paged_decode_attention_reference(
+            *(t.float() if t.dtype == torch.bfloat16 else t for t in args)
+        )
         res["max_abs_err_vs_f32_plain"] = check_close(
             out, exact, what=f"{what} vs f32 plain", **BF16_VS_F32
         )
     return res
 
 
+def paged_case(dev, seed, b, h, hkv, d, dtype, q8, page=16, n_pages=64):
+    """Kernel inputs at a decode shape: rows at lengths 0, page-1, page,
+    max_len-1 and random, each over distinct pool pages up to its depth
+    (the rest of its table on the scratch page 0); pages from ``randn`` in
+    ``dtype``, or for K4 (``q8``) quantized by the port's ``quantize_kv``
+    (int8 pages + f32 scale pools). Returns the wrapper's arguments."""
+    from pytorch_distributed_tpu_torch.ops.quant import quantize_kv
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n_pool = b * n_pages + 1
+    k = torch.randn(n_pool, page, hkv, d, generator=g, device=dev)
+    v = torch.randn(n_pool, page, hkv, d, generator=g, device=dev)
+    q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
+    lengths = torch.randint(0, n_pages * page, (b,), generator=g,
+                            device=dev, dtype=torch.int32)
+    lengths[:4] = torch.tensor([0, page - 1, page, n_pages * page - 1])
+    ids = (torch.randperm(n_pool - 1, generator=g, device=dev) + 1)
+    ids = ids[: b * n_pages].reshape(b, n_pages)
+    used = (torch.arange(n_pages, device=dev)[None] * page
+            <= lengths[:, None])
+    tables = torch.where(used, ids, 0).to(torch.int32).contiguous()
+    if not q8:
+        return (q, k.to(dtype), v.to(dtype), tables, lengths)
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return (q, kq, vq, tables, lengths, ks, vs)
+
+
 def kernel_phase(pk, dev, flush, seed) -> None:
+    """K3 and K4 against their plain versions at the three decode shapes,
+    q in f32 and bf16, with kernel, plain and bound times."""
     shapes = [
         ("gpt2-124M", 8, 12, 12, 64),
         ("llama3.2-1B", 8, 32, 8, 64),
         ("head_dim-128", 8, 32, 8, 128),
     ]
     page, n_pages = 16, 64  # max_len 1024
-    for name, b, h, hkv, d in shapes:
-        for dtype in TOLERANCES:
-            g = torch.Generator(device=dev).manual_seed(seed)
-            n_pool = b * n_pages + 1
-            k = torch.randn(n_pool, page, hkv, d, generator=g,
-                            device=dev).to(dtype)
-            v = torch.randn(n_pool, page, hkv, d, generator=g,
-                            device=dev).to(dtype)
-            q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
-            lengths = torch.randint(0, n_pages * page, (b,), generator=g,
-                                    device=dev, dtype=torch.int32)
-            lengths[:4] = torch.tensor([0, page - 1, page, n_pages * page - 1])
-            ids = (torch.randperm(n_pool - 1, generator=g, device=dev) + 1)
-            ids = ids[: b * n_pages].reshape(b, n_pages)
-            used = (torch.arange(n_pages, device=dev)[None] * page
-                    <= lengths[:, None])
-            tables = torch.where(used, ids, 0).to(torch.int32).contiguous()
-            args = (q, k, v, tables, lengths)
-            checked = check_kernel(pk, args, f"{name} {dtype}")
-            bound_ms, bound_by = paged_bound(q, k, tables, lengths)
-            emit(
-                phase="kernel", kernel="paged_decode_attention", shape=name,
-                B=b, H=h, Hkv=hkv, D=d, page=page, max_len=n_pages * page,
-                dtype=str(dtype).replace("torch.", ""),
-                lengths=lengths.tolist(), **checked,
-                kernel_ms=time_ms(lambda: pk.paged_decode_attention(*args),
-                                  flush),
-                plain_ms=time_ms(
-                    lambda: pk.paged_decode_attention_reference(*args), flush
-                ),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-            )
+    for kernel, q8 in (("paged_decode_attention", False),
+                       ("paged_decode_attention_q8", True)):
+        for name, b, h, hkv, d in shapes:
+            for dtype in TOLERANCES:
+                args = paged_case(dev, seed, b, h, hkv, d, dtype, q8, page,
+                                  n_pages)
+                checked = check_kernel(pk, args, f"{kernel} {name} {dtype}")
+                bound_ms, bound_by = paged_bound(args[0], args[1], args[3],
+                                                 args[4])
+                emit(
+                    phase="kernel", kernel=kernel, shape=name,
+                    B=b, H=h, Hkv=hkv, D=d, page=page,
+                    max_len=n_pages * page,
+                    dtype=str(dtype).replace("torch.", ""),
+                    pages=str(args[1].dtype).replace("torch.", ""),
+                    lengths=args[4].tolist(), **checked,
+                    kernel_ms=time_ms(
+                        lambda: pk.paged_decode_attention(*args), flush),
+                    plain_ms=time_ms(
+                        lambda: pk.paged_decode_attention_reference(*args),
+                        flush),
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                )
 
 
 def requests(cfg, seed) -> list[dict]:
@@ -244,11 +305,18 @@ def requests(cfg, seed) -> list[dict]:
     return out
 
 
-def serve(cfg, params, reqs, paged_attention, pk, record=None) -> dict:
+def serve(cfg, params, reqs, paged_attention, pk, record=None,
+          **quant) -> dict:
+    """One drive of ``reqs`` through a fresh engine (8 slots, max_len
+    1024, 16-token pages; ``quant``: its ``kv_quant``/``weight_quant``).
+    K3 and K4 launches count from zero for exactly this drive: the path's
+    kernel (K4 for an int8 pool) must have launched n_layer x decode
+    ticks times and the other kernel never (neither, on the gather
+    path)."""
     from pytorch_distributed_tpu_torch.serving import PagedBatchedDecodeEngine
 
     eng = PagedBatchedDecodeEngine(cfg, slots=8, max_len=1024, page_size=16,
-                                   paged_attention=paged_attention)
+                                   paged_attention=paged_attention, **quant)
     eng.warmup(params)
     rids = [eng.submit(**r) for r in reqs]
     prompt_len = {rid: len(r["prompt"]) for rid, r in zip(rids, reqs)}
@@ -257,7 +325,7 @@ def serve(cfg, params, reqs, paged_attention, pk, record=None) -> dict:
     original = pk.paged_decode_attention
     if record is not None:
         pk.paged_decode_attention = record
-    pk.launches = 0  # counts from zero for exactly this drive
+    pk.launches = pk.launches_q8 = 0  # count from zero for this drive
     t0 = time.perf_counter()
     try:
         while eng.has_work():
@@ -276,7 +344,7 @@ def serve(cfg, params, reqs, paged_attention, pk, record=None) -> dict:
     finally:
         pk.paged_decode_attention = original
     wall = time.perf_counter() - t0
-    launches = pk.launches
+    counts = {"K3": pk.launches, "K4": pk.launches_q8}
     results = {rid: eng.pop_result(rid) for rid in rids}
     bad = {rid: r.state for rid, r in results.items() if r.state != "DONE"}
     if bad:
@@ -286,21 +354,27 @@ def serve(cfg, params, reqs, paged_attention, pk, record=None) -> dict:
     if generated != 64 * len(rids):
         raise AssertionError(f"generated {generated} tokens, want {64 * 16}")
     ticks = eng.counters["decode_ticks"]
-    if paged_attention == "kernel" and launches != cfg.n_layer * ticks:
+    kernel = "K4" if eng.kv_quant == "int8" else "K3"
+    want = {"K3": 0, "K4": 0}
+    if paged_attention == "kernel":
+        want[kernel] = cfg.n_layer * ticks
+    if counts != want:
         raise AssertionError(
-            f"kernel launches {launches} != n_layer {cfg.n_layer} x decode "
-            f"ticks {ticks}: the decode path did not go through the kernel"
+            f"{paged_attention} path launches {counts} != {want} (n_layer "
+            f"{cfg.n_layer} x decode ticks {ticks} on the path's kernel): "
+            f"the decode path did not go through its kernel"
         )
-    if paged_attention == "gather" and launches:
-        raise AssertionError(f"the gather path launched the kernel {launches}x")
+    launches = counts[kernel]
     return dict(
         tokens={rid: r.tokens for rid, r in results.items()},
         launches=launches,
         metrics=dict(
+            model=f"{cfg.family} L{cfg.n_layer} E{cfg.n_embd}",
             dtype=cfg.dtype, paged_attention=paged_attention,
+            kv_quant=eng.kv_quant, weight_quant=eng.weight_quant,
             requests=len(rids), generated_tokens=generated,
             decode_ticks=ticks, prefill_ticks=eng.counters["prefill_ticks"],
-            kernel_launches=launches,
+            kernel_launches=counts,
             mean_decode_tick_ms=statistics.fmean(decode_ms),
             pure_decode_ticks=len(decode_ms),
             generated_tok_per_s=generated / wall, wall_s=wall,
@@ -346,14 +420,17 @@ def profile_summary(prof, wall_ms: float) -> dict:
     )
 
 
-def profile_phase(cfg, params, reqs, n_ticks: int = 10) -> None:
+def profile_phase(cfg, params, reqs, n_ticks: int = 10, phase="profile",
+                  **quant) -> None:
     """``torch.profiler`` over ``n_ticks`` pure decode ticks of the bf16
-    engine with all 8 slots decoding."""
+    engine (``quant``: its ``kv_quant``/``weight_quant``) with all 8 slots
+    decoding."""
     from torch.profiler import ProfilerActivity, profile
 
     from pytorch_distributed_tpu_torch.serving import PagedBatchedDecodeEngine
 
-    eng = PagedBatchedDecodeEngine(cfg, slots=8, max_len=1024, page_size=16)
+    eng = PagedBatchedDecodeEngine(cfg, slots=8, max_len=1024, page_size=16,
+                                   **quant)
     eng.warmup(params)
     for r in reqs[:8]:
         eng.submit(**r)
@@ -370,8 +447,166 @@ def profile_phase(cfg, params, reqs, n_ticks: int = 10) -> None:
             eng.step(params)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    emit(phase="profile", decode_ticks=n_ticks,
+    emit(phase=phase, decode_ticks=n_ticks, **quant,
          **profile_summary(prof, wall_ms))
+
+
+PAGED_SOURCE = "pytorch_distributed_tpu_torch/csrc/paged_attention.cu"
+Q8 = dict(kv_quant="int8", weight_quant="int8")
+
+
+def kernel_vs_gather(phase, cfg, params, reqs, pk, **quant) -> dict:
+    """The same f32 drive through the kernel and through the gather path:
+    tokens identical on >= 15 of the 16 requests. Returns the kernel
+    drive's tokens by request id."""
+    runs = {impl: serve(cfg, params, reqs, impl, pk, **quant)
+            for impl in ("kernel", "gather")}
+    a, b = runs["kernel"]["tokens"], runs["gather"]["tokens"]
+    same = sum(np.array_equal(a[r], b[r]) for r in a)
+    emit(phase=phase, identical_requests=same, of=len(reqs),
+         kernel=runs["kernel"]["metrics"], gather=runs["gather"]["metrics"])
+    if same < 15:
+        raise AssertionError(
+            f"{phase}: f32 kernel and gather paths agree on only "
+            f"{same}/{len(reqs)} requests"
+        )
+    return a
+
+
+def main_path(phase, cfg, params, reqs, pk, flush, spread_runs=2,
+              **quant) -> dict:
+    """A serving main path: the drive whose kernel launches count
+    (``serve``: from zero, exactly n_layer x decode ticks), ``spread_runs``
+    more drives for the spread of its host-clock metrics, and its
+    kernels-line entry — the deepest decode tick's layer-0 inputs (with
+    the scale pools for an int8 pool) replayed against the plain version,
+    with kernel, plain and bound times."""
+    captured: list = []
+    original = pk.paged_decode_attention
+
+    def record(q, k_pages, v_pages, block_tables, lengths, *scales):
+        # Keep every decode tick's layer-0 inputs (q, tables, lengths) as
+        # device copies, which need no sync; the pools are read back after
+        # the run.
+        if record.calls % cfg.n_layer == 0:
+            captured.append((q.clone(), block_tables.clone(),
+                             lengths.clone()))
+        record.calls += 1
+        return original(q, k_pages, v_pages, block_tables, lengths, *scales)
+
+    record.calls = 0
+    run = serve(cfg, params, reqs, "kernel", pk, record=record, **quant)
+    emit(phase=phase, **run["metrics"])
+    if run["launches"] == 0:
+        raise AssertionError(f"{phase}: the main path launched no kernel")
+    spread = [run["metrics"]] + [
+        serve(cfg, params, reqs, "kernel", pk, **quant)["metrics"]
+        for _ in range(spread_runs)
+    ]
+    emit(phase=f"{phase}_spread", runs=len(spread), **{
+        key: [m[key] for m in spread]
+        for key in ("mean_decode_tick_ms", "generated_tok_per_s",
+                    "ttft_p50_ms", "wall_s")
+    })
+    cache = run["engine"]._cache
+    q, tables, lengths = max(captured, key=lambda c: int(c[2].sum()))
+    kargs = (q, cache["k"][0], cache["v"][0], tables, lengths)
+    if "k_scale" in cache:
+        kargs += (cache["k_scale"][0], cache["v_scale"][0])
+    checked = check_kernel(pk, kargs, f"{phase} main-path inputs")
+    bound_ms, bound_by = paged_bound(q, kargs[1], tables, lengths)
+    entry = dict(
+        launches=run["launches"], **checked,
+        ms=time_ms(lambda: pk.paged_decode_attention(*kargs), flush),
+        plain_ms=time_ms(lambda: pk.paged_decode_attention_reference(*kargs),
+                         flush),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        inputs=dict(B=q.shape[0], H=q.shape[1], Hkv=kargs[1].shape[2],
+                    D=q.shape[2], dtype=cfg.dtype,
+                    pages=str(kargs[1].dtype).replace("torch.", ""),
+                    lengths=lengths.tolist()),
+    )
+    return dict(entry=entry, metrics=run["metrics"])
+
+
+def quality_phase(cfg, params, reqs, tokens, dev) -> None:
+    """int8 quality on the card (f32): the served sequences (``tokens``, by
+    request id) teacher-forced through ``decode.forward`` once with the
+    unquantized params and pool, once with int8 weights and pool. The
+    relative logit MSE over the generated positions (mean over requests,
+    as the JAX package's quality test) is gated by ``Q8_QUALITY``; the
+    teacher-forced argmax agreement is printed, not gated: random
+    full-width weights leave near-ties that flip (the CPU tests gate it
+    on a tiny model)."""
+    from pytorch_distributed_tpu_torch.models import decode
+    from pytorch_distributed_tpu_torch.ops import quant
+
+    seqs = [np.asarray(tokens[r], np.int32)[:-1] for r in sorted(tokens)]
+    regions = [(len(reqs[r]["prompt"]) - 1, len(seqs[r]))
+               for r in range(len(seqs))]
+    n, t_max, page = len(seqs), max(len(x) for x in seqs), 16
+    batch = np.zeros((n, t_max), np.int32)
+    for i, x in enumerate(seqs):
+        batch[i, : len(x)] = x
+    n_pp = -(-t_max // page)
+    tables = torch.arange(1, 1 + n * n_pp, dtype=torch.int32,
+                          device=dev).reshape(n, n_pp)
+    pos = torch.zeros(n, dtype=torch.int32, device=dev)
+    logits = {}
+    for kv_quant, p in (("none", params),
+                        ("int8", quant.quantize_decode_params(params))):
+        cache = decode.init_paged_cache(cfg, n * n_pp + 1, page,
+                                        device=dev, kv_quant=kv_quant)
+        with torch.no_grad():
+            out, _ = decode.forward(p, torch.from_numpy(batch).to(dev), cfg,
+                                    cache, pos, block_tables=tables,
+                                    kv_quant=kv_quant)
+        logits[kv_quant] = [out[i, g0:g1].cpu().numpy()
+                            for i, (g0, g1) in enumerate(regions)]
+        del out, cache
+    mse = [quant.relative_logit_mse(a, b)
+           for a, b in zip(logits["none"], logits["int8"])]
+    agree = [quant.argmax_agreement(a, b)
+             for a, b in zip(logits["none"], logits["int8"])]
+    budget = quant.Q8_QUALITY["max_relative_logit_mse"]
+    res = dict(relative_logit_mse=statistics.fmean(mse),
+               max_request_relative_logit_mse=max(mse),
+               argmax_agreement=statistics.fmean(agree),
+               min_request_argmax_agreement=min(agree),
+               positions=sum(g1 - g0 for g0, g1 in regions),
+               max_relative_logit_mse=budget)
+    emit(phase="q8_quality", **res)
+    if not res["relative_logit_mse"] <= budget:
+        raise AssertionError(f"int8 relative logit MSE over budget: {res}")
+
+
+def llama_phase(pk, seed, dev) -> None:
+    """Llama-3.2-1B at full width (16 layers, E 2048, 32 heads over 8 KV
+    heads: group 4, head_dim 64, vocab 128256), random weights drawn on
+    the card from ``seed``, the same request shapes as GPT-2: int8 f32
+    kernel vs gather (>= 15/16 identical), then bf16 unquantized through
+    K3 and bf16 int8 through K4, each with launches == 16 x decode ticks
+    and the other kernel's count 0 (``serve``); then a profile of each
+    bf16 engine."""
+    from pytorch_distributed_tpu_torch.config import model_config
+    from pytorch_distributed_tpu_torch.models import llama
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    cfg = model_config("llama3-1b")  # bf16 activations, f32 params
+    t0 = time.perf_counter()
+    params = llama.init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reqs = requests(cfg, seed)
+    kernel_vs_gather("serve_llama_q8_f32", cfg.replace(dtype="float32"),
+                     params, reqs, pk, **Q8)
+    drives = {name: serve(cfg, params, reqs, "kernel", pk, **quant)["metrics"]
+              for name, quant in (("bf16_K3", {}), ("bf16_q8_K4", Q8))}
+    emit(phase="serve_llama", init_s=init_s,
+         n_params=sum(t.numel() for t in tree.leaves(params)), **drives)
+    profile_phase(cfg, params, reqs, phase="profile_llama")
+    profile_phase(cfg, params, reqs, phase="profile_llama_q8", **Q8)
 
 
 FLASH_SOURCE = "pytorch_distributed_tpu_torch/csrc/flash_attention.cu"
@@ -741,83 +976,45 @@ def main() -> int:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kernel_phase(pk, dev, flush, args.seed)
 
-    # 4. serving at full width
-    cfg = model_config("gpt2")  # 124M, bf16 activations, f32 params
+    # 4. serving at full width: GPT-2 124M, bf16 activations, f32 params
+    cfg = model_config("gpt2")
     params = gpt2.init(torch.Generator().manual_seed(args.seed), cfg)
     reqs = requests(cfg, args.seed)
     f32 = cfg.replace(dtype="float32")
-    runs = {impl: serve(f32, params, reqs, impl, pk)
-            for impl in ("kernel", "gather")}
-    same = sum(
-        np.array_equal(runs["kernel"]["tokens"][r], runs["gather"]["tokens"][r])
-        for r in runs["kernel"]["tokens"]
-    )
-    emit(phase="serve_f32", identical_requests=same, of=len(reqs),
-         kernel=runs["kernel"]["metrics"], gather=runs["gather"]["metrics"])
-    if same < 15:
-        raise AssertionError(
-            f"f32 kernel and gather paths agree on only {same}/16 requests"
-        )
-    del runs
-
-    captured: list = []
-
-    def record(q, k_pages, v_pages, block_tables, lengths):
-        # Keep every decode tick's layer-0 inputs (q, tables, lengths) as
-        # device copies, which need no sync; the pools are read back after
-        # the run.
-        if record.calls % cfg.n_layer == 0:
-            captured.append((q.clone(), block_tables.clone(),
-                             lengths.clone()))
-        record.calls += 1
-        return original(q, k_pages, v_pages, block_tables, lengths)
-
-    original = pk.paged_decode_attention
-    record.calls = 0
-    run = serve(cfg, params, reqs, "kernel", pk, record=record)
-    emit(phase="serve", **run["metrics"])
-    launches = run["launches"]
-    if launches == 0:
-        raise AssertionError("the main path launched no paged decode kernel")
-    # The same drive twice more (kernel counts no longer read): the spread
-    # of the host-clock metrics within one call on one card.
-    spread = [run["metrics"]] + [
-        serve(cfg, params, reqs, "kernel", pk)["metrics"] for _ in range(2)
-    ]
-    emit(phase="serve_spread", runs=len(spread), **{
-        key: [m[key] for m in spread]
-        for key in ("mean_decode_tick_ms", "generated_tok_per_s",
-                    "ttft_p50_ms", "wall_s")
-    })
-
-    # 5. the kernels line: the deepest decode tick's inputs replayed
-    cache = run["engine"]._cache
-    q, tables, lengths = max(captured, key=lambda c: int(c[2].sum()))
-    kargs = (q, cache["k"][0], cache["v"][0], tables, lengths)
-    checked = check_kernel(pk, kargs, "main-path inputs bf16")
-    bound_ms, bound_by = paged_bound(q, kargs[1], tables, lengths)
-    kernel_ms = time_ms(lambda: pk.paged_decode_attention(*kargs), flush)
-    plain_ms = time_ms(
-        lambda: pk.paged_decode_attention_reference(*kargs), flush
-    )
-    del run, cache, captured
+    f32_tokens = kernel_vs_gather("serve_f32", f32, params, reqs, pk)
+    k3 = main_path("serve", cfg, params, reqs, pk, flush)
     profile_phase(cfg, params, reqs)
-    del params
-    paged_entry = dict(
-        name="paged_decode_attention", route="cuda",
-        source="pytorch_distributed_tpu_torch/csrc/paged_attention.cu",
-        replaces="pytorch_distributed_tpu/ops/paged_kernel.py:56",
-        launches=launches, **checked, ms=kernel_ms,
-        plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=None,
-        inputs=dict(B=q.shape[0], H=q.shape[1], D=q.shape[2],
-                    dtype=cfg.dtype, lengths=lengths.tolist()),
-    )
 
-    # 6. flash kernels at the listed shapes
+    # 5. int8 serving (K4): f32 kernel vs gather, then the bf16 main path
+    kernel_vs_gather("serve_q8_f32", f32, params, reqs, pk, **Q8)
+    k4 = main_path("serve_q8", cfg, params, reqs, pk, flush, **Q8)
+    ratio = (k4["metrics"]["pool_bytes"], k3["metrics"]["pool_bytes"])
+    emit(phase="serve_q8_pool", pool_bytes_q8=ratio[0],
+         pool_bytes_bf16=ratio[1], ratio=ratio[0] / ratio[1])
+    if ratio[0] * 128 != ratio[1] * 68:
+        raise AssertionError(
+            f"int8 pool {ratio[0]} B is not 68/128 of the bf16 pool "
+            f"{ratio[1]} B"
+        )
+    profile_phase(cfg, params, reqs, phase="profile_q8", **Q8)
+    quality_phase(f32, params, reqs, f32_tokens, dev)
+    del params
+
+    # 6. Llama-3.2-1B at full width (GQA group 4): K4 and K3 drives
+    llama_phase(pk, args.seed, dev)
+
+    paged_entries = [
+        dict(name=name, route="cuda", source=PAGED_SOURCE,
+             replaces=f"pytorch_distributed_tpu/ops/paged_kernel.py:{line}",
+             **run["entry"])
+        for name, line, run in (("paged_decode_attention", 56, k3),
+                                ("paged_decode_attention_q8", 114, k4))
+    ]
+
+    # 7. flash kernels at the listed shapes
     flash_phase(fk, dev, flush, args.seed)
 
-    # 7. training: the main path
+    # 8. training: the main path
     tcfg_model = cfg.replace(attention_impl="flash", remat="names",
                              logits_dtype="bfloat16", attn_pdrop=0.0,
                              resid_pdrop=0.0, embd_pdrop=0.0)
@@ -828,13 +1025,13 @@ def main() -> int:
                           "main-path inputs bf16")
     timed = time_flash(fk, fq, fkk, fv, fdo, causal, flush)
 
-    # 8. profile of the training step, then the step under the other
+    # 9. profile of the training step, then the step under the other
     # remat modes
     train_profile_phase(run)
     del run, fo, flse
     train_remat_phase(fk, tcfg_model, args.seed, dev)
 
-    # 9. train parity on the card (f32, flash kernels vs naive attention)
+    # 10. train parity on the card (f32, flash kernels vs naive attention)
     train_parity_phase(tcfg_model, args.seed, dev)
 
     inputs = dict(B=fq.shape[0], H=fq.shape[1], Hkv=fkk.shape[1],
@@ -850,7 +1047,7 @@ def main() -> int:
             ("flash_backward", "K2", "backward", 221),
         )
     ]
-    emit(kernels=[paged_entry, *flash_entries])
+    emit(kernels=[*paged_entries, *flash_entries])
     emit(ok=True, device=dict(platform="gpu",
                               kind=torch.cuda.get_device_name(0),
                               count=torch.cuda.device_count()))

@@ -1,8 +1,12 @@
-"""Convert GPT-2 parameters between the JAX package's tree and the port's.
+"""Convert parameters between the JAX package's tree and the port's.
 
-The JAX tree (``pytorch_distributed_tpu.models.gpt2``) stacks every block
-leaf along a leading [L] axis; the port keeps a list of per-layer dicts
-with the same leaf names and per-layer shapes (``models/gpt2``). Both
+The JAX trees (``pytorch_distributed_tpu.models.gpt2`` and ``.llama``)
+stack every block leaf along a leading [L] axis; the port keeps a list of
+per-layer dicts with the same leaf names and per-layer shapes
+(``models/gpt2``, ``models/llama``). Quantized weights
+(``ops/quant.quantize_weight``: ``{"q8", "scale"}``, stacked ``[L, ...]``
+on the JAX side) convert like any other dict of leaves, so the JAX
+``quantize_decode_params(params)`` converts exactly. Both
 directions go through numpy, so this module imports neither JAX nor the
 JAX package: pass ``jax.device_get(params)`` (or any tree of numpy
 arrays) in, get numpy arrays back out. Kernels keep their [in, out...]
@@ -56,13 +60,28 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_jax(tree: dict[str, Any], cfg: ModelConfig) -> dict:
-    """JAX gpt2 params (numpy leaves, blocks stacked [L, ...]) -> port
-    params (torch tensors, blocks a list of L per-layer dicts)."""
-    if cfg.family != "gpt2":
+# Each family's top-level entries, in its ``init`` order.
+_TOP_LEVEL = {
+    "gpt2": ("wte", "wpe", "blocks", "ln_f"),
+    "llama": ("wte", "blocks", "ln_f", "lm_head"),
+}
+
+
+def _top_level(cfg: ModelConfig) -> tuple[str, ...]:
+    if cfg.family not in _TOP_LEVEL:
         raise NotImplementedError(
-            f"interop converts the gpt2 family only, got {cfg.family!r}"
+            f"interop converts the gpt2 and llama families, got "
+            f"{cfg.family!r}"
         )
+    return _TOP_LEVEL[cfg.family]
+
+
+def params_from_jax(tree: dict[str, Any], cfg: ModelConfig) -> dict:
+    """JAX gpt2 or llama params (numpy leaves, blocks stacked [L, ...])
+    -> port params (torch tensors, blocks a list of L per-layer dicts);
+    the other entries (embeddings, norms, llama's ``lm_head``) convert
+    leaf for leaf."""
+    keys = _top_level(cfg)
     n_layer = cfg.n_layer
     blocks = tree["blocks"]
     for leaf in _leaves(blocks):
@@ -72,13 +91,10 @@ def params_from_jax(tree: dict[str, Any], cfg: ModelConfig) -> dict:
                 f"lead with n_layer={n_layer}"
             )
     return {
-        "wte": _to_torch(tree["wte"]),
-        "wpe": _to_torch(tree["wpe"]),
-        "blocks": [
-            _map(blocks, lambda x, i=i: _to_torch(np.asarray(x)[i]))
-            for i in range(n_layer)
-        ],
-        "ln_f": _map(tree["ln_f"], _to_torch),
+        k: [_map(blocks, lambda x, i=i: _to_torch(np.asarray(x)[i]))
+            for i in range(n_layer)]
+        if k == "blocks" else _map(tree[k], _to_torch)
+        for k in keys
     }
 
 
@@ -95,14 +111,10 @@ def params_to_jax(params: dict, cfg: ModelConfig) -> dict[str, Any]:
     def stack(path):
         return np.stack([to_np(_get(bp, path)) for bp in params["blocks"]])
 
-    blocks = _map(
-        _paths(params["blocks"][0]), lambda path: stack(path)
-    )
     return {
-        "wte": to_np(params["wte"]),
-        "wpe": to_np(params["wpe"]),
-        "blocks": blocks,
-        "ln_f": _map(params["ln_f"], to_np),
+        k: _map(_paths(params["blocks"][0]), stack) if k == "blocks"
+        else _map(params[k], to_np)
+        for k in _top_level(cfg)
     }
 
 

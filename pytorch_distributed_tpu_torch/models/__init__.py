@@ -20,6 +20,11 @@ def get_model(cfg: ModelConfig) -> ModelApi:
         from pytorch_distributed_tpu_torch.models import gpt2
 
         return ModelApi(gpt2.init, gpt2.head, gpt2.apply)
+    if cfg.family == "llama":
+        from pytorch_distributed_tpu_torch.models import llama
+
+        # Serving only: llama.apply (training) raises NotImplementedError.
+        return ModelApi(llama.init, llama.head, llama.apply)
     raise NotImplementedError(
-        f"model family {cfg.family!r} is not ported yet (gpt2 only)"
+        f"model family {cfg.family!r} is not ported (gpt2, llama)"
     )

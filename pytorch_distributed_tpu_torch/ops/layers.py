@@ -13,6 +13,9 @@ Conventions shared with the JAX package's ``ops/layers.py``:
   places them on the device (``serving/engine``), which gives the same
   values without re-reading every weight per decode step; those pre-cast
   weights are for inference only.
+- A quantized kernel (``ops/quant.quantize_weight``: int8 values and a
+  per-output-channel f32 scale) goes through ``ops/quant.qdot``, as the
+  JAX package's ``dense`` delegates to its ``qdot``.
 """
 
 from __future__ import annotations
@@ -20,17 +23,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from pytorch_distributed_tpu_torch.ops.quant import is_quantized, qdot
 from pytorch_distributed_tpu_torch.ops.remat import product
 
 
 def dense(x: torch.Tensor, params: dict) -> torch.Tensor:
     """y = x @ kernel + bias; kernel [in, out...] (trailing output dims
-    are kept, e.g. the merged QKV kernel [E, 3, H, D]); bias optional.
-    The product is kept by ``names`` remat under a saved tag
-    (``ops/remat.product``)."""
+    are kept, e.g. the merged QKV kernel [E, 3, H, D]) or its int8 form
+    (``ops/quant.qdot``: the scale applied before the bias); bias
+    optional. A plain kernel's product is kept by ``names`` remat under a
+    saved tag (``ops/remat.product``)."""
     w = params["kernel"]
-    y = product(x, w.reshape(w.shape[0], -1).to(x.dtype))
-    y = y.reshape(*x.shape[:-1], *w.shape[1:])
+    if is_quantized(w):
+        y = qdot(x, w)
+    else:
+        y = product(x, w.reshape(w.shape[0], -1).to(x.dtype))
+        y = y.reshape(*x.shape[:-1], *w.shape[1:])
     bias = params.get("bias")
     if bias is not None:
         y = y + bias.to(y.dtype)
@@ -42,6 +50,15 @@ def layer_norm(x: torch.Tensor, params: dict, *, eps: float) -> torch.Tensor:
     (one fused kernel), then cast back to x's dtype."""
     y = F.layer_norm(x.float(), x.shape[-1:], params["scale"].float(),
                      params["bias"].float(), eps)
+    return y.to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, params: dict, *, eps: float) -> torch.Tensor:
+    """RMSNorm (llama family): normalised and scaled in float32, then cast
+    back to x's dtype."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps) * params["scale"].float()
     return y.to(x.dtype)
 
 

@@ -1,23 +1,27 @@
-"""Paged single-query decode attention: the Hopper kernel and its plain
-version.
+"""Paged single-query decode attention: the Hopper kernels and their
+plain version.
 
-The port of the JAX package's ``ops/paged_kernel.py`` (the Pallas kernel
-``_paged_kernel``). Each batch row's K/V lives in fixed-size pages of a
-shared pool ``[P, page, Hkv, D]`` addressed through a per-row block
-table; one query token per row attends over keys ``0..lengths[b]``
-(inclusive — ``lengths`` is the row's query position).
+The port of the JAX package's ``ops/paged_kernel.py`` (the Pallas kernels
+``_paged_kernel``, K3, and ``_paged_kernel_q8``, K4). Each batch row's K/V
+lives in fixed-size pages of a shared pool ``[P, page, Hkv, D]``
+addressed through a per-row block table; one query token per row attends
+over keys ``0..lengths[b]`` (inclusive — ``lengths`` is the row's query
+position). With ``k_scales``/``v_scales`` the pages are int8 and each
+token's K and V carry one f32 scale per KV head (``ops/quant.quantize_kv``).
 
 - ``paged_decode_attention`` is the entry point. On a CUDA tensor it
-  launches the hand-written kernel in ``csrc/paged_attention.cu`` (built
-  at first use, ``ops/_build.py``) or raises; on a CPU tensor, and only
-  there, it runs ``paged_decode_attention_reference``.
+  launches the hand-written kernel in ``csrc/paged_attention.cu`` (K3, or
+  K4 for int8 pages; built at first use, ``ops/_build.py``) or raises; on
+  a CPU tensor, and only there, it runs
+  ``paged_decode_attention_reference``.
 - ``paged_decode_attention_reference`` is the plain PyTorch version:
   ``gather_attention`` (each row's pages gathered into a contiguous view,
-  then the masked softmax — the one plain paged attention of the port,
-  which the forward pass also runs for prefill) at one query token, as
-  the JAX package's reference is.
-- ``launches`` counts kernel launches (CPU calls never bump it), so a run
-  can show that its decode steps went through the kernel.
+  int8 pages dequantized to q's dtype, then the masked softmax — the one
+  plain paged attention of the port, which the forward pass also runs
+  for prefill) at one query token, as the JAX package's reference is.
+- ``launches`` (K3) and ``launches_q8`` (K4) count kernel launches (CPU
+  calls never bump them), so a run can show that its decode steps went
+  through the kernel.
 """
 
 from __future__ import annotations
@@ -26,10 +30,14 @@ import ctypes
 
 import torch
 
+from pytorch_distributed_tpu_torch.ops.quant import dequantize_kv
+
 NEG_INF = -1e30  # finite mask: -inf would NaN a fully masked softmax
 
-# Kernel launches since import (or since a caller last reset it).
+# Kernel launches since import (or since a caller last reset them): K3
+# (pages in q's dtype) and K4 (int8 pages).
 launches = 0
+launches_q8 = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -47,16 +55,21 @@ def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor):
     )
 
 
-def gather_attention(q, k_pages, v_pages, block_tables,
-                     pos) -> torch.Tensor:
+def gather_attention(q, k_pages, v_pages, block_tables, pos,
+                     k_scales=None, v_scales=None) -> torch.Tensor:
     """q [B, T, H, D] at positions pos[b]..pos[b]+T-1 against paged pools
-    [P, page, Hkv, D]: gather each row's page view, then the dense masked
-    softmax with f32 scores (key j of row b is valid iff j <= pos[b] + i).
-    Returns [B, T, H, D] in the pool dtype. The plain attention of every
-    paged step: prefill chunks, the gather decode path, and (at T = 1) the
-    kernel's plain version."""
+    [P, page, Hkv, D]: gather each row's page view (int8 pages with their
+    [P, page, Hkv] scale pools are dequantized to q's dtype, as the JAX
+    package does), then the dense masked softmax with f32 scores (key j
+    of row b is valid iff j <= pos[b] + i). Returns [B, T, H, D] in the
+    (dequantized) pool dtype. The plain attention of every paged step:
+    prefill chunks, the gather decode path, and (at T = 1) the kernels'
+    plain version."""
     ck = gather_pages(k_pages, block_tables)
     cv = gather_pages(v_pages, block_tables)
+    if k_scales is not None:
+        ck = dequantize_kv(ck, gather_pages(k_scales, block_tables), q.dtype)
+        cv = dequantize_kv(cv, gather_pages(v_scales, block_tables), q.dtype)
     b, t, h, d = q.shape
     s, hkv = ck.shape[1], ck.shape[2]
     if hkv != h:
@@ -74,30 +87,62 @@ def gather_attention(q, k_pages, v_pages, block_tables,
 
 
 def paged_decode_attention_reference(q, k_pages, v_pages, block_tables,
-                                     lengths) -> torch.Tensor:
-    """Plain PyTorch version: ``gather_attention`` at the T = 1 shape (as
-    the JAX package's reference restates its decode gather branch);
-    [B, H, D] -> [B, H, D] in q's dtype."""
-    out = gather_attention(q[:, None], k_pages, v_pages, block_tables, lengths)
+                                     lengths, k_scales=None,
+                                     v_scales=None) -> torch.Tensor:
+    """Plain PyTorch version of K3 and (with scales) K4:
+    ``gather_attention`` at the T = 1 shape (as the JAX package's
+    reference restates its decode gather branch); [B, H, D] -> [B, H, D]
+    in q's dtype."""
+    out = gather_attention(q[:, None], k_pages, v_pages, block_tables,
+                           lengths, k_scales, v_scales)
     return out[:, 0].to(q.dtype)
 
 
-def _kernel():
-    """The built kernel's C entry point, its signature declared once (every
-    pointer and the stream as c_void_p, or ctypes would cut them to 32
-    bits)."""
+def _kernel(q8: bool):
+    """The built kernel's C entry point (K3, or K4 when ``q8``), its
+    signature declared once (every pointer and the stream as c_void_p, or
+    ctypes would cut them to 32 bits)."""
     from pytorch_distributed_tpu_torch.ops import _build
 
-    fn = _build.load("paged_attention").pdt_paged_decode_attention
+    lib = _build.load("paged_attention")
+    fn = (lib.pdt_paged_decode_attention_q8 if q8
+          else lib.pdt_paged_decode_attention)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
+        fn.argtypes = [ctypes.c_void_p] * (8 if q8 else 6) + [
+            ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     return fn
 
 
-def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
+def _check_scales(q, k_pages, v_pages, k_scales, v_scales) -> None:
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError(
+            "k_scales and v_scales must be given together (int8 pages) or "
+            "both omitted (full-precision pages)"
+        )
+    if k_scales is None:
+        if not (q.dtype == k_pages.dtype == v_pages.dtype):
+            raise ValueError(
+                f"q, k_pages and v_pages must share a dtype, got {q.dtype}, "
+                f"{k_pages.dtype}, {v_pages.dtype}"
+            )
+        return
+    if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+        raise ValueError(
+            f"with scales the pages must be int8, got {k_pages.dtype} and "
+            f"{v_pages.dtype}"
+        )
+    want = tuple(k_pages.shape[:3])
+    for name, sc in (("k_scales", k_scales), ("v_scales", v_scales)):
+        if tuple(sc.shape) != want or sc.dtype != torch.float32:
+            raise ValueError(
+                f"{name} must be float32 [P, page, Hkv] = {list(want)}, got "
+                f"{sc.dtype} {list(sc.shape)}"
+            )
+
+
+def _check(q, k_pages, v_pages, block_tables, lengths, k_scales,
+           v_scales) -> None:
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError(
             f"expected q [B, H, D] and pools [P, page, Hkv, D], got "
@@ -128,12 +173,9 @@ def _check(q, k_pages, v_pages, block_tables, lengths) -> None:
             f"block_tables and lengths must be int32, got "
             f"{block_tables.dtype} and {lengths.dtype}"
         )
-    if not (q.dtype == k_pages.dtype == v_pages.dtype):
-        raise ValueError(
-            f"q, k_pages and v_pages must share a dtype, got {q.dtype}, "
-            f"{k_pages.dtype}, {v_pages.dtype}"
-        )
-    devices = {t.device for t in (q, k_pages, v_pages, block_tables, lengths)}
+    _check_scales(q, k_pages, v_pages, k_scales, v_scales)
+    tensors = (q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales)
+    devices = {t.device for t in tensors if t is not None}
     if len(devices) != 1:
         raise ValueError(f"all inputs must be on one device, got {devices}")
 
@@ -144,15 +186,22 @@ def paged_decode_attention(
     v_pages: torch.Tensor,  # [P, page, Hkv, D]
     block_tables: torch.Tensor,  # [B, n_pages] int32 page ids
     lengths: torch.Tensor,  # [B] int32: the row's position (keys <= it valid)
+    k_scales: torch.Tensor | None = None,  # [P, page, Hkv] f32 (int8 pages)
+    v_scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Paged single-query attention, [B, H, D] -> [B, H, D] in q's dtype.
     Key j of row b is attended iff j <= lengths[b] (lengths >= 0); table
     entries past a row's depth are never read by the kernel. Page ids must
     lie in [0, P): a CPU call raises otherwise, and the kernel, which
     cannot check without a device sync, clamps them into the pool (as a
-    JAX gather does) so it never reads out of bounds."""
-    global launches
-    _check(q, k_pages, v_pages, block_tables, lengths)
+    JAX gather does) so it never reads out of bounds.
+
+    ``k_scales``/``v_scales`` (both or neither) select K4: int8 pages,
+    dequantized by their per-token, per-KV-head f32 scales in the
+    kernel."""
+    global launches, launches_q8
+    _check(q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales)
+    q8 = k_scales is not None
     if q.device.type == "cpu":
         n_pool = k_pages.shape[0]
         if block_tables.numel() and (
@@ -162,7 +211,7 @@ def paged_decode_attention(
                 f"block_tables holds page ids outside [0, {n_pool})"
             )
         return paged_decode_attention_reference(
-            q, k_pages, v_pages, block_tables, lengths
+            q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales
         )
     if q.device.type != "cuda":
         raise ValueError(
@@ -181,23 +230,28 @@ def paged_decode_attention(
             f"groups in {_GROUPS}, got head_dim {d}, group {h // hkv}"
         )
     tensors = (q, k_pages, v_pages, block_tables, lengths)
-    if not all(t.is_contiguous() for t in tensors):
+    scales = (k_scales, v_scales) if q8 else ()
+    if not all(t.is_contiguous() for t in tensors + scales):
         raise ValueError("the kernel takes contiguous tensors only")
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("q and the pools must be 16-byte aligned")
-    fn = _kernel()
+    fn = _kernel(q8)
     out = torch.empty_like(q)
+    pointers = [t.data_ptr() for t in (q, k_pages, v_pages, *scales,
+                                       block_tables, lengths, out)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            b, h, hkv, d, n_pool, page, block_tables.shape[1],
+            *pointers, b, h, hkv, d, n_pool, page, block_tables.shape[1],
             _DTYPE_CODES[q.dtype], 1.0 / (d**0.5), stream,
         )
     if err:
         raise RuntimeError(
-            f"paged decode kernel launch failed: cudaError {err}"
+            f"paged decode kernel ({'K4' if q8 else 'K3'}) launch failed: "
+            f"cudaError {err}"
         )
-    launches += 1
+    if q8:
+        launches_q8 += 1
+    else:
+        launches += 1
     return out

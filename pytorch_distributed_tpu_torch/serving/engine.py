@@ -27,21 +27,32 @@ host-side scheduler, and their K/V lives in a pool of fixed-size pages
 - **Tiers** (``serving/scheduler``): interactive requests admit first and
   may preempt lower tiers; batch requests admit only with pool headroom
   and sit out ticks while an interactive row is live.
+- **int8** (``ops/quant``): ``kv_quant="int8"`` keeps the pool in int8
+  with one f32 scale per token and KV head (``head_dim + 4`` bytes per
+  head and position instead of ``head_dim x itemsize``), quantized on
+  append; its decode attention is the int8 kernel K4.
+  ``weight_quant="int8"`` quantizes the block projections per output
+  channel, once, from the params as given.
 
 ``paged_attention``: "auto" (default) is "kernel" on a CUDA device and the
 plain gather path on the CPU, as the JAX package's "auto" picks its kernel
 only on a TPU; "kernel" and "gather" force one. On a CPU device "kernel"
 runs the kernel's plain version.
 
-Weights are placed once per params object (``_place_params``): moved to
-the engine's device, matmul kernels and biases cast to ``cfg.dtype``
-(the JAX package casts them inside every matmul, which XLA fuses), the
-embeddings kept in ``cfg.param_dtype`` (``wte[ids] + wpe[pos]`` is summed
-there, then cast), and the tied head's weight kept as the f32 values of
-its ``cfg.dtype`` rounding, for the f32-accumulated logits.
+The engine serves the gpt2 and llama families (dense MLPs; MoE is
+refused). Weights are placed once per params object (``_place_params``):
+moved to the engine's device, matmul kernels and biases cast to
+``cfg.dtype`` (the JAX package casts them inside every matmul, which XLA
+fuses) — or, under ``weight_quant="int8"``, kept as int8 values with
+their scales cast to ``cfg.dtype`` (``qdot`` casts the int8 values per
+call, as the JAX package does) —, the embeddings kept in
+``cfg.param_dtype`` (``wte[ids] + wpe[pos]`` is summed there, then
+cast), and the head's weight (gpt2's tied ``wte``, llama's ``lm_head``)
+kept as the f32 values of its ``cfg.dtype`` rounding, for the
+f32-accumulated logits.
 
 Left out of this port, relative to the JAX engines: speculative decoding,
-LoRA adapters, multi-turn sessions, int8 KV and weights, quarantine
+LoRA adapters, multi-turn sessions, quarantine
 retries (a row with non-finite logits is FAILED with its reason),
 fault injection, snapshot/restore, disaggregated roles and KV handoff,
 tensor parallelism, and the dense and serial engines.
@@ -61,6 +72,7 @@ import torch
 
 from pytorch_distributed_tpu_torch.config import ModelConfig
 from pytorch_distributed_tpu_torch.models import decode
+from pytorch_distributed_tpu_torch.ops import quant
 from pytorch_distributed_tpu_torch.serving.block_pool import BlockPool
 from pytorch_distributed_tpu_torch.serving.lifecycle import (
     ABORTED,
@@ -86,8 +98,13 @@ from pytorch_distributed_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_tpu_torch.utils.logging import log_event
 
 
-def kv_bytes_per_position(cfg: ModelConfig) -> int:
-    """K+V bytes one cache position costs across all layers."""
+def kv_bytes_per_position(cfg: ModelConfig, kv_quant: str = "none") -> int:
+    """K+V bytes one cache position costs across all layers. An int8 pool
+    carries one f32 scale per token per KV head beside the values, so a
+    position costs head_dim + 4 bytes per head instead of head_dim x
+    itemsize."""
+    if kv_quant == "int8":
+        return cfg.n_layer * 2 * cfg.kv_heads * (cfg.head_dim + 4)
     itemsize = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     return cfg.n_layer * 2 * cfg.kv_heads * cfg.head_dim * itemsize
 
@@ -154,7 +171,9 @@ class PagedBatchedDecodeEngine:
     ``queue_limit`` (bounded admission queue: ``submit`` past it raises
     ``AdmissionQueueFull``), ``batch_admit_free_frac`` (free-pool fraction
     below which BATCH requests stop admitting), ``clock`` (the deadline
-    clock, ``time.monotonic`` by default), ``device`` (None = "cuda")."""
+    clock, ``time.monotonic`` by default), ``device`` (None = "cuda"),
+    ``kv_quant`` and ``weight_quant`` ("none" or "int8", module
+    docstring)."""
 
     def __init__(
         self,
@@ -170,14 +189,17 @@ class PagedBatchedDecodeEngine:
         batch_admit_free_frac: float = 0.25,
         clock=None,
         device=None,
+        kv_quant: str = "none",
+        weight_quant: str = "none",
     ) -> None:
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_len > cfg.n_ctx:
             raise ValueError(f"max_len {max_len} exceeds n_ctx {cfg.n_ctx}")
-        if cfg.family != "gpt2":
+        if cfg.family not in ("gpt2", "llama"):
             raise NotImplementedError(
-                f"the engine serves the gpt2 family only, got {cfg.family!r}"
+                f"the engine serves the gpt2 and llama families, got "
+                f"{cfg.family!r}"
             )
         if cfg.n_experts:
             raise NotImplementedError(
@@ -254,10 +276,13 @@ class PagedBatchedDecodeEngine:
                 f"got {paged_attention!r}"
             )
         self.paged_attention = paged_attention
+        self.kv_quant = quant.check_mode("kv_quant", kv_quant)
+        self.weight_quant = quant.check_mode("weight_quant", weight_quant)
         self._clock = clock or time.monotonic
         self.pool = BlockPool(self.pool_pages, self.page_size, self.chunk)
         self._cache = decode.init_paged_cache(
-            cfg, self.pool_pages, self.page_size, device=self.device
+            cfg, self.pool_pages, self.page_size, device=self.device,
+            kv_quant=self.kv_quant,
         )
         self._queue: collections.deque[_Pending] = collections.deque()
         self._slots: list[_PagedSlot | None] = [None] * self.slots
@@ -271,6 +296,7 @@ class PagedBatchedDecodeEngine:
         }
         log_event(
             "pool_build",
+            quant=self.kv_quant,
             pool_pages=self.pool_pages,
             page_size=self.page_size,
             prefill_chunk=self.chunk,
@@ -283,35 +309,59 @@ class PagedBatchedDecodeEngine:
 
     def _place_params(self, params):
         """The params on this engine's device with the matmul weights cast
-        to ``cfg.dtype`` once (see the module docstring); memoized on the
-        identity of ``params``."""
+        to ``cfg.dtype`` once, or quantized once (see the module
+        docstring); memoized on the identity of ``params``."""
         if self._placed is not None and self._placed[0] is params:
             return self._placed[1]
         dev, dtype = self.device, getattr(torch, self.cfg.dtype)
         pdt = getattr(torch, self.cfg.param_dtype)
 
-        def mat(p):
-            return {kk: vv.to(dev, dtype).contiguous() for kk, vv in p.items()}
+        def weight(w):
+            # int8 stays int8 on the device (casting it here would undo
+            # the halved weight bytes); it is quantized from the weight as
+            # given, before any cast, as the JAX engine quantizes its
+            # source tree.
+            if self.weight_quant == "int8" and not quant.is_quantized(w):
+                w = quant.quantize_weight(w.to(dev))
+            if quant.is_quantized(w):
+                return {"q8": w["q8"].to(dev).contiguous(),
+                        "scale": w["scale"].to(dev, dtype)}
+            return w.to(dev, dtype).contiguous()
+
+        def proj(p):
+            out = {"kernel": weight(p["kernel"])}
+            if "bias" in p:
+                out["bias"] = p["bias"].to(dev, dtype)
+            return out
 
         def norm(p):
             return {kk: vv.to(dev, pdt) for kk, vv in p.items()}
 
         wte = params["wte"].to(dev, pdt)
-        placed = {
-            "wte": wte,
-            "wpe": params["wpe"].to(dev, pdt),
-            "head_w": wte.to(dtype).float(),
-            "ln_f": norm(params["ln_f"]),
-            "blocks": [
+        placed = {"wte": wte, "ln_f": norm(params["ln_f"])}
+        if self.cfg.family == "gpt2":
+            placed["wpe"] = params["wpe"].to(dev, pdt)
+            placed["head_w"] = wte.to(dtype).float()
+            placed["blocks"] = [
                 {
                     "ln_1": norm(bp["ln_1"]),
                     "ln_2": norm(bp["ln_2"]),
-                    "attn": {kk: mat(vv) for kk, vv in bp["attn"].items()},
-                    "mlp": {kk: mat(vv) for kk, vv in bp["mlp"].items()},
+                    "attn": {kk: proj(vv) for kk, vv in bp["attn"].items()},
+                    "mlp": {kk: proj(vv) for kk, vv in bp["mlp"].items()},
                 }
                 for bp in params["blocks"]
-            ],
-        }
+            ]
+        else:
+            placed["head_w"] = params["lm_head"].to(dev, pdt).to(dtype).float()
+            placed["blocks"] = [
+                {
+                    "ln_attn": norm(bp["ln_attn"]),
+                    "ln_mlp": norm(bp["ln_mlp"]),
+                    "attn": {kk: weight(vv) for kk, vv in bp["attn"].items()},
+                    "mlp": {kk: weight(vv) for kk, vv in bp["mlp"].items()},
+                }
+                for bp in params["blocks"]
+            ]
         self._placed = (params, placed)
         return placed
 
@@ -327,6 +377,7 @@ class PagedBatchedDecodeEngine:
             torch.from_numpy(pos).to(dev),
             block_tables=torch.from_numpy(tables).to(dev),
             paged_impl=self.paged_attention,
+            kv_quant=self.kv_quant,
         )
         return logits
 
@@ -550,6 +601,8 @@ class PagedBatchedDecodeEngine:
             "engine": type(self).__name__,
             "device": str(self.device),
             "paged_attention": self.paged_attention,
+            "kv_quant": self.kv_quant,
+            "weight_quant": self.weight_quant,
             "queue_depth": len(self._queue),
             "queue_depth_by_tier": by_tier,
             "slots": self.slots,
@@ -566,7 +619,7 @@ class PagedBatchedDecodeEngine:
 
     def cache_hbm_bytes(self) -> dict[str, int]:
         """Allocated pool bytes and the peak referenced by live rows."""
-        per = kv_bytes_per_position(self.cfg)
+        per = kv_bytes_per_position(self.cfg, self.kv_quant)
         return {
             "allocated": self.pool_pages * self.page_size * per,
             "peak_in_use": (

@@ -111,6 +111,113 @@ def test_engine_kernel_path_matches_gather_path_on_the_card(cuda):
         np.testing.assert_array_equal(res.tokens, outs["gather"][rid].tokens)
 
 
+# -- the int8 paged decode kernel: K4 ------------------------------------------
+
+
+def _q8_case(dev, b, h, hkv, d, dtype, page=16, n_pages=8, seed=0):
+    """K4's inputs: ``_case``'s rows and tables, the pages quantized by the
+    port's ``quantize_kv`` from f32 normals."""
+    from pytorch_distributed_tpu_torch.ops.quant import quantize_kv
+
+    q, k, v, tables, lengths = _case(dev, b, h, hkv, d, torch.float32, page,
+                                     n_pages, seed)
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return q.to(dtype), kq, vq, tables, lengths, ks, vs
+
+
+@pytest.mark.parametrize("dtype, tol", [
+    (torch.float32, dict(atol=1e-5, rtol=0.0)),
+    (torch.bfloat16, dict(atol=2.4e-2, rtol=1e-2)),
+])
+@pytest.mark.parametrize("b, h, hkv, d", [(8, 12, 12, 64), (8, 32, 8, 64),
+                                          (4, 32, 8, 128), (3, 16, 2, 64)])
+def test_q8_kernel_matches_plain_version(cuda, b, h, hkv, d, dtype, tol):
+    """f32: K4 scales q.k_int by the token's scale where the plain version
+    dequantizes each element first (rounding order only). bf16: the plain
+    version dequantizes the pages to bf16 and rounds its softmax weights
+    (``chip_smoke.Q8_TOLERANCES``: 3x the largest difference measured);
+    against the plain version with q in f32 on the same int8 pages and
+    scales K4 may differ only by its one bf16 rounding of the output, at
+    most 2^-8 of the value."""
+    args = _q8_case(cuda, b, h, hkv, d, dtype)
+    before = (pk.launches, pk.launches_q8)
+    out = pk.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    assert (pk.launches, pk.launches_q8) == (before[0], before[1] + 1)
+    ref = pk.paged_decode_attention_reference(*args)
+    assert out.dtype == dtype and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+    if dtype == torch.bfloat16:
+        exact = pk.paged_decode_attention_reference(args[0].float(),
+                                                    *args[1:])
+        torch.testing.assert_close(out.float(), exact, atol=1e-5,
+                                   rtol=2.0**-8)
+
+
+def test_q8_kernel_reads_only_valid_keys(cuda):
+    """Poisoning every page slot past each row's depth (values and scales,
+    NaN scales included) changes no output bit."""
+    q, kq, vq, tables, lengths, ks, vs = _q8_case(cuda, 4, 8, 2, 64,
+                                                   torch.bfloat16)
+    before = pk.paged_decode_attention(q, kq, vq, tables, lengths, ks, vs)
+    page = kq.shape[1]
+    ks2, vs2, kq2 = ks.clone(), vs.clone(), kq.clone()
+    for r in range(q.shape[0]):
+        depth = int(lengths[r]) + 1
+        for j in range(tables.shape[1]):
+            pid = int(tables[r, j])
+            lo = max(0, depth - j * page)
+            if pid and lo < page:
+                ks2[pid, lo:], vs2[pid, lo:] = float("nan"), 1e30
+                kq2[pid, lo:] = 127
+    ks2[0], vs2[0] = float("nan"), float("nan")  # the scratch page
+    after = pk.paged_decode_attention(q, kq2, vq, tables, lengths, ks2, vs2)
+    torch.cuda.synchronize()
+    assert torch.equal(after, before)
+
+
+def test_q8_kernel_refuses_what_it_does_not_take(cuda):
+    q, kq, vq, tables, lengths, ks, vs = _q8_case(cuda, 2, 8, 2, 64,
+                                                   torch.float32)
+    with pytest.raises(ValueError, match="together"):
+        pk.paged_decode_attention(q, kq, vq, tables, lengths, ks, None)
+    with pytest.raises(ValueError, match="k_scales must be"):
+        pk.paged_decode_attention(q, kq, vq, tables, lengths, ks[..., :1],
+                                  vs)
+    with pytest.raises(ValueError, match="head_dim"):
+        pk.paged_decode_attention(q[..., :32].contiguous(),
+                                  kq[..., :32].contiguous(),
+                                  vq[..., :32].contiguous(), tables, lengths,
+                                  ks, vs)
+    with pytest.raises(ValueError, match="groups"):
+        pk.paged_decode_attention(q[:, :6].contiguous(), kq[:, :, :1], vq[
+            :, :, :1], tables, lengths, ks[..., :1], vs[..., :1])
+    with pytest.raises(ValueError, match="kernel takes"):
+        pk.paged_decode_attention(q.half(), kq, vq, tables, lengths, ks, vs)
+
+
+def test_int8_engine_kernel_path_matches_gather_path_on_the_card(cuda):
+    cfg = ModelConfig(vocab_size=97, n_ctx=64, n_embd=128, n_layer=2,
+                      n_head=2, dtype="float32")
+    params = gpt2.init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    reqs = [dict(prompt=rng.integers(0, 97, n), max_new_tokens=m)
+            for n, m in ((5, 9), (17, 6), (9, 12), (30, 4))]
+    outs = {}
+    for impl in ("kernel", "gather"):
+        eng = PagedBatchedDecodeEngine(cfg, slots=3, max_len=64, page_size=16,
+                                       paged_attention=impl, kv_quant="int8",
+                                       weight_quant="int8")
+        before = (pk.launches, pk.launches_q8)
+        outs[impl] = eng.run(params, reqs)
+        launched = (pk.launches - before[0], pk.launches_q8 - before[1])
+        assert launched == (0, cfg.n_layer * eng.counters["decode_ticks"]
+                            if impl == "kernel" else 0)
+    for rid, res in outs["kernel"].items():
+        assert res.state == "DONE"
+        np.testing.assert_array_equal(res.tokens, outs["gather"][rid].tokens)
+
+
 # -- flash attention: K1 (forward) and K2 (backward) --------------------------
 
 FLASH_TOL = {

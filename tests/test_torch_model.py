@@ -96,9 +96,16 @@ def test_head_accumulates_and_returns_f32_for_bf16_activations():
 
 
 def test_get_model_serves_gpt2_only():
+    """gpt2 is the one family with every entry point; llama serves (its
+    head) but does not train yet: its ``apply`` raises."""
     assert get_model(ModelConfig(**CFG_KW)).head is gpt2.head
+    from pytorch_distributed_tpu_torch.models import llama
+
+    api = get_model(model_config("llama3-1b"))
+    assert api.head is llama.head
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_model(model_config("llama3-1b"))
+        api.apply({}, torch.zeros(1, 1, dtype=torch.long),
+                  model_config("llama3-1b"))
 
 
 @pytest.mark.parametrize("impl", ["gather", "kernel"])
