@@ -10,14 +10,15 @@ with no final line):
 1. env — the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; TF32 off for matmuls and convolutions.
 2. build — compiles every kernel from ``csrc/`` (one nvcc per source, all
-   started together), with seconds and the ptxas register / spill lines.
+   started together), with seconds and each kernel's registers and spilled
+   bytes from ptxas; a bf16 flash kernel at head_dim 64 must not spill.
 3. kernel — the paged decode kernels K3 (pages in q's dtype) and K4
    (int8 pages made by the port's ``quantize_kv``, with their f32 scale
    pools) against their plain versions at the GPT-2 124M, Llama-3.2-1B
    and a head_dim-128 decode shape (8 rows, 16-token pages, max_len
    1024), q in f32 and bf16 (``TOLERANCES``, ``Q8_TOLERANCES``), with
    kernel, plain and bound times (CUDA events, median of 25 launches, L2
-   flushed before each).
+   flushed and the device held busy for 2 ms before each: ``time_ms``).
 4. serve — GPT-2 124M at full width (random weights from ``--seed``)
    through ``PagedBatchedDecodeEngine``: 16 requests (prompts of 32-512
    tokens, two sharing a 256-token prefix, 64 new tokens each, 12 greedy
@@ -51,8 +52,10 @@ with no final line):
    plain versions at the GPT-2 124M training shape (B=8, H=12, T=1024,
    D=64, causal), a Llama-3.2-1B shape (B=1, H=32, Hkv=8, T=2048, D=64,
    causal) and a head_dim-128 non-causal shape with a ragged T, in f32
-   and bf16 (``FLASH_TOLERANCES``), with kernel, plain, bound and
-   ``scaled_dot_product_attention`` (forward; backward) times.
+   and bf16 (``FLASH_TOLERANCES``; bf16 also against the plain versions
+   in f32: ``flash_fwd_bf16_vs_f32``, ``FLASH_BF16_VS_F32``), with kernel,
+   plain, bound and ``scaled_dot_product_attention`` (forward; backward)
+   times and the names of SDPA's device kernels.
 8. train — the training main path: GPT-2 124M at full width, bf16
    activations over f32 params, flash attention, ``names`` remat, bf16
    logits, no dropout, AdamW (lr 3e-4, wd 0.1, cosine), B=8, T=1024, one
@@ -75,6 +78,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -116,40 +120,79 @@ Q8_TOLERANCES = {
     torch.bfloat16: dict(atol=2.4e-2, rtol=1e-2),
 }
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense tensor cores
+BF16_UNIT_ROUNDOFF = 2.0**-8  # round-to-nearest into 8 significant bits
 # Flash kernels vs their plain versions. f32 differs in summation order
 # only (gradients sum over up to T keys or queries, hence their larger
-# atol). In bf16 the plain versions round the softmax weights and dS to
-# bf16 before their products, as the TPU kernels do, and the CUDA kernels
-# keep them in f32: held loosely to the bf16 plain version, and tightly to
-# the plain version in f32 on the same values, where what is left is the
-# kernels' one bf16 rounding of each output (at most 2^-9 of the value)
-# and f32 summation order. lse is f32 in both dtypes.
+# atol). In bf16 the kernels and the plain versions round the softmax
+# weights and dS to bf16 before their products, as the TPU kernels do:
+# what is left is f32 summation order and exp2's last bits, and the bf16
+# roundings of p, dS or an output that these flip. Measured on an H100
+# over the flash phase's shapes and 128 ragged ones (T 1-1000, groups
+# 1-8, D 64/128, causal or not): at most one output ulp, 7.8e-3 for o
+# (in [1, 2)) and 3.1e-2 for a gradient (in [4, 8)). rtol 1e-2 is above
+# one ulp's share of any value (2^-7); atol covers values near zero.
 FLASH_TOLERANCES = {
     torch.float32: dict(fwd=dict(atol=1e-5, rtol=1e-5),
                         bwd=dict(atol=1e-4, rtol=1e-5)),
-    torch.bfloat16: dict(fwd=dict(atol=1e-2, rtol=2e-2),
-                         bwd=dict(atol=5e-2, rtol=2e-2)),
+    torch.bfloat16: dict(fwd=dict(atol=5e-3, rtol=1e-2),
+                         bwd=dict(atol=1e-2, rtol=1e-2)),
 }
-FLASH_BF16_VS_F32 = dict(fwd=dict(atol=1e-5, rtol=2.0**-8),
-                         bwd=dict(atol=1e-4, rtol=2.0**-8))
+# bf16 kernels vs the plain versions run in f32 on the same values (bf16 ->
+# f32 is exact). The forward's bound is derived (flash_fwd_bf16_vs_f32).
+# The backward's is 3x the largest difference measured on an H100 over the
+# same inputs: 3.66e-2 (dv at B 1, H 8, Hkv 1, T 65, D 128, causal, where
+# |dv| reaches 11.8; dk 1.98e-2, dq 1.29e-2).
+FLASH_BF16_VS_F32 = dict(bwd=dict(atol=0.11, rtol=0.0))
 LSE_TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def flash_fwd_bf16_vs_f32(v: torch.Tensor) -> dict:
+    """Tolerance of a bf16 forward that rounds each softmax weight p to
+    bf16 before P V (K1 and the bf16 plain version) against the f32 plain
+    version on the same values: |o - o32| <= u (1 + u) max|v| + u |o32|
+    + 1e-5, u = 2^-8. Each rounded p is p (1 + d), |d| <= u; the weights
+    p / l sum to 1 (l is summed from the unrounded p), so P V / l moves by
+    at most u max|v|; rounding o once adds u |o| <= u (|o32| + u max|v|);
+    1e-5 covers f32 summation order and exp2's last bits."""
+    u = BF16_UNIT_ROUNDOFF
+    return dict(atol=u * (1 + u) * float(v.abs().max()) + 1e-5, rtol=u)
 
 
 def emit(**fields) -> None:
     print(json.dumps(fields), flush=True)
 
 
+def spin_cycles(ms: float) -> int:
+    """Clock cycles that ``torch.cuda._sleep`` spins for ``ms`` on this
+    card, measured once with CUDA events."""
+    if not hasattr(spin_cycles, "per_ms"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        spin_cycles.per_ms = 10_000_000 / start.elapsed_time(end)
+    return int(spin_cycles.per_ms * ms)
+
+
 def time_ms(fn, flush: torch.Tensor, n: int = 25) -> float:
     """Median device time of ``fn`` over ``n`` launches (CUDA events).
     Zeroing ``flush`` before each launch evicts the 50 MB L2, as the
-    serving loop finds the pools cold, and keeps the device busy while
-    the host enqueues the call, so host overhead stays outside the
-    events."""
+    serving loop finds the pools cold. Then the device spins for 2 ms
+    (``torch.cuda._sleep``) while the host enqueues the start event and
+    the call, so the host's time (autograd's dispatch, a wrapper's
+    allocations) stays outside the events and only device time is
+    measured: the zeroing alone (~0.1 ms on the device) hid less than
+    some calls take to enqueue."""
     fn()
     torch.cuda.synchronize()
+    cycles = spin_cycles(2.0)
     times = []
     for _ in range(n):
         flush.zero_()
+        torch.cuda._sleep(cycles)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -185,6 +228,32 @@ def paged_bound(q, k_pages, tables, lengths) -> tuple[float, str]:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = 4 * h * d * tokens / F32_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def ptxas_summary(log: str) -> dict:
+    """Registers and spilled bytes (stores + loads) of each kernel in an
+    ``nvcc -Xptxas -v`` log, keyed by the kernel's name and template
+    arguments as they appear in its mangled name."""
+    out, name = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            base = re.search(r"\d+((?:flash|paged)_\w+?)I", mangled)
+            args = re.findall(r"Li(\d+)E", mangled)
+            name = (base.group(1) if base else mangled) + (
+                f"<{','.join(args)}>" if args else "")
+            if "nv_bfloat16" in mangled:
+                name += "[bf16]"
+            out[name] = dict(registers=None, spill_bytes=0)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill and name:
+            out[name]["spill_bytes"] = int(spill[1]) + int(spill[2])
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            out[name]["registers"] = int(regs[1])
+    return out
 
 
 def check_close(got, want, atol, rtol, what) -> float:
@@ -389,6 +458,12 @@ def serve(cfg, params, reqs, paged_attention, pk, record=None,
     )
 
 
+def device_us(e) -> float:
+    """Self device time (us) of a ``key_averages()`` row."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0))
+
+
 def profile_summary(prof, wall_ms: float) -> dict:
     """Device busy share of the window, the kernels by device time and the
     host ops by self CPU time, from a finished ``torch.profiler`` run."""
@@ -396,24 +471,20 @@ def profile_summary(prof, wall_ms: float) -> dict:
 
     events = prof.key_averages()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
-
     # Device-side events only (kernels, copies): an operator's row repeats
     # the device time of the kernels it launched.
     kernels = sorted(
         (e for e in events
-         if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-        key=dev_us, reverse=True,
+         if e.device_type == DeviceType.CUDA and device_us(e) > 0),
+        key=device_us, reverse=True,
     )
-    device_ms = sum(dev_us(e) for e in kernels) / 1e3
+    device_ms = sum(device_us(e) for e in kernels) / 1e3
     host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)
     return dict(
         wall_ms=wall_ms, device_busy_ms=device_ms,
         device_idle_share=(1 - device_ms / wall_ms) if device_ms else None,
         kernels=[dict(name=e.key[:80], calls=e.count,
-                      device_ms=dev_us(e) / 1e3) for e in kernels[:12]],
+                      device_ms=device_us(e) / 1e3) for e in kernels[:12]],
         host_ops=[dict(name=e.key[:60], calls=e.count,
                        self_cpu_ms=e.self_cpu_time_total / 1e3)
                   for e in host[:12]],
@@ -615,17 +686,17 @@ FLASH_SOURCE = "pytorch_distributed_tpu_torch/csrc/flash_attention.cu"
 def flash_bound(q, k, causal: bool, backward: bool) -> tuple[float, str]:
     """Least time for flash attention on these inputs: each input read and
     each output written once over the HBM rate (forward: q, k, v in, o and
-    lse out; backward: q, k, v, do, lse and delta in, dq, dk, dv out), or
-    its products over the peak rate for the input type (forward: QK^T and
-    PV; backward: the five products of the fused backward), counted over
-    the (query, key) pairs the mask keeps — whichever is larger."""
+    lse out; backward: q, k, v, o, do and lse in, dq, dk, dv out), or its
+    products over the peak rate for the input type (forward: QK^T and PV;
+    backward: the five products of the fused backward), counted over the
+    (query, key) pairs the mask keeps — whichever is larger."""
     b, h, t, d = q.shape
     hkv = k.shape[1]
     item = q.element_size()
     pairs = t * (t + 1) // 2 if causal else t * t
     rows = b * h * t
     if backward:
-        nbytes = (3 * b * h + 4 * b * hkv) * t * d * item + 2 * rows * 4
+        nbytes = (4 * b * h + 4 * b * hkv) * t * d * item + rows * 4
         ops = 10 * b * h * d * pairs
     else:
         nbytes = (2 * b * h + 2 * b * hkv) * t * d * item + rows * 4
@@ -660,7 +731,7 @@ def check_flash(fk, q, k, v, do, causal, what) -> dict:
         f = [x.float() for x in (q, k, v)]
         o32, _ = fk.flash_forward_reference(*f, causal)
         k1["max_abs_err_vs_f32_plain"] = check_close(
-            o, o32, what=f"{what} K1 vs f32 plain", **FLASH_BF16_VS_F32["fwd"]
+            o, o32, what=f"{what} K1 vs f32 plain", **flash_fwd_bf16_vs_f32(v)
         )
         refs32 = fk.flash_backward_reference(*f, o.float(), lse, do.float(),
                                              causal)
@@ -672,11 +743,49 @@ def check_flash(fk, q, k, v, do, causal, what) -> dict:
     return dict(K1=k1, K2=k2)
 
 
+def device_kernels(fn, n: int = 3) -> dict:
+    """Each device kernel that ``fn`` launches: the launches a
+    ``torch.profiler`` pass over ``n`` calls (after a warm-up call; L2
+    warm, so a little below ``time_ms``) recorded, and its mean device ms
+    per launch. The trace can miss some of the launches, so the mean is
+    taken over those it recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:100]: dict(launches=e.count,
+                              ms_per_launch=device_us(e) / e.count / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and device_us(e) > 0}
+
+
+def sdpa_backend(q, k, v, causal: bool, gqa: bool) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these inputs
+    (flash, efficient, cudnn or math): its fused kernels do not all show in
+    a profiler trace."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        choice = torch._fused_sdp_choice(q, k, v, is_causal=causal,
+                                         enable_gqa=gqa)
+    except (AttributeError, RuntimeError, TypeError) as exc:
+        return f"unknown ({type(exc).__name__})"
+    return SDPBackend(choice).name
+
+
 def time_flash(fk, q, k, v, do, causal, flush) -> dict:
     """Kernel, plain-version and library times of K1 and K2 on the inputs
     (ms, CUDA events, L2 flushed before each launch). The library call is
     ``scaled_dot_product_attention`` (forward; its backward through
-    autograd): a yardstick the port never calls."""
+    autograd): a yardstick the port never calls. ``kernels_ms`` and
+    ``library_kernels`` break both down by device kernel (one profiler
+    pass each); ``library_backend`` is the SDPA backend that was timed."""
     import torch.nn.functional as F
 
     o, lse = fk.flash_forward(q, k, v, causal)
@@ -684,22 +793,36 @@ def time_flash(fk, q, k, v, do, causal, flush) -> dict:
     lq, lk, lv = (x.detach().requires_grad_() for x in (q, k, v))
     lib_o = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
                                            enable_gqa=gqa)
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              enable_gqa=gqa)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_o, (lq, lk, lv), do,
+                                   retain_graph=True)
+
     out = dict(
         K1=dict(
             ms=time_ms(lambda: fk.flash_forward(q, k, v, causal), flush),
             plain_ms=time_ms(
                 lambda: fk.flash_forward_reference(q, k, v, causal), flush,
                 n=5),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, enable_gqa=gqa), flush),
+            library_ms=time_ms(lib_fwd, flush),
+            kernels_ms=device_kernels(
+                lambda: fk.flash_forward(q, k, v, causal)),
+            library_kernels=device_kernels(lib_fwd),
+            library_backend=sdpa_backend(q, k, v, causal, gqa),
         ),
         K2=dict(
             ms=time_ms(lambda: fk.flash_backward(q, k, v, o, lse, do, causal),
                        flush),
             plain_ms=time_ms(lambda: fk.flash_backward_reference(
                 q, k, v, o, lse, do, causal), flush, n=5),
-            library_ms=time_ms(lambda: torch.autograd.grad(
-                lib_o, (lq, lk, lv), do, retain_graph=True), flush),
+            library_ms=time_ms(lib_bwd, flush),
+            kernels_ms=device_kernels(
+                lambda: fk.flash_backward(q, k, v, o, lse, do, causal)),
+            library_kernels=device_kernels(lib_bwd),
         ),
     )
     for name, backward in (("K1", False), ("K2", True)):
@@ -965,12 +1088,17 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = dict(zip(sources, pool.map(_build.build, sources)))
+    ptxas = {name: ptxas_summary(built["log"])
+             for name, built in builds.items()}
     emit(phase="build", wall_s=time.perf_counter() - t0, kernels={
         name: dict(seconds=built["seconds"], cached=built["cached"],
-                   ptxas=[ln.strip() for ln in built["log"].splitlines()
-                          if "registers" in ln or "spill" in ln])
+                   ptxas=ptxas[name])
         for name, built in builds.items()
     })
+    spilled = [k for k, v in ptxas["flash_attention"].items()
+               if "sm90<64>" in k and v["spill_bytes"]]
+    if spilled:
+        raise AssertionError(f"bf16 flash kernels spill at D 64: {spilled}")
 
     # 3. kernel at the listed shapes
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)

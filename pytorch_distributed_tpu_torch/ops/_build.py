@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, loaded with ``ctypes``. Libraries are
 cached in ``pytorch_distributed_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name that carries a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one loads at once.
+``.gitignore``) under a name that carries a hash of the source, the
+``csrc/`` headers it includes and the flags, so an edited source or header
+rebuilds and an unchanged one loads at once.
 Nothing here runs at import: the first kernel call builds what it needs.
 """
 
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -43,12 +45,29 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: list[Path]) -> list[Path]:
+    """``path`` and every file under ``csrc/`` it includes with quotes,
+    depth first, each once."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in _INCLUDE.findall(path.read_bytes()):
+        dep = path.parent / inc.decode()
+        if dep.is_file():
+            _sources(dep, seen)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The cached library's path: its name carries a hash of the source,
+    the headers it includes and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(CSRC_DIR / f"{name}.cu", []):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> dict:

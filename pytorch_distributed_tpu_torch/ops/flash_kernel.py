@@ -12,6 +12,7 @@ T == S self-attention, causal or not.
   are the kernels' wrappers. On CUDA tensors they launch the kernels of
   ``csrc/flash_attention.cu`` (built at first use, ``ops/_build.py``) or
   raise; on CPU tensors, and only there, they run the plain versions.
+  bf16 runs on the tensor cores (wgmma); f32 on f32 FMAs, for exact parity.
   Inputs may be strided views with a contiguous head dim; ``o`` comes back
   as a ``[B, H, T, D]`` view of ``[B, T, H, D]`` memory, which is what the
   model's next projection reads, and so do dq, dk and dv.
@@ -20,8 +21,9 @@ T == S self-attention, causal or not.
   computes dq, dk, dv in closed form from ``(q, k, v, o, lse, do)``, as K2
   does (it does not differentiate the forward). Both round the softmax
   weights (and dS) to the input dtype before their products, as the TPU
-  kernels do; the CUDA kernels keep them in f32, which is the only
-  difference in bf16 besides summation order.
+  kernels and the bf16 CUDA kernels do (the tensor cores take bf16
+  operands); what is left between them in bf16 is summation order, exp2's
+  last bits, and where those flip a rounding.
 - ``flash_mha(q, k, v, causal=True, scale=None) -> (o, lse)`` is the
   differentiable entry: a ``torch.autograd.Function`` whose gradient runs
   ``flash_backward``. ``lse`` is ``[B, H, T]`` f32 with no gradient (the
@@ -130,7 +132,7 @@ def _lib():
         fwd.restype = bwd.restype = ctypes.c_int
         fwd.argtypes = [ctypes.c_void_p] * 6 + ints + [ctypes.c_float,
                                                        ctypes.c_void_p]
-        bwd.argtypes = [ctypes.c_void_p] * 10 + ints + [ctypes.c_float,
+        bwd.argtypes = [ctypes.c_void_p] * 11 + ints + [ctypes.c_float,
                                                         ctypes.c_void_p]
     return fwd, bwd
 
@@ -241,11 +243,10 @@ def flash_forward(q, k, v, causal: bool = True,
 
 def flash_backward(q, k, v, o, lse, do, causal: bool = True,
                    scale: float | None = None):
-    """K2: (dq in q's dtype, dk and dv [B, Hkv, T, D] in k's dtype). delta
-    = rowsum(o * do) is taken in f32 here, as the JAX package takes it
-    outside its kernel; then one launch of the backward runs the dk/dv and
-    the dq kernels. A CUDA tensor launches or raises; a CPU tensor takes
-    the plain version."""
+    """K2: (dq in q's dtype, dk and dv [B, Hkv, T, D] in k's dtype). One
+    launch of the backward runs the delta pass (rowsum(o * do) in f32, into
+    a scratch buffer allocated here), then the dk/dv and the dq kernels. A
+    CUDA tensor launches or raises; a CPU tensor takes the plain version."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(
@@ -260,22 +261,25 @@ def flash_backward(q, k, v, o, lse, do, causal: bool = True,
         plain_calls["backward"] += 1
         return flash_backward_reference(q, k, v, o, lse, do, causal, scale)
     _check_kernel_shape(q, k)
-    if do.dtype != q.dtype:
-        raise ValueError(f"do must have q's dtype {q.dtype}, got {do.dtype}")
+    if do.dtype != q.dtype or o.dtype != q.dtype:
+        raise ValueError(f"o and do must have q's dtype {q.dtype}, got "
+                         f"{o.dtype}, {do.dtype}")
     b, h, t, d = q.shape
-    delta = (o.float() * do.float()).sum(-1)
     lse = lse.contiguous()
+    delta = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
     dq, dk, dv = _bthd_like(q), _bthd_like(k), _bthd_like(v)
-    strides = (ctypes.c_longlong * 21)(*_kernel_strides(
-        (q, k, v, do, dq, dk, dv), ("q", "k", "v", "do", "dq", "dk", "dv")
+    strides = (ctypes.c_longlong * 24)(*_kernel_strides(
+        (q, k, v, o, do, dq, dk, dv),
+        ("q", "k", "v", "o", "do", "dq", "dk", "dv"),
     ))
     _, bwd = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), strides, b, h, k.shape[1],
-                  t, d, _DTYPE_CODES[q.dtype], int(causal), scale, stream)
+        err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), strides, b, h,
+                  k.shape[1], t, d, _DTYPE_CODES[q.dtype], int(causal),
+                  scale, stream)
     if err:
         raise RuntimeError(f"flash backward kernel launch failed: error {err}")
     launches["backward"] += 1

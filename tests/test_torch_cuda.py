@@ -219,15 +219,12 @@ def test_int8_engine_kernel_path_matches_gather_path_on_the_card(cuda):
 
 
 # -- flash attention: K1 (forward) and K2 (backward) --------------------------
-
-FLASH_TOL = {
-    # f32: summation order only. bf16: the plain version rounds the softmax
-    # weights and dS to bf16 (as the TPU kernels do) and the kernels keep
-    # them in f32; against the plain version in f32 on the same values the
-    # kernels may differ by their one bf16 rounding of each output.
-    torch.float32: dict(atol=1e-5, rtol=1e-5),
-    torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
-}
+# The tolerances are chip_smoke.py's, and so is the check (``check_flash``):
+# f32 summation order only against the f32 plain versions; bf16 held to the
+# bf16 plain versions (``FLASH_TOLERANCES``, both round P and dS to bf16
+# before their products) and to the plain versions in f32 on the same
+# values (``flash_fwd_bf16_vs_f32``, derived; ``FLASH_BF16_VS_F32``,
+# measured). chip_smoke imports only torch and numpy at module level.
 
 
 def _flash_case(dev, b, h, hkv, t, d, dtype, seed=0):
@@ -249,28 +246,134 @@ def _flash_case(dev, b, h, hkv, t, d, dtype, seed=0):
 ])
 def test_flash_kernels_match_plain_versions(cuda, b, h, hkv, t, d, causal,
                                             dtype):
+    import chip_smoke
+
     fk, q, k, v, do = _flash_case(cuda, b, h, hkv, t, d, dtype)
     before = dict(fk.launches)
-    o, lse = fk.flash_forward(q, k, v, causal)
-    grads = fk.flash_backward(q, k, v, o, lse, do, causal)
-    torch.cuda.synchronize()
+    chip_smoke.check_flash(fk, q, k, v, do, causal, "case")
     assert fk.launches == {"forward": before["forward"] + 1,
                            "backward": before["backward"] + 1}
-    o_ref, lse_ref = fk.flash_forward_reference(q, k, v, causal)
-    tol = FLASH_TOL[dtype]
-    torch.testing.assert_close(o.float(), o_ref.float(), **tol)
-    torch.testing.assert_close(lse, lse_ref, atol=1e-5, rtol=1e-5)
-    refs = fk.flash_backward_reference(q, k, v, o, lse, do, causal)
-    for name, a, r in zip(("dq", "dk", "dv"), grads, refs):
-        assert a.dtype == dtype and a.shape == r.shape, name
-        torch.testing.assert_close(a.float(), r.float(), msg=name,
-                                   atol=tol["atol"] * 10, rtol=tol["rtol"])
-    if dtype == torch.bfloat16:
-        f = [x.float() for x in (q, k, v, o, lse, do)]
-        exact = fk.flash_backward_reference(*f, causal)
-        for name, a, r in zip(("dq", "dk", "dv"), grads, exact):
-            torch.testing.assert_close(a.float(), r, msg=name, atol=1e-4,
-                                       rtol=2.0**-8)
+    o, lse = fk.flash_forward(q, k, v, causal)
+    grads = fk.flash_backward(q, k, v, o, lse, do, causal)
+    assert o.dtype == dtype and o.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == q.shape[:3]
+    for a, x in zip(grads, (q, k, v)):
+        assert a.dtype == dtype and a.shape == x.shape
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 1000])
+def test_bf16_flash_kernels_at_ragged_lengths(cuda, t, group, d, causal):
+    """The wgmma kernels against the plain versions at every tile edge (64-
+    key and 128-query tiles), each GQA group, both head dims."""
+    import chip_smoke
+
+    fk, q, k, v, do = _flash_case(cuda, 1, 8, 8 // group, t, d,
+                                  torch.bfloat16, seed=t)
+    chip_smoke.check_flash(fk, q, k, v, do, causal,
+                           f"T={t} group={group} D={d} causal={causal}")
+
+
+@pytest.mark.parametrize("h, d, t", [(12, 64, 1024), (4, 128, 200)])
+def test_bf16_flash_kernels_take_qkv_views(cuda, h, d, t):
+    """q, k, v as views of one [B, T, 3, H, D] projection and do as a view of
+    [B, T, H, D] give the same bits as contiguous copies; o, dq, dk, dv come
+    back as [B, H, T, D] views of [B, T, H, D] memory."""
+    from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b = 2
+    qkv = torch.randn(b, t, 3, h, d, generator=g, device=cuda).to(
+        torch.bfloat16)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    do = torch.randn(b, t, h, d, generator=g, device=cuda).to(
+        torch.bfloat16).transpose(1, 2)
+    outs = {}
+    for name, args in (("views", (q, k, v, do)),
+                       ("copies", tuple(x.contiguous() for x in (q, k, v,
+                                                                  do)))):
+        o, lse = fk.flash_forward(*args[:3], True)
+        grads = fk.flash_backward(*args[:3], o, lse, args[3], True)
+        outs[name] = (o, lse, *grads)
+    torch.cuda.synchronize()
+    for a, c in zip(outs["views"], outs["copies"]):
+        assert torch.equal(a, c)
+    bthd = (t * h * d, d, h * d, 1)
+    for x in (outs["views"][0], *outs["views"][2:]):
+        assert x.stride() == bthd
+
+
+@pytest.mark.parametrize("b, h, hkv, t, d", [(2, 12, 12, 1024, 64),
+                                             (1, 8, 2, 300, 128)])
+def test_bf16_flash_backward_is_deterministic(cuda, b, h, hkv, t, d):
+    """No atomics: two runs of K2 (and of K1) give the same bits."""
+    fk, q, k, v, do = _flash_case(cuda, b, h, hkv, t, d, torch.bfloat16)
+    o, lse = fk.flash_forward(q, k, v, True)
+    o2, lse2 = fk.flash_forward(q, k, v, True)
+    first = fk.flash_backward(q, k, v, o, lse, do, True)
+    second = fk.flash_backward(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    for a, c in zip(first, second):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("t, causal", [(130, True), (63, False)])
+def test_bf16_flash_kernels_read_nothing_past_t(cuda, t, causal):
+    """Every input as the first T rows of a longer buffer whose rows past T
+    are NaN: the same bits as on tight tensors."""
+    fk, q, k, v, do = _flash_case(cuda, 2, 8, 2, t, 64, torch.bfloat16)
+    o, lse = fk.flash_forward(q, k, v, causal)
+    want = (o, lse, *fk.flash_backward(q, k, v, o, lse, do, causal))
+
+    def poisoned(x):
+        buf = torch.full((*x.shape[:2], t + 67, x.shape[3]), float("nan"),
+                         dtype=x.dtype, device=x.device)
+        buf[:, :, :t] = x
+        return buf[:, :, :t]
+
+    pq, pk, pv, pdo, po = (poisoned(x) for x in (q, k, v, do, o))
+    o2, lse2 = fk.flash_forward(pq, pk, pv, causal)
+    got = (o2, lse2, *fk.flash_backward(pq, pk, pv, po, lse, pdo, causal))
+    torch.cuda.synchronize()
+    for a, c in zip(got, want):
+        assert torch.equal(a, c)
+
+
+def test_flash_mha_trains_through_the_bf16_kernels(cuda):
+    """flash_mha's gradient through K2 in bf16 matches the plain versions
+    (chip_smoke's bf16 tolerance), and Adam on q, k, v (f32 masters, cast
+    to bf16 for each step) lowers a regression loss through the kernels."""
+    import chip_smoke
+
+    fk, q, k, v, do = _flash_case(cuda, 2, 4, 2, 130, 64, torch.bfloat16)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o, lse = fk.flash_mha(*leaves)
+    got = torch.autograd.grad(o, leaves, do)
+    want = fk.flash_backward_reference(q, k, v, o.detach(), lse, do)
+    tol = chip_smoke.FLASH_TOLERANCES[torch.bfloat16]["bwd"]
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+
+    target = torch.randn(o.shape, generator=torch.Generator(
+        device=cuda).manual_seed(3), device=cuda)
+    masters = [x.float().clone().requires_grad_() for x in (q, k, v)]
+    opt = torch.optim.Adam(masters, lr=3e-2)
+    before = dict(fk.launches)
+    losses = []
+    for _ in range(30):
+        o, _ = fk.flash_mha(*(x.to(torch.bfloat16) for x in masters))
+        loss = ((o.float() - target) ** 2).mean()
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    assert fk.launches == {"forward": before["forward"] + 30,
+                           "backward": before["backward"] + 30}
+    assert np.isfinite(losses).all() and losses[-1] < 0.9 * losses[0]
 
 
 def test_flash_mha_trains_through_the_kernels(cuda):
