@@ -11,14 +11,17 @@ with no final line):
    versions; TF32 off for matmuls and convolutions.
 2. build — compiles every kernel from ``csrc/`` (one nvcc per source, all
    started together), with seconds and each kernel's registers and spilled
-   bytes from ptxas; a bf16 flash kernel at head_dim 64 must not spill.
+   bytes from ptxas; a bf16 flash kernel at head_dim 64 must not spill,
+   nor may any of the 32 paged kernel instantiations.
 3. kernel — the paged decode kernels K3 (pages in q's dtype) and K4
    (int8 pages made by the port's ``quantize_kv``, with their f32 scale
    pools) against their plain versions at the GPT-2 124M, Llama-3.2-1B
    and a head_dim-128 decode shape (8 rows, 16-token pages, max_len
    1024), q in f32 and bf16 (``TOLERANCES``, ``Q8_TOLERANCES``), with
-   kernel, plain and bound times (CUDA events, median of 25 launches, L2
-   flushed and the device held busy for 2 ms before each: ``time_ms``).
+   the split plan (``chunk_tokens``, ``n_splits``, live CTAs), kernel,
+   plain and bound times (CUDA events, median of 25 launches, L2 flushed
+   and the device held busy for 2 ms before each: ``time_ms``), after
+   the time ``time_ms`` reads for an empty launch (launch_floor).
 4. serve — GPT-2 124M at full width (random weights from ``--seed``)
    through ``PagedBatchedDecodeEngine``: 16 requests (prompts of 32-512
    tokens, two sharing a 256-token prefix, 64 new tokens each, 12 greedy
@@ -28,8 +31,9 @@ with no final line):
    dtype) — the main path of K3, whose launches are counted from zero and
    must equal n_layer x decode ticks (K4's 0), and whose kernel inputs at
    its deepest decode tick are replayed against the plain version for the
-   kernels line. The bf16 drive then runs twice more for the spread of its
-   host-clock metrics (tick ms, tok/s, TTFT: serve_spread); profile —
+   kernels line (with their split plan). The bf16 drive then runs twice
+   more for the spread of its host-clock metrics (tick ms, tok/s, TTFT:
+   serve_spread); profile —
    ``torch.profiler`` over 10 decode ticks of the bf16 engine (device busy
    share, kernels by device time, host ops by CPU time).
 5. int8 serving — the same requests with ``kv_quant="int8",
@@ -245,6 +249,9 @@ def ptxas_summary(log: str) -> dict:
                 f"<{','.join(args)}>" if args else "")
             if "nv_bfloat16" in mangled:
                 name += "[bf16]"
+            types = re.search(r"paged_\w+?I(\w*?)Li", mangled)
+            if types and types.group(1).endswith("a"):  # KV = int8_t (K4)
+                name += "[int8]"
             out[name] = dict(registers=None, spill_bytes=0)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -290,6 +297,20 @@ def check_kernel(pk, args, what) -> dict:
     return res
 
 
+def split_plan(pk, args) -> dict:
+    """The kernel's partition of rows at these inputs: keys per CTA
+    (``chunk_tokens``) and CTAs per (row, KV head) (``n_splits``), and
+    how many of those CTAs these rows' lengths make active."""
+    q, k_pages, tables, lengths = args[0], args[1], args[3], args[4]
+    page, n_pages = k_pages.shape[1], tables.shape[1]
+    chunk, n_splits = pk._split_plan(page, n_pages, q.shape[2],
+                                     k_pages.dtype)
+    n_tok = np.minimum(lengths.cpu().numpy().astype(np.int64) + 1,
+                       n_pages * page)
+    active = int(np.maximum(1, -(-n_tok // chunk)).sum()) * k_pages.shape[2]
+    return dict(chunk_tokens=chunk, n_splits=n_splits, active_ctas=active)
+
+
 def paged_case(dev, seed, b, h, hkv, d, dtype, q8, page=16, n_pages=64):
     """Kernel inputs at a decode shape: rows at lengths 0, page-1, page,
     max_len-1 and random, each over distinct pool pages up to its depth
@@ -326,6 +347,10 @@ def kernel_phase(pk, dev, flush, seed) -> None:
         ("head_dim-128", 8, 32, 8, 128),
     ]
     page, n_pages = 16, 64  # max_len 1024
+    # What time_ms reads for a launch that does no work: the floor under
+    # every kernel time here.
+    emit(phase="launch_floor", empty_launch_ms=time_ms(
+        lambda: torch.cuda._sleep(1), flush))
     for kernel, q8 in (("paged_decode_attention", False),
                        ("paged_decode_attention_q8", True)):
         for name, b, h, hkv, d in shapes:
@@ -338,7 +363,7 @@ def kernel_phase(pk, dev, flush, seed) -> None:
                 emit(
                     phase="kernel", kernel=kernel, shape=name,
                     B=b, H=h, Hkv=hkv, D=d, page=page,
-                    max_len=n_pages * page,
+                    max_len=n_pages * page, **split_plan(pk, args),
                     dtype=str(dtype).replace("torch.", ""),
                     pages=str(args[1].dtype).replace("torch.", ""),
                     lengths=args[4].tolist(), **checked,
@@ -587,7 +612,7 @@ def main_path(phase, cfg, params, reqs, pk, flush, spread_runs=2,
     checked = check_kernel(pk, kargs, f"{phase} main-path inputs")
     bound_ms, bound_by = paged_bound(q, kargs[1], tables, lengths)
     entry = dict(
-        launches=run["launches"], **checked,
+        launches=run["launches"], **checked, **split_plan(pk, kargs),
         ms=time_ms(lambda: pk.paged_decode_attention(*kargs), flush),
         plain_ms=time_ms(lambda: pk.paged_decode_attention_reference(*kargs),
                          flush),
@@ -1099,6 +1124,14 @@ def main() -> int:
                if "sm90<64>" in k and v["spill_bytes"]]
     if spilled:
         raise AssertionError(f"bf16 flash kernels spill at D 64: {spilled}")
+    paged = ptxas["paged_attention"]
+    spilled = [k for k, v in paged.items() if v["spill_bytes"]]
+    if (len(paged) != 32 and not builds["paged_attention"]["cached"]) or \
+            spilled:
+        raise AssertionError(
+            f"paged kernels: {len(paged)} of 32 instantiations in the "
+            f"ptxas log, spilling: {spilled}"
+        )
 
     # 3. kernel at the listed shapes
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)

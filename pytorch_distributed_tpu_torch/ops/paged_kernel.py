@@ -22,11 +22,17 @@ token's K and V carry one f32 scale per KV head (``ops/quant.quantize_kv``).
 - ``launches`` (K3) and ``launches_q8`` (K4) count kernel launches (CPU
   calls never bump them), so a run can show that its decode steps went
   through the kernel.
+- ``_split_plan`` is how the kernel cuts a row's keys into chunks, one
+  CTA each, and ``paged_decode_attention_split_reference`` restates the
+  kernel's arithmetic on that partition (per-chunk f32 softmax states in
+  base 2, combined in split order) for the CPU tests; nothing on the
+  serving path calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -42,6 +48,18 @@ launches_q8 = 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8)
+
+# The split plan: a chunk holds CHUNK_K_BYTES of K rows per KV head — the
+# keys a CTA's 8 warps load in one round of four 16-byte loads per lane:
+# 128 keys of bf16 at head_dim 64, 256 of int8 — rounded up to whole pages
+# and capped at the _MAX_CHUNK_PAGES table entries a CTA holds
+# (``kMaxChunkPages`` in the source).
+CHUNK_K_BYTES = 16384
+_MAX_CHUNK_PAGES = 64
+
+# One workspace per device, grown on demand and reused by every launch on
+# the stream: f32 partials and int32 counters that the kernel leaves at 0.
+_workspaces: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor):
@@ -98,6 +116,95 @@ def paged_decode_attention_reference(q, k_pages, v_pages, block_tables,
     return out[:, 0].to(q.dtype)
 
 
+def _split_plan(page: int, n_pages: int, d: int,
+                page_dtype: torch.dtype) -> tuple[int, int]:
+    """(chunk_tokens, n_splits): the keys each CTA of a row takes, a whole
+    number of pages fixed by (page, d, page_dtype) alone, and the CTAs
+    per (row, KV head) that cover the table's ``n_pages * page`` keys. A
+    row's partition so depends only on its own length, whatever the batch
+    or the table's width."""
+    tokens = max(1, CHUNK_K_BYTES // (d * page_dtype.itemsize))
+    chunk_pages = min(-(-tokens // page), _MAX_CHUNK_PAGES)
+    chunk = chunk_pages * page
+    return chunk, -(-(n_pages * page) // chunk)
+
+
+def paged_decode_attention_split_reference(q, k_pages, v_pages,
+                                           block_tables, lengths,
+                                           k_scales=None,
+                                           v_scales=None) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, for the CPU tests: each
+    row's keys cut by ``_split_plan`` into chunks; per chunk, f32 scores
+    q.k (times the K scale for int8 pages) times log2(e)/sqrt(D), its max
+    m, l = sum of 2^(s - m) and acc = sum of 2^(s - m) (times the V scale)
+    v; the chunks combined in split order into acc / l, rounded once to
+    q's dtype. Keys past a row's depth weigh exactly 0 and their values
+    are never multiplied. [B, H, D] -> [B, H, D]."""
+    b, h, d = q.shape
+    page, hkv = k_pages.shape[1], k_pages.shape[2]
+    n_pages = block_tables.shape[1]
+    g = h // hkv
+    chunk, n_splits = _split_plan(page, n_pages, d, k_pages.dtype)
+    s_len = n_splits * chunk
+    dev = q.device
+    n_tok = torch.clamp(lengths.long() + 1, 0, n_pages * page)
+    valid = torch.arange(s_len, device=dev)[None] < n_tok[:, None]  # [B, S]
+
+    def rows(pool, fill):
+        """The row's keys [B, S, Hkv(, D)] in f32, ``fill`` past its depth
+        (and past the table) — never the pool's contents there."""
+        if pool is None:
+            return torch.full((b, s_len, hkv), fill, device=dev)
+        x = gather_pages(pool, block_tables).float()
+        pad = torch.full((b, s_len - x.shape[1], *x.shape[2:]), fill,
+                         device=dev)
+        x = torch.cat([x, pad], 1)
+        return torch.where(valid.reshape(b, s_len, *[1] * (x.dim() - 2)),
+                           x, fill)
+
+    k, v = rows(k_pages, 0.0), rows(v_pages, 0.0)  # [B, S, Hkv, D]
+    ks, vs = rows(k_scales, 1.0), rows(v_scales, 1.0)  # [B, S, Hkv]
+    qf = q.float().reshape(b, hkv, g, d)
+    scale_log2 = torch.tensor(1.0 / d**0.5, dtype=torch.float32,
+                              device=dev) * math.log2(math.e)
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k) * ks.permute(0, 2, 1)[
+        :, :, None] * scale_log2
+    mask = valid[:, None, None]
+    s = torch.where(mask, s, NEG_INF).reshape(b, hkv, g, n_splits, chunk)
+    m = s.amax(-1)  # [B, Hkv, G, n_splits]
+    p = torch.where(mask.reshape(b, 1, 1, n_splits, chunk),
+                    torch.exp2(s - m[..., None]), 0.0)
+    l_part = p.sum(-1)
+    pv = p * vs.permute(0, 2, 1).reshape(b, hkv, 1, n_splits, chunk)
+    acc = torch.einsum("bkgnc,bnckd->bkgnd", pv,
+                       v.reshape(b, n_splits, chunk, hkv, d))
+    # Splits past a row's depth do not exist in the kernel: drop them.
+    active = torch.clamp(-(-n_tok // chunk), min=1)  # [B]
+    live = torch.arange(n_splits, device=dev)[None] < active[:, None]
+    m = torch.where(live[:, None, None], m, NEG_INF)
+    mx = m.amax(-1, keepdim=True)
+    c = torch.where(live[:, None, None], torch.exp2(m - mx), 0.0)
+    lsum = (l_part * c).sum(-1)
+    o = (acc * c[..., None]).sum(-2) / torch.clamp(lsum, min=1e-30)[..., None]
+    return o.reshape(b, h, d).to(q.dtype)
+
+
+def _workspace(device: torch.device, n_floats: int,
+               n_counters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The device's kernel workspace, grown to at least ``n_floats`` f32
+    partials and ``n_counters`` int32 counters (a grown counter array
+    starts zeroed; the kernel leaves every counter at 0)."""
+    work, counters = _workspaces.get(device, (None, None))
+    if work is None or work.numel() < n_floats:
+        work = torch.empty(max(n_floats, 1), dtype=torch.float32,
+                           device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 1), dtype=torch.int32,
+                               device=device)
+    _workspaces[device] = (work, counters)
+    return work, counters
+
+
 def _kernel(q8: bool):
     """The built kernel's C entry point (K3, or K4 when ``q8``), its
     signature declared once (every pointer and the stream as c_void_p, or
@@ -109,8 +216,8 @@ def _kernel(q8: bool):
           else lib.pdt_paged_decode_attention)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * (8 if q8 else 6) + [
-            ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * (10 if q8 else 8) + [
+            ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
     return fn
 
 
@@ -190,15 +297,21 @@ def paged_decode_attention(
     v_scales: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Paged single-query attention, [B, H, D] -> [B, H, D] in q's dtype.
-    Key j of row b is attended iff j <= lengths[b] (lengths >= 0); table
-    entries past a row's depth are never read by the kernel. Page ids must
-    lie in [0, P): a CPU call raises otherwise, and the kernel, which
-    cannot check without a device sync, clamps them into the pool (as a
-    JAX gather does) so it never reads out of bounds.
+    Key j of row b is attended iff j <= lengths[b] (lengths >= 0); K/V
+    slots past a row's depth are never read by the kernel (pages a row has
+    not reached may hold anything, NaN included). Page ids must lie in
+    [0, P): a CPU call raises otherwise, and the kernel, which cannot
+    check without a device sync, clamps them into the pool (as a JAX
+    gather does) so it never reads out of bounds.
 
     ``k_scales``/``v_scales`` (both or neither) select K4: int8 pages,
     dequantized by their per-token, per-KV-head f32 scales in the
-    kernel."""
+    kernel.
+
+    On CUDA the kernel splits each row into ``_split_plan`` chunks and
+    combines them in the same launch through the device's workspace
+    (``_workspace``): one launch, nothing allocated but the output once
+    the workspace has grown to the largest batch seen."""
     global launches, launches_q8
     _check(q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales)
     q8 = k_scales is not None
@@ -236,14 +349,21 @@ def paged_decode_attention(
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
         raise ValueError("q and the pools must be 16-byte aligned")
     fn = _kernel(q8)
+    n_pages = block_tables.shape[1]
+    chunk, n_splits = _split_plan(page, n_pages, d, k_pages.dtype)
+    # Partials [B, Hkv, n_splits] x G x (D + 2) floats, one counter per
+    # (row, KV head).
+    work, counters = _workspace(q.device, b * h * n_splits * (d + 2),
+                                b * hkv)
     out = torch.empty_like(q)
     pointers = [t.data_ptr() for t in (q, k_pages, v_pages, *scales,
-                                       block_tables, lengths, out)]
+                                       block_tables, lengths, out, work,
+                                       counters)]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(
-            *pointers, b, h, hkv, d, n_pool, page, block_tables.shape[1],
-            _DTYPE_CODES[q.dtype], 1.0 / (d**0.5), stream,
+            *pointers, b, h, hkv, d, n_pool, page, n_pages, chunk // page,
+            n_splits, _DTYPE_CODES[q.dtype], 1.0 / (d**0.5), stream,
         )
     if err:
         raise RuntimeError(

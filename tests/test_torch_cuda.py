@@ -218,6 +218,133 @@ def test_int8_engine_kernel_path_matches_gather_path_on_the_card(cuda):
         np.testing.assert_array_equal(res.tokens, outs["gather"][rid].tokens)
 
 
+# -- K3 and K4's split rows: chunk edges, determinism, independence ------------
+
+
+def _edge_case(dev, h, hkv, d, dtype, q8, page=16, n_pages=128, seed=0):
+    """Rows at lengths 0, page-1, page and, for every split count the
+    table allows (max_len 2048), the last key of that many chunks, the
+    next one and the one after; each row over distinct pool pages up to
+    its depth, the rest of its table on the scratch page 0. ``q8``: K4's
+    int8 pages and scales from ``quantize_kv``. Returns the wrapper's
+    arguments."""
+    from pytorch_distributed_tpu_torch.ops.quant import quantize_kv
+
+    chunk, n_splits = pk._split_plan(page, n_pages, d,
+                                     torch.int8 if q8 else dtype)
+    max_len = n_pages * page
+    edges = {0, page - 1, page, max_len - 1}
+    for n in range(1, n_splits + 1):
+        edges |= {min(n * chunk + i, max_len - 1) for i in (-1, 0, 1)}
+    lengths = torch.tensor(sorted(edges), dtype=torch.int32, device=dev)
+    b = len(lengths)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    used = torch.arange(n_pages, device=dev)[None] * page <= lengths[:, None]
+    n_pool = int(used.sum()) + 1
+    ids = torch.zeros(b, n_pages, dtype=torch.int64, device=dev)
+    ids[used] = torch.randperm(n_pool - 1, generator=g, device=dev) + 1
+    tables = ids.to(torch.int32).contiguous()
+    k = torch.randn(n_pool, page, hkv, d, generator=g, device=dev)
+    v = torch.randn(n_pool, page, hkv, d, generator=g, device=dev)
+    q = torch.randn(b, h, d, generator=g, device=dev).to(dtype)
+    if not q8:
+        return (q, k.to(dtype), v.to(dtype), tables, lengths)
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return (q, kq, vq, tables, lengths, ks, vs)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_paged_kernels_at_every_chunk_edge(cuda, group, d, dtype, q8):
+    """K3 and K4 against their plain versions with chip_smoke's
+    tolerances (``check_kernel``: ``TOLERANCES``, ``Q8_TOLERANCES`` and,
+    in bf16, ``BF16_VS_F32``) over rows at every chunk edge of every split
+    count up to max_len 2048."""
+    import chip_smoke
+
+    args = _edge_case(cuda, 2 * group, 2, d, dtype, q8, seed=group + d)
+    before = (pk.launches, pk.launches_q8)
+    chip_smoke.check_kernel(pk, args, f"group {group} D {d} {dtype} q8 {q8}")
+    assert (pk.launches, pk.launches_q8) == (before[0] + (not q8),
+                                             before[1] + q8)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["K3", "K4"])
+def test_paged_kernels_are_deterministic_and_batch_independent(cuda, q8):
+    """Two launches give the same bits; each row alone (B = 1) gives the
+    bits it gets inside the batch and inside a table twice as wide."""
+    args = _edge_case(cuda, 8, 2, 64, torch.bfloat16, q8)
+    q, kp, vp, tables, lengths, *scales = args
+    first = pk.paged_decode_attention(*args)
+    second = pk.paged_decode_attention(*args)
+    wide = torch.cat([tables, torch.zeros_like(tables)], 1).contiguous()
+    rows = [pk.paged_decode_attention(q[r:r + 1], kp, vp, t[r:r + 1],
+                                      lengths[r:r + 1], *scales)
+            for t in (tables, wide) for r in range(q.shape[0])]
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(torch.cat(rows), torch.cat([first, first]))
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["K3", "K4"])
+def test_paged_kernels_read_nothing_past_a_rows_depth(cuda, q8):
+    """NaN in every K/V slot past each row's depth (and in its scales for
+    K4), the scratch page included, changes no output bit."""
+    args = _edge_case(cuda, 8, 2, 64, torch.bfloat16, q8, n_pages=32)
+    before = pk.paged_decode_attention(*args)
+    tables, lengths = args[3], args[4]
+    page = args[1].shape[1]
+    slot = torch.arange(page, device=cuda)
+    poisoned = [a.clone() for a in args]
+    for pool in (poisoned[1], poisoned[2], *poisoned[5:]):
+        fill = 127 if pool.dtype == torch.int8 else float("nan")
+        pool[0] = fill
+        for r in range(tables.shape[0]):
+            for j in range(tables.shape[1]):
+                pid = int(tables[r, j])
+                past = j * page + slot > int(lengths[r])
+                if pid and bool(past.any()):
+                    pool[pid, past] = fill
+    after = pk.paged_decode_attention(*poisoned)
+    torch.cuda.synchronize()
+    assert torch.equal(after, before)
+
+
+def test_paged_kernel_counters_stay_zero(cuda):
+    """Every split counter is 0 after a launch, also after a launch at a
+    larger batch that grew the workspace."""
+    for b_rows in (1, 3):
+        args = _edge_case(cuda, 4, 2, 64, torch.bfloat16, False)
+        args = tuple(torch.cat([a] * b_rows) if i in (0, 3, 4) else a
+                     for i, a in enumerate(args))
+        out = pk.paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        counters = pk._workspaces[args[0].device][1]
+        assert counters.numel() >= args[0].shape[0] * 2
+        assert not bool(counters.any())
+        torch.testing.assert_close(
+            out.float(), pk.paged_decode_attention_reference(*args).float(),
+            atol=3e-3, rtol=1e-2)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["K3", "K4"])
+def test_paged_kernels_clamp_page_ids_into_the_pool(cuda, q8):
+    """Page ids below 0 or past the pool read the first or last page (as
+    a JAX gather clamps them): the plain version on the clamped table."""
+    args = list(_edge_case(cuda, 4, 2, 64, torch.float32, q8, n_pages=16))
+    n_pool = args[1].shape[0]
+    tables = args[3].clone()
+    tables[1::2] += n_pool  # past the pool
+    tables[2::4] -= 3 * n_pool  # below 0
+    out = pk.paged_decode_attention(*args[:3], tables, *args[4:])
+    torch.cuda.synchronize()
+    want = pk.paged_decode_attention_reference(
+        *args[:3], tables.clamp(0, n_pool - 1), *args[4:])
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=0.0)
+
+
 # -- flash attention: K1 (forward) and K2 (backward) --------------------------
 # The tolerances are chip_smoke.py's, and so is the check (``check_flash``):
 # f32 summation order only against the f32 plain versions; bf16 held to the
