@@ -21,7 +21,10 @@ with no final line):
    the split plan (``chunk_tokens``, ``n_splits``, live CTAs), kernel,
    plain and bound times (CUDA events, median of 25 launches, L2 flushed
    and the device held busy for 2 ms before each: ``time_ms``), after
-   the time ``time_ms`` reads for an empty launch (launch_floor).
+   the time ``time_ms`` reads for an empty launch (launch_floor); then
+   streams — K3 and K4 launched at once on two CUDA streams, each with
+   inputs of its own, 25 times: bit-equal to serial launches, every
+   workspace counter back at 0 (each stream has its own workspace).
 4. serve — GPT-2 124M at full width (random weights from ``--seed``)
    through ``PagedBatchedDecodeEngine``: 16 requests (prompts of 32-512
    tokens, two sharing a 256-token prefix, 64 new tokens each, 12 greedy
@@ -70,11 +73,23 @@ with no final line):
    the last warmup step are replayed against the plain versions for the
    kernels line.
 9. train_profile — ``torch.profiler`` over 2 training steps; then
-   train_remat — the same step under remat "none" and "full" (ms/step,
-   peak memory, K1 launches n_layer resp. 2 n_layer per step).
+   train_remat — the same step under remat "none", "full", "dots",
+   "dots_no_batch" and "flash" (ms/step, peak memory; K1 launches per
+   step n_layer x ``K1_PER_LAYER``, as often as the JAX grad runs its
+   flash forward; K2 n_layer).
 10. train_parity — one f32 step at full width (B=2, T=1024) through the
    kernels and the same step with naive attention, from the same weights.
-11. The kernels line (K3, K4, K1, K2), then ``{"ok": true, "device":
+11. train_loop — the training entry point's path
+   (``train/baseline.py``'s functions, GPT-2 124M with the preset's
+   dropout 0.1: A = 4 micro-batches of [8, 1024], 8 steps, a checkpoint
+   every 4), a fresh ``Trainer`` resuming step 4 bit for bit, ``evaluate``
+   over 4 batches (K1 n_layer x 4, K2 0) and a profile of one step
+   (train_loop_profile); train_dropout — keep fractions per site, masks
+   distinct across layers, steps and micro-batches, f32 gradients equal
+   under all six remat modes; train_fused_ce — ``fused_head_ce`` against
+   the unfused step (loss, gradients, ms/step, peak memory, a profile of
+   each).
+12. The kernels line (K3, K4, K1, K2), then ``{"ok": true, "device":
     {...}}`` last.
 """
 
@@ -86,6 +101,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -374,6 +390,43 @@ def kernel_phase(pk, dev, flush, seed) -> None:
                         flush),
                     bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                 )
+
+
+def streams_phase(pk, dev, seed, rounds: int = 25) -> None:
+    """K3 and K4 launched concurrently on two non-default streams, each
+    with inputs of its own (the GPT-2 decode shape, bf16 pages and int8
+    pages), ``rounds`` times: every output bit-equal to a serial launch on
+    one stream, and every workspace counter back at 0. Both streams wait
+    on an event recorded after a 20 ms spin on a third stream, so all
+    their launches are queued before the first runs."""
+    inputs = [[paged_case(dev, seed + s, 8, 12, 12, 64, torch.bfloat16, q8)
+               for q8 in (False, True)] for s in (1, 2)]
+    want = [[pk.paged_decode_attention(*a) for a in pair] for pair in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in inputs]
+    gate, spinner = torch.cuda.Event(), torch.cuda.Stream(dev)
+    with torch.cuda.stream(spinner):
+        torch.cuda._sleep(spin_cycles(20.0))
+        gate.record(spinner)
+    got = []
+    for stream, pair in zip(streams, inputs):
+        stream.wait_event(gate)
+        with torch.cuda.stream(stream):
+            got.append([[pk.paged_decode_attention(*a) for a in pair]
+                        for _ in range(rounds)])
+    torch.cuda.synchronize()
+    mismatched = sum(not torch.equal(out, ref)
+                     for per_stream, refs in zip(got, want)
+                     for outs in per_stream for out, ref in zip(outs, refs))
+    counters = [c for _, c in pk._workspaces.values()]
+    nonzero = sum(int(c.count_nonzero()) for c in counters)
+    emit(phase="streams", streams=len(streams), rounds=rounds,
+         launches=2 * len(streams) * rounds, mismatched=mismatched,
+         workspaces=len(counters), nonzero_counters=nonzero)
+    if mismatched or nonzero:
+        raise AssertionError(
+            f"K3/K4 on two streams: {mismatched} outputs differ from serial "
+            f"launches, {nonzero} workspace counters not back at 0")
 
 
 def requests(cfg, seed) -> list[dict]:
@@ -977,14 +1030,22 @@ def train_phase(fk, cfg, seed, dev, warmup=3, windows=3, window_steps=10):
                 captured=captured["args"])
 
 
+# K1 launches per layer and step under each remat mode: the JAX package's
+# grad has 3 pallas_calls under full, dots and dots_no_batch (the flash
+# forward re-runs in backward: it is no dot to checkpoint_dots), 2 under
+# none, names and flash (tests/test_torch_remat_modes.py).
+K1_PER_LAYER = {"none": 1, "full": 2, "dots": 2, "dots_no_batch": 2,
+                "names": 1, "flash": 1}
+
+
 def train_remat_phase(fk, cfg, seed, dev, warmup=2, steps=10) -> None:
-    """The main path's step under remat "none" and "full" beside "names"
+    """The main path's step under every other remat mode beside "names"
     (train phase): ms/step, peak memory, and the flash launches of the
-    timed steps — K1 n_layer x steps under none and 2 n_layer x steps
-    under full (the block re-runs in backward), K2 n_layer x steps."""
+    timed steps — K1 ``K1_PER_LAYER`` x n_layer x steps, K2 n_layer x
+    steps."""
     from pytorch_distributed_tpu_torch.config import TrainConfig
 
-    for mode in ("none", "full"):
+    for mode in ("none", "full", "dots", "dots_no_batch", "flash"):
         c = cfg.replace(remat=mode)
         tcfg = TrainConfig(global_batch_size=8, micro_batch_size=8,
                            num_steps=warmup + steps, learning_rate=3e-4)
@@ -1000,7 +1061,7 @@ def train_remat_phase(fk, cfg, seed, dev, warmup=2, steps=10) -> None:
         loss = float(m["loss"])
         elapsed = time.perf_counter() - t0
         launches = dict(fk.launches)
-        want = {"forward": cfg.n_layer * steps * (2 if mode == "full" else 1),
+        want = {"forward": cfg.n_layer * steps * K1_PER_LAYER[mode],
                 "backward": cfg.n_layer * steps}
         emit(phase="train_remat", remat=mode, steps=steps,
              ms_per_step=elapsed / steps * 1e3,
@@ -1049,7 +1110,8 @@ def train_parity_phase(cfg, seed, dev) -> None:
         raise AssertionError(f"flash and naive f32 steps disagree: {res}")
 
 
-def train_profile_phase(run, n_steps: int = 2) -> None:
+def train_profile_phase(run, n_steps: int = 2,
+                        phase: str = "train_profile") -> None:
     from torch.profiler import ProfilerActivity, profile
 
     step, state, batch = run["step"], run["state"], run["batch"]
@@ -1075,9 +1137,296 @@ def train_profile_phase(run, n_steps: int = 2) -> None:
     torch.cuda.synchronize()
     syncs = [str(w.message).splitlines()[0][:120] for w in caught
              if "prototype feature" not in str(w.message)]
-    emit(phase="train_profile", steps=n_steps,
+    emit(phase=phase, steps=n_steps,
          host_syncs_per_step=len(syncs), host_sync_kinds=sorted(set(syncs)),
          **profile_summary(prof, wall_ms))
+
+
+def train_loop_phase(fk, seed, tmp) -> None:
+    """The training entry point's path (``python -m
+    pytorch_distributed_tpu_torch.train.baseline``), in process through the
+    functions its ``main`` uses: GPT-2 124M with the preset's dropout 0.1
+    (so training attention runs the naive path and launches no flash
+    kernel), bf16, flash + names, synthetic shards, global batch 32 of
+    micro-batches 8 (A = 4), T 1024, 8 steps, a checkpoint every 4, the
+    loss logged every 2. Then a fresh ``Trainer`` resumes the step-4
+    checkpoint (the step-8 one parked, as if the run had died after step
+    4) and runs steps 5-8 again: its window losses must equal the
+    uninterrupted run's bit for bit. The loss must fall. Then ``evaluate``
+    over 4 validation batches: K1 exactly n_layer x 4 launches, K2 none.
+    Then a profile of one loop step."""
+    import shutil
+
+    from pytorch_distributed_tpu_torch.data import TokenShardLoader
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.train import baseline
+    from pytorch_distributed_tpu_torch.train.trainer import Trainer
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    args = baseline.parse_args([
+        "--preset", "gpt2", "--global-batch-size", "32",
+        "--micro-batch-size", "8", "--seq-len", "1024", "--steps", "8",
+        "--save-every", "4", "--log-every", "2", "--eval-batches", "4",
+        "--num-train-files", "2", "--seed", str(seed),
+        "--data-dir", f"{tmp}/data", "--checkpoint-dir", f"{tmp}/ck",
+    ])
+    model_cfg = baseline.build_model_cfg(args)
+    train_cfg = baseline.build_train_cfg(args)
+    paths = baseline.shard_paths(args, model_cfg.vocab_size)
+    b, t = args.micro_batch_size, args.seq_len
+
+    def run(resume: bool):
+        loader = TokenShardLoader(paths, b, t)
+        trainer = Trainer(get_model(model_cfg), model_cfg, train_cfg,
+                          device=args.device, log_fn=lambda line: None)
+        state = trainer.init_state()
+        if resume:
+            state = trainer.resume_latest(state, loader=loader)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk.launches.update(forward=0, backward=0)
+        state, hist = trainer.train(loader, state=state)
+        return trainer, state, hist, dict(fk.launches)
+
+    t0 = time.perf_counter()
+    trainer, state, hist, launches = run(resume=False)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in tree.leaves(state.params))
+    flops_per_token = 6 * n_params + 12 * model_cfg.n_layer * \
+        model_cfg.n_embd * t
+    tokens = train_cfg.global_batch_size * t
+    # Window 1 holds the first step's allocations, and a window after a
+    # checkpoint its synchronous save: the others are steady.
+    steady = [(hist[i]["elapsed_s"] - hist[i - 1]["elapsed_s"]) /
+              (hist[i]["step"] - hist[i - 1]["step"])
+              for i in range(1, len(hist))
+              if hist[i - 1]["step"] % train_cfg.save_every_n_steps]
+    ms_step = statistics.median(steady) * 1e3
+    tok_s = tokens / (ms_step / 1e3)
+    shutil.move(f"{tmp}/ck/checkpoint_step_8", f"{tmp}/parked_step_8")
+    _, rstate, rhist, rlaunches = run(resume=True)
+    resumed = [h["loss"] for h in rhist]
+    uninterrupted = [h["loss"] for h in hist if h["step"] > 4]
+    val_loader = TokenShardLoader(
+        baseline.val_shard_paths(args, model_cfg.vocab_size), b, t)
+    fk.launches.update(forward=0, backward=0)
+    val_loss = trainer.evaluate(state, val_loader,
+                                max_batches=args.eval_batches)
+    eval_launches = dict(fk.launches)
+    want_eval = {"forward": model_cfg.n_layer * args.eval_batches,
+                 "backward": 0}
+    emit(phase="train_loop", preset=args.preset, A=trainer.accum, B=b, T=t,
+         steps=train_cfg.num_steps, remat=model_cfg.remat,
+         attention_impl=model_cfg.attention_impl,
+         pdrop=model_cfg.attn_pdrop, dtype=model_cfg.dtype,
+         ms_per_step=ms_step, ms_per_step_windows=[x * 1e3 for x in steady],
+         tokens_per_s=tok_s, mfu=tok_s * flops_per_token / BF16_OPS_PER_S,
+         flops_per_token=flops_per_token, max_memory_allocated=peak,
+         window_losses=[h["loss"] for h in hist], resumed_from_step=4,
+         resumed_window_losses=resumed,
+         resumed_bitwise=resumed == uninterrupted,
+         resumed_max_rel_diff=max(abs(a - c) / abs(c) for a, c in
+                                  zip(resumed, uninterrupted)),
+         train_launches=launches, resumed_train_launches=rlaunches,
+         val_loss=val_loss, eval_launches=eval_launches,
+         want_eval_launches=want_eval,
+         wall_s=time.perf_counter() - t0)
+    if rstate.step != 8 or len(resumed) != len(uninterrupted):
+        raise AssertionError(f"the resumed run ended at step {rstate.step} "
+                             f"with windows {resumed}")
+    if resumed != uninterrupted:
+        raise AssertionError(
+            f"resumed window losses {resumed} != the uninterrupted run's "
+            f"{uninterrupted}: the resumed steps are not bit for bit")
+    losses = [h["loss"] for h in hist]
+    if not (np.isfinite([*losses, val_loss]).all() and losses[-1] <
+            losses[0]):
+        raise AssertionError(f"the loop's loss did not fall: {losses}")
+    if launches != {"forward": 0, "backward": 0}:
+        raise AssertionError(
+            f"training with attn_pdrop > 0 launched flash kernels "
+            f"{launches}: it must take the naive path")
+    if eval_launches != want_eval:
+        raise AssertionError(f"eval launched {eval_launches}, want "
+                             f"{want_eval}")
+    group = next(trainer._grouped_batches(TokenShardLoader(paths, b, t)))
+    train_profile_phase(dict(step=trainer.train_step, state=state,
+                             batch=trainer.put_batch(group)), n_steps=1,
+                        phase="train_loop_profile")
+
+
+def _dropout_grads(cfg, params, batch, key):
+    """Loss and gradients of one training-mode forward (``key`` the
+    dropout stream) with a fresh copy of ``params``' leaves."""
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.train.trainer import _loss
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    leaves = [p.detach().clone().requires_grad_()
+              for p in tree.leaves(params)]
+    loss = _loss(get_model(cfg), cfg, tree.unflatten(params, leaves),
+                 batch["inputs"][0], batch["targets"][0],
+                 deterministic=False, key=key)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def train_dropout_phase(cfg, seed, dev) -> None:
+    """Dropout at full width (GPT-2 124M, every *_pdrop 0.1). (1) Two steps
+    of A = 2 micro-batches of [4, 1024], bf16, names: every mask recorded
+    through the seam; each site's keep fraction (embedding, attention,
+    residual) within 5 standard errors of 0.9; the masks of two layers,
+    two steps and two micro-batches differ. (2) One f32 forward and
+    backward ([2, 1024]) under each remat mode: every gradient equals mode
+    none's within 1e-5 of that leaf's largest (the recompute draws the
+    same masks; measured bit-equal)."""
+    from pytorch_distributed_tpu_torch.models import get_model, gpt2
+    from pytorch_distributed_tpu_torch.config import TrainConfig
+    from pytorch_distributed_tpu_torch.train.optim import make_optimizer
+    from pytorch_distributed_tpu_torch.train.state import init_train_state
+    from pytorch_distributed_tpu_torch.train.trainer import make_train_step
+    from pytorch_distributed_tpu_torch.utils import prng
+
+    draw = prng.draw_keep_mask
+    kept, heads = {}, {}
+
+    def record(sid, shape, keep, device):
+        m = draw(sid, shape, keep, device)
+        if sid not in heads:  # the recompute draws each block mask again
+            site = "resid" if sid.site.startswith("resid") else sid.site
+            n, k = kept.get(site, (0, 0))
+            kept[site] = (n + m.numel(), k + int(m.sum()))
+            heads[sid] = m.reshape(-1)[:1 << 20].clone()
+        return m
+
+    c = cfg.replace(remat="names")
+    tx = make_optimizer(TrainConfig(learning_rate=3e-4))
+    state = init_train_state(
+        gpt2.init(torch.Generator().manual_seed(seed), c, device=dev), tx)
+    step = make_train_step(get_model(c), c, tx, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    prng.draw_keep_mask = record
+    try:
+        for _ in range(2):
+            batch = {k: torch.randint(0, c.vocab_size, (2, 4, 1024),
+                                      generator=g, device=dev)
+                     for k in ("inputs", "targets")}
+            state, _ = step(state, batch)
+    finally:
+        prng.draw_keep_mask = draw
+    fractions = {site: k / n for site, (n, k) in kept.items()}
+    within = {site: abs(f - 0.9) / (0.09 / kept[site][0]) ** 0.5
+              for site, f in fractions.items()}
+    pairs = {
+        "layers": (prng.StreamId(seed, 0, 0, 0, "attn"),
+                   prng.StreamId(seed, 0, 0, 1, "attn")),
+        "steps": (prng.StreamId(seed, 0, 0, 5, "resid_mlp"),
+                  prng.StreamId(seed, 1, 0, 5, "resid_mlp")),
+        "micro_batches": (prng.StreamId(seed, 1, 0, -1, "embd"),
+                          prng.StreamId(seed, 1, 1, -1, "embd")),
+    }
+    differ = {name: not torch.equal(heads[a], heads[b])
+              for name, (a, b) in pairs.items()}
+    n_masks = len(heads)
+    del state, step, heads
+
+    f32 = cfg.replace(dtype="float32", logits_dtype="float32")
+    params = gpt2.init(torch.Generator().manual_seed(seed), f32,
+                       device=dev)
+    batch = {k: torch.randint(0, f32.vocab_size, (1, 2, 1024), generator=g,
+                              device=dev) for k in ("inputs", "targets")}
+    key = prng.DropoutKey(seed, 0, 0)
+    loss0, ref = _dropout_grads(f32.replace(remat="none"), params, batch,
+                                key)
+    modes = {}
+    for mode in ("full", "dots", "dots_no_batch", "names", "flash"):
+        loss, grads = _dropout_grads(f32.replace(remat=mode), params, batch,
+                                     key)
+        modes[mode] = dict(
+            loss=float(loss), bitwise=all(torch.equal(a, b)
+                                          for a, b in zip(grads, ref)),
+            max_rel_diff=max(float((a - b).abs().max() / b.abs().max())
+                             for a, b in zip(grads, ref)))
+        del grads
+    emit(phase="train_dropout", keep_fractions=fractions,
+         standard_errors_from_keep=within, masks_drawn=n_masks,
+         masks_differ=differ, f32_loss_none=float(loss0), remat=modes)
+    if any(x > 5 for x in within.values()) or set(within) != {
+            "embd", "attn", "resid"}:
+        raise AssertionError(f"keep fractions {fractions} ({within} "
+                             f"standard errors from 0.9)")
+    if not all(differ.values()):
+        raise AssertionError(f"masks repeat: {differ}")
+    bad = {m: r for m, r in modes.items() if r["max_rel_diff"] > 1e-5}
+    if bad:
+        raise AssertionError(f"gradients under remat modes differ from "
+                             f"none's: {bad}")
+
+
+def train_fused_ce_phase(cfg, seed, dev, warmup=2, steps=5) -> None:
+    """The fused head + cross-entropy at full width (GPT-2 124M, bf16,
+    vocab 50257, dropout 0.1, names, one micro-batch [8, 1024]) against
+    the unfused step from the same weights and masks: loss within rtol
+    1e-3, every gradient within 2e-2 of its norm (both round the block
+    logits to bf16; the unfused head's dW is rounded to bf16 once more,
+    and cuBLAS may sum in another order). Then ms/step, peak memory and a
+    one-step profile of each; the fused step never holds the [8192, 50257]
+    logits (823 MB in bf16, 1.65 GB as the f32 copy the loss reads)."""
+    from pytorch_distributed_tpu_torch.config import TrainConfig
+    from pytorch_distributed_tpu_torch.models import get_model, gpt2
+    from pytorch_distributed_tpu_torch.train.optim import make_optimizer
+    from pytorch_distributed_tpu_torch.train.state import init_train_state
+    from pytorch_distributed_tpu_torch.train.trainer import make_train_step
+    from pytorch_distributed_tpu_torch.utils import prng
+
+    base = cfg.replace(remat="names", logits_dtype="bfloat16")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = {k: torch.randint(0, base.vocab_size, (1, 8, 1024), generator=g,
+                              device=dev) for k in ("inputs", "targets")}
+    params = gpt2.init(torch.Generator().manual_seed(seed), base,
+                       device=dev)
+    key = prng.DropoutKey(seed, 0, 0)
+    out, rows = {}, {}
+    for fused in (False, True):
+        c = base.replace(fused_head_ce=fused)
+        out[fused] = _dropout_grads(c, params, batch, key)
+    (lu, gu), (lf, gf) = out[False], out[True]
+    rel = [float((a.float() - b.float()).norm() / b.float().norm())
+           for a, b in zip(gf, gu)]
+    del out, gf, gu, params
+    for fused in (False, True):
+        c = base.replace(fused_head_ce=fused)
+        tx = make_optimizer(TrainConfig(learning_rate=3e-4))
+        state = init_train_state(
+            gpt2.init(torch.Generator().manual_seed(seed), c, device=dev), tx)
+        step = make_train_step(get_model(c), c, tx, seed=seed)
+        for _ in range(warmup):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, batch)
+        loss = float(m["loss"])
+        elapsed = time.perf_counter() - t0
+        name = "fused" if fused else "unfused"
+        rows[name] = dict(
+            ms_per_step=elapsed / steps * 1e3, loss=loss,
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        train_profile_phase(dict(step=step, state=state, batch=batch),
+                            n_steps=1, phase=f"train_{name}_ce_profile")
+        del state, step
+    logits_bytes = 8 * 1024 * base.vocab_size * 2
+    emit(phase="train_fused_ce", loss_unfused=float(lu),
+         loss_fused=float(lf), grad_rel_l2_max=max(rel),
+         grad_rel_l2_wte=rel[0], steps=rows,
+         peak_saved_bytes=(rows["unfused"]["max_memory_allocated"]
+                           - rows["fused"]["max_memory_allocated"]),
+         bf16_logits_bytes=logits_bytes)
+    if not (abs(float(lf) - float(lu)) <= 1e-3 * abs(float(lu))
+            and max(rel) < 2e-2):
+        raise AssertionError(
+            f"fused CE {float(lf)} vs unfused {float(lu)}, gradient "
+            f"relative L2 differences up to {max(rel)}")
 
 
 def main() -> int:
@@ -1133,9 +1482,10 @@ def main() -> int:
             f"ptxas log, spilling: {spilled}"
         )
 
-    # 3. kernel at the listed shapes
+    # 3. kernel at the listed shapes; K3/K4 on two streams at once
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     kernel_phase(pk, dev, flush, args.seed)
+    streams_phase(pk, dev, args.seed)
 
     # 4. serving at full width: GPT-2 124M, bf16 activations, f32 params
     cfg = model_config("gpt2")
@@ -1194,6 +1544,14 @@ def main() -> int:
 
     # 10. train parity on the card (f32, flash kernels vs naive attention)
     train_parity_phase(tcfg_model, args.seed, dev)
+
+    # 11. the training entry point's loop, dropout and the fused head CE,
+    # all with the preset's dropout 0.1
+    with tempfile.TemporaryDirectory() as tmp:
+        train_loop_phase(fk, args.seed, tmp)
+    loop_cfg = cfg.replace(attention_impl="flash")
+    train_dropout_phase(loop_cfg, args.seed, dev)
+    train_fused_ce_phase(loop_cfg, args.seed, dev)
 
     inputs = dict(B=fq.shape[0], H=fq.shape[1], Hkv=fkk.shape[1],
                   T=fq.shape[2], D=fq.shape[3], causal=causal,

@@ -22,7 +22,7 @@ class ModelConfig:
     layer_norm_epsilon, *_pdrop)."""
 
     # "gpt2" (learned positions, LayerNorm, gelu MLP, tied head) or
-    # "llama" (RoPE, RMSNorm, SwiGLU, untied head). This slice serves gpt2.
+    # "llama" (RoPE, RMSNorm, SwiGLU, untied head; served, not yet trained).
     family: str = "gpt2"
 
     vocab_size: int = 50257
@@ -50,8 +50,9 @@ class ModelConfig:
     # Dtype the LM head emits (the head always accumulates in float32).
     logits_dtype: str = "float32"
 
-    # Training-path knobs, carried so a config round-trips between the two
-    # packages unchanged; the serving slice does not read them.
+    # Training-path knobs (fused_head_ce, remat and attention_impl are read
+    # by the training forward; the rest are carried so a config
+    # round-trips between the two packages unchanged).
     fused_head_ce: bool = False
     remat: str = "dots"
     scan_unroll: int = 1
@@ -152,11 +153,11 @@ _LLAMA_PRESETS: dict[str, dict[str, Any]] = {
 @dataclass(frozen=True)
 class TrainConfig:
     """Training config: the JAX package's ``config.TrainConfig`` field for
-    field, with the same defaults. The port's single-device step
-    (``train/trainer.make_train_step``) reads the optimizer, schedule and
-    accumulation fields; the checkpoint, preemption, logging and anomaly-
-    guard fields are carried so a config round-trips between the packages,
-    and ``make_train_step`` refuses ``anomaly_guard`` (not ported yet)."""
+    field, with the same defaults. The port's ``train/trainer`` reads the
+    optimizer, schedule, accumulation, seed, logging, checkpoint, metrics
+    and preemption fields; the anomaly-guard fields are carried so a
+    config round-trips between the packages, and the trainer refuses
+    ``anomaly_guard`` and ``async_checkpoint`` (not ported yet)."""
 
     global_batch_size: int = 32
     micro_batch_size: int = 8

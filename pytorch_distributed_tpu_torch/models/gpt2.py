@@ -19,9 +19,11 @@ H=n_head, D=head_dim):
 The LM head is tied to wte (no separate leaf). ``apply`` is the training
 forward: a Python loop over ``params["blocks"]``, each block wrapped by
 ``ops.remat.apply_remat(cfg.remat)``, attention through
-``ops.attention.multi_head_attention(impl=cfg.attention_impl)``. It is
-deterministic: dropout is not ported yet, and the trainer refuses a
-config with any ``*_pdrop > 0``.
+``ops.attention.multi_head_attention(impl=cfg.attention_impl)``. In
+training mode (``deterministic=False``) it draws the embedding, attention
+and residual dropout masks from stream ids (``utils/prng``) that mirror
+the JAX key chain: the embedding's, then per layer attention, residual
+after ``attn_proj``, residual after ``mlp_proj``.
 """
 
 from __future__ import annotations
@@ -34,8 +36,14 @@ import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch.config import ModelConfig
 from pytorch_distributed_tpu_torch.ops.attention import multi_head_attention
-from pytorch_distributed_tpu_torch.ops.layers import activation, dense, layer_norm
+from pytorch_distributed_tpu_torch.ops.layers import (
+    activation,
+    dense,
+    dropout,
+    layer_norm,
+)
 from pytorch_distributed_tpu_torch.ops.remat import apply_remat, checkpoint_name
+from pytorch_distributed_tpu_torch.utils import prng
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
@@ -94,46 +102,72 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     return params
 
 
-def _block(x: torch.Tensor, bp: Params, cfg: ModelConfig) -> torch.Tensor:
-    """Pre-norm residual block: x + attn(ln_1(x)); x + mlp(ln_2(x)). The
-    projections the ``names`` remat policy keeps are tagged as in the JAX
-    model (``qkv``, ``attn_proj``, ``mlp_fc``; the naive attention output
-    ``attn_out``); ``mlp_proj`` is not kept."""
+def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
+           key: prng.DropoutKey | None) -> torch.Tensor:
+    """Pre-norm residual block: x + drop(attn(ln_1(x))); x +
+    drop(mlp(ln_2(x))). ``key`` None: deterministic; else the masks of
+    ``layer`` derive from it. The projections the remat policies keep are
+    tagged as in the JAX model (``qkv``, ``attn_proj``, ``mlp_fc``,
+    ``mlp_proj``; the naive attention output ``attn_out``)."""
     eps = cfg.layer_norm_epsilon
+    det = key is None
+    sid = (lambda site: None) if det else (
+        lambda site: prng.stream_id(key, layer, site))
     b, t = x.shape[:2]
     a = layer_norm(x, bp["ln_1"], eps=eps)
     with checkpoint_name("qkv"):
         qkv = dense(a, bp["attn"]["c_attn"])  # [B, T, 3, H, D]
     q, k, v = qkv.unbind(2)
     a = multi_head_attention(
-        q, k, v, impl=cfg.attention_impl, causal=True, out_name="attn_out"
+        q, k, v, impl=cfg.attention_impl, causal=True,
+        dropout_rate=cfg.attn_pdrop, dropout_sid=sid("attn"),
+        deterministic=det, out_name="attn_out",
     ).reshape(b, t, -1)
     with checkpoint_name("attn_proj"):
         a = dense(a, bp["attn"]["c_proj"])
-    x = x + a
+    x = x + dropout(a, cfg.resid_pdrop, sid("resid_attn"), deterministic=det)
     m = layer_norm(x, bp["ln_2"], eps=eps)
     with checkpoint_name("mlp_fc"):
         m = dense(m, bp["mlp"]["c_fc"])
     m = activation(cfg.activation_function)(m)
-    m = dense(m, bp["mlp"]["c_proj"])
-    return x + m
+    with checkpoint_name("mlp_proj"):
+        m = dense(m, bp["mlp"]["c_proj"])
+    return x + dropout(m, cfg.resid_pdrop, sid("resid_mlp"), deterministic=det)
 
 
-def apply(params: Params, input_ids: torch.Tensor,
-          cfg: ModelConfig) -> torch.Tensor:
+def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
+          deterministic: bool = True,
+          dropout_seed: prng.DropoutKey | None = None,
+          return_hidden: bool = False) -> torch.Tensor:
     """Forward pass: [B, T] token ids -> [B, T, V] logits in
-    ``cfg.logits_dtype``: wte + wpe (cast to ``cfg.dtype``), n_layer
-    pre-norm blocks (each under ``cfg.remat``), ln_f, tied head."""
+    ``cfg.logits_dtype``: wte + wpe (cast to ``cfg.dtype``), embedding
+    dropout, n_layer pre-norm blocks (each under ``cfg.remat``), ln_f,
+    tied head. ``deterministic=False`` (training) draws the dropout masks
+    from ``dropout_seed`` and raises without one, as the JAX ``apply``
+    does without a key. ``return_hidden``: the final-norm hidden states
+    [B, T, E] in place of the logits (what ``ops/losses.
+    linear_cross_entropy`` consumes). Under ``torch.no_grad`` the blocks
+    run without checkpointing: there is no backward to recompute for."""
     if cfg.n_experts:
         raise NotImplementedError("MoE GPT-2 is not ported yet")
+    if not deterministic and dropout_seed is None:
+        raise ValueError("training-mode apply() requires dropout_seed")
+    key = None if deterministic else prng.DropoutKey(*dropout_seed)
     t = input_ids.shape[1]
     if t > cfg.n_ctx:
         raise ValueError(f"sequence length {t} exceeds n_ctx {cfg.n_ctx}")
     x = F.embedding(input_ids, params["wte"]) + params["wpe"][:t]
     x = x.to(_dtype(cfg.dtype))
-    block = apply_remat(functools.partial(_block, cfg=cfg), cfg.remat)
-    for bp in params["blocks"]:
-        x = block(x, bp)
+    if key is not None:
+        x = dropout(x, cfg.embd_pdrop,
+                    prng.stream_id(key, prng.EMBD_LAYER, "embd"),
+                    deterministic=False)
+    remat = cfg.remat if torch.is_grad_enabled() else "none"
+    block = apply_remat(functools.partial(_block, cfg=cfg, key=key), remat)
+    for layer, bp in enumerate(params["blocks"]):
+        x = block(x, bp, layer)
+    if return_hidden:
+        return final_norm(params, x, cfg)
     return head(params, x, cfg)
 
 

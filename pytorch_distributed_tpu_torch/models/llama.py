@@ -80,7 +80,8 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
-def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig):
+def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
+          **kwargs):
     raise NotImplementedError(
         "llama training (models/llama.apply) is not ported yet; the llama "
         "family serves through models/decode.forward"

@@ -27,9 +27,9 @@ T == S self-attention, causal or not.
 - ``flash_mha(q, k, v, causal=True, scale=None) -> (o, lse)`` is the
   differentiable entry: a ``torch.autograd.Function`` whose gradient runs
   ``flash_backward``. ``lse`` is ``[B, H, T]`` f32 with no gradient (the
-  JAX package returns it under ``stop_gradient``). Under ``names`` remat
-  the op keeps both outputs (``ops/remat.keep``), so the backward never
-  re-runs K1.
+  JAX package returns it under ``stop_gradient``). Under ``names`` and
+  ``flash`` remat the op keeps both outputs (``ops/remat.keep``), so the
+  backward never re-runs K1.
 - ``launches`` counts kernel launches and ``plain_calls`` the plain
   versions' calls made by the wrappers on CPU tensors, per direction
   ("forward", "backward"), so a run can show that its steps went through
@@ -290,8 +290,9 @@ def flash_backward(q, k, v, o, lse, do, causal: bool = True,
 
 
 class _FlashMHA(torch.autograd.Function):
-    """K1 forward, K2 backward; under ``names`` remat the forward's (o, lse)
-    are kept and K1 does not run again in the recompute."""
+    """K1 forward, K2 backward; under ``names`` and ``flash`` remat the
+    forward's (o, lse) are kept and K1 does not run again in the
+    recompute."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):

@@ -16,6 +16,9 @@ Conventions shared with the JAX package's ``ops/layers.py``:
 - A quantized kernel (``ops/quant.quantize_weight``: int8 values and a
   per-output-channel f32 scale) goes through ``ops/quant.qdot``, as the
   JAX package's ``dense`` delegates to its ``qdot``.
+- ``dropout`` draws its mask through ``utils/prng.draw_keep_mask`` from a
+  stream id, where the JAX package's draws ``jax.random.bernoulli`` from a
+  key.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch.ops.quant import is_quantized, qdot
 from pytorch_distributed_tpu_torch.ops.remat import product
+from pytorch_distributed_tpu_torch.utils import prng
 
 
 def dense(x: torch.Tensor, params: dict) -> torch.Tensor:
@@ -60,6 +64,27 @@ def rms_norm(x: torch.Tensor, params: dict, *, eps: float) -> torch.Tensor:
     var = x32.square().mean(dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps) * params["scale"].float()
     return y.to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, sid: prng.StreamId | None, *,
+            deterministic: bool) -> torch.Tensor:
+    """``where(mask, x / keep, 0)`` in x's dtype, keep = 1 - rate, the mask
+    ``prng.draw_keep_mask(sid, ...)``; identity when ``deterministic`` or
+    ``rate == 0``. As in the JAX package, ``keep`` is first rounded to x's
+    dtype (a Python float meets a bf16 array as bf16), and the quotient is
+    rounded to x's dtype once. ``keep`` is a 0-dim tensor filled on x's
+    device (``torch.tensor`` would copy it from the host: a sync per mask),
+    so it also divides elementwise (PyTorch's CUDA division by a host
+    scalar multiplies by its reciprocal)."""
+    if deterministic or rate == 0.0:
+        return x
+    if sid is None:
+        raise ValueError("dropout requires a stream id when not deterministic")
+    keep = 1.0 - rate
+    mask = prng.draw_keep_mask(sid, x.shape, keep, x.device)
+    scaled = x / torch.full((), keep, dtype=x.dtype, device=x.device)
+    return torch.where(mask, scaled, torch.zeros((), dtype=x.dtype,
+                                                 device=x.device))
 
 
 _ACTIVATIONS = {

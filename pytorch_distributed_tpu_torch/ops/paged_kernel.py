@@ -57,9 +57,15 @@ _GROUPS = (1, 2, 4, 8)
 CHUNK_K_BYTES = 16384
 _MAX_CHUNK_PAGES = 64
 
-# One workspace per device, grown on demand and reused by every launch on
-# the stream: f32 partials and int32 counters that the kernel leaves at 0.
-_workspaces: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+# One workspace per (device, stream), grown on demand: f32 partials and
+# int32 counters that the kernel leaves at 0. Launches on one stream run in
+# order and share their stream's workspace; launches on two streams of one
+# card may run at once, so each stream has its own. A workspace is
+# allocated (and regrown) while its stream is current, so the caching
+# allocator hands a freed one out again only in that stream's order. The
+# key's stream is the raw ``cuda_stream`` handle (None on the CPU).
+_workspaces: dict[tuple[torch.device, int | None],
+                  tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor):
@@ -191,17 +197,20 @@ def paged_decode_attention_split_reference(q, k_pages, v_pages,
 
 def _workspace(device: torch.device, n_floats: int,
                n_counters: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The device's kernel workspace, grown to at least ``n_floats`` f32
-    partials and ``n_counters`` int32 counters (a grown counter array
-    starts zeroed; the kernel leaves every counter at 0)."""
-    work, counters = _workspaces.get(device, (None, None))
+    """The workspace of ``device``'s current stream, grown to at least
+    ``n_floats`` f32 partials and ``n_counters`` int32 counters (a grown
+    counter array starts zeroed; the kernel leaves every counter at 0)."""
+    stream = (torch.cuda.current_stream(device).cuda_stream
+              if device.type == "cuda" else None)
+    key = (device, stream)
+    work, counters = _workspaces.get(key, (None, None))
     if work is None or work.numel() < n_floats:
         work = torch.empty(max(n_floats, 1), dtype=torch.float32,
                            device=device)
     if counters is None or counters.numel() < n_counters:
         counters = torch.zeros(max(n_counters, 1), dtype=torch.int32,
                                device=device)
-    _workspaces[device] = (work, counters)
+    _workspaces[key] = (work, counters)
     return work, counters
 
 
@@ -309,9 +318,10 @@ def paged_decode_attention(
     kernel.
 
     On CUDA the kernel splits each row into ``_split_plan`` chunks and
-    combines them in the same launch through the device's workspace
-    (``_workspace``): one launch, nothing allocated but the output once
-    the workspace has grown to the largest batch seen."""
+    combines them in the same launch through the workspace of the current
+    stream (``_workspace``): one launch, nothing allocated but the output
+    once the workspace has grown to the largest batch seen on that
+    stream."""
     global launches, launches_q8
     _check(q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales)
     q8 = k_scales is not None

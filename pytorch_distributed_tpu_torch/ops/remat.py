@@ -1,40 +1,55 @@
 """Selective activation checkpointing per transformer block.
 
 The port of the JAX package's ``ops/remat.py`` on
-``torch.utils.checkpoint.checkpoint(use_reentrant=False)``:
+``torch.utils.checkpoint.checkpoint(use_reentrant=False)``. Each mode keeps
+what the JAX policy of that name saves for one block, found with
+``jax.ad_checkpoint`` on the JAX block (``tests/test_torch_remat_modes.py``
+holds the two to the same set), and recomputes the rest in backward:
 
 - ``"none"``: no checkpointing; every activation autograd needs is kept.
 - ``"full"``: keep only the block's input; the whole block, flash forward
   (K1) included, runs again in backward.
 - ``"names"``: keep the tagged products (``SAVED_ACTIVATION_NAMES``:
   ``qkv``, ``attn_proj``, ``mlp_fc`` in GPT-2 — never ``mlp_proj``; the
-  naive attention's ``attn_out``) and both outputs of the flash forward,
-  and recompute the rest (layer norms, gelu, bias adds, the head split) in
-  backward. With (o, lse) kept, backward never re-runs K1, as the JAX
+  naive attention's ``attn_out``) and both outputs of the flash forward.
+  With (o, lse) kept, backward never re-runs K1, as the JAX
   ``_flash_call_policy`` arranges.
+- ``"dots"`` (``checkpoint_dots``): keep every product — the projections
+  and, on the naive path, the f32 score product and the weights-times-
+  values product — but not the flash op, which is no dot to JAX: backward
+  re-runs K1.
+- ``"dots_no_batch"`` (``checkpoint_dots_with_no_batch_dims``): keep the
+  products with no batch dimension in ``dot_general``'s sense — the dense
+  projections; the attention products batch over (b, h).
+- ``"flash"``: keep only the flash op's (o, lse); with naive attention,
+  nothing.
 
-How ``names`` picks out what it keeps. PyTorch has no ``checkpoint_name``.
+No mode keeps ``mlp_proj``: its value feeds only the dropout and the
+residual add, whose backward needs no value, so JAX's partial evaluation
+never saves it, whatever the policy.
+
+How a mode picks out what it keeps. PyTorch has no ``checkpoint_name``.
 The model wraps each tagged product in ``with checkpoint_name("qkv"):``,
 which sets a module-level tag for that Python block; the product goes
 through ``product(a, b)``, and the flash forward op through ``keep``.
 ``checkpoint`` takes a ``context_fn`` giving one context for the block's
-forward and one for its recompute in backward; under ``names`` these share
-one ``_Kept`` list. In the forward, ``keep`` runs its computation and
-appends the result; in the recompute it returns the kept results in the
-same order instead of computing them again. The recompute still builds
-the same autograd nodes (``_KeptProduct`` saves its inputs in both
-passes), so checkpointing finds the same saved tensors in the same order.
-The tag and the active list are plain globals, not thread-locals, because
-the recompute runs on the autograd engine's thread.
+forward and one for its recompute in backward; under every mode but
+``none`` and ``full`` these share one ``_Kept`` list. In the forward,
+``keep`` runs its computation and, where the mode keeps it, appends the
+result; in the recompute it returns the kept results in the same order
+instead of computing them again. The recompute still builds the same
+autograd nodes (``_KeptProduct`` saves its inputs in both passes), so
+checkpointing finds the same saved tensors in the same order. The tag and
+the active list are plain globals, not thread-locals, because the
+recompute runs on the autograd engine's thread.
 
 This takes the place of PyTorch's selective-checkpoint contexts
 (``create_selective_checkpoint_contexts``), which decide per ATen op from
 inside a Python dispatch mode: on an H100 that mode took 54 ms of host
 time over two GPT-2 124M training steps, in a step whose pace the host
-already sets (PERF.md). The blocks draw no random numbers (dropout is not
-ported), so checkpointing does not save and restore RNG states.
-The JAX modes ``dots``, ``dots_no_batch`` and ``flash`` are not ported yet
-and raise.
+already sets (PERF.md). Dropout masks are drawn from stream ids
+(``utils/prng``), a pure function of the id, so the recompute draws the
+same masks and checkpointing neither saves nor restores RNG states.
 """
 
 from __future__ import annotations
@@ -51,15 +66,33 @@ SAVED_ACTIVATION_NAMES = (
     "qkv", "q", "k", "v", "attn_out", "attn_proj", "mlp_fc", "mlp_gate",
     "mlp_up",
 )
-_UNPORTED = ("dots", "dots_no_batch", "flash")
+MODES = ("none", "full", "dots", "dots_no_batch", "names", "flash")
+# Products whose value no backward needs: no mode keeps them (see above).
+_NEVER_KEPT = ("mlp_proj",)
+
+
+def _keeps(mode: str, name: str | None, batched: bool | None) -> bool:
+    """Whether ``mode`` keeps a value: the flash op's (``name`` "flash",
+    ``batched`` None) or a product tagged ``name`` (None: untagged) that
+    has batch dimensions or not."""
+    if name == "flash":
+        return mode in ("names", "flash")
+    if mode == "names":
+        return name in SAVED_ACTIVATION_NAMES
+    if name in _NEVER_KEPT:
+        return False
+    return mode == "dots" or (mode == "dots_no_batch" and not batched)
 
 
 class _Kept:
-    """What one checkpointed block call keeps under ``names``: results in
-    forward order, and the recompute's read position."""
+    """What one checkpointed block call keeps: results in forward order,
+    their tags (``labels``: the product's tag or "flash"), and the
+    recompute's read position."""
 
     def __init__(self):
+        self.mode = "names"
         self.values: list = []
+        self.labels: list = []
         self.next = 0
 
 
@@ -92,8 +125,9 @@ def _using(kept: _Kept, replay: bool):
         _kept, _replaying = outer
 
 
-def _names_contexts():
+def _kept_contexts(mode: str):
     kept = _Kept()
+    kept.mode = mode
     return _using(kept, False), _using(kept, True)
 
 
@@ -103,11 +137,12 @@ def _detached(out):
     return out.detach()
 
 
-def keep(compute):
-    """``compute()`` — except inside a ``names`` block's recompute, which
-    gets back what the block's forward computed here (tensor or tuple of
-    tensors), in call order, without computing it again."""
-    if _kept is None:
+def keep(compute, name: str = "flash", batched: bool | None = None):
+    """``compute()`` — except inside the recompute of a block whose mode
+    keeps this value (``_keeps``), which gets back what the block's
+    forward computed here (tensor or tuple of tensors), in call order,
+    without computing it again."""
+    if _kept is None or not _keeps(_kept.mode, name, batched):
         return compute()
     if _replaying:
         out = _kept.values[_kept.next]
@@ -115,6 +150,7 @@ def keep(compute):
         return _detached(out)
     out = compute()
     _kept.values.append(_detached(out))
+    _kept.labels.append(name)
     return out
 
 
@@ -122,9 +158,9 @@ class _KeptProduct(torch.autograd.Function):
     """a @ b whose result ``keep`` holds; saves a and b in both passes."""
 
     @staticmethod
-    def forward(ctx, a, b):
+    def forward(ctx, a, b, name):
         ctx.save_for_backward(a, b)
-        return keep(lambda: a @ b)
+        return keep(lambda: a @ b, name, b.dim() > 2)
 
     @staticmethod
     def backward(ctx, g):
@@ -134,36 +170,29 @@ class _KeptProduct(torch.autograd.Function):
             gb = a.reshape(-1, a.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
         else:
             gb = a.transpose(-1, -2) @ g
-        return ga, gb
+        return ga, gb, None
 
 
 def product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b``, kept by a ``names`` block when computed under one of
-    ``SAVED_ACTIVATION_NAMES``."""
-    if _kept is None or _tag not in SAVED_ACTIVATION_NAMES:
+    """``a @ b`` (b [K, N]: no batch dimension; b [..., K, N] batched),
+    kept by a checkpointed block whose mode keeps a product of this tag
+    (the enclosing ``checkpoint_name``) and kind."""
+    if _kept is None or not _keeps(_kept.mode, _tag, b.dim() > 2):
         return a @ b
-    return _KeptProduct.apply(a, b)
+    return _KeptProduct.apply(a, b, _tag)
 
 
 def apply_remat(fn, mode: str):
-    """Wrap ``fn`` (a block: tensors in, tensor out) per ``mode``: "none",
-    "full" or "names"."""
+    """Wrap ``fn`` (a block: tensors in, tensor out) per ``mode``, one of
+    ``MODES``."""
     if mode == "none":
         return fn
-    if mode in _UNPORTED:
-        raise NotImplementedError(
-            f"remat mode {mode!r} is not ported yet (ported: none, full, "
-            f"names)"
-        )
-    if mode == "full":
-        kw = {}
-    elif mode == "names":
-        kw = {"context_fn": _names_contexts}
-    else:
+    if mode not in MODES:
         raise KeyError(
-            f"unknown remat mode {mode!r}; known: none, full, names, "
-            f"{', '.join(_UNPORTED)}"
+            f"unknown remat mode {mode!r}; known: {', '.join(MODES)}"
         )
+    kw = ({} if mode == "full"
+          else {"context_fn": functools.partial(_kept_contexts, mode)})
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):

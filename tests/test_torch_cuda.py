@@ -321,12 +321,46 @@ def test_paged_kernel_counters_stay_zero(cuda):
                      for i, a in enumerate(args))
         out = pk.paged_decode_attention(*args)
         torch.cuda.synchronize()
-        counters = pk._workspaces[args[0].device][1]
+        stream = torch.cuda.current_stream(cuda).cuda_stream
+        counters = pk._workspaces[(args[0].device, stream)][1]
         assert counters.numel() >= args[0].shape[0] * 2
         assert not bool(counters.any())
         torch.testing.assert_close(
             out.float(), pk.paged_decode_attention_reference(*args).float(),
             atol=3e-3, rtol=1e-2)
+
+
+def test_paged_kernels_on_two_streams_match_serial_launches(cuda):
+    """K3 and K4 launched concurrently on two non-default streams, each
+    stream with inputs of its own, many times: every output is bit-equal
+    to a serial launch of the same inputs on one stream, and every counter
+    of every workspace is back at 0. Both streams wait on one event that
+    a third stream records after a 20 ms spin, so all their launches are
+    queued before the first runs and the two streams' kernels overlap."""
+    rounds = 25
+    inputs = [[_edge_case(cuda, 8, 2, 64, torch.bfloat16, q8, seed=seed)
+               for q8 in (False, True)] for seed in (1, 2)]
+    want = [[pk.paged_decode_attention(*a) for a in pair] for pair in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda) for _ in inputs]
+    gate, spinner = torch.cuda.Event(), torch.cuda.Stream(cuda)
+    with torch.cuda.stream(spinner):
+        torch.cuda._sleep(50_000_000)  # ~20-30 ms at H100 clocks
+        gate.record(spinner)
+    got = []
+    for stream, pair in zip(streams, inputs):
+        stream.wait_event(gate)
+        with torch.cuda.stream(stream):
+            got.append([[pk.paged_decode_attention(*a) for a in pair]
+                        for _ in range(rounds)])
+    torch.cuda.synchronize()
+    for s, per_stream in enumerate(got):
+        for r, outs in enumerate(per_stream):
+            for kind, (out, ref) in enumerate(zip(outs, want[s])):
+                assert torch.equal(out, ref), (s, r, ("K3", "K4")[kind])
+    counters = [c for _, c in pk._workspaces.values()]
+    assert not any(bool(c.any()) for c in counters)
+    assert len(counters) >= 3  # the default stream's and one per stream
 
 
 @pytest.mark.parametrize("q8", [False, True], ids=["K3", "K4"])
@@ -535,3 +569,78 @@ def test_flash_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous head dim"):
         fk.flash_forward(q.transpose(2, 3), k.transpose(2, 3),
                          v.transpose(2, 3))
+
+
+@pytest.mark.parametrize("impl, attn_pdrop", [("naive", 0.1), ("flash", 0.0),
+                                              ("flash", 0.1)])
+def test_dropout_masks_are_redrawn_bit_for_bit_on_recompute(
+        cuda, monkeypatch, impl, attn_pdrop):
+    """A training-mode GPT-2 forward and backward on the card under every
+    remat mode that recomputes: each block mask is drawn twice (forward and
+    recompute) with the same bits, the embedding mask once; the f32
+    gradients equal mode none's within 1e-5 (kernels and cuBLAS are the
+    same calls in both), and each mask keeps ~90 %."""
+    from pytorch_distributed_tpu_torch.utils import prng, tree
+
+    drawn = {}
+    draw = prng.draw_keep_mask
+
+    def record(sid, shape, keep, device):
+        m = draw(sid, shape, keep, device)
+        drawn.setdefault(sid, []).append(m.clone())
+        return m
+
+    monkeypatch.setattr(prng, "draw_keep_mask", record)
+
+    def grads(mode):
+        cfg = ModelConfig(vocab_size=512, n_ctx=128, n_embd=128, n_layer=2,
+                          n_head=2, dtype="float32", remat=mode,
+                          attention_impl=impl, attn_pdrop=attn_pdrop)
+        params = gpt2.init(torch.Generator().manual_seed(0), cfg,
+                           device=cuda)
+        leaves = [p.requires_grad_() for p in tree.leaves(params)]
+        ids = torch.randint(0, 512, (2, 128), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(1))
+        drawn.clear()
+        logits = gpt2.apply(params, ids, cfg, deterministic=False,
+                            dropout_seed=(3, 4, 0))
+        return torch.autograd.grad(logits.square().mean(), leaves)
+
+    ref = grads("none")
+    assert all(len(v) == 1 for v in drawn.values())
+    for mode in ("full", "dots", "dots_no_batch", "names", "flash"):
+        got = grads(mode)
+        for sid, masks in drawn.items():
+            assert len(masks) == (1 if sid.site == "embd" else 2), sid
+            assert torch.equal(masks[0], masks[-1]), (mode, sid)
+            assert abs(float(masks[0].float().mean()) - 0.9) < 0.01
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+def test_linear_cross_entropy_matches_the_unfused_loss_in_bf16(cuda):
+    """The fused head + CE at GPT-2's vocab (50257: 7 blocks, the last one
+    padded) against the bf16 head and ``cross_entropy_loss``: loss within
+    rtol 1e-3; dx and dW within 2e-2 of their norm (both sides round the
+    block logits to bf16, but the unfused dW is rounded to bf16 once more
+    and cuBLAS may sum the two in another order)."""
+    from pytorch_distributed_tpu_torch.ops import losses
+
+    g = torch.Generator(cuda).manual_seed(0)
+    n, e, v = 2048, 768, 50257
+    x = torch.randn(n, e, device=cuda, generator=g).to(torch.bfloat16)
+    w = torch.randn(v, e, device=cuda, generator=g) * 0.02
+    t = torch.randint(0, v, (n,), device=cuda, generator=g)
+    leaves = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+    fused = losses.linear_cross_entropy(*leaves, t,
+                                        logits_dtype="bfloat16")
+    g_fused = torch.autograd.grad(fused, leaves)
+    leaves2 = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+    unfused = losses.cross_entropy_loss(
+        leaves2[0] @ leaves2[1].to(torch.bfloat16).t(), t)
+    g_unfused = torch.autograd.grad(unfused, leaves2)
+    torch.testing.assert_close(fused, unfused, atol=0.0, rtol=1e-3)
+    for a, b in zip(g_fused, g_unfused):
+        assert a.dtype == b.dtype
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        assert rel < 2e-2, rel

@@ -157,7 +157,7 @@ def test_split_mirror_single_row_at_any_table_width():
 
 def test_workspace_grows_and_starts_with_zeroed_counters():
     dev = torch.device("cpu")
-    tk._workspaces.pop(dev, None)
+    tk._workspaces.pop((dev, None), None)
     try:
         work, counters = tk._workspace(dev, 100, 8)
         assert work.numel() == 100 and work.dtype == torch.float32
@@ -169,4 +169,4 @@ def test_workspace_grows_and_starts_with_zeroed_counters():
         assert not bigger[1].any()
         assert tk._workspace(dev, 10, 2)[0] is bigger[0]
     finally:
-        tk._workspaces.pop(dev, None)
+        tk._workspaces.pop((dev, None), None)
