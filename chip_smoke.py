@@ -89,8 +89,28 @@ with no final line):
    under all six remat modes; train_fused_ce — ``fused_head_ce`` against
    the unfused step (loss, gradients, ms/step, peak memory, a profile of
    each).
-12. The kernels line (K3, K4, K1, K2), then ``{"ok": true, "device":
-    {...}}`` last.
+12. Llama-3.2-1B training at full width (16 layers, E 2048, 32 heads over
+   8 KV heads, F 8192, vocab 128256, untied head; weights drawn on the
+   card from ``--seed``): train_llama — bench_suite row 6 (B=1, T=4096,
+   bf16 activations and params, flash, names, fused head CE, bf16
+   logits), 2 warmup and 5 timed steps (ms/step, tok/s, MFU, peak memory,
+   K1 == K2 == 16 per step, the loss falls; a one-step profile);
+   train_llama_long — row 7 (T=8192, flash remat), 3 timed steps;
+   train_llama_loop — the entry point ``--preset llama3-1b`` at its
+   defaults for 4 steps (A = 4 x [8, 1024], f32 params, f32 logits
+   through the unfused head; the f32 GEMMs' share of device time in its
+   profile); train_llama_remat — every remat mode at 4 layers, T=4096
+   (K1 4 or 8 per step, K2 4; f32 gradients equal to mode none's; f32
+   flash vs naive: train_llama_parity); train_moe — GPT-2 124M with 8
+   experts, top-2, B=8, T=1024, and the Llama width at 4 layers with 8
+   SwiGLU experts, top-2, B=1, T=4096 (ms/step, peak memory, dropped
+   share, two runs of a step bit-equal), and sort vs einsum dispatch on
+   the card (train_moe_dispatch). The flash phase adds flash_long: K1/K2
+   at the llama shapes T=4096 and T=8192 (bf16, plain versions run by KV
+   head).
+13. The kernels line (K3, K4, K1, K2; K1/K2 with their launches per step
+    and times on the llama paths), then ``{"ok": true, "device": {...}}``
+    last.
 """
 
 from __future__ import annotations
@@ -542,9 +562,12 @@ def device_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0))
 
 
-def profile_summary(prof, wall_ms: float) -> dict:
+def profile_summary(prof, wall_ms: float,
+                    share_of: str | None = None) -> dict:
     """Device busy share of the window, the kernels by device time and the
-    host ops by self CPU time, from a finished ``torch.profiler`` run."""
+    host ops by self CPU time, from a finished ``torch.profiler`` run;
+    with ``share_of``, the share of the device time spent in kernels whose
+    name matches that regex, and their names."""
     from torch.autograd import DeviceType
 
     events = prof.key_averages()
@@ -558,7 +581,16 @@ def profile_summary(prof, wall_ms: float) -> dict:
     )
     device_ms = sum(device_us(e) for e in kernels) / 1e3
     host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)
-    return dict(
+    matched = {}
+    if share_of:
+        matched = [e for e in kernels if re.search(share_of, e.key)]
+        matched = dict(
+            matched_regex=share_of,
+            matched_device_ms=sum(device_us(e) for e in matched) / 1e3,
+            matched_share=(sum(device_us(e) for e in matched) / 1e3
+                           / device_ms) if device_ms else None,
+            matched_kernels=sorted({e.key[:100] for e in matched}))
+    return dict(**matched,
         wall_ms=wall_ms, device_busy_ms=device_ms,
         device_idle_share=(1 - device_ms / wall_ms) if device_ms else None,
         kernels=[dict(name=e.key[:80], calls=e.count,
@@ -785,21 +817,50 @@ def flash_bound(q, k, causal: bool, backward: bool) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def check_flash(fk, q, k, v, do, causal, what) -> dict:
+def _head_chunks(q, k, chunks: int):
+    """``chunks`` slices of the KV heads, each with its query-head group:
+    (query-head slice, KV-head slice) pairs."""
+    hk = k.shape[1] // chunks
+    g = q.shape[1] // k.shape[1]
+    return [(slice(i * hk * g, (i + 1) * hk * g), slice(i * hk, (i + 1) * hk))
+            for i in range(chunks)]
+
+
+def plain_forward(fk, q, k, v, causal, chunks: int = 1):
+    """The plain version of K1, run on ``chunks`` groups of heads one after
+    another (the f32 scores of all 32 heads at T=8192 would take 8.6 GB
+    per tensor) and joined: the same values as one call."""
+    parts = [fk.flash_forward_reference(q[:, hq], k[:, hk], v[:, hk], causal)
+             for hq, hk in _head_chunks(q, k, chunks)]
+    return torch.cat([o for o, _ in parts], 1), torch.cat(
+        [lse for _, lse in parts], 1)
+
+
+def plain_backward(fk, q, k, v, o, lse, do, causal, chunks: int = 1):
+    """The plain version of K2 by groups of heads, as ``plain_forward``."""
+    parts = [fk.flash_backward_reference(q[:, hq], k[:, hk], v[:, hk],
+                                         o[:, hq], lse[:, hq], do[:, hq],
+                                         causal)
+             for hq, hk in _head_chunks(q, k, chunks)]
+    return tuple(torch.cat(x, 1) for x in zip(*parts))
+
+
+def check_flash(fk, q, k, v, do, causal, what, chunks: int = 1) -> dict:
     """K1 and K2 once each on the inputs against their plain versions
     (``FLASH_TOLERANCES``; bf16 also against the plain versions in f32 on
-    the same values). Returns the largest differences per kernel."""
+    the same values), the plain versions run on ``chunks`` groups of heads
+    (``plain_forward``). Returns the largest differences per kernel."""
     tol = FLASH_TOLERANCES[q.dtype]
     o, lse = fk.flash_forward(q, k, v, causal)
     grads = fk.flash_backward(q, k, v, o, lse, do, causal)
     torch.cuda.synchronize()
-    o_ref, lse_ref = fk.flash_forward_reference(q, k, v, causal)
+    o_ref, lse_ref = plain_forward(fk, q, k, v, causal, chunks)
     k1 = dict(max_abs_err=check_close(o, o_ref, what=f"{what} K1 o",
                                       **tol["fwd"]),
               lse_max_abs_err=check_close(lse, lse_ref, what=f"{what} K1 lse",
                                           **LSE_TOL),
               **tol["fwd"])
-    refs = fk.flash_backward_reference(q, k, v, o, lse, do, causal)
+    refs = plain_backward(fk, q, k, v, o, lse, do, causal, chunks)
     k2 = dict(max_abs_err=max(
         check_close(g, r, what=f"{what} K2 {n}", **tol["bwd"])
         for n, g, r in zip(("dq", "dk", "dv"), grads, refs)
@@ -807,12 +868,13 @@ def check_flash(fk, q, k, v, do, causal, what) -> dict:
     del o_ref, refs
     if q.dtype == torch.bfloat16:
         f = [x.float() for x in (q, k, v)]
-        o32, _ = fk.flash_forward_reference(*f, causal)
+        o32, _ = plain_forward(fk, *f, causal, chunks)
         k1["max_abs_err_vs_f32_plain"] = check_close(
             o, o32, what=f"{what} K1 vs f32 plain", **flash_fwd_bf16_vs_f32(v)
         )
-        refs32 = fk.flash_backward_reference(*f, o.float(), lse, do.float(),
-                                             causal)
+        del o32
+        refs32 = plain_backward(fk, *f, o.float(), lse, do.float(), causal,
+                                chunks)
         k2["max_abs_err_vs_f32_plain"] = max(
             check_close(g, r, what=f"{what} K2 {n} vs f32 plain",
                         **FLASH_BF16_VS_F32["bwd"])
@@ -857,7 +919,7 @@ def sdpa_backend(q, k, v, causal: bool, gqa: bool) -> str:
     return SDPBackend(choice).name
 
 
-def time_flash(fk, q, k, v, do, causal, flush) -> dict:
+def time_flash(fk, q, k, v, do, causal, flush, chunks: int = 1) -> dict:
     """Kernel, plain-version and library times of K1 and K2 on the inputs
     (ms, CUDA events, L2 flushed before each launch). The library call is
     ``scaled_dot_product_attention`` (forward; its backward through
@@ -884,7 +946,7 @@ def time_flash(fk, q, k, v, do, causal, flush) -> dict:
         K1=dict(
             ms=time_ms(lambda: fk.flash_forward(q, k, v, causal), flush),
             plain_ms=time_ms(
-                lambda: fk.flash_forward_reference(q, k, v, causal), flush,
+                lambda: plain_forward(fk, q, k, v, causal, chunks), flush,
                 n=5),
             library_ms=time_ms(lib_fwd, flush),
             kernels_ms=device_kernels(
@@ -895,8 +957,8 @@ def time_flash(fk, q, k, v, do, causal, flush) -> dict:
         K2=dict(
             ms=time_ms(lambda: fk.flash_backward(q, k, v, o, lse, do, causal),
                        flush),
-            plain_ms=time_ms(lambda: fk.flash_backward_reference(
-                q, k, v, o, lse, do, causal), flush, n=5),
+            plain_ms=time_ms(lambda: plain_backward(
+                fk, q, k, v, o, lse, do, causal, chunks), flush, n=5),
             library_ms=time_ms(lib_bwd, flush),
             kernels_ms=device_kernels(
                 lambda: fk.flash_backward(q, k, v, o, lse, do, causal)),
@@ -930,22 +992,26 @@ def flash_phase(fk, dev, flush, seed) -> None:
                  **{kn: {**checked[kn], **timed[kn]} for kn in ("K1", "K2")})
 
 
-def train_setup(cfg, tcfg, b, t, seed, dev):
-    """Params from ``--seed`` (``gpt2.init``), the optimizer, the train
-    state and step, and one fixed batch of random token ids."""
-    from pytorch_distributed_tpu_torch.models import get_model, gpt2
+def train_setup(cfg, tcfg, b, t, seed, dev, draw_on="cpu"):
+    """Params from ``--seed`` (the family's ``init``, drawn by a generator
+    on ``draw_on``: the host for GPT-2, the card for a Llama-3.2-1B
+    width), the optimizer, the train state and step, and one fixed batch
+    of random token ids."""
+    from pytorch_distributed_tpu_torch.models import get_model
     from pytorch_distributed_tpu_torch.train.optim import make_optimizer
     from pytorch_distributed_tpu_torch.train.state import init_train_state
     from pytorch_distributed_tpu_torch.train.trainer import make_train_step
 
-    params = gpt2.init(torch.Generator().manual_seed(seed), cfg)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=draw_on).manual_seed(seed),
+                        cfg, device=dev)
     tx = make_optimizer(tcfg)
     g = torch.Generator(device=dev).manual_seed(seed)
     batch = {key: torch.randint(0, cfg.vocab_size, (1, b, t), generator=g,
                                 device=dev)
              for key in ("inputs", "targets")}
     return (init_train_state(params, tx),
-            make_train_step(get_model(cfg), cfg, tx), batch)
+            make_train_step(model, cfg, tx, seed=seed), batch)
 
 
 def train_phase(fk, cfg, seed, dev, warmup=3, windows=3, window_steps=10):
@@ -1075,7 +1141,8 @@ def train_remat_phase(fk, cfg, seed, dev, warmup=2, steps=10) -> None:
         del state, step, batch
 
 
-def train_parity_phase(cfg, seed, dev) -> None:
+def train_parity_phase(cfg, seed, dev, b=2, t=1024, draw_on="cpu",
+                       phase="train_parity") -> None:
     """One f32 step at full width (B=2, T=1024) with the flash kernels and
     with naive attention, from the same weights and batch. Loss within rtol
     1e-5 and grad_norm within rtol 1e-4 (summation order). Adam's first
@@ -1090,8 +1157,8 @@ def train_parity_phase(cfg, seed, dev) -> None:
     out = {}
     for impl in ("flash", "naive"):
         c = cfg.replace(dtype="float32", logits_dtype="float32",
-                        attention_impl=impl)
-        state, step, batch = train_setup(c, tcfg, 2, 1024, seed, dev)
+                        param_dtype="float32", attention_impl=impl)
+        state, step, batch = train_setup(c, tcfg, b, t, seed, dev, draw_on)
         state, m = step(state, batch)
         out[impl] = (float(m["loss"]), float(m["grad_norm"]),
                      tree.leaves(state.params))
@@ -1103,7 +1170,7 @@ def train_parity_phase(cfg, seed, dev) -> None:
                params_max_abs_diff=float(diffs.max()),
                params_share_above_1e_6=float((diffs > 1e-6).float().mean()),
                n_params=diffs.numel())
-    emit(phase="train_parity", **res)
+    emit(phase=phase, B=b, T=t, **res)
     if not (abs(lf - ln) <= 1e-5 * abs(ln) and abs(gf - gn) <= 1e-4 * gn
             and res["params_max_abs_diff"] <= 2 * lr + 1e-6
             and res["params_share_above_1e_6"] <= 1e-4):
@@ -1111,7 +1178,12 @@ def train_parity_phase(cfg, seed, dev) -> None:
 
 
 def train_profile_phase(run, n_steps: int = 2,
-                        phase: str = "train_profile") -> None:
+                        phase: str = "train_profile",
+                        share_of: str | None = None) -> dict:
+    """``torch.profiler`` over ``n_steps`` steps of ``run`` (its step,
+    state and batch), then one step in CUDA's sync debug mode: the host
+    syncs a step makes. ``share_of``: a regex of kernel names whose share
+    of the device time is reported (``matched_share``)."""
     from torch.profiler import ProfilerActivity, profile
 
     step, state, batch = run["step"], run["state"], run["batch"]
@@ -1137,9 +1209,11 @@ def train_profile_phase(run, n_steps: int = 2,
     torch.cuda.synchronize()
     syncs = [str(w.message).splitlines()[0][:120] for w in caught
              if "prototype feature" not in str(w.message)]
+    summary = profile_summary(prof, wall_ms, share_of)
     emit(phase=phase, steps=n_steps,
          host_syncs_per_step=len(syncs), host_sync_kinds=sorted(set(syncs)),
-         **profile_summary(prof, wall_ms))
+         **summary)
+    return summary
 
 
 def train_loop_phase(fk, seed, tmp) -> None:
@@ -1256,8 +1330,9 @@ def train_loop_phase(fk, seed, tmp) -> None:
 
 
 def _dropout_grads(cfg, params, batch, key):
-    """Loss and gradients of one training-mode forward (``key`` the
-    dropout stream) with a fresh copy of ``params``' leaves."""
+    """Loss and gradients of one forward (training mode with ``key`` the
+    dropout stream; ``key`` None: deterministic) with a fresh copy of
+    ``params``' leaves."""
     from pytorch_distributed_tpu_torch.models import get_model
     from pytorch_distributed_tpu_torch.train.trainer import _loss
     from pytorch_distributed_tpu_torch.utils import tree
@@ -1266,7 +1341,7 @@ def _dropout_grads(cfg, params, batch, key):
               for p in tree.leaves(params)]
     loss = _loss(get_model(cfg), cfg, tree.unflatten(params, leaves),
                  batch["inputs"][0], batch["targets"][0],
-                 deterministic=False, key=key)
+                 deterministic=key is None, key=key)
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
@@ -1428,6 +1503,372 @@ def train_fused_ce_phase(cfg, seed, dev, warmup=2, steps=5) -> None:
             f"fused CE {float(lf)} vs unfused {float(lu)}, gradient "
             f"relative L2 differences up to {max(rel)}")
 
+# The long-context Llama-3.2-1B shapes (GQA group 4, head_dim 64, causal,
+# bf16) the llama training phases give K1 and K2: bench_suite rows 6 and 7.
+LLAMA_FLASH_SHAPES = ((1, 32, 8, 4096, 64), (1, 32, 8, 8192, 64))
+
+
+def flash_long_phase(fk, dev, flush, seed) -> dict:
+    """K1 and K2 at ``LLAMA_FLASH_SHAPES`` in bf16 against their plain
+    versions (run by KV head: ``plain_forward``), with kernel, plain, bound
+    and SDPA (``enable_gqa``) times. Returns the timings by T."""
+    out = {}
+    for b, h, hkv, t, d in LLAMA_FLASH_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v, do = (
+            torch.randn(b, n, t, d, generator=g, device=dev).to(
+                torch.bfloat16) for n in (h, hkv, hkv, h)
+        )
+        checked = check_flash(fk, q, k, v, do, True, f"llama T={t} bf16",
+                              chunks=hkv)
+        timed = time_flash(fk, q, k, v, do, True, flush, chunks=hkv)
+        emit(phase="flash_long", shape=f"llama3.2-1B T={t}", B=b, H=h,
+             Hkv=hkv, T=t, D=d, causal=True, dtype="bfloat16",
+             **{kn: {**checked[kn], **timed[kn]} for kn in ("K1", "K2")})
+        out[t] = {kn: {key: timed[kn][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for kn in ("K1", "K2")}
+        del q, k, v, do
+    return out
+
+
+def llama_cfg(**kw):
+    """Llama-3.2-1B at full width (16 layers, E 2048, 32/8 heads, F 8192,
+    vocab 128256, untied head) as bench_suite rows 6 and 7 train it: bf16
+    activations and params, flash attention, the fused head cross-entropy
+    with bf16 logits; ``kw`` overrides."""
+    from pytorch_distributed_tpu_torch.config import model_config
+
+    return model_config("llama3-1b", **{**dict(
+        param_dtype="bfloat16", attention_impl="flash", remat="names",
+        fused_head_ce=True, logits_dtype="bfloat16"), **kw})
+
+
+def train_llama_phase(fk, cfg, seed, dev, *, b=1, t=4096, warmup=2,
+                      steps=5, phase="train_llama", at_init=None) -> dict:
+    """``steps`` timed steps after ``warmup`` of ``cfg`` on one fixed
+    [b, t] batch (weights drawn on the card from ``--seed``): ms/step,
+    tok/s, MFU (bench.py's 6N + 12LET flops per token over the bf16 peak,
+    N every parameter, embedding and untied head included), peak memory,
+    K1/K2 launches (counted from zero over the whole drive: K1
+    ``K1_PER_LAYER`` x n_layer x steps, K2 n_layer x steps); the loss must
+    fall. Then a one-step profile (device idle share, top kernels).
+    ``at_init(state, batch)``: a measurement of the initial state, returned
+    as ``at_init``."""
+    from pytorch_distributed_tpu_torch.config import TrainConfig
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    n = warmup + steps
+    tcfg = TrainConfig(global_batch_size=b, micro_batch_size=b, num_steps=n,
+                       learning_rate=3e-4)
+    state, step, batch = train_setup(cfg, tcfg, b, t, seed, dev,
+                                     draw_on=dev)
+    n_params = sum(p.numel() for p in tree.leaves(state.params))
+    flops_per_token = 6 * n_params + 12 * cfg.n_layer * cfg.n_embd * t
+    init = at_init(state, batch) if at_init else None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.launches.update(forward=0, backward=0)
+    losses = []
+    for _ in range(warmup):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, batch)
+    loss, grad_norm = float(m["loss"]), float(m["grad_norm"])
+    elapsed = time.perf_counter() - t0
+    launches = dict(fk.launches)
+    want = {"forward": cfg.n_layer * n * K1_PER_LAYER[cfg.remat],
+            "backward": cfg.n_layer * n}
+    tok_s = steps * b * t / elapsed
+    row = dict(B=b, T=t, n_layer=cfg.n_layer, remat=cfg.remat,
+               n_experts=cfg.n_experts, ms_per_step=elapsed / steps * 1e3,
+               tokens_per_s=tok_s,
+               mfu=tok_s * flops_per_token / BF16_OPS_PER_S,
+               n_params=n_params, flops_per_token=flops_per_token,
+               warmup_losses=losses, loss=loss, grad_norm=grad_norm,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               launches=launches, want_launches=want,
+               launches_per_step={k: v / n for k, v in launches.items()})
+    emit(phase=phase, **row)
+    if launches != want:
+        raise AssertionError(f"{phase}: flash launches {launches} != {want}")
+    if not (np.isfinite([*losses, loss]).all() and loss < losses[0]):
+        raise AssertionError(f"{phase}: the loss did not fall on the fixed "
+                             f"batch: {losses[0]} -> {loss}")
+    row["profile"] = train_profile_phase(
+        dict(step=step, state=state, batch=batch), n_steps=1,
+        phase=f"{phase}_profile")
+    return dict(row, step=step, state=state, batch=batch, at_init=init)
+
+
+# f32 GEMMs (cuBLAS names them sgemm or gemm_f32f32..., with TF32 off): in
+# the llama loop step only the unfused head multiplies in f32.
+F32_GEMM = r"(?i)sgemm|gemm_f32f32|f32f32_f32f32"
+
+
+def train_llama_loop_phase(fk, seed, tmp) -> dict:
+    """The entry point ``python -m pytorch_distributed_tpu_torch.train.
+    baseline --preset llama3-1b`` at its defaults (f32 params, bf16
+    activations, flash + names, f32 logits through the unfused head, A = 4
+    micro-batches of [8, 1024], synthetic shards), in process through the
+    functions its ``main`` uses, for 4 steps logged one by one: ms/step
+    (the median of steps 2-4), tok/s, MFU, peak memory, K1/K2 launches
+    (16 x 4 micro-batches each per step); the loss must fall. Then a
+    one-step profile with the f32 GEMMs' (the head's) share of device
+    time."""
+    from pytorch_distributed_tpu_torch.data import TokenShardLoader
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.train import baseline
+    from pytorch_distributed_tpu_torch.train.trainer import Trainer
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    args = baseline.parse_args([
+        "--preset", "llama3-1b", "--steps", "4", "--log-every", "1",
+        "--num-train-files", "2", "--seed", str(seed),
+        "--data-dir", f"{tmp}/data", "--checkpoint-dir", f"{tmp}/ck",
+    ])
+    model_cfg = baseline.build_model_cfg(args)
+    train_cfg = baseline.build_train_cfg(args)
+    paths = baseline.shard_paths(args, model_cfg.vocab_size)
+    b, t = args.micro_batch_size, args.seq_len
+    loader = TokenShardLoader(paths, b, t)
+    trainer = Trainer(get_model(model_cfg), model_cfg, train_cfg,
+                      device=args.device, log_fn=lambda line: None)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fk.launches.update(forward=0, backward=0)
+    state, hist = trainer.train(loader, state=state)
+    launches = dict(fk.launches)
+    peak = torch.cuda.max_memory_allocated()
+    steps = [(hist[i]["elapsed_s"] - hist[i - 1]["elapsed_s"]) * 1e3
+             for i in range(1, len(hist))]
+    ms_step = statistics.median(steps)
+    n_params = sum(p.numel() for p in tree.leaves(state.params))
+    flops_per_token = 6 * n_params + 12 * model_cfg.n_layer * \
+        model_cfg.n_embd * t
+    tok_s = train_cfg.global_batch_size * t / (ms_step / 1e3)
+    accum = trainer.accum
+    want = {"forward": model_cfg.n_layer * accum * train_cfg.num_steps,
+            "backward": model_cfg.n_layer * accum * train_cfg.num_steps}
+    row = dict(preset=args.preset, A=accum, B=b, T=t,
+               steps=train_cfg.num_steps, remat=model_cfg.remat,
+               attention_impl=model_cfg.attention_impl,
+               dtype=model_cfg.dtype, param_dtype=model_cfg.param_dtype,
+               logits_dtype=model_cfg.logits_dtype,
+               fused_head_ce=model_cfg.fused_head_ce, ms_per_step=ms_step,
+               ms_per_step_steps=steps, tokens_per_s=tok_s,
+               mfu=tok_s * flops_per_token / BF16_OPS_PER_S,
+               n_params=n_params, flops_per_token=flops_per_token,
+               max_memory_allocated=peak,
+               losses=[h["loss"] for h in hist], launches=launches,
+               want_launches=want)
+    emit(phase="train_llama_loop", **row)
+    losses = row["losses"]
+    if launches != want:
+        raise AssertionError(f"llama loop: flash launches {launches} != "
+                             f"{want}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the llama loop's loss did not fall: {losses}")
+    group = next(trainer._grouped_batches(TokenShardLoader(paths, b, t)))
+    row["profile"] = train_profile_phase(
+        dict(step=trainer.train_step, state=state,
+             batch=trainer.put_batch(group)), n_steps=1,
+        phase="train_llama_loop_profile", share_of=F32_GEMM)
+    return row
+
+
+def train_llama_remat_phase(fk, seed, dev, n_layer=4, t=4096, warmup=1,
+                            steps=3) -> dict:
+    """Llama-3.2-1B width at ``n_layer`` layers, B=1, T=``t``: (1) the bf16
+    step (``llama_cfg``) under every remat mode: ms/step, peak memory, K1
+    launches per step n_layer x ``K1_PER_LAYER``, K2 n_layer; (2) one f32
+    forward and backward (unfused f32 head) under each mode: every
+    gradient equal to mode none's within 1e-5 of that leaf's largest
+    (measured bit-equal for GPT-2 on an H100: the recompute repeats the same
+    kernels on the same values); (3) one f32 step through the flash
+    kernels and one with naive attention from the same weights
+    (``train_parity_phase``'s tolerances, both under ``full`` remat so the
+    naive step's [1, 32, T, T] f32 scores live one layer at a time)."""
+    from pytorch_distributed_tpu_torch.config import TrainConfig
+
+    base = llama_cfg(n_layer=n_layer)
+    rows = {}
+    for mode in ("none", "full", "dots", "dots_no_batch", "names", "flash"):
+        c = base.replace(remat=mode)
+        tcfg = TrainConfig(global_batch_size=1, micro_batch_size=1,
+                           num_steps=warmup + steps, learning_rate=3e-4)
+        state, step, batch = train_setup(c, tcfg, 1, t, seed, dev,
+                                         draw_on=dev)
+        for _ in range(warmup):
+            state, m = step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fk.launches.update(forward=0, backward=0)
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, m = step(state, batch)
+        loss = float(m["loss"])
+        elapsed = time.perf_counter() - t0
+        launches = dict(fk.launches)
+        want = {"forward": n_layer * steps * K1_PER_LAYER[mode],
+                "backward": n_layer * steps}
+        rows[mode] = dict(ms_per_step=elapsed / steps * 1e3, loss=loss,
+                          launches=launches, want_launches=want,
+                          max_memory_allocated=(
+                              torch.cuda.max_memory_allocated()))
+        if launches != want:
+            raise AssertionError(
+                f"llama remat {mode}: flash launches {launches} != {want}")
+        del state, step, batch
+
+    from pytorch_distributed_tpu_torch.models import llama
+
+    f32 = base.replace(dtype="float32", param_dtype="float32",
+                       logits_dtype="float32", fused_head_ce=False)
+    f32_params = llama.init(torch.Generator(device=dev).manual_seed(seed),
+                            f32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    batch = {k: torch.randint(0, f32.vocab_size, (1, 1, t), generator=g,
+                              device=dev) for k in ("inputs", "targets")}
+    loss0, ref = _dropout_grads(f32.replace(remat="none"), f32_params, batch,
+                                None)
+    grads = {}
+    for mode in ("full", "dots", "dots_no_batch", "names", "flash"):
+        loss, gr = _dropout_grads(f32.replace(remat=mode), f32_params, batch,
+                                  None)
+        grads[mode] = dict(
+            loss=float(loss),
+            bitwise=bool(torch.equal(loss, loss0)) and all(
+                torch.equal(a, b) for a, b in zip(gr, ref)),
+            max_rel_diff=max(float((a - b).abs().max() / b.abs().max())
+                             for a, b in zip(gr, ref)))
+        del gr
+    del ref, f32_params
+    emit(phase="train_llama_remat", n_layer=n_layer, B=1, T=t, steps=steps,
+         modes=rows, f32_loss_none=float(loss0), f32_grads=grads)
+    bad = {m: r for m, r in grads.items() if r["max_rel_diff"] > 1e-5}
+    if bad:
+        raise AssertionError(f"llama f32 gradients under remat modes differ "
+                             f"from none's: {bad}")
+    train_parity_phase(base.replace(remat="full"), seed, dev, b=1, t=t,
+                       draw_on=dev, phase="train_llama_parity")
+    return rows
+
+
+def moe_dropped_share(model_mod, cfg, params, inputs) -> float:
+    """The share of the assignments ``moe_mlp`` drops for capacity, over
+    every layer of one forward of ``inputs`` (the block inputs recorded
+    through ``model_mod``'s ``moe_mlp``)."""
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.ops import moe
+
+    real, shares = model_mod.moe_mlp, []
+
+    def recording(x, p, **kw):
+        shares.append(moe.dropped_share(
+            x, p["router"], top_k=kw["top_k"],
+            capacity_factor=kw["capacity_factor"]))
+        return real(x, p, **kw)
+
+    model_mod.moe_mlp = recording
+    try:
+        with torch.no_grad():
+            get_model(cfg).apply(params, inputs, cfg)
+    finally:
+        model_mod.moe_mlp = real
+    return float(torch.stack(shares).mean())
+
+
+def moe_dispatch_agreement(dev, seed) -> dict:
+    """``moe_mlp``'s sort and einsum dispatch on the card at shapes where
+    "auto" picks einsum (GPT-2 width, 8 dense gelu experts; Llama width, 8
+    SwiGLU experts; top-2, capacity 1.25, f32): outputs within 1e-5 of
+    their largest magnitude, the aux terms equal (summation order is all
+    that differs)."""
+    import torch.nn.functional as F
+
+    from pytorch_distributed_tpu_torch.ops import moe
+
+    out = {}
+    for name, d, f, n, gated in (("gpt2", 768, 3072, 256, False),
+                                 ("llama", 2048, 8192, 128, True)):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        w = {"router": torch.randn(d, 8, generator=g, device=dev),
+             "w_in": torch.randn(8, d, f, generator=g, device=dev) * 0.02,
+             "w_out": torch.randn(8, f, d, generator=g, device=dev) * 0.02}
+        if gated:
+            w["w_gate"] = torch.randn(8, d, f, generator=g, device=dev) * 0.02
+        x = torch.randn(1, n, d, generator=g, device=dev)
+        act = F.silu if gated else (lambda h: F.gelu(h, approximate="tanh"))
+        cap = moe.expert_capacity(n * 2, 8, 1.25)
+        auto = ("einsum" if n * 2 * 8 * cap <= moe._AUTO_EINSUM_LIMIT
+                else "sort")
+        res = {impl: moe.moe_mlp(x, w, activation=act, capacity_factor=1.25,
+                                 top_k=2, dispatch_impl=impl)
+               for impl in ("einsum", "sort")}
+        (oe, ae), (os_, as_) = res["einsum"], res["sort"]
+        rel = float((oe - os_).abs().max() / oe.abs().max())
+        out[name] = dict(tokens=n, capacity=cap, auto_picks=auto,
+                         max_rel_diff=rel,
+                         aux_equal=bool(torch.equal(ae, as_)))
+        if auto != "einsum" or rel > 1e-5 or not out[name]["aux_equal"]:
+            raise AssertionError(f"moe sort vs einsum at {name}: {out[name]}")
+    return out
+
+
+def train_moe_phase(fk, seed, dev) -> dict:
+    """MoE training at full width: GPT-2 124M (12 layers, 8 dense gelu
+    experts, top-2, capacity 1.25, B=8, T=1024, bf16 over f32 params, flash,
+    names, bf16 logits: "auto" picks sort) and Llama-3.2-1B width at 4
+    layers with 8 SwiGLU experts, top-2 (Mixtral's routing), bf16 params,
+    B=1, T=4096 (sort). Each: ms/step, peak memory, the dropped-assignment
+    share over the fixed batch at init and after the steps, K1/K2 launches
+    and a falling loss (``train_llama_phase``), and
+    two runs of one step's loss and gradients bit-equal. Then sort vs
+    einsum on the card (``moe_dispatch_agreement``)."""
+    from pytorch_distributed_tpu_torch.config import model_config
+    from pytorch_distributed_tpu_torch.models import gpt2, llama
+
+    moe_kw = dict(n_experts=8, moe_top_k=2, expert_capacity_factor=1.25)
+    cases = (
+        ("gpt2", gpt2, model_config(
+            "gpt2", attention_impl="flash", remat="names",
+            logits_dtype="bfloat16", attn_pdrop=0.0, resid_pdrop=0.0,
+            embd_pdrop=0.0, **moe_kw), 8, 1024),
+        ("llama", llama, llama_cfg(n_layer=4, **moe_kw), 1, 4096),
+    )
+    out = {}
+    for name, mod, cfg, b, t in cases:
+        def dropped(state, batch, mod=mod, cfg=cfg):
+            return moe_dropped_share(mod, cfg, state.params,
+                                     batch["inputs"][0])
+
+        run = train_llama_phase(fk, cfg, seed, dev, b=b, t=t, warmup=2,
+                                steps=3, phase=f"train_moe_{name}",
+                                at_init=dropped)
+        state, batch = run.pop("state"), run.pop("batch")
+        run.pop("step")
+        share = dropped(state, batch)
+        runs = [_dropout_grads(cfg, state.params, batch, None)
+                for _ in range(2)]
+        (l1, g1), (l2, g2) = runs
+        bitwise = bool(torch.equal(l1, l2)) and all(
+            torch.equal(a, c) for a, c in zip(g1, g2))
+        emit(phase=f"train_moe_{name}_checks", dropped_share_at_init=run[
+            "at_init"], dropped_share=share, two_runs_bitwise=bitwise,
+             loss=float(l1))
+        if not bitwise:
+            raise AssertionError(f"moe {name}: two runs of one step differ")
+        out[name] = dict(run, dropped_share=share, two_runs_bitwise=bitwise)
+        del state, batch, runs, g1, g2
+    agree = moe_dispatch_agreement(dev, seed)
+    emit(phase="train_moe_dispatch", **agree)
+    return out
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1522,8 +1963,10 @@ def main() -> int:
                                 ("paged_decode_attention_q8", 114, k4))
     ]
 
-    # 7. flash kernels at the listed shapes
+    # 7. flash kernels at the listed shapes, then at the llama training
+    # phases' long-context shapes
     flash_phase(fk, dev, flush, args.seed)
+    flash_long = flash_long_phase(fk, dev, flush, args.seed)
 
     # 8. training: the main path
     tcfg_model = cfg.replace(attention_impl="flash", remat="names",
@@ -1553,6 +1996,25 @@ def main() -> int:
     train_dropout_phase(loop_cfg, args.seed, dev)
     train_fused_ce_phase(loop_cfg, args.seed, dev)
 
+    # 12. Llama-3.2-1B training at full width: bench_suite rows 6 and 7,
+    # the entry point's loop, every remat mode at 4 layers; then MoE
+    # training of both families
+    llama_paths = {}
+    for phase, t, remat, steps in (("train_llama", 4096, "names", 5),
+                                   ("train_llama_long", 8192, "flash", 3)):
+        run = train_llama_phase(fk, llama_cfg(remat=remat), args.seed, dev,
+                                t=t, steps=steps, phase=phase)
+        llama_paths[phase] = dict(T=t, launches_per_step=run[
+            "launches_per_step"], kernel_times=flash_long[t])
+        del run
+    with tempfile.TemporaryDirectory() as tmp:
+        loop = train_llama_loop_phase(fk, args.seed, tmp)
+    llama_paths["train_llama_loop"] = dict(
+        T=1024, launches_per_step={k: v / loop["steps"] for k, v in
+                                   loop["launches"].items()})
+    train_llama_remat_phase(fk, args.seed, dev)
+    train_moe_phase(fk, args.seed, dev)
+
     inputs = dict(B=fq.shape[0], H=fq.shape[1], Hkv=fkk.shape[1],
                   T=fq.shape[2], D=fq.shape[3], causal=causal,
                   dtype=str(fq.dtype).replace("torch.", ""))
@@ -1560,7 +2022,12 @@ def main() -> int:
         dict(name=name, route="cuda", source=FLASH_SOURCE,
              replaces=f"pytorch_distributed_tpu/ops/flash_kernel.py:{line}",
              launches=train_launches[direction], **checked[kn], **timed[kn],
-             inputs=inputs)
+             inputs=inputs,
+             llama_paths={phase: dict(
+                 T=row["T"],
+                 launches_per_step=row["launches_per_step"][direction],
+                 **row.get("kernel_times", {}).get(kn, {}))
+                 for phase, row in llama_paths.items()})
         for name, kn, direction, line in (
             ("flash_forward", "K1", "forward", 92),
             ("flash_backward", "K2", "backward", 221),

@@ -22,7 +22,7 @@ class ModelConfig:
     layer_norm_epsilon, *_pdrop)."""
 
     # "gpt2" (learned positions, LayerNorm, gelu MLP, tied head) or
-    # "llama" (RoPE, RMSNorm, SwiGLU, untied head; served, not yet trained).
+    # "llama" (RoPE, RMSNorm, SwiGLU, untied head).
     family: str = "gpt2"
 
     vocab_size: int = 50257
@@ -50,9 +50,10 @@ class ModelConfig:
     # Dtype the LM head emits (the head always accumulates in float32).
     logits_dtype: str = "float32"
 
-    # Training-path knobs (fused_head_ce, remat and attention_impl are read
-    # by the training forward; the rest are carried so a config
-    # round-trips between the two packages unchanged).
+    # Training-path knobs (fused_head_ce, remat, attention_impl and the MoE
+    # fields below are read by the training forward; scan_unroll and
+    # seq_impl are carried so a config round-trips between the two
+    # packages unchanged).
     fused_head_ce: bool = False
     remat: str = "dots"
     scan_unroll: int = 1

@@ -12,7 +12,8 @@ class ModelApi(NamedTuple):
     init: Callable[..., dict]
     head: Callable[..., object]
     # (params, input_ids [B, T], cfg, *, deterministic, dropout_seed,
-    # return_hidden) -> logits [B, T, V] (or hidden [B, T, E]): the
+    # return_aux, return_hidden) -> logits [B, T, V] (or hidden [B, T, E];
+    # with return_aux, a pair with the summed MoE Switch term): the
     # training forward (the JAX ModelApi's ``apply``).
     apply: Callable[..., object]
     # (params) -> (head weight, ops.losses layout tag): the LM-head matrix
@@ -33,7 +34,6 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     if cfg.family == "llama":
         from pytorch_distributed_tpu_torch.models import llama
 
-        # Serving only: llama.apply (training) raises NotImplementedError.
         return ModelApi(llama.init, llama.head, llama.apply,
                         lambda params: (params["lm_head"], "ev"),
                         llama.final_norm)

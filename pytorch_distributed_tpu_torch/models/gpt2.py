@@ -14,6 +14,7 @@ H=n_head, D=head_dim):
              attn/c_attn {kernel[E, 3, H, D], bias[3, H, D]},
              attn/c_proj {kernel[E, E], bias[E]},
              mlp/c_fc {kernel[E, F], bias[F]}, mlp/c_proj {kernel[F, E], bias[E]}
+  (MoE, X = n_experts: mlp {router [E, X], w_in [X, E, F], w_out [X, F, E]})
   ln_f {scale[E], bias[E]}
 
 The LM head is tied to wte (no separate leaf). ``apply`` is the training
@@ -42,6 +43,7 @@ from pytorch_distributed_tpu_torch.ops.layers import (
     dropout,
     layer_norm,
 )
+from pytorch_distributed_tpu_torch.ops.moe import moe_mlp
 from pytorch_distributed_tpu_torch.ops.remat import apply_remat, checkpoint_name
 from pytorch_distributed_tpu_torch.utils import prng
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
@@ -62,8 +64,6 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     on ``device`` (None: the GPU, ``utils.device.resolve_device``)."""
     if cfg.family != "gpt2":
         raise ValueError(f"gpt2.init got a {cfg.family!r} config")
-    if cfg.n_experts:
-        raise NotImplementedError("MoE GPT-2 is not ported yet")
     device = resolve_device(device)
     pdt = _dtype(cfg.param_dtype)
     e, v, c, f = cfg.n_embd, cfg.vocab_size, cfg.n_ctx, cfg.inner_dim
@@ -81,6 +81,19 @@ def init(generator: torch.Generator, cfg: ModelConfig,
         return {"scale": torch.ones(e, dtype=pdt, device=device),
                 "bias": zeros(e)}
 
+    def mlp():
+        x = cfg.n_experts
+        if not x:
+            return {
+                "c_fc": {"kernel": normal((e, f), 0.02), "bias": zeros(f)},
+                "c_proj": {"kernel": normal((f, e), 0.02), "bias": zeros(e)},
+            }
+        # Switch-routed experts (ops/moe): a router and stacked expert
+        # kernels, no biases.
+        return {"router": normal((e, x), 0.02),
+                "w_in": normal((x, e, f), 0.02),
+                "w_out": normal((x, f, e), 0.02)}
+
     params: Params = {"wte": normal((v, e), 0.02), "wpe": normal((c, e), 0.01)}
     params["blocks"] = [
         {
@@ -91,10 +104,7 @@ def init(generator: torch.Generator, cfg: ModelConfig,
                 "c_proj": {"kernel": normal((e, e), 0.02), "bias": zeros(e)},
             },
             "ln_2": ln(),
-            "mlp": {
-                "c_fc": {"kernel": normal((e, f), 0.02), "bias": zeros(f)},
-                "c_proj": {"kernel": normal((f, e), 0.02), "bias": zeros(e)},
-            },
+            "mlp": mlp(),
         }
         for _ in range(cfg.n_layer)
     ]
@@ -105,10 +115,12 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
            key: prng.DropoutKey | None) -> torch.Tensor:
     """Pre-norm residual block: x + drop(attn(ln_1(x))); x +
-    drop(mlp(ln_2(x))). ``key`` None: deterministic; else the masks of
-    ``layer`` derive from it. The projections the remat policies keep are
-    tagged as in the JAX model (``qkv``, ``attn_proj``, ``mlp_fc``,
-    ``mlp_proj``; the naive attention output ``attn_out``)."""
+    drop(mlp(ln_2(x))), the MLP dense or, for a MoE config, ``ops/moe``'s
+    experts. ``key`` None: deterministic; else the masks of ``layer``
+    derive from it. The projections the remat policies keep are tagged as
+    in the JAX model (``qkv``, ``attn_proj``, ``mlp_fc``, ``mlp_proj``;
+    the naive attention output ``attn_out``). Returns x, or (x, aux) for a
+    MoE config (aux: the layer's Switch term)."""
     eps = cfg.layer_norm_epsilon
     det = key is None
     sid = (lambda site: None) if det else (
@@ -127,18 +139,26 @@ def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
         a = dense(a, bp["attn"]["c_proj"])
     x = x + dropout(a, cfg.resid_pdrop, sid("resid_attn"), deterministic=det)
     m = layer_norm(x, bp["ln_2"], eps=eps)
-    with checkpoint_name("mlp_fc"):
-        m = dense(m, bp["mlp"]["c_fc"])
-    m = activation(cfg.activation_function)(m)
-    with checkpoint_name("mlp_proj"):
-        m = dense(m, bp["mlp"]["c_proj"])
-    return x + dropout(m, cfg.resid_pdrop, sid("resid_mlp"), deterministic=det)
+    aux = None
+    if cfg.n_experts:
+        m, aux = moe_mlp(m, bp["mlp"],
+                         activation=activation(cfg.activation_function),
+                         capacity_factor=cfg.expert_capacity_factor,
+                         top_k=cfg.moe_top_k, dispatch_impl=cfg.moe_dispatch)
+    else:
+        with checkpoint_name("mlp_fc"):
+            m = dense(m, bp["mlp"]["c_fc"])
+        m = activation(cfg.activation_function)(m)
+        with checkpoint_name("mlp_proj"):
+            m = dense(m, bp["mlp"]["c_proj"])
+    x = x + dropout(m, cfg.resid_pdrop, sid("resid_mlp"), deterministic=det)
+    return x if aux is None else (x, aux)
 
 
 def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
           deterministic: bool = True,
           dropout_seed: prng.DropoutKey | None = None,
-          return_hidden: bool = False) -> torch.Tensor:
+          return_aux: bool = False, return_hidden: bool = False):
     """Forward pass: [B, T] token ids -> [B, T, V] logits in
     ``cfg.logits_dtype``: wte + wpe (cast to ``cfg.dtype``), embedding
     dropout, n_layer pre-norm blocks (each under ``cfg.remat``), ln_f,
@@ -146,10 +166,10 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
     from ``dropout_seed`` and raises without one, as the JAX ``apply``
     does without a key. ``return_hidden``: the final-norm hidden states
     [B, T, E] in place of the logits (what ``ops/losses.
-    linear_cross_entropy`` consumes). Under ``torch.no_grad`` the blocks
-    run without checkpointing: there is no backward to recompute for."""
-    if cfg.n_experts:
-        raise NotImplementedError("MoE GPT-2 is not ported yet")
+    linear_cross_entropy`` consumes). ``return_aux``: also the MoE Switch
+    term summed over layers (an f32 scalar, 0 for a dense config). Under
+    ``torch.no_grad`` the blocks run without checkpointing: there is no
+    backward to recompute for."""
     if not deterministic and dropout_seed is None:
         raise ValueError("training-mode apply() requires dropout_seed")
     key = None if deterministic else prng.DropoutKey(*dropout_seed)
@@ -164,11 +184,18 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
                     deterministic=False)
     remat = cfg.remat if torch.is_grad_enabled() else "none"
     block = apply_remat(functools.partial(_block, cfg=cfg, key=key), remat)
+    aux = None
     for layer, bp in enumerate(params["blocks"]):
         x = block(x, bp, layer)
-    if return_hidden:
-        return final_norm(params, x, cfg)
-    return head(params, x, cfg)
+        if cfg.n_experts:
+            x, layer_aux = x
+            aux = layer_aux if aux is None else aux + layer_aux
+    out = final_norm(params, x, cfg) if return_hidden else \
+        head(params, x, cfg)
+    if not return_aux:
+        return out
+    return out, aux if aux is not None else torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def final_norm(params: Params, x: torch.Tensor,

@@ -1,7 +1,8 @@
-"""Llama-family parameters and LM head as plain tensor functions (the port
-of the JAX package's ``models/llama.py``: ``init``, ``final_norm``,
-``head``). RMSNorm pre-norm, rotary positions, grouped-query attention,
-SwiGLU MLP, untied LM head, no biases.
+"""The Llama family as plain tensor functions (the port of the JAX
+package's ``models/llama.py``: ``init``, ``_block``, ``apply``,
+``final_norm``, ``head``). RMSNorm pre-norm, rotary positions,
+grouped-query attention, SwiGLU MLP (or Switch-routed SwiGLU experts,
+``ops/moe``), untied LM head, no biases.
 
 Params keep the JAX leaf names and per-layer shapes, with the blocks as a
 Python list of per-layer dicts (``interop.py`` converts). E=n_embd,
@@ -11,21 +12,36 @@ V=vocab, F=inner_dim, H=n_head, K=kv_heads, D=head_dim:
   blocks[l]: ln_attn {scale[E]}, ln_mlp {scale[E]},
              attn {wq [E, H*D], wk [E, K*D], wv [E, K*D], wo [H*D, E]},
              mlp {gate [E, F], up [E, F], down [F, E]}
+             (MoE, X = n_experts: mlp {router [E, X], w_gate [X, E, F],
+             w_in [X, E, F], w_out [X, F, E]})
   ln_f {scale[E]}
   lm_head [E, V]
 
-The serving forward is ``models/decode`` (``_llama_block``). The training
-forward ``apply`` is not ported yet and raises.
+``apply`` is the training forward (a Python loop over the blocks, each
+under ``ops.remat.apply_remat(cfg.remat)``, attention through
+``ops.attention.multi_head_attention``); the family has no dropout, so
+training and eval forwards coincide. The serving forward is
+``models/decode`` (``_llama_block``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch.config import ModelConfig
+from pytorch_distributed_tpu_torch.ops.attention import multi_head_attention
 from pytorch_distributed_tpu_torch.ops.layers import rms_norm
+from pytorch_distributed_tpu_torch.ops.moe import moe_mlp
+from pytorch_distributed_tpu_torch.ops.remat import (
+    apply_remat,
+    checkpoint_name,
+    product,
+)
+from pytorch_distributed_tpu_torch.ops.rope import apply_rope, rope_angles
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
@@ -40,8 +56,6 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     ``device`` (None: the GPU, ``utils.device.resolve_device``)."""
     if cfg.family != "llama":
         raise ValueError(f"llama.init got a {cfg.family!r} config")
-    if cfg.n_experts:
-        raise NotImplementedError("MoE llama is not ported yet")
     device = resolve_device(device)
     pdt = getattr(torch, cfg.param_dtype)
     e, v, f = cfg.n_embd, cfg.vocab_size, cfg.inner_dim
@@ -55,6 +69,15 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     def norm():
         return {"scale": torch.ones(e, dtype=pdt, device=device)}
 
+    def mlp():
+        x = cfg.n_experts
+        if not x:
+            return {"gate": normal((e, f)), "up": normal((e, f)),
+                    "down": normal((f, e))}
+        # Switch-routed SwiGLU experts (ops/moe).
+        return {"router": normal((e, x)), "w_gate": normal((x, e, f)),
+                "w_in": normal((x, e, f)), "w_out": normal((x, f, e))}
+
     return {
         "wte": normal((v, e)),
         "blocks": [
@@ -67,11 +90,7 @@ def init(generator: torch.Generator, cfg: ModelConfig,
                     "wo": normal((h * d, e)),
                 },
                 "ln_mlp": norm(),
-                "mlp": {
-                    "gate": normal((e, f)),
-                    "up": normal((e, f)),
-                    "down": normal((f, e)),
-                },
+                "mlp": mlp(),
             }
             for _ in range(cfg.n_layer)
         ],
@@ -80,12 +99,80 @@ def init(generator: torch.Generator, cfg: ModelConfig,
     }
 
 
-def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig,
-          **kwargs):
-    raise NotImplementedError(
-        "llama training (models/llama.apply) is not ported yet; the llama "
-        "family serves through models/decode.forward"
-    )
+def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
+           sin: torch.Tensor, *, cfg: ModelConfig):
+    """x + wo(attn(rope(q), rope(k), v)) over rms_norm(x); then x +
+    swiglu(rms_norm(x)), or the MoE MLP. Returns x, or (x, aux) for a MoE
+    config (aux: the layer's Switch term). The products are tagged as in
+    the JAX block (``q``, ``k``, ``v``, ``attn_out`` on the naive path,
+    ``attn_proj``, ``mlp_gate``, ``mlp_up``, ``mlp_proj``)."""
+    eps = cfg.layer_norm_epsilon
+    b, t = x.shape[:2]
+    d = cfg.head_dim
+    attn = bp["attn"]
+    a = rms_norm(x, bp["ln_attn"], eps=eps)
+    with checkpoint_name("q"):
+        q = product(a, attn["wq"].to(a.dtype))
+    with checkpoint_name("k"):
+        k = product(a, attn["wk"].to(a.dtype))
+    with checkpoint_name("v"):
+        v = product(a, attn["wv"].to(a.dtype))
+    q = apply_rope(q.view(b, t, -1, d), cos, sin)
+    k = apply_rope(k.view(b, t, -1, d), cos, sin)
+    a = multi_head_attention(
+        q, k, v.view(b, t, -1, d), impl=cfg.attention_impl, causal=True,
+        out_name="attn_out",
+    ).reshape(b, t, -1)
+    with checkpoint_name("attn_proj"):
+        a = product(a, attn["wo"].to(a.dtype))
+    x = x + a
+    m = rms_norm(x, bp["ln_mlp"], eps=eps)
+    if cfg.n_experts:
+        m, aux = moe_mlp(m, bp["mlp"], activation=F.silu,
+                         capacity_factor=cfg.expert_capacity_factor,
+                         top_k=cfg.moe_top_k, dispatch_impl=cfg.moe_dispatch)
+        return x + m, aux
+    mp = bp["mlp"]
+    with checkpoint_name("mlp_gate"):
+        gate = F.silu(product(m, mp["gate"].to(m.dtype)))
+    with checkpoint_name("mlp_up"):
+        up = product(m, mp["up"].to(m.dtype))
+    with checkpoint_name("mlp_proj"):
+        return x + product(gate * up, mp["down"].to(m.dtype))
+
+
+def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
+          deterministic: bool = True, dropout_seed=None,
+          return_aux: bool = False, return_hidden: bool = False):
+    """Forward pass: [B, T] token ids -> [B, T, V] logits in
+    ``cfg.logits_dtype`` (the contract of ``gpt2.apply``). The family is
+    dropout-free, so ``deterministic`` and ``dropout_seed`` change
+    nothing. The RoPE angles are built once per call on the ids' device
+    and shared by every layer. ``return_hidden``: the final-norm hidden
+    states [B, T, E] in place of the logits; ``return_aux``: also the
+    Switch term summed over layers (an f32 scalar, 0 for a dense
+    config)."""
+    del deterministic, dropout_seed
+    t = input_ids.shape[1]
+    if t > cfg.n_ctx:
+        raise ValueError(f"sequence length {t} exceeds n_ctx {cfg.n_ctx}")
+    x = F.embedding(input_ids, params["wte"]).to(getattr(torch, cfg.dtype))
+    cos, sin = rope_angles(t, cfg.head_dim, cfg.rope_theta,
+                           device=input_ids.device)
+    remat = cfg.remat if torch.is_grad_enabled() else "none"
+    block = apply_remat(functools.partial(_block, cfg=cfg), remat)
+    aux = None
+    for bp in params["blocks"]:
+        x = block(x, bp, cos, sin)
+        if cfg.n_experts:
+            x, layer_aux = x
+            aux = layer_aux if aux is None else aux + layer_aux
+    out = final_norm(params, x, cfg) if return_hidden else \
+        head(params, x, cfg)
+    if not return_aux:
+        return out
+    return out, aux if aux is not None else torch.zeros(
+        (), dtype=torch.float32, device=x.device)
 
 
 def final_norm(params: Params, x: torch.Tensor,

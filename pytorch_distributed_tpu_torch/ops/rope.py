@@ -23,8 +23,9 @@ def rope_angles(seq_len: int, head_dim: int, theta: float, *, offset=0,
     half = head_dim // 2
     exponent = torch.arange(0, half, dtype=torch.float32,
                             device=device) * 2.0 / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                            device=device), exponent)
+    # theta stays a Python scalar: a tensor made from it on the card would
+    # be a host copy (and a sync) per call.
+    inv_freq = 1.0 / torch.pow(theta, exponent)
     pos = torch.arange(seq_len, dtype=torch.float32, device=device)
     if torch.is_tensor(offset):
         pos = pos + offset.float()  # [B, T]

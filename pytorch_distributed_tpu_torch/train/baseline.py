@@ -9,7 +9,8 @@ uses), run as a module:
 
 The same defaults: GPT-2 Large, global batch 32, micro-batch 8, T 1024, 20
 steps, AdamW lr 3e-4 wd 0.1 with a cosine anneal to 0.1 lr, flash
-attention and ``names`` remat, dropout from the preset; synthetic shards
+attention and ``names`` remat, dropout from the preset (``--preset
+llama3-1b`` trains the dropout-free Llama-3.2-1B shape); synthetic shards
 unless ``--data local`` names a directory of ``*.bin`` shards. Training
 runs on ``--device`` (default cuda). Flags for what the port does not have
 yet exit with the reason: ``--data fineweb`` (it downloads),
@@ -55,8 +56,8 @@ _REFUSED = {
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--preset", default="gpt2-large",
-                   help="model preset (gpt2, gpt2-large, gpt2-1p3b, ... or "
-                        "'tiny')")
+                   help="model preset (gpt2, gpt2-large, gpt2-1p3b, "
+                        "llama3-1b, ... or 'tiny')")
     p.add_argument("--data", default="synthetic",
                    choices=["synthetic", "fineweb", "local"],
                    help="synthetic (generated shards), local (every *.bin "

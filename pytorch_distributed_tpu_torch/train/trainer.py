@@ -12,7 +12,9 @@ stream ``DropoutKey(seed, state.step, micro)`` (``utils/prng``; micro is
 final-norm hidden states and ``model.head_weight``) and
 ``torch.autograd.grad``; for A > 1 the gradients are summed in an
 ``accum_dtype`` buffer and divided by A, and the loss is the mean over
-micro-batches. Then one optimizer update (``train/optim``). Metrics:
+micro-batches. A MoE config adds ``moe_aux_coef`` times the Switch
+load-balancing term to each micro-batch's loss (and to the reported
+loss), as JAX does. Then one optimizer update (``train/optim``). Metrics:
 ``loss`` and ``grad_norm``, the global norm of the averaged gradients
 before clipping, both as device scalars (reading them is the caller's
 sync). The step updates the state's params and optimizer moments in
@@ -21,8 +23,8 @@ input state: the old values are not used again either way).
 
 ``make_eval_step(model, model_cfg) -> eval_fn(params, batch) -> loss``:
 the deterministic forward (flash attention takes the kernels) and the
-same loss, fused or not, on [B, T] or [A, B, T] batches, under
-``torch.no_grad()``.
+same cross-entropy, fused or not (no MoE aux term, as in JAX), on [B, T]
+or [A, B, T] batches, under ``torch.no_grad()``.
 
 ``Trainer`` groups A loader batches into one step batch, places it on its
 device (``put_batch``), steps, keeps the per-step losses on the device
@@ -32,7 +34,7 @@ position in their metadata) and prunes them, resumes from the newest
 good one, saves once on SIGTERM/SIGINT with ``save_on_preemption``, and
 evaluates. Not ported yet, and refused: the anomaly guard, the fault
 injector and the async checkpoint (ROADMAP queue 1 item 2), the profiler
-(item 6), MoE (item 3).
+(item 6).
 """
 
 from __future__ import annotations
@@ -73,17 +75,25 @@ _GUARD = ("the anomaly guard is not ported yet (ROADMAP queue 1 item 2: "
 
 
 def _loss(model: ModelApi, cfg: ModelConfig, params, inputs, targets, *,
-          deterministic: bool = True, key: DropoutKey | None = None):
+          deterministic: bool = True, key: DropoutKey | None = None,
+          with_aux: bool = True):
     """The JAX ``micro_loss``: the forward, then the cross-entropy, fused
-    with the head when ``cfg.fused_head_ce``."""
+    with the head when ``cfg.fused_head_ce``; for a MoE config (and
+    ``with_aux``) plus ``moe_aux_coef`` times the Switch term summed over
+    layers."""
+    aux = bool(cfg.n_experts) and with_aux
     out = model.apply(params, inputs, cfg, deterministic=deterministic,
-                      dropout_seed=key, return_hidden=cfg.fused_head_ce)
+                      dropout_seed=key, return_aux=aux,
+                      return_hidden=cfg.fused_head_ce)
+    out, aux_sum = out if aux else (out, None)
     if not cfg.fused_head_ce:
-        return cross_entropy_loss(out, targets)
-    w, layout = model.head_weight(params)
-    return linear_cross_entropy(out.reshape(-1, out.shape[-1]), w,
-                                targets.reshape(-1), w_layout=layout,
-                                logits_dtype=cfg.logits_dtype)
+        loss = cross_entropy_loss(out, targets)
+    else:
+        w, layout = model.head_weight(params)
+        loss = linear_cross_entropy(out.reshape(-1, out.shape[-1]), w,
+                                    targets.reshape(-1), w_layout=layout,
+                                    logits_dtype=cfg.logits_dtype)
+    return loss if aux_sum is None else loss + cfg.moe_aux_coef * aux_sum
 
 
 def make_train_step(
@@ -98,9 +108,6 @@ def make_train_step(
     """Build ``step(state, batch) -> (state, metrics)`` (see the module
     docstring). ``seed`` is the dropout streams' (the JAX Trainer's
     ``domain_key(train_cfg.seed, "dropout")``)."""
-    if model_cfg.n_experts:
-        raise NotImplementedError(
-            "MoE training is not ported yet (ROADMAP queue 1 item 3)")
     if guard is not None or tx.cfg.anomaly_guard:
         raise NotImplementedError(_GUARD)
     train_mode = (model_cfg.embd_pdrop > 0 or model_cfg.attn_pdrop > 0
@@ -156,7 +163,8 @@ def make_eval_step(model: ModelApi, model_cfg: ModelConfig) -> Callable:
         if inputs.dim() == 3:
             inputs = inputs.reshape(-1, inputs.shape[-1])
             targets = targets.reshape(-1, targets.shape[-1])
-        return _loss(model, model_cfg, params, inputs, targets)
+        return _loss(model, model_cfg, params, inputs, targets,
+                     with_aux=False)
 
     return eval_fn
 
@@ -206,10 +214,12 @@ class Trainer:
 
     # -- state ------------------------------------------------------------
     def init_state(self) -> TrainState:
-        """Fresh params (``model.init`` from a CPU generator seeded with
-        ``train_cfg.seed``) on the trainer's device, and the optimizer
-        state."""
-        g = torch.Generator().manual_seed(self.train_cfg.seed)
+        """Fresh params (``model.init`` from a generator on the trainer's
+        device seeded with ``train_cfg.seed``: the card draws a
+        billion-parameter model in well under a second, where the host
+        takes tens of seconds) and the optimizer state."""
+        g = torch.Generator(device=self.device).manual_seed(
+            self.train_cfg.seed)
         params = self.model.init(g, self.model_cfg, device=self.device)
         return init_train_state(params, self.tx)
 

@@ -644,3 +644,52 @@ def test_linear_cross_entropy_matches_the_unfused_loss_in_bf16(cuda):
         assert a.dtype == b.dtype
         rel = float((a.float() - b.float()).norm() / b.float().norm())
         assert rel < 2e-2, rel
+
+
+@pytest.mark.parametrize("t", [4096, 8192])
+def test_bf16_flash_kernels_at_llama_long_context(cuda, t):
+    """K1 and K2 at the Llama-3.2-1B training shapes of the long-context
+    rows (B 1, 32 query heads over 8 KV heads, head_dim 64, causal): the
+    plain versions run one KV head's group at a time (the f32 scores of all
+    heads at T=8192 take 8.6 GB per tensor)."""
+    import chip_smoke
+
+    fk, q, k, v, do = _flash_case(cuda, 1, 32, 8, t, 64, torch.bfloat16)
+    chip_smoke.check_flash(fk, q, k, v, do, True, f"llama T={t}", chunks=8)
+
+
+@pytest.mark.parametrize("family, top_k", [("gpt2", 2), ("llama", 2),
+                                           ("gpt2", 3)])
+def test_moe_step_is_bit_deterministic(cuda, family, top_k):
+    """Two runs of one MoE forward and backward (sort dispatch, bf16) give
+    the same loss and gradients bit for bit: a token's top-k contributions
+    are summed in a fixed order, never by atomics."""
+    from pytorch_distributed_tpu_torch.config import model_config
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.train.trainer import _loss
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    preset = "gpt2" if family == "gpt2" else "llama3-1b"
+    cfg = model_config(preset, n_layer=2, n_embd=256, n_head=4,
+                       vocab_size=512, n_ctx=256, n_inner=512,
+                       n_experts=8, moe_top_k=top_k, moe_dispatch="sort",
+                       attention_impl="flash", remat="names",
+                       embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0,
+                       **({"n_kv_head": 2} if family == "llama" else {}))
+    model = get_model(cfg)
+    params = model.init(torch.Generator(cuda).manual_seed(0), cfg,
+                        device=cuda)
+    g = torch.Generator(cuda).manual_seed(1)
+    ids, tgt = (torch.randint(0, 512, (4, 256), device=cuda, generator=g)
+                for _ in range(2))
+
+    def run():
+        leaves = [p.detach().clone().requires_grad_()
+                  for p in tree.leaves(params)]
+        loss = _loss(model, cfg, tree.unflatten(params, leaves), ids, tgt)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    (l1, g1), (l2, g2) = run(), run()
+    assert torch.equal(l1, l2)
+    for a, b in zip(g1, g2):
+        assert torch.equal(a, b)

@@ -70,3 +70,29 @@ def test_importing_the_whole_port_loads_no_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+@pytest.mark.parametrize("module", [
+    "pytorch_distributed_tpu_torch.models.hf_import",
+    "pytorch_distributed_tpu_torch.ops.moe",
+    "chip_smoke",
+])
+def test_hf_import_and_moe_load_no_transformers_and_no_jax(module):
+    """``transformers`` is imported only inside
+    ``hf_import.from_hf_pretrained``: the card has no ``transformers``, and
+    nothing on ``chip_smoke.py``'s path may need it."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'transformers',\n"
+        "                                    'pytorch_distributed_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")

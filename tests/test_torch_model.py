@@ -96,16 +96,22 @@ def test_head_accumulates_and_returns_f32_for_bf16_activations():
 
 
 def test_get_model_serves_gpt2_only():
-    """gpt2 is the one family with every entry point; llama serves (its
-    head) but does not train yet: its ``apply`` raises."""
+    """Both families have every entry point: llama's ``apply`` trains too
+    (tests/test_torch_llama_train.py holds it to JAX) and, like gpt2's,
+    refuses a sequence longer than n_ctx."""
     assert get_model(ModelConfig(**CFG_KW)).head is gpt2.head
     from pytorch_distributed_tpu_torch.models import llama
 
     api = get_model(model_config("llama3-1b"))
-    assert api.head is llama.head
-    with pytest.raises(NotImplementedError, match="not ported"):
-        api.apply({}, torch.zeros(1, 1, dtype=torch.long),
-                  model_config("llama3-1b"))
+    assert api.head is llama.head and api.apply is llama.apply
+    cfg = model_config("llama3-1b", vocab_size=17, n_ctx=8, n_embd=32,
+                       n_layer=1, n_head=2, n_kv_head=1, n_inner=64,
+                       dtype="float32")
+    params = api.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    logits = api.apply(params, torch.zeros(1, 8, dtype=torch.long), cfg)
+    assert logits.shape == (1, 8, 17) and torch.isfinite(logits).all()
+    with pytest.raises(ValueError, match="exceeds n_ctx"):
+        api.apply(params, torch.zeros(1, 9, dtype=torch.long), cfg)
 
 
 @pytest.mark.parametrize("impl", ["gather", "kernel"])

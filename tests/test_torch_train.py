@@ -278,17 +278,15 @@ def test_names_keeps_the_tagged_products_and_the_flash_outputs(monkeypatch):
 
 
 def test_refusals():
-    """What the port still refuses: MoE and the anomaly guard (dropout,
-    ``fused_head_ce`` and every remat mode are ported); an unknown remat
-    mode; a training-mode forward without a dropout stream."""
+    """What the port still refuses: the anomaly guard (dropout,
+    ``fused_head_ce``, MoE and every remat mode are ported); an unknown
+    remat mode; a training-mode forward without a dropout stream."""
     cfg = ModelConfig(**CFG_KW)
     tx = optim.make_optimizer(TrainConfig())
     model = get_model(cfg)
     for ok in (dict(attn_pdrop=0.1), dict(embd_pdrop=0.1),
-               dict(fused_head_ce=True)):
+               dict(fused_head_ce=True), dict(n_experts=4)):
         assert callable(make_train_step(model, cfg.replace(**ok), tx))
-    with pytest.raises(NotImplementedError, match="MoE"):
-        make_train_step(model, cfg.replace(n_experts=4), tx)
     with pytest.raises(NotImplementedError, match="guard"):
         make_train_step(model, cfg, optim.make_optimizer(
             TrainConfig(anomaly_guard=True)))
