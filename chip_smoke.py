@@ -55,6 +55,33 @@ with no final line):
    serve_llama_q8_f32), then bf16 through K3 and bf16 int8 through K4,
    each with launches == 16 x decode ticks and the other kernel's 0;
    profile_llama and profile_llama_q8.
+6b. the serving tier through its entry points, every number beside the
+   card's name and power limit. tier_http — ``serving.serve``'s own
+   ``build`` (GPT-2 124M bf16, 2 replicas x 4 slots, max_len 1024, port 0):
+   a greedy 64-token SSE stream read with ``http.client`` whose replica
+   is killed (/admin/kill) after its first token must end DONE with 64
+   tokens; /healthz shows the replica DOWN, /admin/restart brings it back
+   HEALTHY, a plain request then runs, and a 48-request burst must meet a
+   429 with Retry-After (``--queue-limit 2``); K3 counted from zero over
+   the phase, launched from the server's drive thread. tier_storm — ``serving.loadgen``'s
+   legs at full width: GPT-2 124M, 4 replicas x 4 slots, max_len 1024,
+   40 requests of ``workload.request_stream`` (prompts 4-341 tokens, 24
+   new), the twin's kill schedule (ticks 12 and 36, Bernoulli 0.005,
+   restart after 40 ticks), rates 0.5 and 2.0 of the calibrated
+   capacity, clean and storm, in f32 and bf16: per leg achieved QPS,
+   goodput, p50/p99 request seconds, sheds, failovers, restarts,
+   ``done_outputs_match_clean``, peak memory, and K3 launches == n_layer
+   x (decode ticks over every replica + one warmup per restart), K4 0;
+   no lost or duplicated request, every clean request DONE, and in f32
+   at most 1 in 16 storm outputs differing from the clean leg, each only
+   at or after its failover token (bf16: reported). tier_llama_q8 —
+   Llama-3.2-1B with int8 KV pages and weights, 2 replicas, rate 1.0:
+   the same gates with K4 in K3's place. failover_paths — where a
+   failed-over row's values part from the undisturbed run's: each op of
+   GPT-2's block 0 (ln_1, the qkv projection, attention over the same
+   paged keys, c_proj, c_fc) on the same rows decode-shaped ([4, 1, E],
+   K3) and prefill-shaped ([4, 64, E], the gather path), f32 and bf16:
+   largest difference, bit-equality, the first op that differs.
 7. flash — the flash forward (K1) and backward (K2) kernels against their
    plain versions at the GPT-2 124M training shape (B=8, H=12, T=1024,
    D=64, causal), a Llama-3.2-1B shape (B=1, H=32, Hkv=8, T=2048, D=64,
@@ -109,8 +136,8 @@ with no final line):
    at the llama shapes T=4096 and T=8192 (bf16, plain versions run by KV
    head).
 13. The kernels line (K3, K4, K1, K2; K1/K2 with their launches per step
-    and times on the llama paths), then ``{"ok": true, "device": {...}}``
-    last.
+    and times on the llama paths, K3/K4 with their launches on each tier
+    leg, ``tier_paths``), then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -788,6 +815,407 @@ def llama_phase(pk, seed, dev) -> None:
          n_params=sum(t.numel() for t in tree.leaves(params)), **drives)
     profile_phase(cfg, params, reqs, phase="profile_llama")
     profile_phase(cfg, params, reqs, phase="profile_llama_q8", **Q8)
+
+
+def _sse_stream(host, port, body, on_first_token=None):
+    """POST ``body`` to /v1/generate with ``stream`` on and read its
+    Server-Sent Events with ``http.client``: returns (token events, the
+    done event's data, seconds to the first token, seconds to the end).
+    ``on_first_token()`` runs once, after the first token arrives."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/v1/generate", json.dumps({**body, "stream": True}),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    if resp.status != 200:
+        raise AssertionError(f"SSE request got HTTP {resp.status}")
+    tokens, done, first = [], None, None
+    event = "message"
+    while True:
+        line = resp.fp.readline()
+        if not line:
+            break
+        line = line.decode().rstrip("\n")
+        if line.startswith("event:"):
+            event = line[len("event:"):].strip()
+        elif line.startswith("data:"):
+            data = json.loads(line[len("data:"):])
+            if event == "done":
+                done = data
+            else:
+                tokens.append(data["token"])
+                if first is None:
+                    first = time.perf_counter() - t0
+                    if on_first_token is not None:
+                        on_first_token()
+        elif not line:
+            event = "message"
+    conn.close()
+    return tokens, done, first, time.perf_counter() - t0
+
+
+def _http_json(host, port, method, path, body=None):
+    """One request over ``http.client``: (status, headers, decoded JSON)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=600)
+    conn.request(method, path, None if body is None else json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = resp.status, dict(resp.getheaders()), json.loads(resp.read())
+    conn.close()
+    return out
+
+
+def _tier_launches(pk, cfg, q8, ticks, warmups) -> dict:
+    """The paged kernels' counts against what the tier drove: the path's
+    kernel (K4 for int8 pools) n_layer x (``ticks`` decode ticks +
+    ``warmups`` engine warmups, one decode forward each), the other 0."""
+    want = {"K3": 0, "K4": 0}
+    want["K4" if q8 else "K3"] = cfg.n_layer * (ticks + warmups)
+    got = {"K3": pk.launches, "K4": pk.launches_q8}
+    if got != want:
+        raise AssertionError(
+            f"tier launches {got} != {want} (n_layer {cfg.n_layer} x "
+            f"(decode ticks {ticks} + warmups {warmups})): the tier's "
+            "decode did not go through its kernel"
+        )
+    return dict(launches=got, decode_ticks=ticks, warmups=warmups)
+
+
+def tier_http_phase(pk, seed, smi) -> dict:
+    """The serving twin on the card: ``serving.serve``'s own ``build``, GPT-2
+    124M (bf16), 2 replicas x 4 slots, max_len 1024, on 127.0.0.1 port 0.
+    A greedy 64-token SSE stream whose replica is killed (/admin/kill)
+    after its first token must end in ``event: done``, DONE, with 64
+    tokens streamed; /healthz shows the replica DOWN, /admin/restart
+    brings it back HEALTHY; a plain request then runs on the restarted
+    replica; a burst of 48 concurrent requests must meet at least one 429
+    with Retry-After (``--queue-limit 2``: at most two queued requests per
+    replica, so the burst overflows whatever the host's speed). K3 counted
+    from zero over the whole phase, launched from the server's drive
+    thread."""
+    from pytorch_distributed_tpu_torch.serving import serve
+
+    args = serve.parse_args([
+        "--preset", "gpt2", "--replicas", "2", "--slots", "4",
+        "--max-len", "1024", "--host", "127.0.0.1", "--port", "0",
+        "--queue-limit", "2", "--seed", str(seed)])
+    cfg, params, router, server = serve.build(args)
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, 48).tolist()
+    engines = list(router.engines().values())
+    pk.launches = pk.launches_q8 = 0
+    with serve.serve_in_thread(server) as (host, port):
+        killed = {}
+
+        def kill_serving_replica():
+            _, _, health = _http_json(host, port, "GET", "/healthz")
+            busy = [int(i) for i, r in health["replicas"].items()
+                    if r.get("active_rows", 0) + r.get("queue_depth", 0)]
+            status, _, body = _http_json(host, port, "POST", "/admin/kill",
+                                         {"replica": busy[0]})
+            killed.update(replica=busy[0], status=status,
+                          states=body["states"])
+
+        tokens, done, ttft, latency = _sse_stream(
+            host, port, dict(prompt=prompt, max_new_tokens=64),
+            on_first_token=kill_serving_replica)
+        _, _, health = _http_json(host, port, "GET", "/healthz")
+        down = health["replicas"][str(killed["replica"])]["state"]
+        status, _, restarted = _http_json(
+            host, port, "POST", "/admin/restart",
+            {"replica": killed["replica"]})
+        engines += [router.engines()[killed["replica"]]]
+        t0 = time.perf_counter()
+        status_plain, _, plain = _http_json(
+            host, port, "POST", "/v1/generate",
+            dict(prompt=prompt[:16], max_new_tokens=16))
+        plain_s = time.perf_counter() - t0
+        with ThreadPoolExecutor(48) as pool:
+            burst = list(pool.map(
+                lambda i: _http_json(host, port, "POST", "/v1/generate",
+                                     dict(prompt=prompt[:8],
+                                          max_new_tokens=8)),
+                range(48)))
+        counts = _tier_launches(
+            pk, cfg, False,
+            sum(e.counters["decode_ticks"] for e in engines), warmups=1)
+    shed = [(h, b) for st, h, b in burst if st == 429]
+    row = dict(
+        phase="tier_http", nvidia_smi=smi, model="gpt2 L12 E768",
+        dtype=cfg.dtype, replicas=2, slots=4, max_len=1024,
+        stream_tokens=len(tokens), done_state=done and done["state"],
+        first_token_s=ttft, request_s=latency, killed=killed,
+        state_after_kill=down,
+        state_after_restart=restarted["states"][str(killed["replica"])],
+        plain_after_restart=dict(status=status_plain,
+                                 state=plain.get("state"), seconds=plain_s),
+        burst=dict(requests=48, ok=sum(st == 200 for st, _, _ in burst),
+                   shed_429=len(shed),
+                   retry_after=[h.get("Retry-After") for h, _ in shed[:3]]),
+        router_counters=router.counters, **counts,
+    )
+    emit(**row)
+    fails = []
+    if killed.get("status") != 200 or down != "DOWN":
+        fails.append(f"kill: {killed}, state after {down}")
+    if done is None or done["state"] != "DONE" or len(tokens) != 64:
+        fails.append(f"stream: {len(tokens)} tokens, done {done}")
+    elif done["tokens"][len(prompt):] != tokens:
+        fails.append("streamed tokens differ from the done event's")
+    if row["state_after_restart"] != "HEALTHY":
+        fails.append(f"restart: {restarted}")
+    if status_plain != 200 or plain.get("state") != "DONE":
+        fails.append(f"plain request after restart: {status_plain} {plain}")
+    if router.engines()[killed["replica"]].counters["decode_ticks"] == 0:
+        fails.append("the restarted replica decoded nothing")
+    if not shed or not all(float(h["Retry-After"]) >= 1 and
+                           b["retry_after_s"] > 0 for h, b in shed):
+        fails.append(f"no 429 with Retry-After in the burst: {row['burst']}")
+    if router.counters["failovers"] != 1:
+        fails.append(f"failovers {router.counters['failovers']} != 1")
+    if fails:
+        raise AssertionError(f"tier_http: {fails}")
+    return row
+
+
+def tier_legs(pk, cfg, params, lg_args, smi, phase, engine_kw=None) -> dict:
+    """The loadgen twin's legs on the card (``serving.loadgen``'s
+    functions): a clean and a storm fleet, warmed and calibrated, then at
+    each of ``lg_args.rates`` a clean and a storm leg on one seeded
+    schedule. Each leg is driven with the paged kernels' counts at zero
+    and read just after (``_tier_launches``), and its peak memory from a
+    reset; the storm's DONE outputs are compared with the clean leg's.
+    Gates every leg: no lost or duplicated request, every clean request
+    DONE, a storm leg's kill fired. f32 also: at most 1 in 16 storm
+    outputs differ from the clean leg's, each only at or after its
+    failover token. Other dtypes report the count."""
+    from pytorch_distributed_tpu_torch.serving import loadgen
+    from pytorch_distributed_tpu_torch.serving.workload import (
+        exponential_arrivals,
+        request_stream,
+    )
+
+    engine_kw = engine_kw or {}
+    requests = request_stream(
+        np.random.default_rng(lg_args.seed), n=lg_args.requests,
+        vocab_size=cfg.vocab_size, prompt_len=(4, lg_args.max_len // 3),
+        max_new=lg_args.max_new, key_seed=lg_args.seed)
+    fleets = {name: loadgen.make_fleet(cfg, lg_args, None, **engine_kw)
+              for name in ("clean", "storm")}
+    for fleet in fleets.values():
+        fleet.warmup(params)
+    t0 = time.perf_counter()
+    capacity = loadgen.calibrate(list(fleets.values()), params, requests,
+                                 lg_args)
+    rows, fails = [], []
+    for rate_i, mult in enumerate(lg_args.rates):
+        offered = capacity * mult
+        arrivals = exponential_arrivals(
+            np.random.default_rng(lg_args.seed + 101), lg_args.requests,
+            1.0 / offered)
+        legs = {}
+        order = ("clean", "storm") if rate_i % 2 == 0 else ("storm", "clean")
+        for name in order:
+            fleet = fleets[name]
+            restarts0 = fleet.counters["restarts"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            pk.launches = pk.launches_q8 = 0
+            leg = loadgen.run_leg(fleet, params, requests, arrivals,
+                                  lg_args, storm=name == "storm", mult=mult)
+            torch.cuda.synchronize()
+            leg["row"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+            # Decode ticks summed over every engine that ran (``drive``),
+            # and each restart's warmup (one decode forward).
+            leg["row"].update(_tier_launches(
+                pk, cfg, engine_kw.get("kv_quant") == "int8",
+                leg["row"]["decode_ticks"],
+                fleet.counters["restarts"] - restarts0))
+            legs[name] = leg
+            loadgen.restore_fleet(fleet, params)
+        cmp = loadgen.compare_legs(legs["clean"], legs["storm"], requests)
+        gate = loadgen.leg_failures(mult, legs["clean"], legs["storm"],
+                                    dict(cmp, mismatches=[]),
+                                    lg_args.requests)
+        if cfg.dtype == "float32":
+            late = [m for m in cmp["mismatches"]
+                    if not m["failover_points"]
+                    or m["first_diff_token"] < min(m["failover_points"])]
+            if len(cmp["mismatches"]) * 16 > cmp["compared"] or late:
+                gate.append(
+                    f"rate x{mult}: {len(cmp['mismatches'])} of "
+                    f"{cmp['compared']} storm outputs differ from the clean "
+                    f"leg (bar: 1 in 16, each at or after its failover "
+                    f"token): {cmp['mismatches']}")
+        row = dict(rate_multiplier=mult, offered_qps=offered,
+                   clean=legs["clean"]["row"],
+                   storm=dict(legs["storm"]["row"],
+                              done_outputs_match_clean=cmp[
+                                  "done_outputs_match_clean"],
+                              mismatches=cmp["mismatches"]))
+        emit(phase=phase, nvidia_smi=smi, dtype=cfg.dtype,
+             model=f"{cfg.family} L{cfg.n_layer} E{cfg.n_embd}",
+             replicas=lg_args.replicas, slots=lg_args.slots,
+             max_len=lg_args.max_len, requests=lg_args.requests,
+             max_new=lg_args.max_new, capacity_req_per_s=capacity,
+             **engine_kw, **row)
+        rows.append(row)
+        fails += gate
+    if fails:
+        raise AssertionError(f"{phase} ({cfg.dtype}): {fails}")
+    tier_profile(fleets["clean"], params, requests, smi, phase, cfg)
+    return dict(rows=rows, seconds=time.perf_counter() - t0)
+
+
+def tier_profile(fleet, params, requests, smi, phase, cfg,
+                 n_ticks: int = 10) -> None:
+    """``torch.profiler`` over ``n_ticks`` router ticks of ``fleet`` with
+    every slot of every replica decoding (after their prefills): the
+    device's busy share of a tier tick, its kernels and host ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = sum(e.slots for e in fleet.engines().values())
+    rids = [fleet.submit(**dict(r, max_new_tokens=64))
+            for r in requests[:n]]
+    while True:
+        before = sum(e.counters["prefill_ticks"]
+                     for e in fleet.engines().values())
+        fleet.step(params)
+        if sum(e.counters["prefill_ticks"]
+               for e in fleet.engines().values()) == before:
+            break
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_ticks):
+            fleet.step(params)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fleet.run(params)
+    for rid in rids:
+        fleet.pop_result(rid)
+    emit(phase=f"{phase}_profile", nvidia_smi=smi, dtype=cfg.dtype,
+         model=f"{cfg.family} L{cfg.n_layer} E{cfg.n_embd}",
+         router_ticks=n_ticks, replicas=len(fleet.engines()),
+         rows_decoding=n, **profile_summary(prof, wall_ms))
+
+
+def failover_paths_phase(pk, seed, dev, smi) -> dict:
+    """Where a failed-over row's values part from an undisturbed run's:
+    one GPT-2 124M block (layer 0's weights as the engine places them) on
+    the same rows, once decode-shaped ([4, 1, E] — a decode tick of 4
+    slots) and once prefill-shaped (the same rows inside a [4, 64, E]
+    chunk — the re-prefill after a failover), in f32 and bf16: ln_1, the
+    qkv projection, the attention over the same 70 paged keys (K3 for
+    the decode shape, the gather path for the chunk), c_proj and the
+    MLP's first product, each op fed the decode shape's own input so
+    only the shape differs. Prints each op's largest difference and
+    whether it is bit-equal, and the first op that differs."""
+    from pytorch_distributed_tpu_torch.config import model_config
+    from pytorch_distributed_tpu_torch.models import gpt2
+    from pytorch_distributed_tpu_torch.ops.layers import dense, layer_norm
+    from pytorch_distributed_tpu_torch.serving import PagedBatchedDecodeEngine
+
+    base = model_config("gpt2")
+    params = gpt2.init(torch.Generator().manual_seed(seed), base)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = base.replace(dtype=dtype)
+        eng = PagedBatchedDecodeEngine(cfg, slots=4, max_len=1024,
+                                       page_size=16)
+        bp = eng._place_params(params)["blocks"][0]
+        dt = getattr(torch, dtype)
+        e, h, d = cfg.n_embd, cfg.n_head, cfg.head_dim
+        g = torch.Generator(device=dev).manual_seed(seed)
+        at = 5  # the row's position inside the prefill chunk
+        chunk = torch.randn(4, 64, e, generator=g, device=dev).to(dt)
+
+        def both(fn, x_chunk):
+            # The decode shape's input is the chunk's column ``at``.
+            small = fn(x_chunk[:, at:at + 1])
+            big = fn(x_chunk)[:, at:at + 1]
+            diff = (small.float() - big.float()).abs().max().item()
+            return dict(max_abs=diff, bit_equal=torch.equal(small, big))
+
+        rows = {}
+        rows["ln_1"] = both(
+            lambda x: layer_norm(x, bp["ln_1"],
+                                 eps=cfg.layer_norm_epsilon), chunk)
+        a = layer_norm(chunk, bp["ln_1"], eps=cfg.layer_norm_epsilon)
+        rows["c_attn"] = both(lambda x: dense(x, bp["attn"]["c_attn"]), a)
+        # Attention: 70 keys per row in pages 1..5 of each row's table;
+        # the decode query sits at position 69, the chunk covers 6..69.
+        n_pool = 4 * 5 + 1
+        kp = torch.randn(n_pool, 16, h, d, generator=g, device=dev).to(dt)
+        vp = torch.randn(n_pool, 16, h, d, generator=g, device=dev).to(dt)
+        tables = (torch.arange(4 * 5, device=dev).reshape(4, 5) + 1
+                  ).to(torch.int32)
+        tables = torch.cat([tables, torch.zeros(4, 59, dtype=torch.int32,
+                                                device=dev)], 1)
+        q = torch.randn(4, 64, h, d, generator=g, device=dev).to(dt)
+        dec = pk.paged_decode_attention(
+            q[:, 63].contiguous(), kp, vp, tables,
+            torch.full((4,), 69, dtype=torch.int32, device=dev))
+        pre = pk.gather_attention(
+            q, kp, vp, tables,
+            torch.full((4,), 6, dtype=torch.int32, device=dev))[:, 63]
+        rows["attention"] = dict(
+            max_abs=(dec.float() - pre.float()).abs().max().item(),
+            bit_equal=torch.equal(dec, pre))
+        o = torch.randn(4, 64, e, generator=g, device=dev).to(dt)
+        rows["c_proj"] = both(lambda x: dense(x, bp["attn"]["c_proj"]), o)
+        rows["c_fc"] = both(lambda x: dense(x, bp["mlp"]["c_fc"]), a)
+        first = next((name for name, r in rows.items()
+                      if not r["bit_equal"]), None)
+        out[dtype] = dict(ops=rows, first_differing=first)
+        emit(phase="failover_paths", nvidia_smi=smi, dtype=dtype,
+             model="gpt2 L12 E768 block 0", decode_shape=[4, 1, e],
+             prefill_shape=[4, 64, e], **out[dtype])
+    return out
+
+
+def tier_storm_args(replicas: int, rates: list[float]):
+    from pytorch_distributed_tpu_torch.serving import loadgen
+
+    return loadgen.parse_args([
+        "--replicas", str(replicas), "--slots", "4", "--max-len", "1024",
+        "--requests", "40", "--max-new", "24", "--device", "cuda",
+        "--rates", *map(str, rates)])
+
+
+def tier_storm_phase(pk, seed, smi) -> dict:
+    """GPT-2 124M at full width, 4 replicas x 4 slots, max_len 1024, 40
+    requests (prompts 4-341 tokens, 24 new; the workload's greedy/sampled
+    cycle), the loadgen twin's kill schedule, rates 0.5 and 2.0 of the
+    calibrated capacity; in f32 and in bf16 (``tier_legs``)."""
+    from pytorch_distributed_tpu_torch.config import model_config
+    from pytorch_distributed_tpu_torch.models import gpt2
+
+    base = model_config("gpt2")
+    params = gpt2.init(torch.Generator().manual_seed(seed), base)
+    lg_args = tier_storm_args(4, [0.5, 2.0])
+    return {dtype: tier_legs(pk, base.replace(dtype=dtype), params, lg_args,
+                             smi, "tier_storm")
+            for dtype in ("float32", "bfloat16")}
+
+
+def tier_llama_q8_phase(pk, seed, dev, smi) -> dict:
+    """Llama-3.2-1B at full width with int8 KV pages and weights (K4),
+    2 replicas x 4 slots, max_len 1024, 40 requests, rate 1.0, clean and
+    storm (``tier_legs``; bf16, so the output match is reported)."""
+    from pytorch_distributed_tpu_torch.config import model_config
+    from pytorch_distributed_tpu_torch.models import llama
+
+    cfg = model_config("llama3-1b")
+    params = llama.init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                        device=dev)
+    return tier_legs(pk, cfg, params, tier_storm_args(2, [1.0]), smi,
+                     "tier_llama_q8", engine_kw=Q8)
 
 
 FLASH_SOURCE = "pytorch_distributed_tpu_torch/csrc/flash_attention.cu"
@@ -1955,12 +2383,32 @@ def main() -> int:
     # 6. Llama-3.2-1B at full width (GQA group 4): K4 and K3 drives
     llama_phase(pk, args.seed, dev)
 
+    # 6b. the serving tier through its entry points: the HTTP/SSE twin,
+    # the loadgen twin's clean and storm legs (GPT-2 f32 and bf16), and
+    # the int8 Llama fleet (K4)
+    tier = dict(http=tier_http_phase(pk, args.seed, smi),
+                storm=tier_storm_phase(pk, args.seed, smi),
+                llama_q8=tier_llama_q8_phase(pk, args.seed, dev, smi))
+    failover_paths_phase(pk, args.seed, dev, smi)
+
+    tier_paths = {
+        "K3": dict(tier_http=tier["http"]["launches"]["K3"], **{
+            f"tier_storm_{dtype}_x{row['rate_multiplier']}_{leg}":
+                row[leg]["launches"]["K3"]
+            for dtype, legs in tier["storm"].items()
+            for row in legs["rows"] for leg in ("clean", "storm")}),
+        "K4": {f"tier_llama_q8_x{row['rate_multiplier']}_{leg}":
+               row[leg]["launches"]["K4"]
+               for row in tier["llama_q8"]["rows"]
+               for leg in ("clean", "storm")},
+    }
     paged_entries = [
         dict(name=name, route="cuda", source=PAGED_SOURCE,
              replaces=f"pytorch_distributed_tpu/ops/paged_kernel.py:{line}",
-             **run["entry"])
-        for name, line, run in (("paged_decode_attention", 56, k3),
-                                ("paged_decode_attention_q8", 114, k4))
+             **run["entry"], tier_paths=tier_paths[kid])
+        for name, line, run, kid in (
+            ("paged_decode_attention", 56, k3, "K3"),
+            ("paged_decode_attention_q8", 114, k4, "K4"))
     ]
 
     # 7. flash kernels at the listed shapes, then at the llama training

@@ -21,7 +21,9 @@ token's K and V carry one f32 scale per KV head (``ops/quant.quantize_kv``).
   for prefill) at one query token, as the JAX package's reference is.
 - ``launches`` (K3) and ``launches_q8`` (K4) count kernel launches (CPU
   calls never bump them), so a run can show that its decode steps went
-  through the kernel.
+  through the kernel. They are bumped under a lock (``_count_launch``), so
+  engines stepped on several threads (the HTTP server's drive thread, a
+  router's ``parallel_step``) lose no count.
 - ``_split_plan`` is how the kernel cuts a row's keys into chunks, one
   CTA each, and ``paged_decode_attention_split_reference`` restates the
   kernel's arithmetic on that partition (per-chunk f32 softmax states in
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -44,6 +47,7 @@ NEG_INF = -1e30  # finite mask: -inf would NaN a fully masked softmax
 # (pages in q's dtype) and K4 (int8 pages).
 launches = 0
 launches_q8 = 0
+_count_lock = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -322,7 +326,6 @@ def paged_decode_attention(
     stream (``_workspace``): one launch, nothing allocated but the output
     once the workspace has grown to the largest batch seen on that
     stream."""
-    global launches, launches_q8
     _check(q, k_pages, v_pages, block_tables, lengths, k_scales, v_scales)
     q8 = k_scales is not None
     if q.device.type == "cpu":
@@ -380,8 +383,17 @@ def paged_decode_attention(
             f"paged decode kernel ({'K4' if q8 else 'K3'}) launch failed: "
             f"cudaError {err}"
         )
-    if q8:
-        launches_q8 += 1
-    else:
-        launches += 1
+    _count_launch(q8)
     return out
+
+
+def _count_launch(q8: bool) -> None:
+    """Count one launch of K4 (``q8``) or K3. Under a lock: engines stepped
+    on several threads launch at once, and ``+=`` on a module global is a
+    read-modify-write that could lose a count."""
+    global launches, launches_q8
+    with _count_lock:
+        if q8:
+            launches_q8 += 1
+        else:
+            launches += 1

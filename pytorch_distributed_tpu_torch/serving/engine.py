@@ -51,13 +51,54 @@ cast), and the head's weight (gpt2's tied ``wte``, llama's ``lm_head``)
 kept as the f32 values of its ``cfg.dtype`` rounding, for the
 f32-accumulated logits.
 
-Left out of this port, relative to the JAX engines: speculative decoding,
-LoRA adapters, multi-turn sessions, quarantine
-retries (a row with non-finite logits is FAILED with its reason),
-fault injection, snapshot/restore, disaggregated roles and KV handoff,
-tensor parallelism, and the dense and serial engines.
+**Fault model** (the JAX engine's, ``serving/lifecycle.py`` draws it):
+every request reaches exactly one terminal ``RequestResult``. Each
+prefill-chunk forward and each decode-tick forward, with its sampling,
+runs through ``_dispatch``, which consults an installed
+``serving/chaos.FaultInjector`` before and after. A failed dispatch is
+recovered in ``step``: the pool is written in place, so a failure can
+leave pages half-written, and no page content is trusted after one — the
+block pool is reset (every page freed, the prefix cache dropped), every
+in-flight row becomes a resume entry (its tokens so far, one retry
+charged against ``request_retries``) that re-prefills on a later tick,
+and the engine backs off ``retry_backoff_s x 2^(streak-1)`` through
+``sleep``; ``dispatch_retries`` consecutive failures raise
+``DispatchFailure`` with the state consistent. A row with non-finite
+logits is QUARANTINED: freed, and its clean prefix re-prefilled once on
+fresh pages (never from the prefix cache); if the logits stay
+non-finite it is FAILED. ``snapshot`` captures the host state between
+ticks; ``restore`` loads it into a fresh engine and ``adopt`` into a busy
+one (the router's failover): both continue token-identically, because a
+resumed row's tokens depend only on its entry and the params — greedy
+rows on the prefix, sampled rows on the (seed, token index) generator.
 
-Not thread-safe: one dispatcher per engine.
+Which errors are recoverable: whatever the injector raises, and
+``RETRYABLE_ERRORS`` from the forward itself (CUDA out-of-memory, which
+leaves the context usable). Any other error — from a kernel wrapper, an
+illegal address or a device-side assert, which poison the CUDA context
+for every replica on the card — propagates: retrying it would hide the
+fault. On one card, replica death is therefore simulated (the router's
+``kill``, ``RouterFaultInjector``), never a lost device.
+
+``compile_count`` has no per-shape meaning here: the port compiles no
+program per shape. It counts the CUDA kernel libraries this process has
+built or loaded (``ops/_build``, process-wide), which rises at most once
+per library, at the first kernel launch (``warmup``); the router reads
+it against a post-warmup watermark, so a steady state reads 0.
+
+**Sessions** (``serving/session``): ``open_session``/``submit(session=)``
+/``close_session``; a turn resubmits the conversation so far and its
+published chunks (decode-written ones included) stay pinned between
+turns, within ``session_pin_budget_pages`` (default half the pool).
+
+Left out of this port, relative to the JAX engines: speculative decoding,
+LoRA adapters, disaggregated roles and KV handoff, tensor parallelism,
+MoE decode, and the dense and serial engines.
+
+Not thread-safe: one dispatcher per engine (the router and the HTTP
+server serialise every call). Several engines on one card may run in
+different threads: the paged kernels keep one workspace per (device,
+stream) and count their launches under a lock.
 """
 
 from __future__ import annotations
@@ -80,9 +121,12 @@ from pytorch_distributed_tpu_torch.serving.lifecycle import (
     EXPIRED,
     FAILED,
     AdmissionQueueFull,
+    DispatchFailure,
+    EngineSnapshot,
     PagePoolExhausted,
     RequestResult,
 )
+from pytorch_distributed_tpu_torch.serving.session import SessionTracker
 from pytorch_distributed_tpu_torch.serving.scheduler import (
     BATCH,
     INTERACTIVE,
@@ -111,9 +155,10 @@ def kv_bytes_per_position(cfg: ModelConfig, kv_quant: str = "none") -> int:
 
 @dataclasses.dataclass
 class _Pending:
-    """A queued request; after a preemption, also its resume entry: ``gen``
-    then holds the tokens generated so far, and admission prefills the
-    whole prompt + gen prefix."""
+    """A queued request; after a preemption or a fault, also its resume
+    entry: ``gen`` then holds the clean tokens generated so far, and
+    admission prefills the whole prompt + gen prefix. The same record is
+    what ``snapshot`` captures and ``restore``/``adopt`` take."""
 
     rid: int
     prompt: np.ndarray  # [Tp] int32
@@ -127,6 +172,10 @@ class _Pending:
     deadline: float | None = None  # engine-clock absolute deadline
     gen: list = dataclasses.field(default_factory=list)  # resume prefix
     tier: int = TIER_RANK[STANDARD]
+    retries: int = 0  # fault resumes charged (dispatch failures)
+    nan_retried: bool = False  # quarantine: one retry, then FAILED
+    session: int | None = None  # the engine session a turn belongs to
+    resub_len: int = 0  # resubmitted-transcript tokens of a session turn
 
 
 @dataclasses.dataclass
@@ -155,6 +204,10 @@ class _PagedSlot:
     n_pages: int  # allocated table entries
     resume_base: int  # len(resume gen) riding ahead of fresh tokens
     chain_key: str  # prefix-cache chain key at pos (one digest per publish)
+    retries: int = 0
+    nan_retried: bool = False
+    session: int | None = None
+    resub_len: int = 0
 
     @property
     def ready(self) -> bool:
@@ -168,12 +221,26 @@ class PagedBatchedDecodeEngine:
     ``pool_pages`` (pool capacity including the scratch page 0; default
     ``slots * max_len / page_size + 1``), ``prefill_chunk`` (a page
     multiple dividing ``max_len``; default the largest such <= 64),
-    ``queue_limit`` (bounded admission queue: ``submit`` past it raises
-    ``AdmissionQueueFull``), ``batch_admit_free_frac`` (free-pool fraction
-    below which BATCH requests stop admitting), ``clock`` (the deadline
-    clock, ``time.monotonic`` by default), ``device`` (None = "cuda"),
-    ``kv_quant`` and ``weight_quant`` ("none" or "int8", module
-    docstring)."""
+    ``queue_limit`` (bounded admission queue) with ``backpressure``
+    ("reject": ``submit`` past the limit raises ``AdmissionQueueFull``;
+    "block": ``submit(params=...)`` drives ``step`` until space frees or
+    ``block_timeout_s`` passes), ``batch_admit_free_frac`` (free-pool
+    fraction below which BATCH requests stop admitting),
+    ``request_retries`` (fault resumes a request may take before it is
+    FAILED), ``dispatch_retries`` (consecutive failed dispatches before
+    ``step`` raises ``DispatchFailure``; None = never), ``retry_backoff_s``
+    (the first backoff, doubled per consecutive failure), ``clock`` and
+    ``sleep`` (the deadline clock and the backoff's sleep,
+    ``time.monotonic``/``time.sleep`` by default; a
+    ``utils/chaos.VirtualClock`` for both makes them deterministic),
+    ``device`` (None = "cuda"), ``kv_quant`` and ``weight_quant`` ("none"
+    or "int8", module docstring)."""
+
+    # Errors from the forward itself that a retry can honestly recover
+    # (module docstring); anything else propagates.
+    RETRYABLE_ERRORS: tuple[type[BaseException], ...] = (
+        torch.cuda.OutOfMemoryError,
+    )
 
     def __init__(
         self,
@@ -186,8 +253,14 @@ class PagedBatchedDecodeEngine:
         prefill_chunk: int | None = None,
         paged_attention: str = "auto",
         queue_limit: int | None = None,
+        backpressure: str = "reject",
         batch_admit_free_frac: float = 0.25,
+        session_pin_budget_pages: int | None = None,
+        request_retries: int = 3,
+        dispatch_retries: int | None = 2,
+        retry_backoff_s: float = 0.05,
         clock=None,
+        sleep=None,
         device=None,
         kv_quant: str = "none",
         weight_quant: str = "none",
@@ -258,6 +331,15 @@ class PagedBatchedDecodeEngine:
         if queue_limit is not None and queue_limit < 1:
             raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
         self.queue_limit = queue_limit
+        if backpressure not in ("reject", "block"):
+            raise ValueError(
+                f"backpressure must be 'reject' or 'block', got "
+                f"{backpressure!r}"
+            )
+        self.backpressure = backpressure
+        self.request_retries = int(request_retries)
+        self.dispatch_retries = dispatch_retries
+        self.retry_backoff_s = float(retry_backoff_s)
         self.device = resolve_device(device)
         if paged_attention == "auto":
             paged_attention = (
@@ -279,7 +361,22 @@ class PagedBatchedDecodeEngine:
         self.kv_quant = quant.check_mode("kv_quant", kv_quant)
         self.weight_quant = quant.check_mode("weight_quant", weight_quant)
         self._clock = clock or time.monotonic
+        self._sleep = sleep or time.sleep
+        self._injector = None  # serving/chaos.FaultInjector (or None)
+        self._ticks = 0
+        self._fail_streak = 0  # consecutive failed dispatches
         self.pool = BlockPool(self.pool_pages, self.page_size, self.chunk)
+        # Session retention pins at most half the pool by default; past
+        # the budget the longest-idle session is evicted loudly.
+        self._sessions = SessionTracker(
+            self.pool,
+            pin_budget_pages=(
+                (self.pool_pages - 1) // 2
+                if session_pin_budget_pages is None
+                else session_pin_budget_pages
+            ),
+            clock=self._clock,
+        )
         self._cache = decode.init_paged_cache(
             cfg, self.pool_pages, self.page_size, device=self.device,
             kv_quant=self.kv_quant,
@@ -293,6 +390,7 @@ class PagedBatchedDecodeEngine:
             "done": 0, "failed": 0, "aborted": 0, "expired": 0,
             "preemptions": 0, "preempt_priority": 0, "batch_yield_ticks": 0,
             "prefill_ticks": 0, "decode_ticks": 0,
+            "nan_quarantines": 0, "dispatch_failures": 0, "resumes": 0,
         }
         log_event(
             "pool_build",
@@ -413,6 +511,9 @@ class PagedBatchedDecodeEngine:
         seed: int | None = None,
         priority: str = STANDARD,
         timeout_s: float | None = None,
+        params=None,
+        block_timeout_s: float | None = None,
+        session: int | None = None,
     ) -> int:
         """Queue one single-sequence request ([Tp] or [1, Tp] token ids)
         and return its request id. A later ``step`` admits it; its
@@ -420,7 +521,12 @@ class PagedBatchedDecodeEngine:
         with ``pop_result(rid)``. ``temperature > 0`` samples (``seed``
         required: the request's tokens are a pure function of it);
         ``timeout_s`` is a deadline on the engine clock; ``priority`` is
-        the SLO tier (``serving/scheduler``)."""
+        the SLO tier (``serving/scheduler``). With a full bounded queue,
+        ``backpressure="reject"`` raises ``AdmissionQueueFull`` and
+        "block" drives ``step(params)`` until space frees or
+        ``block_timeout_s`` (engine clock) passes, then raises.
+        ``session`` is a live sid from ``open_session``: the prompt must
+        extend the session's recorded transcript (``serving/session``)."""
         prompt = np.asarray(prompt)
         if prompt.ndim == 2 and prompt.shape[0] == 1:
             prompt = prompt[0]
@@ -453,12 +559,11 @@ class PagedBatchedDecodeEngine:
         if timeout_s is not None and timeout_s <= 0:
             raise ValueError(f"timeout_s must be > 0, got {timeout_s}")
         tier = check_priority(priority)
-        if self.queue_limit is not None and len(self._queue) >= self.queue_limit:
-            raise AdmissionQueueFull(
-                f"admission queue full: {len(self._queue)} queued >= "
-                f"queue_limit {self.queue_limit} — shed load upstream or "
-                "retry after draining"
-            )
+        prompt = prompt.astype(np.int32)
+        # Validated before the rid is assigned; marked in flight after.
+        resub_len = (0 if session is None
+                     else self._sessions.check_turn(session, prompt))
+        self._admission_backpressure(params, block_timeout_s)
         rid = self._next_rid
         self._next_rid += 1
         t, k, p = decode.sampling_scalars(
@@ -470,15 +575,47 @@ class PagedBatchedDecodeEngine:
             max_new=int(max_new_tokens), eos_id=eos_id,
             greedy=not temperature > 0.0, t=t, k=k, p=p,
             seed=0 if seed is None else int(seed), deadline=deadline,
-            tier=tier,
+            tier=tier, session=session, resub_len=resub_len,
         ))
+        if session is not None:
+            self._sessions.begin_turn(session, rid)
         log_event(
             "submit", rid=rid, t=round(self._clock(), 6), prompt_len=tp,
             max_new=int(max_new_tokens),
             deadline=None if deadline is None else round(deadline, 6),
             priority=priority if tier != TIER_RANK[STANDARD] else None,
+            session=session,
         )
         return rid
+
+    def _admission_backpressure(self, params, block_timeout_s) -> None:
+        if self.queue_limit is None or len(self._queue) < self.queue_limit:
+            return
+        if self.backpressure == "reject":
+            raise AdmissionQueueFull(
+                f"admission queue full: {len(self._queue)} queued >= "
+                f"queue_limit {self.queue_limit} (policy 'reject') — shed "
+                "load upstream or retry after draining"
+            )
+        if params is None:
+            raise ValueError(
+                "backpressure policy 'block' drives the scheduler from "
+                "submit and therefore needs params=... (or use the "
+                "'reject' policy)"
+            )
+        deadline = (
+            None if block_timeout_s is None
+            else self._clock() + block_timeout_s
+        )
+        while len(self._queue) >= self.queue_limit:
+            if deadline is not None and self._clock() >= deadline:
+                raise AdmissionQueueFull(
+                    f"admission queue still full ({len(self._queue)} >= "
+                    f"queue_limit {self.queue_limit}) after blocking "
+                    f"{block_timeout_s}s — the engine is not draining "
+                    "fast enough for the offered load"
+                )
+            self.step(params)
 
     def has_work(self) -> bool:
         return bool(self._queue) or any(s is not None for s in self._slots)
@@ -516,7 +653,13 @@ class PagedBatchedDecodeEngine:
         """One scheduler tick: expire overdue requests, admit queued ones
         and advance every mid-prefill row one chunk, then advance every
         decode-ready row one token. Returns the rids that reached a
-        terminal state this tick."""
+        terminal state this tick. A failed dispatch is recovered here
+        (module docstring); only past ``dispatch_retries`` consecutive
+        failures does it raise ``DispatchFailure``, with every in-flight
+        request requeued."""
+        self._ticks += 1
+        if self._injector is not None:
+            self._injector.on_tick(self._ticks)
         params = self._place_params(params)
         finished: list[int] = []
         self._expire(finished)
@@ -570,11 +713,11 @@ class PagedBatchedDecodeEngine:
         res = self.results.get(rid)
         return None if res is None else np.asarray(res.tokens)
 
-    def warmup(self, params) -> None:
+    def warmup(self, params) -> int:
         """Place the params and run one prefill chunk and one decode step
         on the scratch page (all-zero tables), so the first request pays
         no one-time cost (the kernel build and load, library handles).
-        Idle engines only."""
+        Idle engines only. Returns ``compile_count()``."""
         if self.has_work():
             raise RuntimeError("warmup requires an idle engine")
         params = self._place_params(params)
@@ -586,6 +729,112 @@ class PagedBatchedDecodeEngine:
             )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        return self.compile_count()
+
+    # -- fault injection, crash recovery, failover ----------------------------
+
+    def set_fault_injector(self, injector) -> None:
+        """Install a ``serving/chaos.FaultInjector`` (or None to remove):
+        host-side hooks consulted around every dispatch and at every
+        tick."""
+        self._injector = injector
+        if injector is not None:
+            # Seeded nan_row faults pick their target among the active
+            # rows, so the injector needs the engine back-reference.
+            injector._engine = self
+
+    def snapshot(self) -> EngineSnapshot:
+        """The engine's host-side request state, between ``step`` calls:
+        queued entries, every in-flight row as a resume entry carrying
+        its tokens so far, the rid counter and the undelivered results.
+        The KV pool is not captured: ``restore``/``adopt`` and admission
+        rebuild it from the prefixes. The engine itself is not changed."""
+        inflight = sorted(
+            (self._pending_from_slot(s) for s in self._slots
+             if s is not None),
+            key=lambda q: q.rid,
+        )
+        queued = [dataclasses.replace(q, gen=list(q.gen))
+                  for q in self._queue]
+        log_event(
+            "snapshot", t=round(self._clock(), 6), inflight=len(inflight),
+            queued=len(queued),
+        )
+        return EngineSnapshot(
+            pending=inflight + queued, next_rid=self._next_rid,
+            results=dict(self.results), stats=dict(self.counters),
+        )
+
+    def restore(self, snap: EngineSnapshot) -> None:
+        """Load a ``snapshot`` into this fresh, idle engine: its next
+        ``step``s re-prefill every in-flight request from its tokens so
+        far and continue token-identically to an uninterrupted run."""
+        if self.has_work() or self.results:
+            raise RuntimeError(
+                "restore requires a fresh idle engine (no queued/active "
+                "work, no undelivered results)"
+            )
+        for q in snap.pending:
+            self._check_fits(q)
+        self._next_rid = snap.next_rid
+        self.results.update(snap.results)
+        for q in snap.pending:
+            # Session ids are engine-local and this engine's tracker is
+            # fresh: the turn completes as a plain request (its client
+            # re-opens; the transcript-carrying resubmission makes that
+            # lossless).
+            self._queue.append(
+                dataclasses.replace(q, gen=list(q.gen), session=None)
+            )
+        log_event(
+            "restore", t=round(self._clock(), 6),
+            pending=len(snap.pending), next_rid=snap.next_rid,
+        )
+
+    def adopt(self, entries) -> dict[int, int]:
+        """Take over queued/resume entries from ANOTHER engine (the
+        router's failover): each gets this engine's next rid and queues
+        behind the work already here, in the order given, and continues
+        token-identically. Works on a busy engine. Every entry is checked
+        before any is queued. Returns {donor_rid: adopted_rid}."""
+        entries = list(entries)
+        for q in entries:
+            self._check_fits(q)
+        mapping: dict[int, int] = {}
+        for q in entries:
+            rid = self._next_rid
+            self._next_rid += 1
+            # Donor session ids mean nothing here: adopted turns finish as
+            # plain requests; the router re-homes the session.
+            self._queue.append(dataclasses.replace(
+                q, rid=rid, gen=list(q.gen), session=None,
+            ))
+            mapping[q.rid] = rid
+        return mapping
+
+    def _check_fits(self, q: _Pending) -> None:
+        if len(q.prompt) + q.max_new > self.max_len:
+            raise ValueError(
+                f"entry rid {q.rid} needs {len(q.prompt) + q.max_new} "
+                f"cache positions but this engine's max_len is "
+                f"{self.max_len}"
+            )
+
+    def device_ids(self) -> list[int]:
+        """The device this engine runs on, as an index (``stats()``'s
+        placement figure)."""
+        if self.device.type == "cuda":
+            idx = self.device.index
+            return [torch.cuda.current_device() if idx is None else idx]
+        return [0 if self.device.index is None else self.device.index]
+
+    def compile_count(self) -> int:
+        """The CUDA kernel libraries this process has built or loaded
+        (``ops/_build``; module docstring): the port compiles nothing per
+        shape, so this is flat after ``warmup``."""
+        from pytorch_distributed_tpu_torch.ops import _build
+
+        return len(_build._loaded)
 
     # -- introspection -------------------------------------------------------
 
@@ -600,6 +849,7 @@ class PagedBatchedDecodeEngine:
         return {
             "engine": type(self).__name__,
             "device": str(self.device),
+            "device_ids": self.device_ids(),
             "paged_attention": self.paged_attention,
             "kv_quant": self.kv_quant,
             "weight_quant": self.weight_quant,
@@ -611,10 +861,13 @@ class PagedBatchedDecodeEngine:
             "pool_pages": self.pool_pages,
             "free_pages": self.pool.free_pages(),
             "pages_in_use": self.pool.pages_in_use(),
+            "session_pinned_pages": self.pool.pinned_pages(),
+            "sessions": len(self._sessions),
             "prefix_hit_rate": round(
                 ps["prefix_hits"] / max(1, ps["prefix_queries"]), 4
             ),
-            "counters": dict(self.counters),
+            "counters": dict(self.counters,
+                             session_evictions=self._sessions.evictions),
         }
 
     def cache_hbm_bytes(self) -> dict[str, int]:
@@ -634,16 +887,24 @@ class PagedBatchedDecodeEngine:
             [np.asarray(prompt, np.int32), np.asarray(gen, np.int32)]
         )
 
-    def _pending_from_slot(self, s: _PagedSlot) -> _Pending:
+    def _pending_from_slot(self, s: _PagedSlot, *, bump: bool = False,
+                           nan_retried: bool | None = None) -> _Pending:
         """An in-flight row as a resume entry: its generated tokens become
-        part of the prefix its re-admission prefills."""
+        part of the prefix its re-admission prefills; ``bump`` charges one
+        fault resume against the request's retry budget."""
         return _Pending(
             rid=s.rid, prompt=s.prompt, max_new=s.max_new, eos_id=s.eos_id,
             greedy=s.greedy, t=s.t, k=s.k, p=s.p, seed=s.seed,
             deadline=s.deadline, gen=list(s.generated), tier=s.tier,
+            retries=s.retries + (1 if bump else 0),
+            nan_retried=s.nan_retried if nan_retried is None else nan_retried,
+            session=s.session, resub_len=s.resub_len,
         )
 
     def _finish(self, rid, state, tokens, reason, finished=None) -> None:
+        # Any terminal state clears a session turn's in-flight marker (a
+        # DONE turn recorded its transcript first, _retire_session_turn).
+        self._sessions.on_terminal(rid)
         self.results[rid] = RequestResult(
             rid=rid, state=state, tokens=tokens, reason=reason
         )
@@ -666,15 +927,104 @@ class PagedBatchedDecodeEngine:
                      self._partial_tokens(s.prompt, s.generated), reason,
                      finished)
 
-    def _fail_slot(self, row: int, phase: str, finished) -> None:
-        """Non-finite logits on a row: FAIL it (the JAX engine retries once
-        in quarantine first); its neighbours are untouched."""
+    def _quarantine_slot(self, row: int, phase: str, finished) -> None:
+        """Non-finite logits on a row: free it (its neighbours are
+        untouched) and requeue its clean prefix for one re-prefill on
+        fresh pages; FAILED if it recurs. ``phase`` labels the log and
+        the reason."""
         s = self._slots[row]
         self._slots[row] = None
         self._on_slot_freed(s)
-        self._finish_slot(
-            s, FAILED, f"non-finite logits ({phase})", finished
+        self.counters["nan_quarantines"] += 1
+        if s.nan_retried:
+            self._finish_slot(
+                s, FAILED,
+                "non-finite logits persisted after one quarantine retry "
+                f"({phase})", finished,
+            )
+            return
+        log_event(
+            "quarantine", rid=s.rid, phase=phase, row=row,
+            t=round(self._clock(), 6),
         )
+        self._requeue([self._pending_from_slot(s, nan_retried=True)])
+
+    def _dispatch(self, kind: str, run, finished):
+        """Run one forward with its sampling (``run() -> (tokens, bad)``,
+        host arrays), consulting the fault injector before and after.
+        Returns (tokens, bad), or None after a recovered failure
+        (``_recover_dispatch_failure``). Recovered: anything the injector
+        raises, and ``RETRYABLE_ERRORS`` from ``run``; any other error
+        propagates (module docstring)."""
+        inj = self._injector
+        # An Exception, not BaseException: KeyboardInterrupt must stop the
+        # serving loop, not be retried.
+        try:
+            if inj is not None:
+                inj.before_dispatch(kind, self._ticks)
+        except Exception as err:
+            return self._recover_dispatch_failure(kind, err, finished)
+        try:
+            toks, bad = run()
+        except self.RETRYABLE_ERRORS as err:
+            return self._recover_dispatch_failure(kind, err, finished)
+        if inj is not None:
+            try:
+                toks, bad = inj.after_dispatch(kind, self._ticks, toks, bad)
+            except Exception as err:
+                return self._recover_dispatch_failure(kind, err, finished)
+        self._fail_streak = 0
+        return toks, bad
+
+    def _recover_dispatch_failure(self, kind: str, err: BaseException,
+                                  finished) -> None:
+        """A failed dispatch: no page content is trusted (the forward may
+        have written some pages, or half of them), so the block pool is
+        reset — every page freed, the prefix cache dropped — and every
+        in-flight row becomes a resume entry with one retry charged
+        (FAILED past ``request_retries``); then the backoff, or
+        ``DispatchFailure`` past ``dispatch_retries`` consecutive
+        failures. Queued requests are untouched."""
+        self.counters["dispatch_failures"] += 1
+        self._fail_streak += 1
+        log_event(
+            "dispatch_fail", kind=kind, tick=self._ticks,
+            streak=self._fail_streak, error=type(err).__name__,
+            t=round(self._clock(), 6),
+        )
+        lost = [self._pending_from_slot(s, bump=True)
+                for s in self._slots if s is not None]
+        self._slots = [None] * self.slots
+        self.pool.reset()
+        # Every pinned chunk died with the pool: drop the pins (the
+        # transcripts survive; the next turn pays its prefill again).
+        self._sessions.on_pool_reset()
+        kept = []
+        for q in lost:
+            if q.retries > self.request_retries:
+                self._finish_pending(
+                    q, FAILED,
+                    f"dispatch failed ({type(err).__name__}) and the "
+                    f"request exhausted its {self.request_retries} "
+                    "fault-resume retries", finished,
+                )
+            else:
+                self.counters["resumes"] += 1
+                kept.append(q)
+        self._requeue(kept)
+        if (
+            self.dispatch_retries is not None
+            and self._fail_streak > self.dispatch_retries
+        ):
+            raise DispatchFailure(
+                f"{self._fail_streak} consecutive dispatch failures "
+                f"(> dispatch_retries {self.dispatch_retries}); engine "
+                "state is consistent — every in-flight request was "
+                "requeued (or FAILED past its retry budget); snapshot() "
+                "and rebuild, or step again later"
+            ) from err
+        if self.retry_backoff_s > 0:
+            self._sleep(self.retry_backoff_s * 2 ** (self._fail_streak - 1))
 
     def _requeue(self, pendings) -> None:
         """Merge resume entries back into the queue in ascending-rid (=
@@ -712,9 +1062,46 @@ class PagedBatchedDecodeEngine:
         hit_eos = s.eos_id is not None and s.generated[-1] == s.eos_id
         if len(s.generated) < s.max_new and not hit_eos:
             return
+        if s.session is not None:
+            self._retire_session_turn(s)
         self._slots[row] = None
         self._on_slot_freed(s)
         self._finish_slot(s, DONE, "", finished)
+
+    # -- sessions ------------------------------------------------------------
+
+    def open_session(self) -> int:
+        """Open one multi-turn chat session (``serving/session``); returns
+        the sid ``submit(session=)`` takes. Turn N resubmits the
+        conversation so far and pays about one chunk of prefill through
+        the pinned prefix cache."""
+        return self._sessions.open()
+
+    def close_session(self, sid: int) -> None:
+        """Close a session: its pins return to ordinary LRU retention.
+        Unknown sids raise."""
+        self._sessions.close(sid)
+
+    def _retire_session_turn(self, s: _PagedSlot) -> None:
+        """A session turn retires DONE: publish its decode-written full
+        chunks (prefill published the prompt's; this must run before the
+        row's pages are released), then hand the tracker the new
+        transcript and the full chain to pin."""
+        toks = self._partial_tokens(s.prompt, s.generated)
+        cp = self.chunk // self.page_size
+        key = s.chain_key  # chain at the last prefill-published boundary
+        for st in range(
+            (s.prefill_len // self.chunk) * self.chunk,
+            (s.pos // self.chunk) * self.chunk,
+            self.chunk,
+        ):
+            first = st // self.page_size
+            key = self.pool.register_chunk(
+                toks, st, s.table[first: first + cp].tolist(), prev_key=key,
+            )
+        self._sessions.on_turn_done(
+            s.session, toks, self.pool.chain_keys(toks, s.pos)
+        )
 
     # -- scheduler -----------------------------------------------------------
 
@@ -764,7 +1151,13 @@ class PagedBatchedDecodeEngine:
                 free.append(row)
             slot = self._try_allocate(req)
             while slot is None:
-                # Page shortage: preempt strictly-lower-priority rows.
+                # Page shortage: idle-session pins break first (the
+                # session only loses retention); then strictly-lower-
+                # priority rows are preempted. BATCH never breaks a pin.
+                if (req.tier != TIER_RANK[BATCH]
+                        and self._sessions.evict_idle()):
+                    slot = self._try_allocate(req)
+                    continue
                 n0 = len(self._queue)
                 row = self._preempt_lower_priority(req.tier)
                 if len(self._queue) != n0:
@@ -794,6 +1187,7 @@ class PagedBatchedDecodeEngine:
                     TIER_NAME[slot.tier]
                     if slot.tier != TIER_RANK[STANDARD] else None
                 ),
+                session=slot.session,
                 t=round(self._clock(), 6),
             )
         self._chunk_prefill_tick(params, finished)
@@ -830,12 +1224,19 @@ class PagedBatchedDecodeEngine:
         rounded up to the chunk the padded final prefill writes."""
         prefix = self._partial_tokens(req.prompt, req.gen)
         plen = prefix.shape[0]
-        cached, shared, chain_key = self.pool.match_prefix(prefix, plen - 1)
+        if req.nan_retried:
+            # A quarantine retry re-prefills from scratch on purpose.
+            cached, shared, chain_key = 0, [], ""
+        else:
+            cached, shared, chain_key = self.pool.match_prefix(
+                prefix, plen - 1
+            )
         ext = -(-plen // self.chunk) * self.chunk  # padded prefill extent
         fresh = self.pool.alloc(ext // self.page_size - len(shared))
         if fresh is None:
             # Deferred: undo the match so retries do not inflate the stats.
-            self.pool.cancel_match(cached, shared)
+            if not req.nan_retried:
+                self.pool.cancel_match(cached, shared)
             return None
         if cached:
             log_event(
@@ -845,6 +1246,8 @@ class PagedBatchedDecodeEngine:
         pids = list(shared) + fresh
         table = np.zeros((self.max_pages,), np.int32)
         table[: len(pids)] = pids
+        if req.session is not None:
+            self._sessions.note_admit(req.rid, cached, req.resub_len)
         return _PagedSlot(
             rid=req.rid, prompt=req.prompt, max_new=req.max_new,
             eos_id=req.eos_id, pos=cached, generated=list(req.gen),
@@ -852,10 +1255,20 @@ class PagedBatchedDecodeEngine:
             deadline=req.deadline, tier=req.tier,
             prefix=prefix, prefill_len=plen, table=table, pids=pids,
             n_pages=len(pids), resume_base=len(req.gen), chain_key=chain_key,
+            retries=req.retries, nan_retried=req.nan_retried,
+            session=req.session, resub_len=req.resub_len,
         )
 
     def _chunk_prefill_tick(self, params, finished: list[int]) -> None:
-        """Advance every mid-prefill row by ONE chunk in one forward."""
+        """Advance every mid-prefill row by ONE chunk in one forward of
+        fixed shape [slots, chunk]: the rows that prefill come first, the
+        rest ride on the scratch page (all-zero tables) and are
+        discarded. The fixed shape makes a row's values independent of
+        how many rows share its forward — on the card cuBLAS picks its
+        kernel, and with it the summation order, by shape — so a request's
+        tokens do not depend on its neighbours, and ``warmup`` runs the
+        one prefill shape serving uses. (The JAX engine pads a group to
+        the next power of two.)"""
         rows = [
             (i, s) for i, s in enumerate(self._slots)
             if s is not None and not s.ready
@@ -869,29 +1282,35 @@ class PagedBatchedDecodeEngine:
         if not rows:
             return
         n = len(rows)
-        chunks = np.zeros((n, self.chunk), np.int32)
-        valid = np.ones((n,), np.int64)
-        start = np.zeros((n,), np.int32)
-        tables = np.zeros((n, self.max_pages), np.int32)
+        chunks = np.zeros((self.slots, self.chunk), np.int32)
+        valid = np.ones((self.slots,), np.int64)
+        start = np.zeros((self.slots,), np.int32)
+        tables = np.zeros((self.slots, self.max_pages), np.int32)
         for j, (_, s) in enumerate(rows):
             v = min(self.chunk, s.prefill_len - s.pos)
             chunks[j, :v] = s.prefix[s.pos : s.pos + v]
             valid[j] = v
             start[j] = s.pos
             tables[j] = s.table
-        self.counters["prefill_ticks"] += 1
-        logits = self._forward(params, chunks, start, tables)
-        last = logits[torch.arange(n, device=self.device),
-                      torch.from_numpy(valid - 1).to(self.device)]
-        # Only rows on their final chunk keep the sampled token.
-        toks, bad = self._sample(
-            last,
-            [s if s.pos + valid[j] >= s.prefill_len else None
-             for j, (_, s) in enumerate(rows)],
-        )
+        def run():
+            self.counters["prefill_ticks"] += 1  # forwards that ran
+            logits = self._forward(params, chunks, start, tables)
+            last = logits[torch.arange(n, device=self.device),
+                          torch.from_numpy(valid[:n] - 1).to(self.device)]
+            # Only rows on their final chunk keep the sampled token.
+            return self._sample(
+                last,
+                [s if s.pos + valid[j] >= s.prefill_len else None
+                 for j, (_, s) in enumerate(rows)],
+            )
+
+        res = self._dispatch("prefill", run, finished)
+        if res is None:
+            return  # recovery converted every in-flight row already
+        toks, bad = res
         for j, (row, s) in enumerate(rows):
             if bad[j]:
-                self._fail_slot(row, "prefill", finished)
+                self._quarantine_slot(row, "prefill", finished)
                 continue
             v = int(valid[j])
             if v == self.chunk:
@@ -942,12 +1361,19 @@ class PagedBatchedDecodeEngine:
             pos[i] = s.pos
             tables[i] = s.table
             lane_rows[i] = s
-        self.counters["decode_ticks"] += 1
-        logits = self._forward(params, toks, pos, tables)
-        out, bad = self._sample(logits[:, -1], lane_rows)
+        def run():
+            self.counters["decode_ticks"] += 1  # forwards that ran
+            return self._sample(
+                self._forward(params, toks, pos, tables)[:, -1], lane_rows
+            )
+
+        res = self._dispatch("decode_step", run, finished)
+        if res is None:
+            return
+        out, bad = res
         for i, s in ready:
             if bad[i]:
-                self._fail_slot(i, "decode", finished)
+                self._quarantine_slot(i, "decode", finished)
                 continue
             s.generated.append(int(out[i]))
             s.pos += 1
@@ -976,6 +1402,10 @@ class PagedBatchedDecodeEngine:
                     s.pids += got
                     s.n_pages += 1
                     break
+                # Retention never deadlocks allocation: idle-session pins
+                # break before any live row is preempted.
+                if self._sessions.evict_idle():
+                    continue
                 others = [
                     o.tier for o in self._slots
                     if o is not None and o.rid != s.rid

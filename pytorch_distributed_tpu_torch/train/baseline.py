@@ -41,9 +41,9 @@ from pytorch_distributed_tpu_torch.utils.logging import get_logger
 # Flags of the JAX script the port refuses, with the reason.
 _REFUSED = {
     "async_checkpoint": "--async-checkpoint: the async (orbax) save is not "
-                        "ported yet (ROADMAP queue 1 item 2)",
+                        "ported yet (ROADMAP queue 1 item 5)",
     "anomaly_guard": "--anomaly-guard: the anomaly guard is not ported yet "
-                     "(ROADMAP queue 1 item 2)",
+                     "(ROADMAP queue 1 item 5)",
     "cpu_devices": "--cpu-devices: the port has no virtual-device mesh; "
                    "use --device cpu",
     "debug_nans": "--debug-nans: jax_debug_nans has no counterpart here; "

@@ -21,7 +21,7 @@ return only committed directories, and ``load_checkpoint`` verifies the
 manifest first and raises ``CheckpointCorrupt`` on a mismatch;
 ``Trainer.resume_latest`` then falls back to the next-older checkpoint.
 
-Not ported yet (ROADMAP queue 1 item 2): the orbax format and the async
+Not ported yet (ROADMAP queue 1 item 5): the orbax format and the async
 save; both raise ``NotImplementedError``.
 """
 
@@ -46,7 +46,7 @@ COMMIT_NAME = "COMMIT"
 MANIFEST_NAME = "manifest.json"
 # The optax chain's element holding (count, mu, nu), and the schedule's.
 _ADAM, _SCHEDULE = "opt_state/1", "opt_state/3"
-_UNPORTED = ("not ported yet (ROADMAP queue 1 item 2): the port writes the "
+_UNPORTED = ("not ported yet (ROADMAP queue 1 item 5): the port writes the "
              "npz format synchronously")
 
 

@@ -33,7 +33,7 @@ JSON lines, saves npz checkpoints (``train/checkpoint``, the loader's
 position in their metadata) and prunes them, resumes from the newest
 good one, saves once on SIGTERM/SIGINT with ``save_on_preemption``, and
 evaluates. Not ported yet, and refused: the anomaly guard, the fault
-injector and the async checkpoint (ROADMAP queue 1 item 2), the profiler
+injector and the async checkpoint (ROADMAP queue 1 item 5), the profiler
 (item 6).
 """
 
@@ -70,7 +70,7 @@ from pytorch_distributed_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_tpu_torch.utils.logging import get_logger
 from pytorch_distributed_tpu_torch.utils.prng import DropoutKey
 
-_GUARD = ("the anomaly guard is not ported yet (ROADMAP queue 1 item 2: "
+_GUARD = ("the anomaly guard is not ported yet (ROADMAP queue 1 item 5: "
           "train/guard)")
 
 
@@ -189,7 +189,7 @@ class Trainer:
         if train_cfg.async_checkpoint:
             raise NotImplementedError(
                 "async_checkpoint is not ported yet (ROADMAP queue 1 item "
-                "2): the port saves npz checkpoints synchronously")
+                "5): the port saves npz checkpoints synchronously")
         self.model = model
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
@@ -205,7 +205,7 @@ class Trainer:
     def set_fault_injector(self, injector) -> None:
         raise NotImplementedError(
             "the training fault injector is not ported yet (ROADMAP queue 1 "
-            "item 2: train/chaos)")
+            "item 5: train/chaos)")
 
     def put_batch(self, batch: dict) -> dict:
         """Numpy batches -> tensors on the trainer's device."""

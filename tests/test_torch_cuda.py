@@ -693,3 +693,237 @@ def test_moe_step_is_bit_deterministic(cuda, family, top_k):
     assert torch.equal(l1, l2)
     for a, b in zip(g1, g2):
         assert torch.equal(a, b)
+
+
+# -- the serving tier on the card ------------------------------------------------
+
+
+def _tier_cfg(dtype="float32", n_embd=128, n_head=2, vocab=97):
+    return ModelConfig(vocab_size=vocab, n_ctx=128, n_embd=n_embd,
+                       n_layer=2, n_head=n_head, dtype=dtype,
+                       attn_pdrop=0.0, resid_pdrop=0.0, embd_pdrop=0.0)
+
+
+def _tier_reqs(vocab, n=6, seed=0):
+    rng = np.random.default_rng(seed)
+    return [dict(prompt=rng.integers(0, vocab, int(rng.integers(5, 40))),
+                 max_new_tokens=int(rng.integers(6, 16)))
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_engine_tokens_do_not_depend_on_neighbours_on_the_card(cuda, dtype):
+    """A request's tokens are the same alone and in a busy engine whose
+    other rows arrive at other ticks: the prefill forward has one shape,
+    [slots, chunk], whatever rows share it (GPT-2 width, 2 layers)."""
+    cfg = _tier_cfg(dtype, n_embd=768, n_head=12, vocab=50257)
+    params = gpt2.init(torch.Generator().manual_seed(0), cfg)
+    reqs = _tier_reqs(cfg.vocab_size, n=5)
+    alone = {}
+    for i, r in enumerate(reqs):
+        eng = PagedBatchedDecodeEngine(cfg, slots=4, max_len=128,
+                                       page_size=16)
+        alone[i] = eng.run(params, [r])[0].tokens
+    eng = PagedBatchedDecodeEngine(cfg, slots=4, max_len=128, page_size=16)
+    rids = {}
+    for i, r in enumerate(reqs):
+        rids[eng.submit(**r)] = i
+        eng.step(params)  # staggered arrivals: other groupings each tick
+    out = eng.run(params)
+    for rid, i in rids.items():
+        assert out[rid].state == "DONE"
+        np.testing.assert_array_equal(out[rid].tokens, alone[i],
+                                      err_msg=f"request {i}")
+
+
+def _row_kv(eng, rid, n):
+    """The K and V the engine holds for request ``rid``'s first ``n``
+    positions, every layer: [L, n, Hkv, D] each, read through its table."""
+    s = next(x for x in eng._slots if x is not None and x.rid == rid)
+    pos = torch.arange(n)
+    pages = torch.as_tensor(s.table)[pos // eng.page_size].long()
+    offs = pos % eng.page_size
+    return [eng._cache[name][:, pages, offs] for name in ("k", "v")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_values_do_not_depend_on_neighbours_on_the_card(cuda,
+                                                                 dtype):
+    """A row's prefilled K/V are bit-equal whether it prefills alone or
+    in one chunk forward with three other rows (GPT-2 width, 2 layers):
+    the prefill forward has one shape, [slots, chunk]. Were the forward
+    sized to the rows that prefill, cuBLAS could pick another kernel for
+    the larger product, with another summation order."""
+    cfg = _tier_cfg(dtype, n_embd=768, n_head=12, vocab=50257)
+    params = gpt2.init(torch.Generator().manual_seed(4), cfg)
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, cfg.vocab_size, 40)
+    kv = []
+    for others in ((), (50, 20, 60)):
+        eng = PagedBatchedDecodeEngine(cfg, slots=4, max_len=128,
+                                       page_size=16)
+        for n in others:
+            eng.submit(rng.integers(0, cfg.vocab_size, n), 4)
+        rid = eng.submit(x, 4)
+        eng.step(params)  # every row prefills its first chunk together
+        assert eng.counters["prefill_ticks"] == 1
+        kv.append(_row_kv(eng, rid, 40))
+    for name, alone, busy in zip("kv", *kv):
+        assert torch.equal(alone, busy), (
+            name, (alone.float() - busy.float()).abs().max().item())
+
+
+def test_router_failover_launches_k3_across_replicas(cuda):
+    """A replica killed mid-decode: every request ends DONE exactly once,
+    K3 launched n_layer x (decode ticks of every engine + one warmup per
+    restart) and nothing else, and each request equals a single engine's
+    run up to the tokens it had when it failed over (all of it when it
+    did not)."""
+    from pytorch_distributed_tpu_torch.serving.chaos import (
+        RouterFault,
+        RouterFaultInjector,
+    )
+    from pytorch_distributed_tpu_torch.serving.router import ReplicaRouter
+
+    cfg = _tier_cfg()
+    params = gpt2.init(torch.Generator().manual_seed(1), cfg)
+    reqs = _tier_reqs(97, n=8, seed=1)
+    ref = PagedBatchedDecodeEngine(cfg, slots=2, max_len=64, page_size=16)
+    want = {i: ref.run(params, [r])[i] for i, r in enumerate(reqs)}
+    engines = []
+
+    def make(rep):
+        engines.append(PagedBatchedDecodeEngine(cfg, slots=2, max_len=64,
+                                                page_size=16))
+        return engines[-1]
+
+    router = ReplicaRouter(make, 2)
+    router.warmup(params)
+    RouterFaultInjector([RouterFault(tick=4, kind="replica_kill", row=0)]
+                        ).install(router)
+    pk.launches = pk.launches_q8 = 0
+    rids = {router.submit(**r): i for i, r in enumerate(reqs)}
+    seen = set()
+    while router.has_work():
+        done = router.step(params)
+        assert not set(done) & seen
+        seen.update(done)
+    router.restart(0, params)
+    torch.cuda.synchronize()
+    ticks = sum(e.counters["decode_ticks"] for e in engines)
+    assert (pk.launches, pk.launches_q8) == (cfg.n_layer * (ticks + 1), 0)
+    assert router.counters["failovers"] == 1
+    assert set(router.results) == set(rids) == seen
+    resumed = 0
+    for rid, i in rids.items():
+        points = router.failover_points.get(rid, [])
+        res = router.pop_result(rid)
+        assert res.state == "DONE"
+        cut = len(reqs[i]["prompt"]) + (min(points) if points else 10**9)
+        resumed += bool(points)
+        np.testing.assert_array_equal(res.tokens[:cut],
+                                      want[i].tokens[:cut])
+    assert resumed >= 1
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["K3", "K4"])
+def test_paged_kernels_launch_from_a_worker_thread_like_the_main_thread(
+        cuda, q8):
+    """The server steps the router in a worker thread, whose current
+    stream is its own: K3 and K4 launched there are bit-equal to the
+    same launch on the main thread, and counted."""
+    import concurrent.futures
+
+    args = (_q8_case if q8 else _case)(cuda, 8, 12, 12, 64, torch.bfloat16)
+    main = pk.paged_decode_attention(*args)
+    before = (pk.launches, pk.launches_q8)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        other = pool.submit(pk.paged_decode_attention, *args).result()
+    torch.cuda.synchronize()
+    assert torch.equal(main, other)
+    after = (pk.launches, pk.launches_q8)
+    assert after == ((before[0], before[1] + 1) if q8
+                     else (before[0] + 1, before[1]))
+
+
+@pytest.mark.parametrize("quant", [{}, dict(kv_quant="int8",
+                                            weight_quant="int8")],
+                         ids=["K3", "K4"])
+def test_server_drive_thread_serves_through_the_kernels(cuda, quant):
+    """A request through ``ServingServer`` (its drive thread steps the
+    router): tokens equal to a direct engine run, and the path's kernel
+    launched n_layer x decode ticks from that thread."""
+    import http.client
+    import json
+
+    from pytorch_distributed_tpu_torch.serving import serve
+    from pytorch_distributed_tpu_torch.serving.server import ServingServer
+
+    cfg = _tier_cfg("bfloat16")
+    params = gpt2.init(torch.Generator().manual_seed(2), cfg)
+    prompt = np.random.default_rng(2).integers(0, 97, 21)
+    ref = PagedBatchedDecodeEngine(cfg, slots=2, max_len=64, page_size=16,
+                                   **quant)
+    want = ref.run(params, [dict(prompt=prompt, max_new_tokens=12)])[0]
+    args = serve.parse_args(["--replicas", "2", "--slots", "2",
+                             "--max-len", "64", "--device", "cuda"])
+    router = serve.make_router(cfg, args, **quant)
+    router.warmup(params)
+    pk.launches = pk.launches_q8 = 0
+    with serve.serve_in_thread(ServingServer(router, params)) as (host,
+                                                                   port):
+        conn = http.client.HTTPConnection(host, port, timeout=120)
+        conn.request("POST", "/v1/generate", json.dumps(
+            dict(prompt=prompt.tolist(), max_new_tokens=12)))
+        body = json.loads(conn.getresponse().read())
+        conn.close()
+    torch.cuda.synchronize()
+    assert body["state"] == "DONE" and body["tokens"] == want.tokens.tolist()
+    ticks = sum(e.counters["decode_ticks"]
+                for e in router.engines().values())
+    got = (pk.launches, pk.launches_q8)
+    assert got == ((0, cfg.n_layer * ticks) if quant
+                   else (cfg.n_layer * ticks, 0))
+
+
+def test_dispatch_failure_after_the_forward_resets_the_pool_on_the_card(
+        cuda):
+    """drop_result after a decode forward wrote its K/V, with the whole
+    pool then overwritten by garbage (the pages a failed dispatch leaves
+    are not to be trusted): recovery resets the pool and the prefix
+    cache, re-prefills every row, and the tokens equal a fault-free run
+    with no quarantine — no page content from before the failure is
+    read."""
+    from pytorch_distributed_tpu_torch.serving.chaos import (
+        Fault,
+        FaultInjector,
+    )
+
+    class Trash(FaultInjector):
+        def after_dispatch(self, kind, tick, tok, bad):
+            if kind == "decode_step" and tick == 6:
+                for pool in self._engine._cache.values():
+                    pool.fill_(1e3 if pool.is_floating_point() else 77)
+            return super().after_dispatch(kind, tick, tok, bad)
+
+    for quant in ({}, dict(kv_quant="int8", weight_quant="int8")):
+        cfg = _tier_cfg()
+        params = gpt2.init(torch.Generator().manual_seed(3), cfg)
+        rng = np.random.default_rng(3)
+        shared = rng.integers(0, 97, 32)
+        reqs = [dict(prompt=np.concatenate([shared, rng.integers(0, 97, k)]),
+                     max_new_tokens=10) for k in (3, 5, 7)]
+        ref = PagedBatchedDecodeEngine(cfg, slots=2, max_len=64,
+                                       page_size=16, **quant)
+        want = ref.run(params, reqs)
+        eng = PagedBatchedDecodeEngine(cfg, slots=2, max_len=64,
+                                       page_size=16, **quant)
+        Trash([Fault(tick=6, kind="drop_result",
+                     program="decode_step")]).install(eng)
+        out = eng.run(params, reqs)
+        assert eng.counters["dispatch_failures"] == 1
+        assert eng.counters["nan_quarantines"] == 0
+        assert eng.pool.pages_in_use() == 0
+        for rid, res in want.items():
+            assert out[rid].state == "DONE"
+            np.testing.assert_array_equal(out[rid].tokens, res.tokens)

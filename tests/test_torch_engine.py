@@ -249,18 +249,41 @@ def test_eos_stops_the_row_early(weights):
 
 
 def test_nonfinite_logits_fail_the_row_with_a_reason(weights):
-    _, _, pcfg, params = weights
+    """The JAX engine's quarantine: a row whose logits go non-finite is
+    freed and its clean prefix re-prefilled once on fresh pages; when the
+    logits stay non-finite it is FAILED with JAX's reason, keeping the
+    clean tokens. The same poisoned weights through the JAX engine give
+    the same terminal states, reasons, tokens and quarantine count."""
+    jcfg, jparams, pcfg, params = weights
     bad = dict(params)
     bad["wpe"] = params["wpe"].clone()
     # Past the first prefill chunk: the decode step at position 8 goes
-    # non-finite after the tokens drawn at positions 3..7.
+    # non-finite after the tokens drawn at positions 3..7; the retry's
+    # re-prefill of those 9 tokens reaches position 8 again.
     bad["wpe"][8:] = float("nan")
+    jbad = dict(jparams)
+    jbad["wpe"] = np.asarray(jparams["wpe"]).copy()
+    jbad["wpe"][8:] = np.nan
+    reqs = [dict(prompt=_prompt(4, 60), max_new_tokens=8),
+            dict(prompt=_prompt(2, 61), max_new_tokens=3)]
     eng = PagedBatchedDecodeEngine(pcfg, device="cpu", **ENGINE_KW)
-    out = eng.run(bad, [dict(prompt=_prompt(4, 60), max_new_tokens=8),
-                        dict(prompt=_prompt(2, 61), max_new_tokens=3)])
-    assert out[0].state == "FAILED" and "non-finite" in out[0].reason
+    out = eng.run(bad, reqs)
+    jeng = JaxEngine(jcfg, paged_attention="gather", **ENGINE_KW)
+    jout = jeng.run(jbad, reqs)
+    assert out[0].state == "FAILED"
+    assert out[0].reason == (
+        "non-finite logits persisted after one quarantine retry (prefill)"
+    )
     assert len(out[0].tokens) == 4 + 5  # the clean tokens before the fault
     assert out[1].state == "DONE"
+    for rid in (0, 1):
+        assert (out[rid].state, out[rid].reason) == (
+            jout[rid].state, jout[rid].reason
+        )
+        np.testing.assert_array_equal(out[rid].tokens,
+                                      np.asarray(jout[rid].tokens))
+    assert eng.counters["nan_quarantines"] == jeng.counters[
+        "nan_quarantines"] == 2
     assert eng.pool.pages_in_use() == 0
 
 
@@ -276,3 +299,34 @@ def test_warmup_stats_and_pool_bytes(weights):
     eng.submit(_prompt(3, 70), 2)
     with pytest.raises(RuntimeError, match="idle"):
         eng.warmup(params)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_values_do_not_depend_on_neighbours(dtype):
+    """A row's prefilled K/V are bit-equal whether it prefills alone or in
+    one chunk forward with three other rows (GPT-2 width, 2 layers): the
+    prefill forward always has the shape [slots, chunk]. Sized to the
+    rows that prefill, the larger product may run another kernel with
+    another summation order (in bf16 on this CPU it does)."""
+    from pytorch_distributed_tpu_torch.models import gpt2
+
+    cfg = ModelConfig(vocab_size=97, n_ctx=128, n_embd=768, n_layer=2,
+                      n_head=12, dtype=dtype, attn_pdrop=0.0,
+                      resid_pdrop=0.0, embd_pdrop=0.0)
+    params = gpt2.init(torch.Generator().manual_seed(4), cfg, device="cpu")
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, 97, 40)
+    kv = []
+    for others in ((), (50, 20, 60)):
+        eng = PagedBatchedDecodeEngine(cfg, slots=4, max_len=128,
+                                       page_size=16, device="cpu")
+        for n in others:
+            eng.submit(rng.integers(0, 97, n), 4)
+        rid = eng.submit(x, 4)
+        eng.step(params)  # every row prefills its first chunk together
+        s = next(r for r in eng._slots if r is not None and r.rid == rid)
+        pos = torch.arange(40)
+        pages = torch.as_tensor(s.table)[pos // 16].long()
+        kv.append([eng._cache[n][:, pages, pos % 16] for n in ("k", "v")])
+    for alone, busy in zip(*kv):
+        assert torch.equal(alone, busy)

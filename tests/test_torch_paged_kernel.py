@@ -114,3 +114,32 @@ def test_bad_inputs_raise(change, match):
     args.update(change(args))
     with pytest.raises(ValueError, match=match):
         tk.paged_decode_attention(**args)
+
+
+def test_launch_counts_lose_nothing_under_threads():
+    """The launch counters are bumped from several threads at once (the
+    HTTP server steps its router in a worker thread; a router may step
+    replicas in parallel): 48 threads x 500 counted launches each, with a
+    shortened switch interval, lose none."""
+    import sys
+    import threading
+
+    before = (tk.launches, tk.launches_q8)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [
+            threading.Thread(target=lambda q8=bool(i % 2): [
+                tk._count_launch(q8) for _ in range(500)])
+            for i in range(48)
+        ]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert (tk.launches - before[0], tk.launches_q8 - before[1]) == (
+            24 * 500, 24 * 500)
+    finally:
+        sys.setswitchinterval(interval)
+        tk.launches, tk.launches_q8 = before
