@@ -82,6 +82,28 @@ with no final line):
    paged keys, c_proj, c_fc) on the same rows decode-shaped ([4, 1, E],
    K3) and prefill-shaped ([4, 64, E], the gather path), f32 and bf16:
    largest difference, bit-equality, the first op that differs.
+6c. generation outside the paged engine, each phase with K3 and K4
+   counted from zero and required to stay at 0 (neither engine below runs
+   them, and a speculating paged engine's verify forward is K+1 queries
+   wide: the gather path). generate — ``serving.generate``'s functions,
+   GPT-2 124M, a 64-token prompt, 64 new tokens: ``decode.generate``,
+   ``generate_monolithic`` and ``--stream`` token-equal in f32 (bf16
+   reported), ms per token of a warm ``DecodeEngine``, a sampled run
+   repeated with its seed equal; MoE GPT-2 (8 experts, top-2) greedy rows
+   at B 1 and B 4 equal on >= 7 of 8 in f32. dense — the serve phase's 16
+   requests through ``BatchedDecodeEngine`` (8 slots, max_len 1024,
+   buckets 64-1024): f32 tokens equal to the paged f32 kernel drive's on
+   >= 15 of 16; bf16 tick ms, tok/s, TTFT p50, cache bytes, a profile of
+   ten ticks; the dense prefill bit-independent of its neighbours in
+   bf16. spec — ``speculative_k=4`` on the dense and paged engines (GPT-2
+   f32 and bf16) and on Llama-3.2-1B with int8 pages and weights, over a
+   repetitive and a random 16-request stream: spec vs plain equal on >=
+   15 of 16 in f32, accept rate, committed tokens per row-tick, ticks,
+   tok/s and TTFT against plain; spec_rollback — a published 128-token
+   prefix's pages bit-unchanged under speculating borrowers. soak — the
+   soak twin at full width (GPT-2 f32, 200 requests), all five invariants.
+   serve_dense — ``serve --dense`` (2 GPT-2 bf16 replicas): a stream
+   survives /admin/kill of its replica.
 7. flash — the flash forward (K1) and backward (K2) kernels against their
    plain versions at the GPT-2 124M training shape (B=8, H=12, T=1024,
    D=64, causal), a Llama-3.2-1B shape (B=1, H=32, Hkv=8, T=2048, D=64,
@@ -137,7 +159,8 @@ with no final line):
    head).
 13. The kernels line (K3, K4, K1, K2; K1/K2 with their launches per step
     and times on the llama paths, K3/K4 with their launches on each tier
-    leg, ``tier_paths``), then ``{"ok": true, "device": {...}}`` last.
+    leg, ``tier_paths``, and on the phases of 6c, ``slice9_paths``), then
+    ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -512,41 +535,19 @@ def serve(cfg, params, reqs, paged_attention, pk, record=None,
     eng = PagedBatchedDecodeEngine(cfg, slots=8, max_len=1024, page_size=16,
                                    paged_attention=paged_attention, **quant)
     eng.warmup(params)
-    rids = [eng.submit(**r) for r in reqs]
-    prompt_len = {rid: len(r["prompt"]) for rid, r in zip(rids, reqs)}
-    ttft: dict[int, float] = {}
-    decode_ms = []
     original = pk.paged_decode_attention
     if record is not None:
         pk.paged_decode_attention = record
     pk.launches = pk.launches_q8 = 0  # count from zero for this drive
-    t0 = time.perf_counter()
     try:
-        while eng.has_work():
-            c0 = dict(eng.counters)
-            s = time.perf_counter()
-            eng.step(params)
-            e = time.perf_counter()
-            if (eng.counters["decode_ticks"] > c0["decode_ticks"]
-                    and eng.counters["prefill_ticks"] == c0["prefill_ticks"]):
-                decode_ms.append((e - s) * 1e3)
-            for rid in rids:
-                if rid not in ttft:
-                    toks = eng.peek_tokens(rid)
-                    if toks is not None and len(toks) > prompt_len[rid]:
-                        ttft[rid] = (e - t0) * 1e3
+        run = drive_engine(eng, params, reqs)
     finally:
         pk.paged_decode_attention = original
-    wall = time.perf_counter() - t0
     counts = {"K3": pk.launches, "K4": pk.launches_q8}
-    results = {rid: eng.pop_result(rid) for rid in rids}
-    bad = {rid: r.state for rid, r in results.items() if r.state != "DONE"}
-    if bad:
-        raise AssertionError(f"requests not DONE: {bad}")
-    generated = sum(len(r.tokens) - prompt_len[rid]
-                    for rid, r in results.items())
-    if generated != 64 * len(rids):
-        raise AssertionError(f"generated {generated} tokens, want {64 * 16}")
+    m = run["metrics"]
+    if m["generated_tokens"] != 64 * len(reqs):
+        raise AssertionError(f"generated {m['generated_tokens']} tokens, "
+                             f"want {64 * len(reqs)}")
     ticks = eng.counters["decode_ticks"]
     kernel = "K4" if eng.kv_quant == "int8" else "K3"
     want = {"K3": 0, "K4": 0}
@@ -558,21 +559,18 @@ def serve(cfg, params, reqs, paged_attention, pk, record=None,
             f"{cfg.n_layer} x decode ticks {ticks} on the path's kernel): "
             f"the decode path did not go through its kernel"
         )
-    launches = counts[kernel]
     return dict(
-        tokens={rid: r.tokens for rid, r in results.items()},
-        launches=launches,
+        tokens=dict(enumerate(run["tokens"])),
+        launches=counts[kernel],
         metrics=dict(
             model=f"{cfg.family} L{cfg.n_layer} E{cfg.n_embd}",
             dtype=cfg.dtype, paged_attention=paged_attention,
             kv_quant=eng.kv_quant, weight_quant=eng.weight_quant,
-            requests=len(rids), generated_tokens=generated,
-            decode_ticks=ticks, prefill_ticks=eng.counters["prefill_ticks"],
-            kernel_launches=counts,
-            mean_decode_tick_ms=statistics.fmean(decode_ms),
-            pure_decode_ticks=len(decode_ms),
-            generated_tok_per_s=generated / wall, wall_s=wall,
-            ttft_p50_ms=statistics.median(ttft.values()),
+            requests=len(reqs), kernel_launches=counts,
+            **{k: m[k] for k in (
+                "generated_tokens", "decode_ticks", "prefill_ticks",
+                "mean_decode_tick_ms", "pure_decode_ticks",
+                "generated_tok_per_s", "wall_s", "ttft_p50_ms")},
             prefix_hits=eng.pool.stats["prefix_hits"],
             prefix_hit_tokens=eng.pool.stats["prefix_hit_tokens"],
             preemptions=eng.counters["preemptions"],
@@ -629,17 +627,19 @@ def profile_summary(prof, wall_ms: float,
 
 
 def profile_phase(cfg, params, reqs, n_ticks: int = 10, phase="profile",
-                  **quant) -> None:
+                  engine=None, **quant) -> None:
     """``torch.profiler`` over ``n_ticks`` pure decode ticks of the bf16
-    engine (``quant``: its ``kv_quant``/``weight_quant``) with all 8 slots
-    decoding."""
+    paged engine (``quant``: its ``kv_quant``/``weight_quant``), or of
+    ``engine`` (warmed), with all 8 slots decoding."""
     from torch.profiler import ProfilerActivity, profile
 
     from pytorch_distributed_tpu_torch.serving import PagedBatchedDecodeEngine
 
-    eng = PagedBatchedDecodeEngine(cfg, slots=8, max_len=1024, page_size=16,
-                                   **quant)
-    eng.warmup(params)
+    eng = engine
+    if eng is None:
+        eng = PagedBatchedDecodeEngine(cfg, slots=8, max_len=1024,
+                                       page_size=16, **quant)
+        eng.warmup(params)
     for r in reqs[:8]:
         eng.submit(**r)
     while True:  # until every row has finished its prefill
@@ -1216,6 +1216,452 @@ def tier_llama_q8_phase(pk, seed, dev, smi) -> dict:
                         device=dev)
     return tier_legs(pk, cfg, params, tier_storm_args(2, [1.0]), smi,
                      "tier_llama_q8", engine_kw=Q8)
+
+
+# -- generation outside the paged engine: generate, dense, spec, soak, ------
+# -- serve_dense ------------------------------------------------------------
+
+
+def _paged_launches(pk, phase) -> dict:
+    """K3/K4 launches since the last reset: the dense and serial engines
+    never run them, and a speculating paged engine's verify forward is
+    K+1 queries wide, so it takes the gather path (as the JAX package's
+    multi-query windows do)."""
+    got = {"K3": pk.launches, "K4": pk.launches_q8}
+    if got != {"K3": 0, "K4": 0}:
+        raise AssertionError(f"{phase}: K3/K4 launched {got}, want 0")
+    return got
+
+
+def drive_engine(eng, params, reqs) -> dict:
+    """One drive of ``reqs`` through a warmed batched engine: tokens by
+    request index, and the host-clock metrics (pure decode tick ms, the
+    ms of a step that prefilled, generated tok/s, TTFT p50) with the
+    engine's counters."""
+    rids = [eng.submit(**r) for r in reqs]
+    plen = {rid: len(r["prompt"]) for rid, r in zip(rids, reqs)}
+    ttft: dict[int, float] = {}
+    decode_ms, prefill_ms = [], []
+    t0 = time.perf_counter()
+    while eng.has_work():
+        c0 = dict(eng.counters)
+        s = time.perf_counter()
+        eng.step(params)
+        e = time.perf_counter()
+        if eng.counters["prefill_ticks"] > c0["prefill_ticks"]:
+            prefill_ms.append((e - s) * 1e3)
+        elif eng.counters["decode_ticks"] > c0["decode_ticks"]:
+            decode_ms.append((e - s) * 1e3)
+        for rid in rids:
+            if rid not in ttft:
+                toks = eng.peek_tokens(rid)
+                if toks is not None and len(toks) > plen[rid]:
+                    ttft[rid] = (e - t0) * 1e3
+    wall = time.perf_counter() - t0
+    results = [eng.pop_result(rid) for rid in rids]
+    bad = [r.state for r in results if r.state != "DONE"]
+    if bad:
+        raise AssertionError(f"requests not DONE: {bad}")
+    generated = sum(len(r.tokens) - plen[rid]
+                    for rid, r in zip(rids, results))
+    c = eng.counters
+    return dict(
+        tokens=[np.asarray(r.tokens) for r in results],
+        metrics=dict(
+            generated_tokens=generated, wall_s=wall,
+            generated_tok_per_s=generated / wall,
+            mean_decode_tick_ms=(statistics.fmean(decode_ms)
+                                 if decode_ms else None),
+            pure_decode_ticks=len(decode_ms),
+            mean_prefill_step_ms=statistics.fmean(prefill_ms),
+            ttft_p50_ms=statistics.median(ttft.values()),
+            decode_ticks=c["decode_ticks"], prefill_ticks=c["prefill_ticks"],
+            drafted_tokens=c["drafted_tokens"],
+            accepted_tokens=c["accepted_tokens"],
+            spec_commits=c["spec_commits"],
+            accept_rate=eng.stats()["spec_accept_rate"],
+            committed_per_row_tick=(
+                (c["accepted_tokens"] + c["spec_commits"]) / c["spec_commits"]
+                if c["spec_commits"] else None),
+            # Each request's first token comes from its prefill.
+            committed_per_decode_tick=(generated - len(reqs))
+            / max(1, c["decode_ticks"]),
+            cache_bytes=eng.cache_hbm_bytes()["allocated"],
+        ),
+    )
+
+
+def _same(a, b) -> int:
+    return sum(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def generate_phase(pk, seed, smi) -> dict:
+    """The generation entry point's functions (``serving.generate``) at
+    full width: GPT-2 124M, random weights from ``seed``, a 64-token
+    prompt, 64 new tokens. In f32 (gated) and bf16 (reported): the twin's
+    greedy ``decode.generate``, ``generate_monolithic`` and ``--stream``
+    (``DecodeEngine.stream``) token-equal; a warm ``DecodeEngine`` timed
+    over three 64-token requests. A sampled run repeated with the same
+    seed gives the same tokens. MoE: GPT-2 124M with 8 experts top-2
+    (``--n-experts 8 --moe-top-k 2``), 8 prompts of 32 tokens, 32 new
+    tokens each, at B 1 and at B 4: f32 rows equal on >= 7 of 8 (a row's
+    tokens do not depend on its batch at the no-drop capacity; the card's
+    products of another M may round a near-tie the other way), bf16
+    reported. K3/K4 launch 0 times."""
+    from pytorch_distributed_tpu_torch.models import decode
+    from pytorch_distributed_tpu_torch.serving import generate as gen
+    from pytorch_distributed_tpu_torch.serving.engine import DecodeEngine
+
+    rng = np.random.default_rng(seed)
+    base = ["--preset", "gpt2", "--max-new-tokens", "64", "--seed",
+            str(seed), "--prompt-ids",
+            ",".join(str(t) for t in rng.integers(0, 50257, 64))]
+    args = gen.parse_args(base)
+    cfg, params = gen.load_params(args)
+    ids = gen.prompt_ids(args)
+    pk.launches = pk.launches_q8 = 0
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dtype)
+        twin = gen.generate_ids(args, c, params, ids)
+        mono = decode.generate_monolithic(params, ids, c, 64)[0]
+        streamed = gen.generate_ids(gen.parse_args(base + ["--stream"]), c,
+                                    params, ids)
+        eng = DecodeEngine(c, max_len=128)
+        eng.generate(params, ids, 64)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.generate(params, ids, 64)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        req_s = statistics.median(times)
+        rows[dtype] = dict(
+            generate_eq_monolithic=bool(np.array_equal(
+                twin, mono.cpu().numpy())),
+            stream_eq_generate=bool(np.array_equal(streamed, twin)),
+            request_s=req_s, ms_per_token=req_s / 64 * 1e3,
+            tok_per_s=64 / req_s, request_s_runs=times)
+    samp = base + ["--temperature", "0.8", "--top-k", "50", "--top-p",
+                   "0.95"]
+    a = gen.generate_ids(gen.parse_args(samp), cfg, params, ids)
+    b = gen.generate_ids(gen.parse_args(samp), cfg, params, ids)
+    sampled = dict(repeat_equal=bool(np.array_equal(a, b)),
+                   differs_from_greedy=not np.array_equal(
+                       a, gen.generate_ids(args, cfg, params, ids)))
+    del params
+    margs = gen.parse_args(base + ["--n-experts", "8", "--moe-top-k", "2",
+                                   "--max-new-tokens", "32"])
+    mcfg, mparams = gen.load_params(margs)
+    prompts = rng.integers(0, 50257, (8, 32)).astype(np.int32)
+    moe = {}
+    for dtype in ("float32", "bfloat16"):
+        c = mcfg.replace(dtype=dtype)
+        eng = DecodeEngine(c, max_len=64)
+        t0 = time.perf_counter()
+        b4 = np.concatenate([eng.generate(mparams, prompts[i:i + 4], 32)
+                             .cpu().numpy() for i in (0, 4)])
+        b4_s = time.perf_counter() - t0
+        b1 = [eng.generate(mparams, prompts[i:i + 1], 32)[0].cpu().numpy()
+              for i in range(8)]
+        moe[dtype] = dict(rows_equal_b1_b4=_same(b1, b4), of=8,
+                          b4_tok_per_s=8 * 32 / b4_s)
+    del mparams
+    row = dict(phase="generate", nvidia_smi=smi, model="gpt2 L12 E768",
+               prompt_len=64, new_tokens=64, greedy=rows, sampled=sampled,
+               moe=dict(model="gpt2 L12 E768, 8 experts top-2", **moe),
+               launches=_paged_launches(pk, "generate"))
+    emit(**row)
+    fails = []
+    f32 = rows["float32"]
+    if not (f32["generate_eq_monolithic"] and f32["stream_eq_generate"]):
+        fails.append(f"f32 generate/monolithic/stream differ: {f32}")
+    if not sampled["repeat_equal"]:
+        fails.append("a sampled run repeated with its seed differs")
+    if moe["float32"]["rows_equal_b1_b4"] < 7:
+        fails.append(f"MoE f32 B 1 vs B 4: {moe['float32']}")
+    if fails:
+        raise AssertionError(f"generate: {fails}")
+    return row
+
+
+def dense_phase(pk, cfg, params, reqs, paged_f32_tokens, smi) -> dict:
+    """The dense ``BatchedDecodeEngine`` at full width (GPT-2 124M, 8 slots,
+    max_len 1024, buckets 64-1024): the serve phase's 16 requests in f32,
+    token-equal to the paged engine's f32 kernel drive on >= 15 of 16
+    (gated), then in bf16 (tick ms, tok/s, TTFT p50, cache bytes); a
+    profile of ten decode ticks; the dense prefill's values independent
+    of the rows beside it (bf16: a 40-token prompt's K/V alone and beside
+    three others, bit-equal). K3/K4 launch 0 times."""
+    from pytorch_distributed_tpu_torch.serving.engine import (
+        BatchedDecodeEngine,
+        BucketSpec,
+    )
+
+    def engine(c):
+        eng = BatchedDecodeEngine(c, slots=8, max_len=1024,
+                                  buckets=BucketSpec.powers_of_two(1024, 64))
+        eng.warmup(params)
+        return eng
+
+    pk.launches = pk.launches_q8 = 0
+    f32 = drive_engine(engine(cfg.replace(dtype="float32")), params, reqs)
+    same = _same(f32["tokens"], [paged_f32_tokens[r] for r in
+                                 sorted(paged_f32_tokens)])
+    bf16 = drive_engine(engine(cfg), params, reqs)
+    profile_phase(cfg, params, reqs, phase="dense_profile",
+                  engine=engine(cfg))
+    rng = np.random.default_rng(1)
+    x = rng.integers(0, cfg.vocab_size, 40)
+    kv = []
+    for others in ((), (50, 20, 60)):
+        eng = BatchedDecodeEngine(cfg, slots=8, max_len=1024,
+                                  buckets=BucketSpec((64,)))
+        for n in others:
+            eng.submit(rng.integers(0, cfg.vocab_size, n), 4)
+        rid = eng.submit(x, 4)
+        eng.step(params)
+        row = next(i for i, s in enumerate(eng._slots)
+                   if s is not None and s.rid == rid)
+        kv.append([eng._cache[n][:, row, :40].clone() for n in ("k", "v")])
+        del eng
+    neighbours = all(torch.equal(a, b) for a, b in zip(*kv))
+    out = dict(phase="dense", nvidia_smi=smi, model="gpt2 L12 E768",
+               slots=8, max_len=1024, requests=len(reqs),
+               f32_identical_to_paged=same, of=len(reqs),
+               f32=f32["metrics"], bf16=bf16["metrics"],
+               prefill_independent_of_neighbours_bf16=neighbours,
+               launches=_paged_launches(pk, "dense"))
+    emit(**out)
+    if same < 15 or not neighbours:
+        raise AssertionError(
+            f"dense: f32 dense vs paged {same}/{len(reqs)} identical, "
+            f"prefill independent of neighbours: {neighbours}")
+    return out
+
+
+def spec_streams(cfg, seed) -> dict:
+    """The spec phase's two greedy streams of 16 requests, 32 new tokens
+    each: ``repetitive`` (patterns of 2-5 tokens tiled 3-6 times:
+    prompt lookup should win) and ``random`` (prompts of 16-256 random
+    tokens: it should lose)."""
+    from pytorch_distributed_tpu_torch.serving import workload as wl
+
+    return {
+        "repetitive": wl.repetitive_request_stream(
+            np.random.default_rng(seed), n=16, vocab_size=cfg.vocab_size,
+            max_new=32),
+        "random": wl.request_stream(
+            np.random.default_rng(seed + 1), n=16,
+            vocab_size=cfg.vocab_size, prompt_len=(16, 256), max_new=32,
+            sampling_cycle=(dict(),)),
+    }
+
+
+def spec_pair(pk, make, c, params, reqs, phase) -> dict:
+    """Plain vs ``speculative_k=4, spec_ngram=2`` on one engine kind, dtype
+    and stream: identical requests, the spec drive's K3/K4 launches
+    (checked at 0), and each drive's metrics."""
+    plain = make(c, 0)
+    plain.warmup(params)
+    p = drive_engine(plain, params, reqs)
+    spec = make(c, 4)
+    spec.warmup(params)
+    pk.launches = pk.launches_q8 = 0
+    s = drive_engine(spec, params, reqs)
+    launches = _paged_launches(pk, phase)
+    return dict(identical=_same(p["tokens"], s["tokens"]), of=len(reqs),
+                launches=launches, plain=p["metrics"], spec=s["metrics"],
+                spec_vs_plain_tok_per_s=(
+                    s["metrics"]["generated_tok_per_s"]
+                    / p["metrics"]["generated_tok_per_s"]))
+
+
+def spec_phase(pk, seed, dev, smi) -> dict:
+    """Batched speculative decoding (``speculative_k=4``, ``spec_ngram=2``)
+    at full width: GPT-2 124M on the dense and the paged engine (8 slots,
+    max_len 1024) in f32 and bf16, and Llama-3.2-1B on the paged engine
+    with int8 KV pages and weights (the JAX test
+    ``test_spec_int8_pages_match_plain_int8`` at full width), each on the
+    ``repetitive`` and ``random`` streams (``spec_streams``): spec vs
+    plain token-equal on >= 15 of 16 in f32 (gated; bf16 reported),
+    K3/K4 launched 0 times by every spec drive, accept rate, committed
+    tokens per row-tick, decode ticks, tok/s and TTFT of spec against
+    plain. Then the rollback check: a paged bf16 spec engine publishes a
+    128-token prefix (two 64-token chunks), and four borrowers of that
+    prefix speculating with mostly rejected drafts leave its pages
+    bit-unchanged (gated) and produce the tokens that each borrower gets
+    alone from a fresh engine with the same drafts, which shares nothing
+    (gated, 4 of 4). The launches line sums the K3/K4 counts of every spec
+    drive and of the rollback check."""
+    from pytorch_distributed_tpu_torch.config import model_config
+    from pytorch_distributed_tpu_torch.models import gpt2, llama
+    from pytorch_distributed_tpu_torch.serving.engine import (
+        BatchedDecodeEngine,
+        BucketSpec,
+        PagedBatchedDecodeEngine,
+    )
+
+    def dense(c, k, **kw):
+        return BatchedDecodeEngine(c, slots=8, max_len=1024,
+                                   buckets=BucketSpec.powers_of_two(1024, 64),
+                                   speculative_k=k, **kw)
+
+    def paged(c, k, **kw):
+        return PagedBatchedDecodeEngine(c, slots=8, max_len=1024,
+                                        page_size=16, speculative_k=k, **kw)
+
+    cfg = model_config("gpt2")
+    params = gpt2.init(torch.Generator().manual_seed(seed), cfg)
+    streams = spec_streams(cfg, seed)
+    rows, fails = {}, []
+    for kind, make in (("dense", dense), ("paged", paged)):
+        for dtype in ("float32", "bfloat16"):
+            for name, reqs in streams.items():
+                key = f"gpt2_{kind}_{dtype}_{name}"
+                rows[key] = spec_pair(pk, make, cfg.replace(dtype=dtype),
+                                      params, reqs, f"spec {key}")
+                emit(phase="spec", run=key, nvidia_smi=smi, **rows[key])
+                if dtype == "float32" and rows[key]["identical"] < 15:
+                    fails.append(f"{key}: {rows[key]['identical']}/16")
+
+    # Rollback on the in-place pool: published pages stay bit-unchanged.
+    c = cfg
+
+    def rejected(h, k):
+        return (h[-k:] + 1) % c.vocab_size
+
+    eng = paged(c, 4, draft_hook=rejected)
+    eng.warmup(params)
+    pk.launches = pk.launches_q8 = 0
+    rng = np.random.default_rng(seed + 2)
+    prefix = rng.integers(0, c.vocab_size, 128).astype(np.int32)
+    eng.run(params, [dict(prompt=prefix, max_new_tokens=4)])
+    cached = sorted(eng.pool.cached_page_ids())
+    before = {n: t[:, cached].clone() for n, t in eng._cache.items()}
+    borrowers = [dict(prompt=np.concatenate(
+        [prefix, rng.integers(0, c.vocab_size, 8 + i)]).astype(np.int32),
+        max_new_tokens=32) for i in range(4)]
+    got = eng.run(params, borrowers)
+    unchanged = all(torch.equal(eng._cache[n][:, cached], t)
+                    for n, t in before.items())
+    alone = []
+    for b in borrowers:
+        ref = paged(c, 4, draft_hook=rejected)
+        alone.append(next(iter(ref.run(params, [b]).values())).tokens)
+        del ref
+    rollback = dict(
+        cached_pages=len(cached), prefix_hits=eng.pool.stats["prefix_hits"],
+        drafted=eng.counters["drafted_tokens"],
+        accepted=eng.counters["accepted_tokens"],
+        published_pages_unchanged=unchanged,
+        borrowers_equal_unshared=_same(
+            [got[r].tokens for r in sorted(got)], alone),
+        launches=_paged_launches(pk, "spec_rollback"))
+    emit(phase="spec_rollback", nvidia_smi=smi, **rollback)
+    if (not unchanged or rollback["prefix_hits"] < 4 or not cached
+            or rollback["borrowers_equal_unshared"] != len(borrowers)):
+        fails.append(f"rollback: {rollback}")
+    del params, eng
+
+    lcfg = model_config("llama3-1b")
+    lparams = llama.init(torch.Generator(device=dev).manual_seed(seed), lcfg,
+                         device=dev)
+    lstreams = spec_streams(lcfg, seed)
+    for dtype in ("float32", "bfloat16"):
+        for name, reqs in lstreams.items():
+            key = f"llama_paged_q8_{dtype}_{name}"
+            rows[key] = spec_pair(
+                pk, lambda c, k: paged(c, k, **Q8),
+                lcfg.replace(dtype=dtype), lparams, reqs, f"spec {key}")
+            emit(phase="spec", run=key, nvidia_smi=smi, **rows[key])
+            if dtype == "float32" and rows[key]["identical"] < 15:
+                fails.append(f"{key}: {rows[key]['identical']}/16")
+    del lparams
+    if fails:
+        raise AssertionError(f"spec: {fails}")
+    measured = [r["launches"] for r in rows.values()] + [rollback["launches"]]
+    return dict(rows=rows, rollback=rollback,
+                launches={kid: sum(m[kid] for m in measured)
+                          for kid in ("K3", "K4")})
+
+
+def soak_phase(pk, seed, smi) -> dict:
+    """The soak twin (``serving.soak``'s ``run_soak``) at full width:
+    GPT-2 124M in f32, 4 slots, its default storm of 200 requests (the
+    JAX script's schedule, max_len 32), an engine loss at tick 60. All
+    five invariants gated; K3/K4 0."""
+    from pytorch_distributed_tpu_torch.config import model_config
+    from pytorch_distributed_tpu_torch.models import gpt2
+    from pytorch_distributed_tpu_torch.serving import soak
+
+    cfg = model_config("gpt2", dtype="float32")
+    params = gpt2.init(torch.Generator().manual_seed(seed), cfg)
+    args = soak.parse_args(["--seed", str(seed)])
+    pk.launches = pk.launches_q8 = 0
+    t0 = time.perf_counter()
+    report = soak.run_soak(args, cfg=cfg, params=params)
+    report.update(wall_s=time.perf_counter() - t0,
+                  launches=_paged_launches(pk, "soak"))
+    emit(phase="soak", nvidia_smi=smi, model="gpt2 L12 E768 f32", **report)
+    if not report["ok"]:
+        raise AssertionError(f"soak: {report['invariant_failures']}")
+    return report
+
+
+def serve_dense_phase(pk, seed, smi) -> dict:
+    """``serve --dense`` on the card: ``serving.serve``'s own ``build`` with
+    2 dense GPT-2 124M bf16 replicas x 4 slots, max_len 1024, on
+    127.0.0.1 port 0. A greedy 64-token SSE stream whose replica is
+    killed after its first token ends DONE with 64 tokens; /healthz shows
+    the replica DOWN, /admin/restart brings it back HEALTHY. K3/K4 0."""
+    from pytorch_distributed_tpu_torch.serving import serve
+
+    args = serve.parse_args([
+        "--preset", "gpt2", "--dense", "--replicas", "2", "--slots", "4",
+        "--max-len", "1024", "--host", "127.0.0.1", "--port", "0",
+        "--seed", str(seed)])
+    cfg, params, router, server = serve.build(args)
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, 48).tolist()
+    pk.launches = pk.launches_q8 = 0
+    with serve.serve_in_thread(server) as (host, port):
+        killed = {}
+
+        def kill_serving_replica():
+            _, _, health = _http_json(host, port, "GET", "/healthz")
+            busy = [int(i) for i, r in health["replicas"].items()
+                    if r.get("active_rows", 0) + r.get("queue_depth", 0)]
+            status, _, body = _http_json(host, port, "POST", "/admin/kill",
+                                         {"replica": busy[0]})
+            killed.update(replica=busy[0], status=status)
+
+        tokens, done, ttft, latency = _sse_stream(
+            host, port, dict(prompt=prompt, max_new_tokens=64),
+            on_first_token=kill_serving_replica)
+        _, _, health = _http_json(host, port, "GET", "/healthz")
+        down = health["replicas"][str(killed["replica"])]["state"]
+        _, _, restarted = _http_json(host, port, "POST", "/admin/restart",
+                                     {"replica": killed["replica"]})
+        launches = _paged_launches(pk, "serve_dense")
+    row = dict(phase="serve_dense", nvidia_smi=smi, model="gpt2 L12 E768",
+               dtype=cfg.dtype, replicas=2, slots=4, max_len=1024,
+               engine=type(router.engines()[0]).__name__,
+               stream_tokens=len(tokens), done_state=done and done["state"],
+               first_token_s=ttft, request_s=latency, killed=killed,
+               state_after_kill=down,
+               state_after_restart=restarted["states"][
+                   str(killed["replica"])],
+               router_counters=router.counters, launches=launches)
+    emit(**row)
+    if (killed.get("status") != 200 or down != "DOWN"
+            or done is None or done["state"] != "DONE" or len(tokens) != 64
+            or row["state_after_restart"] != "HEALTHY"
+            or router.counters["failovers"] != 1
+            or row["engine"] != "BatchedDecodeEngine"):
+        raise AssertionError(f"serve_dense: {row}")
+    return row
 
 
 FLASH_SOURCE = "pytorch_distributed_tpu_torch/csrc/flash_attention.cu"
@@ -2391,6 +2837,20 @@ def main() -> int:
                 llama_q8=tier_llama_q8_phase(pk, args.seed, dev, smi))
     failover_paths_phase(pk, args.seed, dev, smi)
 
+    # 6c. generation outside the paged engine: the serial engine and the
+    # generate twin, the dense engine, speculative decoding on both
+    # batched engines, the soak twin and serve --dense
+    slice9 = dict(
+        generate=generate_phase(pk, args.seed, smi),
+        dense=dense_phase(pk, cfg, gpt2.init(
+            torch.Generator().manual_seed(args.seed), cfg), reqs,
+            f32_tokens, smi),
+        spec=spec_phase(pk, args.seed, dev, smi),
+        soak=soak_phase(pk, args.seed, smi),
+        serve_dense=serve_dense_phase(pk, args.seed, smi),
+    )
+    slice9_paths = {name: row["launches"] for name, row in slice9.items()}
+
     tier_paths = {
         "K3": dict(tier_http=tier["http"]["launches"]["K3"], **{
             f"tier_storm_{dtype}_x{row['rate_multiplier']}_{leg}":
@@ -2405,7 +2865,9 @@ def main() -> int:
     paged_entries = [
         dict(name=name, route="cuda", source=PAGED_SOURCE,
              replaces=f"pytorch_distributed_tpu/ops/paged_kernel.py:{line}",
-             **run["entry"], tier_paths=tier_paths[kid])
+             **run["entry"], tier_paths=tier_paths[kid],
+             slice9_paths={name: counts[kid]
+                           for name, counts in slice9_paths.items()})
         for name, line, run, kid in (
             ("paged_decode_attention", 56, k3, "K3"),
             ("paged_decode_attention_q8", 114, k4, "K4"))

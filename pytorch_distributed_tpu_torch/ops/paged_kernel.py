@@ -98,6 +98,16 @@ def gather_attention(q, k_pages, v_pages, block_tables, pos,
     if k_scales is not None:
         ck = dequantize_kv(ck, gather_pages(k_scales, block_tables), q.dtype)
         cv = dequantize_kv(cv, gather_pages(v_scales, block_tables), q.dtype)
+    return masked_attention(q, ck, cv, pos)
+
+
+def masked_attention(q, ck, cv, pos) -> torch.Tensor:
+    """q [B, T, H, D] at positions pos[b]..pos[b]+T-1 against contiguous
+    K/V rows [B, S, Hkv, D] (a dense cache, or the gathered page view):
+    f32 scores, key j of row b valid iff j <= pos[b] + i, softmax, the
+    weights cast to the cache dtype for the value product, as the JAX
+    package's ``_cached_attention``. ``pos`` is a [B] tensor or a scalar
+    (every row at one position). Returns [B, T, H, D] in cv's dtype."""
     b, t, h, d = q.shape
     s, hkv = ck.shape[1], ck.shape[2]
     if hkv != h:
@@ -106,8 +116,9 @@ def gather_attention(q, k_pages, v_pages, block_tables, pos,
     scores = torch.einsum("bthd,bshd->bhts", q.float(), ck.float()) / (d**0.5)
     qpos = torch.arange(t, device=q.device)
     kpos = torch.arange(s, device=q.device)
+    pos = torch.as_tensor(pos, device=q.device).long().reshape(-1)
     valid = kpos[None, None, :] <= (
-        pos.long()[:, None, None] + qpos[None, :, None]
+        pos.expand(b)[:, None, None] + qpos[None, :, None]
     )  # [B, T, S]
     scores = torch.where(valid[:, None], scores, NEG_INF)
     w = torch.softmax(scores, dim=-1).to(cv.dtype)

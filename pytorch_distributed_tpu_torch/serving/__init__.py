@@ -1,12 +1,14 @@
-"""Serving: the paged continuous-batching engine, the request-lifecycle
+"""Serving: the engines (serial ``DecodeEngine``, continuous batching over a
+dense cache, ``BatchedDecodeEngine``, or over a paged pool,
+``PagedBatchedDecodeEngine``), the request-lifecycle
 vocabulary (terminal states, results, snapshots — ``serving/lifecycle``),
 the deterministic fault-injection harness (``serving/chaos``), the seeded
 workload generator (``serving/workload``), multi-turn sessions
 (``serving/session``), and the serving tier over them: the health-checked
 multi-replica ``ReplicaRouter`` (``serving/router``) and the asyncio
 HTTP/SSE front door (``serving/server``, imported directly to keep this
-package import light). The entry points are ``serving.serve`` and
-``serving.loadgen``."""
+package import light). The entry points are ``serving.serve``,
+``serving.loadgen``, ``serving.generate`` and ``serving.soak``."""
 
 from pytorch_distributed_tpu_torch.serving.block_pool import BlockPool
 from pytorch_distributed_tpu_torch.serving.chaos import (
@@ -17,6 +19,9 @@ from pytorch_distributed_tpu_torch.serving.chaos import (
     VirtualClock,
 )
 from pytorch_distributed_tpu_torch.serving.engine import (
+    BatchedDecodeEngine,
+    BucketSpec,
+    DecodeEngine,
     PagedBatchedDecodeEngine,
 )
 from pytorch_distributed_tpu_torch.serving.lifecycle import (
@@ -43,7 +48,8 @@ from pytorch_distributed_tpu_torch.serving.router import (
 )
 
 __all__ = [
-    "BlockPool", "PagedBatchedDecodeEngine", "ReplicaRouter",
+    "BlockPool", "BatchedDecodeEngine", "BucketSpec", "DecodeEngine",
+    "PagedBatchedDecodeEngine", "ReplicaRouter",
     "Fault", "FaultInjector", "RouterFault", "RouterFaultInjector",
     "VirtualClock", "RequestResult", "EngineSnapshot",
     "AdmissionQueueFull", "DispatchFailure", "PagePoolExhausted",

@@ -1,7 +1,7 @@
 """Deterministic fault injection for the serving engine and the router.
 
 The port of the JAX package's ``serving/chaos.py``. A ``FaultInjector``
-installed on a ``PagedBatchedDecodeEngine`` (``engine.set_fault_injector``)
+installed on a batched engine (``engine.set_fault_injector``)
 drives seeded, composable injections through host-side hooks around every
 dispatch (one prefill-chunk forward or one decode-tick forward, with its
 sampling); no kernel and no tensor ever sees it, so the fault paths run
@@ -13,14 +13,15 @@ firing counts) is ``utils/chaos.ScriptedFaults``.
 Injection points:
 
 - ``dispatch_error`` — raise before the forward runs: the engine sees what
-  a failed dispatch looks like and resets its page pool.
+  a failed dispatch looks like and drops its cache (dense) or resets its
+  page pool (paged).
 - ``drop_result`` — raise AFTER the forward ran and wrote K/V into the
   pool: the compute happened but the result never reached the scheduler
   (a lost transfer). Same recovery path; the pages written are not
   trusted.
 - ``nan_row`` — flip one active row's non-finite flag, a poisoned logits
-  row at the scheduler boundary. Targets decode ticks; transient, so the
-  quarantine retry succeeds.
+  row at the scheduler boundary. Targets decode ticks (plain or
+  speculative); transient, so the quarantine retry succeeds.
 - ``slow_tick`` — advance the engine's ``VirtualClock``, a stall; this is
   how deadline expiries are driven deterministically.
 
@@ -59,9 +60,10 @@ class ChaosDroppedResult(RuntimeError):
 class Fault(_chaos.Fault):
     """One scripted serving injection. ``tick`` is the engine's step
     counter (first step = tick 1). ``program`` restricts dispatch faults
-    to 'prefill' or 'decode_step' (None = the first dispatch of the tick);
-    ``row`` picks the nan_row target slot (None = a seeded choice among
-    the active rows); ``seconds`` is the slow_tick stall."""
+    to 'prefill', 'decode_step' or 'decode_spec_step' (None = the first
+    dispatch of the tick); ``row`` picks the nan_row target slot (None =
+    a seeded choice among the active rows); ``seconds`` is the slow_tick
+    stall."""
 
     KINDS = FAULT_KINDS
 
@@ -125,7 +127,7 @@ class FaultInjector(ScriptedFaults):
             raise ChaosDroppedResult(
                 f"injected result loss (tick {tick}, {kind})"
             )
-        if kind == "decode_step":
+        if kind in ("decode_step", "decode_spec_step"):
             f = self._pop("nan_row", kind)
             if f is not None:
                 row = f.row

@@ -1,76 +1,105 @@
-"""Continuous batching over a paged KV cache: the serving engine.
+"""The serving engines: serial generation and continuous batching over a
+dense or a paged KV cache.
 
-The port of the core of the JAX package's ``BatchedDecodeEngine`` and
-``PagedBatchedDecodeEngine`` (``serving/engine.py``). A fixed set of
-``slots`` rows decode together, one token per row per tick; requests are
-admitted into free rows, prefilled in chunks, decoded and retired by a
-host-side scheduler, and their K/V lives in a pool of fixed-size pages
-(``models/decode``) with a per-row block table:
+The port of the JAX package's ``serving/engine.py``. Three engines:
 
-- **Pages, not rows**: the pool is ``[L, pool_pages, page_size, Hkv,
-  D]``; a row holds only the pages its depth needs. When the pool runs
-  dry mid-decode the youngest (lowest-priority) other row is PREEMPTED —
-  its tokens so far become a resume entry, its pages return to the pool,
-  and it re-admits later and continues token-identically.
-- **Prefix sharing**: full prefill chunks are published to the block
-  pool's sha1-chained prefix cache (``serving/block_pool``); a later
-  prompt with the same prefix maps those pages instead of recomputing
-  them, copy-on-write by construction.
-- **Chunked prefill**: each tick advances every mid-prefill row by one
-  ``prefill_chunk``-token chunk (one batched forward), so a long prompt
-  never stalls the rows that are decoding.
-- **Decode tick**: one forward over ALL ``slots`` rows at [slots, 1]; free
-  and mid-prefill rows ride along with position 0 and an all-zero table
-  (the scratch page) and their output is discarded. With
-  ``paged_attention="kernel"`` its attention is the hand-written paged
-  decode kernel (``ops/paged_kernel``), once per layer per tick.
-- **Tiers** (``serving/scheduler``): interactive requests admit first and
-  may preempt lower tiers; batch requests admit only with pool headroom
-  and sit out ticks while an interactive row is live.
-- **int8** (``ops/quant``): ``kv_quant="int8"`` keeps the pool in int8
-  with one f32 scale per token and KV head (``head_dim + 4`` bytes per
-  head and position instead of ``head_dim x itemsize``), quantized on
-  append; its decode attention is the int8 kernel K4.
-  ``weight_quant="int8"`` quantizes the block projections per output
-  channel, once, from the params as given.
+- ``DecodeEngine`` — serial: one request (of any batch) at a time, a
+  prefill forward over the bucket-padded prompt and one single-token
+  forward per new token, over a dense cache taken from an LRU-bounded
+  pool of dirty caches (a dirty cache is sound: attention masks every
+  position past a row's depth, and each position is written before it is
+  read). It decodes MoE configs (``models/decode._moe_mlp``); ``stream``
+  yields one token array per step.
+- ``BatchedDecodeEngine`` — continuous batching over ONE dense cache of
+  [L, slots, max_len, Hkv, D]: a host-side scheduler admits queued
+  prompts into free rows (one prefill forward per prompt bucket, of the
+  fixed shape [slots, bucket]), one forward per tick advances every row
+  one token (free rows compute garbage the host discards), finished rows
+  retire. ``serve --dense`` builds it.
+- ``PagedBatchedDecodeEngine`` — the same scheduler over a pool of
+  fixed-size pages (``models/decode``) with a per-row block table:
 
-``paged_attention``: "auto" (default) is "kernel" on a CUDA device and the
-plain gather path on the CPU, as the JAX package's "auto" picks its kernel
-only on a TPU; "kernel" and "gather" force one. On a CPU device "kernel"
-runs the kernel's plain version.
+  - **Pages, not rows**: the pool is ``[L, pool_pages, page_size, Hkv,
+    D]``; a row holds only the pages its depth needs. When the pool runs
+    dry mid-decode the youngest (lowest-priority) other row is PREEMPTED
+    — its tokens so far become a resume entry, its pages return to the
+    pool, and it re-admits later and continues token-identically.
+  - **Prefix sharing**: full prefill chunks are published to the block
+    pool's sha1-chained prefix cache (``serving/block_pool``); a later
+    prompt with the same prefix maps those pages instead of recomputing
+    them, copy-on-write by construction.
+  - **Chunked prefill**: each tick advances every mid-prefill row by one
+    ``prefill_chunk``-token chunk (one forward of shape [slots, chunk]),
+    so a long prompt never stalls the rows that are decoding.
+  - **Decode tick**: one forward over ALL ``slots`` rows at [slots, 1];
+    free and mid-prefill rows ride along with position 0 and an all-zero
+    table (the scratch page). With ``paged_attention="kernel"`` its
+    attention is the hand-written paged decode kernel
+    (``ops/paged_kernel``), once per layer per tick.
+  - **Tiers** (``serving/scheduler``): interactive requests admit first
+    and may preempt lower tiers; batch requests admit only with pool
+    headroom and sit out ticks while an interactive row is live. (On the
+    dense engine tiers only order admission.)
+  - **int8** (``ops/quant``): ``kv_quant="int8"`` keeps the pool in int8
+    with one f32 scale per token and KV head (``head_dim + 4`` bytes per
+    head and position instead of ``head_dim x itemsize``), quantized on
+    append; its decode attention is the int8 kernel K4.
 
-The engine serves the gpt2 and llama families (dense MLPs; MoE is
-refused). Weights are placed once per params object (``_place_params``):
-moved to the engine's device, matmul kernels and biases cast to
-``cfg.dtype`` (the JAX package casts them inside every matmul, which XLA
-fuses) — or, under ``weight_quant="int8"``, kept as int8 values with
-their scales cast to ``cfg.dtype`` (``qdot`` casts the int8 values per
-call, as the JAX package does) —, the embeddings kept in
-``cfg.param_dtype`` (``wte[ids] + wpe[pos]`` is summed there, then
-cast), and the head's weight (gpt2's tied ``wte``, llama's ``lm_head``)
-kept as the f32 values of its ``cfg.dtype`` rounding, for the
-f32-accumulated logits.
+  ``paged_attention``: "auto" (default) is "kernel" on a CUDA device and
+  the plain gather path on the CPU, as the JAX package's "auto" picks its
+  kernel only on a TPU; "kernel" and "gather" force one. On a CPU device
+  "kernel" runs the kernel's plain version.
+
+``weight_quant="int8"`` (every engine) quantizes the block projections
+per output channel, once, from the params as given. Weights are placed
+once per params object (``place_params``): moved to the engine's device,
+matmul kernels and biases cast to ``cfg.dtype`` (the JAX package casts
+them inside every matmul, which XLA fuses) — or, under int8, kept as int8
+values with their scales cast to ``cfg.dtype`` (``qdot`` casts the int8
+values per call, as the JAX package does) —, the embeddings kept in
+``cfg.param_dtype`` (``wte[ids] + wpe[pos]`` is summed there, then cast),
+the head's weight (gpt2's tied ``wte``, llama's ``lm_head``) kept as the
+f32 values of its ``cfg.dtype`` rounding, for the f32-accumulated logits,
+and MoE expert stacks as given (``ops/moe`` casts them per call, as in
+training).
+
+**Speculative decoding** (both batched engines, ``speculative_k=K`` > 0):
+each tick drafts up to K tokens per GREEDY row on the host (prompt-lookup
+over the row's tokens so far, ``models/speculative.prompt_lookup_draft``,
+or the engine's ``draft_hook``) and verifies every row's drafts in ONE
+[slots, K+1] forward; each row commits its accepted drafts plus the
+model's next token (``models/decode.speculative_accept``), with one
+device-to-host copy per tick. Rejected drafts roll back by not advancing
+the row's depth: their K/V lie past it, masked, and are overwritten by
+the next window (on the paged engine they are confined to the row's
+private tail pages, which ``_grow_for_drafts`` grows without preempting;
+a lane past the table goes to the scratch page, a dense lane past
+``max_len`` is dropped). Sampled rows ride the verify forward with zero
+drafts. Greedy output is the plain engine's by construction — on the CPU
+exactly; on the card the K+1-wide forward takes other GEMM shapes and the
+gather attention (never K3/K4), so a near-tie can round the other way.
 
 **Fault model** (the JAX engine's, ``serving/lifecycle.py`` draws it):
 every request reaches exactly one terminal ``RequestResult``. Each
-prefill-chunk forward and each decode-tick forward, with its sampling,
-runs through ``_dispatch``, which consults an installed
+prefill forward and each decode-tick forward, with its sampling, runs
+through ``_dispatch``, which consults an installed
 ``serving/chaos.FaultInjector`` before and after. A failed dispatch is
-recovered in ``step``: the pool is written in place, so a failure can
-leave pages half-written, and no page content is trusted after one — the
-block pool is reset (every page freed, the prefix cache dropped), every
-in-flight row becomes a resume entry (its tokens so far, one retry
-charged against ``request_retries``) that re-prefills on a later tick,
-and the engine backs off ``retry_backoff_s x 2^(streak-1)`` through
-``sleep``; ``dispatch_retries`` consecutive failures raise
-``DispatchFailure`` with the state consistent. A row with non-finite
-logits is QUARANTINED: freed, and its clean prefix re-prefilled once on
-fresh pages (never from the prefix cache); if the logits stay
-non-finite it is FAILED. ``snapshot`` captures the host state between
-ticks; ``restore`` loads it into a fresh engine and ``adopt`` into a busy
-one (the router's failover): both continue token-identically, because a
-resumed row's tokens depend only on its entry and the params — greedy
-rows on the prefix, sampled rows on the (seed, token index) generator.
+recovered in ``step``: the cache is written in place, so a failure can
+leave it half-written, and no cache content is trusted after one — the
+dense engine re-allocates its cache, the paged engine resets its block
+pool (every page freed, the prefix cache dropped) —, every in-flight row
+becomes a resume entry (its tokens so far, one retry charged against
+``request_retries``) that re-prefills on a later tick, and the engine
+backs off ``retry_backoff_s x 2^(streak-1)`` through ``sleep``;
+``dispatch_retries`` consecutive failures raise ``DispatchFailure`` with
+the state consistent. A row with non-finite logits is QUARANTINED: freed,
+and its clean prefix re-prefilled once (on fresh pages, never from the
+prefix cache); if the logits stay non-finite it is FAILED. ``snapshot``
+captures the host state between ticks; ``restore`` loads it into a fresh
+engine and ``adopt`` into a busy one (the router's failover): both
+continue token-identically, because a resumed row's tokens depend only on
+its entry and the params — greedy rows on the prefix, sampled rows on the
+(seed, token index) generator.
 
 Which errors are recoverable: whatever the injector raises, and
 ``RETRYABLE_ERRORS`` from the forward itself (CUDA out-of-memory, which
@@ -86,14 +115,16 @@ built or loaded (``ops/_build``, process-wide), which rises at most once
 per library, at the first kernel launch (``warmup``); the router reads
 it against a post-warmup watermark, so a steady state reads 0.
 
-**Sessions** (``serving/session``): ``open_session``/``submit(session=)``
-/``close_session``; a turn resubmits the conversation so far and its
-published chunks (decode-written ones included) stay pinned between
-turns, within ``session_pin_budget_pages`` (default half the pool).
+**Sessions** (paged engine, ``serving/session``): ``open_session``/
+``submit(session=)``/``close_session``; a turn resubmits the conversation
+so far and its published chunks (decode-written ones included) stay
+pinned between turns, within ``session_pin_budget_pages`` (default half
+the pool).
 
-Left out of this port, relative to the JAX engines: speculative decoding,
-LoRA adapters, disaggregated roles and KV handoff, tensor parallelism,
-MoE decode, and the dense and serial engines.
+Left out of this port, relative to the JAX engines: LoRA adapters,
+disaggregated roles and KV handoff, and tensor parallelism / ZeRO-3
+decode (``DecodeEngine(mesh_cfg=...)`` raises, naming ROADMAP queue 1
+item 7).
 
 Not thread-safe: one dispatcher per engine (the router and the HTTP
 server serialise every call). Several engines on one card may run in
@@ -113,6 +144,9 @@ import torch
 
 from pytorch_distributed_tpu_torch.config import ModelConfig
 from pytorch_distributed_tpu_torch.models import decode
+from pytorch_distributed_tpu_torch.models.speculative import (
+    prompt_lookup_draft,
+)
 from pytorch_distributed_tpu_torch.ops import quant
 from pytorch_distributed_tpu_torch.serving.block_pool import BlockPool
 from pytorch_distributed_tpu_torch.serving.lifecycle import (
@@ -124,6 +158,7 @@ from pytorch_distributed_tpu_torch.serving.lifecycle import (
     DispatchFailure,
     EngineSnapshot,
     PagePoolExhausted,
+    RequestFailed,
     RequestResult,
 )
 from pytorch_distributed_tpu_torch.serving.session import SessionTracker
@@ -141,6 +176,8 @@ from pytorch_distributed_tpu_torch.serving.scheduler import (
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_tpu_torch.utils.logging import log_event
 
+_EMPTY_DRAFT = np.zeros((0,), np.int32)
+
 
 def kv_bytes_per_position(cfg: ModelConfig, kv_quant: str = "none") -> int:
     """K+V bytes one cache position costs across all layers. An int8 pool
@@ -153,12 +190,451 @@ def kv_bytes_per_position(cfg: ModelConfig, kv_quant: str = "none") -> int:
     return cfg.n_layer * 2 * cfg.kv_heads * cfg.head_dim * itemsize
 
 
-@dataclasses.dataclass
+def spec_accept_rate(counters: dict[str, int]) -> float | None:
+    """accepted/drafted over the engine's lifetime — None until the first
+    draft (and forever on engines that never speculate), so a dashboard
+    can tell "speculation off or idle" from "0 % accepts"."""
+    drafted = counters.get("drafted_tokens", 0)
+    if not drafted:
+        return None
+    return round(counters.get("accepted_tokens", 0) / drafted, 4)
+
+
+def _compile_count() -> int:
+    """The CUDA kernel libraries this process has built or loaded
+    (``ops/_build``; module docstring): the port compiles nothing per
+    shape, so this is flat after ``warmup``."""
+    from pytorch_distributed_tpu_torch.ops import _build
+
+    return len(_build._loaded)
+
+
+def _device_ids(device: torch.device) -> list[int]:
+    """The device an engine runs on, as an index (``stats()``'s placement
+    figure)."""
+    if device.type == "cuda":
+        idx = device.index
+        return [torch.cuda.current_device() if idx is None else idx]
+    return [0 if device.index is None else device.index]
+
+
+def place_params(params, cfg: ModelConfig, device: torch.device,
+                 weight_quant: str = "none"):
+    """The params on ``device`` with the matmul weights cast to
+    ``cfg.dtype`` once, or quantized once (module docstring)."""
+    dev, dtype = device, getattr(torch, cfg.dtype)
+    pdt = getattr(torch, cfg.param_dtype)
+
+    def weight(w):
+        # int8 stays int8 on the device (casting it here would undo the
+        # halved weight bytes); it is quantized from the weight as given,
+        # before any cast, as the JAX engine quantizes its source tree.
+        if weight_quant == "int8" and not quant.is_quantized(w):
+            w = quant.quantize_weight(w.to(dev))
+        if quant.is_quantized(w):
+            return {"q8": w["q8"].to(dev).contiguous(),
+                    "scale": w["scale"].to(dev, dtype)}
+        return w.to(dev, dtype).contiguous()
+
+    def proj(p):
+        out = {"kernel": weight(p["kernel"])}
+        if "bias" in p:
+            out["bias"] = p["bias"].to(dev, dtype)
+        return out
+
+    def norm(p):
+        return {kk: vv.to(dev, pdt) for kk, vv in p.items()}
+
+    def mlp(p, place):
+        if cfg.n_experts:
+            return {kk: vv.to(dev) for kk, vv in p.items()}
+        return {kk: place(vv) for kk, vv in p.items()}
+
+    wte = params["wte"].to(dev, pdt)
+    placed = {"wte": wte, "ln_f": norm(params["ln_f"])}
+    if cfg.family == "gpt2":
+        placed["wpe"] = params["wpe"].to(dev, pdt)
+        placed["head_w"] = wte.to(dtype).float()
+        placed["blocks"] = [
+            {
+                "ln_1": norm(bp["ln_1"]),
+                "ln_2": norm(bp["ln_2"]),
+                "attn": {kk: proj(vv) for kk, vv in bp["attn"].items()},
+                "mlp": mlp(bp["mlp"], proj),
+            }
+            for bp in params["blocks"]
+        ]
+    else:
+        placed["head_w"] = params["lm_head"].to(dev, pdt).to(dtype).float()
+        placed["blocks"] = [
+            {
+                "ln_attn": norm(bp["ln_attn"]),
+                "ln_mlp": norm(bp["ln_mlp"]),
+                "attn": {kk: weight(vv) for kk, vv in bp["attn"].items()},
+                "mlp": mlp(bp["mlp"], weight),
+            }
+            for bp in params["blocks"]
+        ]
+    return placed
+
+
+@dataclasses.dataclass(frozen=True)
+class BucketSpec:
+    """Prompt-length buckets. A request of length T runs the prefill
+    shape of the smallest bucket >= T; ``()`` means exact length (no
+    padding)."""
+
+    buckets: tuple[int, ...] = ()
+
+    def __post_init__(self) -> None:
+        b = tuple(self.buckets)
+        if any(x <= 0 for x in b) or list(b) != sorted(set(b)):
+            raise ValueError(
+                f"buckets must be strictly increasing positives, got {b}"
+            )
+        object.__setattr__(self, "buckets", b)
+
+    @classmethod
+    def powers_of_two(cls, max_len: int,
+                      min_bucket: int = 128) -> "BucketSpec":
+        """min_bucket, 2 min_bucket, ..., max_len (the first bucket
+        clipped to max_len; max_len itself is always the last bucket so
+        every admissible prompt has a home)."""
+        if min_bucket <= 0 or max_len <= 0:
+            raise ValueError("min_bucket and max_len must be positive")
+        out = []
+        b = min_bucket
+        while b < max_len:
+            out.append(b)
+            b *= 2
+        out.append(max_len)
+        return cls(tuple(out))
+
+    def bucket_for(self, length: int) -> int:
+        if not self.buckets:
+            return length
+        for b in self.buckets:
+            if b >= length:
+                return b
+        raise ValueError(
+            f"prompt length {length} exceeds the largest bucket "
+            f"{self.buckets[-1]}"
+        )
+
+
+def _check_buckets(buckets: BucketSpec, max_len: int) -> None:
+    if buckets.buckets and buckets.buckets[-1] > max_len:
+        raise ValueError(
+            f"largest bucket {buckets.buckets[-1]} exceeds max_len {max_len}"
+        )
+
+
+def _uniform_stats(engine, **fields) -> dict[str, Any]:
+    """The one ``stats()`` schema of every engine: occupancy, page-pool
+    fields (None off the paged engine), speculation and counters."""
+    out = {
+        "engine": type(engine).__name__,
+        "role": "colocated",
+        "device": str(engine.device),
+        "device_ids": engine.device_ids(),
+        "paged_attention": None,
+        "kv_quant": "none",
+        "weight_quant": engine.weight_quant,
+        "queue_depth": 0,
+        "queue_depth_by_tier": {name: 0 for name in PRIORITIES},
+        "slots": None,
+        "active_rows": 0,
+        "free_slots": None,
+        "pool_pages": None,
+        "free_pages": None,
+        "pages_in_use": None,
+        "session_pinned_pages": None,
+        "sessions": None,
+        "prefix_hit_rate": None,
+        "speculative_k": 0,
+        "spec_accept_rate": spec_accept_rate(engine.counters),
+        "counters": dict(engine.counters),
+    }
+    out.update(fields)
+    return out
+
+
+class DecodeEngine:
+    """Serial generation (module docstring). Construct once per (cfg,
+    max_len, bucket spec); call ``generate``/``stream`` per request with
+    any params matching ``cfg`` (params are call arguments, placed once
+    per params object).
+
+    ``pool_caches``: keep each batch size's dirty cache for the next
+    request (LRU-bounded at ``pool_max_entries`` batch sizes); off, each
+    request allocates and frees its own. ``nan_guard``: a request whose
+    logits go non-finite anywhere is retried once on a fresh zeroed cache,
+    then raises ``lifecycle.RequestFailed`` (one host read of the flag
+    per request). ``weight_quant="int8"`` (dense configs only), ``device``
+    (None = "cuda"). ``mesh_cfg`` other than None raises (ROADMAP queue 1
+    item 7)."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        *,
+        max_len: int,
+        buckets: BucketSpec | None = None,
+        mesh_cfg=None,
+        pool_caches: bool = True,
+        pool_max_entries: int = 8,
+        nan_guard: bool = True,
+        weight_quant: str = "none",
+        device=None,
+    ) -> None:
+        if max_len > cfg.n_ctx:
+            raise ValueError(f"max_len {max_len} exceeds n_ctx {cfg.n_ctx}")
+        if cfg.family not in ("gpt2", "llama"):
+            raise NotImplementedError(
+                f"the engine serves the gpt2 and llama families, got "
+                f"{cfg.family!r}"
+            )
+        if mesh_cfg is not None:
+            raise NotImplementedError(
+                f"DecodeEngine: mesh_cfg {decode.MESH_NOT_PORTED}")
+        self.cfg = cfg
+        self.max_len = int(max_len)
+        self.buckets = buckets or BucketSpec()
+        _check_buckets(self.buckets, self.max_len)
+        self.weight_quant = quant.check_mode("weight_quant", weight_quant)
+        if self.weight_quant != "none" and cfg.n_experts:
+            raise NotImplementedError(
+                "weight_quant does not cover MoE expert stacks (routed "
+                "expert weights need per-expert calibration surface) — "
+                "quantized decode serves dense gpt2/llama configs"
+            )
+        if pool_max_entries < 1:
+            raise ValueError(
+                f"pool_max_entries must be >= 1, got {pool_max_entries}"
+            )
+        self.device = resolve_device(device)
+        self._pool_caches = bool(pool_caches)
+        self._pool_max = int(pool_max_entries)
+        self._cache_pool: dict[int, decode.Cache] = {}
+        self._peak_cache_bytes = 0
+        self._nan_guard = bool(nan_guard)
+        self._placed: tuple[Any, Any] | None = None
+        # The serial slice of the uniform stats() schema; the speculative
+        # counters stay 0 (the serial engine never drafts).
+        self.counters: dict[str, int] = {
+            "requests": 0, "done": 0, "failed": 0, "nan_retries": 0,
+            "drafted_tokens": 0, "accepted_tokens": 0, "spec_commits": 0,
+        }
+
+    def stats(self) -> dict[str, Any]:
+        """The uniform engine-state snapshot (``BatchedDecodeEngine
+        .stats``): no scheduler, so the occupancy fields hold their idle
+        values and only ``counters`` carries information."""
+        return _uniform_stats(self)
+
+    def device_ids(self) -> list[int]:
+        return _device_ids(self.device)
+
+    def compile_count(self) -> int:
+        return _compile_count()
+
+    # -- cache pool ---------------------------------------------------------
+
+    def new_cache(self, batch: int) -> decode.Cache:
+        """A freshly zeroed dense cache for ``batch`` rows on this engine's
+        device (the pool bypasses this after the first request per batch
+        size)."""
+        self._bump_cache_peak(batch)
+        return decode.init_cache(self.cfg, batch, self.max_len,
+                                 device=self.device)
+
+    def _cache_bytes(self, batch: int) -> int:
+        return batch * self.max_len * kv_bytes_per_position(self.cfg)
+
+    def _bump_cache_peak(self, taken_batch: int | None = None) -> None:
+        live = sum(self._cache_bytes(b) for b in self._cache_pool)
+        if taken_batch is not None:
+            live += self._cache_bytes(taken_batch)
+        self._peak_cache_bytes = max(self._peak_cache_bytes, live)
+
+    def cache_hbm_bytes(self) -> dict[str, int]:
+        """Pooled KV-cache bytes (``allocated``: the caches the pool holds
+        now) and the high-water mark of pooled + in-flight bytes."""
+        return {
+            "allocated": sum(self._cache_bytes(b) for b in self._cache_pool),
+            "peak_in_use": self._peak_cache_bytes,
+        }
+
+    def _take_cache(self, batch: int) -> decode.Cache:
+        pooled = self._cache_pool.pop(batch, None)
+        if pooled is not None:
+            self._bump_cache_peak(batch)
+            return pooled
+        return self.new_cache(batch)
+
+    def _return_cache(self, batch: int, cache: decode.Cache) -> None:
+        if not self._pool_caches:
+            return
+        # Most recently used last; evict from the front past the bound.
+        self._cache_pool.pop(batch, None)
+        self._cache_pool[batch] = cache
+        while len(self._cache_pool) > self._pool_max:
+            self._cache_pool.pop(next(iter(self._cache_pool)))
+
+    # -- requests -----------------------------------------------------------
+
+    def _place_params(self, params):
+        if self._placed is None or self._placed[0] is not params:
+            self._placed = (params, place_params(
+                params, self.cfg, self.device, self.weight_quant))
+        return self._placed[1]
+
+    def _request_setup(self, prompt, temperature, top_k, top_p):
+        ids = decode.as_prompt(prompt, self.device)
+        b, tp = ids.shape
+        bucket = self.buckets.bucket_for(tp)
+        padded = (ids if bucket == tp
+                  else torch.nn.functional.pad(ids, (0, bucket - tp)))
+        t, k, p = decode.sampling_scalars(temperature, top_k, top_p,
+                                          self.cfg.vocab_size)
+        return ids, padded, b, tp, t, k, p
+
+    def _step(self, params, tok, cache, pos, sampled, t, k, p, seed,
+              index):
+        """One single-token forward at ``pos`` and its draw: ([B] token,
+        [B] non-finite flag)."""
+        logits, _ = decode.forward(params, tok[:, None], self.cfg, cache,
+                                   pos)
+        last = logits[:, -1]
+        nxt = decode.sample_token(last, sampled, t,
+                                  decode.sample_seed(seed, index), k, p)
+        return nxt, decode.nonfinite_rows(last)
+
+    def _prefill(self, params, padded, tp, cache, sampled, t, k, p, seed):
+        logits, _ = decode.forward(params, padded, self.cfg, cache, 0)
+        last = logits[:, tp - 1]
+        tok = decode.sample_token(last, sampled, t,
+                                  decode.sample_seed(seed, 0), k, p)
+        return tok, decode.nonfinite_rows(last)
+
+    @torch.no_grad()
+    def generate(self, params, prompt, max_new_tokens: int, *,
+                 temperature: float = 0.0, seed: int | None = None,
+                 top_k: int | None = None,
+                 top_p: float | None = None) -> torch.Tensor:
+        """Serve one request: [B, Tp + max_new_tokens] int32 on the
+        engine's device, token-equal to ``decode.generate_monolithic``.
+        With ``nan_guard``, non-finite logits anywhere in the request
+        retry it ONCE on a fresh zeroed cache, then raise
+        ``RequestFailed`` — garbage tokens never escape."""
+        seed = decode._check_sample_args(
+            prompt, max_new_tokens, temperature, seed, max_len=self.max_len,
+        )
+        ids, padded, b, tp, t, k, p = self._request_setup(
+            prompt, temperature, top_k, top_p)
+        sampled = temperature > 0
+        params = self._place_params(params)
+        self.counters["requests"] += 1
+        for attempt in range(2 if self._nan_guard else 1):
+            out, bad = self._generate_once(
+                params, ids, padded, b, tp, max_new_tokens, sampled, t, k,
+                p, seed, fresh_cache=attempt > 0,
+            )
+            if not self._nan_guard or not bool(bad.any()):
+                self.counters["done"] += 1
+                return out
+            # Poisoned: drop the pooled cache and retry once on a fresh
+            # zeroed one.
+            self._cache_pool.pop(b, None)
+            self.counters["nan_retries"] += 1
+            log_event("nan_detected", engine="serial", batch=b,
+                      attempt=attempt, prompt_len=tp)
+        self.counters["failed"] += 1
+        raise RequestFailed(
+            "non-finite logits persisted after one fresh-cache retry "
+            f"(batch={b}, prompt_len={tp}): the model/params produce "
+            "NaN/Inf for this input — refusing to return garbage tokens"
+        )
+
+    def _generate_once(self, params, ids, padded, b, tp, max_new_tokens,
+                       sampled, t, k, p, seed, *, fresh_cache: bool):
+        """One prefill and the decode loop; returns (tokens, bad), ``bad``
+        the [B] non-finite flag OR-ed over every step (on the device: one
+        host read per request)."""
+        cache = self.new_cache(b) if fresh_cache else self._take_cache(b)
+        try:
+            tok, bad = self._prefill(params, padded, tp, cache, sampled, t,
+                                     k, p, seed)
+            pieces = [ids, tok[:, None]]
+            for i in range(max_new_tokens - 1):
+                tok, bad_i = self._step(params, tok, cache, tp + i, sampled,
+                                        t, k, p, seed, i + 1)
+                bad = bad | bad_i
+                pieces.append(tok[:, None])
+        except BaseException:
+            cache = None  # a failed forward may have half-written it
+            raise
+        finally:
+            if cache is not None:
+                self._return_cache(b, cache)
+        return torch.cat(pieces, dim=1).to(torch.int32), bad
+
+    @torch.no_grad()
+    def stream(self, params, prompt, max_new_tokens: int, *,
+               temperature: float = 0.0, seed: int | None = None,
+               top_k: int | None = None, top_p: float | None = None):
+        """Generator of [B] token tensors, one per forward — the streaming
+        form of ``generate`` (the same tokens). The cache returns to the
+        pool when the generator finishes or is closed. With
+        ``nan_guard``, a poisoned step raises ``RequestFailed`` at once
+        (tokens already escaped, so a stream cannot retry)."""
+        seed = decode._check_sample_args(
+            prompt, max_new_tokens, temperature, seed, max_len=self.max_len,
+        )
+        ids, padded, b, tp, t, k, p = self._request_setup(
+            prompt, temperature, top_k, top_p)
+        sampled = temperature > 0
+        params = self._place_params(params)
+        cache = self._take_cache(b)
+        self.counters["requests"] += 1
+
+        def guard(bad):
+            if self._nan_guard and bool(bad.any()):
+                self.counters["failed"] += 1
+                raise RequestFailed(
+                    f"non-finite logits mid-stream (batch={b}, "
+                    f"prompt_len={tp}): aborting the stream — resubmit via "
+                    "generate() for the fresh-cache retry"
+                )
+
+        try:
+            tok, bad = self._prefill(params, padded, tp, cache, sampled, t,
+                                     k, p, seed)
+            guard(bad)
+            yield tok
+            for i in range(max_new_tokens - 1):
+                tok, bad = self._step(params, tok, cache, tp + i, sampled,
+                                      t, k, p, seed, i + 1)
+                guard(bad)
+                yield tok
+            self.counters["done"] += 1
+        except GeneratorExit:
+            raise
+        except BaseException:
+            cache = None
+            raise
+        finally:
+            if cache is not None:
+                self._return_cache(b, cache)
+
+
+@dataclasses.dataclass(eq=False)
 class _Pending:
     """A queued request; after a preemption or a fault, also its resume
     entry: ``gen`` then holds the clean tokens generated so far, and
     admission prefills the whole prompt + gen prefix. The same record is
-    what ``snapshot`` captures and ``restore``/``adopt`` take."""
+    what ``snapshot`` captures and ``restore``/``adopt`` take. Entries
+    compare by identity (the queue removes the entry it holds)."""
 
     rid: int
     prompt: np.ndarray  # [Tp] int32
@@ -179,10 +655,9 @@ class _Pending:
 
 
 @dataclasses.dataclass
-class _PagedSlot:
-    """One occupied row: ``pos`` is the prefill cursor (next position to
-    prefill) until it reaches ``prefill_len``; after that the row is
-    decode-ready and ``pos`` is its next KV write offset."""
+class _Slot:
+    """One occupied row of the slot batch: ``pos`` is its next KV write
+    offset (tokens in its cache)."""
 
     rid: int
     prompt: np.ndarray
@@ -195,15 +670,8 @@ class _PagedSlot:
     k: int
     p: float
     seed: int
-    deadline: float | None
-    tier: int
-    prefix: np.ndarray  # prompt + resume tokens to prefill
-    prefill_len: int  # len(prefix)
-    table: np.ndarray  # [max_pages] int32 page ids (0 = scratch)
-    pids: list  # pages held
-    n_pages: int  # allocated table entries
-    resume_base: int  # len(resume gen) riding ahead of fresh tokens
-    chain_key: str  # prefix-cache chain key at pos (one digest per publish)
+    deadline: float | None = None
+    tier: int = TIER_RANK[STANDARD]
     retries: int = 0
     nan_retried: bool = False
     session: int | None = None
@@ -211,21 +679,39 @@ class _PagedSlot:
 
     @property
     def ready(self) -> bool:
+        return True
+
+
+@dataclasses.dataclass
+class _PagedSlot(_Slot):
+    """One occupied row of the paged engine: ``pos`` is the prefill cursor
+    (next position to prefill) until it reaches ``prefill_len``; after
+    that the row is decode-ready and ``pos`` is its next KV write offset.
+    The engine fills every field at admission."""
+
+    prefix: np.ndarray | None = None  # prompt + resume tokens to prefill
+    prefill_len: int = 0  # len(prefix)
+    table: np.ndarray | None = None  # [max_pages] int32 page ids (0 = scratch)
+    pids: list = dataclasses.field(default_factory=list)  # pages held
+    n_pages: int = 0  # allocated table entries
+    resume_base: int = 0  # len(resume gen) riding ahead of fresh tokens
+    chain_key: str = ""  # prefix-cache chain key at pos
+
+    @property
+    def ready(self) -> bool:
         return self.pos >= self.prefill_len
 
 
-class PagedBatchedDecodeEngine:
-    """Continuous-batching decode over a paged KV pool (module docstring).
+class BatchedDecodeEngine:
+    """Continuous batching over one dense [L, slots, max_len, Hkv, D]
+    cache (module docstring).
 
-    Knobs: ``page_size`` (tokens per page; divides ``max_len``),
-    ``pool_pages`` (pool capacity including the scratch page 0; default
-    ``slots * max_len / page_size + 1``), ``prefill_chunk`` (a page
-    multiple dividing ``max_len``; default the largest such <= 64),
-    ``queue_limit`` (bounded admission queue) with ``backpressure``
-    ("reject": ``submit`` past the limit raises ``AdmissionQueueFull``;
-    "block": ``submit(params=...)`` drives ``step`` until space frees or
-    ``block_timeout_s`` passes), ``batch_admit_free_frac`` (free-pool
-    fraction below which BATCH requests stop admitting),
+    Knobs: ``buckets`` (prompt-length ``BucketSpec``; each bucket is one
+    prefill shape [slots, bucket], and ``max_len`` is added as the bucket
+    of fault-resume prefixes), ``queue_limit`` (bounded admission queue)
+    with ``backpressure`` ("reject": ``submit`` past the limit raises
+    ``AdmissionQueueFull``; "block": ``submit(params=...)`` drives
+    ``step`` until space frees or ``block_timeout_s`` passes),
     ``request_retries`` (fault resumes a request may take before it is
     FAILED), ``dispatch_retries`` (consecutive failed dispatches before
     ``step`` raises ``DispatchFailure``; None = never), ``retry_backoff_s``
@@ -233,8 +719,18 @@ class PagedBatchedDecodeEngine:
     ``sleep`` (the deadline clock and the backoff's sleep,
     ``time.monotonic``/``time.sleep`` by default; a
     ``utils/chaos.VirtualClock`` for both makes them deterministic),
-    ``device`` (None = "cuda"), ``kv_quant`` and ``weight_quant`` ("none"
-    or "int8", module docstring)."""
+    ``device`` (None = "cuda"), ``weight_quant`` ("none" or "int8"),
+    ``speculative_k``/``spec_ngram``/``draft_hook`` (speculative decoding:
+    K drafts per row per tick, the lookup n-gram, and a callable
+    ``(tokens_so_far, k) -> drafts`` replacing the lookup).
+
+    The dense engine serves every admitted prompt in one prefill forward
+    per bucket of the fixed shape [slots, bucket] over a scratch cache of
+    the bucket's length: the admitted rows first, the rest padding whose
+    results are dropped. The fixed shape
+    makes a row's values independent of how many rows share its forward
+    (on the card cuBLAS picks its kernel, and its summation order, by
+    shape); the JAX engine pads a group to the next power of two."""
 
     # Errors from the forward itself that a retry can honestly recover
     # (module docstring); anything else propagates.
@@ -248,22 +744,19 @@ class PagedBatchedDecodeEngine:
         *,
         slots: int,
         max_len: int,
-        page_size: int = 16,
-        pool_pages: int | None = None,
-        prefill_chunk: int | None = None,
-        paged_attention: str = "auto",
+        buckets: BucketSpec | None = None,
         queue_limit: int | None = None,
         backpressure: str = "reject",
-        batch_admit_free_frac: float = 0.25,
-        session_pin_budget_pages: int | None = None,
         request_retries: int = 3,
         dispatch_retries: int | None = 2,
         retry_backoff_s: float = 0.05,
         clock=None,
         sleep=None,
         device=None,
-        kv_quant: str = "none",
         weight_quant: str = "none",
+        speculative_k: int = 0,
+        spec_ngram: int = 2,
+        draft_hook=None,
     ) -> None:
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
@@ -276,58 +769,44 @@ class PagedBatchedDecodeEngine:
             )
         if cfg.n_experts:
             raise NotImplementedError(
-                "the engine does not serve MoE configs: expert capacity "
-                "couples batch rows, so a row's output would depend on its "
-                "neighbours"
-            )
-        if page_size < 1 or max_len % page_size:
-            raise ValueError(
-                f"page_size ({page_size}) must be a positive divisor of "
-                f"max_len ({max_len}): the block table addresses exactly "
-                "max_len/page_size pages per row"
+                f"{type(self).__name__} does not serve MoE configs: expert "
+                "capacity couples batch rows, so a row's output would "
+                "depend on its neighbours — use the serial DecodeEngine "
+                "for MoE decode"
             )
         self.cfg = cfg
         self.slots = int(slots)
         self.max_len = int(max_len)
-        self.page_size = int(page_size)
-        self.max_pages = max_len // page_size
-        if prefill_chunk is None:
-            # Largest page multiple <= 64 that divides max_len: the chunk is
-            # both the per-tick prefill quantum and the prefix-sharing grain.
-            prefill_chunk = page_size
-            while (
-                prefill_chunk * 2 <= min(64, max_len)
-                and max_len % (prefill_chunk * 2) == 0
-            ):
-                prefill_chunk *= 2
-        if (
-            prefill_chunk < page_size
-            or prefill_chunk % page_size
-            or max_len % prefill_chunk
-        ):
+        self.buckets = buckets or BucketSpec()
+        _check_buckets(self.buckets, self.max_len)
+        # Prefill shapes: the user buckets plus max_len, so a fault-resume
+        # prefix (prompt + tokens so far) longer than the largest PROMPT
+        # bucket stays inside the warmed set.
+        pb = tuple(self.buckets.buckets)
+        if pb and pb[-1] < self.max_len:
+            pb += (self.max_len,)
+        self._prefill_buckets = pb  # () = exact-length mode
+        if speculative_k < 0:
             raise ValueError(
-                f"prefill_chunk ({prefill_chunk}) must be a multiple of "
-                f"page_size ({page_size}) that divides max_len "
-                f"({max_len}) — chunk starts are page-aligned and the "
-                "padded final chunk must stay inside the row's table"
+                f"speculative_k must be >= 0, got {speculative_k} "
+                "(0 disables speculation)"
             )
-        self.chunk = int(prefill_chunk)
-        if pool_pages is None:
-            pool_pages = slots * self.max_pages + 1
-        if pool_pages < self.max_pages + 1:
+        if speculative_k >= max_len:
             raise ValueError(
-                f"pool_pages ({pool_pages}) must be >= max_len/page_size "
-                f"+ 1 = {self.max_pages + 1} (one full-length row plus "
-                "the scratch page), or a single deep request could "
-                "never be served"
+                f"speculative_k ({speculative_k}) must be < max_len "
+                f"({max_len}): the verify window is k+1 tokens wide and "
+                "has to fit a row's cache extent"
             )
-        self.pool_pages = int(pool_pages)
-        if not 0.0 <= batch_admit_free_frac <= 1.0:
+        if spec_ngram < 1:
+            raise ValueError(f"spec_ngram must be >= 1, got {spec_ngram}")
+        if draft_hook is not None and not callable(draft_hook):
             raise ValueError(
-                f"batch_admit_free_frac must be in [0, 1], got "
-                f"{batch_admit_free_frac}"
+                "draft_hook must be callable: (tokens_so_far [n] int32, "
+                "k) -> up to k draft tokens"
             )
-        self.batch_admit_free_frac = float(batch_admit_free_frac)
+        self.speculative_k = int(speculative_k)
+        self.spec_ngram = int(spec_ngram)
+        self._draft_hook = draft_hook
         if queue_limit is not None and queue_limit < 1:
             raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
         self.queue_limit = queue_limit
@@ -341,161 +820,94 @@ class PagedBatchedDecodeEngine:
         self.dispatch_retries = dispatch_retries
         self.retry_backoff_s = float(retry_backoff_s)
         self.device = resolve_device(device)
-        if paged_attention == "auto":
-            paged_attention = (
-                "kernel" if self.device.type == "cuda" else "gather"
-            )
-        if paged_attention == "kernel_interpret":
-            raise ValueError(
-                "paged_attention='kernel_interpret' is the JAX package's "
-                "Pallas interpret mode; this port has no interpreter — use "
-                "'kernel' (on a CPU device it runs the kernel's plain "
-                "version) or 'gather'"
-            )
-        if paged_attention not in ("gather", "kernel"):
-            raise ValueError(
-                f"paged_attention must be 'auto', 'gather' or 'kernel', "
-                f"got {paged_attention!r}"
-            )
-        self.paged_attention = paged_attention
-        self.kv_quant = quant.check_mode("kv_quant", kv_quant)
+        self.kv_quant = "none"
         self.weight_quant = quant.check_mode("weight_quant", weight_quant)
+        self.role = "colocated"
         self._clock = clock or time.monotonic
         self._sleep = sleep or time.sleep
         self._injector = None  # serving/chaos.FaultInjector (or None)
         self._ticks = 0
         self._fail_streak = 0  # consecutive failed dispatches
-        self.pool = BlockPool(self.pool_pages, self.page_size, self.chunk)
-        # Session retention pins at most half the pool by default; past
-        # the budget the longest-idle session is evicted loudly.
-        self._sessions = SessionTracker(
-            self.pool,
-            pin_budget_pages=(
-                (self.pool_pages - 1) // 2
-                if session_pin_budget_pages is None
-                else session_pin_budget_pages
-            ),
-            clock=self._clock,
-        )
-        self._cache = decode.init_paged_cache(
-            cfg, self.pool_pages, self.page_size, device=self.device,
-            kv_quant=self.kv_quant,
-        )
+        self._cache: decode.Cache | None = None  # allocated on first use
         self._queue: collections.deque[_Pending] = collections.deque()
-        self._slots: list[_PagedSlot | None] = [None] * self.slots
+        self._slots: list[_Slot | None] = [None] * self.slots
         self._next_rid = 0
         self._placed: tuple[Any, Any] | None = None
         self.results: dict[int, RequestResult] = {}
         self.counters: dict[str, int] = {
             "done": 0, "failed": 0, "aborted": 0, "expired": 0,
-            "preemptions": 0, "preempt_priority": 0, "batch_yield_ticks": 0,
-            "prefill_ticks": 0, "decode_ticks": 0,
             "nan_quarantines": 0, "dispatch_failures": 0, "resumes": 0,
+            "cache_allocs": 0,
+            # Speculation (0 forever when speculative_k=0): drafted =
+            # lanes offered to the verifier, accepted = tokens committed
+            # beyond the one a plain tick yields, spec_commits = row-ticks
+            # through the verify path.
+            "drafted_tokens": 0, "accepted_tokens": 0, "spec_commits": 0,
+            # Forwards that ran (the port's tick accounting).
+            "prefill_ticks": 0, "decode_ticks": 0,
         }
-        log_event(
-            "pool_build",
-            quant=self.kv_quant,
-            pool_pages=self.pool_pages,
-            page_size=self.page_size,
-            prefill_chunk=self.chunk,
-            slots=self.slots,
-            device=str(self.device),
-            pool_hbm_bytes=self.cache_hbm_bytes()["allocated"],
-        )
 
-    # -- params and forward -------------------------------------------------
+    # -- cache, params and forward ------------------------------------------
+
+    def _new_cache(self) -> decode.Cache:
+        self.counters["cache_allocs"] += 1
+        return decode.init_cache(self.cfg, self.slots, self.max_len,
+                                 device=self.device)
+
+    def _live_cache(self) -> decode.Cache:
+        """The engine's cache, allocated on first use and again after a
+        failed dispatch dropped it."""
+        if self._cache is None:
+            self._cache = self._new_cache()
+        return self._cache
 
     def _place_params(self, params):
-        """The params on this engine's device with the matmul weights cast
-        to ``cfg.dtype`` once, or quantized once (see the module
-        docstring); memoized on the identity of ``params``."""
-        if self._placed is not None and self._placed[0] is params:
-            return self._placed[1]
-        dev, dtype = self.device, getattr(torch, self.cfg.dtype)
-        pdt = getattr(torch, self.cfg.param_dtype)
+        """``place_params`` memoized on the identity of ``params``."""
+        if self._placed is None or self._placed[0] is not params:
+            self._placed = (params, place_params(
+                params, self.cfg, self.device, self.weight_quant))
+        return self._placed[1]
 
-        def weight(w):
-            # int8 stays int8 on the device (casting it here would undo
-            # the halved weight bytes); it is quantized from the weight as
-            # given, before any cast, as the JAX engine quantizes its
-            # source tree.
-            if self.weight_quant == "int8" and not quant.is_quantized(w):
-                w = quant.quantize_weight(w.to(dev))
-            if quant.is_quantized(w):
-                return {"q8": w["q8"].to(dev).contiguous(),
-                        "scale": w["scale"].to(dev, dtype)}
-            return w.to(dev, dtype).contiguous()
-
-        def proj(p):
-            out = {"kernel": weight(p["kernel"])}
-            if "bias" in p:
-                out["bias"] = p["bias"].to(dev, dtype)
-            return out
-
-        def norm(p):
-            return {kk: vv.to(dev, pdt) for kk, vv in p.items()}
-
-        wte = params["wte"].to(dev, pdt)
-        placed = {"wte": wte, "ln_f": norm(params["ln_f"])}
-        if self.cfg.family == "gpt2":
-            placed["wpe"] = params["wpe"].to(dev, pdt)
-            placed["head_w"] = wte.to(dtype).float()
-            placed["blocks"] = [
-                {
-                    "ln_1": norm(bp["ln_1"]),
-                    "ln_2": norm(bp["ln_2"]),
-                    "attn": {kk: proj(vv) for kk, vv in bp["attn"].items()},
-                    "mlp": {kk: proj(vv) for kk, vv in bp["mlp"].items()},
-                }
-                for bp in params["blocks"]
-            ]
-        else:
-            placed["head_w"] = params["lm_head"].to(dev, pdt).to(dtype).float()
-            placed["blocks"] = [
-                {
-                    "ln_attn": norm(bp["ln_attn"]),
-                    "ln_mlp": norm(bp["ln_mlp"]),
-                    "attn": {kk: weight(vv) for kk, vv in bp["attn"].items()},
-                    "mlp": {kk: weight(vv) for kk, vv in bp["mlp"].items()},
-                }
-                for bp in params["blocks"]
-            ]
-        self._placed = (params, placed)
-        return placed
+    @property
+    def _decode_width(self) -> int:
+        """Tokens per row of a decode forward: 1, or K+1 when speculating."""
+        return self.speculative_k + 1
 
     @torch.no_grad()
-    def _forward(self, params, ids, pos, tables):
-        """One forward over the pool; numpy operands in, logits out."""
+    def _forward(self, params, ids, pos, tables=None):
+        """One forward of the slot batch over the live cache (numpy
+        operands in, logits out); ``tables`` is the paged engine's."""
         dev = self.device
         logits, _ = decode.forward(
-            params,
-            torch.from_numpy(ids).to(dev),
-            self.cfg,
-            self._cache,
-            torch.from_numpy(pos).to(dev),
-            block_tables=torch.from_numpy(tables).to(dev),
-            paged_impl=self.paged_attention,
-            kv_quant=self.kv_quant,
+            params, torch.from_numpy(ids).to(dev), self.cfg,
+            self._live_cache(), torch.from_numpy(pos).to(dev),
         )
         return logits
 
-    def _sample(self, last, rows):
+    def _sample(self, last, rows, index=None):
         """Sample one token per logits row; ``rows`` are the (slot-like)
-        objects those rows belong to (None = discarded lane). Returns host
-        arrays (tokens, nonfinite flags) with ONE device->host copy."""
+        objects those rows belong to (None = discarded lane), ``index``
+        each row's token index (default: its tokens generated so far).
+        Returns host arrays (tokens, nonfinite flags) with ONE
+        device->host copy."""
+        if index is None:
+            index = [0 if r is None else len(r.generated) for r in rows]
+        greedy, t, k, p, seeds = self._sampling_rows(rows, index)
+        toks = decode.sample_token_rows(last, greedy, t, k, p, seeds)
+        bad = decode.nonfinite_rows(last)
+        host = torch.stack([toks, bad.long()]).cpu().numpy()
+        return host[0], host[1].astype(bool)
+
+    def _sampling_rows(self, rows, index):
         greedy = [r is None or r.greedy for r in rows]
         t = [1.0 if r is None else r.t for r in rows]
         k = [self.cfg.vocab_size if r is None else r.k for r in rows]
         p = [2.0 if r is None else r.p for r in rows]
         seeds = [
-            0 if r is None or r.greedy
-            else decode.sample_seed(r.seed, len(r.generated))
-            for r in rows
+            0 if r is None or r.greedy else decode.sample_seed(r.seed, i)
+            for r, i in zip(rows, index)
         ]
-        toks = decode.sample_token_rows(last, greedy, t, k, p, seeds)
-        bad = decode.nonfinite_rows(last)
-        host = torch.stack([toks, bad.long()]).cpu().numpy()
-        return host[0], host[1].astype(bool)
+        return greedy, t, k, p, seeds
 
     # -- request API ---------------------------------------------------------
 
@@ -525,8 +937,9 @@ class PagedBatchedDecodeEngine:
         ``backpressure="reject"`` raises ``AdmissionQueueFull`` and
         "block" drives ``step(params)`` until space frees or
         ``block_timeout_s`` (engine clock) passes, then raises.
-        ``session`` is a live sid from ``open_session``: the prompt must
-        extend the session's recorded transcript (``serving/session``)."""
+        ``session`` is a live sid from the paged engine's
+        ``open_session``: the prompt must extend the session's recorded
+        transcript (``serving/session``)."""
         prompt = np.asarray(prompt)
         if prompt.ndim == 2 and prompt.shape[0] == 1:
             prompt = prompt[0]
@@ -559,10 +972,10 @@ class PagedBatchedDecodeEngine:
         if timeout_s is not None and timeout_s <= 0:
             raise ValueError(f"timeout_s must be > 0, got {timeout_s}")
         tier = check_priority(priority)
+        self._check_prompt_shape(tp)
         prompt = prompt.astype(np.int32)
         # Validated before the rid is assigned; marked in flight after.
-        resub_len = (0 if session is None
-                     else self._sessions.check_turn(session, prompt))
+        resub_len = self._session_checkin(session, prompt)
         self._admission_backpressure(params, block_timeout_s)
         rid = self._next_rid
         self._next_rid += 1
@@ -571,14 +984,12 @@ class PagedBatchedDecodeEngine:
         )
         deadline = None if timeout_s is None else self._clock() + timeout_s
         self._queue.append(_Pending(
-            rid=rid, prompt=prompt.astype(np.int32),
-            max_new=int(max_new_tokens), eos_id=eos_id,
-            greedy=not temperature > 0.0, t=t, k=k, p=p,
+            rid=rid, prompt=prompt, max_new=int(max_new_tokens),
+            eos_id=eos_id, greedy=not temperature > 0.0, t=t, k=k, p=p,
             seed=0 if seed is None else int(seed), deadline=deadline,
             tier=tier, session=session, resub_len=resub_len,
         ))
-        if session is not None:
-            self._sessions.begin_turn(session, rid)
+        self._session_begin(session, rid)
         log_event(
             "submit", rid=rid, t=round(self._clock(), 6), prompt_len=tp,
             max_new=int(max_new_tokens),
@@ -587,6 +998,26 @@ class PagedBatchedDecodeEngine:
             session=session,
         )
         return rid
+
+    def _check_prompt_shape(self, tp: int) -> None:
+        """Hook: the dense engine needs a prompt bucket (raises past the
+        largest)."""
+        self.buckets.bucket_for(tp)
+
+    def _session_checkin(self, session, prompt) -> int:
+        """Hook: validate a session turn and return its resubmitted
+        transcript length. Sessions ride the paged engine's prefix cache;
+        the dense engine refuses them."""
+        if session is not None:
+            raise ValueError(
+                "multi-turn sessions need the chunk-chained prefix cache "
+                "and page pinning — open them on a PagedBatchedDecodeEngine "
+                f"(serving/session), not {type(self).__name__}"
+            )
+        return 0
+
+    def _session_begin(self, session, rid) -> None:
+        """Hook: mark a validated session turn in flight (paged only)."""
 
     def _admission_backpressure(self, params, block_timeout_s) -> None:
         if self.queue_limit is None or len(self._queue) < self.queue_limit:
@@ -628,9 +1059,9 @@ class PagedBatchedDecodeEngine:
 
     def abort(self, rid: int) -> bool:
         """Cancel one request: a queued entry is removed, an active row is
-        freed (its pages released). It retires ABORTED with its clean
-        partial output. True on transition, False if already terminal;
-        unknown rids raise KeyError."""
+        freed (its pages released on the paged engine). It retires
+        ABORTED with its clean partial output. True on transition, False
+        if already terminal; unknown rids raise KeyError."""
         for q in self._queue:
             if q.rid == rid:
                 self._queue.remove(q)
@@ -651,8 +1082,8 @@ class PagedBatchedDecodeEngine:
 
     def step(self, params) -> list[int]:
         """One scheduler tick: expire overdue requests, admit queued ones
-        and advance every mid-prefill row one chunk, then advance every
-        decode-ready row one token. Returns the rids that reached a
+        (prefill), then advance every decode-ready row (one token, or
+        1..K+1 under speculation). Returns the rids that reached a
         terminal state this tick. A failed dispatch is recovered here
         (module docstring); only past ``dispatch_retries`` consecutive
         failures does it raise ``DispatchFailure``, with every in-flight
@@ -714,19 +1145,29 @@ class PagedBatchedDecodeEngine:
         return None if res is None else np.asarray(res.tokens)
 
     def warmup(self, params) -> int:
-        """Place the params and run one prefill chunk and one decode step
-        on the scratch page (all-zero tables), so the first request pays
-        no one-time cost (the kernel build and load, library handles).
-        Idle engines only. Returns ``compile_count()``."""
+        """Place the params and run every prefill shape (over its scratch
+        cache) and the decode forward once (idle engines only: warmup
+        writes garbage rows, which admission overwrites), so the first
+        request pays no one-time cost. Returns ``compile_count()``."""
         if self.has_work():
             raise RuntimeError("warmup requires an idle engine")
-        params = self._place_params(params)
-        for t in (self.chunk, 1):
-            self._forward(
-                params, np.zeros((self.slots, t), np.int32),
-                np.zeros((self.slots,), np.int32),
-                np.zeros((self.slots, self.max_pages), np.int32),
+        if not self._prefill_buckets:
+            raise ValueError(
+                "warmup needs a finite BucketSpec (exact-length mode runs "
+                "one prefill shape per observed prompt length)"
             )
+        params = self._place_params(params)
+        with torch.no_grad():
+            for bucket in self._prefill_buckets:
+                decode.forward(
+                    params, torch.zeros((self.slots, bucket), dtype=torch.long,
+                                        device=self.device),
+                    self.cfg, decode.init_cache(self.cfg, self.slots, bucket,
+                                                device=self.device), 0,
+                )
+        w = self._decode_width
+        self._forward(params, np.zeros((self.slots, w), np.int32),
+                      np.zeros((self.slots,), np.int32))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self.compile_count()
@@ -747,7 +1188,7 @@ class PagedBatchedDecodeEngine:
         """The engine's host-side request state, between ``step`` calls:
         queued entries, every in-flight row as a resume entry carrying
         its tokens so far, the rid counter and the undelivered results.
-        The KV pool is not captured: ``restore``/``adopt`` and admission
+        The KV cache is not captured: ``restore``/``adopt`` and admission
         rebuild it from the prefixes. The engine itself is not changed."""
         inflight = sorted(
             (self._pending_from_slot(s) for s in self._slots
@@ -821,64 +1262,36 @@ class PagedBatchedDecodeEngine:
             )
 
     def device_ids(self) -> list[int]:
-        """The device this engine runs on, as an index (``stats()``'s
-        placement figure)."""
-        if self.device.type == "cuda":
-            idx = self.device.index
-            return [torch.cuda.current_device() if idx is None else idx]
-        return [0 if self.device.index is None else self.device.index]
+        return _device_ids(self.device)
 
     def compile_count(self) -> int:
-        """The CUDA kernel libraries this process has built or loaded
-        (``ops/_build``; module docstring): the port compiles nothing per
-        shape, so this is flat after ``warmup``."""
-        from pytorch_distributed_tpu_torch.ops import _build
-
-        return len(_build._loaded)
+        return _compile_count()
 
     # -- introspection -------------------------------------------------------
 
     def stats(self) -> dict[str, Any]:
-        """Scheduler occupancy, page-pool pressure and a copy of the
-        monotonic ``counters``; pure host bookkeeping."""
+        """Scheduler occupancy, page-pool pressure (None on the dense
+        engine: one schema for every engine, so the router reads it
+        without asking which engine backs a replica), speculation and a
+        copy of the monotonic ``counters``; pure host bookkeeping."""
         free_slots = sum(1 for s in self._slots if s is None)
         by_tier = {name: 0 for name in PRIORITIES}
         for q in self._queue:
             by_tier[TIER_NAME[q.tier]] += 1
-        ps = self.pool.stats
-        return {
-            "engine": type(self).__name__,
-            "device": str(self.device),
-            "device_ids": self.device_ids(),
-            "paged_attention": self.paged_attention,
-            "kv_quant": self.kv_quant,
-            "weight_quant": self.weight_quant,
-            "queue_depth": len(self._queue),
-            "queue_depth_by_tier": by_tier,
-            "slots": self.slots,
-            "active_rows": self.slots - free_slots,
-            "free_slots": free_slots,
-            "pool_pages": self.pool_pages,
-            "free_pages": self.pool.free_pages(),
-            "pages_in_use": self.pool.pages_in_use(),
-            "session_pinned_pages": self.pool.pinned_pages(),
-            "sessions": len(self._sessions),
-            "prefix_hit_rate": round(
-                ps["prefix_hits"] / max(1, ps["prefix_queries"]), 4
-            ),
-            "counters": dict(self.counters,
-                             session_evictions=self._sessions.evictions),
-        }
+        return _uniform_stats(
+            self, role=self.role, kv_quant=self.kv_quant,
+            queue_depth=len(self._queue), queue_depth_by_tier=by_tier,
+            slots=self.slots, active_rows=self.slots - free_slots,
+            free_slots=free_slots, speculative_k=self.speculative_k,
+        )
 
     def cache_hbm_bytes(self) -> dict[str, int]:
-        """Allocated pool bytes and the peak referenced by live rows."""
-        per = kv_bytes_per_position(self.cfg, self.kv_quant)
-        return {
-            "allocated": self.pool_pages * self.page_size * per,
-            "peak_in_use": (
-                self.pool.stats["peak_pages_in_use"] * self.page_size * per
-            ),
-        }
+        """Cache bytes: the dense engine holds slots x max_len positions
+        whether rows are deep or not (the figure the paged pool is
+        measured against); a prefill's transient scratch of slots x bucket
+        positions is not counted."""
+        n = self.slots * self.max_len * kv_bytes_per_position(self.cfg)
+        return {"allocated": n, "peak_in_use": n}
 
     # -- bookkeeping ---------------------------------------------------------
 
@@ -887,7 +1300,7 @@ class PagedBatchedDecodeEngine:
             [np.asarray(prompt, np.int32), np.asarray(gen, np.int32)]
         )
 
-    def _pending_from_slot(self, s: _PagedSlot, *, bump: bool = False,
+    def _pending_from_slot(self, s: _Slot, *, bump: bool = False,
                            nan_retried: bool | None = None) -> _Pending:
         """An in-flight row as a resume entry: its generated tokens become
         part of the prefix its re-admission prefills; ``bump`` charges one
@@ -902,9 +1315,6 @@ class PagedBatchedDecodeEngine:
         )
 
     def _finish(self, rid, state, tokens, reason, finished=None) -> None:
-        # Any terminal state clears a session turn's in-flight marker (a
-        # DONE turn recorded its transcript first, _retire_session_turn).
-        self._sessions.on_terminal(rid)
         self.results[rid] = RequestResult(
             rid=rid, state=state, tokens=tokens, reason=reason
         )
@@ -921,17 +1331,15 @@ class PagedBatchedDecodeEngine:
         self._finish(q.rid, state, self._partial_tokens(q.prompt, q.gen),
                      reason, finished)
 
-    def _finish_slot(self, s: _PagedSlot, state, reason,
-                     finished=None) -> None:
+    def _finish_slot(self, s: _Slot, state, reason, finished=None) -> None:
         self._finish(s.rid, state,
                      self._partial_tokens(s.prompt, s.generated), reason,
                      finished)
 
     def _quarantine_slot(self, row: int, phase: str, finished) -> None:
         """Non-finite logits on a row: free it (its neighbours are
-        untouched) and requeue its clean prefix for one re-prefill on
-        fresh pages; FAILED if it recurs. ``phase`` labels the log and
-        the reason."""
+        untouched) and requeue its clean prefix for one fresh re-prefill;
+        FAILED if it recurs. ``phase`` labels the log and the reason."""
         s = self._slots[row]
         self._slots[row] = None
         self._on_slot_freed(s)
@@ -949,13 +1357,32 @@ class PagedBatchedDecodeEngine:
         )
         self._requeue([self._pending_from_slot(s, nan_retried=True)])
 
-    def _dispatch(self, kind: str, run, finished):
+    def _quarantine_pending(self, req: _Pending, finished) -> None:
+        """Non-finite logits in an admission prefill (dense engine): the
+        token is discarded and the request retried once over a fresh
+        re-prefill, then FAILED."""
+        self.counters["nan_quarantines"] += 1
+        if req.nan_retried:
+            self._finish_pending(
+                req, FAILED,
+                "non-finite logits persisted after one quarantine retry "
+                "(prefill)", finished,
+            )
+            return
+        log_event("quarantine", rid=req.rid, phase="prefill",
+                  t=round(self._clock(), 6))
+        self._requeue([dataclasses.replace(req, gen=list(req.gen),
+                                           nan_retried=True)])
+
+    def _dispatch(self, kind: str, run, finished, group_pendings=()):
         """Run one forward with its sampling (``run() -> (tokens, bad)``,
         host arrays), consulting the fault injector before and after.
         Returns (tokens, bad), or None after a recovered failure
-        (``_recover_dispatch_failure``). Recovered: anything the injector
-        raises, and ``RETRYABLE_ERRORS`` from ``run``; any other error
-        propagates (module docstring)."""
+        (``_recover_dispatch_failure``; ``group_pendings`` are the queued
+        entries this dispatch was admitting, requeued with the rows).
+        Recovered: anything the injector raises, and ``RETRYABLE_ERRORS``
+        from ``run``; any other error propagates (module docstring)."""
+        self._take_cache_for_dispatch()
         inj = self._injector
         # An Exception, not BaseException: KeyboardInterrupt must stop the
         # serving loop, not be retried.
@@ -963,26 +1390,41 @@ class PagedBatchedDecodeEngine:
             if inj is not None:
                 inj.before_dispatch(kind, self._ticks)
         except Exception as err:
-            return self._recover_dispatch_failure(kind, err, finished)
+            return self._recover_dispatch_failure(kind, err, finished,
+                                                  group_pendings)
         try:
             toks, bad = run()
         except self.RETRYABLE_ERRORS as err:
-            return self._recover_dispatch_failure(kind, err, finished)
+            return self._recover_dispatch_failure(kind, err, finished,
+                                                  group_pendings)
         if inj is not None:
             try:
                 toks, bad = inj.after_dispatch(kind, self._ticks, toks, bad)
             except Exception as err:
-                return self._recover_dispatch_failure(kind, err, finished)
+                return self._recover_dispatch_failure(kind, err, finished,
+                                                      group_pendings)
         self._fail_streak = 0
         return toks, bad
 
+    def _take_cache_for_dispatch(self) -> None:
+        """Hook: a dispatch holds the cache from its start, so a dispatch
+        that fails before its forward still costs the cache — one
+        allocation per failed dispatch, as the JAX engine's donated cache
+        is consumed by every dispatch it enters."""
+        self._live_cache()
+
+    def _drop_cache_after_failure(self) -> None:
+        """Hook of ``_recover_dispatch_failure``: no cache content is
+        trusted after a failed dispatch. The dense engine drops its cache;
+        the next dispatch allocates a zeroed one (``cache_allocs``)."""
+        self._cache = None
+
     def _recover_dispatch_failure(self, kind: str, err: BaseException,
-                                  finished) -> None:
-        """A failed dispatch: no page content is trusted (the forward may
-        have written some pages, or half of them), so the block pool is
-        reset — every page freed, the prefix cache dropped — and every
-        in-flight row becomes a resume entry with one retry charged
-        (FAILED past ``request_retries``); then the backoff, or
+                                  finished, group_pendings=()) -> None:
+        """A failed dispatch: the cache is dropped (dense) or the block
+        pool reset (paged), and every in-flight row — with the entries
+        the dispatch was admitting — becomes a resume entry with one retry
+        charged (FAILED past ``request_retries``); then the backoff, or
         ``DispatchFailure`` past ``dispatch_retries`` consecutive
         failures. Queued requests are untouched."""
         self.counters["dispatch_failures"] += 1
@@ -994,11 +1436,10 @@ class PagedBatchedDecodeEngine:
         )
         lost = [self._pending_from_slot(s, bump=True)
                 for s in self._slots if s is not None]
+        lost += [dataclasses.replace(q, gen=list(q.gen), retries=q.retries + 1)
+                 for q in group_pendings]
         self._slots = [None] * self.slots
-        self.pool.reset()
-        # Every pinned chunk died with the pool: drop the pins (the
-        # transcripts survive; the next turn pays its prefill again).
-        self._sessions.on_pool_reset()
+        self._drop_cache_after_failure()
         kept = []
         for q in lost:
             if q.retries > self.request_retries:
@@ -1053,9 +1494,490 @@ class PagedBatchedDecodeEngine:
                     finished,
                 )
 
+    def _on_slot_freed(self, s: _Slot) -> None:
+        """Hook: a slot left the slot list. A dense row's K/V just sits
+        dirty in its row (the next admission overwrites what it reads);
+        the paged engine releases the row's pages."""
+
+    def _maybe_retire(self, row: int, finished: list[int]) -> None:
+        s = self._slots[row]
+        hit_eos = s.eos_id is not None and s.generated[-1] == s.eos_id
+        if len(s.generated) < s.max_new and not hit_eos:
+            return
+        self._slots[row] = None
+        self._on_slot_freed(s)
+        self._finish_slot(s, DONE, "", finished)
+
+    def _queue_key(self, q: _Pending):
+        return queue_key(q.tier, q.deadline, q.rid)
+
+    # -- dense admission -----------------------------------------------------
+
+    def _resume_bucket(self, length: int) -> int:
+        """The smallest prefill shape covering a resume prefix (the user
+        buckets extended by max_len; the exact length in exact mode)."""
+        for b in self._prefill_buckets:
+            if b >= length:
+                return b
+        return length
+
+    def _bucket_of(self, q: _Pending) -> int:
+        if q.gen:
+            return self._resume_bucket(len(q.prompt) + len(q.gen))
+        return self.buckets.bucket_for(len(q.prompt))
+
+    def _admit(self, params, finished: list[int]) -> None:
+        """Priority-then-FIFO admission into the free rows; arrivals
+        sharing a bucket prefill in one dispatch."""
+        free = [i for i, s in enumerate(self._slots) if s is None]
+        n = min(len(free), len(self._queue))
+        if not n:
+            return
+        admitted = sorted(self._queue, key=self._queue_key)[:n]
+        for q in admitted:
+            self._queue.remove(q)
+        by_bucket: dict[int, list[tuple[_Pending, int]]] = {}
+        for req in admitted:
+            by_bucket.setdefault(self._bucket_of(req), []).append(
+                (req, free.pop(0))
+            )
+        groups = list(by_bucket.items())
+        for gi, (bucket, group) in enumerate(groups):
+            if not self._prefill_group(params, bucket, group, finished):
+                # The dispatch failed: recovery requeued this group and
+                # every in-flight row; the groups not yet dispatched go back
+                # untouched (no retry charge) and admission stops this tick.
+                self._requeue([q for _, g in groups[gi + 1:] for q, _ in g])
+                return
+
+    def _prefill_group(self, params, bucket, group, finished) -> bool:
+        """One bucket's admission: a forward of shape [slots, bucket] at
+        position 0, the admitted prompts first and zero rows as padding.
+        A prefill at position 0 reads only the keys it writes, so it runs
+        over a scratch cache of the bucket's length, and the admitted
+        rows' first ``bucket`` positions are copied into their rows.
+        Returns False when the dispatch failed (recovery already ran)."""
+        n, b = len(group), self.slots
+        targets = [row for _, row in group]
+        ids = np.zeros((b, bucket), np.int32)
+        plens = np.ones((b,), np.int64)
+        pend = [req for req, _ in group]
+        for j, req in enumerate(pend):
+            prefix = self._partial_tokens(req.prompt, req.gen)
+            ids[j, : prefix.shape[0]] = prefix
+            plens[j] = prefix.shape[0]
+
+        @torch.no_grad()
+        def run():
+            self.counters["prefill_ticks"] += 1  # forwards that ran
+            dev = self.device
+            cache = self._live_cache()
+            seg = decode.init_cache(self.cfg, b, bucket, device=dev)
+            logits, _ = decode.forward(params, torch.from_numpy(ids).to(dev),
+                                       self.cfg, seg, 0)
+            rows_t = torch.tensor(targets, device=dev)
+            for name, c in cache.items():
+                c[:, rows_t, :bucket] = seg[name][:, :n]
+            last = logits[torch.arange(n, device=dev),
+                          torch.from_numpy(plens[:n] - 1).to(dev)]
+            return self._sample(last, pend, [len(q.gen) for q in pend])
+
+        res = self._dispatch("prefill", run, finished, group_pendings=pend)
+        if res is None:
+            return False
+        toks, bad = res
+        for i, (req, row) in enumerate(group):
+            if bad[i]:
+                self._quarantine_pending(req, finished)
+                continue
+            self._slots[row] = _Slot(
+                rid=req.rid, prompt=req.prompt, max_new=req.max_new,
+                eos_id=req.eos_id, pos=int(plens[i]),
+                generated=list(req.gen) + [int(toks[i])],
+                greedy=req.greedy, t=req.t, k=req.k, p=req.p, seed=req.seed,
+                deadline=req.deadline, tier=req.tier, retries=req.retries,
+                nan_retried=req.nan_retried, session=req.session,
+                resub_len=req.resub_len,
+            )
+            log_event(
+                "admit", rid=req.rid, row=row, bucket=bucket,
+                resume_prefix=len(req.gen) or None,
+                t=round(self._clock(), 6),
+            )
+            self._maybe_retire(row, finished)
+        return True
+
+    # -- decode --------------------------------------------------------------
+
+    def _decode_tick(self, params, finished: list[int]) -> None:
+        """Every active row advances: one forward over all ``slots`` rows
+        (free rows decode garbage at position 0 of their own row, which
+        the host discards)."""
+        self._decode_rows(
+            params, [(i, s) for i, s in enumerate(self._slots)
+                     if s is not None], finished,
+        )
+
+    def _cover_drafts(self, s: _Slot, n: int) -> int:
+        """Hook: how many of a row's ``n`` drafts the cache covers (the
+        dense row covers every committable position)."""
+        return n
+
+    def _lane_tables(self, lanes):
+        """Hook: the paged engine's block tables for a decode forward."""
+        return None
+
+    def _decode_rows(self, params, ready, finished: list[int]) -> None:
+        """One decode forward over the slot batch: rows in ``ready``
+        ([(row, slot)]) advance, every other lane runs at position 0 and
+        is discarded. Plain: [slots, 1], one token per row. Speculative:
+        [slots, K+1] — lane 0 the row's last token, lanes 1.. its drafts —
+        and each row commits 1..K+1 tokens (``_commit_spec``)."""
+        b, width = self.slots, self._decode_width
+        toks = np.zeros((b, width), np.int32)
+        n_draft = np.zeros((b,), np.int64)
+        pos = np.zeros((b,), np.int32)
+        lanes: list[_Slot | None] = [None] * b
+        for i, s in ready:
+            drafts = _EMPTY_DRAFT
+            if self.speculative_k:
+                drafts = self._draft_tokens(s)
+                drafts = drafts[: self._cover_drafts(s, len(drafts))]
+            toks[i, 0] = s.generated[-1]
+            toks[i, 1: 1 + len(drafts)] = drafts
+            n_draft[i] = len(drafts)
+            pos[i] = s.pos
+            lanes[i] = s
+        tables = self._lane_tables(lanes)
+        kind = "decode_spec_step" if self.speculative_k else "decode_step"
+
+        def run():
+            self.counters["decode_ticks"] += 1  # forwards that ran
+            logits = self._forward(params, toks, pos, tables)
+            if not self.speculative_k:
+                return self._sample(logits[:, -1], lanes)
+            return self._spec_verify(logits, toks, n_draft, lanes)
+
+        res = self._dispatch(kind, run, finished)
+        if res is None:
+            return
+        out, bad = res
+        for i, s in ready:
+            if bad[i]:
+                self._quarantine_slot(i, "decode", finished)
+                continue
+            if self.speculative_k:
+                self._commit_spec(i, s, out[0][i], int(out[1][i]),
+                                  int(n_draft[i]), finished)
+                continue
+            s.generated.append(int(out[i]))
+            s.pos += 1
+            self._maybe_retire(i, finished)
+
+    # -- speculation ---------------------------------------------------------
+
+    def _spec_verify(self, logits, toks, n_draft, lanes):
+        """The verify tail of a speculative forward (``logits`` [B, K+1,
+        V]): lane 0 is sampled with the row's own config (a sampled or
+        zero-draft row commits exactly the plain tick's token), the
+        model's greedy chain over the window gives the accept lengths.
+        Returns ((out [B, K+1], n_acc [B]), bad [B]) as host arrays with
+        ONE device->host copy; the host commits ``out[b, :n_acc[b]+1]``."""
+        dev = logits.device
+        index = [0 if r is None else len(r.generated) for r in lanes]
+        tok0 = decode.sample_token_rows(
+            logits[:, 0], *self._sampling_rows(lanes, index))
+        ver = torch.argmax(logits.float(), dim=-1)  # [B, K+1]
+        n_acc = decode.speculative_accept(
+            torch.from_numpy(toks[:, 1:]).to(dev).long(), ver[:, :-1],
+            torch.from_numpy(n_draft).to(dev),
+        )
+        out = torch.cat([tok0[:, None], ver[:, 1:]], dim=1)
+        # NaN anywhere in the window flags the row: any lane's logits could
+        # decide a committed token.
+        bad = decode.nonfinite_rows(logits)
+        host = torch.cat([out, n_acc[:, None], bad.long()[:, None]],
+                         dim=1).cpu().numpy()
+        return (host[:, :-2], host[:, -2]), host[:, -1].astype(bool)
+
+    def _draft_tokens(self, s: _Slot) -> np.ndarray:
+        """Up to ``speculative_k`` drafts for one row — prompt lookup over
+        its tokens so far (or ``draft_hook``), capped so every committable
+        token's position stays inside the row's budget and the cache.
+        Sampled rows draft nothing (exact sampled speculation needs
+        rejection-sampling corrections, out of scope as in the JAX
+        package)."""
+        if not s.greedy:
+            return _EMPTY_DRAFT
+        cap = min(
+            self.speculative_k,
+            s.max_new - len(s.generated) - 1,
+            self.max_len - s.pos - 1,
+        )
+        if cap <= 0:
+            return _EMPTY_DRAFT
+        hist = self._partial_tokens(s.prompt, s.generated)
+        if self._draft_hook is not None:
+            d = np.asarray(self._draft_hook(hist, cap), np.int64).reshape(-1)
+            # Hook output is advisory: clipped to the vocab, a bad hook can
+            # cost speed (rejected drafts), never an out-of-range lookup.
+            return np.clip(d[:cap], 0, self.cfg.vocab_size - 1).astype(
+                np.int32)
+        return prompt_lookup_draft(hist, cap, ngram=self.spec_ngram)
+
+    def _commit_spec(self, row: int, s: _Slot, out_row, n_acc: int,
+                     n_draft: int, finished) -> None:
+        """Commit one row's verified window: the accepted drafts plus the
+        model's next token, clipped at EOS and the row's budget. Rejected
+        drafts roll back by not advancing ``pos`` past the commit (module
+        docstring)."""
+        committed = 0
+        for tok in out_row[: n_acc + 1]:
+            s.generated.append(int(tok))
+            s.pos += 1
+            committed += 1
+            if len(s.generated) >= s.max_new or (
+                s.eos_id is not None and int(tok) == s.eos_id
+            ):
+                break  # EOS inside the window: later lanes discarded
+        self.counters["drafted_tokens"] += n_draft
+        self.counters["accepted_tokens"] += committed - 1
+        self.counters["spec_commits"] += 1
+        if n_draft:
+            log_event("draft_accept", rid=s.rid, drafted=n_draft,
+                      accepted=committed - 1, t=round(self._clock(), 6))
+        self._maybe_retire(row, finished)
+
+
+class PagedBatchedDecodeEngine(BatchedDecodeEngine):
+    """Continuous-batching decode over a paged KV pool (module docstring).
+
+    Knobs beyond ``BatchedDecodeEngine``'s: ``page_size`` (tokens per
+    page; divides ``max_len``), ``pool_pages`` (pool capacity including
+    the scratch page 0; default ``slots * max_len / page_size + 1``),
+    ``prefill_chunk`` (a page multiple dividing ``max_len``; default the
+    largest such <= 64), ``paged_attention``, ``kv_quant``,
+    ``batch_admit_free_frac`` (free-pool fraction below which BATCH
+    requests stop admitting), ``session_pin_budget_pages``. Prompts have
+    no buckets: the chunk is the one prefill shape."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        *,
+        slots: int,
+        max_len: int,
+        page_size: int = 16,
+        pool_pages: int | None = None,
+        prefill_chunk: int | None = None,
+        paged_attention: str = "auto",
+        kv_quant: str = "none",
+        batch_admit_free_frac: float = 0.25,
+        session_pin_budget_pages: int | None = None,
+        **kw,
+    ) -> None:
+        super().__init__(cfg, slots=slots, max_len=max_len, **kw)
+        if page_size < 1 or max_len % page_size:
+            raise ValueError(
+                f"page_size ({page_size}) must be a positive divisor of "
+                f"max_len ({max_len}): the block table addresses exactly "
+                "max_len/page_size pages per row"
+            )
+        self.page_size = int(page_size)
+        self.max_pages = max_len // page_size
+        if prefill_chunk is None:
+            # Largest page multiple <= 64 that divides max_len: the chunk is
+            # both the per-tick prefill quantum and the prefix-sharing grain.
+            prefill_chunk = page_size
+            while (
+                prefill_chunk * 2 <= min(64, max_len)
+                and max_len % (prefill_chunk * 2) == 0
+            ):
+                prefill_chunk *= 2
+        if (
+            prefill_chunk < page_size
+            or prefill_chunk % page_size
+            or max_len % prefill_chunk
+        ):
+            raise ValueError(
+                f"prefill_chunk ({prefill_chunk}) must be a multiple of "
+                f"page_size ({page_size}) that divides max_len "
+                f"({max_len}) — chunk starts are page-aligned and the "
+                "padded final chunk must stay inside the row's table"
+            )
+        self.chunk = int(prefill_chunk)
+        if pool_pages is None:
+            pool_pages = slots * self.max_pages + 1
+        if pool_pages < self.max_pages + 1:
+            raise ValueError(
+                f"pool_pages ({pool_pages}) must be >= max_len/page_size "
+                f"+ 1 = {self.max_pages + 1} (one full-length row plus "
+                "the scratch page), or a single deep request could "
+                "never be served"
+            )
+        self.pool_pages = int(pool_pages)
+        if not 0.0 <= batch_admit_free_frac <= 1.0:
+            raise ValueError(
+                f"batch_admit_free_frac must be in [0, 1], got "
+                f"{batch_admit_free_frac}"
+            )
+        self.batch_admit_free_frac = float(batch_admit_free_frac)
+        if paged_attention == "auto":
+            paged_attention = (
+                "kernel" if self.device.type == "cuda" else "gather"
+            )
+        if paged_attention == "kernel_interpret":
+            raise ValueError(
+                "paged_attention='kernel_interpret' is the JAX package's "
+                "Pallas interpret mode; this port has no interpreter — use "
+                "'kernel' (on a CPU device it runs the kernel's plain "
+                "version) or 'gather'"
+            )
+        if paged_attention not in ("gather", "kernel"):
+            raise ValueError(
+                f"paged_attention must be 'auto', 'gather' or 'kernel', "
+                f"got {paged_attention!r}"
+            )
+        self.paged_attention = paged_attention
+        self.kv_quant = quant.check_mode("kv_quant", kv_quant)
+        self.pool = BlockPool(self.pool_pages, self.page_size, self.chunk)
+        # Session retention pins at most half the pool by default; past
+        # the budget the longest-idle session is evicted loudly.
+        self._sessions = SessionTracker(
+            self.pool,
+            pin_budget_pages=(
+                (self.pool_pages - 1) // 2
+                if session_pin_budget_pages is None
+                else session_pin_budget_pages
+            ),
+            clock=self._clock,
+        )
+        self.counters.update(preemptions=0, preempt_priority=0,
+                             batch_yield_ticks=0)
+        # The pool is allocated once and written in place for the
+        # engine's life; a failed dispatch resets the block pool instead
+        # (``_drop_cache_after_failure``).
+        self._cache = self._new_cache()
+        log_event(
+            "pool_build",
+            quant=self.kv_quant,
+            pool_pages=self.pool_pages,
+            page_size=self.page_size,
+            prefill_chunk=self.chunk,
+            slots=self.slots,
+            device=str(self.device),
+            pool_hbm_bytes=self.cache_hbm_bytes()["allocated"],
+        )
+
+    # -- cache and forward ---------------------------------------------------
+
+    def _new_cache(self) -> decode.Cache:
+        self.counters["cache_allocs"] += 1
+        return decode.init_paged_cache(
+            self.cfg, self.pool_pages, self.page_size, device=self.device,
+            kv_quant=self.kv_quant,
+        )
+
+    def _check_prompt_shape(self, tp: int) -> None:
+        """No buckets: chunked prefill takes any prompt length."""
+
+    @torch.no_grad()
+    def _forward(self, params, ids, pos, tables=None):
+        """One forward over the pool; numpy operands in, logits out."""
+        dev = self.device
+        logits, _ = decode.forward(
+            params,
+            torch.from_numpy(ids).to(dev),
+            self.cfg,
+            self._cache,
+            torch.from_numpy(pos).to(dev),
+            block_tables=torch.from_numpy(tables).to(dev),
+            paged_impl=self.paged_attention,
+            kv_quant=self.kv_quant,
+        )
+        return logits
+
+    def warmup(self, params) -> int:
+        """Place the params and run one prefill chunk and one decode
+        forward on the scratch page (all-zero tables), so the first
+        request pays no one-time cost (the kernel build and load, library
+        handles). Idle engines only. Returns ``compile_count()``."""
+        if self.has_work():
+            raise RuntimeError("warmup requires an idle engine")
+        params = self._place_params(params)
+        for t in (self.chunk, self._decode_width):
+            self._forward(
+                params, np.zeros((self.slots, t), np.int32),
+                np.zeros((self.slots,), np.int32),
+                np.zeros((self.slots, self.max_pages), np.int32),
+            )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self.compile_count()
+
+    def _take_cache_for_dispatch(self) -> None:
+        """The pool lives as long as the engine."""
+
+    def _drop_cache_after_failure(self) -> None:
+        """No page content is trusted after a failed dispatch (the forward
+        may have written some pages, or half of them): the block pool is
+        reset — every page freed, the prefix cache dropped — and the pins
+        with it (the transcripts survive; the next turn pays its prefill
+        again). The pool tensor itself is kept: every page is written
+        before it is read again."""
+        self.pool.reset()
+        self._sessions.on_pool_reset()
+
+    # -- introspection -------------------------------------------------------
+
+    def stats(self) -> dict[str, Any]:
+        out = super().stats()
+        ps = self.pool.stats
+        out.update(
+            paged_attention=self.paged_attention,
+            pool_pages=self.pool_pages,
+            free_pages=self.pool.free_pages(),
+            pages_in_use=self.pool.pages_in_use(),
+            session_pinned_pages=self.pool.pinned_pages(),
+            sessions=len(self._sessions),
+            prefix_hit_rate=round(
+                ps["prefix_hits"] / max(1, ps["prefix_queries"]), 4
+            ),
+        )
+        out["counters"]["session_evictions"] = self._sessions.evictions
+        return out
+
+    def cache_hbm_bytes(self) -> dict[str, int]:
+        """Allocated pool bytes and the peak referenced by live rows."""
+        per = kv_bytes_per_position(self.cfg, self.kv_quant)
+        return {
+            "allocated": self.pool_pages * self.page_size * per,
+            "peak_in_use": (
+                self.pool.stats["peak_pages_in_use"] * self.page_size * per
+            ),
+        }
+
+    # -- bookkeeping ---------------------------------------------------------
+
+    def _finish(self, rid, state, tokens, reason, finished=None) -> None:
+        # Any terminal state clears a session turn's in-flight marker (a
+        # DONE turn recorded its transcript first, _retire_session_turn).
+        self._sessions.on_terminal(rid)
+        super()._finish(rid, state, tokens, reason, finished)
+
     def _on_slot_freed(self, s: _PagedSlot) -> None:
         self.pool.release(s.pids)
         s.pids = []
+
+    def _recover_dispatch_failure(self, kind: str, err: BaseException,
+                                  finished, group_pendings=()) -> None:
+        # Every page is about to be freed by the pool reset: the slots'
+        # page lists must not release them a second time.
+        for s in self._slots:
+            if s is not None:
+                s.pids = []
+        super()._recover_dispatch_failure(kind, err, finished,
+                                          group_pendings)
 
     def _maybe_retire(self, row: int, finished: list[int]) -> None:
         s = self._slots[row]
@@ -1082,6 +2004,14 @@ class PagedBatchedDecodeEngine:
         Unknown sids raise."""
         self._sessions.close(sid)
 
+    def _session_checkin(self, session, prompt) -> int:
+        return 0 if session is None else self._sessions.check_turn(
+            session, prompt)
+
+    def _session_begin(self, session, rid) -> None:
+        if session is not None:
+            self._sessions.begin_turn(session, rid)
+
     def _retire_session_turn(self, s: _PagedSlot) -> None:
         """A session turn retires DONE: publish its decode-written full
         chunks (prefill published the prompt's; this must run before the
@@ -1104,9 +2034,6 @@ class PagedBatchedDecodeEngine:
         )
 
     # -- scheduler -----------------------------------------------------------
-
-    def _queue_key(self, q: _Pending):
-        return queue_key(q.tier, q.deadline, q.rid)
 
     def _batch_headroom(self) -> bool:
         """BATCH admission gate: at least ``batch_admit_free_frac`` of the
@@ -1292,6 +2219,7 @@ class PagedBatchedDecodeEngine:
             valid[j] = v
             start[j] = s.pos
             tables[j] = s.table
+
         def run():
             self.counters["prefill_ticks"] += 1  # forwards that ran
             logits = self._forward(params, chunks, start, tables)
@@ -1347,37 +2275,39 @@ class PagedBatchedDecodeEngine:
             ready.append((i, s))
         if yielded:
             self.counters["batch_yield_ticks"] += 1
-        if not ready:
-            return
-        b = self.slots
-        toks = np.zeros((b, 1), np.int32)
-        pos = np.zeros((b,), np.int32)
-        tables = np.zeros((b, self.max_pages), np.int32)
-        lane_rows: list[_PagedSlot | None] = [None] * b
-        for i, s in ready:
-            # Free and mid-prefill lanes stay all-zero: table 0 -> the
-            # scratch page, so their garbage never touches a live page.
-            toks[i, 0] = s.generated[-1]
-            pos[i] = s.pos
-            tables[i] = s.table
-            lane_rows[i] = s
-        def run():
-            self.counters["decode_ticks"] += 1  # forwards that ran
-            return self._sample(
-                self._forward(params, toks, pos, tables)[:, -1], lane_rows
-            )
+        if ready:
+            self._decode_rows(params, ready, finished)
 
-        res = self._dispatch("decode_step", run, finished)
-        if res is None:
-            return
-        out, bad = res
-        for i, s in ready:
-            if bad[i]:
-                self._quarantine_slot(i, "decode", finished)
-                continue
-            s.generated.append(int(out[i]))
-            s.pos += 1
-            self._maybe_retire(i, finished)
+    def _lane_tables(self, lanes):
+        """Free and mid-prefill lanes stay all-zero: table 0 -> the scratch
+        page, so their garbage never touches a live page."""
+        tables = np.zeros((self.slots, self.max_pages), np.int32)
+        for i, s in enumerate(lanes):
+            if s is not None:
+                tables[i] = s.table
+        return tables
+
+    def _cover_drafts(self, s: _PagedSlot, n: int) -> int:
+        return self._grow_for_drafts(s, n)
+
+    def _grow_for_drafts(self, s: _PagedSlot, n: int) -> int:
+        """Best-effort block-table growth covering a row's draft window
+        (committable positions pos..pos+n need real pages: an accepted
+        draft's K/V becomes the row's cache). Returns how many drafts are
+        covered. Never preempts a live row and never breaks a session pin:
+        drafts are an optimisation, so page pressure shrinks the window
+        (the verify forward still commits its one guaranteed token on the
+        already-covered page; lanes past the shrunk window ride table-zero
+        lanes onto the scratch page)."""
+        while s.n_pages * self.page_size <= s.pos + n:
+            got = self.pool.alloc(1)
+            if got is None:
+                n = s.n_pages * self.page_size - s.pos - 1
+                break
+            s.table[s.n_pages] = got[0]
+            s.pids += got
+            s.n_pages += 1
+        return max(0, n)
 
     def _ensure_decode_pages(self, finished, skip_batch: bool = False):
         """Grow each decode-ready row's table to cover its next write.

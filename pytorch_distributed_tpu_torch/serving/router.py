@@ -1,10 +1,11 @@
 """Health-checked multi-replica router: the serving tier over N engines.
 
-The port of the JAX package's ``serving/router.py``. One
-``PagedBatchedDecodeEngine`` is one failure domain; ``ReplicaRouter`` is
-the layer above it — placement, health, failover and honest overload
-behaviour — and it is host-side only: nothing it does changes a kernel, a
-neighbour row or a tensor shape.
+The port of the JAX package's ``serving/router.py``. One engine (a
+``PagedBatchedDecodeEngine``, or a dense ``BatchedDecodeEngine``: a
+colocated replica with no page pressure) is one failure domain;
+``ReplicaRouter`` is the layer above it — placement, health, failover
+and honest overload behaviour — and it is host-side only: nothing it does
+changes a kernel, a neighbour row or a tensor shape.
 
 - **Routing and admission** (``submit``): each request goes to the
   least-loaded routable replica, scored on the engine's ``stats()``:
@@ -44,8 +45,9 @@ a client never sees engine-internal ids. Every transition logs through
 ``shed``, ``failover``, ``drain``, ``replica_down``, ``replica_up``,
 ``replica_degraded``, ``replica_recovered``) carrying rid and replica id.
 
-- **Sessions**: ``open_session`` opens a multi-turn session on the
-  least-loaded replica; its turns (``submit(session=)``) route STICKY to
+- **Sessions** (paged replicas only): ``open_session`` opens a
+  multi-turn session on the least-loaded replica; its turns
+  (``submit(session=)``) route STICKY to
   that replica, whose pinned prefix pages are the locality. When the
   replica is lost, the next turn re-homes the session onto a survivor
   (a fresh engine session; the transcript-carrying resubmission makes
@@ -91,6 +93,15 @@ _ROUTABLE = (HEALTHY, DEGRADED)
 LORA_NOT_PORTED = (
     "LoRA adapters are not yet ported (ROADMAP queue 1 item 4)"
 )
+
+
+def _check_session_engine(engine) -> None:
+    """Sessions ride the paged engine's pinned prefix cache."""
+    if not hasattr(engine, "open_session"):
+        raise ValueError(
+            "sessions need paged replica engines (PagedBatchedDecodeEngine)"
+            f" — this fleet serves {type(engine).__name__}"
+        )
 
 
 @dataclasses.dataclass
@@ -219,7 +230,8 @@ class ReplicaRouter:
         """Admission and scoring in one read of the replica's ``stats()``:
         None = not admissible (saturated queue or page starvation);
         otherwise the routing sort key — DEGRADED after HEALTHY, then host
-        load, then page pressure, then id."""
+        load, then page pressure (0 on a dense replica, which has no
+        pages), then id."""
         st = r.engine.stats()
         limit = (
             self.shed_queue_depth
@@ -228,12 +240,18 @@ class ReplicaRouter:
         )
         if st["queue_depth"] >= limit:
             return None
-        if st["free_pages"] < self.shed_page_free:
-            return None
-        pinned = st.get("session_pinned_pages") or 0
-        page_pressure = (
-            st["pages_in_use"] + pinned
-        ) / max(1, st["pool_pages"])
+        page_pressure = 0.0
+        if st["free_pages"] is not None:  # None: a dense engine, no pages
+            if st["free_pages"] < self.shed_page_free:
+                return None
+            # Session-pinned pages count as unavailable capacity. A
+            # speculating row's draft window lives on its own, already
+            # counted tail pages (grown without preemption), so
+            # speculation does not enter this accounting.
+            pinned = st.get("session_pinned_pages") or 0
+            page_pressure = (
+                st["pages_in_use"] + pinned
+            ) / max(1, st["pool_pages"])
         load = st["queue_depth"] + st["active_rows"]
         return (
             1.0 if r.state == DEGRADED else 0.0,
@@ -280,6 +298,7 @@ class ReplicaRouter:
                 f"(states {self.replica_states()})",
                 retry_after_s=self._retry_after(),
             )
+        _check_session_engine(best.engine)
         esid = best.engine.open_session()
         sid = self._next_sid
         self._next_sid += 1
@@ -327,6 +346,7 @@ class ReplicaRouter:
                 "survivor can re-home it",
                 retry_after_s=self._retry_after(),
             )
+        _check_session_engine(best.engine)
         esid = best.engine.open_session()
         self._sessions[sid] = (best.rep_id, esid)
         self.counters["session_rehomes"] += 1

@@ -1,9 +1,11 @@
 """Start the serving tier: the HTTP/SSE front door over a replica router.
 
 The port's twin of the JAX package's ``scripts/serve.py``: N
-``PagedBatchedDecodeEngine`` replicas behind a ``ReplicaRouter`` and the
-asyncio front door (``serving/server.py``), on the card unless given
-``--device cpu``. Weights: ``--checkpoint`` (the port's npz checkpoints,
+``PagedBatchedDecodeEngine`` replicas (``--dense``: dense
+``BatchedDecodeEngine`` replicas, prompts bucketed by powers of two from
+16 up to ``max_len`` less the largest default request) behind a
+``ReplicaRouter`` and the asyncio front door (``serving/server.py``), on
+the card unless given ``--device cpu``. Weights: ``--checkpoint`` (the port's npz checkpoints,
 which the JAX package's ``Trainer`` writes too), then ``--hf`` (a local
 directory only: nothing is downloaded), else a random init from
 ``--seed`` — smoke mode, where the tokens are arbitrary but routing, SSE
@@ -19,9 +21,8 @@ streaming, failover and drain/restart all behave as they would.
     curl -s localhost:8077/admin/kill -d '{"replica": 0}'
     curl -s localhost:8077/admin/restart -d '{"replica": 0}'
 
-Refused, with the reason: ``--dense`` (the dense engine) and
-``--tenants`` (LoRA adapters) are not yet ported.
-``--cpu-devices`` has no meaning here (use ``--device cpu``).
+Refused, with the reason: ``--tenants`` (LoRA adapters) is not yet
+ported. ``--cpu-devices`` has no meaning here (use ``--device cpu``).
 
 ``build`` (params, warmed router, server) and ``serve_in_thread`` (the
 server on a background event loop, as a context manager) are what other
@@ -40,9 +41,6 @@ import threading
 import torch
 
 NOT_PORTED = {
-    "dense": "--dense: the dense BatchedDecodeEngine is not yet ported "
-             "(ROADMAP queue 1 item 4); the paged engine serves every "
-             "replica",
     "tenants": "--tenants: LoRA adapters are not yet ported (ROADMAP "
                "queue 1 item 4)",
     "cpu_devices": "--cpu-devices: the port has no virtual-device mesh; "
@@ -77,7 +75,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="cuda (default) or cpu")
     ap.add_argument("--cpu-devices", type=int, default=0)
     args = ap.parse_args(argv)
-    for flag in ("dense", "tenants", "cpu_devices"):
+    for flag in ("tenants", "cpu_devices"):
         if getattr(args, flag):
             raise SystemExit(NOT_PORTED[flag])
     return args
@@ -111,21 +109,11 @@ def load_params(args):
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = get_model(cfg).init(gen, cfg, device=dev)
     if args.checkpoint:
-        from pytorch_distributed_tpu_torch.config import TrainConfig
         from pytorch_distributed_tpu_torch.train.checkpoint import (
-            load_checkpoint,
-        )
-        from pytorch_distributed_tpu_torch.train.optim import make_optimizer
-        from pytorch_distributed_tpu_torch.train.state import (
-            init_train_state,
+            load_params_checkpoint,
         )
 
-        tx = make_optimizer(TrainConfig(
-            global_batch_size=1, micro_batch_size=1, num_steps=1,
-            learning_rate=1e-4,
-        ))
-        like = init_train_state(params, tx)
-        params = load_checkpoint(args.checkpoint, like, cfg).params
+        params = load_params_checkpoint(args.checkpoint, params, cfg)
     else:
         print("no --checkpoint/--hf: serving a RANDOM-INIT model (smoke "
               "mode — the tier is real, the tokens are not)",
@@ -134,16 +122,28 @@ def load_params(args):
 
 
 def make_router(cfg, args, **engine_kw):
-    """The fleet: ``args.replicas`` paged engines (``args.slots``,
-    ``args.max_len``, ``args.page_size``, ``args.queue_limit``) on
-    ``args.device``, behind a ``ReplicaRouter``; ``engine_kw`` passes
-    through to every engine."""
+    """The fleet: ``args.replicas`` engines (``args.slots``,
+    ``args.max_len``, ``args.queue_limit``; paged with ``args.page_size``,
+    or dense with ``args.dense``) on ``args.device``, behind a
+    ``ReplicaRouter``; ``engine_kw`` passes through to every engine."""
     from pytorch_distributed_tpu_torch.serving.engine import (
+        BatchedDecodeEngine,
+        BucketSpec,
         PagedBatchedDecodeEngine,
     )
     from pytorch_distributed_tpu_torch.serving.router import ReplicaRouter
 
+    max_new_cap = min(args.max_new_default * 4, args.max_len // 2)
+
     def make_engine(rep_id: int):
+        if getattr(args, "dense", False):
+            return BatchedDecodeEngine(
+                cfg, slots=args.slots, max_len=args.max_len,
+                buckets=BucketSpec.powers_of_two(
+                    args.max_len - max_new_cap, min_bucket=16),
+                queue_limit=args.queue_limit, device=args.device,
+                **engine_kw,
+            )
         return PagedBatchedDecodeEngine(
             cfg, slots=args.slots, max_len=args.max_len,
             page_size=args.page_size, queue_limit=args.queue_limit,
@@ -160,7 +160,8 @@ def build(args):
 
     cfg, params = load_params(args)
     router = make_router(cfg, args)
-    print(f"warming {args.replicas} replicas (paged, slots={args.slots}, "
+    kind = "dense" if getattr(args, "dense", False) else "paged"
+    print(f"warming {args.replicas} replicas ({kind}, slots={args.slots}, "
           f"max_len={args.max_len}, device={args.device})...",
           file=sys.stderr)
     router.warmup(params)

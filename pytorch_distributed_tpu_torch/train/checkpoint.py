@@ -38,8 +38,12 @@ import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch import interop
-from pytorch_distributed_tpu_torch.config import ModelConfig
-from pytorch_distributed_tpu_torch.train.state import TrainState
+from pytorch_distributed_tpu_torch.config import ModelConfig, TrainConfig
+from pytorch_distributed_tpu_torch.train.optim import make_optimizer
+from pytorch_distributed_tpu_torch.train.state import (
+    TrainState,
+    init_train_state,
+)
 from pytorch_distributed_tpu_torch.utils import tree
 
 COMMIT_NAME = "COMMIT"
@@ -297,6 +301,20 @@ def load_checkpoint(directory: str | Path, like: TrainState,
         ),
         step=int(arrays["step"]),
     )
+
+
+def load_params_checkpoint(directory: str | Path, params,
+                           cfg: ModelConfig):
+    """The params of a checkpoint, restored into the structure, dtypes and
+    devices of ``params`` (the generation and serving twins' weights;
+    the optimizer state that ``load_checkpoint`` restores with them is
+    dropped)."""
+    tx = make_optimizer(TrainConfig(
+        global_batch_size=1, micro_batch_size=1, num_steps=1,
+        learning_rate=1e-4,
+    ))
+    like = init_train_state(params, tx)
+    return load_checkpoint(directory, like, cfg).params
 
 
 def read_metadata(directory: str | Path) -> dict:

@@ -927,3 +927,102 @@ def test_dispatch_failure_after_the_forward_resets_the_pool_on_the_card(
         for rid, res in want.items():
             assert out[rid].state == "DONE"
             np.testing.assert_array_equal(out[rid].tokens, res.tokens)
+
+
+# -- generation outside the paged engine ------------------------------------
+
+
+def test_dense_prefill_values_do_not_depend_on_neighbours_on_the_card(cuda):
+    """The dense engine's prefill has one shape per bucket, [slots,
+    bucket]: a row's prefilled K/V in bf16 are bit-equal alone and beside
+    three other rows (GPT-2 width, 2 layers)."""
+    from pytorch_distributed_tpu_torch.serving.engine import (
+        BatchedDecodeEngine,
+        BucketSpec,
+    )
+
+    cfg = _tier_cfg("bfloat16", n_embd=768, n_head=12, vocab=50257)
+    params = gpt2.init(torch.Generator().manual_seed(4), cfg)
+    rng = np.random.default_rng(4)
+    x = rng.integers(0, cfg.vocab_size, 40)
+    kv = []
+    for others in ((), (50, 20, 60)):
+        eng = BatchedDecodeEngine(cfg, slots=4, max_len=128,
+                                  buckets=BucketSpec((64,)))
+        for n in others:
+            eng.submit(rng.integers(0, cfg.vocab_size, n), 4)
+        rid = eng.submit(x, 4)
+        eng.step(params)
+        row = next(i for i, s in enumerate(eng._slots)
+                   if s is not None and s.rid == rid)
+        kv.append([eng._cache[n][:, row, :40].clone() for n in ("k", "v")])
+    for alone, busy in zip(*kv):
+        assert torch.equal(alone, busy)
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_f32_speculative_tokens_equal_plain_on_the_card(cuda, kind):
+    """f32 greedy speculative decoding (``speculative_k=4``) emits the
+    plain engine's tokens on a repetitive stream, with drafts accepted,
+    and a speculating paged engine never launches K3 (its verify forward
+    is K+1 queries wide)."""
+    from pytorch_distributed_tpu_torch.serving import workload as wl
+    from pytorch_distributed_tpu_torch.serving.engine import (
+        BatchedDecodeEngine,
+    )
+
+    cfg = _tier_cfg("float32", n_embd=768, n_head=12, vocab=50257)
+    params = gpt2.init(torch.Generator().manual_seed(5), cfg)
+    reqs = wl.repetitive_request_stream(np.random.default_rng(5), n=6,
+                                        vocab_size=cfg.vocab_size,
+                                        max_new=24)
+
+    def make(k):
+        if kind == "dense":
+            return BatchedDecodeEngine(cfg, slots=4, max_len=128,
+                                       speculative_k=k)
+        return PagedBatchedDecodeEngine(cfg, slots=4, max_len=128,
+                                        page_size=16, speculative_k=k)
+
+    plain = make(0).run(params, reqs)
+    spec = make(4)
+    before = pk.launches
+    out = spec.run(params, reqs)
+    assert pk.launches == before
+    assert spec.counters["accepted_tokens"] > 0
+    for rid in plain:
+        np.testing.assert_array_equal(out[rid].tokens, plain[rid].tokens)
+
+
+def test_spec_rollback_leaves_shared_pages_bit_unchanged_on_the_card(cuda):
+    """Borrowers of a published prefix speculate with drafts that are
+    rejected (off by one): the prefix's pages are bit-unchanged after
+    their whole run, and their tokens equal those of the same engine
+    that never published the prefix first."""
+    cfg = _tier_cfg("bfloat16", n_embd=768, n_head=12, vocab=50257)
+    params = gpt2.init(torch.Generator().manual_seed(6), cfg)
+
+    def make():
+        return PagedBatchedDecodeEngine(
+            cfg, slots=4, max_len=128, page_size=16, prefill_chunk=32,
+            speculative_k=4,
+            draft_hook=lambda h, k: (h[-k:] + 1) % cfg.vocab_size)
+
+    eng = make()
+    rng = np.random.default_rng(6)
+    prefix = rng.integers(0, cfg.vocab_size, 64).astype(np.int32)
+    eng.run(params, [dict(prompt=prefix, max_new_tokens=4)])
+    cached = sorted(eng.pool.cached_page_ids())
+    assert cached
+    before = {n: t[:, cached].clone() for n, t in eng._cache.items()}
+    reqs = [dict(prompt=np.concatenate(
+        [prefix, rng.integers(0, cfg.vocab_size, 5 + i)]).astype(np.int32),
+        max_new_tokens=20) for i in range(3)]
+    out = eng.run(params, reqs)
+    assert eng.pool.stats["prefix_hits"] >= 3
+    assert eng.counters["drafted_tokens"] > eng.counters["accepted_tokens"]
+    for n, t in before.items():
+        assert torch.equal(eng._cache[n][:, cached], t), n
+    ref = make().run(params, reqs)
+    for a, b in zip(sorted(out), sorted(ref)):
+        np.testing.assert_array_equal(out[a].tokens, ref[b].tokens)

@@ -27,6 +27,7 @@ from pytorch_distributed_tpu_torch.models import gpt2
 from pytorch_distributed_tpu_torch.serving import serve
 from pytorch_distributed_tpu_torch.serving.chaos import VirtualClock
 from pytorch_distributed_tpu_torch.serving.engine import (
+    BatchedDecodeEngine,
     PagedBatchedDecodeEngine,
 )
 from pytorch_distributed_tpu_torch.serving.router import ReplicaRouter
@@ -421,8 +422,46 @@ def test_serving_twin_module_entry_point_starts_and_answers():
         proc.wait(timeout=60)
 
 
+def test_serving_twin_dense_serves_and_fails_over():
+    """``serve --dense``: the twin's ``build`` makes dense
+    ``BatchedDecodeEngine`` replicas, and a streamed request survives
+    /admin/kill of its replica, DONE with every token."""
+    args = serve.parse_args(["--preset", "tiny", "--dense", "--replicas",
+                             "2", "--device", "cpu", "--port", "0",
+                             "--max-len", "64"])
+    assert args.dense is True
+    cfg, params, router, server = serve.build(args)
+    assert all(type(e) is BatchedDecodeEngine
+               for e in router.engines().values())
+    with serve.serve_in_thread(server) as (host, port):
+        conn = http.client.HTTPConnection(host, port, timeout=120)
+        conn.request("POST", "/v1/generate", json.dumps(
+            {"prompt": [5, 6, 7, 8], "max_new_tokens": 12, "stream": True}))
+        resp = conn.getresponse()
+        raw, killed = b"", None
+        while True:
+            line = resp.fp.readline()
+            if not line:
+                break
+            raw += line
+            if killed is None and line.startswith(b"data:"):
+                _, _, h = _get(host, port, "/healthz")
+                killed = next(int(i) for i, r in h["replicas"].items()
+                              if r["active_rows"] + r["queue_depth"])
+                s, _, _ = _post(host, port, "/admin/kill",
+                                {"replica": killed})
+                assert s == 200
+        conn.close()
+        events = _sse_events(raw)
+        done = [d for e, d in events if e == "done"]
+        assert len(done) == 1 and done[0]["state"] == "DONE"
+        assert len([d for e, d in events if e == "message"]) == 12
+        _, _, h = _get(host, port, "/healthz")
+        assert h["replicas"][str(killed)]["state"] == "DOWN"
+        assert h["counters"]["failovers"] == 1
+
+
 @pytest.mark.parametrize("argv, match", [
-    (["--dense"], "dense BatchedDecodeEngine"),
     (["--tenants", "2"], "LoRA"),
     (["--cpu-devices", "8"], "--device cpu"),
 ])
