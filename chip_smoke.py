@@ -12,12 +12,14 @@ with no final line):
 2. build — compiles every kernel from ``csrc/`` (one nvcc per source, all
    started together), with seconds and each kernel's registers and spilled
    bytes from ptxas; a bf16 flash kernel at head_dim 64 must not spill,
-   nor may any of the 32 paged kernel instantiations.
+   nor may any of the 48 paged kernel instantiations (head_dim 32, 64 and
+   128; 32 is the JAX serving bench's head size).
 3. kernel — the paged decode kernels K3 (pages in q's dtype) and K4
    (int8 pages made by the port's ``quantize_kv``, with their f32 scale
    pools) against their plain versions at the GPT-2 124M, Llama-3.2-1B
    and a head_dim-128 decode shape (8 rows, 16-token pages, max_len
-   1024), q in f32 and bf16 (``TOLERANCES``, ``Q8_TOLERANCES``), with
+   1024) and the decode_bench twin's (head_dim 32, max_len 384), q in
+   f32 and bf16 (``TOLERANCES``, ``Q8_TOLERANCES``), with
    the split plan (``chunk_tokens``, ``n_splits``, live CTAs), kernel,
    plain and bound times (CUDA events, median of 25 launches, L2 flushed
    and the device held busy for 2 ms before each: ``time_ms``), after
@@ -104,6 +106,40 @@ with no final line):
    soak twin at full width (GPT-2 f32, 200 requests), all five invariants.
    serve_dense — ``serve --dense`` (2 GPT-2 bf16 replicas): a stream
    survives /admin/kill of its replica.
+6d. multi-tenant LoRA and disaggregated prefill/decode (slice 10).
+   lora_kernel — the LoRA delta kernel (``csrc/lora_delta.cu``,
+   ``ops/lora_kernel``) against its plain version (the JAX package's
+   lowering) at 8 rows x 1 and x 64 tokens in every form the paths hand
+   it (``LORA_FORMS``: GPT-2's strided query third and c_proj,
+   Llama-3.2-1B's wq and wo, the decode_bench twin's q and c_proj), f32
+   and bf16 (``lora_tolerance``), with device times and each call's host
+   time.
+   lora_float32/lora_bfloat16 — GPT-2 124M on the paged engine (8 slots,
+   max_len 1024, 16-token pages, 64-token chunks, K3) with 4 tenants at
+   rank 8 from the seed: 32 requests striped over the tenants and no
+   tenant (prompts 32-512, 64 new, 24 greedy and 8 sampled); a tenant
+   registered after the warmup; gates: every row equal to its tenant
+   served alone, untenanted rows equal to the adapter-less engine, some
+   tenant row differing from it, compile_count flat, K3 == n_layer x
+   decode ticks, the LoRA kernel 2 x n_layer per forward; tok/s against
+   the base engine reported. lora_llama_q8 — Llama-3.2-1B with int8 pages
+   and weights (K4), 8 requests, the same gates. lora_http — ``serve
+   --tenants 2`` (2 GPT-2 bf16 replicas): an SSE request of tenant-1 ends
+   DONE, an unregistered tenant is a 400. disagg_float32/disagg_bfloat16
+   — a colocated fleet of two GPT-2 124M replicas against a prefill +
+   decode fleet on one card, ``workload.disagg_stream`` of 48 requests
+   under one Poisson schedule: DONE tokens equal, 48 handoffs, the
+   ``kv_handoff`` useful bytes equal to pages x bytes per page, K3 ==
+   n_layer x the decode worker's ticks, compile_count flat; export and
+   handoff latency p50/p99 and the interactive p99 ratio reported.
+   disagg_fault_prefill/disagg_fault_decode — the f32 fleet with the
+   prefill worker killed holding parked rows, or the decode worker killed
+   mid-decode: every request DONE, outputs equal to the clean leg's (at
+   most 1 in 16 only after its failover token). disagg_llama_q8 — the
+   int8 Llama pair, 16 requests, K4 on the decode worker. decode_bench_twin
+   — ``serving.decode_bench --serving-disagg --serving-scenarios`` at its
+   default shapes in a subprocess: exit 0, K3 and the LoRA kernel
+   launched in its legs (their counts join the kernels line).
 7. flash — the flash forward (K1) and backward (K2) kernels against their
    plain versions at the GPT-2 124M training shape (B=8, H=12, T=1024,
    D=64, causal), a Llama-3.2-1B shape (B=1, H=32, Hkv=8, T=2048, D=64,
@@ -157,9 +193,10 @@ with no final line):
    the card (train_moe_dispatch). The flash phase adds flash_long: K1/K2
    at the llama shapes T=4096 and T=8192 (bf16, plain versions run by KV
    head).
-13. The kernels line (K3, K4, K1, K2; K1/K2 with their launches per step
-    and times on the llama paths, K3/K4 with their launches on each tier
-    leg, ``tier_paths``, and on the phases of 6c, ``slice9_paths``), then
+13. The kernels line (K3, K4, K1, K2 and the LoRA delta kernel; K1/K2
+    with their launches per step and times on the llama paths, K3/K4 with
+    their launches on each tier leg, ``tier_paths``, on the phases of 6c,
+    ``slice9_paths``, and of 6d, ``slice10_paths``), then
     ``{"ok": true, "device": {...}}`` last.
 """
 
@@ -329,7 +366,7 @@ def ptxas_summary(log: str) -> dict:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             mangled = entry.group(1)
-            base = re.search(r"\d+((?:flash|paged)_\w+?)I", mangled)
+            base = re.search(r"\d+((?:flash|paged|lora)_\w+?)I", mangled)
             args = re.findall(r"Li(\d+)E", mangled)
             name = (base.group(1) if base else mangled) + (
                 f"<{','.join(args)}>" if args else "")
@@ -425,21 +462,26 @@ def paged_case(dev, seed, b, h, hkv, d, dtype, q8, page=16, n_pages=64):
 
 
 def kernel_phase(pk, dev, flush, seed) -> None:
-    """K3 and K4 against their plain versions at the three decode shapes,
-    q in f32 and bf16, with kernel, plain and bound times."""
-    shapes = [
-        ("gpt2-124M", 8, 12, 12, 64),
-        ("llama3.2-1B", 8, 32, 8, 64),
-        ("head_dim-128", 8, 32, 8, 128),
+    """K3 and K4 against their plain versions at the decode shapes of the
+    paths (GPT-2, Llama-3.2-1B, head_dim 128, the decode_bench twin's
+    head_dim 32), q in f32 and bf16, with kernel, plain and bound
+    times."""
+    shapes = [  # (name, B, H, Hkv, D, pages per row of 16 tokens)
+        ("gpt2-124M", 8, 12, 12, 64, 64),
+        ("llama3.2-1B", 8, 32, 8, 64, 64),
+        ("head_dim-128", 8, 32, 8, 128, 64),
+        # decode_bench twin's serving model (n_embd 256, 8 heads), max_len
+        # 384
+        ("decode_bench-twin", 8, 8, 8, 32, 24),
     ]
-    page, n_pages = 16, 64  # max_len 1024
+    page = 16
     # What time_ms reads for a launch that does no work: the floor under
     # every kernel time here.
     emit(phase="launch_floor", empty_launch_ms=time_ms(
         lambda: torch.cuda._sleep(1), flush))
     for kernel, q8 in (("paged_decode_attention", False),
                        ("paged_decode_attention_q8", True)):
-        for name, b, h, hkv, d in shapes:
+        for name, b, h, hkv, d, n_pages in shapes:
             for dtype in TOLERANCES:
                 args = paged_case(dev, seed, b, h, hkv, d, dtype, q8, page,
                                   n_pages)
@@ -1664,6 +1706,565 @@ def serve_dense_phase(pk, seed, smi) -> dict:
     return row
 
 
+# -- slice 10: multi-tenant LoRA and disaggregated prefill/decode ----------
+
+LORA_SOURCE = "pytorch_distributed_tpu_torch/csrc/lora_delta.cu"
+# The LoRA kernel vs its plain version (the JAX package's lowering through
+# cuBLAS, then the add): f32 differs in summation order only (the
+# Din-long dot of h, then r terms). bf16: see ``lora_tolerance``.
+LORA_F32_TOLERANCE = dict(atol=1e-5, rtol=1e-5)
+
+
+def lora_tolerance(dtype, y, delta) -> dict:
+    """The kernel vs its plain version. f32: ``LORA_F32_TOLERANCE``. bf16:
+    both round the f32 delta, then the add y + delta, to bf16; where the
+    two f32 deltas straddle a rounding boundary the first roundings part
+    by one ulp, and the add may carry that and one more rounding: 2 ulps
+    of the largest value the chain holds, 2^-6 (max|y| + max|delta|)."""
+    if dtype == torch.float32:
+        return dict(LORA_F32_TOLERANCE)
+    m = float(y.float().abs().max()) + float(delta.float().abs().max())
+    return dict(atol=2.0**-6 * m, rtol=0.0)
+
+
+LORA_RANK = 8
+# B's scale (alpha): large enough that the random-init tenants' tokens
+# visibly differ from the base model's.
+LORA_SCALE = 64.0
+
+
+def lora_registry(cfg, seed, n=4, spare=1):
+    """``n`` tenants ``tenant-<i>`` at rank 8 from ``seed`` (and room for
+    ``spare`` more, registered after a warmup)."""
+    from pytorch_distributed_tpu_torch.serving.adapters import (
+        AdapterRegistry,
+    )
+    from pytorch_distributed_tpu_torch.serving.workload import request_seed
+
+    reg = AdapterRegistry(cfg, rank=LORA_RANK, max_tenants=n + spare)
+    for i in range(n):
+        reg.register(f"tenant-{i}", seed=request_seed(seed, i),
+                     scale=LORA_SCALE)
+    return reg
+
+
+def lora_requests(cfg, seed, n=32) -> list[dict]:
+    """``n`` requests, prompts of 32-512 tokens, 64 new tokens each, every
+    fourth sampled; striped over tenant-0..3 and no tenant (i % 5)."""
+    rng = np.random.default_rng(seed + 10)
+    out = []
+    for i in range(n):
+        req = dict(prompt=rng.integers(
+            0, cfg.vocab_size, int(rng.integers(32, 513))).astype(np.int32),
+            max_new_tokens=64)
+        if i % 4 == 3:
+            req.update(temperature=0.8, top_k=50, top_p=0.95,
+                       seed=seed * 1000 + i)
+        if i % 5 < 4:
+            req["tenant"] = f"tenant-{i % 5}"
+        out.append(req)
+    return out
+
+
+# Every form in which the slice's paths hand the LoRA kernel its output:
+# (name, model, target). GPT-2's query ("q") is the strided query third of
+# the fused [B, T, 3, H, D] c_attn output, added into in place; the others
+# are contiguous: GPT-2's c_proj before its bias, Llama-3.2-1B's wq and wo
+# after their (int8 or plain) qdot, the decode_bench twin's n_embd-256
+# GPT-2 (``decode_bench._serving_cfg``, 4 tenants: 5 slots).
+LORA_FORMS = (
+    ("gpt2 q", "gpt2", "q"),
+    ("gpt2 c_proj", "gpt2", "c_proj"),
+    ("llama3.2-1B wq", "llama3-1b", "wq"),
+    ("llama3.2-1B wo", "llama3-1b", "wo"),
+    ("decode_bench twin q", "twin", "q"),
+    ("decode_bench twin c_proj", "twin", "c_proj"),
+)
+
+
+def lora_case(lp, target, dev, n_rows, t, dtype, seed):
+    """The LoRA kernel's inputs at an engine's shape for one layer's
+    adapter slice ``lp``: ``n_rows`` x ``t`` tokens over every slot, y in
+    the form the block passes for ``target`` (``LORA_FORMS``). Returns (y,
+    x, rows)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = tuple(lp["b"].shape[2:])
+    x = torch.randn(n_rows, t, lp["a"].shape[1], generator=g,
+                    device=dev).to(dtype)
+    if target == "q":
+        y = torch.randn(n_rows, t, 3, *out, generator=g,
+                        device=dev).to(dtype)[:, :, 0]
+    else:
+        y = torch.randn(n_rows, t, *out, generator=g, device=dev).to(dtype)
+    s_n = lp["a"].shape[0]
+    rows = (torch.arange(n_rows * t, device=dev) // t) % s_n
+    return y, x, rows
+
+
+def lora_bound(x, y, lp, rows) -> tuple[float, str]:
+    """Least time of the delta: x read, y read and written, the slots'
+    factors in use and the rows read once over the HBM rate; or its f32
+    multiply-adds over the f32 rate."""
+    n, din = rows.numel(), x.shape[-1]
+    out = y[0, 0].numel()
+    r = lp["a"].shape[-1]
+    used = int(torch.unique(rows).numel())
+    nbytes = (x.numel() * x.element_size() + 2 * y.numel() * y.element_size()
+              + used * (din * r + r * out) * 4 + n * 8)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * n * r * (din + out) / F32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Wall time of one call on the host, the device kept out of the way
+    (synchronized before and after ``n`` calls): what an eager serving
+    loop pays per call when its kernels are short."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def lora_kernel_phase(lk, dev, flush, seed) -> dict:
+    """The LoRA kernel against its plain version in every form of
+    ``LORA_FORMS``, at a decode shape (8 rows x 1 token) and a
+    prefill-chunk shape (8 x 64), in f32 and bf16 (``lora_tolerance``),
+    layer 0's adapter at rank 8, with kernel, plain and bound device times
+    and each call's host time. The kernels line carries the GPT-2 c_proj
+    case at the decode shape in bf16 (the serving tier's dtype)."""
+    from pytorch_distributed_tpu_torch.config import model_config
+    from pytorch_distributed_tpu_torch.serving.decode_bench import (
+        _serving_cfg,
+    )
+
+    cfgs = {"gpt2": model_config("gpt2"),
+            "llama3-1b": model_config("llama3-1b"),
+            "twin": _serving_cfg(False)}
+    trees = {name: lora_registry(c, seed, spare=0 if name == "twin" else 1)
+             .device_tree(dev)[0] for name, c in cfgs.items()}
+
+    def plain(y, x, lp, r):
+        return y + lk.lora_delta_reference(x, lp, r).to(y.dtype)
+
+    rows, main = [], None
+    for form, model, target in LORA_FORMS:
+        lp = trees[model][target]
+        for t in (1, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                y, x, r = lora_case(lp, target, dev, 8, t, dtype, seed + t)
+                delta = lk.lora_delta_reference(x, lp, r)
+                want = y + delta.to(dtype)
+                got = lk.lora_delta_add(y.clone(), x, lp, r)
+                tol = lora_tolerance(dtype, y, delta)
+                err = check_close(got, want, what=f"lora {form} t={t} "
+                                  f"{dtype}", **tol)
+                ybuf = y.clone()
+                bound, by = lora_bound(x, y, lp, r)
+                rows.append(dict(
+                    form=form, rows=8, tokens=t, din=x.shape[-1],
+                    out=y[0, 0].numel(), slots=lp["a"].shape[0],
+                    y_row_stride=y.stride(1), dtype=str(dtype).replace(
+                        "torch.", ""), max_abs_err=err, **tol,
+                    ms=time_ms(lambda: lk.lora_delta_add(ybuf, x, lp, r),
+                               flush),
+                    plain_ms=time_ms(lambda: plain(y, x, lp, r), flush),
+                    bound_ms=bound, bound_by=by,
+                    host_us=host_us(lambda: lk.lora_delta_add(ybuf, x, lp,
+                                                              r)),
+                    plain_host_us=host_us(lambda: plain(y, x, lp, r)),
+                ))
+                if (form, t, dtype) == ("gpt2 c_proj", 1, torch.bfloat16):
+                    main = rows[-1]
+    emit(phase="lora_kernel", cases=rows)
+    return dict(rows=rows, main=main)
+
+
+def _drive_groups(make, params, reqs, groups) -> dict:
+    """Each group's requests served alone on a fresh engine: tokens by
+    request index."""
+    out = {}
+    for keep in groups:
+        eng = make()
+        eng.warmup(params)
+        run = drive_engine(eng, params, [reqs[i] for i in keep])
+        out.update(zip(keep, run["tokens"]))
+    return out
+
+
+def lora_pins(pk, lk, cfg, params, reqs, reg, smi, phase, **engine_kw):
+    """The LoRA main path at ``cfg``: a mixed-tenant drive on a warmed
+    engine with K3 (K4 for int8 pages) and the LoRA kernel counted from
+    zero, a tenant registered after the warmup (``compile_count`` flat),
+    then each tenant's requests (and the untenanted ones) served alone and
+    the untenanted requests on an adapter-less engine. Gates: every row
+    equal to its isolated run, untenanted rows equal to the base engine,
+    some tenant row differs from the base, the paged kernel launched
+    n_layer x decode ticks, the LoRA kernel 2 x n_layer per forward."""
+    from pytorch_distributed_tpu_torch.serving import PagedBatchedDecodeEngine
+
+    def make(adapters=reg):
+        return PagedBatchedDecodeEngine(
+            cfg, slots=8, max_len=1024, page_size=16, prefill_chunk=64,
+            adapters=adapters, **engine_kw)
+
+    eng = make()
+    warm = eng.warmup(params)
+    reg.register("tenant-late", seed=7919, scale=LORA_SCALE)
+    pk.launches = pk.launches_q8 = 0
+    lk.launches = 0
+    mixed = drive_engine(eng, params, reqs)
+    kernel = "K4" if eng.kv_quant == "int8" else "K3"
+    counts = {"K3": pk.launches, "K4": pk.launches_q8, "lora": lk.launches}
+    ticks = eng.counters
+    want = {"K3": 0, "K4": 0,
+            "lora": 2 * cfg.n_layer * (ticks["decode_ticks"]
+                                       + ticks["prefill_ticks"])}
+    want[kernel] = cfg.n_layer * ticks["decode_ticks"]
+    steady = eng.compile_count() - warm
+    base_eng = make(adapters=None)
+    base_eng.warmup(params)
+    base = drive_engine(base_eng, params, [
+        {k: v for k, v in r.items() if k != "tenant"} for r in reqs])
+    tenants = sorted({r.get("tenant") for r in reqs}, key=str)
+    groups = [[i for i, r in enumerate(reqs) if r.get("tenant") == tid]
+              for tid in tenants]
+    alone = _drive_groups(make, params, reqs, groups)
+    got = mixed["tokens"]
+    untenanted = [i for i, r in enumerate(reqs) if "tenant" not in r]
+    equal_alone = sum(np.array_equal(got[i], alone[i])
+                      for i in range(len(reqs)))
+    equal_base = sum(np.array_equal(got[i], base["tokens"][i])
+                     for i in untenanted)
+    differ = sum(not np.array_equal(got[i], base["tokens"][i])
+                 for i, r in enumerate(reqs) if "tenant" in r)
+    row = dict(
+        phase=phase, nvidia_smi=smi,
+        model=f"{cfg.family} L{cfg.n_layer} E{cfg.n_embd}", dtype=cfg.dtype,
+        kv_quant=eng.kv_quant, weight_quant=eng.weight_quant,
+        tenants=len(reg.tenants()), rank=reg.rank, requests=len(reqs),
+        rows_equal_isolated=f"{equal_alone}/{len(reqs)}",
+        untenanted_equal_base=f"{equal_base}/{len(untenanted)}",
+        tenant_rows_differing_from_base=differ,
+        compile_count_steady=steady, launches=counts, want_launches=want,
+        tok_per_s=mixed["metrics"]["generated_tok_per_s"],
+        base_tok_per_s=base["metrics"]["generated_tok_per_s"],
+        tok_per_s_ratio=(mixed["metrics"]["generated_tok_per_s"]
+                         / base["metrics"]["generated_tok_per_s"]),
+        mean_decode_tick_ms=mixed["metrics"]["mean_decode_tick_ms"],
+        base_mean_decode_tick_ms=base["metrics"]["mean_decode_tick_ms"],
+    )
+    emit(**row)
+    if (equal_alone != len(reqs) or equal_base != len(untenanted)
+            or not differ or steady or counts != want):
+        raise AssertionError(f"{phase}: {row}")
+    return row
+
+
+def lora_phase(pk, lk, seed, dev, smi) -> dict:
+    """GPT-2 124M at full width with 4 tenants at rank 8 (``lora_pins``),
+    32 requests, in f32 and bf16; then Llama-3.2-1B with int8 pages and
+    weights (K4), 8 requests."""
+    from pytorch_distributed_tpu_torch.config import model_config
+    from pytorch_distributed_tpu_torch.models import gpt2, llama
+
+    out = {}
+    cfg = model_config("gpt2")
+    params = gpt2.init(torch.Generator().manual_seed(seed), cfg)
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.replace(dtype=dtype)
+        out[f"lora_{dtype}"] = lora_pins(
+            pk, lk, c, params, lora_requests(c, seed), lora_registry(c, seed),
+            smi, f"lora_{dtype}")
+    del params
+    cfg = model_config("llama3-1b")
+    params = llama.init(torch.Generator(device=dev).manual_seed(seed), cfg,
+                        device=dev)
+    out["lora_llama_q8"] = lora_pins(
+        pk, lk, cfg, params, lora_requests(cfg, seed, n=8),
+        lora_registry(cfg, seed), smi, "lora_llama_q8", **Q8)
+    return out
+
+
+def lora_http_phase(pk, lk, seed, smi) -> dict:
+    """``serve --tenants 2``: ``serving.serve``'s own ``build``, 2 paged
+    GPT-2 124M bf16 replicas x 4 slots, max_len 1024, on 127.0.0.1 port
+    0. An SSE stream with ``"tenant": "tenant-1"`` ends DONE with its 32
+    tokens, through K3 and the LoRA kernel; an unregistered tenant is a
+    400 naming it."""
+    from pytorch_distributed_tpu_torch.serving import serve
+
+    args = serve.parse_args([
+        "--preset", "gpt2", "--replicas", "2", "--slots", "4",
+        "--max-len", "1024", "--host", "127.0.0.1", "--port", "0",
+        "--tenants", "2", "--seed", str(seed)])
+    cfg, params, router, server = serve.build(args)
+    prompt = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, 48).tolist()
+    pk.launches = pk.launches_q8 = 0
+    lk.launches = 0
+    with serve.serve_in_thread(server) as (host, port):
+        tokens, done, ttft, latency = _sse_stream(
+            host, port, dict(prompt=prompt, max_new_tokens=32,
+                             tenant="tenant-1"))
+        status, _, err = _http_json(
+            host, port, "POST", "/v1/generate",
+            dict(prompt=prompt, max_new_tokens=4, tenant="tenant-9"))
+    launches = {"K3": pk.launches, "K4": pk.launches_q8,
+                "lora": lk.launches}
+    row = dict(phase="lora_http", nvidia_smi=smi, model="gpt2 L12 E768",
+               dtype=cfg.dtype, replicas=2, tenants=list(
+                   router.engines()[0].adapters.tenants()),
+               stream_tokens=len(tokens), done_state=done and done["state"],
+               first_token_s=ttft, request_s=latency,
+               unregistered=dict(status=status, error=err.get("error")),
+               launches=launches)
+    emit(**row)
+    if (done is None or done["state"] != "DONE" or len(tokens) != 32
+            or status != 400 or "unregistered tenant" not in err["error"]
+            or not launches["K3"] or not launches["lora"]):
+        raise AssertionError(f"lora_http: {row}")
+    return row
+
+
+def disagg_fleets(cfg, **engine_kw):
+    """A colocated fleet and a prefill + decode fleet of two paged
+    engines each (8 slots, max_len 384, 16-token pages, 32-token chunks),
+    both on the card, admission effectively unbounded (the decode_bench
+    twin's ``--serving-disagg`` fleets)."""
+    from pytorch_distributed_tpu_torch.serving import (
+        PagedBatchedDecodeEngine,
+        ReplicaRouter,
+    )
+
+    def fleet(roles):
+        return ReplicaRouter(
+            lambda i: PagedBatchedDecodeEngine(
+                cfg, slots=8, max_len=384, page_size=16, prefill_chunk=32,
+                role=roles[i], **engine_kw),
+            2, shed_queue_depth=10**6)
+
+    return fleet(("colocated", "colocated")), fleet(("prefill", "decode"))
+
+
+def disagg_pair(pk, cfg, params, n, seed, smi, phase, **engine_kw) -> dict:
+    """Both fleets on one ``workload.disagg_stream`` of ``n`` requests (the
+    JAX bench's default mix) under one Poisson arrival schedule drawn as
+    the twin draws it (calibrated on one request). Gates: DONE tokens equal
+    request for request, every request handed off, the ``kv_handoff``
+    events' useful bytes equal to their pages x the bytes per page, the
+    decode worker's paged kernel (K4 for int8 pages) launched n_layer x its
+    decode ticks, no steady ``compile_count`` growth. Reports the
+    handoffs' export and end-to-end latency and the interactive p99 ratio
+    (both fleets share this one card: a handoff is a copy inside it)."""
+    from pytorch_distributed_tpu_torch.serving import decode_bench
+    from pytorch_distributed_tpu_torch.serving.engine import (
+        kv_bytes_per_position,
+    )
+    from pytorch_distributed_tpu_torch.serving.workload import (
+        disagg_stream,
+        exponential_arrivals,
+    )
+
+    stream = disagg_stream(seed, n=n, vocab_size=cfg.vocab_size)
+    kinds = [r.pop("kind") for r in stream]
+    colocated, disagg = disagg_fleets(cfg, **engine_kw)
+    colocated.warmup(params)
+    disagg.warmup(params)
+    t0 = time.perf_counter()
+    probe = colocated.submit(**stream[0])
+    colocated.run(params)
+    colocated.pop_result(probe)
+    arrivals = exponential_arrivals(np.random.default_rng(seed + 7), n,
+                                    (time.perf_counter() - t0) / 16)
+    c_span, c_lat, c_res = decode_bench._drive_router(
+        colocated, params, stream, arrivals)
+    pk.launches = pk.launches_q8 = 0
+    with decode_bench._HandoffTap() as tap:
+        d_span, d_lat, d_res = decode_bench._drive_router(
+            disagg, params, stream, arrivals)
+    torch.cuda.synchronize()
+    dec = disagg.engines()[1]
+    q8 = dec.kv_quant == "int8"
+    got = {"K3": pk.launches, "K4": pk.launches_q8}
+    want = {"K3": 0, "K4": 0}
+    want["K4" if q8 else "K3"] = cfg.n_layer * dec.counters["decode_ticks"]
+    per_page = 16 * kv_bytes_per_position(cfg, dec.kv_quant)
+    pages = sum(int(e["pages"]) for e in tap.events)
+    useful = sum(int(e["useful_bytes"]) for e in tap.events)
+    export = [float(e["export_s"]) * 1e3 for e in tap.events]
+    latency = [float(e["latency_s"]) * 1e3 for e in tap.events]
+    equal = sum(np.array_equal(c_res[i].tokens, d_res[i].tokens)
+                for i in range(n))
+    light = [i for i, k in enumerate(kinds) if k == "light"]
+    pct = decode_bench._pct
+    p99 = [pct([lat[i] for i in light], 0.99) for lat in (c_lat, d_lat)]
+    steady = {"colocated": colocated.steady_compiles(),
+              "disagg": disagg.steady_compiles()}
+    row = dict(
+        phase=phase, nvidia_smi=smi,
+        model=f"{cfg.family} L{cfg.n_layer} E{cfg.n_embd}", dtype=cfg.dtype,
+        kv_quant=dec.kv_quant, requests=n,
+        heavy_prefill=n - len(light), light=len(light),
+        outputs_equal=f"{equal}/{n}", handoffs=disagg.counters["handoffs"],
+        handoff_events=len(tap.events), pages=pages,
+        bytes_per_page=per_page, useful_bytes=useful,
+        wire_bytes=sum(int(e["bytes"]) for e in tap.events),
+        export_ms_p50=pct(export, 0.5), export_ms_p99=pct(export, 0.99),
+        handoff_latency_ms_p50=pct(latency, 0.5),
+        handoff_latency_ms_p99=pct(latency, 0.99),
+        colocated_interactive_p99_s=p99[0], disagg_interactive_p99_s=p99[1],
+        interactive_p99_ratio=p99[1] / p99[0],
+        colocated_span_s=c_span, disagg_span_s=d_span,
+        placement="both fleets on one card",
+        launches=got, want_launches=want, steady_compiles=steady,
+        pool_ledger=[(e.pool.stats["handoff_pages_in"],
+                      e.pool.stats["handoff_pages_out"])
+                     for e in disagg.engines().values()],
+    )
+    emit(**row)
+    if (equal != n or row["handoffs"] != n or len(tap.events) != n
+            or useful != pages * per_page or got != want or not got[
+                "K4" if q8 else "K3"]
+            or any(v for legs in steady.values() for v in legs.values())):
+        raise AssertionError(f"{phase}: {row}")
+    return dict(row, tokens=[c_res[i].tokens for i in range(n)],
+                stream=stream)
+
+
+def disagg_fault_leg(cfg, params, stream, clean, which, smi) -> dict:
+    """The f32 fleet with all of ``stream`` submitted at once: the PREFILL
+    worker killed as soon as it holds a parked, finished prefill (the
+    decode worker cannot adopt its rows: they wait as orphans until the
+    restart), or the DECODE worker killed once it has decoded (its rows
+    come back as resume entries, re-prefilled on the prefill side and
+    handed off again). Gates: every request DONE, no steady compiles, and
+    each output equal to the clean leg's, or — for at most 1 in 16 — equal
+    up to the token where it failed over (``tier_legs``' gate): a resumed
+    row's generated tokens get their K/V from a prefill chunk, whose GEMMs
+    have another shape than the decode tick's, so on the card a near-tie
+    may round the other way (the failover_paths phase); on the CPU the
+    fault legs are exact (tests/test_torch_disagg.py)."""
+    _, fleet = disagg_fleets(cfg)
+    fleet.warmup(params)
+    rids = [fleet.submit(**r) for r in stream]
+    pre, dec = fleet.engines()[0], fleet.engines()[1]
+    for tick in range(10_000):
+        fleet.step(params)
+        if which == "prefill" and pre.handoff_ready():
+            break
+        if which == "decode" and dec.counters["decode_ticks"] >= 3:
+            break
+    rep = 0 if which == "prefill" else 1
+    fleet.kill(rep, reason=f"chaos: {which} worker death")
+    orphans = fleet.stats()["orphans"]
+    fleet.restart(rep, params)
+    fleet.run(params)
+    points = {rid: min(fleet.failover_points.get(rid, [10**9]))
+              for rid in rids}
+    got = [fleet.pop_result(r) for r in rids]
+    equal = sum(np.array_equal(g.tokens, c) for g, c in zip(got, clean))
+    late = [i for i, (g, c, r) in enumerate(zip(got, clean, stream))
+            if not np.array_equal(g.tokens, c) and np.array_equal(
+                g.tokens[:len(r["prompt"]) + points[rids[i]]],
+                c[:len(r["prompt"]) + points[rids[i]]])
+            and points[rids[i]] < 10**9]
+    row = dict(phase=f"disagg_fault_{which}", nvidia_smi=smi,
+               killed_at_tick=tick + 1, orphans_after_kill=orphans,
+               states=sorted({g.state for g in got}),
+               outputs_equal_clean=f"{equal}/{len(clean)}",
+               differing_after_failover_token=late,
+               failovers=fleet.counters["failovers"],
+               failover_requests=fleet.counters["failover_requests"],
+               handoffs=fleet.counters["handoffs"],
+               steady_compiles=fleet.steady_compiles())
+    emit(**row)
+    if (equal + len(late) != len(clean) or len(late) > len(clean) // 16
+            or row["states"] != ["DONE"]
+            or any(row["steady_compiles"].values())):
+        raise AssertionError(f"disagg_fault_{which}: {row}")
+    return row
+
+
+def disagg_phase(pk, seed, dev, smi) -> dict:
+    """GPT-2 124M in f32 and bf16 (``disagg_pair``, 48 requests), the
+    int8 Llama-3.2-1B pair (16 requests, K4 on the decode worker), then
+    the two f32 fault legs."""
+    from pytorch_distributed_tpu_torch.config import model_config
+    from pytorch_distributed_tpu_torch.models import gpt2, llama
+
+    out = {}
+    cfg = model_config("gpt2")
+    params = gpt2.init(torch.Generator().manual_seed(seed), cfg)
+    for dtype in ("float32", "bfloat16"):
+        out[f"disagg_{dtype}"] = disagg_pair(
+            pk, cfg.replace(dtype=dtype), params, 48, seed, smi,
+            f"disagg_{dtype}")
+    f32 = out["disagg_float32"]
+    for which in ("prefill", "decode"):
+        out[f"disagg_fault_{which}"] = disagg_fault_leg(
+            cfg.replace(dtype="float32"), params, f32["stream"],
+            f32["tokens"], which, smi)
+    del params
+    lcfg = model_config("llama3-1b")
+    lparams = llama.init(torch.Generator(device=dev).manual_seed(seed), lcfg,
+                         device=dev)
+    out["disagg_llama_q8"] = disagg_pair(pk, lcfg, lparams, 16, seed, smi,
+                                         "disagg_llama_q8", **Q8)
+    for row in out.values():
+        row.pop("tokens", None)
+        row.pop("stream", None)
+    return out
+
+
+def decode_bench_twin_phase(smi) -> dict:
+    """The ``decode_bench`` twin's entry point at its default shapes:
+    ``--serving-disagg --serving-scenarios`` in a subprocess, exit code 0
+    (each leg exits nonzero on a breached invariant); its rows' headline
+    numbers, and ``launches``: the K3, K4 and LoRA kernel launches its
+    legs counted in that process (each leg row carries its own), which
+    must include K3 and the LoRA kernel."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/rows.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m",
+             "pytorch_distributed_tpu_torch.serving.decode_bench",
+             "--serving-disagg", "--serving-scenarios", "--json", out],
+            capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(
+                f"decode_bench twin exited {proc.returncode}: "
+                f"{proc.stderr[-4000:]}")
+        with open(out) as f:
+            rows = json.load(f)
+    keep = ("outputs_match", "interactive_p99_ratio", "handoffs",
+            "observed_compile_count_steady", "turn_prefill_hit_rate",
+            "turns_bit_equal_oneshot", "rows_bit_equal_isolated",
+            "aggregate_tokens_per_sec_ratio", "tokens_per_sec_4_tenant",
+            "tokens_per_sec_base", "colocated", "disagg",
+            "interactive_p99_ms_unloaded", "interactive_p99_ms_loaded",
+            "interactive_p99_ratio_rounds",
+            "interactive_p99_ratio_single_pass",
+            "aggregate_tokens_per_sec_ratio_pairs",
+            "aggregate_tokens_per_sec_ratio_single_pass", "launches")
+    launches = {k: sum(r["launches"][k] for r in rows)
+                for k in ("K3", "K4", "lora")}
+    row = dict(phase="decode_bench_twin", nvidia_smi=smi, wall_s=wall,
+               exit_code=proc.returncode, launches=launches,
+               legs={r["leg"]: {k: r[k] for k in keep if k in r}
+                     for r in rows})
+    emit(**row)
+    if not (launches["K3"] and launches["lora"]):
+        raise AssertionError(f"decode_bench twin: {launches}")
+    return row
+
+
 FLASH_SOURCE = "pytorch_distributed_tpu_torch/csrc/flash_attention.cu"
 
 
@@ -2773,7 +3374,7 @@ def main() -> int:
          device_count=torch.cuda.device_count())
 
     # 2. build: one nvcc per source, all started together
-    sources = ("paged_attention", "flash_attention")
+    sources = ("paged_attention", "flash_attention", "lora_delta")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = dict(zip(sources, pool.map(_build.build, sources)))
@@ -2790,10 +3391,10 @@ def main() -> int:
         raise AssertionError(f"bf16 flash kernels spill at D 64: {spilled}")
     paged = ptxas["paged_attention"]
     spilled = [k for k, v in paged.items() if v["spill_bytes"]]
-    if (len(paged) != 32 and not builds["paged_attention"]["cached"]) or \
+    if (len(paged) != 48 and not builds["paged_attention"]["cached"]) or \
             spilled:
         raise AssertionError(
-            f"paged kernels: {len(paged)} of 32 instantiations in the "
+            f"paged kernels: {len(paged)} of 48 instantiations in the "
             f"ptxas log, spilling: {spilled}"
         )
 
@@ -2851,6 +3452,20 @@ def main() -> int:
     )
     slice9_paths = {name: row["launches"] for name, row in slice9.items()}
 
+    # 6d. multi-tenant LoRA (the fused delta kernel, K3, K4 on int8 Llama)
+    # and disaggregated prefill/decode (K3/K4 on the decode worker), then
+    # the decode_bench twin's legs
+    from pytorch_distributed_tpu_torch.ops import lora_kernel as lk
+
+    lora_k = lora_kernel_phase(lk, dev, flush, args.seed)
+    slice10 = dict(lora_phase(pk, lk, args.seed, dev, smi))
+    slice10["lora_http"] = lora_http_phase(pk, lk, args.seed, smi)
+    slice10.update(disagg_phase(pk, args.seed, dev, smi))
+    torch.cuda.empty_cache()  # the twin runs in a process of its own
+    slice10["decode_bench_twin"] = decode_bench_twin_phase(smi)
+    slice10_paths = {name: row["launches"] for name, row in slice10.items()
+                     if "launches" in row}
+
     tier_paths = {
         "K3": dict(tier_http=tier["http"]["launches"]["K3"], **{
             f"tier_storm_{dtype}_x{row['rate_multiplier']}_{leg}":
@@ -2867,7 +3482,9 @@ def main() -> int:
              replaces=f"pytorch_distributed_tpu/ops/paged_kernel.py:{line}",
              **run["entry"], tier_paths=tier_paths[kid],
              slice9_paths={name: counts[kid]
-                           for name, counts in slice9_paths.items()})
+                           for name, counts in slice9_paths.items()},
+             slice10_paths={name: counts[kid]
+                            for name, counts in slice10_paths.items()})
         for name, line, run, kid in (
             ("paged_decode_attention", 56, k3, "K3"),
             ("paged_decode_attention_q8", 114, k4, "K4"))
@@ -2943,7 +3560,24 @@ def main() -> int:
             ("flash_backward", "K2", "backward", 221),
         )
     ]
-    emit(kernels=[*paged_entries, *flash_entries])
+    main = lora_k["main"]
+    lora_entry = dict(
+        name="lora_delta_add", route="cuda", source=LORA_SOURCE,
+        replaces="pytorch_distributed_tpu/models/decode.py:286",
+        replaces_note="lora_delta, plain products in the JAX package (no "
+                      "pl.pallas_call)",
+        launches=slice10["lora_bfloat16"]["launches"]["lora"],
+        max_abs_err=main["max_abs_err"], ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by=main["bound_by"], library_ms=None,
+        host_us=main["host_us"], plain_host_us=main["plain_host_us"],
+        inputs=dict(form=main["form"], rows=main["rows"],
+                    tokens=main["tokens"], dtype=main["dtype"],
+                    din=main["din"], out=main["out"], slots=main["slots"],
+                    rank=LORA_RANK),
+        slice10_paths={name: counts.get("lora", 0)
+                       for name, counts in slice10_paths.items()})
+    emit(kernels=[*paged_entries, *flash_entries, lora_entry])
     emit(ok=True, device=dict(platform="gpu",
                               kind=torch.cuda.get_device_name(0),
                               count=torch.cuda.device_count()))

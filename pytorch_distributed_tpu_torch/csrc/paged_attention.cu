@@ -435,6 +435,7 @@ cudaError_t launch_d(const Args& a, int group, cudaStream_t stream) {
 template <typename T, typename KV>
 cudaError_t launch_t(const Args& a, int group, int D, cudaStream_t stream) {
   switch (D) {
+    case 32: return launch_d<T, KV, 32>(a, group, stream);
     case 64: return launch_d<T, KV, 64>(a, group, stream);
     case 128: return launch_d<T, KV, 128>(a, group, stream);
     default: return cudaErrorInvalidValue;

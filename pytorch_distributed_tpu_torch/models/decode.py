@@ -40,6 +40,10 @@ layout:
   ``ops/quant.qdot`` in every projection, whatever ``kv_quant`` is;
 - MoE configs route each token through ``ops/moe.moe_mlp`` at the
   no-drop capacity (``_moe_mlp``); routing is per token and cache-free;
+- ``lora=(layers, rows)`` adds each row's multi-tenant low-rank delta
+  (``serving/adapters``) to the query and attention-output projections
+  (``ops/lora_kernel.lora_delta_add``: the JAX package's lowering on the
+  CPU, one kernel on the card); slot 0 is the exact-zero adapter;
 - the layers run in a Python loop over the per-layer params list (the JAX
   package scans over stacked layers).
 
@@ -65,7 +69,7 @@ import torch
 
 from pytorch_distributed_tpu_torch.config import ModelConfig
 from pytorch_distributed_tpu_torch.models import get_model
-from pytorch_distributed_tpu_torch.ops import paged_kernel
+from pytorch_distributed_tpu_torch.ops import lora_kernel, paged_kernel
 from pytorch_distributed_tpu_torch.ops.layers import (
     activation,
     dense,
@@ -237,15 +241,27 @@ def _moe_mlp(m, mlp_params, cfg, act):
 
 
 def _gpt2_block(x, bp, kv, pos, slots, cfg, block_tables,
-                paged_impl="gather", kv_quant="none"):
+                paged_impl="gather", kv_quant="none", lora=None,
+                lora_rows=None):
     eps = cfg.layer_norm_epsilon
     b, t = x.shape[:2]
     a = layer_norm(x, bp["ln_1"], eps=eps)
     qkv = dense(a, bp["attn"]["c_attn"])  # [B, T, 3, H, D]
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    if lora is not None:
+        # Query only on the fused projection: K/V are never adapted.
+        q = lora_kernel.lora_delta_add(q, a, lora["q"], lora_rows)
     _write_kv(kv, k, v, slots, kv_quant)
     a = _cached_attention(q, kv, pos, block_tables, paged_impl, kv_quant)
-    x = x + dense(a.reshape(b, t, -1), bp["attn"]["c_proj"])
+    a = a.reshape(b, t, -1)
+    proj = bp["attn"]["c_proj"]
+    y = dense(a, {"kernel": proj["kernel"]})
+    if lora is not None:
+        # Before the bias, as the JAX block adds it.
+        y = lora_kernel.lora_delta_add(y, a, lora["c_proj"], lora_rows)
+    if proj.get("bias") is not None:
+        y = y + proj["bias"].to(y.dtype)
+    x = x + y
     m = layer_norm(x, bp["ln_2"], eps=eps)
     act = activation(cfg.activation_function)
     if cfg.n_experts:
@@ -255,20 +271,29 @@ def _gpt2_block(x, bp, kv, pos, slots, cfg, block_tables,
 
 
 def _llama_block(x, bp, kv, pos, slots, cfg, block_tables, cos, sin,
-                 paged_impl="gather", kv_quant="none"):
+                 paged_impl="gather", kv_quant="none", lora=None,
+                 lora_rows=None):
     """RMSNorm pre-norm block: every projection through ``qdot`` (plain or
     int8 weights), RoPE on q and k at each row's own positions, SwiGLU
-    (or SwiGLU experts)."""
+    (or SwiGLU experts). ``lora`` adds the tenant deltas to wq and wo
+    (never to wk/wv)."""
     eps = cfg.layer_norm_epsilon
     b, t = x.shape[:2]
     d = cfg.head_dim
     a = rms_norm(x, bp["ln_attn"], eps=eps)
-    q = apply_rope(qdot(a, bp["attn"]["wq"]).reshape(b, t, -1, d), cos, sin)
+    q_pre = qdot(a, bp["attn"]["wq"])
+    if lora is not None:
+        q_pre = lora_kernel.lora_delta_add(q_pre, a, lora["wq"], lora_rows)
+    q = apply_rope(q_pre.reshape(b, t, -1, d), cos, sin)
     k = apply_rope(qdot(a, bp["attn"]["wk"]).reshape(b, t, -1, d), cos, sin)
     v = qdot(a, bp["attn"]["wv"]).reshape(b, t, -1, d)
     _write_kv(kv, k, v, slots, kv_quant)
     a = _cached_attention(q, kv, pos, block_tables, paged_impl, kv_quant)
-    x = x + qdot(a.reshape(b, t, -1), bp["attn"]["wo"])
+    a = a.reshape(b, t, -1)
+    wo_out = qdot(a, bp["attn"]["wo"])
+    if lora is not None:
+        wo_out = lora_kernel.lora_delta_add(wo_out, a, lora["wo"], lora_rows)
+    x = x + wo_out
     m = rms_norm(x, bp["ln_mlp"], eps=eps)
     if cfg.n_experts:
         return x + _moe_mlp(m, bp["mlp"], cfg, torch.nn.functional.silu)
@@ -287,6 +312,7 @@ def forward(
     block_tables: torch.Tensor | None = None,  # [B, n_pages] int32
     paged_impl: str = "gather",
     kv_quant: str = "none",
+    lora: tuple | None = None,
 ) -> tuple[torch.Tensor, Cache]:
     """Run T tokens per row at positions pos..pos+T-1 through the cache.
     Returns ([B, T, V] logits in ``cfg.logits_dtype``, ``cache``), the
@@ -296,8 +322,12 @@ def forward(
     ``paged_impl`` picks single-token attention — "gather" (plain
     PyTorch over gathered pages) or "kernel" (the paged decode kernel, K3
     or for int8 pools K4; on CPU tensors its plain version) — and
-    ``kv_quant`` names the pool layout. A row's values are those of the
-    same call with that row alone."""
+    ``kv_quant`` names the pool layout. ``lora`` is ``(adapter layers, [B]
+    tenant-slot rows)``, the layers a list of per-layer adapter slices
+    (``serving/adapters.AdapterRegistry.device_tree``): each row's low-rank
+    delta joins its query and attention-output projections
+    (``ops/lora_kernel.lora_delta_add``), slot 0 the exact-zero adapter. A
+    row's values are those of the same call with that row alone."""
     if cfg.family not in ("gpt2", "llama"):
         raise NotImplementedError(
             f"decode.forward serves the gpt2 and llama families, got "
@@ -358,10 +388,19 @@ def forward(
         slots = _dense_slots(pos, t, cache["k"].shape[2])
     else:
         slots = (pos, pos + t)
+    lora_layers = lora_rows = None
+    if lora is not None:
+        lora_layers, rows = lora
+        # Each flattened row's slot, once for every layer and target.
+        lora_rows = torch.as_tensor(rows, device=dev).long()
+        if t > 1:
+            lora_rows = lora_rows.repeat_interleave(t)
     for layer, bp in enumerate(params["blocks"]):
         kv = {name: c[layer] for name, c in cache.items()}
         x = block(x, bp, kv, pos, slots, cfg, block_tables,
-                  paged_impl=paged_impl, kv_quant=kv_quant)
+                  paged_impl=paged_impl, kv_quant=kv_quant,
+                  lora=None if lora is None else lora_layers[layer],
+                  lora_rows=lora_rows)
     return get_model(cfg).head(params, x, cfg), cache
 
 

@@ -50,7 +50,7 @@ launches_q8 = 0
 _count_lock = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (32, 64, 128)
 _GROUPS = (1, 2, 4, 8)
 
 # The split plan: a chunk holds CHUNK_K_BYTES of K rows per KV head — the

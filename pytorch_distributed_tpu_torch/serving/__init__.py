@@ -4,11 +4,13 @@ dense cache, ``BatchedDecodeEngine``, or over a paged pool,
 vocabulary (terminal states, results, snapshots — ``serving/lifecycle``),
 the deterministic fault-injection harness (``serving/chaos``), the seeded
 workload generator (``serving/workload``), multi-turn sessions
-(``serving/session``), and the serving tier over them: the health-checked
-multi-replica ``ReplicaRouter`` (``serving/router``) and the asyncio
-HTTP/SSE front door (``serving/server``, imported directly to keep this
-package import light). The entry points are ``serving.serve``,
-``serving.loadgen``, ``serving.generate`` and ``serving.soak``."""
+(``serving/session``), multi-tenant LoRA adapters (``serving/adapters``),
+and the serving tier over them: the health-checked multi-replica
+``ReplicaRouter`` (``serving/router``, with the disaggregated KV handoff
+pump) and the asyncio HTTP/SSE front door (``serving/server``, imported
+directly to keep this package import light). The entry points are
+``serving.serve``, ``serving.loadgen``, ``serving.generate``,
+``serving.soak`` and ``serving.decode_bench``."""
 
 from pytorch_distributed_tpu_torch.serving.block_pool import BlockPool
 from pytorch_distributed_tpu_torch.serving.chaos import (

@@ -35,9 +35,11 @@ Three responsibilities:
 
 Page id 0 is RESERVED as the scratch page: block-table entries default to
 0, so free rows of a decode step write and read page 0, which no live
-row's table ever points at. Pins and the handoff ledger are kept so the
-pool's behaviour and ``stats`` stay the JAX package's exactly; the
-sessions and disaggregated serving that use them are not ported yet.
+row's table ever points at. Session pins (``serving/session``) and the
+KV-handoff page ledger (``alloc_for_handoff``/``note_handoff_out``, fed
+by a disaggregated decode worker's imports and a prefill worker's
+completed exports) keep the pool's behaviour and ``stats`` the JAX
+package's exactly.
 """
 
 from __future__ import annotations

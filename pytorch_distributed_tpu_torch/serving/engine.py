@@ -121,10 +121,33 @@ so far and its published chunks (decode-written ones included) stay
 pinned between turns, within ``session_pin_budget_pages`` (default half
 the pool).
 
-Left out of this port, relative to the JAX engines: LoRA adapters,
-disaggregated roles and KV handoff, and tensor parallelism / ZeRO-3
-decode (``DecodeEngine(mesh_cfg=...)`` raises, naming ROADMAP queue 1
-item 7).
+**Multi-tenant LoRA** (both batched engines, ``adapters=`` a
+``serving/adapters.AdapterRegistry``): ``submit(tenant=)`` picks a row's
+adapter slot; every forward — the prefill at [slots, bucket] or [slots,
+chunk], the decode tick, the speculative verify and the warmup — carries
+the [slots] tenant-slot vector (free lanes on slot 0, the exact-zero
+adapter), so a tenant's rows are bit-equal to that tenant served alone
+and untenanted rows to the adapter-less engine (rows that map another
+tenant's prefix pages read that tenant's layer-1+ K/V, as in the JAX
+package: ``serving/adapters``). The slot survives preemption,
+``snapshot``/``restore``/``adopt`` and a KV handoff.
+
+**Disaggregated prefill/decode** (paged engine, ``role=``): a "prefill"
+worker runs chunked prefill only and parks each finished row, pages
+held, until the router's handoff pump ships it (``export_handoff``: the
+row's pages gathered off the pool into a new tensor, int8 scale pools
+with them); a "decode" worker takes rows only through ``import_handoff``
+(the pages copied into freshly allocated ones of its own pool) or
+``adopt``, and refuses ``submit``. The source row stays live until
+``complete_handoff``, so a fault on either side falls back on the
+ordinary resume entry (``KVHandoff.entry``). The copies are tensor
+indexing on the card, consulted by the fault injector as the dispatch
+kinds "kv_export" and "kv_import"; a failed import is recovered like any
+failed dispatch.
+
+Left out of this port, relative to the JAX engines: tensor parallelism /
+ZeRO-3 decode (``DecodeEngine(mesh_cfg=...)`` raises, naming ROADMAP
+queue 1 item 7).
 
 Not thread-safe: one dispatcher per engine (the router and the HTTP
 server serialise every call). Several engines on one card may run in
@@ -177,6 +200,21 @@ from pytorch_distributed_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_tpu_torch.utils.logging import log_event
 
 _EMPTY_DRAFT = np.zeros((0,), np.int32)
+
+# Disaggregated-serving roles (the ``stats()["role"]`` vocabulary):
+# "colocated" engines prefill AND decode; "prefill" workers run chunked
+# prefill only and hand finished rows off; "decode" workers take handoffs
+# and adoptions and run the decode tick. Every role runs the same
+# forwards, plus the kv copies.
+ENGINE_ROLES = ("colocated", "prefill", "decode")
+
+
+def _check_role(role: str) -> str:
+    if role not in ENGINE_ROLES:
+        raise ValueError(
+            f"role must be one of {ENGINE_ROLES}, got {role!r}"
+        )
+    return role
 
 
 def kv_bytes_per_position(cfg: ModelConfig, kv_quant: str = "none") -> int:
@@ -652,6 +690,7 @@ class _Pending:
     nan_retried: bool = False  # quarantine: one retry, then FAILED
     session: int | None = None  # the engine session a turn belongs to
     resub_len: int = 0  # resubmitted-transcript tokens of a session turn
+    tenant_slot: int = 0  # LoRA adapter slot (0: the zero adapter)
 
 
 @dataclasses.dataclass
@@ -676,6 +715,7 @@ class _Slot:
     nan_retried: bool = False
     session: int | None = None
     resub_len: int = 0
+    tenant_slot: int = 0
 
     @property
     def ready(self) -> bool:
@@ -722,7 +762,10 @@ class BatchedDecodeEngine:
     ``device`` (None = "cuda"), ``weight_quant`` ("none" or "int8"),
     ``speculative_k``/``spec_ngram``/``draft_hook`` (speculative decoding:
     K drafts per row per tick, the lookup n-gram, and a callable
-    ``(tokens_so_far, k) -> drafts`` replacing the lookup).
+    ``(tokens_so_far, k) -> drafts`` replacing the lookup), ``adapters``
+    (a ``serving/adapters.AdapterRegistry`` for this config: every
+    forward then carries the registry's adapters and a [slots]
+    tenant-slot vector, and ``submit(tenant=)`` picks a row's adapter).
 
     The dense engine serves every admitted prompt in one prefill forward
     per bucket of the fixed shape [slots, bucket] over a scratch cache of
@@ -757,6 +800,7 @@ class BatchedDecodeEngine:
         speculative_k: int = 0,
         spec_ngram: int = 2,
         draft_hook=None,
+        adapters=None,
     ) -> None:
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
@@ -807,6 +851,13 @@ class BatchedDecodeEngine:
         self.speculative_k = int(speculative_k)
         self.spec_ngram = int(spec_ngram)
         self._draft_hook = draft_hook
+        if adapters is not None and adapters.cfg != cfg:
+            raise ValueError(
+                "adapters= was built for a different ModelConfig than "
+                "this engine serves — one registry per architecture "
+                "(build it once and share it across replicas)"
+            )
+        self.adapters = adapters
         if queue_limit is not None and queue_limit < 1:
             raise ValueError(f"queue_limit must be >= 1, got {queue_limit}")
         self.queue_limit = queue_limit
@@ -873,14 +924,27 @@ class BatchedDecodeEngine:
         """Tokens per row of a decode forward: 1, or K+1 when speculating."""
         return self.speculative_k + 1
 
+    def _lora(self, tenants):
+        """The ``lora=`` operand of one forward: the registry's device
+        tree and the [slots] tenant-slot vector (free and garbage rows on
+        slot 0, the exact-zero adapter) — or None without adapters."""
+        if self.adapters is None:
+            return None
+        return (self.adapters.device_tree(self.device),
+                torch.from_numpy(np.asarray(tenants, np.int64)).to(
+                    self.device))
+
     @torch.no_grad()
-    def _forward(self, params, ids, pos, tables=None):
+    def _forward(self, params, ids, pos, tables=None, tenants=None):
         """One forward of the slot batch over the live cache (numpy
-        operands in, logits out); ``tables`` is the paged engine's."""
+        operands in, logits out); ``tables`` is the paged engine's,
+        ``tenants`` the [slots] adapter slots (None: all slot 0)."""
         dev = self.device
         logits, _ = decode.forward(
             params, torch.from_numpy(ids).to(dev), self.cfg,
             self._live_cache(), torch.from_numpy(pos).to(dev),
+            lora=self._lora(np.zeros((self.slots,), np.int64)
+                            if tenants is None else tenants),
         )
         return logits
 
@@ -926,6 +990,7 @@ class BatchedDecodeEngine:
         params=None,
         block_timeout_s: float | None = None,
         session: int | None = None,
+        tenant=None,
     ) -> int:
         """Queue one single-sequence request ([Tp] or [1, Tp] token ids)
         and return its request id. A later ``step`` admits it; its
@@ -939,7 +1004,9 @@ class BatchedDecodeEngine:
         ``block_timeout_s`` (engine clock) passes, then raises.
         ``session`` is a live sid from the paged engine's
         ``open_session``: the prompt must extend the session's recorded
-        transcript (``serving/session``)."""
+        transcript (``serving/session``). ``tenant`` picks a registered LoRA
+        adapter (an engine built with ``adapters=``); None rides the shared
+        zero adapter, bit-equal to the adapter-less engine."""
         prompt = np.asarray(prompt)
         if prompt.ndim == 2 and prompt.shape[0] == 1:
             prompt = prompt[0]
@@ -973,6 +1040,15 @@ class BatchedDecodeEngine:
             raise ValueError(f"timeout_s must be > 0, got {timeout_s}")
         tier = check_priority(priority)
         self._check_prompt_shape(tp)
+        tenant_slot = 0
+        if tenant is not None:
+            if self.adapters is None:
+                raise ValueError(
+                    f"tenant={tenant!r} needs an engine built with "
+                    "adapters=AdapterRegistry(...) — this engine has no "
+                    "adapter registry attached"
+                )
+            tenant_slot = self.adapters.slot(tenant)
         prompt = prompt.astype(np.int32)
         # Validated before the rid is assigned; marked in flight after.
         resub_len = self._session_checkin(session, prompt)
@@ -988,6 +1064,7 @@ class BatchedDecodeEngine:
             eos_id=eos_id, greedy=not temperature > 0.0, t=t, k=k, p=p,
             seed=0 if seed is None else int(seed), deadline=deadline,
             tier=tier, session=session, resub_len=resub_len,
+            tenant_slot=tenant_slot,
         ))
         self._session_begin(session, rid)
         log_event(
@@ -996,6 +1073,7 @@ class BatchedDecodeEngine:
             deadline=None if deadline is None else round(deadline, 6),
             priority=priority if tier != TIER_RANK[STANDARD] else None,
             session=session,
+            tenant=str(tenant) if tenant is not None else None,
         )
         return rid
 
@@ -1157,6 +1235,7 @@ class BatchedDecodeEngine:
                 "one prefill shape per observed prompt length)"
             )
         params = self._place_params(params)
+        zero_rows = np.zeros((self.slots,), np.int64)
         with torch.no_grad():
             for bucket in self._prefill_buckets:
                 decode.forward(
@@ -1164,6 +1243,7 @@ class BatchedDecodeEngine:
                                         device=self.device),
                     self.cfg, decode.init_cache(self.cfg, self.slots, bucket,
                                                 device=self.device), 0,
+                    lora=self._lora(zero_rows),
                 )
         w = self._decode_width
         self._forward(params, np.zeros((self.slots, w), np.int32),
@@ -1312,6 +1392,7 @@ class BatchedDecodeEngine:
             retries=s.retries + (1 if bump else 0),
             nan_retried=s.nan_retried if nan_retried is None else nan_retried,
             session=s.session, resub_len=s.resub_len,
+            tenant_slot=s.tenant_slot,
         )
 
     def _finish(self, rid, state, tokens, reason, finished=None) -> None:
@@ -1561,11 +1642,13 @@ class BatchedDecodeEngine:
         targets = [row for _, row in group]
         ids = np.zeros((b, bucket), np.int32)
         plens = np.ones((b,), np.int64)
+        tenants = np.zeros((b,), np.int64)
         pend = [req for req, _ in group]
         for j, req in enumerate(pend):
             prefix = self._partial_tokens(req.prompt, req.gen)
             ids[j, : prefix.shape[0]] = prefix
             plens[j] = prefix.shape[0]
+            tenants[j] = req.tenant_slot
 
         @torch.no_grad()
         def run():
@@ -1574,7 +1657,8 @@ class BatchedDecodeEngine:
             cache = self._live_cache()
             seg = decode.init_cache(self.cfg, b, bucket, device=dev)
             logits, _ = decode.forward(params, torch.from_numpy(ids).to(dev),
-                                       self.cfg, seg, 0)
+                                       self.cfg, seg, 0,
+                                       lora=self._lora(tenants))
             rows_t = torch.tensor(targets, device=dev)
             for name, c in cache.items():
                 c[:, rows_t, :bucket] = seg[name][:, :n]
@@ -1597,7 +1681,7 @@ class BatchedDecodeEngine:
                 greedy=req.greedy, t=req.t, k=req.k, p=req.p, seed=req.seed,
                 deadline=req.deadline, tier=req.tier, retries=req.retries,
                 nan_retried=req.nan_retried, session=req.session,
-                resub_len=req.resub_len,
+                resub_len=req.resub_len, tenant_slot=req.tenant_slot,
             )
             log_event(
                 "admit", rid=req.rid, row=row, bucket=bucket,
@@ -1637,6 +1721,7 @@ class BatchedDecodeEngine:
         toks = np.zeros((b, width), np.int32)
         n_draft = np.zeros((b,), np.int64)
         pos = np.zeros((b,), np.int32)
+        tenants = np.zeros((b,), np.int64)
         lanes: list[_Slot | None] = [None] * b
         for i, s in ready:
             drafts = _EMPTY_DRAFT
@@ -1647,13 +1732,14 @@ class BatchedDecodeEngine:
             toks[i, 1: 1 + len(drafts)] = drafts
             n_draft[i] = len(drafts)
             pos[i] = s.pos
+            tenants[i] = s.tenant_slot
             lanes[i] = s
         tables = self._lane_tables(lanes)
         kind = "decode_spec_step" if self.speculative_k else "decode_step"
 
         def run():
             self.counters["decode_ticks"] += 1  # forwards that ran
-            logits = self._forward(params, toks, pos, tables)
+            logits = self._forward(params, toks, pos, tables, tenants)
             if not self.speculative_k:
                 return self._sample(logits[:, -1], lanes)
             return self._spec_verify(logits, toks, n_draft, lanes)
@@ -1749,6 +1835,33 @@ class BatchedDecodeEngine:
         self._maybe_retire(row, finished)
 
 
+@dataclasses.dataclass
+class KVHandoff:
+    """One finished prefill leaving a PREFILL worker: the row's pages (per
+    pool leaf, [L, max_pages, ...] in block-table order; int8 pools ship
+    their scale leaves with them) and every host field a decode worker
+    needs to continue the row bit-identically to a colocated run.
+    ``entry`` doubles as the fault fallback: it is the ordinary resume
+    entry for the same row, so a handoff that never completes degrades to
+    the resume/failover path."""
+
+    entry: Any            # _Pending resume entry (fault fallback + fields)
+    pages: Any            # {leaf: [L, max_pages, ...] tensor}, a copy
+    n_pages: int          # real (non-padding) table entries
+    pos: int              # committed depth (== prefill_len on export)
+    fold: int             # the token index of the row's next sampled draw
+    generated: list       # resume gen + the final-chunk sampled token
+    prefill_len: int
+    resume_base: int
+    page_size: int
+    max_pages: int
+    kv_quant: str
+    src_rid: int          # engine-local rid on the SOURCE engine
+    useful_bytes: int     # n_pages x page_size x bytes/position
+    wire_bytes: int       # padded tree bytes actually shipped
+    export_s: float       # host time of the export gather, synchronized
+
+
 class PagedBatchedDecodeEngine(BatchedDecodeEngine):
     """Continuous-batching decode over a paged KV pool (module docstring).
 
@@ -1758,8 +1871,10 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
     ``prefill_chunk`` (a page multiple dividing ``max_len``; default the
     largest such <= 64), ``paged_attention``, ``kv_quant``,
     ``batch_admit_free_frac`` (free-pool fraction below which BATCH
-    requests stop admitting), ``session_pin_budget_pages``. Prompts have
-    no buckets: the chunk is the one prefill shape."""
+    requests stop admitting), ``session_pin_budget_pages``, ``role``
+    ("colocated", "prefill" or "decode": disaggregated serving, module
+    docstring). Prompts have no buckets: the chunk is the one prefill
+    shape."""
 
     def __init__(
         self,
@@ -1774,9 +1889,11 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
         kv_quant: str = "none",
         batch_admit_free_frac: float = 0.25,
         session_pin_budget_pages: int | None = None,
+        role: str = "colocated",
         **kw,
     ) -> None:
         super().__init__(cfg, slots=slots, max_len=max_len, **kw)
+        self.role = _check_role(role)
         if page_size < 1 or max_len % page_size:
             raise ValueError(
                 f"page_size ({page_size}) must be a positive divisor of "
@@ -1853,7 +1970,8 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
             clock=self._clock,
         )
         self.counters.update(preemptions=0, preempt_priority=0,
-                             batch_yield_ticks=0)
+                             batch_yield_ticks=0, handoffs_out=0,
+                             handoffs_in=0)
         # The pool is allocated once and written in place for the
         # engine's life; a failed dispatch resets the block pool instead
         # (``_drop_cache_after_failure``).
@@ -1882,7 +2000,7 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
         """No buckets: chunked prefill takes any prompt length."""
 
     @torch.no_grad()
-    def _forward(self, params, ids, pos, tables=None):
+    def _forward(self, params, ids, pos, tables=None, tenants=None):
         """One forward over the pool; numpy operands in, logits out."""
         dev = self.device
         logits, _ = decode.forward(
@@ -1894,14 +2012,17 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
             block_tables=torch.from_numpy(tables).to(dev),
             paged_impl=self.paged_attention,
             kv_quant=self.kv_quant,
+            lora=self._lora(np.zeros((self.slots,), np.int64)
+                            if tenants is None else tenants),
         )
         return logits
 
     def warmup(self, params) -> int:
         """Place the params and run one prefill chunk and one decode
-        forward on the scratch page (all-zero tables), so the first
-        request pays no one-time cost (the kernel build and load, library
-        handles). Idle engines only. Returns ``compile_count()``."""
+        forward on the scratch page (all-zero tables), and a disaggregated
+        role's side of the page copies, so the first request pays no
+        one-time cost (the kernel build and load, library handles). Idle
+        engines only. Returns ``compile_count()``."""
         if self.has_work():
             raise RuntimeError("warmup requires an idle engine")
         params = self._place_params(params)
@@ -1911,6 +2032,14 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
                 np.zeros((self.slots,), np.int32),
                 np.zeros((self.slots, self.max_pages), np.int32),
             )
+        # Each disaggregated role warms its side of the handoff pair on
+        # the scratch page: export on a prefill worker, import on a
+        # decode worker (one page, page 0 into page 0).
+        table = np.zeros((self.max_pages,), np.int32)
+        if self.role == "prefill":
+            self._kv_export(table)
+        elif self.role == "decode":
+            self._kv_import(self._kv_export(table), table[:1])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self.compile_count()
@@ -2184,6 +2313,7 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
             n_pages=len(pids), resume_base=len(req.gen), chain_key=chain_key,
             retries=req.retries, nan_retried=req.nan_retried,
             session=req.session, resub_len=req.resub_len,
+            tenant_slot=req.tenant_slot,
         )
 
     def _chunk_prefill_tick(self, params, finished: list[int]) -> None:
@@ -2213,16 +2343,18 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
         valid = np.ones((self.slots,), np.int64)
         start = np.zeros((self.slots,), np.int32)
         tables = np.zeros((self.slots, self.max_pages), np.int32)
+        tenants = np.zeros((self.slots,), np.int64)
         for j, (_, s) in enumerate(rows):
             v = min(self.chunk, s.prefill_len - s.pos)
             chunks[j, :v] = s.prefix[s.pos : s.pos + v]
             valid[j] = v
             start[j] = s.pos
             tables[j] = s.table
+            tenants[j] = s.tenant_slot
 
         def run():
             self.counters["prefill_ticks"] += 1  # forwards that ran
-            logits = self._forward(params, chunks, start, tables)
+            logits = self._forward(params, chunks, start, tables, tenants)
             last = logits[torch.arange(n, device=self.device),
                           torch.from_numpy(valid[:n] - 1).to(self.device)]
             # Only rows on their final chunk keep the sampled token.
@@ -2253,9 +2385,24 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
             s.pos += v
             if s.pos >= s.prefill_len:
                 s.generated.append(int(toks[j]))
+                if self.role == "prefill":
+                    # The row parks here, pages held, until the router's
+                    # pump hands it to a decode worker.
+                    log_event(
+                        "prefill_done", rid=s.rid,
+                        prompt_len=s.prefill_len, pages=s.n_pages,
+                        bytes=s.n_pages * self.page_size
+                        * kv_bytes_per_position(self.cfg, self.kv_quant),
+                        t=round(self._clock(), 6),
+                    )
                 self._maybe_retire(row, finished)
 
     def _decode_tick(self, params, finished: list[int]) -> None:
+        if self.role == "prefill":
+            # A prefill worker never decodes: finished rows park until
+            # ``export_handoff`` (a max_new == 1 row already retired at
+            # its final chunk).
+            return
         # BATCH rows sit out the tick while an interactive row is live
         # (their lanes stay on the scratch page; their tokens are delayed,
         # never changed).
@@ -2376,3 +2523,216 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
             t=round(self._clock(), 6),
         )
         self._requeue([self._pending_from_slot(s)])
+
+    # -- disaggregation: KV handoff -------------------------------------------
+
+    def _kv_copy(self, kind: str, run):
+        """Run one page copy (``kind`` "kv_export" or "kv_import"),
+        consulting the fault injector before and after as ``_dispatch``
+        does for a forward. Returns (result, None), or (None, error) when
+        the copy failed recoverably: anything the injector raises, and
+        ``RETRYABLE_ERRORS`` from the copy itself. The caller owns the
+        recovery."""
+        inj = self._injector
+        try:
+            if inj is not None:
+                inj.before_dispatch(kind, self._ticks)
+        except Exception as err:
+            return None, err
+        try:
+            out = run()
+        except self.RETRYABLE_ERRORS as err:
+            return None, err
+        if inj is not None:
+            try:
+                inj.after_dispatch(kind, self._ticks, None, None)
+            except Exception as err:
+                return None, err
+        return out, None
+
+    def _kv_export(self, table) -> dict[str, torch.Tensor]:
+        """One row's pages off the pool, per leaf [L, max_pages, ...] in
+        table order: an indexed read into NEW tensors, so the source pages
+        can be freed and rewritten once the handoff completes. Padded
+        table entries are 0 and read the scratch page."""
+        idx = torch.from_numpy(np.asarray(table, np.int64)).to(self.device)
+        return {k: v[:, idx] for k, v in self._cache.items()}
+
+    def _kv_import(self, pages, table) -> None:
+        """Write exported ``pages`` into this pool at the pages of
+        ``table`` ([n] fresh page ids, in order): only the first n entries
+        of each leaf — the padding past them is the source's scratch page
+        and is not copied."""
+        n = len(table)
+        idx = torch.from_numpy(np.asarray(table, np.int64)).to(self.device)
+        for k, v in self._cache.items():
+            v[:, idx] = pages[k][:, :n].to(self.device)
+
+    def submit(self, prompt, max_new_tokens: int, **kw) -> int:
+        if self.role == "decode":
+            raise ValueError(
+                "this engine is a DECODE worker: it accepts rows only "
+                "via import_handoff (finished prefills) or adopt "
+                "(failover resume entries) — route fresh prompts to a "
+                "prefill or colocated worker"
+            )
+        return super().submit(prompt, max_new_tokens, **kw)
+
+    def handoff_ready(self) -> list[int]:
+        """Engine rids of rows parked on this PREFILL worker with their
+        prefill finished — the rows ``export_handoff`` can ship. Empty
+        on every other role (colocated rows decode in place)."""
+        if self.role != "prefill":
+            return []
+        return [s.rid for s in self._slots if s is not None and s.ready]
+
+    def export_handoff(self, rid: int) -> KVHandoff | None:
+        """Gather one parked row's pages off the pool and package what a
+        decode worker needs to continue it. Read-only: the row stays live
+        (pages held) until ``complete_handoff`` confirms the import, so a
+        destination dying mid-handoff costs only the gather. Returns None
+        when the gather failed (an injected fault or a retryable error):
+        nothing was changed, and the row stays parked for the next
+        try."""
+        s = next(
+            (x for x in self._slots if x is not None and x.rid == rid),
+            None,
+        )
+        if s is None:
+            raise KeyError(f"no active row with rid {rid} to hand off")
+        if not s.ready:
+            raise ValueError(
+                f"rid {rid} is mid-prefill (pos {s.pos} < "
+                f"{s.prefill_len}) — only finished prefills hand off"
+            )
+        t0 = time.perf_counter()
+        pages, err = self._kv_copy("kv_export",
+                                   lambda: self._kv_export(s.table))
+        if err is not None:
+            self.counters["dispatch_failures"] += 1
+            log_event(
+                "dispatch_fail", kind="kv_export", tick=self._ticks,
+                streak=self._fail_streak, error=type(err).__name__,
+                t=round(self._clock(), 6),
+            )
+            return None
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        export_s = time.perf_counter() - t0
+        wire = sum(v.numel() * v.element_size() for v in pages.values())
+        return KVHandoff(
+            entry=self._pending_from_slot(s),
+            pages=pages, n_pages=s.n_pages, pos=s.pos,
+            fold=len(s.generated), generated=list(s.generated),
+            prefill_len=s.prefill_len, resume_base=s.resume_base,
+            page_size=self.page_size, max_pages=self.max_pages,
+            kv_quant=self.kv_quant, src_rid=s.rid,
+            useful_bytes=(s.n_pages * self.page_size
+                          * kv_bytes_per_position(self.cfg, self.kv_quant)),
+            wire_bytes=int(wire), export_s=export_s,
+        )
+
+    def complete_handoff(self, rid: int) -> None:
+        """The destination confirmed the import: release the source row
+        WITHOUT a terminal result — ownership (and the client's rid
+        mapping, which the router owns) moved to the destination engine.
+        The freed pages go back to this worker's pool."""
+        for i, s in enumerate(self._slots):
+            if s is not None and s.rid == rid:
+                self._slots[i] = None
+                n = s.n_pages
+                self._on_slot_freed(s)
+                self.pool.note_handoff_out(n)
+                self.counters["handoffs_out"] += 1
+                return
+        raise KeyError(f"no active row with rid {rid} to complete")
+
+    def can_import_handoff(self, h: KVHandoff) -> bool:
+        """The host-side gate the router's pump scores targets with: a
+        free slot row and allocatable pool headroom for the row's pages
+        (LRU-reclaimable cached prefixes count), on the same page
+        geometry."""
+        return (
+            self.role != "prefill"
+            and any(s is None for s in self._slots)
+            and self.pool.allocatable_pages() >= h.n_pages
+            and h.page_size == self.page_size
+            and h.max_pages == self.max_pages
+            and h.kv_quant == self.kv_quant
+        )
+
+    def import_handoff(
+        self, h: KVHandoff, finished: list[int] | None = None
+    ) -> int | None:
+        """Land one exported row in this worker's pool (its pages copied
+        into freshly allocated ones) and seat it as a decode-ready slot
+        under a fresh local rid. Returns the new rid, or None when the
+        import could not land: no free row or pages, or the copy failed
+        and was RECOVERED like any failed dispatch (pool reset, in-flight
+        rows to resume entries; terminal rids from that recovery land in
+        ``finished``; past ``dispatch_retries`` it raises
+        ``DispatchFailure``). The source row is untouched either way until
+        ``complete_handoff``."""
+        if self.role == "prefill":
+            raise ValueError(
+                "a PREFILL worker cannot import handoffs — it only "
+                "exports them"
+            )
+        if (
+            h.page_size != self.page_size
+            or h.max_pages != self.max_pages
+            or h.kv_quant != self.kv_quant
+        ):
+            raise ValueError(
+                "kv_handoff geometry mismatch: source pages are "
+                f"(page_size={h.page_size}, max_pages={h.max_pages}, "
+                f"kv_quant={h.kv_quant!r}) but this engine is "
+                f"(page_size={self.page_size}, max_pages="
+                f"{self.max_pages}, kv_quant={self.kv_quant!r}) — "
+                "disaggregated fleets must share the page geometry"
+            )
+        q = h.entry
+        if len(q.prompt) + q.max_new > self.max_len:
+            raise ValueError(
+                f"handed-off entry needs {len(q.prompt) + q.max_new} "
+                f"cache positions but this engine's max_len is "
+                f"{self.max_len}"
+            )
+        row = next(
+            (i for i, s in enumerate(self._slots) if s is None), None
+        )
+        if row is None:
+            return None
+        pids = self.pool.alloc_for_handoff(h.n_pages)
+        if pids is None:
+            return None
+        table = np.zeros((self.max_pages,), np.int32)
+        table[: h.n_pages] = pids
+        _, err = self._kv_copy(
+            "kv_import", lambda: self._kv_import(h.pages, pids))
+        if err is not None:
+            # No page content is trusted after a failed copy: the same
+            # recovery as a failed forward (pool reset, rows requeued).
+            self.pool.release(pids)
+            self._recover_dispatch_failure(
+                "kv_import", err,
+                finished if finished is not None else [],
+            )
+            return None
+        rid = self._next_rid
+        self._next_rid += 1
+        self._slots[row] = _PagedSlot(
+            rid=rid, prompt=q.prompt, max_new=q.max_new, eos_id=q.eos_id,
+            pos=h.pos, generated=list(h.generated), greedy=q.greedy,
+            t=q.t, k=q.k, p=q.p, seed=q.seed, deadline=q.deadline,
+            tier=q.tier, retries=q.retries, nan_retried=q.nan_retried,
+            # Sessions are engine-local (the pins live on the source): a
+            # handed-off turn finishes as a plain request, as adopt().
+            session=None, resub_len=0, tenant_slot=q.tenant_slot,
+            prefix=self._partial_tokens(q.prompt,
+                                        list(q.gen)[: h.resume_base]),
+            prefill_len=h.prefill_len, table=table, pids=list(pids),
+            n_pages=h.n_pages, resume_base=h.resume_base, chain_key="",
+        )
+        self.counters["handoffs_in"] += 1
+        return rid

@@ -54,8 +54,22 @@ a client never sees engine-internal ids. Every transition logs through
   that lossless, at one cold prefill), and ``restart`` re-homes the
   sessions still homed on the restarted replica.
 
-Not ported yet: the disaggregated prefill/decode handoff pump and LoRA
-tenants; they raise ``NotImplementedError`` naming their ROADMAP item.
+- **Disaggregation** (paged replicas with ``role=``): fresh prompts never
+  route to a "decode" worker (``_admissible``), and decode work —
+  handoffs, failover re-adoption — never routes to a "prefill" worker
+  (``_handoff_target``, ``_least_loaded``). At the end of every ``step``
+  the handoff pump (``_pump_handoffs``) moves each finished prefill off
+  its prefill worker onto the best decode-capable replica: export, import,
+  then ``complete_handoff`` on the source, logged as ``kv_handoff`` (rid,
+  endpoints, pages, wire and useful bytes, export and end-to-end
+  seconds). The source row stays live until the import lands, so a death
+  on either side mid-handoff falls back on ordinary failover. Every
+  replica's role is logged as ``role_assign`` at construction and on
+  ``restart``.
+- **Tenants**: ``submit(tenant=)`` passes through to the replica engine;
+  the replicas share one ``serving/adapters.AdapterRegistry``, so a
+  row's adapter slot means the same on every replica and survives
+  failover. An unregistered tenant raises ``ValueError``.
 
 Not thread-safe: one dispatcher per router (the front door in
 ``serving/server.py`` serialises through a lock). Replicas must share one
@@ -89,11 +103,6 @@ DRAINED = "DRAINED"
 DOWN = "DOWN"
 REPLICA_STATES = (HEALTHY, DEGRADED, DRAINED, DOWN)
 _ROUTABLE = (HEALTHY, DEGRADED)
-
-LORA_NOT_PORTED = (
-    "LoRA adapters are not yet ported (ROADMAP queue 1 item 4)"
-)
-
 
 def _check_session_engine(engine) -> None:
     """Sessions ride the paged engine's pinned prefix cache."""
@@ -162,6 +171,8 @@ class ReplicaRouter:
             _Replica(rep_id=i, engine=make_engine(i))
             for i in range(n_replicas)
         ]
+        for r in self._replicas:
+            self._log_role(r)
         self.shed_queue_depth = shed_queue_depth
         self.shed_page_free = int(shed_page_free)
         self.degrade_factor = float(degrade_factor)
@@ -188,9 +199,26 @@ class ReplicaRouter:
             "routed": 0, "shed": 0, "failovers": 0, "failover_requests": 0,
             "drains": 0, "restarts": 0, "orphaned": 0,
             "sessions_opened": 0, "session_rehomes": 0,
+            "handoffs": 0,
         }
 
     # -- fleet management ---------------------------------------------------
+
+    @staticmethod
+    def _role(r: _Replica) -> str:
+        """The replica's disaggregation role; engines without the knob
+        (dense engines) are colocated."""
+        return getattr(r.engine, "role", "colocated")
+
+    def _log_role(self, r: _Replica) -> None:
+        log_event(
+            "role_assign", replica=r.rep_id, role=self._role(r),
+            device_ids=(
+                r.engine.device_ids()
+                if hasattr(r.engine, "device_ids") else None
+            ),
+            t=round(self._clock(), 6),
+        )
 
     def warmup(self, params) -> int:
         """Warm every replica and record the per-replica watermark
@@ -231,7 +259,10 @@ class ReplicaRouter:
         None = not admissible (saturated queue or page starvation);
         otherwise the routing sort key — DEGRADED after HEALTHY, then host
         load, then page pressure (0 on a dense replica, which has no
-        pages), then id."""
+        pages), then id. DECODE workers are never admissible: fresh prompts
+        are prefill work and reach them only as KV handoffs."""
+        if self._role(r) == "decode":
+            return None
         st = r.engine.stats()
         limit = (
             self.shed_queue_depth
@@ -289,13 +320,16 @@ class ReplicaRouter:
         return max(self.retry_after_s, med * (depth + 1))
 
     def open_session(self) -> int:
-        """Open a multi-turn session on the least-loaded routable replica;
-        returns the ROUTER sid ``submit(session=)`` takes."""
-        best = self._least_loaded()
+        """Open a multi-turn session on the least-loaded routable
+        colocated replica; returns the ROUTER sid ``submit(session=)``
+        takes."""
+        best = self._least_loaded(colocated_only=True)
         if best is None:
             raise RouterOverloaded(
-                "no live replica to open a session on "
-                f"(states {self.replica_states()})",
+                "no live colocated replica to open a session on — "
+                "sessions pin prefix pages where their turns both "
+                "prefill AND decode, so prefill/decode workers cannot "
+                f"host them (states {self.replica_states()})",
                 retry_after_s=self._retry_after(),
             )
         _check_session_engine(best.engine)
@@ -339,7 +373,7 @@ class ReplicaRouter:
         r = self._replicas[rep_id]
         if r.state in _ROUTABLE:
             return r, esid
-        best = self._least_loaded()
+        best = self._least_loaded(colocated_only=True)
         if best is None:
             raise RouterOverloaded(
                 f"session {sid}'s replica {rep_id} is {r.state} and no "
@@ -370,17 +404,15 @@ class ReplicaRouter:
     def submit(self, prompt, max_new_tokens: int, *,
                session: int | None = None, **kw) -> int:
         """Route one request (``engine.submit`` kwargs pass through:
-        deadlines via ``timeout_s=``, SLO tiers via ``priority=``, sampling
-        via ``temperature``/``top_k``/``top_p``/``seed``). Returns the
+        deadlines via ``timeout_s=``, SLO tiers via ``priority=``, tenants
+        via ``tenant=``, sampling via ``temperature``/``top_k``/``top_p``/
+        ``seed``). Returns the
         ROUTER rid its terminal ``RequestResult`` will carry. Raises
         ``RouterOverloaded`` (with ``retry_after_s``) when no replica is
         admissible. ``session=`` (a router sid from ``open_session``)
         routes STICKY to the replica holding the session's pages; past
         that replica's admission threshold the turn is shed like a
         saturated fleet's."""
-        if kw.get("tenant") is not None:
-            raise NotImplementedError(LORA_NOT_PORTED)
-        kw.pop("tenant", None)
         r = erid = None
         if session is not None:
             cand, esid = self._session_target(session)
@@ -569,7 +601,90 @@ class ReplicaRouter:
                 if r.state not in _ROUTABLE or _idle(r):
                     continue
                 _settle(*_one(r))
+        self._pump_handoffs(finished)
         return finished
+
+    # -- disaggregation: the KV handoff pump ---------------------------------
+
+    def _handoff_target(self, h) -> _Replica | None:
+        """The best routable replica to continue a finished prefill: never
+        a PREFILL worker, and one whose engine passes the geometry and
+        capacity gate (``can_import_handoff``); HEALTHY first, then the
+        lowest page pressure (pages are what a handoff takes), then host
+        load, then id."""
+        best, best_key = None, None
+        for r in self._replicas:
+            if r.state not in _ROUTABLE or self._role(r) == "prefill":
+                continue
+            eng = r.engine
+            if not (hasattr(eng, "can_import_handoff")
+                    and eng.can_import_handoff(h)):
+                continue
+            st = eng.stats()
+            pinned = st.get("session_pinned_pages") or 0
+            pressure = (
+                (st["pages_in_use"] + pinned) / max(1, st["pool_pages"])
+                if st.get("free_pages") is not None else 0.0
+            )
+            key = (
+                1.0 if r.state == DEGRADED else 0.0,
+                pressure,
+                float(st["queue_depth"] + st["active_rows"]),
+                float(r.rep_id),
+            )
+            if best_key is None or key < best_key:
+                best, best_key = r, key
+        return best
+
+    def _pump_handoffs(self, finished: list[int]) -> None:
+        """Move every finished prefill off its PREFILL worker onto a
+        decode-capable replica. Source rows stay live (their resume entry
+        is the fallback) until ``complete_handoff``, so a crash on either
+        side mid-handoff degrades to ordinary failover, never to a lost or
+        duplicated rid. A row with no target this tick, or whose export
+        failed, stays parked and is retried next tick."""
+        for src in self._replicas:
+            if src.state not in _ROUTABLE or self._role(src) != "prefill":
+                continue
+            seng = src.engine
+            for erid in list(seng.handoff_ready()):
+                t0 = self._clock()
+                h = seng.export_handoff(erid)
+                if h is None:
+                    continue  # the export failed; nothing changed
+                dst = self._handoff_target(h)
+                if dst is None:
+                    continue
+                eng_fin: list[int] = []
+                try:
+                    new_erid = dst.engine.import_handoff(h, eng_fin)
+                except DispatchFailure as err:
+                    # _take_down delivers every undelivered result of the
+                    # destination, the failed import's FAILED rows too.
+                    self._take_down(
+                        dst, f"kv_import dispatch failure: {err}",
+                        finished=finished,
+                    )
+                    continue
+                for fe in eng_fin:
+                    finished.append(self._deliver(
+                        dst, fe, dst.engine.pop_result(fe)
+                    ))
+                if new_erid is None:
+                    continue  # no row or pages after all: next tick
+                rid = src.rid_map.pop(erid)
+                dst.rid_map[new_erid] = rid
+                self._assign[rid] = (dst.rep_id, new_erid)
+                seng.complete_handoff(erid)
+                self.counters["handoffs"] += 1
+                log_event(
+                    "kv_handoff", rid=rid, from_replica=src.rep_id,
+                    to_replica=dst.rep_id, pages=h.n_pages,
+                    bytes=h.wire_bytes, useful_bytes=h.useful_bytes,
+                    export_s=round(h.export_s, 6),
+                    latency_s=round(self._clock() - t0, 6),
+                    t=round(self._clock(), 6),
+                )
 
     def run(self, params, *, max_ticks: int | None = None) -> list[int]:
         """Drive ``step`` until idle (or ``max_ticks``); returns every
@@ -647,13 +762,20 @@ class ReplicaRouter:
         self._redistribute(r, snap.pending)
         r.rid_map.clear()
 
-    def _least_loaded(self, exclude: _Replica | None = None):
+    def _least_loaded(self, exclude: _Replica | None = None, *,
+                      colocated_only: bool = False):
         """Least-loaded routable replica for failover and re-adoption —
         the routing order without the admission thresholds: failover must
-        not shed accepted work."""
+        not shed accepted work. DECODE workers are never candidates (a
+        resume entry is re-prefill work); ``colocated_only`` excludes
+        PREFILL workers too (sessions live where their turns both prefill
+        and decode)."""
         best, best_key = None, None
         for r in self._replicas:
             if r is exclude or r.state not in _ROUTABLE:
+                continue
+            role = self._role(r)
+            if role == "decode" or (colocated_only and role != "colocated"):
                 continue
             st = r.engine.stats()
             key = (
@@ -758,6 +880,7 @@ class ReplicaRouter:
         if r.state == DOWN:
             r.rid_map.clear()
         r.engine = self._make_engine(rep_id)
+        self._log_role(r)
         r.engine.warmup(params)
         if r.held_snapshot is not None:
             r.engine.restore(r.held_snapshot)

@@ -21,8 +21,19 @@ streaming, failover and drain/restart all behave as they would.
     curl -s localhost:8077/admin/kill -d '{"replica": 0}'
     curl -s localhost:8077/admin/restart -d '{"replica": 0}'
 
-Refused, with the reason: ``--tenants`` (LoRA adapters) is not yet
-ported. ``--cpu-devices`` has no meaning here (use ``--device cpu``).
+``--tenants N`` registers N LoRA tenants (``tenant-0`` .. ``tenant-N-1``,
+rank ``--lora-rank``, random nonzero factors from ``--seed``: a real
+deployment loads trained ones) on ONE ``AdapterRegistry`` shared by every
+replica, so ``/v1/generate`` accepts ``"tenant"`` and a request that fails
+over keeps its adapter:
+
+    python -m pytorch_distributed_tpu_torch.serving.serve --preset gpt2 \\
+        --tenants 2 &
+    curl -s localhost:8077/v1/generate -d \\
+        '{"prompt": [1,2,3], "max_new_tokens": 8, "tenant": "tenant-1"}'
+
+Refused, with the reason: ``--cpu-devices`` has no meaning here (use
+``--device cpu``).
 
 ``build`` (params, warmed router, server) and ``serve_in_thread`` (the
 server on a background event loop, as a context manager) are what other
@@ -41,8 +52,6 @@ import threading
 import torch
 
 NOT_PORTED = {
-    "tenants": "--tenants: LoRA adapters are not yet ported (ROADMAP "
-               "queue 1 item 4)",
     "cpu_devices": "--cpu-devices: the port has no virtual-device mesh; "
                    "use --device cpu",
 }
@@ -67,7 +76,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--queue-limit", type=int, default=None,
                     help="per-replica engine admission bound (the router "
                          "sheds above 2x slots per replica regardless)")
-    ap.add_argument("--tenants", type=int, default=0)
+    ap.add_argument("--tenants", type=int, default=0,
+                    help="register N LoRA tenants (tenant-0..tenant-N-1) "
+                         "on one registry shared by every replica; 0 = no "
+                         "adapters")
+    ap.add_argument("--lora-rank", type=int, default=8,
+                    help="the one adapter rank every tenant shares")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8077)
     ap.add_argument("--seed", type=int, default=0)
@@ -75,9 +89,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="cuda (default) or cpu")
     ap.add_argument("--cpu-devices", type=int, default=0)
     args = ap.parse_args(argv)
-    for flag in ("tenants", "cpu_devices"):
+    for flag in NOT_PORTED:
         if getattr(args, flag):
             raise SystemExit(NOT_PORTED[flag])
+    if args.tenants < 0:
+        raise SystemExit(f"--tenants must be >= 0, got {args.tenants}")
+    if args.tenants and args.lora_rank < 1:
+        raise SystemExit(
+            f"--lora-rank must be >= 1 for LoRA tenants, got "
+            f"{args.lora_rank}"
+        )
     return args
 
 
@@ -121,11 +142,37 @@ def load_params(args):
     return cfg, params
 
 
+def make_registry(cfg, args):
+    """The tenants' adapters: one ``AdapterRegistry`` with
+    ``args.tenants`` tenants ``tenant-<i>`` at rank ``args.lora_rank``,
+    each drawn from ``request_seed(args.seed, i)``; None without
+    ``--tenants``."""
+    if not getattr(args, "tenants", 0):
+        return None
+    from pytorch_distributed_tpu_torch.serving.adapters import (
+        AdapterRegistry,
+    )
+    from pytorch_distributed_tpu_torch.serving.workload import request_seed
+
+    registry = AdapterRegistry(cfg, rank=args.lora_rank,
+                               max_tenants=args.tenants)
+    for i in range(args.tenants):
+        registry.register(f"tenant-{i}", seed=request_seed(args.seed, i))
+    print(f"registered {args.tenants} LoRA tenants (rank="
+          f"{args.lora_rank}): " + ", ".join(registry.tenants()),
+          file=sys.stderr)
+    return registry
+
+
 def make_router(cfg, args, **engine_kw):
     """The fleet: ``args.replicas`` engines (``args.slots``,
     ``args.max_len``, ``args.queue_limit``; paged with ``args.page_size``,
     or dense with ``args.dense``) on ``args.device``, behind a
-    ``ReplicaRouter``; ``engine_kw`` passes through to every engine."""
+    ``ReplicaRouter``; ``engine_kw`` passes through to every engine. With
+    ``args.tenants`` every replica shares one adapter registry
+    (``make_registry``)."""
+    if "adapters" not in engine_kw:
+        engine_kw["adapters"] = make_registry(cfg, args)
     from pytorch_distributed_tpu_torch.serving.engine import (
         BatchedDecodeEngine,
         BucketSpec,

@@ -14,19 +14,20 @@ Endpoints:
 
 - ``POST /v1/generate`` — body ``{"prompt": [ids...],
   "max_new_tokens": n, "temperature"?, "top_k"?, "top_p"?, "seed"?,
-  "eos_id"?, "timeout_s"?, "stream"?, "priority"?, "session"?}``.
-  ``priority`` is the SLO tier (interactive/standard/batch,
-  ``serving/scheduler``), ``session`` a sid from ``/v1/session/open``;
-  unknown classes and diverged session resubmissions reject 400 with the
-  engine's diagnostic. ``timeout_s`` maps onto
-  ``submit(timeout_s=)``, enforced on the engine clock while queued and
-  mid-decode. A sampled request without a ``seed`` gets a fresh random
-  one. Plain requests block until terminal and return ``{"rid", "state",
-  "tokens", "reason"}``; with ``"stream": true`` the response is
+  "eos_id"?, "timeout_s"?, "stream"?, "priority"?, "tenant"?,
+  "session"?}``. ``priority`` is the SLO tier (interactive/standard/batch,
+  ``serving/scheduler``), ``tenant`` a registered LoRA adapter id
+  (``serving/adapters``; ``serve --tenants``), ``session`` a sid from
+  ``/v1/session/open``; unknown classes, unregistered tenants and
+  diverged session resubmissions reject 400 with the engine's diagnostic.
+  ``timeout_s`` maps onto ``submit(timeout_s=)``, enforced on the engine
+  clock while queued and mid-decode. A sampled request without a
+  ``seed`` gets a fresh random one. Plain requests block until terminal
+  and return ``{"rid", "state", "tokens", "reason"}``; with ``"stream":
+  true`` the response is
   Server-Sent Events: one ``data: {"token": t}`` per generated token as
   the scheduler produces it, then ``event: done`` carrying the terminal
   result. A client that disconnects mid-stream ABORTS its request.
-  ``tenant`` rejects 400: LoRA adapters are not yet ported.
 - ``POST /v1/abort`` — ``{"rid": n}`` -> ``{"aborted": bool}``.
 - ``POST /v1/session/open`` -> ``{"session": sid}`` /
   ``POST /v1/session/close`` ``{"session": sid}`` — the multi-turn chat
@@ -55,7 +56,6 @@ from typing import Any
 import numpy as np
 
 from pytorch_distributed_tpu_torch.serving.lifecycle import RouterOverloaded
-from pytorch_distributed_tpu_torch.serving.router import LORA_NOT_PORTED
 from pytorch_distributed_tpu_torch.utils.logging import get_logger
 
 _MAX_BODY = 1 << 22  # 4 MiB of JSON prompt is already absurd
@@ -309,11 +309,9 @@ class ServingServer:
                 400, "prompt must be a non-empty list of token ids"
             )
         max_new = int(body.get("max_new_tokens", self.default_max_new))
-        if body.get("tenant") is not None:
-            raise _HTTPError(400, LORA_NOT_PORTED)
         kw: dict = {}
         for k in ("temperature", "top_k", "top_p", "eos_id", "timeout_s",
-                  "priority", "session"):
+                  "priority", "tenant", "session"):
             if body.get(k) is not None:
                 kw[k] = body[k]
         if "session" in kw and not isinstance(kw["session"], int):

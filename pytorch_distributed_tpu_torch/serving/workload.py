@@ -21,8 +21,7 @@ Conventions:
 - **Arrivals** are exponential inter-arrival times (a Poisson process).
 
 Everything returns plain host data (numpy arrays and ``submit`` kwarg
-dicts); nothing here touches a device. Not ported yet: ``disagg_stream``
-(disaggregated roles are not in the port).
+dicts); nothing here touches a device.
 """
 
 from __future__ import annotations
@@ -151,6 +150,49 @@ def tiered_stream(
                 ((i + 0.5) / len(reqs), check_priority(tier), i, r)
             )
     return [r for *_, r in sorted(tagged, key=lambda e: e[:3])]
+
+
+def disagg_stream(
+    seed: int,
+    *,
+    n: int,
+    vocab_size: int,
+    p_heavy_prefill: float = 0.5,
+    heavy_prompt_len: tuple[int, int] = (96, 160),
+    heavy_max_new: tuple[int, int] = (4, 8),
+    light_prompt_len: tuple[int, int] = (8, 24),
+    light_max_new: tuple[int, int] = (24, 48),
+    sampling_cycle=DEFAULT_SAMPLING_CYCLE,
+) -> list[dict]:
+    """The disaggregation workload: a seeded mix of ``heavy_prefill`` rows
+    (long prompt, short decode: the chunked prefill that stalls a
+    colocated engine's decode ticks) and ``light`` rows (short prompt,
+    long decode: the interactive traffic whose inter-token p99 that stall
+    inflates). Each dict is a ``submit`` kwarg set plus a ``"kind"`` tag
+    the caller pops before submitting.
+
+    Request ``i``'s class draw, lengths and tokens come from its own
+    ``default_rng([crc32("disagg"), seed, i])`` substream (equal to the
+    JAX package's), and a sampled request's ``seed`` is
+    ``request_seed(seed, i)``: truncating, extending or re-partitioning
+    the stream never perturbs another request."""
+    reqs: list[dict] = []
+    for i in range(n):
+        sub = np.random.default_rng([zlib.crc32(b"disagg"), seed, i])
+        heavy = bool(sub.random() < p_heavy_prefill)
+        lo, hi = heavy_prompt_len if heavy else light_prompt_len
+        tp = int(sub.integers(lo, hi + 1))
+        prompt = sub.integers(0, vocab_size, (tp,)).astype(np.int32)
+        mlo, mhi = heavy_max_new if heavy else light_max_new
+        mn = int(sub.integers(mlo, mhi + 1))
+        kw = dict(sampling_cycle[i % len(sampling_cycle)])
+        if kw.get("temperature"):
+            kw["seed"] = request_seed(seed, i)
+        reqs.append(dict(
+            kind="heavy_prefill" if heavy else "light",
+            prompt=prompt, max_new_tokens=mn, **kw,
+        ))
+    return reqs
 
 
 def session_stream(

@@ -75,9 +75,9 @@ def test_paged_kernel_matches_plain_version(cuda, b, h, hkv, d, dtype, tol):
 def test_paged_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v, tables, lengths = _case(cuda, 2, 4, 4, 64, torch.float32)
     with pytest.raises(ValueError, match="head_dim"):
-        pk.paged_decode_attention(q[..., :32].contiguous(),
-                                  k[..., :32].contiguous(),
-                                  v[..., :32].contiguous(), tables, lengths)
+        pk.paged_decode_attention(q[..., :16].contiguous(),
+                                  k[..., :16].contiguous(),
+                                  v[..., :16].contiguous(), tables, lengths)
     with pytest.raises(ValueError, match="kernel takes"):
         pk.paged_decode_attention(q.half(), k.half(), v.half(), tables,
                                   lengths)
@@ -185,9 +185,9 @@ def test_q8_kernel_refuses_what_it_does_not_take(cuda):
         pk.paged_decode_attention(q, kq, vq, tables, lengths, ks[..., :1],
                                   vs)
     with pytest.raises(ValueError, match="head_dim"):
-        pk.paged_decode_attention(q[..., :32].contiguous(),
-                                  kq[..., :32].contiguous(),
-                                  vq[..., :32].contiguous(), tables, lengths,
+        pk.paged_decode_attention(q[..., :16].contiguous(),
+                                  kq[..., :16].contiguous(),
+                                  vq[..., :16].contiguous(), tables, lengths,
                                   ks, vs)
     with pytest.raises(ValueError, match="groups"):
         pk.paged_decode_attention(q[:, :6].contiguous(), kq[:, :, :1], vq[
@@ -255,7 +255,7 @@ def _edge_case(dev, h, hkv, d, dtype, q8, page=16, n_pages=128, seed=0):
 
 @pytest.mark.parametrize("q8", [False, True], ids=["K3", "K4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 def test_paged_kernels_at_every_chunk_edge(cuda, group, d, dtype, q8):
     """K3 and K4 against their plain versions with chip_smoke's
@@ -1026,3 +1026,174 @@ def test_spec_rollback_leaves_shared_pages_bit_unchanged_on_the_card(cuda):
     ref = make().run(params, reqs)
     for a, b in zip(sorted(out), sorted(ref)):
         np.testing.assert_array_equal(out[a].tokens, ref[b].tokens)
+
+
+def _lora_registry(cfg, n=3, rank=8, scale=40.0):
+    from pytorch_distributed_tpu_torch.serving.adapters import (
+        AdapterRegistry,
+    )
+
+    reg = AdapterRegistry(cfg, rank=rank, max_tenants=n)
+    for i in range(n):
+        reg.register(f"t{i}", seed=10 + i, scale=scale)
+    return reg
+
+
+@pytest.mark.parametrize("dtype, quant", [
+    ("float32", {}), ("bfloat16", {}),
+    ("bfloat16", dict(kv_quant="int8", weight_quant="int8")),
+], ids=["f32-K3", "bf16-K3", "bf16-int8-K4"])
+def test_lora_tenant_rows_equal_isolated_runs_on_the_card(cuda, dtype,
+                                                          quant):
+    """The isolation pins on the card (GPT-2 width, 2 layers): each
+    tenant's rows in a mixed batch equal that tenant served alone,
+    untenanted rows equal the adapter-less engine, some tenant row
+    differs from the base, and the decode ticks ran K3 (K4 on int8
+    pages)."""
+    cfg = _tier_cfg(dtype, n_embd=768, n_head=12, vocab=50257)
+    params = gpt2.init(torch.Generator().manual_seed(2), cfg)
+    reg = _lora_registry(cfg)
+    reqs = _tier_reqs(cfg.vocab_size, n=8, seed=2)
+    for i, r in enumerate(reqs):
+        if i % 4 != 3:
+            r["tenant"] = f"t{i % 4}"
+
+    def make(adapters=reg):
+        return PagedBatchedDecodeEngine(cfg, slots=4, max_len=128,
+                                        page_size=16, adapters=adapters,
+                                        **quant)
+
+    pk.launches = pk.launches_q8 = 0
+    mixed = make()
+    rids = [mixed.submit(**r) for r in reqs]
+    out = mixed.run(params)
+    got = [out[rid].tokens for rid in rids]
+    torch.cuda.synchronize()
+    launched = pk.launches_q8 if quant else pk.launches
+    assert launched > 0 and (pk.launches if quant else pk.launches_q8) == 0
+    base = make(adapters=None).run(
+        params, [{k: v for k, v in r.items() if k != "tenant"}
+                 for r in reqs])
+    base = [base[rid].tokens for rid in sorted(base)]
+    for tid in ("t0", "t1", "t2", None):
+        keep = [i for i, r in enumerate(reqs) if r.get("tenant") == tid]
+        eng = make()
+        alone = {eng.submit(**reqs[i]): i for i in keep}
+        res = eng.run(params)
+        for rid, i in alone.items():
+            np.testing.assert_array_equal(got[i], res[rid].tokens,
+                                          err_msg=f"{tid} request {i}")
+            if tid is None:
+                np.testing.assert_array_equal(got[i], base[i])
+    assert any(not np.array_equal(got[i], base[i])
+               for i, r in enumerate(reqs) if r.get("tenant"))
+
+
+@pytest.mark.parametrize("dtype, quant", [
+    ("float32", {}), ("bfloat16", {}),
+    ("bfloat16", dict(kv_quant="int8")),
+], ids=["f32-K3", "bf16-K3", "bf16-int8-K4"])
+def test_disagg_fleet_equals_colocated_on_the_card(cuda, dtype, quant):
+    """A prefill + decode fleet on one card: DONE tokens equal one
+    colocated engine's, every request handed off, and the decode worker
+    ran K3 (K4 on int8 pages: the scales shipped with the pages)."""
+    from pytorch_distributed_tpu_torch.serving.router import ReplicaRouter
+
+    cfg = _tier_cfg(dtype, n_embd=768, n_head=12, vocab=50257)
+    params = gpt2.init(torch.Generator().manual_seed(3), cfg)
+    reqs = _tier_reqs(cfg.vocab_size, n=8, seed=3)
+    kw = dict(slots=4, max_len=128, page_size=16, **quant)
+    ref = PagedBatchedDecodeEngine(cfg, **kw)
+    want = [ref.run(params, [r])[i].tokens for i, r in enumerate(reqs)]
+    router = ReplicaRouter(
+        lambda i: PagedBatchedDecodeEngine(
+            cfg, role=("prefill", "decode")[i], **kw), 2)
+    router.warmup(params)
+    pk.launches = pk.launches_q8 = 0
+    rids = [router.submit(**r) for r in reqs]
+    router.run(params)
+    torch.cuda.synchronize()
+    dec = router.engines()[1]
+    launched = pk.launches_q8 if quant else pk.launches
+    assert launched == cfg.n_layer * dec.counters["decode_ticks"] > 0
+    assert router.counters["handoffs"] == len(reqs)
+    assert all(v == 0 for v in router.steady_compiles().values())
+    for rid, w in zip(rids, want):
+        np.testing.assert_array_equal(router.pop_result(rid).tokens, w)
+
+
+def test_exported_pages_do_not_alias_the_source_pool_on_the_card(cuda):
+    """The export is a copy: after ``complete_handoff`` the source's pages
+    are overwritten (as the next prefill may), and the shipped tensors and
+    the imported row's tokens are unchanged."""
+    cfg = _tier_cfg("bfloat16", n_embd=768, n_head=12, vocab=50257)
+    params = gpt2.init(torch.Generator().manual_seed(5), cfg)
+    req = _tier_reqs(cfg.vocab_size, n=1, seed=5)[0]
+    kw = dict(slots=2, max_len=128, page_size=16)
+    want = PagedBatchedDecodeEngine(cfg, **kw).run(params, [req])[0].tokens
+    pre = PagedBatchedDecodeEngine(cfg, role="prefill", **kw)
+    dec = PagedBatchedDecodeEngine(cfg, role="decode", **kw)
+    pre.warmup(params)
+    dec.warmup(params)
+    rid = pre.submit(**req)
+    while not pre.handoff_ready():
+        pre.step(params)
+    h = pre.export_handoff(rid)
+    src = torch.as_tensor(pre._slots[0].table[: h.n_pages]).long().cuda()
+    shipped = {k: v.clone() for k, v in h.pages.items()}
+    pre.complete_handoff(rid)
+    for v in pre._cache.values():
+        v[:, src] = 3.0
+    new = dec.import_handoff(h)
+    for v in pre._cache.values():
+        v[:, src] = -3.0
+    torch.cuda.synchronize()
+    for k, v in h.pages.items():
+        assert torch.equal(v, shipped[k]), k
+    np.testing.assert_array_equal(dec.run(params)[new].tokens, want)
+
+
+@pytest.mark.parametrize("rank", [1, 8, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strided", [False, True], ids=["cproj", "qkv"])
+def test_lora_kernel_matches_plain_version(cuda, dtype, rank, strided):
+    """The LoRA delta kernel against its plain version (chip_smoke's
+    ``lora_tolerance``), in place: into the query third of a fused [B, T,
+    3, H, D] projection, or into a contiguous output (c_proj's form);
+    slot-0 rows unchanged; one launch counted."""
+    import chip_smoke
+
+    from pytorch_distributed_tpu_torch.ops import lora_kernel as lk
+    from pytorch_distributed_tpu_torch.serving.adapters import (
+        AdapterRegistry,
+    )
+
+    cfg = _tier_cfg(n_embd=256, n_head=4)
+    reg = AdapterRegistry(cfg, rank=rank, max_tenants=3)
+    for i in range(3):
+        reg.register(f"t{i}", seed=i, scale=float(rank))
+    lp = reg.device_tree(cuda)[1]["q"]
+    g = torch.Generator(device=cuda).manual_seed(rank)
+    b, t = 5, 3
+    x = torch.randn(b, t, 256, generator=g, device=cuda).to(dtype)
+    if strided:
+        qkv = torch.randn(b, t, 3, 4, 64, generator=g, device=cuda).to(dtype)
+        y = qkv[:, :, 0]
+    else:
+        y = torch.randn(b, t, 4, 64, generator=g, device=cuda).to(dtype)
+    rows = torch.tensor([0, 1, 2, 3, 1], device=cuda).repeat_interleave(t)
+    y0 = y.clone()
+    kv0 = qkv[:, :, 1:].clone() if strided else None
+    want = lk.lora_delta_add(y0.cpu(), x.cpu(), {
+        k: v.cpu() for k, v in lp.items() if torch.is_tensor(v)},
+        rows.cpu()).to(cuda)
+    before = lk.launches
+    got = lk.lora_delta_add(y, x, lp, rows)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == y.data_ptr() and lk.launches == before + 1
+    delta = lk.lora_delta_reference(x, lp, rows)
+    chip_smoke.check_close(got, want, what="lora",
+                           **chip_smoke.lora_tolerance(dtype, y0, delta))
+    assert torch.equal(got[0], y0[0])  # slot 0: y unchanged
+    if strided:  # K and V, beside the query third, untouched
+        assert torch.equal(qkv[:, :, 1:], kv0)

@@ -26,7 +26,7 @@ PAGE, N_PAGES, D, HKV = 8, 36, 64, 2  # 288 keys: not a multiple of a chunk
 
 @pytest.mark.parametrize("page_dtype", [torch.float32, torch.bfloat16,
                                         torch.int8])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("page", [8, 16, 32])
 def test_split_plan_is_whole_pages_fixed_by_page_d_and_type(page, d,
                                                             page_dtype):

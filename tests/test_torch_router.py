@@ -249,14 +249,25 @@ def test_shed_rejects_loudly_with_retry_after(weights):
 
 
 def test_tenants_are_refused_with_the_reason(weights):
-    """LoRA tenants are not ported: refused naming ROADMAP queue 1 item
-    4."""
+    """A tenant on a fleet without adapters, and an unregistered tenant on
+    a fleet with them, are refused with ``ValueError`` naming the reason,
+    as the JAX router refuses them; nothing is routed."""
+    from pytorch_distributed_tpu_torch.serving.adapters import (
+        AdapterRegistry,
+    )
+
     pcfg = weights[2]
     clock = VirtualClock()
     router = ReplicaRouter(_factory(pcfg, clock), 1, clock=clock)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="adapter registry"):
         router.submit(_prompt(3, 1), 2, tenant="a")
-    assert router.counters["routed"] == 0
+    reg = AdapterRegistry(pcfg, rank=2, max_tenants=1)
+    reg.register("b", seed=0)
+    tenanted = ReplicaRouter(_factory(pcfg, clock, adapters=reg), 1,
+                             clock=clock)
+    with pytest.raises(ValueError, match="unregistered tenant 'a'"):
+        tenanted.submit(_prompt(3, 1), 2, tenant="a")
+    assert router.counters["routed"] == tenanted.counters["routed"] == 0
 
 
 # -- failover -----------------------------------------------------------------

@@ -250,8 +250,8 @@ def test_server_shed_429_deadline_and_abort():
 
 def test_server_abort_sampling_and_refusals():
     """A request aborted by rid over the wire; a sampled request without a
-    seed gets one, and one with a seed is reproducible; ``tenant`` is 400
-    with the reason (not yet ported), as are unknown sessions; unknown
+    seed gets one, and one with a seed is reproducible; ``tenant`` on a
+    fleet without adapters is 400 with the reason, as are unknown sessions; unknown
     routes 404, wrong methods 405, bad admin bodies 400."""
     cfg = _cfg()
     params = _params(cfg)
@@ -276,7 +276,7 @@ def test_server_abort_sampling_and_refusals():
             assert json.loads(body)["tokens"] == json.loads(again[2])[
                 "tokens"]
             for body, match in (
-                ({"prompt": [1], "tenant": "a"}, "LoRA"),
+                ({"prompt": [1], "tenant": "a"}, "adapter registry"),
                 ({"prompt": [1], "session": 5}, "unknown router session"),
                 ({"prompt": [1], "session": "x"}, "integer sid"),
                 ({"prompt": [1], "priority": "urgent"}, "priority"),
@@ -462,7 +462,7 @@ def test_serving_twin_dense_serves_and_fails_over():
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--tenants", "2"], "LoRA"),
+    (["--tenants", "2", "--lora-rank", "0"], "LoRA"),
     (["--cpu-devices", "8"], "--device cpu"),
 ])
 def test_serving_twin_refuses_what_the_port_lacks(argv, match):
