@@ -5,7 +5,10 @@ plain versions.
     python3 chip_smoke.py [--seed N]
 
 Phases (each prints one JSON line; any failure raises and exits nonzero
-with no final line):
+with no final line). They run in the order 1-3, profiling_train and
+profiling_serve (13), 7-9, 4-6d, 10-12, the rest of 13, the two
+decode_bench twin phases, 14: the phases whose profiler traces are
+counted first, while the process is young (PERF.md section 7).
 
 1. env — the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; TF32 off for matmuls and convolutions.
@@ -86,8 +89,9 @@ with no final line):
    largest difference, bit-equality, the first op that differs.
 6c. generation outside the paged engine, each phase with K3 and K4
    counted from zero and required to stay at 0 (neither engine below runs
-   them, and a speculating paged engine's verify forward is K+1 queries
-   wide: the gather path). generate — ``serving.generate``'s functions,
+   them), but for the paged spec drives: a speculating paged engine's
+   verify forward runs its K+1 queries as kernel rows, one launch a layer
+   a decode tick (gated). generate — ``serving.generate``'s functions,
    GPT-2 124M, a 64-token prompt, 64 new tokens: ``decode.generate``,
    ``generate_monolithic`` and ``--stream`` token-equal in f32 (bf16
    reported), ms per token of a warm ``DecodeEngine``, a sampled run
@@ -139,7 +143,10 @@ with no final line):
    int8 Llama pair, 16 requests, K4 on the decode worker. decode_bench_twin
    — ``serving.decode_bench --serving-disagg --serving-scenarios`` at its
    default shapes in a subprocess: exit 0, K3 and the LoRA kernel
-   launched in its legs (their counts join the kernels line).
+   launched in its legs (their counts join the kernels line). It runs
+   after phase 13's in-process phases, with the twin's other modes: a
+   profiler window opened after another process used the card can lose
+   its device rows.
 7. flash — the flash forward (K1) and backward (K2) kernels against their
    plain versions at the GPT-2 124M training shape (B=8, H=12, T=1024,
    D=64, causal), a Llama-3.2-1B shape (B=1, H=32, Hkv=8, T=2048, D=64,
@@ -193,11 +200,54 @@ with no final line):
    the card (train_moe_dispatch). The flash phase adds flash_long: K1/K2
    at the llama shapes T=4096 and T=8192 (bf16, plain versions run by KV
    head).
-13. The kernels line (K3, K4, K1, K2 and the LoRA delta kernel; K1/K2
+13. profiling (slice 11), every number beside the card's name and power
+    limit; profiling_train and profiling_serve run right after phase 3,
+    while the process is young (a scheduled window late in a process that
+    has done much work can lose its first launches), the rest after phase
+    12. profiling_train — GPT-2 124M at full width (bf16, flash, names,
+    B=8, T=1024, seed ``--seed``) through the port's ``Trainer`` for 8
+    steps under ``ScheduledProfiler(wait=2, warmup=2, active=4)``
+    (``profiling.trace_smoke``'s functions): exactly one trace file;
+    ``temporal_breakdown`` compute above 10 % and no communication; K1's
+    and each of K2's three device kernels counted by ``op_summary`` as
+    often as the wrappers counted over the 4 active steps; the trace's busy
+    time within 2 % of the window's kernel time by ``key_averages()``;
+    printed: the trace's idle share, the top 10 ops, the window's wall
+    clock and ``profile_summary``'s device idle share of the same window.
+    profiling_serve — 10 pure decode ticks of the bf16 paged engine (GPT-2
+    124M, 8 slots, max_len 1024, 16-token pages) under the profiler, one
+    ``step()`` a tick, once with bf16 pages (K3) and once with int8 pages
+    and weights (K4): the path's kernel counted in the trace as often as
+    its wrapper counted (n_layer x 10), no communication, both idle shares,
+    and the share over 10 ticks run just before without the profiler.
+    memory — the ``memory_analysis`` twin's functions on the
+    profiling_train configuration, allocator history on from before the
+    model is built, 3 steps: the analytic breakdown, the measured peak and
+    their ratio; the peak between params + grads + optimizer bytes and the
+    card's memory; the snapshot pickle holds a segment. throughput —
+    ``measure_tokens_per_second`` (5 warmup, 20 timed steps) and
+    ``extrapolate_modern_training`` at that configuration, then
+    ``compare_batch_sizes`` over (1, 8, X, 8), X the least power of two
+    whose analytic breakdown exceeds the card's memory: X's row an OOM,
+    the 8 after it within 20 % of the first 8's tokens/s. profiler_cost —
+    the training step's device busy time over its profiled window's wall
+    and over the throughput phase's unprofiled step, and the same for the
+    decode ticks: the profiler's host cost inflates a profiled idle share.
+    decode_bench_twin_2 — ``serving.decode_bench``'s other modes in
+    subprocesses at their default shapes: the default (gpt2 and
+    llama3-1b), ``--speculative 4`` (128 new tokens, not 512), ``--serving``,
+    ``--serving-batched``
+    (and ``--chaos``), ``--serving-spec`` and ``--serving-paged --kv-quant
+    int8 --weight-quant int8``: each exits 0 (its asserted checks held),
+    K3 launched on ``--serving-spec`` and K4 on the quant leg.
+14. The kernels line (K3, K4, K1, K2 and the LoRA delta kernel; K1/K2
     with their launches per step and times on the llama paths, K3/K4 with
     their launches on each tier leg, ``tier_paths``, on the phases of 6c,
-    ``slice9_paths``, and of 6d, ``slice10_paths``), then
-    ``{"ok": true, "device": {...}}`` last.
+    ``slice9_paths``, of 6d, ``slice10_paths``, and of the decode_bench
+    twin's other modes, ``slice11_paths``; K1-K4 with ``trace_launches``,
+    the launches profiling_train/profiling_serve's trace recorded, beside
+    ``trace_window_counted``, the wrapper's count over the same window),
+    then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -285,8 +335,13 @@ def flash_fwd_bf16_vs_f32(v: torch.Tensor) -> dict:
     return dict(atol=u * (1 + u) * float(v.abs().max()) + 1e-5, rtol=u)
 
 
+T0 = time.perf_counter()
+
+
 def emit(**fields) -> None:
-    print(json.dumps(fields), flush=True)
+    """One JSON line; ``t_s`` is the seconds since the script started."""
+    print(json.dumps(dict(fields, t_s=round(time.perf_counter() - T0, 1))),
+          flush=True)
 
 
 def spin_cycles(ms: float) -> int:
@@ -629,23 +684,30 @@ def device_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0))
 
 
+def device_rows(events) -> list:
+    """The ``key_averages()`` rows of device work (kernels, copies,
+    memsets) with device time: not the annotations a schedule or
+    ``record_function`` projects onto the device's timeline
+    (``ProfilerStep#n``, ``train_step#n``), which span the work."""
+    from torch.autograd import DeviceType
+
+    return [e for e in events
+            if e.device_type == DeviceType.CUDA and device_us(e) > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("ProfilerStep#", "train_step#"))]
+
+
 def profile_summary(prof, wall_ms: float,
                     share_of: str | None = None) -> dict:
     """Device busy share of the window, the kernels by device time and the
     host ops by self CPU time, from a finished ``torch.profiler`` run;
     with ``share_of``, the share of the device time spent in kernels whose
     name matches that regex, and their names."""
-    from torch.autograd import DeviceType
-
     events = prof.key_averages()
 
     # Device-side events only (kernels, copies): an operator's row repeats
     # the device time of the kernels it launched.
-    kernels = sorted(
-        (e for e in events
-         if e.device_type == DeviceType.CUDA and device_us(e) > 0),
-        key=device_us, reverse=True,
-    )
+    kernels = sorted(device_rows(events), key=device_us, reverse=True)
     device_ms = sum(device_us(e) for e in kernels) / 1e3
     host = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)
     matched = {}
@@ -1265,13 +1327,25 @@ def tier_llama_q8_phase(pk, seed, dev, smi) -> dict:
 
 
 def _paged_launches(pk, phase) -> dict:
-    """K3/K4 launches since the last reset: the dense and serial engines
-    never run them, and a speculating paged engine's verify forward is
-    K+1 queries wide, so it takes the gather path (as the JAX package's
-    multi-query windows do)."""
+    """K3/K4 launches since the last reset, checked at 0: the dense and
+    serial engines never run them."""
     got = {"K3": pk.launches, "K4": pk.launches_q8}
     if got != {"K3": 0, "K4": 0}:
         raise AssertionError(f"{phase}: K3/K4 launched {got}, want 0")
+    return got
+
+
+def _window_launches(pk, phase, kid, ticks, n_layer) -> dict:
+    """K3/K4 launches of speculating paged drives since the last reset:
+    their verify forward runs each of its K+1 queries as a row of the
+    paged kernel (``kid``, K4 under int8 pages), one launch a layer a
+    decode tick (``ticks`` in all); prefill chunks take the gather path,
+    and the other kernel stays at 0."""
+    got = {"K3": pk.launches, "K4": pk.launches_q8}
+    want = {"K3": 0, "K4": 0}
+    want[kid] = n_layer * ticks
+    if got != want:
+        raise AssertionError(f"{phase}: K3/K4 launched {got}, want {want}")
     return got
 
 
@@ -1504,7 +1578,8 @@ def spec_streams(cfg, seed) -> dict:
 def spec_pair(pk, make, c, params, reqs, phase) -> dict:
     """Plain vs ``speculative_k=4, spec_ngram=2`` on one engine kind, dtype
     and stream: identical requests, the spec drive's K3/K4 launches
-    (checked at 0), and each drive's metrics."""
+    (checked: 0 on the dense engine, one a layer a decode tick of the
+    paged engine's kernel), and each drive's metrics."""
     plain = make(c, 0)
     plain.warmup(params)
     p = drive_engine(plain, params, reqs)
@@ -1512,7 +1587,12 @@ def spec_pair(pk, make, c, params, reqs, phase) -> dict:
     spec.warmup(params)
     pk.launches = pk.launches_q8 = 0
     s = drive_engine(spec, params, reqs)
-    launches = _paged_launches(pk, phase)
+    if hasattr(spec, "pool"):
+        launches = _window_launches(
+            pk, phase, "K4" if spec.kv_quant == "int8" else "K3",
+            spec.counters["decode_ticks"], c.n_layer)
+    else:
+        launches = _paged_launches(pk, phase)
     return dict(identical=_same(p["tokens"], s["tokens"]), of=len(reqs),
                 launches=launches, plain=p["metrics"], spec=s["metrics"],
                 spec_vs_plain_tok_per_s=(
@@ -1528,7 +1608,8 @@ def spec_phase(pk, seed, dev, smi) -> dict:
     ``test_spec_int8_pages_match_plain_int8`` at full width), each on the
     ``repetitive`` and ``random`` streams (``spec_streams``): spec vs
     plain token-equal on >= 15 of 16 in f32 (gated; bf16 reported),
-    K3/K4 launched 0 times by every spec drive, accept rate, committed
+    K3/K4 launched 0 times by every dense spec drive and once a layer a
+    decode tick by every paged one (K4 on int8 pages), accept rate, committed
     tokens per row-tick, decode ticks, tok/s and TTFT of spec against
     plain. Then the rollback check: a paged bf16 spec engine publishes a
     128-token prefix (two 64-token chunks), and four borrowers of that
@@ -1588,10 +1669,11 @@ def spec_phase(pk, seed, dev, smi) -> dict:
     got = eng.run(params, borrowers)
     unchanged = all(torch.equal(eng._cache[n][:, cached], t)
                     for n, t in before.items())
-    alone = []
+    alone, ticks = [], eng.counters["decode_ticks"]
     for b in borrowers:
         ref = paged(c, 4, draft_hook=rejected)
         alone.append(next(iter(ref.run(params, [b]).values())).tokens)
+        ticks += ref.counters["decode_ticks"]
         del ref
     rollback = dict(
         cached_pages=len(cached), prefix_hits=eng.pool.stats["prefix_hits"],
@@ -1600,7 +1682,8 @@ def spec_phase(pk, seed, dev, smi) -> dict:
         published_pages_unchanged=unchanged,
         borrowers_equal_unshared=_same(
             [got[r].tokens for r in sorted(got)], alone),
-        launches=_paged_launches(pk, "spec_rollback"))
+        launches=_window_launches(pk, "spec_rollback", "K3", ticks,
+                                  c.n_layer))
     emit(phase="spec_rollback", nvidia_smi=smi, **rollback)
     if (not unchanged or rollback["prefix_hits"] < 4 or not cached
             or rollback["borrowers_equal_unshared"] != len(borrowers)):
@@ -2358,26 +2441,70 @@ def check_flash(fk, q, k, v, do, causal, what, chunks: int = 1) -> dict:
     return dict(K1=k1, K2=k2)
 
 
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel",
+                "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
+def lost_launches(trace: dict) -> list[dict]:
+    """The launch calls of a Kineto trace (kernels, async copies and
+    memsets) whose device row is missing: the host's ``cuda_runtime`` /
+    ``cuda_driver`` rows whose correlation id matches no ``kernel``,
+    ``gpu_memcpy`` or ``gpu_memset`` row."""
+    events = trace.get("traceEvents", [])
+    device = {(e.get("args") or {}).get("correlation") for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    return [e for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and e.get("name") in LAUNCH_CALLS
+            and (e.get("args") or {}).get("correlation") not in device]
+
+
 def device_kernels(fn, n: int = 3) -> dict:
     """Each device kernel that ``fn`` launches: the launches a
-    ``torch.profiler`` pass over ``n`` calls (after a warm-up call; L2
-    warm, so a little below ``time_ms``) recorded, and its mean device ms
-    per launch. The trace can miss some of the launches, so the mean is
-    taken over those it recorded."""
-    from torch.autograd import DeviceType
+    ``torch.profiler`` window over ``n`` calls recorded (L2 warm, so a
+    little below ``time_ms``), its launches per call, and its mean device
+    ms per launch, from the window's Kineto trace
+    (``trace_analysis.op_summary``), and ``lost_launches``: the launch
+    calls of the window whose device row is missing. CUPTI drops the
+    record of a window's first operation, and at times others near its
+    edges (PERF.md section 7), so the calls are bracketed by a short spin
+    kernel at each end, with the device drained and the host paused after
+    each; what it still drops between the spins is counted, and the mean
+    is taken over the launches recorded."""
     from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_distributed_tpu_torch.profiling import trace_analysis as ta
+
+    def guard(pause_s):
+        torch.cuda._sleep(spin_cycles(0.05))
+        torch.cuda.synchronize()
+        time.sleep(pause_s)
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key[:100]: dict(launches=e.count,
-                              ms_per_launch=device_us(e) / e.count / 1e3)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and device_us(e) > 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            guard(0.2)
+            for _ in range(n):
+                fn()
+            guard(0.05)
+        prof.export_chrome_trace(f"{tmp}/window.json")
+        trace = ta.load_trace(f"{tmp}/window.json")
+    launches = sorted((e for e in trace["traceEvents"]
+                       if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                       and e.get("name") in LAUNCH_CALLS),
+                      key=lambda e: e["ts"])
+    guards = (launches[0], launches[-1])
+    lost = [e for e in lost_launches(trace)
+            if not any(e is g for g in guards)]
+    kernels = {name: dict(launches=r["count"],
+                          launches_per_call=r["count"] / n,
+                          ms_per_launch=r["mean_us"] / 1e3)
+               for name, r in ta.op_summary(trace).items()
+               if "spin_kernel" not in name}
+    return dict(kernels=kernels, lost_launches=len(lost))
 
 
 def sdpa_backend(q, k, v, causal: bool, gqa: bool) -> str:
@@ -2394,13 +2521,23 @@ def sdpa_backend(q, k, v, causal: bool, gqa: bool) -> str:
     return SDPBackend(choice).name
 
 
+def _breakdown(kernel_fn, library_fn) -> dict:
+    """``device_kernels`` of a wrapper call and of its library call."""
+    mine, lib = device_kernels(kernel_fn), device_kernels(library_fn)
+    return dict(kernels_ms=mine["kernels"],
+                kernels_lost_launches=mine["lost_launches"],
+                library_kernels=lib["kernels"],
+                library_lost_launches=lib["lost_launches"])
+
+
 def time_flash(fk, q, k, v, do, causal, flush, chunks: int = 1) -> dict:
     """Kernel, plain-version and library times of K1 and K2 on the inputs
     (ms, CUDA events, L2 flushed before each launch). The library call is
     ``scaled_dot_product_attention`` (forward; its backward through
     autograd): a yardstick the port never calls. ``kernels_ms`` and
     ``library_kernels`` break both down by device kernel (one profiler
-    pass each); ``library_backend`` is the SDPA backend that was timed."""
+    window each, ``device_kernels``, with the launches its trace lost);
+    ``library_backend`` is the SDPA backend that was timed."""
     import torch.nn.functional as F
 
     o, lse = fk.flash_forward(q, k, v, causal)
@@ -2424,9 +2561,8 @@ def time_flash(fk, q, k, v, do, causal, flush, chunks: int = 1) -> dict:
                 lambda: plain_forward(fk, q, k, v, causal, chunks), flush,
                 n=5),
             library_ms=time_ms(lib_fwd, flush),
-            kernels_ms=device_kernels(
-                lambda: fk.flash_forward(q, k, v, causal)),
-            library_kernels=device_kernels(lib_fwd),
+            **_breakdown(lambda: fk.flash_forward(q, k, v, causal),
+                         lib_fwd),
             library_backend=sdpa_backend(q, k, v, causal, gqa),
         ),
         K2=dict(
@@ -2435,9 +2571,9 @@ def time_flash(fk, q, k, v, do, causal, flush, chunks: int = 1) -> dict:
             plain_ms=time_ms(lambda: plain_backward(
                 fk, q, k, v, o, lse, do, causal, chunks), flush, n=5),
             library_ms=time_ms(lib_bwd, flush),
-            kernels_ms=device_kernels(
-                lambda: fk.flash_backward(q, k, v, o, lse, do, causal)),
-            library_kernels=device_kernels(lib_bwd),
+            **_breakdown(
+                lambda: fk.flash_backward(q, k, v, o, lse, do, causal),
+                lib_bwd),
         ),
     )
     for name, backward in (("K1", False), ("K2", True)):
@@ -3345,6 +3481,338 @@ def train_moe_phase(fk, seed, dev) -> dict:
     return out
 
 
+# Device kernels of the port in a Kineto trace, by op name: K1's forward,
+# K2's three kernels (one wrapper launch each), the paged kernel on pages in
+# q's dtype (K3) and on int8 pages (K4: ``KV = int8_t`` demangles as
+# ``signed char``).
+K2_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+
+
+def trace_launches(ops: dict) -> dict:
+    """K1..K4 launches in a ``trace_analysis.op_summary``: K1 and K3/K4
+    counts, K2 the count of each of its three kernels."""
+    def count(match):
+        return sum(r["count"] for name, r in ops.items() if match(name))
+
+    return dict(
+        K1=count(lambda n: "flash_fwd" in n),
+        K2={k: count(lambda n, k=k: k in n) for k in K2_KERNELS},
+        K3=count(lambda n: "paged_decode_kernel" in n
+                 and "signed char" not in n),
+        K4=count(lambda n: "paged_decode_kernel" in n
+                 and "signed char" in n),
+    )
+
+
+def _counted_profiler(read_counts):
+    """A ``ScheduledProfiler`` that reads ``read_counts()`` (the wrappers'
+    launch counters) at both edges of its active window, after the device
+    drained, and keeps the window's ``key_averages()`` and its
+    ``profile_summary`` over the window's host clock."""
+    from pytorch_distributed_tpu_torch.profiling.profiler import (
+        ScheduledProfiler,
+    )
+
+    class Counted(ScheduledProfiler):
+        def _edge(self):
+            super()._edge()
+            key = "start" if self._window_t0 is not None else "end"
+            self.counts[key] = read_counts()
+
+        def _on_trace_ready(self, prof):
+            super()._on_trace_ready(prof)
+            self.events = prof.key_averages()
+            self.summary = profile_summary(prof,
+                                           self.window_seconds[-1] * 1e3)
+
+    Counted.counts = {}
+    return Counted
+
+
+def _window_checks(phase, run, prof, counted, traced) -> dict:
+    """The gates every profiling phase shares: the trace's counts of the
+    port's kernels equal the wrappers' counters over the window, and one
+    card shows no communication. Returns the breakdown beside the old
+    ``key_averages`` idle share of the same window."""
+    tb, summary = run["breakdown"], prof.summary
+    if tb["communication_us"] != 0:
+        comm = [n[:80] for n, r in run["ops"].items()
+                if r["category"] == "communication"]
+        raise AssertionError(f"{phase}: communication on one card: {comm}")
+    if counted != traced:
+        raise AssertionError(f"{phase}: the trace recorded {traced} "
+                             f"launches, the wrappers counted {counted}")
+    top = sorted(run["ops"].items(), key=lambda kv: -kv[1]["total_us"])[:10]
+    return dict(
+        trace_idle_pct=tb["idle_pct"], trace_compute_pct=tb["compute_pct"],
+        trace_memcpy_pct=tb["memcpy_pct"], trace_busy_us=tb["busy_us"],
+        trace_span_us=tb["total_us"],
+        window_wall_ms=prof.window_seconds[0] * 1e3,
+        key_averages_device_idle_share=summary["device_idle_share"],
+        key_averages_device_busy_ms=summary["device_busy_ms"],
+        top_ops_ms=[dict(name=n[:80], count=r["count"],
+                         ms=r["total_us"] / 1e3) for n, r in top],
+        launches_counted=counted, launches_traced=traced,
+        lost_launches=len(lost_launches(run["trace"])))
+
+
+def profiling_train_phase(fk, seed, smi) -> dict:
+    """GPT-2 124M at full width through the port's ``Trainer`` under
+    ``ScheduledProfiler(wait=2, warmup=2, active=4)`` for 8 steps
+    (``profiling.trace_smoke``'s functions): one trace file; compute above
+    10 % and no communication; K1's and each of K2's kernels counted in the
+    trace as often as the wrappers counted over the 4 active steps; the
+    trace's busy time within 2 % of the window's kernel time by
+    ``key_averages()``."""
+    from pytorch_distributed_tpu_torch.profiling import trace_smoke
+
+    cfg = trace_smoke.smoke_cfg("gpt2")
+    cls = _counted_profiler(lambda: dict(fk.launches))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        run = trace_smoke.profiled_training(
+            cfg, tmp, batch=8, seq_len=1024, steps=8, seed=seed,
+            device="cuda", profiler_cls=cls)
+        wall = time.perf_counter() - t0
+    prof = run["profiler"]
+    if len(run["files"]) != 1:
+        raise AssertionError(f"profiling_train: {len(run['files'])} trace "
+                             f"files, want 1")
+    trace_smoke.check(run)
+    start, end = prof.counts["start"], prof.counts["end"]
+    fwd = end["forward"] - start["forward"]
+    bwd = end["backward"] - start["backward"]
+    traced = trace_launches(run["ops"])
+    counted = dict(K1=fwd, K2={k: bwd for k in K2_KERNELS})
+    if fwd != cfg.n_layer * 4:
+        raise AssertionError(f"profiling_train: K1 counted {fwd}, want "
+                             f"{cfg.n_layer} x 4 active steps")
+    res = _window_checks("profiling_train", run, prof, counted,
+                         {k: traced[k] for k in ("K1", "K2")})
+    ka_us = sum(device_us(e) for e in device_rows(prof.events))
+    busy = run["breakdown"]["busy_us"]
+    res.update(key_averages_device_us=ka_us,
+               busy_vs_key_averages=busy / ka_us - 1)
+    emit(phase="profiling_train", nvidia_smi=smi, steps=8,
+         schedule=trace_smoke.SCHEDULE, B=8, T=1024, phase_wall_s=wall,
+         trace_files=len(run["files"]), **res)
+    if abs(busy - ka_us) > 0.02 * ka_us:
+        raise AssertionError(f"profiling_train: trace busy {busy} us vs "
+                             f"key_averages {ka_us} us (> 2 %)")
+    return res
+
+
+def profiling_serve_phase(pk, cfg, params, reqs, smi, **quant) -> dict:
+    """10 pure decode ticks of the bf16 paged engine (GPT-2 124M, 8 slots,
+    max_len 1024, 16-token pages; ``quant``: int8 pages and weights) under
+    ``ScheduledProfiler(wait=0, warmup=2, active=10)``, one ``step()`` a
+    tick: the path's kernel (K3, or K4 on int8 pages) counted in the trace
+    as often as its wrapper counted, n_layer x 10; no communication; the
+    trace's idle share beside ``profile_summary``'s for the same ticks,
+    and the share over 10 ticks run just before without the profiler
+    (the profiler's own host cost inflates a profiled window's wall)."""
+    from pytorch_distributed_tpu_torch.profiling import trace_analysis as ta
+    from pytorch_distributed_tpu_torch.profiling.profiler import (
+        find_trace_files,
+    )
+    from pytorch_distributed_tpu_torch.serving import PagedBatchedDecodeEngine
+
+    kid = "K4" if quant else "K3"
+    eng = PagedBatchedDecodeEngine(cfg, slots=8, max_len=1024, page_size=16,
+                                   **quant)
+    eng.warmup(params)
+    for r in reqs[:8]:
+        eng.submit(**r)
+    while True:  # until every row has finished its prefill
+        before = eng.counters["prefill_ticks"]
+        eng.step(params)
+        if eng.counters["prefill_ticks"] == before:
+            break
+    # The same number of ticks without the profiler first: what a tick
+    # costs the host when nothing records it.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        eng.step(params)
+    torch.cuda.synchronize()
+    bare_ms = (time.perf_counter() - t0) * 1e3
+    cls = _counted_profiler(lambda: {"K3": pk.launches,
+                                     "K4": pk.launches_q8})
+    with tempfile.TemporaryDirectory() as tmp:
+        with cls(tmp, wait=0, warmup=2, active=10, device="cuda") as prof:
+            for _ in range(12):
+                eng.step(params)
+                prof.step()
+        files = find_trace_files(tmp)
+        trace = ta.load_trace(files[0])
+    if eng.counters["prefill_ticks"] != before:
+        raise AssertionError("profiling_serve: a prefill ran in the window")
+    run = dict(trace=trace, breakdown=ta.temporal_breakdown(trace),
+               ops=ta.op_summary(trace))
+    counted = {k: prof.counts["end"][k] - prof.counts["start"][k]
+               for k in ("K3", "K4")}
+    want = {"K3": 0, "K4": 0}
+    want[kid] = cfg.n_layer * 10
+    if counted != want:
+        raise AssertionError(f"profiling_serve: counted {counted}, want "
+                             f"{want}")
+    traced = trace_launches(run["ops"])
+    res = _window_checks(f"profiling_serve_{kid}", run, prof, counted,
+                         {k: traced[k] for k in ("K3", "K4")})
+    res.update(unprofiled_window_ms=bare_ms, unprofiled_idle_share=(
+        1 - run["breakdown"]["busy_us"] / 1e3 / bare_ms))
+    emit(phase="profiling_serve", nvidia_smi=smi, kernel=kid,
+         decode_ticks=10, trace_files=len(files), **quant, **res)
+    return res
+
+
+def memory_phase(seed, smi) -> dict:
+    """The ``memory_analysis`` twin's functions on the profiling_train
+    configuration (GPT-2 124M, bf16, flash, names, B 8, T 1024): the
+    allocator's history recorded from before the model is built, 3 steps,
+    the analytic breakdown against the measured peak. Gates: the peak is
+    at least params + grads + optimizer bytes and at most the card's
+    memory; the snapshot pickle loads and holds a segment."""
+    import pickle
+
+    from pytorch_distributed_tpu_torch.config import TrainConfig
+    from pytorch_distributed_tpu_torch.profiling import memory, trace_smoke
+
+    cfg = trace_smoke.smoke_cfg("gpt2")
+    est = memory.analytic_memory_breakdown(cfg, batch_size=8, seq_len=1024)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    memory.start_memory_history()
+    try:
+        tcfg = TrainConfig(global_batch_size=8, micro_batch_size=8,
+                           num_steps=3, learning_rate=3e-4)
+        state, step, batch = train_setup(cfg, tcfg, 8, 1024, seed, "cuda")
+        for _ in range(3):
+            state, m = step(state, batch)
+        loss = float(m["loss"])
+        meas = memory.measured_memory()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = memory.save_memory_snapshot(f"{tmp}/snapshot.pickle")
+            with open(path, "rb") as f:
+                snap = pickle.load(f)
+    finally:
+        memory.stop_memory_history()
+    del state, step, batch
+    floor = est["params_bytes"] + est["grads_bytes"] + est["optimizer_bytes"]
+    peak = meas["peak_bytes_in_use"]
+    res = dict(
+        analytic={k: v for k, v in est.items() if k != "config"},
+        measured={k: meas[k] for k in ("bytes_in_use", "peak_bytes_in_use",
+                                       "bytes_limit")},
+        measured_over_estimated=peak / est["total_bytes_estimate"],
+        params_grads_optimizer_bytes=floor,
+        snapshot_segments=len(snap.get("segments", [])),
+        snapshot_traces=sum(len(t) for t in snap.get("device_traces", [])),
+        loss=loss)
+    emit(phase="memory", nvidia_smi=smi, B=8, T=1024, **res)
+    if not floor <= peak <= meas["bytes_limit"]:
+        raise AssertionError(f"memory: peak {peak} B outside [{floor}, "
+                             f"{meas['bytes_limit']}]")
+    if not res["snapshot_segments"]:
+        raise AssertionError("memory: the snapshot holds no segment")
+    return res
+
+
+def throughput_phase(seed, smi) -> dict:
+    """``measure_tokens_per_second`` at GPT-2 124M, B 8, T 1024 (5 warmup
+    and 20 timed steps) and ``extrapolate_modern_training``; then
+    ``compare_batch_sizes`` over (1, 8, X, 8), X the least power of two
+    whose analytic breakdown (the unfused head) exceeds the card's memory.
+    Gates: X's row is an OOM, and the 8 after it runs within 20 % of the
+    first 8's tokens/s."""
+    from pytorch_distributed_tpu_torch.profiling import (
+        memory,
+        throughput,
+        trace_smoke,
+    )
+
+    cfg = trace_smoke.smoke_cfg("gpt2")
+    r = throughput.measure_tokens_per_second(cfg, batch_size=8,
+                                             seq_len=1024, seed=seed)
+    ex = throughput.extrapolate_modern_training(r)
+    limit = torch.cuda.get_device_properties(0).total_memory
+    x = 8
+    while memory.analytic_memory_breakdown(
+            cfg, batch_size=x, seq_len=1024)["total_bytes_estimate"] <= limit:
+        x *= 2
+    rows = throughput.compare_batch_sizes(cfg, batch_sizes=(1, 8, x, 8),
+                                          seq_len=1024)
+    res = dict(measured=r, extrapolation=ex, oom_batch=x,
+               oom_batch_estimate_bytes=memory.analytic_memory_breakdown(
+                   cfg, batch_size=x, seq_len=1024)["total_bytes_estimate"],
+               bytes_limit=limit, sweep=rows)
+    emit(phase="throughput", nvidia_smi=smi, **res)
+    if not rows[2]["oom"]:
+        raise AssertionError(f"throughput: batch {x} did not run out of "
+                             f"memory: {rows[2]}")
+    first, after = rows[1], rows[3]
+    if first["oom"] or after["oom"] or abs(
+            after["tokens_per_second"] / first["tokens_per_second"] - 1) \
+            > 0.2:
+        raise AssertionError(f"throughput: batch 8 after the OOM {after} "
+                             f"vs before {first}")
+    return res
+
+
+DECODE_BENCH_MODES = {
+    "decode": [],
+    # 128 new tokens where the JAX script's default is 512 (the whole run's
+    # time: 512 made this mode 109 s of the card's run, 256 72 s).
+    "speculative": ["--speculative", "4", "--max-new", "128"],
+    "serving": ["--serving"],
+    "serving_batched": ["--serving-batched"],
+    "serving_batched_chaos": ["--serving-batched", "--chaos"],
+    "serving_spec": ["--serving-spec"],
+    "serving_quant": ["--serving-paged", "--kv-quant", "int8",
+                      "--weight-quant", "int8"],
+}
+
+
+def decode_bench_twin_2_phase(smi) -> dict:
+    """The ``decode_bench`` twin's other modes, each in a subprocess at its
+    default shapes, one line each: exit 0 (the legs' asserted checks
+    held), and K3 launched on ``--serving-spec``, K4 on the quant leg;
+    each leg's rows and kernel launches. Every mode runs before a failed
+    one raises."""
+    legs, failed = {}, []
+    for name, flags in DECODE_BENCH_MODES.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            out = f"{tmp}/rows.json"
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m",
+                 "pytorch_distributed_tpu_torch.serving.decode_bench",
+                 *flags, "--json", out],
+                capture_output=True, text=True, timeout=300)
+            wall = time.perf_counter() - t0
+            rows = []
+            if proc.returncode == 0:
+                with open(out) as f:
+                    rows = json.load(f)
+        leg = dict(flags=flags, wall_s=wall, exit_code=proc.returncode,
+                   launches={k: sum(r["launches"][k] for r in rows)
+                             for k in ("K3", "K4", "lora")}, rows=rows)
+        if proc.returncode:
+            leg["stderr"] = proc.stderr[-4000:]
+            failed.append(name)
+        emit(phase="decode_bench_twin_2", nvidia_smi=smi, mode=name, **leg)
+        legs[name] = leg["launches"]
+    if failed:
+        raise AssertionError(f"decode_bench modes exited nonzero: {failed}")
+    if not legs["serving_spec"]["K3"]:
+        raise AssertionError(f"--serving-spec launched no K3: "
+                             f"{legs['serving_spec']}")
+    if not legs["serving_quant"]["K4"]:
+        raise AssertionError(f"the quant leg launched no K4: "
+                             f"{legs['serving_quant']}")
+    return legs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3403,10 +3871,44 @@ def main() -> int:
     kernel_phase(pk, dev, flush, args.seed)
     streams_phase(pk, dev, args.seed)
 
-    # 4. serving at full width: GPT-2 124M, bf16 activations, f32 params
+    # 13a. the profiler's trace windows, first: they are held to the
+    # wrappers' launch counters, and a scheduled window late in a process
+    # that has done much work can lose its first launches (PERF.md
+    # section 7)
     cfg = model_config("gpt2")
     params = gpt2.init(torch.Generator().manual_seed(args.seed), cfg)
     reqs = requests(cfg, args.seed)
+    prof_train = profiling_train_phase(fk, args.seed, smi)
+    prof_paged = dict(
+        K3=profiling_serve_phase(pk, cfg, params, reqs, smi),
+        K4=profiling_serve_phase(pk, cfg, params, reqs, smi, **Q8))
+    torch.cuda.empty_cache()
+
+    # 7. flash kernels at the listed shapes, then at the llama training
+    # phases' long-context shapes; with 8 and 9, before the serving phases,
+    # as their per-kernel profiles (device_kernels) are counted too
+    flash_phase(fk, dev, flush, args.seed)
+    flash_long = flash_long_phase(fk, dev, flush, args.seed)
+
+    # 8. training: the main path
+    tcfg_model = cfg.replace(attention_impl="flash", remat="names",
+                             logits_dtype="bfloat16", attn_pdrop=0.0,
+                             resid_pdrop=0.0, embd_pdrop=0.0)
+    run = train_phase(fk, tcfg_model, args.seed, dev)
+    train_launches = run["launches"]
+    fq, fkk, fv, fo, flse, fdo, causal = run["captured"][:7]
+    checked = check_flash(fk, fq, fkk, fv, fdo, causal,
+                          "main-path inputs bf16")
+    timed = time_flash(fk, fq, fkk, fv, fdo, causal, flush)
+
+    # 9. profile of the training step, then the step under the other
+    # remat modes
+    train_profile_phase(run)
+    del run, fo, flse
+    train_remat_phase(fk, tcfg_model, args.seed, dev)
+    torch.cuda.empty_cache()
+
+    # 4. serving at full width: GPT-2 124M, bf16 activations, f32 params
     f32 = cfg.replace(dtype="float32")
     f32_tokens = kernel_vs_gather("serve_f32", f32, params, reqs, pk)
     k3 = main_path("serve", cfg, params, reqs, pk, flush)
@@ -3453,65 +3955,14 @@ def main() -> int:
     slice9_paths = {name: row["launches"] for name, row in slice9.items()}
 
     # 6d. multi-tenant LoRA (the fused delta kernel, K3, K4 on int8 Llama)
-    # and disaggregated prefill/decode (K3/K4 on the decode worker), then
-    # the decode_bench twin's legs
+    # and disaggregated prefill/decode (K3/K4 on the decode worker); the
+    # decode_bench twin's legs run at the end
     from pytorch_distributed_tpu_torch.ops import lora_kernel as lk
 
     lora_k = lora_kernel_phase(lk, dev, flush, args.seed)
     slice10 = dict(lora_phase(pk, lk, args.seed, dev, smi))
     slice10["lora_http"] = lora_http_phase(pk, lk, args.seed, smi)
     slice10.update(disagg_phase(pk, args.seed, dev, smi))
-    torch.cuda.empty_cache()  # the twin runs in a process of its own
-    slice10["decode_bench_twin"] = decode_bench_twin_phase(smi)
-    slice10_paths = {name: row["launches"] for name, row in slice10.items()
-                     if "launches" in row}
-
-    tier_paths = {
-        "K3": dict(tier_http=tier["http"]["launches"]["K3"], **{
-            f"tier_storm_{dtype}_x{row['rate_multiplier']}_{leg}":
-                row[leg]["launches"]["K3"]
-            for dtype, legs in tier["storm"].items()
-            for row in legs["rows"] for leg in ("clean", "storm")}),
-        "K4": {f"tier_llama_q8_x{row['rate_multiplier']}_{leg}":
-               row[leg]["launches"]["K4"]
-               for row in tier["llama_q8"]["rows"]
-               for leg in ("clean", "storm")},
-    }
-    paged_entries = [
-        dict(name=name, route="cuda", source=PAGED_SOURCE,
-             replaces=f"pytorch_distributed_tpu/ops/paged_kernel.py:{line}",
-             **run["entry"], tier_paths=tier_paths[kid],
-             slice9_paths={name: counts[kid]
-                           for name, counts in slice9_paths.items()},
-             slice10_paths={name: counts[kid]
-                            for name, counts in slice10_paths.items()})
-        for name, line, run, kid in (
-            ("paged_decode_attention", 56, k3, "K3"),
-            ("paged_decode_attention_q8", 114, k4, "K4"))
-    ]
-
-    # 7. flash kernels at the listed shapes, then at the llama training
-    # phases' long-context shapes
-    flash_phase(fk, dev, flush, args.seed)
-    flash_long = flash_long_phase(fk, dev, flush, args.seed)
-
-    # 8. training: the main path
-    tcfg_model = cfg.replace(attention_impl="flash", remat="names",
-                             logits_dtype="bfloat16", attn_pdrop=0.0,
-                             resid_pdrop=0.0, embd_pdrop=0.0)
-    run = train_phase(fk, tcfg_model, args.seed, dev)
-    train_launches = run["launches"]
-    fq, fkk, fv, fo, flse, fdo, causal = run["captured"][:7]
-    checked = check_flash(fk, fq, fkk, fv, fdo, causal,
-                          "main-path inputs bf16")
-    timed = time_flash(fk, fq, fkk, fv, fdo, causal, flush)
-
-    # 9. profile of the training step, then the step under the other
-    # remat modes
-    train_profile_phase(run)
-    del run, fo, flse
-    train_remat_phase(fk, tcfg_model, args.seed, dev)
-
     # 10. train parity on the card (f32, flash kernels vs naive attention)
     train_parity_phase(tcfg_model, args.seed, dev)
 
@@ -3542,6 +3993,68 @@ def main() -> int:
     train_llama_remat_phase(fk, args.seed, dev)
     train_moe_phase(fk, args.seed, dev)
 
+    # 13b. memory and throughput accounting, what the profiler costs, then
+    # the decode_bench twin's other modes
+    torch.cuda.empty_cache()
+    memory_phase(args.seed, smi)
+    thr = throughput_phase(args.seed, smi)
+    # What the profiler's host cost does to an idle share: the profiled
+    # windows' device busy time over their own wall, and over the wall of
+    # the same work unprofiled (the throughput phase's step, the ticks
+    # timed just before each serving window).
+    busy_ms = prof_train["trace_busy_us"] / 4e3
+    step_ms = thr["measured"]["seconds_per_step"] * 1e3
+    emit(phase="profiler_cost", nvidia_smi=smi,
+         train_busy_ms_per_step=busy_ms,
+         train_profiled_ms_per_step=prof_train["window_wall_ms"] / 4,
+         train_unprofiled_ms_per_step=step_ms,
+         train_idle_share_profiled=prof_train[
+             "key_averages_device_idle_share"],
+         train_idle_share_unprofiled=1 - busy_ms / step_ms,
+         serve={kid: {k: row[k] for k in (
+             "window_wall_ms", "unprofiled_window_ms",
+             "key_averages_device_idle_share", "unprofiled_idle_share")}
+             for kid, row in prof_paged.items()})
+    # The decode_bench twins last: each runs in a process of its own, and
+    # a profiler window opened after another process used the card can
+    # lose its device rows (PERF.md section 7).
+    torch.cuda.empty_cache()
+    slice10["decode_bench_twin"] = decode_bench_twin_phase(smi)
+    slice10_paths = {name: row["launches"] for name, row in slice10.items()
+                     if "launches" in row}
+
+    tier_paths = {
+        "K3": dict(tier_http=tier["http"]["launches"]["K3"], **{
+            f"tier_storm_{dtype}_x{row['rate_multiplier']}_{leg}":
+                row[leg]["launches"]["K3"]
+            for dtype, legs in tier["storm"].items()
+            for row in legs["rows"] for leg in ("clean", "storm")}),
+        "K4": {f"tier_llama_q8_x{row['rate_multiplier']}_{leg}":
+               row[leg]["launches"]["K4"]
+               for row in tier["llama_q8"]["rows"]
+               for leg in ("clean", "storm")},
+    }
+    paged_entries = [
+        dict(name=name, route="cuda", source=PAGED_SOURCE,
+             replaces=f"pytorch_distributed_tpu/ops/paged_kernel.py:{line}",
+             **run["entry"], tier_paths=tier_paths[kid],
+             slice9_paths={name: counts[kid]
+                           for name, counts in slice9_paths.items()},
+             slice10_paths={name: counts[kid]
+                            for name, counts in slice10_paths.items()})
+        for name, line, run, kid in (
+            ("paged_decode_attention", 56, k3, "K3"),
+            ("paged_decode_attention_q8", 114, k4, "K4"))
+    ]
+
+    slice11_paths = decode_bench_twin_2_phase(smi)
+    for entry, kid in zip(paged_entries, ("K3", "K4")):
+        entry.update(
+            trace_launches=prof_paged[kid]["launches_traced"][kid],
+            trace_window_counted=prof_paged[kid]["launches_counted"][kid],
+            slice11_paths={name: counts[kid]
+                           for name, counts in slice11_paths.items()})
+
     inputs = dict(B=fq.shape[0], H=fq.shape[1], Hkv=fkk.shape[1],
                   T=fq.shape[2], D=fq.shape[3], causal=causal,
                   dtype=str(fq.dtype).replace("torch.", ""))
@@ -3550,6 +4063,8 @@ def main() -> int:
              replaces=f"pytorch_distributed_tpu/ops/flash_kernel.py:{line}",
              launches=train_launches[direction], **checked[kn], **timed[kn],
              inputs=inputs,
+             trace_launches=prof_train["launches_traced"][kn],
+             trace_window_counted=prof_train["launches_counted"][kn],
              llama_paths={phase: dict(
                  T=row["T"],
                  launches_per_step=row["launches_per_step"][direction],
@@ -3577,10 +4092,11 @@ def main() -> int:
                     rank=LORA_RANK),
         slice10_paths={name: counts.get("lora", 0)
                        for name, counts in slice10_paths.items()})
-    emit(kernels=[*paged_entries, *flash_entries, lora_entry])
-    emit(ok=True, device=dict(platform="gpu",
-                              kind=torch.cuda.get_device_name(0),
-                              count=torch.cuda.device_count()))
+    print(json.dumps(dict(kernels=[*paged_entries, *flash_entries,
+                                   lora_entry])), flush=True)
+    print(json.dumps(dict(ok=True, device=dict(
+        platform="gpu", kind=torch.cuda.get_device_name(0),
+        count=torch.cuda.device_count()))), flush=True)
     return 0
 
 

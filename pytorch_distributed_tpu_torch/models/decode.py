@@ -24,9 +24,11 @@ layout:
   pure function instead; the values written are the same;
 - attention for a single-token paged step with ``paged_impl="kernel"``
   goes through the paged decode kernel (``ops/paged_kernel``), which reads
-  pages in place and only up to each row's depth. Every other call —
-  dense attention, paged prefill chunks, multi-token verify windows, and
-  decode with ``paged_impl="gather"`` — runs the masked softmax in plain
+  pages in place and only up to each row's depth; so does a multi-token
+  decode window (``decode_window``: a speculative verify forward), each
+  query a single-token row of its own at its position. Every other call —
+  dense attention, paged prefill chunks, and decode with
+  ``paged_impl="gather"`` — runs the masked softmax in plain
   PyTorch (``ops/paged_kernel.masked_attention``, also the kernel's plain
   version), with float32 scores (``preferred_element_type=float32`` in
   the JAX package);
@@ -137,16 +139,26 @@ def init_paged_cache(
 
 
 def _cached_attention(q, kv, pos, block_tables, paged_impl="gather",
-                      kv_quant="none"):
+                      kv_quant="none", valid=None, window=None):
     """q [B, T, H, D] at positions pos..pos+T-1 against one layer's cache
     ``kv``: dense rows [B, S, Hkv, D] (``block_tables`` None) or paged
     pools [P, page, Hkv, D] (plus the scale pools under int8); key j of
-    row b is valid iff j <= pos[b] + i. Returns [B, T, H, D] in the cache
-    dtype (q's dtype for int8 pools)."""
+    row b is valid iff j <= pos[b] + i (``valid``, the [B, T, S] mask, when
+    the forward made it once for all layers). ``window``: the ([B*T,
+    n_pages] tables, [B*T] positions) of a decode window's per-query
+    kernel rows. Returns [B, T, H, D] in the cache dtype (q's dtype for
+    int8 pools)."""
     if block_tables is None:
-        return paged_kernel.masked_attention(q, kv["k"], kv["v"], pos)
+        return paged_kernel.masked_attention(q, kv["k"], kv["v"], pos, valid)
     scales = ((kv["k_scale"], kv["v_scale"]) if kv_quant == "int8"
               else (None, None))
+    if window is not None:
+        b, t, h, d = q.shape
+        out = paged_kernel.paged_decode_attention(
+            q.reshape(b * t, h, d).contiguous(), kv["k"], kv["v"], *window,
+            *scales,
+        )
+        return out.reshape(b, t, h, d)
     if q.shape[1] == 1 and paged_impl == "kernel":
         out = paged_kernel.paged_decode_attention(
             q[:, 0].contiguous(), kv["k"], kv["v"], block_tables, pos,
@@ -154,7 +166,7 @@ def _cached_attention(q, kv, pos, block_tables, paged_impl="gather",
         )
         return out[:, None]
     return paged_kernel.gather_attention(q, kv["k"], kv["v"], block_tables,
-                                         pos, *scales)
+                                         pos, *scales, valid=valid)
 
 
 def _page_slots(pos, t, block_tables, page):
@@ -240,22 +252,36 @@ def _moe_mlp(m, mlp_params, cfg, act):
     return out
 
 
+def _lane0(fn, x, *args, alone=False):
+    """``fn(x, *args)`` over x [B, T, ...]; with ``alone``, lane 0 keeps
+    the values of ``fn`` on x[:, :1] by itself, which are bit for bit
+    those of a [B, 1] decode step: cuBLAS picks its f32 GEMM kernel by
+    the rows in the call, so a row's last bits can depend on how many
+    rows share it."""
+    y = fn(x, *args)
+    if alone:
+        y[:, :1] = fn(x[:, :1].contiguous(), *args)
+    return y
+
+
 def _gpt2_block(x, bp, kv, pos, slots, cfg, block_tables,
                 paged_impl="gather", kv_quant="none", lora=None,
-                lora_rows=None):
+                lora_rows=None, valid=None, window=None, alone=False):
     eps = cfg.layer_norm_epsilon
     b, t = x.shape[:2]
     a = layer_norm(x, bp["ln_1"], eps=eps)
-    qkv = dense(a, bp["attn"]["c_attn"])  # [B, T, 3, H, D]
+    # [B, T, 3, H, D]
+    qkv = _lane0(dense, a, bp["attn"]["c_attn"], alone=alone)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if lora is not None:
         # Query only on the fused projection: K/V are never adapted.
         q = lora_kernel.lora_delta_add(q, a, lora["q"], lora_rows)
     _write_kv(kv, k, v, slots, kv_quant)
-    a = _cached_attention(q, kv, pos, block_tables, paged_impl, kv_quant)
+    a = _cached_attention(q, kv, pos, block_tables, paged_impl, kv_quant,
+                          valid, window)
     a = a.reshape(b, t, -1)
     proj = bp["attn"]["c_proj"]
-    y = dense(a, {"kernel": proj["kernel"]})
+    y = _lane0(dense, a, {"kernel": proj["kernel"]}, alone=alone)
     if lora is not None:
         # Before the bias, as the JAX block adds it.
         y = lora_kernel.lora_delta_add(y, a, lora["c_proj"], lora_rows)
@@ -265,14 +291,14 @@ def _gpt2_block(x, bp, kv, pos, slots, cfg, block_tables,
     m = layer_norm(x, bp["ln_2"], eps=eps)
     act = activation(cfg.activation_function)
     if cfg.n_experts:
-        return x + _moe_mlp(m, bp["mlp"], cfg, act)
-    m = act(dense(m, bp["mlp"]["c_fc"]))
-    return x + dense(m, bp["mlp"]["c_proj"])
+        return x + _lane0(_moe_mlp, m, bp["mlp"], cfg, act, alone=alone)
+    m = act(_lane0(dense, m, bp["mlp"]["c_fc"], alone=alone))
+    return x + _lane0(dense, m, bp["mlp"]["c_proj"], alone=alone)
 
 
 def _llama_block(x, bp, kv, pos, slots, cfg, block_tables, cos, sin,
                  paged_impl="gather", kv_quant="none", lora=None,
-                 lora_rows=None):
+                 lora_rows=None, valid=None, window=None, alone=False):
     """RMSNorm pre-norm block: every projection through ``qdot`` (plain or
     int8 weights), RoPE on q and k at each row's own positions, SwiGLU
     (or SwiGLU experts). ``lora`` adds the tenant deltas to wq and wo
@@ -281,25 +307,29 @@ def _llama_block(x, bp, kv, pos, slots, cfg, block_tables, cos, sin,
     b, t = x.shape[:2]
     d = cfg.head_dim
     a = rms_norm(x, bp["ln_attn"], eps=eps)
-    q_pre = qdot(a, bp["attn"]["wq"])
+    q_pre = _lane0(qdot, a, bp["attn"]["wq"], alone=alone)
     if lora is not None:
         q_pre = lora_kernel.lora_delta_add(q_pre, a, lora["wq"], lora_rows)
     q = apply_rope(q_pre.reshape(b, t, -1, d), cos, sin)
-    k = apply_rope(qdot(a, bp["attn"]["wk"]).reshape(b, t, -1, d), cos, sin)
-    v = qdot(a, bp["attn"]["wv"]).reshape(b, t, -1, d)
+    k = _lane0(qdot, a, bp["attn"]["wk"], alone=alone)
+    k = apply_rope(k.reshape(b, t, -1, d), cos, sin)
+    v = _lane0(qdot, a, bp["attn"]["wv"], alone=alone).reshape(b, t, -1, d)
     _write_kv(kv, k, v, slots, kv_quant)
-    a = _cached_attention(q, kv, pos, block_tables, paged_impl, kv_quant)
+    a = _cached_attention(q, kv, pos, block_tables, paged_impl, kv_quant,
+                          valid, window)
     a = a.reshape(b, t, -1)
-    wo_out = qdot(a, bp["attn"]["wo"])
+    wo_out = _lane0(qdot, a, bp["attn"]["wo"], alone=alone)
     if lora is not None:
         wo_out = lora_kernel.lora_delta_add(wo_out, a, lora["wo"], lora_rows)
     x = x + wo_out
     m = rms_norm(x, bp["ln_mlp"], eps=eps)
     if cfg.n_experts:
-        return x + _moe_mlp(m, bp["mlp"], cfg, torch.nn.functional.silu)
-    gate = torch.nn.functional.silu(qdot(m, bp["mlp"]["gate"]))
-    up = qdot(m, bp["mlp"]["up"])
-    return x + qdot(gate * up, bp["mlp"]["down"])
+        return x + _lane0(_moe_mlp, m, bp["mlp"], cfg,
+                          torch.nn.functional.silu, alone=alone)
+    gate = torch.nn.functional.silu(
+        _lane0(qdot, m, bp["mlp"]["gate"], alone=alone))
+    up = _lane0(qdot, m, bp["mlp"]["up"], alone=alone)
+    return x + _lane0(qdot, gate * up, bp["mlp"]["down"], alone=alone)
 
 
 def forward(
@@ -313,6 +343,8 @@ def forward(
     paged_impl: str = "gather",
     kv_quant: str = "none",
     lora: tuple | None = None,
+    decode_window: bool = False,
+    lane0_alone: bool = False,
 ) -> tuple[torch.Tensor, Cache]:
     """Run T tokens per row at positions pos..pos+T-1 through the cache.
     Returns ([B, T, V] logits in ``cfg.logits_dtype``, ``cache``), the
@@ -322,8 +354,15 @@ def forward(
     ``paged_impl`` picks single-token attention — "gather" (plain
     PyTorch over gathered pages) or "kernel" (the paged decode kernel, K3
     or for int8 pools K4; on CPU tensors its plain version) — and
-    ``kv_quant`` names the pool layout. ``lora`` is ``(adapter layers, [B]
-    tenant-slot rows)``, the layers a list of per-layer adapter slices
+    ``kv_quant`` names the pool layout. ``decode_window`` marks a paged
+    T > 1 call as T decode steps (a speculative verify window, not a
+    prefill chunk): with ``paged_impl="kernel"`` each query then runs as
+    a single-token kernel row at its own position, and ``lane0_alone``
+    runs every projection and the head on lane 0 by itself as well, so
+    that lane 0 is bit for bit the [B, 1] decode step (``_lane0``: a
+    sampled row commits only lane 0, which must be the plain tick's
+    token). ``lora`` is ``(adapter layers, [B] tenant-slot rows)``, the
+    layers a list of per-layer adapter slices
     (``serving/adapters.AdapterRegistry.device_tree``): each row's low-rank
     delta joins its query and attention-output projections
     (``ops/lora_kernel.lora_delta_add``), slot 0 the exact-zero adapter. A
@@ -388,6 +427,27 @@ def forward(
         slots = _dense_slots(pos, t, cache["k"].shape[2])
     else:
         slots = (pos, pos + t)
+    # A kernel decode window's per-query rows: query i of row b at
+    # position pos[b] + i over row b's table (a lane past the table sees
+    # every key, as the mask gives it), made once for every layer.
+    window = None
+    if (decode_window and t > 1 and block_tables is not None
+            and paged_impl == "kernel"):
+        n_keys = block_tables.shape[1] * cache["k"].shape[2]
+        lengths = pos.long()[:, None] + torch.arange(t, device=dev)[None]
+        window = (block_tables.repeat_interleave(t, dim=0),
+                  lengths.clamp(max=n_keys - 1).reshape(-1).int())
+    # The plain attention's key mask (and int64 tables for its page
+    # gathers), made once for every layer; a kernel decode step has none.
+    valid = None
+    if window is None and (block_tables is None or t > 1
+                           or paged_impl == "gather"):
+        s_keys = (cache["k"].shape[2] if block_tables is None
+                  else block_tables.shape[1] * cache["k"].shape[2])
+        valid = paged_kernel.attention_mask(pos, t, s_keys, b, dev)
+        if block_tables is not None:
+            block_tables = block_tables.long()
+    alone = lane0_alone and window is not None
     lora_layers = lora_rows = None
     if lora is not None:
         lora_layers, rows = lora
@@ -400,8 +460,10 @@ def forward(
         x = block(x, bp, kv, pos, slots, cfg, block_tables,
                   paged_impl=paged_impl, kv_quant=kv_quant,
                   lora=None if lora is None else lora_layers[layer],
-                  lora_rows=lora_rows)
-    return get_model(cfg).head(params, x, cfg), cache
+                  lora_rows=lora_rows, valid=valid, window=window,
+                  alone=alone)
+    head = get_model(cfg).head
+    return _lane0(lambda h: head(params, h, cfg), x, alone=alone), cache
 
 
 # -- sampling ----------------------------------------------------------------

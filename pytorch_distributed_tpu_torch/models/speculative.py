@@ -55,13 +55,16 @@ def prompt_lookup_draft(
     if k < 1 or n <= ngram:
         return np.zeros((0,), np.int32)
     tail = tokens[-ngram:]
-    windows = np.lib.stride_tricks.sliding_window_view(tokens, ngram)
-    # Candidate windows start at 0..n-ngram-1 (the last window IS the tail).
-    hits = np.nonzero(np.all(windows[:-1] == tail[None, :], axis=1))[0]
-    if hits.size == 0:
-        return np.zeros((0,), np.int32)
-    best = int(hits[-1])  # most recent match = closest context
-    return tokens[best + ngram : best + ngram + k].copy()
+    # Candidate windows start at 0..n-ngram-1 (the last window IS the
+    # tail): those whose first token matches, checked whole from the most
+    # recent back — the first full match is the closest context. (One
+    # compare over the history a call: the engines draft every greedy row
+    # on every tick, on the host.)
+    for start in np.flatnonzero(tokens[: n - ngram] == tail[0])[::-1]:
+        if ngram == 1 or np.array_equal(tokens[start:start + ngram], tail):
+            best = int(start)
+            return tokens[best + ngram : best + ngram + k].copy()
+    return np.zeros((0,), np.int32)
 
 
 def _lookup_draft(out_buf, pos, *, ngram: int, draft_len: int, total: int):

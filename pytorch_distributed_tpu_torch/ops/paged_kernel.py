@@ -84,7 +84,8 @@ def gather_pages(pool: torch.Tensor, block_tables: torch.Tensor):
 
 
 def gather_attention(q, k_pages, v_pages, block_tables, pos,
-                     k_scales=None, v_scales=None) -> torch.Tensor:
+                     k_scales=None, v_scales=None,
+                     valid=None) -> torch.Tensor:
     """q [B, T, H, D] at positions pos[b]..pos[b]+T-1 against paged pools
     [P, page, Hkv, D]: gather each row's page view (int8 pages with their
     [P, page, Hkv] scale pools are dequantized to q's dtype, as the JAX
@@ -92,37 +93,50 @@ def gather_attention(q, k_pages, v_pages, block_tables, pos,
     of row b is valid iff j <= pos[b] + i). Returns [B, T, H, D] in the
     (dequantized) pool dtype. The plain attention of every paged step:
     prefill chunks, the gather decode path, and (at T = 1) the kernels'
-    plain version."""
+    plain version. ``valid``: ``attention_mask`` of the call, when the
+    caller has it already (a forward computes it once for all layers)."""
     ck = gather_pages(k_pages, block_tables)
     cv = gather_pages(v_pages, block_tables)
     if k_scales is not None:
         ck = dequantize_kv(ck, gather_pages(k_scales, block_tables), q.dtype)
         cv = dequantize_kv(cv, gather_pages(v_scales, block_tables), q.dtype)
-    return masked_attention(q, ck, cv, pos)
+    return masked_attention(q, ck, cv, pos, valid)
 
 
-def masked_attention(q, ck, cv, pos) -> torch.Tensor:
+def attention_mask(pos, t: int, s: int, b: int, device) -> torch.Tensor:
+    """[B, T, S] bool: key j of row b is valid for query i iff j <=
+    pos[b] + i (``pos`` a [B] tensor or a scalar)."""
+    qpos = torch.arange(t, device=device)
+    kpos = torch.arange(s, device=device)
+    pos = torch.as_tensor(pos, device=device).long().reshape(-1)
+    return kpos[None, None, :] <= (
+        pos.expand(b)[:, None, None] + qpos[None, :, None]
+    )
+
+
+def masked_attention(q, ck, cv, pos, valid=None) -> torch.Tensor:
     """q [B, T, H, D] at positions pos[b]..pos[b]+T-1 against contiguous
     K/V rows [B, S, Hkv, D] (a dense cache, or the gathered page view):
     f32 scores, key j of row b valid iff j <= pos[b] + i, softmax, the
     weights cast to the cache dtype for the value product, as the JAX
     package's ``_cached_attention``. ``pos`` is a [B] tensor or a scalar
-    (every row at one position). Returns [B, T, H, D] in cv's dtype."""
+    (every row at one position), or ``valid`` its ``attention_mask``.
+    Returns [B, T, H, D] in cv's dtype."""
     b, t, h, d = q.shape
     s, hkv = ck.shape[1], ck.shape[2]
     if hkv != h:
         ck = ck.repeat_interleave(h // hkv, dim=2)
         cv = cv.repeat_interleave(h // hkv, dim=2)
-    scores = torch.einsum("bthd,bshd->bhts", q.float(), ck.float()) / (d**0.5)
-    qpos = torch.arange(t, device=q.device)
-    kpos = torch.arange(s, device=q.device)
-    pos = torch.as_tensor(pos, device=q.device).long().reshape(-1)
-    valid = kpos[None, None, :] <= (
-        pos.expand(b)[:, None, None] + qpos[None, :, None]
-    )  # [B, T, S]
-    scores = torch.where(valid[:, None], scores, NEG_INF)
+    # Batched products through matmul: the same bmm as einsum's lowering
+    # (bitwise equal on the CPU), without einsum's ~0.1 ms of host time a
+    # call, twice a layer on every decode forward that takes this path.
+    scores = torch.matmul(q.float().transpose(1, 2),
+                          ck.float().permute(0, 2, 3, 1)) / (d**0.5)
+    if valid is None:
+        valid = attention_mask(pos, t, s, b, q.device)
+    scores = torch.where(valid[:, None], scores, NEG_INF)  # [B, H, T, S]
     w = torch.softmax(scores, dim=-1).to(cv.dtype)
-    return torch.einsum("bhts,bshd->bthd", w, cv)
+    return torch.matmul(w, cv.transpose(1, 2)).transpose(1, 2)
 
 
 def paged_decode_attention_reference(q, k_pages, v_pages, block_tables,

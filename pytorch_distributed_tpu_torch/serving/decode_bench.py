@@ -1,19 +1,43 @@
-"""The serving benchmark harness's legs over the paged engine.
+"""The decode and serving benchmark harness.
 
-The port's twin of the JAX package's ``scripts/decode_bench.py``, with its
-shapes (``_serving_cfg``: a small f32 GPT-2, smaller still under
-``--dryrun``) and its seeded streams, on the card unless given ``--device
-cpu``. Three legs, each printing one JSON row per leg and exiting nonzero
-when an invariant it asserts breaks:
+The port's twin of the JAX package's ``scripts/decode_bench.py``, every
+mode of it, on the card unless given ``--device cpu``. Each mode prints
+one JSON row per leg (``--json`` writes them too), and a leg that asserts
+an invariant exits nonzero when it breaks. Every row carries ``launches``:
+the K3, K4 and LoRA kernel launches its leg made.
 
+- Default: ``bench_decode`` over ``gpt2`` and ``llama3-1b`` (``--preset``
+  for one) in bf16 on the serial ``DecodeEngine`` (``decode.generate``):
+  the incremental rate B x (n2 - n1) / (t(n2) - t(n1)), the median of
+  ``--repeats``; ``--n-experts``/``--moe-top-k`` decode an MoE variant.
+  ``--speculative K``: plain against prompt-lookup speculative greedy
+  decode at B 1; speedup and both tok/s from one pair of medians.
+- ``--serving``: the serial engine against the per-call
+  ``generate_monolithic`` on distinct prompt lengths every pass. The JAX
+  leg's ZeRO-3 decode sub-leg needs a mesh and is skipped (stderr says
+  so).
+- ``--serving-batched``: the dense ``BatchedDecodeEngine`` against the
+  serial engine on one arrival stream, replayed in virtual time over
+  measured service times; with ``--chaos``, the batched engine clean and
+  under a seeded fault schedule (goodput, p50/p99 with retries).
 - ``--serving-paged``: the paged engine against the dense engine at equal
-  pool HBM (the paged leg at twice the slots) on one seeded arrival
-  stream whose prompts share a system prefix: tok/s, p50/p99 from the same
-  completion times, cache bytes, prefix hit rate, preemptions, and the
-  DONE tokens of the two legs compared request for request (reported, as
-  the JAX leg does: the dense prefill and the paged chunk run other
-  shapes, so on the card a near-tie may round the other way). Asserted:
-  no steady ``compile_count`` growth.
+  pool HBM (the paged leg at twice the slots) on one seeded shared-prefix
+  stream: tok/s, p50/p99 from the same completion times, cache bytes,
+  prefix hit rate, preemptions, and the DONE tokens of the two legs
+  compared request for request (reported, as the JAX leg does: the dense
+  prefill and the paged chunk run other shapes, so on the card a near-tie
+  may round the other way). Asserted: no steady ``compile_count`` growth.
+  With ``--kv-quant int8 [--weight-quant int8]``: f32 pages against int8
+  pages at the same geometry and at equal bytes; asserted: no steady
+  compiles, and the teacher-forced argmax agreement and relative logit MSE
+  within ``ops.quant.Q8_QUALITY``.
+- ``--serving-spec``: speculative against plain decode on one paged
+  geometry over a repetitive and an all-sampled stream; asserted: DONE
+  tokens equal, every request DONE, no steady compiles, no drafts on
+  sampled rows, and outside ``--dryrun`` a repetitive-leg speedup of at
+  least 1.2x, the median of ``SPEC_PAIRS`` pairs stepped in turns (the
+  JAX leg drains each engine once). The JAX leg's tensor-parallel pair
+  needs two or more devices and is skipped.
 - ``--serving-disagg``: a colocated two-replica fleet against a
   prefill + decode fleet (``role=``) on one ``workload.disagg_stream`` and
   one Poisson arrival schedule. Asserted: DONE tokens equal request for
@@ -41,17 +65,24 @@ when an invariant it asserts breaks:
   ``--dryrun`` the two wall-clock ratios carry the JAX script's noise
   margins (1.75x and 0.7x).
 
-``compile_count`` on the port counts CUDA kernel libraries loaded
-(``serving/engine``), so "no steady compiles" means nothing loads after
-warmup. The JAX rows' ``roofline`` field (its compiled-HLO cost analysis,
-``_roofline_projection``) is left out: the port compiles no program to
-analyse, and PERF.md keeps the kernels' bounds. The other modes of the
-JAX script are refused naming the ROADMAP item that queues them.
+Differences from the JAX script: ``compile_count`` counts CUDA kernel
+libraries loaded (``serving/engine``), so "no steady compiles" means
+nothing loads after warmup. The rows' ``roofline`` field (the JAX
+package's compiled-HLO cost analysis, ``_roofline_projection``) is left
+out: the port compiles no program to analyse, and PERF.md keeps the
+kernels' bounds. Weights and streams come from ``--chaos-seed`` in every
+mode (the JAX script draws a fresh seed for the non-chaos modes, against
+its relay's result cache). The repetitive-leg gate of
+``--serving-spec`` compares the two engines stepped in turns (the JAX leg
+drains one, then the other). ``--dryrun`` also narrows the default and
+``--speculative`` modes' presets to 2 layers of width 64 (the JAX script
+ignores it there).
 
+    python -m pytorch_distributed_tpu_torch.serving.decode_bench
     python -m pytorch_distributed_tpu_torch.serving.decode_bench \\
         --serving-disagg --serving-scenarios --json out.json
     python -m pytorch_distributed_tpu_torch.serving.decode_bench \\
-        --serving-paged --dryrun --device cpu
+        --serving-paged --kv-quant int8 --dryrun --device cpu
 """
 
 from __future__ import annotations
@@ -73,24 +104,12 @@ _now = time.perf_counter
 # JAX leg runs each side once, one after the other.
 TIERED_ROUNDS = 3
 LORA_PAIRS = 5
+SPEC_PAIRS = 5
 
 NOT_PORTED = {
-    "serving": "--serving: the serial-engine leg needs the trace analysis "
-               "of profiling/ (ROADMAP queue 1 item 6)",
-    "serving_batched": "--serving-batched is not ported yet (ROADMAP "
-                       "queue 1 item 4b)",
-    "serving_spec": "--serving-spec is not ported yet (ROADMAP queue 1 "
-                    "item 4b)",
-    "chaos": "--chaos is not ported yet (ROADMAP queue 1 item 4b)",
-    "kv_quant": "--kv-quant (the quant legs) is not ported yet (ROADMAP "
-                "queue 1 item 4b)",
     "cpu_devices": "--cpu-devices: the port has no virtual-device mesh; "
                    "use --device cpu",
 }
-DECODE_NOT_PORTED = (
-    "the non-serving decode benches (bench_decode, --speculative) are not "
-    "ported yet (ROADMAP queue 1 item 4b)"
-)
 
 
 def _pct(xs, q):
@@ -888,57 +907,1001 @@ def bench_serving_scenarios(args) -> list[dict]:
     return rows
 
 
+def _platform(device) -> str:
+    """The JAX rows' ``platform`` field: "gpu" on a CUDA device."""
+    return "gpu" if torch.device(device).type == "cuda" else "cpu"
+
+
+def _decode_cfg(preset: str, max_len: int, n_experts: int, moe_top_k: int,
+                dryrun: bool):
+    """The non-serving benches' model: the preset in bf16 (params too),
+    without dropout, ``n_ctx`` cut to what the run needs, an MoE variant at
+    the no-drop capacity (cf = X/k) when ``n_experts``. ``dryrun`` keeps
+    the preset's family and narrows it to 2 layers of width 64."""
+    from pytorch_distributed_tpu_torch.config import model_config
+
+    base = model_config(preset)
+    cfg = model_config(preset, dtype="bfloat16",
+                       param_dtype="bfloat16").replace(
+        embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0,
+        n_ctx=min(base.n_ctx, max_len))
+    if dryrun:
+        narrow = dict(vocab_size=256, n_embd=64, n_layer=2, n_head=4)
+        if cfg.family == "llama":
+            narrow.update(n_kv_head=2, n_inner=128)
+        cfg = cfg.replace(**narrow)
+    if n_experts:
+        cfg = cfg.replace(n_experts=n_experts, moe_top_k=moe_top_k,
+                          expert_capacity_factor=float(n_experts) / moe_top_k)
+    return cfg
+
+
+def _init_on(cfg, seed: int, device):
+    """Weights from ``seed``, drawn on the device they live on (the card
+    draws a billion parameters in well under a second)."""
+    from pytorch_distributed_tpu_torch.models import get_model
+
+    dev = torch.device(device)
+    return get_model(cfg).init(torch.Generator(device=dev).manual_seed(seed),
+                               cfg, device=dev)
+
+
+def bench_decode(preset: str, batch: int, prompt_len: int, n1: int, n2: int,
+                 repeats: int, n_experts: int = 0, moe_top_k: int = 1, *,
+                 seed: int = 0, device="cuda", dryrun: bool = False) -> dict:
+    """Incremental decode rate of ``decode.generate`` (the serial
+    ``DecodeEngine``): B x (n2 - n1) / (t(n2) - t(n1)), which cancels the
+    prefill and the fixed per-call cost; the median of ``repeats``."""
+    from pytorch_distributed_tpu_torch.models import decode
+
+    cfg = _decode_cfg(preset, prompt_len + n2, n_experts, moe_top_k, dryrun)
+    params = _init_on(cfg, seed, device)
+    rng = np.random.default_rng(seed)
+
+    def run(max_new):
+        prompt = rng.integers(0, cfg.vocab_size, (batch, prompt_len))
+        t0 = _now()
+        out = decode.generate(params, prompt, cfg, max_new,
+                              max_len=prompt_len + n2, device=device)
+        out.cpu()  # the fence
+        return _now() - t0
+
+    run(n1)  # one cache shape: the first calls load what they need
+    run(n2)
+    rates = []
+    for _ in range(repeats):
+        t1, t2 = run(n1), run(n2)
+        rates.append(batch * (n2 - n1) / (t2 - t1))
+    med = sorted(rates)[len(rates) // 2]
+    return dict(
+        preset=preset,
+        n_experts=n_experts,
+        moe_top_k=moe_top_k if n_experts else None,
+        batch=batch,
+        prompt_len=prompt_len,
+        incremental_tokens_per_sec=round(med, 1),
+        per_sequence_tokens_per_sec=round(med / batch, 1),
+        spread=round(max(rates) / max(min(rates), 1e-9), 3),
+        platform=_platform(device),
+        device=str(device),
+    )
+
+
+def bench_speculative(preset: str, prompt_len: int, max_new: int,
+                      draft_len: int, ngram: int, repeats: int,
+                      n_experts: int = 0, moe_top_k: int = 1, *,
+                      seed: int = 0, device="cuda",
+                      dryrun: bool = False) -> dict:
+    """Plain against prompt-lookup speculative greedy decode (B 1), the
+    same fresh prompt for both in each repeat. Speedup and both tok/s come
+    from one pair of medians, so speedup == speculative tok/s / plain
+    tok/s within the row."""
+    from pytorch_distributed_tpu_torch.models import decode
+    from pytorch_distributed_tpu_torch.models.speculative import (
+        generate_speculative,
+    )
+
+    max_len = prompt_len + max_new + draft_len
+    cfg = _decode_cfg(preset, max_len, n_experts, moe_top_k, dryrun)
+    params = _init_on(cfg, seed, device)
+    rng = np.random.default_rng(seed)
+
+    def fresh_prompt():
+        return rng.integers(0, cfg.vocab_size, (1, prompt_len))
+
+    def run_plain(prompt):
+        t0 = _now()
+        out = decode.generate(params, prompt, cfg, max_new, max_len=max_len,
+                              device=device).cpu()
+        return out.numpy(), _now() - t0
+
+    def run_spec(prompt):
+        t0 = _now()
+        out = generate_speculative(params, prompt, cfg, max_new,
+                                   draft_len=draft_len, ngram=ngram,
+                                   device=device).cpu()
+        return out.numpy(), _now() - t0
+
+    warm = fresh_prompt()
+    run_plain(warm), run_spec(warm)
+    plain_ts, spec_ts, matched = [], [], 0
+    for _ in range(repeats):
+        p = fresh_prompt()
+        out_p, tp_ = run_plain(p)
+        out_s, ts_ = run_spec(p)
+        plain_ts.append(tp_)
+        spec_ts.append(ts_)
+        # bf16 runs may part at near-tied logits (the 1-token and
+        # K+1-token forwards round differently): reported, not asserted.
+        matched += int(np.array_equal(out_p, out_s))
+    med_plain = float(np.median(plain_ts))
+    med_spec = float(np.median(spec_ts))
+    return dict(
+        preset=preset,
+        mode="speculative",
+        n_experts=n_experts,
+        moe_top_k=moe_top_k if n_experts else None,
+        draft_len=draft_len,
+        ngram=ngram,
+        max_new=max_new,
+        plain_tokens_per_sec=round(max_new / med_plain, 1),
+        speculative_tokens_per_sec=round(max_new / med_spec, 1),
+        speedup=round(med_plain / med_spec, 3),
+        outputs_match=f"{matched}/{repeats}",
+        platform=_platform(device),
+        device=str(device),
+    )
+
+
+def bench_serving(args) -> list[dict]:
+    """The serial ``DecodeEngine`` against the per-call
+    ``decode.generate_monolithic`` on a mixed-length stream: distinct
+    prompt lengths every pass (the engine's buckets make its shape set
+    finite), two sampling configs, batch 4 per request; cold, steady and
+    repeat-stream rates and p50 request latency per path. The JAX leg's
+    ZeRO-3 decode sub-leg needs a mesh of two or more devices: it is
+    skipped here, with that reason on stderr (ROADMAP queue 1 item 7)."""
+    from pytorch_distributed_tpu_torch.models import decode
+    from pytorch_distributed_tpu_torch.serving.engine import (
+        BucketSpec,
+        DecodeEngine,
+        _compile_count,
+    )
+
+    start = _launches()
+    cfg = _serving_cfg(args.dryrun)
+    max_new = 16 if args.dryrun else 32
+    batch = 4
+    max_len = 192 if args.dryrun else 384
+    configs = [dict(temperature=0.8, top_k=20),
+               dict(temperature=1.0, top_p=0.9)]
+    buckets = BucketSpec.powers_of_two(
+        max_len - max_new, min_bucket=16 if args.dryrun else 32)
+    n_req = 8 if args.dryrun else 12
+    seed = args.chaos_seed
+    params = _params(cfg, args)
+    rng = np.random.default_rng(seed)
+
+    def make_requests(lengths):
+        return [(rng.integers(0, cfg.vocab_size, (batch, tp)),
+                 configs[i % len(configs)]) for i, tp in enumerate(lengths)]
+
+    def draw_lengths(n):
+        """n distinct prompt lengths: every pass sees lengths the paths
+        have (almost certainly) not run before."""
+        pool = rng.permutation(np.arange(4, buckets.buckets[-1] + 1))[:n]
+        return sorted(int(x) for x in pool)
+
+    # The cold stream covers every bucket once, then random lengths.
+    cold_lengths = list(buckets.buckets) + draw_lengths(
+        n_req - len(buckets.buckets))
+    new_tokens_per_pass = batch * max_new * n_req
+
+    def run_stream(gen_fn, requests):
+        """(wall seconds, per-request seconds) serving every request."""
+        times = []
+        t0 = _now()
+        for prompt, ckw in requests:
+            r0 = _now()
+            gen_fn(prompt, ckw).cpu()  # the fence
+            times.append(_now() - r0)
+        return _now() - t0, times
+
+    def engine_leg(engine, requests):
+        return run_stream(lambda prompt, ckw: engine.generate(
+            params, prompt, max_new, seed=seed, **ckw), requests)
+
+    def legacy_leg(requests):
+        # The per-call path: a fresh cache per call, allocated and zeroed
+        # inside it, at the engine's capacity.
+        return run_stream(lambda prompt, ckw: decode.generate_monolithic(
+            params, prompt, cfg, max_new, seed=seed, max_len=max_len,
+            device=args.device, **ckw), requests)
+
+    engine = DecodeEngine(cfg, max_len=max_len, buckets=buckets,
+                          device=args.device)
+    before = _compile_count()
+    cold_requests = make_requests(cold_lengths)
+    eng_cold, _ = engine_leg(engine, cold_requests)
+    eng_compiles = _compile_count() - before
+    before = _compile_count()
+    leg_cold, _ = legacy_leg(cold_requests)
+    leg_compiles = _compile_count() - before
+
+    # Steady state: sustained fresh-length traffic, each pass the same
+    # requests through both paths.
+    eng_steady = leg_steady = 0.0
+    eng_times, leg_times = [], []
+    eng_steady_compiles = leg_steady_compiles = 0
+    for _ in range(args.repeats):
+        requests = make_requests(draw_lengths(n_req))
+        before = _compile_count()
+        et, etimes = engine_leg(engine, requests)
+        eng_steady_compiles += _compile_count() - before
+        before = _compile_count()
+        lt, ltimes = legacy_leg(requests)
+        leg_steady_compiles += _compile_count() - before
+        eng_steady += et
+        leg_steady += lt
+        eng_times += etimes
+        leg_times += ltimes
+
+    # The repeat-stream idealization: the cold requests again, warm on
+    # both paths.
+    eng_warm, _ = min((engine_leg(engine, cold_requests)
+                       for _ in range(args.repeats)), key=lambda r: r[0])
+    leg_warm, _ = min((legacy_leg(cold_requests)
+                       for _ in range(args.repeats)), key=lambda r: r[0])
+
+    def _leg_row(compiles, steady_compiles, cold_s, steady_s, warm_s, times):
+        passes = max(1, args.repeats)
+        return {
+            "observed_compile_count_cold": compiles,
+            "observed_compile_count_steady": steady_compiles,
+            "stream_seconds_cold": round(cold_s, 3),
+            "steady_tokens_per_sec": round(
+                passes * new_tokens_per_pass / steady_s, 1),
+            "repeat_stream_tokens_per_sec": round(
+                new_tokens_per_pass / warm_s, 1),
+            "p50_request_ms": round(sorted(times)[len(times) // 2] * 1e3, 2),
+        }
+
+    engine_row = _leg_row(eng_compiles, eng_steady_compiles, eng_cold,
+                          eng_steady, eng_warm, eng_times)
+    hbm = engine.cache_hbm_bytes()
+    engine_row["cache_hbm_bytes"] = hbm["allocated"]
+    engine_row["cache_hbm_bytes_peak_in_use"] = hbm["peak_in_use"]
+    print("zero3_decode skipped: the ZeRO-3 decode sub-leg needs a mesh of "
+          ">= 2 devices, and the port has no mesh yet (ROADMAP queue 1 "
+          "item 7)", file=sys.stderr)
+    return [{
+        "leg": "serving_stream",
+        "model": _model_row(cfg),
+        "batch": batch,
+        "max_new": max_new,
+        "requests_per_pass": n_req,
+        "distinct_prompt_lengths_per_pass": n_req,
+        "sampling_configs": len(configs),
+        "steady_passes": args.repeats,
+        "buckets": list(buckets.buckets),
+        "engine": engine_row,
+        "legacy": _leg_row(leg_compiles, leg_steady_compiles, leg_cold,
+                           leg_steady, leg_warm, leg_times),
+        "seed": seed,
+        "launches": _launches(start),
+        "platform": _platform(args.device),
+        "device": str(args.device),
+    }]
+
+
+def _replay(eng, params, requests, arrivals) -> tuple:
+    """The JAX legs' virtual-clock replay through a batched engine:
+    arrivals are admitted as the clock (the sum of measured ``step``
+    times) passes them, idle gaps skipped. (span from the first arrival,
+    {rid: latency}, {rid: request index})."""
+    clock = 0.0
+    pending = list(zip(arrivals, range(len(requests))))
+    submitted: dict[int, float] = {}
+    rid_to_idx: dict[int, int] = {}
+    lat: dict[int, float] = {}
+    while pending or eng.has_work():
+        while pending and pending[0][0] <= clock:
+            arr, i = pending.pop(0)
+            rid = eng.submit(**requests[i])
+            submitted[rid] = arr
+            rid_to_idx[rid] = i
+        if not eng.has_work():
+            clock = pending[0][0]
+            continue
+        t0 = _now()
+        done = eng.step(params)
+        clock += _now() - t0
+        for rid in done:
+            lat[rid] = clock - submitted[rid]
+    return clock - arrivals[0], lat, rid_to_idx
+
+
+def bench_serving_batched(args) -> list[dict]:
+    """Continuous batching (``BatchedDecodeEngine``) against the serial
+    engine on one seeded arrival stream offered at about twice the serial
+    engine's service rate, both replayed in virtual time over measured
+    service times (the serial leg FIFO, one request at a time); tok/s and
+    p50/p99 from the same completion times, steady compiles per leg."""
+    from pytorch_distributed_tpu_torch.serving.engine import (
+        BatchedDecodeEngine,
+        BucketSpec,
+        DecodeEngine,
+    )
+    from pytorch_distributed_tpu_torch.serving.workload import (
+        exponential_arrivals,
+        request_stream,
+    )
+
+    start = _launches()
+    cfg = _serving_cfg(args.dryrun)
+    slots = 4 if args.dryrun else 8
+    max_new = 12 if args.dryrun else 32
+    max_len = 160 if args.dryrun else 384
+    n_req = 16 if args.dryrun else 48
+    buckets = BucketSpec.powers_of_two(
+        max_len - max_new, min_bucket=16 if args.dryrun else 32)
+    seed = args.chaos_seed
+    params = _params(cfg, args)
+    rng = np.random.default_rng(seed)
+    requests = request_stream(
+        rng, n=n_req, vocab_size=cfg.vocab_size,
+        prompt_len=(4, buckets.buckets[-1]), max_new=max_new, key_seed=seed)
+    n_sampling_configs = 3  # DEFAULT_SAMPLING_CYCLE
+
+    serial = DecodeEngine(cfg, max_len=max_len, buckets=buckets,
+                          device=args.device)
+    batched = BatchedDecodeEngine(cfg, slots=slots, max_len=max_len,
+                                  buckets=buckets, device=args.device)
+
+    def serial_call(req):
+        kw = {k: v for k, v in req.items()
+              if k not in ("prompt", "max_new_tokens")}
+        serial.generate(params, np.asarray(req["prompt"])[None],
+                        req["max_new_tokens"], **kw).cpu()  # the fence
+
+    # Warm both legs, outside the measured stream.
+    for tp in buckets.buckets:
+        p_warm = np.zeros((min(tp, max_len - max_new),), np.int32)
+        serial_call(dict(prompt=p_warm, max_new_tokens=max_new,
+                         temperature=0.8, top_k=20, seed=0))
+        serial_call(dict(prompt=p_warm, max_new_tokens=max_new))
+    batched.warmup(params)
+    serial_warm = serial.compile_count()
+    batched_warm = batched.compile_count()
+
+    # Calibrate the arrival process to the serial engine's service rate.
+    t0 = _now()
+    serial_call(requests[0])
+    mean_interarrival = (_now() - t0) / 2.0  # ~2x serial capacity
+    arrivals = exponential_arrivals(rng, n_req, mean_interarrival)
+
+    clock = 0.0
+    serial_lat = []
+    for arr, req in zip(arrivals, requests):
+        t0 = _now()
+        serial_call(req)
+        clock = max(clock, arr) + (_now() - t0)
+        serial_lat.append(clock - arr)
+    serial_span = clock - arrivals[0]
+    serial_steady = serial.compile_count() - serial_warm
+
+    batched_span, batched_lat, _ = _replay(batched, params, requests,
+                                           arrivals)
+    batched_steady = batched.compile_count() - batched_warm
+    total_tokens = n_req * max_new
+
+    def _leg(span, lat, steady):
+        lat = list(lat)
+        return {
+            "steady_tokens_per_sec": round(total_tokens / span, 1),
+            "p50_request_ms": round(_pct(lat, 0.50) * 1e3, 2),
+            "p99_request_ms": round(_pct(lat, 0.99) * 1e3, 2),
+            "observed_compile_count_steady": steady,
+        }
+
+    return [{
+        "leg": "serving_batched_stream",
+        "model": _model_row(cfg),
+        "slots": slots,
+        "max_new": max_new,
+        "max_len": max_len,
+        "requests": n_req,
+        "buckets": list(buckets.buckets),
+        "sampling_configs": n_sampling_configs,
+        "mean_interarrival_ms": round(mean_interarrival * 1e3, 2),
+        "arrival_process": "seeded exponential (~2x serial capacity)",
+        "serial": _leg(serial_span, serial_lat, serial_steady),
+        "batched": dict(
+            _leg(batched_span, batched_lat.values(), batched_steady),
+            cache_hbm_bytes=batched.cache_hbm_bytes()["allocated"]),
+        "aggregate_speedup": round(serial_span / batched_span, 3),
+        "seed": seed,
+        "launches": _launches(start),
+        "platform": _platform(args.device),
+        "device": str(args.device),
+    }]
+
+
+def bench_serving_chaos(args) -> list[dict]:
+    """The cost of surviving faults: one seeded arrival stream through
+    the dense batched engine twice, clean and under a seeded fault
+    schedule (dispatch failures, dropped results, NaN rows; a pure
+    function of ``--chaos-seed``), latencies by the virtual-clock replay
+    of ``--serving-batched``; goodput counts DONE tokens only."""
+    from pytorch_distributed_tpu_torch.serving.chaos import FaultInjector
+    from pytorch_distributed_tpu_torch.serving.engine import (
+        BatchedDecodeEngine,
+        BucketSpec,
+    )
+    from pytorch_distributed_tpu_torch.serving.lifecycle import DONE
+    from pytorch_distributed_tpu_torch.serving.workload import (
+        exponential_arrivals,
+        request_stream,
+    )
+
+    start = _launches()
+    cfg = _serving_cfg(args.dryrun)
+    slots = 4 if args.dryrun else 8
+    max_new = 12 if args.dryrun else 32
+    max_len = 160 if args.dryrun else 384
+    n_req = 16 if args.dryrun else 48
+    buckets = BucketSpec.powers_of_two(
+        max_len - max_new, min_bucket=16 if args.dryrun else 32)
+    seed = args.chaos_seed
+    params = _params(cfg, args)
+    rng = np.random.default_rng(seed)
+    requests = request_stream(
+        rng, n=n_req, vocab_size=cfg.vocab_size,
+        prompt_len=(4, buckets.buckets[-1]), max_new=max_new, key_seed=seed)
+
+    def make_engine():
+        return BatchedDecodeEngine(
+            cfg, slots=slots, max_len=max_len, buckets=buckets,
+            dispatch_retries=None, request_retries=8,
+            retry_backoff_s=0.0,  # measured: no sleep, just redo
+            device=args.device)
+
+    # One arrival process, calibrated on a throwaway warm engine and
+    # shared by both legs.
+    probe = make_engine()
+    probe.warmup(params)
+    t0 = _now()
+    probe.run(params, [requests[0]])
+    mean_interarrival = (_now() - t0) / max(2, slots // 2)
+    del probe
+    arrivals = exponential_arrivals(rng, n_req, mean_interarrival)
+
+    def drive(injector):
+        eng = make_engine()
+        if injector is not None:
+            injector.install(eng)
+        eng.warmup(params)
+        warm = eng.compile_count()
+        span, lat, rid_to_idx = _replay(eng, params, requests, arrivals)
+        results = {rid_to_idx[rid]: eng.pop_result(rid)
+                   for rid in list(eng.results)}
+        return span, lat, results, eng.counters, eng.compile_count() - warm
+
+    def _leg(span, lat, results, stats, steady):
+        good_tokens = sum(len(r.tokens) - len(requests[i]["prompt"])
+                          for i, r in results.items() if r.state == DONE)
+        lat = list(lat.values())
+        return {
+            "goodput_tokens_per_sec": round(good_tokens / span, 1),
+            "p50_request_ms": round(_pct(lat, 0.50) * 1e3, 2),
+            "p99_request_ms": round(_pct(lat, 0.99) * 1e3, 2),
+            "terminal_states": {
+                s: sum(1 for r in results.values() if r.state == s)
+                for s in sorted({r.state for r in results.values()})},
+            "dispatch_failures": stats["dispatch_failures"],
+            "resumes": stats["resumes"],
+            "nan_quarantines": stats["nan_quarantines"],
+            "observed_compile_count_steady": steady,
+        }
+
+    clean = _leg(*drive(None))
+    p_fault = (0.10, 0.06, 0.12) if args.dryrun else (0.03, 0.02, 0.05)
+    injector = FaultInjector(seed=seed + 1, p_dispatch_error=p_fault[0],
+                             p_drop_result=p_fault[1], p_nan_row=p_fault[2])
+    chaos = _leg(*drive(injector))
+    for kind, count in injector.counts.items():
+        if kind != "slow_tick" and count == 0:
+            print(f"warning: fault kind {kind!r} never fired this seed — "
+                  "the chaos leg under-exercised recovery", file=sys.stderr)
+    return [{
+        "leg": "serving_batched_chaos",
+        "model": _model_row(cfg),
+        "slots": slots,
+        "max_new": max_new,
+        "max_len": max_len,
+        "requests": n_req,
+        "buckets": list(buckets.buckets),
+        "chaos_seed": seed,
+        "mean_interarrival_ms": round(mean_interarrival * 1e3, 2),
+        "fault_probabilities": {"p_dispatch_error": p_fault[0],
+                                "p_drop_result": p_fault[1],
+                                "p_nan_row": p_fault[2]},
+        "fault_counts": {k: v for k, v in injector.counts.items()
+                         if k != "slow_tick"},
+        "clean": clean,
+        "chaos": chaos,
+        "goodput_retention": round(
+            chaos["goodput_tokens_per_sec"]
+            / max(clean["goodput_tokens_per_sec"], 1e-9), 3),
+        "launches": _launches(start),
+        "platform": _platform(args.device),
+        "device": str(args.device),
+    }]
+
+
+def bench_serving_quant(args) -> list[dict]:
+    """int8 KV pages (and int8 weights with ``--weight-quant int8``)
+    against the f32 paged engine on one seeded all-greedy shared-prefix
+    stream offered at ~4x the drain rate: ``f32`` at a page-pressured pool,
+    ``int8`` on the same pool geometry, ``int8_equal_bytes`` re-provisioned
+    to the f32 pool's bytes. Asserted: zero steady compiles on every leg,
+    and the teacher-forced greedy agreement and relative logit MSE within
+    ``ops.quant.Q8_QUALITY`` (the f32 leg's sequences through both
+    forwards)."""
+    from pytorch_distributed_tpu_torch.models import decode
+    from pytorch_distributed_tpu_torch.ops.quant import (
+        Q8_QUALITY,
+        argmax_agreement,
+        quantize_decode_params,
+        relative_logit_mse,
+        token_match_rate,
+    )
+    from pytorch_distributed_tpu_torch.serving.engine import (
+        PagedBatchedDecodeEngine,
+        kv_bytes_per_position,
+    )
+    from pytorch_distributed_tpu_torch.serving.workload import (
+        exponential_arrivals,
+        request_stream,
+    )
+
+    start = _launches()
+    cfg = _serving_cfg(args.dryrun)
+    slots = 4 if args.dryrun else 8
+    max_new = 12 if args.dryrun else 32
+    max_len = 160 if args.dryrun else 384
+    page = 16
+    chunk = 16 if args.dryrun else 32
+    n_req = 16 if args.dryrun else 48
+    prefix_len = 48 if args.dryrun else 96
+    tail_max = (max_len - max_new - prefix_len) // 2
+    # A quarter of the dense-equivalent pool (at least one full-depth
+    # row): the f32 leg runs page-pressured.
+    pool_pages = max(slots * max_len // (4 * page), max_len // page + 1)
+    bpp_f32 = kv_bytes_per_position(cfg)
+    bpp_q8 = kv_bytes_per_position(cfg, "int8")
+    pool_pages_eq = pool_pages * bpp_f32 // bpp_q8
+    seed = args.chaos_seed
+    params = _params(cfg, args)
+    rng = np.random.default_rng(seed)
+    system_prefix = rng.integers(0, cfg.vocab_size, (prefix_len,)).astype(
+        np.int32)
+    requests = request_stream(
+        rng, n=n_req, vocab_size=cfg.vocab_size,
+        prompt_len=(4, tail_max - 1), max_new=max_new, key_seed=seed,
+        shared_prefix=system_prefix, sampling_cycle=(dict(),))
+
+    def make_engine(kv_quant, pages):
+        return PagedBatchedDecodeEngine(
+            cfg, slots=slots, max_len=max_len, page_size=page,
+            prefill_chunk=chunk, pool_pages=pages, kv_quant=kv_quant,
+            weight_quant=args.weight_quant if kv_quant != "none" else "none",
+            device=args.device)
+
+    # The arrival schedule, calibrated on a throwaway f32 engine (a
+    # measured engine would keep the probe's prefix pages warm).
+    probe = make_engine("none", pool_pages)
+    probe.warmup(params)
+    t0 = _now()
+    probe.run(params, [requests[0]])
+    mean_interarrival = (_now() - t0) / (4 * slots)
+    del probe
+    arrivals = exponential_arrivals(rng, n_req, mean_interarrival)
+
+    engines = {
+        "f32": make_engine("none", pool_pages),
+        "int8": make_engine(args.kv_quant, pool_pages),
+        "int8_equal_bytes": make_engine(args.kv_quant, pool_pages_eq),
+    }
+    warm = {}
+    for name, eng in engines.items():
+        eng.warmup(params)
+        warm[name] = eng.compile_count()
+    runs = {}
+    for name, eng in engines.items():
+        span, lat, rid_to_idx = _replay(eng, params, requests, arrivals)
+        results = {rid_to_idx[rid]: eng.pop_result(rid)
+                   for rid in list(eng.results)}
+        runs[name] = (span, lat, results)
+    steady = {name: engines[name].compile_count() - warm[name]
+              for name in engines}
+
+    # Quality between the int8 and f32 paths: the f32 leg's served
+    # sequences teacher-forced through both forwards (identical contexts:
+    # quantization error alone), argmax agreement and relative logit MSE
+    # over the generated positions; the autoregressive prefix match rides
+    # the row, unpinned.
+    gen = {name: [np.asarray(res[i].tokens)[len(requests[i]["prompt"]):]
+                  for i in sorted(res)]
+           for name, (_, _, res) in runs.items()}
+    prefix_match = token_match_rate(gen["f32"], gen["int8"])
+    probe_n = min(12, n_req)
+    seqs = [np.concatenate([np.asarray(requests[i]["prompt"], np.int32),
+                            gen["f32"][i]])[:-1] for i in range(probe_n)]
+    gen_starts = [len(requests[i]["prompt"]) - 1 for i in range(probe_n)]
+    t_max = max(len(s) for s in seqs)
+    batch = np.zeros((probe_n, t_max), np.int64)
+    for i, s in enumerate(seqs):
+        batch[i, :len(s)] = s
+    n_pp = -(-t_max // page)
+    dev = torch.device(args.device)
+    tables = torch.arange(1, 1 + probe_n * n_pp, dtype=torch.int32,
+                          device=dev).reshape(probe_n, n_pp)
+    pos = torch.zeros((probe_n,), dtype=torch.int32, device=dev)
+    ids = torch.from_numpy(batch).to(dev)
+    logits = {}
+    for kv_quant, p in (
+            ("none", params),
+            (args.kv_quant, quantize_decode_params(params)
+             if args.weight_quant != "none" else params)):
+        cache = decode.init_paged_cache(cfg, probe_n * n_pp + 1, page,
+                                        device=dev, kv_quant=kv_quant)
+        with torch.no_grad():
+            out, _ = decode.forward(p, ids, cfg, cache, pos,
+                                    block_tables=tables, kv_quant=kv_quant)
+        out = out.float().cpu().numpy()
+        logits[kv_quant != "none"] = np.concatenate(
+            [out[i, gen_starts[i]:len(s)] for i, s in enumerate(seqs)])
+    match_rate = argmax_agreement(logits[False], logits[True])
+    logit_mse = relative_logit_mse(logits[False], logits[True])
+
+    hbm = {name: engines[name].cache_hbm_bytes() for name in engines}
+    total_tokens = n_req * max_new
+
+    def _leg(name):
+        span, lat, _ = runs[name]
+        lat = list(lat.values())
+        eng = engines[name]
+        return {
+            "kv_quant": eng.kv_quant,
+            "weight_quant": eng.weight_quant,
+            "pool_pages": eng.pool_pages,
+            "steady_tokens_per_sec": round(total_tokens / span, 1),
+            "p50_request_ms": round(_pct(lat, 0.50) * 1e3, 2),
+            "p99_request_ms": round(_pct(lat, 0.99) * 1e3, 2),
+            "observed_compile_count_steady": steady[name],
+            "cache_hbm_bytes": hbm[name]["allocated"],
+            "cache_hbm_bytes_peak_in_use": hbm[name]["peak_in_use"],
+            "preemptions": eng.counters["preemptions"],
+        }
+
+    row = {
+        "leg": "serving_quant_stream",
+        "model": _model_row(cfg),
+        "slots": slots,
+        "max_new": max_new,
+        "max_len": max_len,
+        "page_size": page,
+        "prefill_chunk": chunk,
+        "requests": n_req,
+        "shared_prefix_tokens": prefix_len,
+        "seed": seed,
+        "sampling": "all-greedy (quality is an argmax statement)",
+        "mean_interarrival_ms": round(mean_interarrival * 1e3, 2),
+        "bytes_per_position": {"f32": bpp_f32, "int8": bpp_q8},
+        "f32": _leg("f32"),
+        "int8": _leg("int8"),
+        "int8_equal_bytes": _leg("int8_equal_bytes"),
+        "page_pool_hbm_ratio": round(
+            hbm["int8"]["allocated"] / hbm["f32"]["allocated"], 4),
+        "equal_bytes_speedup": round(
+            runs["f32"][0] / runs["int8_equal_bytes"][0], 3),
+        "quality": {
+            "greedy_token_match_rate": round(match_rate, 4),
+            "relative_logit_mse": float(f"{logit_mse:.3e}"),
+            "autoregressive_prefix_match_rate": round(prefix_match, 4),
+            "probe_requests": probe_n,
+            "budget": dict(Q8_QUALITY),
+        },
+        "launches": _launches(start),
+        "platform": _platform(args.device),
+        "device": str(args.device),
+    }
+    failures = [f"{name} leg leaked {count} steady-state compiles"
+                for name, count in steady.items() if count]
+    if match_rate < Q8_QUALITY["min_token_match_rate"]:
+        failures.append(
+            f"greedy token-match rate {match_rate:.4f} below the pinned "
+            f"budget {Q8_QUALITY['min_token_match_rate']}")
+    if logit_mse > Q8_QUALITY["max_relative_logit_mse"]:
+        failures.append(
+            f"relative logit MSE {logit_mse:.3e} above the pinned budget "
+            f"{Q8_QUALITY['max_relative_logit_mse']:.0e}")
+    row["invariant_failures"] = failures
+    if failures:
+        print(json.dumps(row), file=sys.stderr)
+        raise SystemExit("serving_quant invariants violated: "
+                         + "; ".join(failures))
+    return [row]
+
+
+def bench_serving_spec(args) -> list[dict]:
+    """Batched speculative decoding (``speculative_k``) against plain
+    decode on the same paged geometry, each pair draining one saturating
+    stream (every request at t 0) stepped in turns (``_drive_together``):
+    ``repetitive`` (self-repetitive greedy traffic, the prompt-lookup
+    target) and ``low_repetition`` (all-sampled rows, which draft nothing:
+    the cost of leaving speculation on). Asserted: DONE tokens equal
+    request for request, every request DONE, zero steady compiles, no
+    drafts on sampled rows, and outside ``--dryrun`` a repetitive-leg
+    speedup of at least 1.2x: the median of ``SPEC_PAIRS`` pairs, which
+    one steps first alternating (the JAX leg drains each engine once,
+    one after the other; the first pair's ratio is reported as
+    ``aggregate_speedup_single_pass``). The JAX leg's tensor-parallel
+    pair needs two or more devices and is skipped, as JAX skips it on
+    one."""
+    from pytorch_distributed_tpu_torch.serving.engine import (
+        PagedBatchedDecodeEngine,
+    )
+    from pytorch_distributed_tpu_torch.serving.workload import (
+        repetitive_request_stream,
+        request_stream,
+    )
+
+    cfg = _serving_cfg(args.dryrun)
+    slots = 4 if args.dryrun else 8
+    max_new = 16 if args.dryrun else 48
+    max_len = 160 if args.dryrun else 384
+    page = 16
+    chunk = 16 if args.dryrun else 32
+    n_req = 12 if args.dryrun else 32
+    spec_k = args.speculative or 4
+    pool_pages = slots * max_len // page + 1
+    seed = args.chaos_seed
+    params = _params(cfg, args)
+    rng = np.random.default_rng(seed)
+    failures: list[str] = []
+    # ngram 1 on the engine path: the verify forward is k+1 wide whatever
+    # is drafted, so a looser match that fires earlier only adds accepts.
+    ngram = 1 if args.ngram is None else args.ngram
+
+    def make_engine(spec):
+        return PagedBatchedDecodeEngine(
+            cfg, slots=slots, max_len=max_len, page_size=page,
+            prefill_chunk=chunk, pool_pages=pool_pages, speculative_k=spec,
+            spec_ngram=ngram, device=args.device)
+
+    def fail(msg):
+        if msg not in failures:
+            failures.append(msg)
+
+    def run_pair(requests, leg_name, spec_first=False):
+        leg_start = _launches()
+        plain, spec = make_engine(0), make_engine(spec_k)
+        plain.warmup(params)
+        spec.warmup(params)
+        warm_p, warm_s = plain.compile_count(), spec.compile_count()
+        runs = [_schedule(plain, params, requests),
+                _schedule(spec, params, requests)]
+        res = _drive_together(*runs[::-1] if spec_first else runs)
+        (p_span, p_lat, p_res), (s_span, s_lat, s_res) = (
+            res[::-1] if spec_first else res)
+        steady_p = plain.compile_count() - warm_p
+        steady_s = spec.compile_count() - warm_s
+        matched = sum(int(np.array_equal(p_res[i].tokens, s_res[i].tokens))
+                      for i in p_res)
+        if matched != len(requests):
+            fail(f"{leg_name}: {matched}/{len(requests)} DONE outputs "
+                 "bit-equal plain (speculation changed tokens)")
+        if any(r.state != "DONE" for r in [*p_res.values(),
+                                           *s_res.values()]):
+            fail(f"{leg_name}: non-DONE terminal state")
+        if steady_p or steady_s:
+            fail(f"{leg_name}: steady compiles plain={steady_p} "
+                 f"spec={steady_s} (pinned 0)")
+        total_tokens = sum(len(r.tokens) - len(requests[i]["prompt"])
+                           for i, r in p_res.items())
+        c = spec.counters
+        mean_acc = c["accepted_tokens"] / max(1, c["spec_commits"])
+
+        def leg(span, lat, steady):
+            lat = list(lat.values())
+            return {
+                "steady_tokens_per_sec": round(total_tokens / span, 1),
+                "p50_request_ms": round(_pct(lat, 0.50) * 1e3, 2),
+                "p99_request_ms": round(_pct(lat, 0.99) * 1e3, 2),
+                "observed_compile_count_steady": steady,
+            }
+
+        return {
+            "leg": f"serving_spec_{leg_name}",
+            "model": _model_row(cfg),
+            "slots": slots, "max_len": max_len, "max_new": max_new,
+            "page_size": page, "prefill_chunk": chunk,
+            "pool_pages": pool_pages, "requests": len(requests),
+            "speculative_k": spec_k, "spec_ngram": ngram, "seed": seed,
+            "plain": leg(p_span, p_lat, steady_p),
+            "speculative": leg(s_span, s_lat, steady_s),
+            "spec_extras": {
+                "drafted_tokens": c["drafted_tokens"],
+                "accepted_tokens": c["accepted_tokens"],
+                "spec_accept_rate": spec.stats()["spec_accept_rate"],
+                "mean_accepted_len_per_commit": round(mean_acc, 3),
+                "decode_ticks_plain": plain._ticks,
+                "decode_ticks_spec": spec._ticks,
+            },
+            "aggregate_speedup": round(p_span / s_span, 3),
+            "outputs_match": f"{matched}/{len(requests)}",
+            "launches": _launches(leg_start),
+            "platform": _platform(args.device),
+            "device": str(args.device),
+        }
+
+    rep_reqs = repetitive_request_stream(
+        rng, n=n_req, vocab_size=cfg.vocab_size, max_new=max_new)
+    pairs = [run_pair(rep_reqs, "repetitive", spec_first=bool(i % 2))
+             for i in range(SPEC_PAIRS)]
+    rep_row = pairs[0]
+    per_pair = [r["aggregate_speedup"] for r in pairs]
+    rep_row["aggregate_speedup_single_pass"] = per_pair[0]
+    rep_row["aggregate_speedup_pairs"] = per_pair
+    rep_row["aggregate_speedup"] = float(np.median(per_pair))
+    if not args.dryrun and rep_row["aggregate_speedup"] < 1.2:
+        failures.append(
+            f"repetitive-leg speedup {rep_row['aggregate_speedup']}x < 1.2x "
+            "pinned (mean accepted "
+            f"{rep_row['spec_extras']['mean_accepted_len_per_commit']})")
+    low_reqs = request_stream(
+        rng, n=n_req, vocab_size=cfg.vocab_size, prompt_len=(8, 48),
+        max_new=max_new, key_seed=seed + 1,
+        sampling_cycle=(dict(temperature=0.8, top_k=20),
+                        dict(temperature=1.0, top_p=0.9)))
+    low_row = run_pair(low_reqs, "low_repetition")
+    if low_row["spec_extras"]["drafted_tokens"]:
+        failures.append("low-repetition leg drafted tokens on sampled rows "
+                        "(speculation must be greedy-only)")
+    low_row["regression_bound_note"] = (
+        "all-sampled rows ride zero-draft lanes: the spec engine pays the "
+        f"(k+1)={spec_k + 1}-wide verify forward, and runs lane 0's "
+        "projections once more by themselves so that a sampled token is "
+        "plain's bit for bit, for 0 accepts — measured "
+        f"{low_row['aggregate_speedup']}x of plain is the cost of leaving "
+        "speculation on for non-greedy traffic")
+    print("serving_spec_tp skipped: the tensor-parallel pair needs >= 2 "
+          "devices and a mesh (ROADMAP queue 1 item 7)", file=sys.stderr)
+    rows = [rep_row, low_row]
+    for row in rows:
+        row["invariant_failures"] = failures
+    if failures:
+        for row in rows:
+            print(json.dumps(row), file=sys.stderr)
+        raise SystemExit("serving_spec invariants violated: "
+                         + "; ".join(failures))
+    return rows
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--preset", default=None,
+                    help="single preset (default: gpt2 AND llama3-1b)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--n1", type=int, default=32)
+    ap.add_argument("--n2", type=int, default=160)
+    ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--n-experts", type=int, default=0,
+                    help="bench an MoE variant of the preset (Switch/top-k "
+                         "routing; capacity at the no-drop bound)")
+    ap.add_argument("--moe-top-k", type=int, default=1)
+    ap.add_argument("--speculative", type=int, default=0, metavar="K",
+                    help="instead of the batched bench, compare plain vs "
+                         "prompt-lookup speculative greedy decode (B=1) "
+                         "with draft_len=K; with --serving-spec, the draft "
+                         "depth (default 4)")
+    ap.add_argument("--ngram", type=int, default=None,
+                    help="prompt-lookup n-gram width (default: 2 on the "
+                         "serial --speculative bench, 1 on --serving-spec)")
+    ap.add_argument("--max-new", type=int, default=512,
+                    help="generation length for --speculative")
+    ap.add_argument("--serving", action="store_true",
+                    help="the serial engine vs the per-call path on a "
+                         "mixed-length request stream")
+    ap.add_argument("--serving-batched", action="store_true",
+                    help="continuous batching vs the serial engine on an "
+                         "arrival stream")
     ap.add_argument("--serving-paged", action="store_true",
                     help="paged vs dense engine at equal pool HBM on a "
                          "shared-prefix arrival stream")
+    ap.add_argument("--serving-spec", action="store_true",
+                    help="batched speculative decoding vs plain decode on "
+                         "one paged geometry")
     ap.add_argument("--serving-disagg", action="store_true",
                     help="prefill + decode workers vs a colocated fleet on "
                          "one disagg_stream")
     ap.add_argument("--serving-scenarios", action="store_true",
                     help="tiered SLO, sessions and multi-tenant LoRA legs")
+    ap.add_argument("--kv-quant", default="none", choices=("none", "int8"),
+                    help="with --serving-paged: int8 KV pages vs the f32 "
+                         "paged engine")
+    ap.add_argument("--weight-quant", default="none",
+                    choices=("none", "int8"),
+                    help="with --kv-quant: int8 weight-only projections on "
+                         "the quantized legs")
+    ap.add_argument("--chaos", action="store_true",
+                    help="with --serving-batched: the same stream under a "
+                         "seeded fault schedule")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="the seed of every stream, fault schedule and the "
+                         "weights")
     ap.add_argument("--dryrun", action="store_true",
                     help="tiny shapes for a smoke run")
     ap.add_argument("--json", default=None, help="write the rows here")
-    ap.add_argument("--chaos-seed", type=int, default=0,
-                    help="the seed of every stream and of the weights")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    # The JAX script's other modes, refused with the item that queues them.
-    for flag in ("--serving", "--serving-batched", "--serving-spec",
-                 "--chaos"):
-        ap.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
-    ap.add_argument("--kv-quant", default="none", help=argparse.SUPPRESS)
-    ap.add_argument("--weight-quant", default="none",
-                    help=argparse.SUPPRESS)
     ap.add_argument("--cpu-devices", type=int, default=0,
                     help=argparse.SUPPRESS)
-    ap.add_argument("--speculative", type=int, default=0,
-                    help=argparse.SUPPRESS)
-    ap.add_argument("--preset", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     for flag, why in NOT_PORTED.items():
-        value = getattr(args, flag)
-        if value and value != "none":
+        if getattr(args, flag):
             raise SystemExit(why)
-    if args.weight_quant != "none":
-        raise SystemExit(NOT_PORTED["kv_quant"])
-    if not (args.serving_paged or args.serving_disagg
-            or args.serving_scenarios):
-        raise SystemExit(DECODE_NOT_PORTED)
+    if args.chaos and not args.serving_batched:
+        ap.error("--chaos requires --serving-batched")
+    if args.kv_quant != "none" and not args.serving_paged:
+        ap.error("--kv-quant requires --serving-paged (quantized pages "
+                 "are a block-pool feature)")
+    if args.weight_quant != "none" and args.kv_quant == "none":
+        ap.error("--weight-quant rides the quantized bench legs — pass "
+                 "--kv-quant int8 too (alone it would be silently "
+                 "ignored)")
     return args
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    serving = (args.serving or args.serving_batched or args.serving_paged
+               or args.serving_spec or args.serving_disagg
+               or args.serving_scenarios)
     rows = []
+    if args.serving:
+        rows += bench_serving(args)
+    if args.serving_batched:
+        rows += (bench_serving_chaos(args) if args.chaos
+                 else bench_serving_batched(args))
     if args.serving_paged:
-        rows += bench_serving_paged(args)
+        rows += (bench_serving_quant(args) if args.kv_quant != "none"
+                 else bench_serving_paged(args))
+    if args.serving_spec:
+        rows += bench_serving_spec(args)
     if args.serving_disagg:
         rows += bench_serving_disagg(args)
     if args.serving_scenarios:
         rows += bench_serving_scenarios(args)
+    if not serving:
+        kw = dict(seed=args.chaos_seed, device=args.device,
+                  dryrun=args.dryrun)
+        for preset in [args.preset] if args.preset else ["gpt2",
+                                                         "llama3-1b"]:
+            start = _launches()
+            if args.speculative:
+                row = bench_speculative(
+                    preset, args.prompt_len, args.max_new, args.speculative,
+                    args.ngram or 2, args.repeats, args.n_experts,
+                    args.moe_top_k, **kw)
+            else:
+                row = bench_decode(
+                    preset, args.batch, args.prompt_len, args.n1, args.n2,
+                    args.repeats, args.n_experts, args.moe_top_k, **kw)
+            rows.append(dict(row, launches=_launches(start)))
     for row in rows:
         print(json.dumps(row))
     if args.json:

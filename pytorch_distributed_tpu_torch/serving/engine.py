@@ -35,7 +35,9 @@ The port of the JAX package's ``serving/engine.py``. Three engines:
     free and mid-prefill rows ride along with position 0 and an all-zero
     table (the scratch page). With ``paged_attention="kernel"`` its
     attention is the hand-written paged decode kernel
-    (``ops/paged_kernel``), once per layer per tick.
+    (``ops/paged_kernel``), once per layer per tick; a speculating
+    engine's [slots, K+1] verify forward runs each of its queries as a
+    row of the same kernel, at the query's own position.
   - **Tiers** (``serving/scheduler``): interactive requests admit first
     and may preempt lower tiers; batch requests admit only with pool
     headroom and sit out ticks while an interactive row is live. (On the
@@ -935,10 +937,13 @@ class BatchedDecodeEngine:
                     self.device))
 
     @torch.no_grad()
-    def _forward(self, params, ids, pos, tables=None, tenants=None):
+    def _forward(self, params, ids, pos, tables=None, tenants=None,
+                 window=False, lane0_alone=False):
         """One forward of the slot batch over the live cache (numpy
         operands in, logits out); ``tables`` is the paged engine's,
-        ``tenants`` the [slots] adapter slots (None: all slot 0)."""
+        ``tenants`` the [slots] adapter slots (None: all slot 0),
+        ``window`` and ``lane0_alone`` mark a decode forward and one
+        holding a sampled row (the paged engine's)."""
         dev = self.device
         logits, _ = decode.forward(
             params, torch.from_numpy(ids).to(dev), self.cfg,
@@ -1737,9 +1742,15 @@ class BatchedDecodeEngine:
         tables = self._lane_tables(lanes)
         kind = "decode_spec_step" if self.speculative_k else "decode_step"
 
+        # A sampled row commits lane 0 alone, which must be the plain
+        # tick's token: the paged verify forward then gives lane 0 the
+        # bits of a [slots, 1] step.
+        sampled = any(not s.greedy for _, s in ready)
+
         def run():
             self.counters["decode_ticks"] += 1  # forwards that ran
-            logits = self._forward(params, toks, pos, tables, tenants)
+            logits = self._forward(params, toks, pos, tables, tenants,
+                                   window=True, lane0_alone=sampled)
             if not self.speculative_k:
                 return self._sample(logits[:, -1], lanes)
             return self._spec_verify(logits, toks, n_draft, lanes)
@@ -1764,27 +1775,32 @@ class BatchedDecodeEngine:
 
     def _spec_verify(self, logits, toks, n_draft, lanes):
         """The verify tail of a speculative forward (``logits`` [B, K+1,
-        V]): lane 0 is sampled with the row's own config (a sampled or
-        zero-draft row commits exactly the plain tick's token), the
-        model's greedy chain over the window gives the accept lengths.
+        V]): lane 0 is sampled with the row's own config (a sampled row
+        commits exactly the plain tick's token: a paged tick holding one
+        gives lane 0 the bits of a [slots, 1] step), the model's greedy
+        chain over the window gives the accept lengths (on the card the
+        plain decode's argmaxes but where two logits tie within the f32
+        rounding, which depends on the rows sharing a GEMM).
         Returns ((out [B, K+1], n_acc [B]), bad [B]) as host arrays with
-        ONE device->host copy; the host commits ``out[b, :n_acc[b]+1]``."""
-        dev = logits.device
-        index = [0 if r is None else len(r.generated) for r in lanes]
-        tok0 = decode.sample_token_rows(
-            logits[:, 0], *self._sampling_rows(lanes, index))
+        ONE device->host copy (the accept lengths are integer logic on the
+        host copy); the host commits ``out[b, :n_acc[b]+1]``."""
         ver = torch.argmax(logits.float(), dim=-1)  # [B, K+1]
-        n_acc = decode.speculative_accept(
-            torch.from_numpy(toks[:, 1:]).to(dev).long(), ver[:, :-1],
-            torch.from_numpy(n_draft).to(dev),
-        )
-        out = torch.cat([tok0[:, None], ver[:, 1:]], dim=1)
+        if all(r is None or r.greedy for r in lanes):
+            tok0 = ver[:, 0]  # the greedy sampler's argmax of lane 0
+        else:
+            index = [0 if r is None else len(r.generated) for r in lanes]
+            tok0 = decode.sample_token_rows(
+                logits[:, 0], *self._sampling_rows(lanes, index))
         # NaN anywhere in the window flags the row: any lane's logits could
         # decide a committed token.
         bad = decode.nonfinite_rows(logits)
-        host = torch.cat([out, n_acc[:, None], bad.long()[:, None]],
-                         dim=1).cpu().numpy()
-        return (host[:, :-2], host[:, -2]), host[:, -1].astype(bool)
+        host = torch.cat([tok0[:, None], ver, bad.long()[:, None]],
+                         dim=1).cpu()
+        n_acc = decode.speculative_accept(
+            torch.from_numpy(toks[:, 1:]).long(), host[:, 1:-2],
+            torch.from_numpy(n_draft))
+        out = torch.cat([host[:, :1], host[:, 2:-1]], dim=1)
+        return (out.numpy(), n_acc.numpy()), host[:, -1].numpy().astype(bool)
 
     def _draft_tokens(self, s: _Slot) -> np.ndarray:
         """Up to ``speculative_k`` drafts for one row — prompt lookup over
@@ -2000,8 +2016,13 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
         """No buckets: chunked prefill takes any prompt length."""
 
     @torch.no_grad()
-    def _forward(self, params, ids, pos, tables=None, tenants=None):
-        """One forward over the pool; numpy operands in, logits out."""
+    def _forward(self, params, ids, pos, tables=None, tenants=None,
+                 window=False, lane0_alone=False):
+        """One forward over the pool; numpy operands in, logits out. A
+        decode forward (``window``) runs a speculative verify window's
+        queries as single-token rows of the paged kernel, as plain
+        decode's, and with ``lane0_alone`` gives lane 0 the bits of a
+        [slots, 1] step; a prefill chunk takes the gather path."""
         dev = self.device
         logits, _ = decode.forward(
             params,
@@ -2014,6 +2035,8 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
             kv_quant=self.kv_quant,
             lora=self._lora(np.zeros((self.slots,), np.int64)
                             if tenants is None else tenants),
+            decode_window=window,
+            lane0_alone=lane0_alone,
         )
         return logits
 
@@ -2026,11 +2049,12 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
         if self.has_work():
             raise RuntimeError("warmup requires an idle engine")
         params = self._place_params(params)
-        for t in (self.chunk, self._decode_width):
+        for t, window in ((self.chunk, False), (self._decode_width, True)):
             self._forward(
                 params, np.zeros((self.slots, t), np.int32),
                 np.zeros((self.slots,), np.int32),
                 np.zeros((self.slots, self.max_pages), np.int32),
+                window=window,
             )
         # Each disaggregated role warms its side of the handoff pair on
         # the scratch page: export on a prefill worker, import on a

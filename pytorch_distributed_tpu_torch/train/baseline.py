@@ -12,11 +12,13 @@ steps, AdamW lr 3e-4 wd 0.1 with a cosine anneal to 0.1 lr, flash
 attention and ``names`` remat, dropout from the preset (``--preset
 llama3-1b`` trains the dropout-free Llama-3.2-1B shape); synthetic shards
 unless ``--data local`` names a directory of ``*.bin`` shards. Training
-runs on ``--device`` (default cuda). Flags for what the port does not have
-yet exit with the reason: ``--data fineweb`` (it downloads),
-``--async-checkpoint``, ``--anomaly-guard``, ``--cpu-devices``,
-``--debug-nans`` and ``--trace-dir``. The profiler is not ported yet
-(ROADMAP queue 1 item 6): training runs without it.
+runs on ``--device`` (default cuda) under the ``ScheduledProfiler``
+(``profiling/profiler``) with the reference schedule, wait 2, warmup 2,
+active 6, repeat 1, writing a Kineto trace to ``--trace-dir`` (default
+``outputs/traces/baseline``) under ``rank0/``; ``--no-profiler`` turns it
+off. Flags for what the port does not have yet exit with the reason:
+``--data fineweb`` (it downloads), ``--async-checkpoint``,
+``--anomaly-guard``, ``--cpu-devices`` and ``--debug-nans``.
 """
 
 from __future__ import annotations
@@ -48,16 +50,30 @@ _REFUSED = {
                    "use --device cpu",
     "debug_nans": "--debug-nans: jax_debug_nans has no counterpart here; "
                   "torch.autograd.set_detect_anomaly is the tool",
-    "trace_dir": "--trace-dir: the training profiler is not ported yet "
-                 "(ROADMAP queue 1 item 6)",
 }
+DEFAULT_TRACE_DIR = "outputs/traces/baseline"
+
+
+def add_model_args(p: argparse.ArgumentParser, *, preset: str) -> None:
+    """The model flags the entry points share (``build_model_cfg``)."""
+    p.add_argument("--preset", default=preset,
+                   help="model preset (gpt2, gpt2-large, gpt2-1p3b, "
+                        "llama3-1b, ... or 'tiny')")
+    p.add_argument("--seq-len", type=int, default=1024)
+    p.add_argument("--dtype", default=None,
+                   help="activation dtype override (bfloat16/float32)")
+    p.add_argument("--param-dtype", default=None,
+                   help="parameter/optimizer-state dtype override")
+    p.add_argument("--attention-impl", default="flash",
+                   choices=["flash", "naive"])
+    p.add_argument("--remat", default="names",
+                   choices=["none", "full", "dots", "dots_no_batch",
+                            "names", "flash"])
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--preset", default="gpt2-large",
-                   help="model preset (gpt2, gpt2-large, gpt2-1p3b, "
-                        "llama3-1b, ... or 'tiny')")
+    add_model_args(p, preset="gpt2-large")
     p.add_argument("--data", default="synthetic",
                    choices=["synthetic", "fineweb", "local"],
                    help="synthetic (generated shards), local (every *.bin "
@@ -66,7 +82,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--num-train-files", type=int, default=10)
     p.add_argument("--global-batch-size", type=int, default=32)
     p.add_argument("--micro-batch-size", type=int, default=8)
-    p.add_argument("--seq-len", type=int, default=1024)
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--lr", type=float, default=3e-4)
     p.add_argument("--weight-decay", type=float, default=0.1)
@@ -86,15 +101,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "write a resumable checkpoint and exit")
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest good checkpoint")
-    p.add_argument("--dtype", default=None,
-                   help="activation dtype override (bfloat16/float32)")
-    p.add_argument("--param-dtype", default=None,
-                   help="parameter/optimizer-state dtype override")
-    p.add_argument("--attention-impl", default="flash",
-                   choices=["flash", "naive"])
-    p.add_argument("--remat", default="names",
-                   choices=["none", "full", "dots", "dots_no_batch",
-                            "names", "flash"])
     p.add_argument("--eval-batches", type=int, default=0,
                    help="after training, report the mean validation loss "
                         "over this many batches; 0 = off")
@@ -104,7 +110,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--anomaly-guard", action="store_true")
     p.add_argument("--cpu-devices", type=int, default=0)
     p.add_argument("--debug-nans", action="store_true")
-    p.add_argument("--trace-dir", default=None)
+    p.add_argument("--trace-dir", default=None,
+                   help=f"where the profiler writes (default "
+                        f"{DEFAULT_TRACE_DIR})")
+    p.add_argument("--no-profiler", action="store_true",
+                   help="train without the profiler")
     args = p.parse_args(argv)
     for flag, reason in _REFUSED.items():
         if getattr(args, flag):
@@ -204,6 +214,20 @@ def val_shard_paths(args, vocab_size: int) -> list[str]:
     )
 
 
+def make_profiler(args):
+    """The reference schedule (train_baseline.py:83-86): wait 2, warmup 2,
+    active 6, repeat 1; None under ``--no-profiler``."""
+    if args.no_profiler:
+        return None
+    from pytorch_distributed_tpu_torch.profiling.profiler import (
+        ScheduledProfiler,
+    )
+
+    return ScheduledProfiler(args.trace_dir or DEFAULT_TRACE_DIR, wait=2,
+                             warmup=2, active=6, repeat=1,
+                             device=args.device)
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     log = get_logger("pdtpu.baseline")
@@ -218,7 +242,13 @@ def main(argv=None) -> int:
     state = trainer.init_state()
     if args.resume:
         state = trainer.resume_latest(state, loader=loader)
-    state, history = trainer.train(loader, state=state)
+    profiler = make_profiler(args)
+    try:
+        state, history = trainer.train(loader, state=state,
+                                       profiler=profiler)
+    finally:
+        if profiler is not None:
+            profiler.close()
     final = history[-1] if history else {}
     if args.eval_batches > 0:
         val_loader = TokenShardLoader(

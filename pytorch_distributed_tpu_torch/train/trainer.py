@@ -32,13 +32,16 @@ until a log boundary (one sync per window), logs, writes the metrics
 JSON lines, saves npz checkpoints (``train/checkpoint``, the loader's
 position in their metadata) and prunes them, resumes from the newest
 good one, saves once on SIGTERM/SIGINT with ``save_on_preemption``, and
-evaluates. Not ported yet, and refused: the anomaly guard, the fault
-injector and the async checkpoint (ROADMAP queue 1 item 5), the profiler
-(item 6).
+evaluates. ``train(profiler=...)`` steps a profiler
+(``profiling.ScheduledProfiler``) once per optimizer step and runs each
+step inside its ``step_context``. Not ported yet, and refused: the anomaly
+guard, the fault injector and the async checkpoint (ROADMAP queue 1 item
+5).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import signal
 import time
@@ -317,10 +320,6 @@ class Trainer:
         profiler: Any | None = None,
         num_steps: int | None = None,
     ) -> tuple[TrainState, list[dict]]:
-        if profiler is not None:
-            raise NotImplementedError(
-                "the training profiler is not ported yet (ROADMAP queue 1 "
-                "item 6)")
         cfg = self.train_cfg
         if state is None:
             state = self.init_state()
@@ -357,10 +356,17 @@ class Trainer:
                 batch = next(groups, None)
                 if batch is None:
                     break
-                state, metrics = self.train_step(state,
-                                                 self.put_batch(batch))
+                ctx = (profiler.step_context(step)
+                       if profiler is not None
+                       and hasattr(profiler, "step_context")
+                       else contextlib.nullcontext())
+                with ctx:
+                    state, metrics = self.train_step(state,
+                                                     self.put_batch(batch))
                 window_losses.append(metrics["loss"])
                 step = state.step
+                if profiler is not None:
+                    profiler.step()
                 if step % cfg.log_every_n_steps == 0 or step == num_steps:
                     losses = torch.stack(window_losses).tolist()  # one sync
                     elapsed = time.perf_counter() - t0

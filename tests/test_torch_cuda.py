@@ -963,9 +963,9 @@ def test_dense_prefill_values_do_not_depend_on_neighbours_on_the_card(cuda):
 @pytest.mark.parametrize("kind", ["dense", "paged"])
 def test_f32_speculative_tokens_equal_plain_on_the_card(cuda, kind):
     """f32 greedy speculative decoding (``speculative_k=4``) emits the
-    plain engine's tokens on a repetitive stream, with drafts accepted,
-    and a speculating paged engine never launches K3 (its verify forward
-    is K+1 queries wide)."""
+    plain engine's tokens on a repetitive stream, with drafts accepted;
+    a speculating paged engine's verify forward runs its K+1 queries as
+    K3 rows, one launch a layer a decode tick (the dense engine none)."""
     from pytorch_distributed_tpu_torch.serving import workload as wl
     from pytorch_distributed_tpu_torch.serving.engine import (
         BatchedDecodeEngine,
@@ -988,10 +988,48 @@ def test_f32_speculative_tokens_equal_plain_on_the_card(cuda, kind):
     spec = make(4)
     before = pk.launches
     out = spec.run(params, reqs)
-    assert pk.launches == before
+    per_tick = cfg.n_layer if kind == "paged" else 0
+    assert pk.launches - before == per_tick * spec.counters["decode_ticks"]
     assert spec.counters["accepted_tokens"] > 0
     for rid in plain:
         np.testing.assert_array_equal(out[rid].tokens, plain[rid].tokens)
+
+
+def test_lane0_alone_is_the_single_step_bit_for_bit_on_the_card(cuda):
+    """At the serving bench's width (f32, E 256, 8 layers, 8 rows, K+1 =
+    5 lanes), a paged kernel decode window with ``lane0_alone`` gives lane
+    0 the logits of the [8, 1] step bit for bit, which the window's own
+    [40, .] GEMMs do not (cuBLAS's f32 kernel depends on the rows); a
+    sampled row's token rests on it. One K3 launch a layer each call."""
+    from pytorch_distributed_tpu_torch.models import decode
+
+    cfg = ModelConfig(vocab_size=2048, n_ctx=512, n_embd=256, n_layer=8,
+                      n_head=8, dtype="float32", attn_pdrop=0.0,
+                      resid_pdrop=0.0, embd_pdrop=0.0)
+    params = gpt2.init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    b, t, page, n_pages = 8, 5, 16, 24
+    g = torch.Generator(device=cuda).manual_seed(1)
+    tables = (torch.randperm(b * n_pages, generator=g, device=cuda) + 1
+              ).reshape(b, n_pages).int()
+    pos = torch.randint(1, 300, (b,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    ids = torch.randint(0, cfg.vocab_size, (b, t), generator=g, device=cuda,
+                        dtype=torch.int32)
+
+    def cache():
+        c = decode.init_paged_cache(cfg, b * n_pages + 1, page, device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        for pool in c.values():
+            pool.normal_(generator=gen)
+        return c
+
+    kw = dict(block_tables=tables, paged_impl="kernel")
+    before = pk.launches
+    step, _ = decode.forward(params, ids[:, :1], cfg, cache(), pos, **kw)
+    alone, _ = decode.forward(params, ids, cfg, cache(), pos,
+                              decode_window=True, lane0_alone=True, **kw)
+    assert pk.launches - before == 2 * cfg.n_layer
+    assert torch.equal(alone[:, :1], step)
 
 
 def test_spec_rollback_leaves_shared_pages_bit_unchanged_on_the_card(cuda):
@@ -1197,3 +1235,118 @@ def test_lora_kernel_matches_plain_version(cuda, dtype, rank, strided):
     assert torch.equal(got[0], y0[0])  # slot 0: y unchanged
     if strided:  # K and V, beside the query third, untouched
         assert torch.equal(qkv[:, :, 1:], kv0)
+
+
+def _profiled_window(cuda, tmp_path, drive, read_counts, steps=4):
+    """``drive()`` once per step under ``ScheduledProfiler(wait=1,
+    warmup=1, active=steps - 2)``: the launch counters' growth over the
+    active steps and the trace's ``op_summary``."""
+    import chip_smoke
+
+    from pytorch_distributed_tpu_torch.profiling import trace_analysis as ta
+    from pytorch_distributed_tpu_torch.profiling.profiler import (
+        find_trace_files,
+    )
+
+    cls = chip_smoke._counted_profiler(read_counts)
+    with cls(tmp_path, wait=1, warmup=1, active=steps - 2,
+             device=cuda) as prof:
+        for _ in range(steps):
+            drive()
+            prof.step()
+    (path,) = find_trace_files(tmp_path)
+    trace = ta.load_trace(path)
+    counted = {k: prof.counts["end"][k] - prof.counts["start"][k]
+               for k in prof.counts["end"]}
+    assert ta.temporal_breakdown(trace)["communication_us"] == 0
+    return counted, chip_smoke.trace_launches(ta.op_summary(trace))
+
+
+def test_trace_counts_equal_the_flash_counters(cuda, tmp_path):
+    """K1 and K2's three kernels in a short profiled window of the bf16
+    training step: as many in the trace as the wrappers counted."""
+    import chip_smoke
+
+    from pytorch_distributed_tpu_torch.config import TrainConfig
+    from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
+
+    cfg = ModelConfig(vocab_size=97, n_ctx=128, n_embd=128, n_layer=2,
+                      n_head=2, dtype="bfloat16", attention_impl="flash",
+                      remat="names", embd_pdrop=0.0, attn_pdrop=0.0,
+                      resid_pdrop=0.0)
+    tcfg = TrainConfig(global_batch_size=2, micro_batch_size=2,
+                       learning_rate=1e-3)
+    box = list(chip_smoke.train_setup(cfg, tcfg, 2, 128, 0, cuda))
+
+    def drive():
+        box[0], _ = box[1](box[0], box[2])
+
+    counted, traced = _profiled_window(cuda, tmp_path, drive,
+                                       lambda: dict(fk.launches))
+    assert counted == {"forward": 4, "backward": 4}  # 2 layers x 2 steps
+    assert traced["K1"] == 4
+    assert traced["K2"] == {k: 4 for k in chip_smoke.K2_KERNELS}
+
+
+@pytest.mark.parametrize("quant", [{}, dict(kv_quant="int8",
+                                            weight_quant="int8")],
+                         ids=["K3", "K4"])
+def test_trace_counts_equal_the_paged_counters(cuda, tmp_path, quant):
+    cfg = _tier_cfg(dtype="bfloat16")
+    params = gpt2.init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    eng = PagedBatchedDecodeEngine(cfg, slots=4, max_len=128, page_size=16,
+                                   **quant)
+    eng.warmup(params)
+    for r in _tier_reqs(cfg.vocab_size, n=4):
+        eng.submit(**dict(r, max_new_tokens=40))
+    while True:  # until every row has finished its prefill
+        before = eng.counters["prefill_ticks"]
+        eng.step(params)
+        if eng.counters["prefill_ticks"] == before:
+            break
+    counted, traced = _profiled_window(
+        cuda, tmp_path, lambda: eng.step(params),
+        lambda: {"K3": pk.launches, "K4": pk.launches_q8}, steps=6)
+    kid = "K4" if quant else "K3"
+    assert counted[kid] == cfg.n_layer * 4 > 0
+    assert {k: traced[k] for k in ("K3", "K4")} == counted
+
+
+def test_measured_memory_reads_the_card(cuda, tmp_path):
+    from pytorch_distributed_tpu_torch.profiling import memory
+
+    memory.start_memory_history()
+    try:
+        x = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+        m = memory.measured_memory()
+        path = memory.save_memory_snapshot(tmp_path / "snap.pickle")
+    finally:
+        memory.stop_memory_history()
+    assert m["bytes_in_use"] >= x.numel() > 0
+    assert m["peak_bytes_in_use"] >= m["bytes_in_use"]
+    assert m["bytes_limit"] == torch.cuda.get_device_properties(
+        cuda).total_memory
+    assert m["raw"]["allocated_bytes.all.current"] == m["bytes_in_use"]
+    import pickle
+
+    with open(path, "rb") as f:
+        assert pickle.load(f)["segments"]
+
+
+def test_one_oom_point_recovers(cuda):
+    """A batch whose logits cannot fit is an ``oom`` row; the point after
+    it runs, with a peak of its own."""
+    from pytorch_distributed_tpu_torch.profiling import throughput
+
+    cfg = ModelConfig(vocab_size=50257, n_ctx=1024, n_embd=64, n_layer=1,
+                      n_head=1, dtype="float32", embd_pdrop=0.0,
+                      attn_pdrop=0.0, resid_pdrop=0.0)
+    rows = throughput.compare_batch_sizes(
+        cfg, batch_sizes=(1, 4096, 1), seq_len=1024, num_steps=2,
+        warmup_steps=1)
+    assert [r["oom"] for r in rows] == [False, True, False]
+    assert rows[2]["tokens_per_second"] > 0
+    assert 0 < rows[2]["peak_bytes_in_use"] < torch.cuda.get_device_properties(
+        cuda).total_memory
+    assert rows[2]["peak_bytes_in_use"] == pytest.approx(
+        rows[0]["peak_bytes_in_use"], rel=0.05)

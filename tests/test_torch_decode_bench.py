@@ -1,6 +1,7 @@
-"""The ``decode_bench`` twin on the CPU: its three legs at ``--dryrun``
-exit 0 and carry their invariant fields, and the JAX script's other modes
-are refused naming the ROADMAP item that queues them.
+"""The ``decode_bench`` twin on the CPU: its paged, disaggregated and
+scenario legs at ``--dryrun`` exit 0 and carry their invariant fields, and
+``--cpu-devices`` is refused (the other modes:
+``tests/test_torch_decode_bench_legs.py``).
 
 The legs' clock is replaced by a counter that advances 1 ms per read, so
 their latencies and rates count steps, not this host's load: the timing
@@ -85,15 +86,12 @@ def test_serving_scenarios_legs(capsys):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--serving"], "item 6"),
-    (["--serving-batched"], "item 4b"),
-    (["--serving-spec"], "item 4b"),
-    (["--serving-paged", "--kv-quant", "int8"], "item 4b"),
-    (["--serving-batched", "--chaos"], "item 4b"),
-    ([], "item 4b"),
-    (["--speculative", "4"], "item 4b"),
     (["--serving-paged", "--cpu-devices", "8"], "--device cpu"),
+    (["--cpu-devices", "2"], "virtual-device mesh"),
 ])
 def test_other_modes_are_refused_naming_their_item(argv, item):
+    """Every mode of the JAX script runs since the last slice
+    (tests/test_torch_decode_bench_legs.py); only the virtual-device mesh
+    is still refused."""
     with pytest.raises(SystemExit, match=item):
         decode_bench.parse_args(argv)

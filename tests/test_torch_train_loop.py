@@ -357,8 +357,9 @@ def test_refusals():
         with pytest.raises(NotImplementedError, match=match):
             Trainer(model, cfg, TrainConfig(**kw), device="cpu")
     trainer = Trainer(model, cfg, TrainConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        trainer.train([], profiler=object())
+    # The profiler is ported (tests/test_torch_profiler.py): a run with
+    # one and no data takes no step.
+    assert trainer.train([], profiler=object())[1] == []
     with pytest.raises(NotImplementedError, match="chaos"):
         trainer.set_fault_injector(object())
     with pytest.raises(NotImplementedError, match="orbax"):
@@ -400,7 +401,6 @@ def test_baseline_entry_point_on_the_cpu(tmp_path, capsys):
     (["--anomaly-guard"], "guard"),
     (["--cpu-devices", "8"], "mesh"),
     (["--debug-nans"], "debug_nans"),
-    (["--trace-dir", "t"], "profiler"),
 ])
 def test_baseline_refuses_what_the_port_lacks(flag, reason):
     with pytest.raises(SystemExit, match=reason):
