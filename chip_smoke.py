@@ -7,7 +7,7 @@ plain versions.
 Phases (each prints one JSON line; any failure raises and exits nonzero
 with no final line). They run in the order 1-3, profiling_train and
 profiling_serve (13), 7-9, 4-6d, 10-12, the rest of 13, the two
-decode_bench twin phases, 14: the phases whose profiler traces are
+decode_bench twin phases, 15, 14: the phases whose profiler traces are
 counted first, while the process is young (PERF.md section 7).
 
 1. env — the card (``nvidia-smi`` name and power limit), torch and CUDA
@@ -181,6 +181,27 @@ counted first, while the process is young (PERF.md section 7).
    under all six remat modes; train_fused_ce — ``fused_head_ce`` against
    the unfused step (loss, gradients, ms/step, peak memory, a profile of
    each).
+11b. train_guard (slice 12) — the guarded training loop at the main
+   path's width (GPT-2 124M, bf16, flash, names, B=8, T=1024, dropout 0):
+   one guarded and one unguarded step with the batch on the card under
+   ``torch.cuda.set_sync_debug_mode("warn")`` make the same number of
+   synchronizing calls; ms/step (the median of four windows of 10 steps
+   each, in turns: unguarded, guarded, guarded, unguarded, twice) and
+   each side's peak memory; a
+   step on a corrupt batch (the bad_batch fault's ids -1 in the first
+   eighth of the inputs), and one with targets of V: each leaves params,
+   mu, nu and both counts bit-unchanged, counts one anomaly, advances
+   ``state.step``, launches K1 and K2 n_layer times, and raises no device
+   assert (a clean step runs after them). Then the ``Trainer`` on
+   synthetic shards, 4 steps: fault-free with no saves; with a sync save
+   every 2 steps and bad_batch faults at steps 3 and 4, whose trip
+   (rollback after 2) rolls back to step 2 and replays steps 3-4 with
+   losses bit-equal to the fault-free run's and a final state bit-equal
+   to it; with async saves every 2 steps, final state bit-equal too. Each run's K1/K2 launches are
+   n_layer a step, replayed steps included. Last, a sync and an async
+   save of the same state: the async save's blocking time, its finalize
+   time, and the in-flight save invisible to ``latest_checkpoint`` until
+   finalized.
 12. Llama-3.2-1B training at full width (16 layers, E 2048, 32 heads over
    8 KV heads, F 8192, vocab 128256, untied head; weights drawn on the
    card from ``--seed``): train_llama — bench_suite row 6 (B=1, T=4096,
@@ -240,7 +261,16 @@ counted first, while the process is young (PERF.md section 7).
     (and ``--chaos``), ``--serving-spec`` and ``--serving-paged --kv-quant
     int8 --weight-quant int8``: each exits 0 (its asserted checks held),
     K3 launched on ``--serving-spec`` and K4 on the quant leg.
+15. train_storm (slice 12) — the supervisor twin, ``python -m
+    pytorch_distributed_tpu_torch.train.supervisor --soak --dryrun``, on
+    the card at its default small config (20 steps, the smoke's hotter
+    fault rates; its workers are processes of their own, run after the
+    other subprocess phases): completed, final state bit-equal to its
+    fault-free leg, every fault kind fired, every crash (exit 43)
+    followed by a restart; spawned, restarts, exit codes and wall seconds
+    printed.
 14. The kernels line (K3, K4, K1, K2 and the LoRA delta kernel; K1/K2
+    with ``slice12_paths``, their launches in train_guard's steps and runs;
     with their launches per step and times on the llama paths, K3/K4 with
     their launches on each tier leg, ``tier_paths``, on the phases of 6c,
     ``slice9_paths``, of 6d, ``slice10_paths``, and of the decode_bench
@@ -254,6 +284,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -3813,6 +3844,314 @@ def decode_bench_twin_2_phase(smi) -> dict:
     return legs
 
 
+def _count_syncs(fn) -> list[str]:
+    """The synchronizing CUDA calls ``fn`` makes, as CUDA's sync debug mode
+    reports them (one warning each)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return [str(w.message).splitlines()[0][:120] for w in caught
+            if "prototype feature" not in str(w.message)]
+
+
+def _bits(state) -> list:
+    """Copies of the bit patterns of params, mu, nu and both counts (NaN
+    equal to itself, -0.0 not to +0.0)."""
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    opt = state.opt_state
+    leaves = (tree.leaves(state.params) + tree.leaves(opt["mu"])
+              + tree.leaves(opt["nu"]))
+    ints = {4: torch.int32, 2: torch.int16}
+    return ([t.view(ints[t.element_size()]).clone() for t in leaves]
+            + [torch.as_tensor(opt["count"]).clone(),
+               torch.as_tensor(opt["schedule_count"]).clone()])
+
+
+def _step_window(step, state, batch, n):
+    """``n`` steps: (state, ms per step, the window's peak allocation above
+    what was allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, m = step(state, batch)
+    float(m["loss"])
+    ms = (time.perf_counter() - t0) / n * 1e3
+    return state, ms, dict(
+        above_resident=torch.cuda.max_memory_allocated() - base,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def train_guard_phase(fk, cfg, seed, dev, smi, tmp, warmup=2,
+                      steps=10) -> dict:
+    """The guarded training loop at full width (module docstring, 11b):
+    the no-sync property, a corrupt batch, costs, rollback replay and
+    async against sync saves."""
+    from pytorch_distributed_tpu_torch.config import TrainConfig
+    from pytorch_distributed_tpu_torch.data import (
+        TokenShardLoader,
+        make_synthetic_shards,
+    )
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.train import checkpoint as ckpt
+    from pytorch_distributed_tpu_torch.train import guard as guard_lib
+    from pytorch_distributed_tpu_torch.train.chaos import (
+        TrainFault,
+        TrainFaultInjector,
+    )
+    from pytorch_distributed_tpu_torch.train.optim import make_optimizer
+    from pytorch_distributed_tpu_torch.train.state import init_train_state
+    from pytorch_distributed_tpu_torch.train.trainer import (
+        Trainer,
+        make_train_step,
+    )
+
+    b, t, n_layer = 8, 1024, cfg.n_layer
+    kw = dict(global_batch_size=b, micro_batch_size=b,
+              num_steps=warmup + steps + 4, learning_rate=3e-4)
+    state, plain_step, batch = train_setup(cfg, TrainConfig(**kw), b, t,
+                                           seed, dev)
+    # The guarded twin: the same weights (drawn on the host from the seed,
+    # as train_setup draws them) and batch.
+    tcfg = TrainConfig(**kw, anomaly_guard=True)
+    tx = make_optimizer(tcfg)
+    model = get_model(cfg)
+    gstate = init_train_state(
+        model.init(torch.Generator().manual_seed(seed), cfg, device=dev),
+        tx, guard=guard_lib.init_guard_state(dev))
+    gstep = make_train_step(model, cfg, tx, seed=seed,
+                            guard=guard_lib.guard_config_from(tcfg, cfg))
+    for _ in range(warmup):
+        state, _ = plain_step(state, batch)
+        gstate, _ = gstep(gstate, batch)
+    out = {}
+
+    def one(step, which):
+        def run():
+            nonlocal state, gstate
+            if which == "plain":
+                state, _ = step(state, batch)
+            else:
+                gstate, _ = step(gstate, batch)
+        return run
+
+    syncs = dict(unguarded=_count_syncs(one(plain_step, "plain")),
+                 guarded=_count_syncs(one(gstep, "guarded")))
+    # Costs in turns (unguarded, guarded, guarded, unguarded, twice), each
+    # side's median: one window each read 100.4 against 118.4 ms on one
+    # card, and one turn 79.6 / 129.6 against 77.0 / 85.2, where four turns
+    # read 3.6 % apart (my chip runs, PR 13, calls 2-4).
+    ms = dict(unguarded=[], guarded=[])
+    peaks = {}
+    for which in ("unguarded", "guarded", "guarded", "unguarded") * 2:
+        if which == "unguarded":
+            state, t_ms, peaks[which] = _step_window(plain_step, state,
+                                                     batch, steps)
+        else:
+            gstate, t_ms, peaks[which] = _step_window(gstep, gstate, batch,
+                                                      steps)
+        ms[which].append(t_ms)
+    ms_plain, ms_guard = (statistics.median(ms[k])
+                          for k in ("unguarded", "guarded"))
+    del state, plain_step
+    torch.cuda.empty_cache()
+    # A corrupt batch (the bad_batch fault's: the first eighth of the ids
+    # -1), then one with targets outside [0, V): each a bitwise no-op.
+    corrupt = {}
+    for where in ("inputs", "targets"):
+        bad = {k: v.clone() for k, v in batch.items()}
+        flat = bad[where].view(-1)
+        flat[:flat.numel() // 8] = -1 if where == "inputs" else cfg.vocab_size
+        before, step_before = _bits(gstate), gstate.step
+        total_before = int(gstate.guard.total)
+        fk.launches.update(forward=0, backward=0)
+        gstate, m = gstep(gstate, bad)
+        torch.cuda.synchronize()  # a device assert would raise here
+        launches = dict(fk.launches)
+        same = all(torch.equal(x, y) for x, y in zip(before, _bits(gstate)))
+        corrupt[where] = dict(
+            loss=float(m["loss"]), anomaly=bool(m["anomaly"]),
+            total=int(gstate.guard.total) - total_before,
+            step_advanced=gstate.step - step_before,
+            state_bit_unchanged=same, launches=launches)
+        del before
+    gstate, m = gstep(gstate, batch)  # the context still runs a clean step
+    clean_after = dict(loss=float(m["loss"]), anomaly=bool(m["anomaly"]))
+    del gstate, gstep
+    torch.cuda.empty_cache()
+
+    # Rollback replay and async against sync, through the Trainer on
+    # synthetic shards: 4 steps, the loss logged every step. The faulted
+    # run saves every 2 steps (sync): bad batches at steps 3 and 4 trip
+    # the guard (rollback after 2) at step 4, and it replays steps 3-4
+    # from step 2's checkpoint. The async run saves as often; both end
+    # bit-equal to the clean run, which saves nothing.
+    paths = make_synthetic_shards(f"{tmp}/data", num_shards=1,
+                                  tokens_per_shard=200_000,
+                                  vocab_size=cfg.vocab_size, seed=seed)
+
+    def run(name, faults=(), save_every=2, **kw):
+        tc = TrainConfig(global_batch_size=b, micro_batch_size=b,
+                         num_steps=4, learning_rate=3e-4,
+                         log_every_n_steps=1, save_every_n_steps=save_every,
+                         keep_checkpoints=2, seed=seed,
+                         checkpoint_dir=f"{tmp}/ck_{name}",
+                         anomaly_guard=True, guard_rollback_after=2, **kw)
+        trainer = Trainer(model, cfg, tc, device=dev,
+                          log_fn=lambda line: None)
+        if faults:
+            TrainFaultInjector([TrainFault(tick=k, kind="bad_batch")
+                                for k in faults]).install(trainer)
+        fk.launches.update(forward=0, backward=0)
+        t0 = time.perf_counter()
+        state, hist = trainer.train(TokenShardLoader(paths, b, t))
+        ckpt.set_save_hook(None)
+        return dict(state=state, hist=hist, rollbacks=trainer._rollbacks,
+                    launches=dict(fk.launches),
+                    wall_s=time.perf_counter() - t0)
+
+    clean = run("clean", save_every=None)  # the reference: no saves
+    faulted = run("faulted", faults=(3, 4))  # sync saves
+    asynced = run("async", async_checkpoint=True)
+    want = [h["loss"] for h in clean["hist"]]
+    replayed = [h["loss"] for h in faulted["hist"][-2:]]
+    finals = {name: _bits(r["state"]) for name, r in
+              (("clean", clean), ("faulted", faulted), ("async", asynced))}
+    bit_equal = {name: all(torch.equal(x, y) for x, y in
+                           zip(finals["clean"], finals[name]))
+                 for name in ("faulted", "async")}
+    # The async save's blocking time against the sync save's, on the same
+    # state; the in-flight save invisible until finalized.
+    final = asynced["state"]
+    times = {}
+    for mode in ("sync", "async"):
+        d = f"{tmp}/blocking_{mode}/checkpoint_step_4"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "sync":
+            ckpt.save_checkpoint(d, final, cfg)
+        else:
+            ckpt.save_checkpoint_async(d, final, cfg)
+        times[f"{mode}_blocking_ms"] = (time.perf_counter() - t0) * 1e3
+    invisible = ckpt.latest_checkpoint(f"{tmp}/blocking_async") is None
+    t0 = time.perf_counter()
+    ckpt.finalize_async_save()
+    times["async_finalize_ms"] = (time.perf_counter() - t0) * 1e3
+    visible = ckpt.latest_checkpoint(f"{tmp}/blocking_async") is not None
+    res = dict(
+        B=b, T=t, n_layer=n_layer, remat=cfg.remat,
+        attention_impl=cfg.attention_impl, dtype=cfg.dtype,
+        host_syncs=dict(unguarded=len(syncs["unguarded"]),
+                        guarded=len(syncs["guarded"])),
+        host_sync_kinds=sorted(set(syncs["guarded"])),
+        ms_per_step=dict(unguarded=ms_plain, guarded=ms_guard),
+        ms_per_step_windows=ms, guard_cost_ratio=ms_guard / ms_plain,
+        step_peak_memory=peaks,
+        corrupt=corrupt, clean_after_corrupt=clean_after,
+        clean_losses=want, faulted_losses=[h["loss"] for h in
+                                           faulted["hist"]],
+        replayed_losses=replayed, rollbacks=faulted["rollbacks"],
+        anomalies=faulted["hist"][-1]["anomalies"],
+        final_bit_equal=bit_equal,
+        launches=dict(clean=clean["launches"], faulted=faulted["launches"],
+                      async_run=asynced["launches"]),
+        wall_s=dict(clean=clean["wall_s"], faulted=faulted["wall_s"],
+                    async_run=asynced["wall_s"]),
+        inflight_invisible=invisible, visible_after_finalize=visible,
+        **times)
+    emit(phase="train_guard", nvidia_smi=smi, **res)
+    failures = []
+    if res["host_syncs"]["guarded"] != res["host_syncs"]["unguarded"]:
+        failures.append(f"the guard adds synchronizing calls: "
+                        f"{syncs['guarded']} vs {syncs['unguarded']}")
+    for where, row in corrupt.items():
+        if not (row["anomaly"] and row["state_bit_unchanged"]
+                and row["total"] == 1 and row["step_advanced"] == 1):
+            failures.append(f"corrupt {where}: {row}")
+        if row["launches"] != {"forward": n_layer, "backward": n_layer}:
+            failures.append(f"corrupt {where} step launched "
+                            f"{row['launches']}, want {n_layer} each")
+    if clean_after["anomaly"] or not np.isfinite(clean_after["loss"]):
+        failures.append(f"the clean step after them: {clean_after}")
+    if replayed != want[-2:] or faulted["rollbacks"] != 1:
+        failures.append(f"replay {replayed} vs clean {want[-2:]}, "
+                        f"rollbacks {faulted['rollbacks']}")
+    if not all(bit_equal.values()):
+        failures.append(f"final states not bit-equal: {bit_equal}")
+    # 4 steps, and the faulted run 2 more (the replay): n_layer each.
+    for name, n in (("clean", 4), ("faulted", 6), ("async_run", 4)):
+        got = res["launches"][name]
+        if got != {"forward": n_layer * n, "backward": n_layer * n}:
+            failures.append(f"{name} launched {got}, want n_layer x {n}")
+    if not (invisible and visible):
+        failures.append(f"in-flight save visible {not invisible}, after "
+                        f"finalize {visible}")
+    if failures:
+        raise AssertionError(f"train_guard: {failures}")
+    return res
+
+
+def train_storm_phase(smi, timeout_s: int = 400) -> dict:
+    """The supervisor twin's ``--soak --dryrun`` storm on the card, its
+    workers in processes of their own (each a fresh CUDA context; a
+    process spends ~8.4 s importing torch on the card's machine, so the
+    64-step storm took 227 s and this 20-step one 131: my chip runs, PR
+    13, calls 2 and 3)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/report.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytorch_distributed_tpu_torch.train."
+             "supervisor", "--soak", "--dryrun", "--workdir",
+             f"{tmp}/storm", "--json", out],
+            capture_output=True, text=True, timeout=timeout_s)
+        wall = time.perf_counter() - t0
+        report = {}
+        if os.path.exists(out):
+            with open(out) as f:
+                report = json.load(f)
+    chaos = report.get("chaos", {})
+    rcs = chaos.get("exit_codes", [])
+    counts = report.get("fault_counts", {})
+    res = dict(exit_code=proc.returncode, wall_s=wall,
+               spawned=chaos.get("spawned"), restarts=chaos.get("restarts"),
+               exit_codes=rcs, fault_counts=counts,
+               completed=chaos.get("completed"),
+               bit_equal=report.get("bit_equal"),
+               chaos_wall_s=chaos.get("wallclock_s"),
+               clean_wall_s=report.get("clean", {}).get("wallclock_s"),
+               goodput_retention=report.get("goodput_retention"),
+               kernel_libraries=sorted({a["compile_count"] for a in
+                                        chaos.get("attempts", [])}),
+               failures=report.get("failures"))
+    if proc.returncode:
+        res["stderr"] = proc.stderr[-3000:]
+    emit(phase="train_storm", nvidia_smi=smi, **res)
+    kinds = ("crash", "sigterm", "bad_batch", "ckpt_corrupt", "slow_step")
+    crashes = sum(rc == 43 for rc in rcs)
+    if proc.returncode or not report.get("ok") or not res["completed"] \
+            or not res["bit_equal"]:
+        raise AssertionError(f"train_storm: {res}")
+    if not all(counts.get(k) for k in kinds):
+        raise AssertionError(f"train_storm: a fault kind never fired: "
+                             f"{counts}")
+    if crashes != counts["crash"] or rcs[-1] != 0:
+        raise AssertionError(f"train_storm: {counts['crash']} crashes, "
+                             f"{crashes} attempts exited 43, exit codes "
+                             f"{rcs}: not a restart for every crash")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3974,6 +4313,23 @@ def main() -> int:
     train_dropout_phase(loop_cfg, args.seed, dev)
     train_fused_ce_phase(loop_cfg, args.seed, dev)
 
+    # 11b. the guarded training loop with faults (slice 12)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        guard_run = train_guard_phase(fk, tcfg_model, args.seed, dev, smi,
+                                      tmp)
+    torch.cuda.empty_cache()
+    slice12_paths = {
+        "train_guard_corrupt_inputs_step":
+            guard_run["corrupt"]["inputs"]["launches"],
+        "train_guard_corrupt_targets_step":
+            guard_run["corrupt"]["targets"]["launches"],
+        "train_guard_clean_4_steps": guard_run["launches"]["clean"],
+        "train_guard_rollback_4_plus_2_replayed_steps":
+            guard_run["launches"]["faulted"],
+        "train_guard_async_4_steps": guard_run["launches"]["async_run"],
+    }
+
     # 12. Llama-3.2-1B training at full width: bench_suite rows 6 and 7,
     # the entry point's loop, every remat mode at 4 layers; then MoE
     # training of both families
@@ -4048,6 +4404,9 @@ def main() -> int:
     ]
 
     slice11_paths = decode_bench_twin_2_phase(smi)
+    # 15. the supervisor twin's storm, its workers in processes of their
+    # own, last with the other subprocess phases
+    train_storm_phase(smi)
     for entry, kid in zip(paged_entries, ("K3", "K4")):
         entry.update(
             trace_launches=prof_paged[kid]["launches_traced"][kid],
@@ -4065,6 +4424,8 @@ def main() -> int:
              inputs=inputs,
              trace_launches=prof_train["launches_traced"][kn],
              trace_window_counted=prof_train["launches_counted"][kn],
+             slice12_paths={name: counts[direction]
+                            for name, counts in slice12_paths.items()},
              llama_paths={phase: dict(
                  T=row["T"],
                  launches_per_step=row["launches_per_step"][direction],

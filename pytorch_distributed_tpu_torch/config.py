@@ -155,10 +155,9 @@ _LLAMA_PRESETS: dict[str, dict[str, Any]] = {
 class TrainConfig:
     """Training config: the JAX package's ``config.TrainConfig`` field for
     field, with the same defaults. The port's ``train/trainer`` reads the
-    optimizer, schedule, accumulation, seed, logging, checkpoint, metrics
-    and preemption fields; the anomaly-guard fields are carried so a
-    config round-trips between the packages, and the trainer refuses
-    ``anomaly_guard`` and ``async_checkpoint`` (not ported yet)."""
+    optimizer, schedule, accumulation, seed, logging, checkpoint (the
+    async save included), metrics, preemption and anomaly-guard fields
+    (``train/guard``)."""
 
     global_batch_size: int = 32
     micro_batch_size: int = 8
@@ -220,7 +219,7 @@ class TrainConfig:
                     f"{self.guard_max_rollbacks}"
                 )
 
-    # Traced anomaly guard (JAX package: train/guard.py); not ported.
+    # The anomaly guard (train/guard).
     anomaly_guard: bool = False
     guard_spike_factor: float = 3.0
     guard_ema_decay: float = 0.98

@@ -172,12 +172,12 @@ def opt_state_to_jax(opt_state: dict, cfg: ModelConfig, like):
     after ``jax.device_get``) so the optax types need not be imported."""
     adam, sched = _adam_and_schedule(like)
     new_adam = adam._replace(
-        count=np.asarray(opt_state["count"], np.int32),
+        count=np.asarray(int(opt_state["count"]), np.int32),
         mu=params_to_jax(opt_state["mu"], cfg),
         nu=params_to_jax(opt_state["nu"], cfg),
     )
     new_sched = sched._replace(
-        count=np.asarray(opt_state["schedule_count"], np.int32)
+        count=np.asarray(int(opt_state["schedule_count"]), np.int32)
     )
     out = []
     for s in like:

@@ -1,7 +1,9 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's native libraries: the CUDA kernels
+(``csrc/*.cu``) and the host C++ data loader (``csrc/*.cc``).
 
-Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
-library with a plain C interface, loaded with ``ctypes``. Libraries are
+A ``.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``), a
+``.cc`` source by the host's ``g++`` (``CXX``), each into a shared library
+with a plain C interface, loaded with ``ctypes``. Libraries are
 cached in ``pytorch_distributed_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name that carries a hash of the source, the
 ``csrc/`` headers it includes and the flags, so an edited source or header
@@ -28,6 +30,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra", "-shared",
+             "-pthread")
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
@@ -43,6 +48,29 @@ def _nvcc() -> str:
         "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA toolkit is "
         "needed to build the port's kernels"
     )
+
+
+def _cxx() -> str:
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError(
+            "no host C++ compiler (g++ or $CXX) on PATH: the port's native "
+            "data loader is built from csrc/*.cc with one"
+        )
+    return cxx
+
+
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu`` or, for host code, ``csrc/<name>.cc``."""
+    cu = CSRC_DIR / f"{name}.cu"
+    return cu if cu.exists() else CSRC_DIR / f"{name}.cc"
+
+
+def _command(name: str) -> list[str]:
+    src = _source(name)
+    if src.suffix == ".cc":
+        return [_cxx(), *CXX_FLAGS]
+    return [_nvcc(), *NVCC_FLAGS]
 
 
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
@@ -64,29 +92,33 @@ def _sources(path: Path, seen: list[Path]) -> list[Path]:
 def _target(name: str) -> Path:
     """The cached library's path: its name carries a hash of the source,
     the headers it includes and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in _sources(CSRC_DIR / f"{name}.cu", []):
+    src = _source(name)
+    flags = CXX_FLAGS if src.suffix == ".cc" else NVCC_FLAGS
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in _sources(src, []):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> dict:
-    """Build ``csrc/<name>.cu`` unless its cached library exists. Returns
-    {"path", "seconds", "cached", "log"}; raises with the compiler's output
-    if the build fails."""
+    """Build ``csrc/<name>.cu`` (or ``.cc``) unless its cached library
+    exists. Returns {"path", "seconds", "cached", "log"}; raises with the
+    compiler's output if the build fails."""
     target = _target(name)
     if target.exists():
         return dict(path=str(target), seconds=0.0, cached=True, log="")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
+    src = _source(name)
+    cmd = _command(name)
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
+        [*cmd, "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     if proc.returncode:
         raise RuntimeError(
-            f"nvcc failed to build csrc/{name}.cu "
+            f"{Path(cmd[0]).name} failed to build csrc/{src.name} "
             f"(exit {proc.returncode}):\n{proc.stdout}"
         )
     os.replace(tmp, target)  # atomic: a concurrent loader never sees half
@@ -95,8 +127,8 @@ def build(name: str) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it first if
-    needed (once per process)."""
+    """The loaded library for ``csrc/<name>.cu`` (or ``.cc``), building
+    it first if needed (once per process)."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(build(name)["path"])

@@ -16,9 +16,11 @@ runs on ``--device`` (default cuda) under the ``ScheduledProfiler``
 (``profiling/profiler``) with the reference schedule, wait 2, warmup 2,
 active 6, repeat 1, writing a Kineto trace to ``--trace-dir`` (default
 ``outputs/traces/baseline``) under ``rank0/``; ``--no-profiler`` turns it
-off. Flags for what the port does not have yet exit with the reason:
-``--data fineweb`` (it downloads), ``--async-checkpoint``,
-``--anomaly-guard``, ``--cpu-devices`` and ``--debug-nans``.
+off. ``--anomaly-guard`` turns on the anomaly guard (``train/guard``;
+``--guard-rollback-after N``, 0 for skip-only, ``--guard-skip-window``)
+and ``--async-checkpoint`` the async npz save (``train/checkpoint``).
+Flags for what the port does not have exit with the reason: ``--data
+fineweb`` (it downloads), ``--cpu-devices`` and ``--debug-nans``.
 """
 
 from __future__ import annotations
@@ -42,10 +44,6 @@ from pytorch_distributed_tpu_torch.utils.logging import get_logger
 
 # Flags of the JAX script the port refuses, with the reason.
 _REFUSED = {
-    "async_checkpoint": "--async-checkpoint: the async (orbax) save is not "
-                        "ported yet (ROADMAP queue 1 item 5)",
-    "anomaly_guard": "--anomaly-guard: the anomaly guard is not ported yet "
-                     "(ROADMAP queue 1 item 5)",
     "cpu_devices": "--cpu-devices: the port has no virtual-device mesh; "
                    "use --device cpu",
     "debug_nans": "--debug-nans: jax_debug_nans has no counterpart here; "
@@ -106,8 +104,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "over this many batches; 0 = off")
     p.add_argument("--device", default="cuda",
                    help="where to train: cuda (default) or cpu")
-    p.add_argument("--async-checkpoint", action="store_true")
-    p.add_argument("--anomaly-guard", action="store_true")
+    p.add_argument("--async-checkpoint", action="store_true",
+                   help="overlap checkpoint writes with training (the npz "
+                        "save copied to host memory, written by a thread, "
+                        "committed at the next save or the end of the run)")
+    p.add_argument("--anomaly-guard", action="store_true",
+                   help="the anomaly guard: non-finite loss or gradient, "
+                        "loss spikes and corrupt token ids detected on the "
+                        "card inside the step, anomalous updates skipped "
+                        "with no host sync, and a rollback to the last "
+                        "good checkpoint after --guard-rollback-after "
+                        "consecutive anomalies")
+    p.add_argument("--guard-rollback-after", type=int, default=3,
+                   help="consecutive anomalies before a rollback (0: skip "
+                        "only, never roll back)")
+    p.add_argument("--guard-skip-window", action="store_true",
+                   help="on a rollback, drop the offending data window "
+                        "instead of replaying it (persistent corruption)")
     p.add_argument("--cpu-devices", type=int, default=0)
     p.add_argument("--debug-nans", action="store_true")
     p.add_argument("--trace-dir", default=None,
@@ -154,8 +167,13 @@ def build_train_cfg(args) -> TrainConfig:
         checkpoint_dir=args.checkpoint_dir,
         keep_checkpoints=args.keep_checkpoints,
         accum_dtype=args.accum_dtype,
+        async_checkpoint=args.async_checkpoint,
         metrics_path=args.metrics_out,
         save_on_preemption=args.save_on_preemption,
+        anomaly_guard=args.anomaly_guard,
+        guard_rollback_after=(args.guard_rollback_after
+                              if args.guard_rollback_after > 0 else None),
+        guard_skip_window=args.guard_skip_window,
     )
     cfg.grad_accum_steps()  # validate divisibility early
     return cfg

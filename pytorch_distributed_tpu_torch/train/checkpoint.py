@@ -8,9 +8,14 @@ path: the params through ``interop.params_to_jax`` (``params/wte``,
 state as the JAX optax chain lays it out (``opt_state/1/count``,
 ``opt_state/1/mu/...``, ``opt_state/1/nu/...`` for ``scale_by_adam``,
 ``opt_state/3/count`` for the schedule; the chain's other elements hold no
-arrays), and ``step``, counts as int32 scalars. The keys are built here
-without optax or JAX. A ``meta.json`` sidecar carries the caller's metadata
-(the step and the loader's position).
+arrays), and ``step``, counts as int32 scalars, and with the anomaly guard
+``guard/ema`` (f32), ``guard/seen``, ``guard/consecutive``,
+``guard/total`` and ``guard/trip`` (int32), the JAX ``GuardState``'s
+names. The keys are built here without optax or JAX. A ``meta.json``
+sidecar carries the caller's metadata (the step and the loader's
+position). A checkpoint without guard leaves restores into a guarded
+state with fresh counters (the run turned the guard on mid-life); guard
+leaves restoring into an unguarded state are ignored, as in JAX.
 
 **Integrity contract**, as in the JAX package: a save writes a per-leaf
 crc32 ``manifest.json`` (meta.json's crc32 included) and a ``COMMIT``
@@ -20,9 +25,22 @@ destroys both generations. ``list_checkpoints``/``latest_checkpoint``
 return only committed directories, and ``load_checkpoint`` verifies the
 manifest first and raises ``CheckpointCorrupt`` on a mismatch;
 ``Trainer.resume_latest`` then falls back to the next-older checkpoint.
+``set_save_hook`` installs a host hook fired with ("pre_commit",
+directory) the instant before a save becomes visible (the training fault
+injector's crash inside a save).
 
-Not ported yet (ROADMAP queue 1 item 5): the orbax format and the async
-save; both raise ``NotImplementedError``.
+**The async save** is the npz format's (the JAX package's is orbax, whose
+per-process shard writes belong to multi-rank checkpoints, ROADMAP queue 1
+item 7, and stays refused here). ``save_checkpoint_async`` copies the
+whole state to host memory before it returns — the next step overwrites
+params and moments in place, so a thread reading live tensors would save
+a later step's values — and writes the npz payload (and takes its
+checksums) in a background thread into a ``.tmp_<name>`` sibling. The
+save becomes visible — ``meta.json``, the manifest, ``COMMIT`` and the
+atomic swap — only in ``finalize_async_save()``, which the next async
+save calls first, so at most one save is in flight.
+``pending_async_directory`` names its target; ``prune_checkpoints`` never
+touches it or its temporary directory.
 """
 
 from __future__ import annotations
@@ -31,14 +49,17 @@ import json
 import os
 import shutil
 import tempfile
+import threading
 import zlib
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
 
 from pytorch_distributed_tpu_torch import interop
 from pytorch_distributed_tpu_torch.config import ModelConfig, TrainConfig
+from pytorch_distributed_tpu_torch.train.guard import GuardState
 from pytorch_distributed_tpu_torch.train.optim import make_optimizer
 from pytorch_distributed_tpu_torch.train.state import (
     TrainState,
@@ -50,14 +71,31 @@ COMMIT_NAME = "COMMIT"
 MANIFEST_NAME = "manifest.json"
 # The optax chain's element holding (count, mu, nu), and the schedule's.
 _ADAM, _SCHEDULE = "opt_state/1", "opt_state/3"
-_UNPORTED = ("not ported yet (ROADMAP queue 1 item 5): the port writes the "
-             "npz format synchronously")
+_ORBAX = ("the orbax checkpoint format is not ported: it is the multi-rank "
+          "checkpoint of ROADMAP queue 1 item 7; the port writes npz (async "
+          "too: save_checkpoint_async)")
 
 
 class CheckpointCorrupt(RuntimeError):
     """The checkpoint directory fails its integrity contract: missing
     COMMIT marker, missing/unreadable payload, or a checksum mismatch
     against its manifest."""
+
+
+# Host hook fired with (stage, directory) the instant before a save becomes
+# visible ("pre_commit"); the training fault injector (train/chaos) kills
+# saves there. None in production.
+_SAVE_HOOK: Callable[[str, Path], None] | None = None
+
+
+def set_save_hook(hook: Callable[[str, Path], None] | None) -> None:
+    global _SAVE_HOOK
+    _SAVE_HOOK = hook
+
+
+def _fire_save_hook(stage: str, directory: Path) -> None:
+    if _SAVE_HOOK is not None:
+        _SAVE_HOOK(stage, directory)
 
 
 def _crc32(data: bytes) -> int:
@@ -95,11 +133,15 @@ def _state_arrays(state: TrainState, cfg: ModelConfig) -> dict:
     opt = state.opt_state
     out: dict = {}
     _flatten("params", interop.params_to_jax(state.params, cfg), out)
-    out[f"{_ADAM}/count"] = np.asarray(opt["count"], np.int32)
+    out[f"{_ADAM}/count"] = np.asarray(int(opt["count"]), np.int32)
     _flatten(f"{_ADAM}/mu", interop.params_to_jax(opt["mu"], cfg), out)
     _flatten(f"{_ADAM}/nu", interop.params_to_jax(opt["nu"], cfg), out)
-    out[f"{_SCHEDULE}/count"] = np.asarray(opt["schedule_count"], np.int32)
-    out["step"] = np.asarray(state.step, np.int32)
+    out[f"{_SCHEDULE}/count"] = np.asarray(int(opt["schedule_count"]),
+                                           np.int32)
+    out["step"] = np.asarray(int(state.step), np.int32)
+    if state.guard is not None:
+        for name, v in state.guard._asdict().items():
+            out[f"guard/{name}"] = v.detach().cpu().numpy()
     return out
 
 
@@ -115,10 +157,34 @@ def _swap_into_place(tmp: Path, directory: Path) -> None:
     trash = directory.parent / (".trash_" + directory.name)
     if trash.exists():
         shutil.rmtree(trash)
+    _fire_save_hook("pre_commit", directory)
     if directory.exists():
         os.replace(directory, trash)
     os.replace(tmp, directory)
     shutil.rmtree(trash, ignore_errors=True)
+
+
+def _leaf_entries(arrays: dict) -> dict:
+    return {k: {"crc32": _crc32(np.ascontiguousarray(a).tobytes()),
+                "shape": list(a.shape), "dtype": str(a.dtype)}
+            for k, a in arrays.items()}
+
+
+def _meta_text(keys, metadata: dict | None) -> str:
+    return json.dumps({"format": "pdtpu-ckpt-v1", "keys": sorted(keys),
+                       "metadata": metadata or {}}, indent=1)
+
+
+def _commit(tmp: Path, directory: Path, meta_text: str,
+            leaves: dict) -> None:
+    """meta.json, the manifest and COMMIT into ``tmp``, then the swap: the
+    publishing tail of the sync save and of ``finalize_async_save``."""
+    (tmp / "meta.json").write_text(meta_text)
+    manifest = {"format": "pdtpu-ckpt-manifest-v1",
+                "meta_crc32": _crc32(meta_text.encode()), "leaves": leaves}
+    (tmp / MANIFEST_NAME).write_text(json.dumps(manifest, indent=1))
+    _write_commit(tmp)
+    _swap_into_place(tmp, directory)
 
 
 def save_checkpoint(directory: str | Path, state: TrainState,
@@ -128,8 +194,7 @@ def save_checkpoint(directory: str | Path, state: TrainState,
     npz checkpoint. ``format`` "auto" and "npz" are the same here (one
     process holds every tensor)."""
     if format == "orbax":
-        raise NotImplementedError(f"the orbax checkpoint format is "
-                                  f"{_UNPORTED}")
+        raise NotImplementedError(_ORBAX)
     if format not in ("auto", "npz"):
         raise ValueError(f"unknown checkpoint format {format!r}")
     directory = Path(directory)
@@ -138,32 +203,85 @@ def save_checkpoint(directory: str | Path, state: TrainState,
     tmp = Path(tempfile.mkdtemp(dir=directory.parent, prefix=".ckpt_tmp_"))
     try:
         np.savez(tmp / "arrays.npz", **arrays)
-        meta_text = json.dumps(
-            {"format": "pdtpu-ckpt-v1", "keys": sorted(arrays),
-             "metadata": metadata or {}},
-            indent=1,
-        )
-        (tmp / "meta.json").write_text(meta_text)
-        manifest = {
-            "format": "pdtpu-ckpt-manifest-v1",
-            "meta_crc32": _crc32(meta_text.encode()),
-            "leaves": {
-                k: {"crc32": _crc32(np.ascontiguousarray(a).tobytes()),
-                    "shape": list(a.shape), "dtype": str(a.dtype)}
-                for k, a in arrays.items()
-            },
-        }
-        (tmp / MANIFEST_NAME).write_text(json.dumps(manifest, indent=1))
-        _write_commit(tmp)
-        _swap_into_place(tmp, directory)
+        _commit(tmp, directory, _meta_text(arrays, metadata),
+                _leaf_entries(arrays))
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
     return str(directory)
 
 
-def save_checkpoint_async(*args, **kwargs):
-    raise NotImplementedError(f"the async checkpoint save is {_UNPORTED}")
+# The one async save in flight (module-level, as the JAX package's: the
+# trainer treats checkpointing as a process-wide side effect).
+_PENDING_ASYNC: dict | None = None
+
+
+def pending_async_directory() -> Path | None:
+    """The target directory of the async save in flight, if any (so
+    ``prune_checkpoints`` can never race it)."""
+    return None if _PENDING_ASYNC is None else _PENDING_ASYNC["directory"]
+
+
+def _write_payload(pend: dict) -> None:
+    """The background thread: the npz payload and its checksums."""
+    try:
+        arrays = pend.pop("arrays")
+        np.savez(pend["tmp"] / "arrays.npz", **arrays)
+        pend["leaves"] = _leaf_entries(arrays)
+    except BaseException as e:  # re-raised by finalize_async_save
+        pend["error"] = e
+
+
+def save_checkpoint_async(directory: str | Path, state: TrainState,
+                          cfg: ModelConfig, *,
+                          metadata: dict | None = None) -> str:
+    """Start an npz save that overlaps training: finalize the save in
+    flight, copy ``state`` to host memory (before returning: the caller's
+    next step may overwrite it in place), then write the payload in a
+    background thread. The checkpoint becomes visible only at
+    ``finalize_async_save()``."""
+    global _PENDING_ASYNC
+    finalize_async_save()
+    directory = Path(directory).resolve()
+    directory.parent.mkdir(parents=True, exist_ok=True)
+    tmp = directory.parent / (".tmp_" + directory.name)
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    arrays = _state_arrays(state, cfg)  # the host snapshot
+    if tree.leaves(state.params)[0].device.type == "cpu":
+        # .cpu() of a host tensor is that tensor: its numpy view would
+        # follow the next step's in-place update.
+        arrays = {k: np.array(a, copy=True) for k, a in arrays.items()}
+    tmp.mkdir()
+    pend = {"directory": directory, "tmp": tmp,
+            "meta_text": _meta_text(arrays, metadata), "arrays": arrays}
+    pend["thread"] = threading.Thread(target=_write_payload, args=(pend,),
+                                      name="ckpt-async", daemon=True)
+    pend["thread"].start()
+    _PENDING_ASYNC = pend
+    return str(directory)
+
+
+def finalize_async_save() -> str | None:
+    """Wait for the async save in flight (if any) to write its payload,
+    then publish it: meta.json, manifest, COMMIT, the atomic swap. Returns
+    its path (None when no save is in flight). Call it before another
+    save, before reading the newest checkpoint, and before exit; the
+    Trainer does."""
+    global _PENDING_ASYNC
+    if _PENDING_ASYNC is None:
+        return None
+    pend, _PENDING_ASYNC = _PENDING_ASYNC, None
+    pend["thread"].join()
+    tmp, directory = pend["tmp"], pend["directory"]
+    try:
+        if "error" in pend:
+            raise pend["error"]
+        _commit(tmp, directory, pend["meta_text"], pend["leaves"])
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    return str(directory)
 
 
 def is_committed(directory: str | Path) -> bool:
@@ -238,8 +356,8 @@ def verify_checkpoint(directory: str | Path) -> None:
 
 def _load_manifest_npz(directory: Path) -> dict:
     if (directory / "tree").exists():
-        raise NotImplementedError(f"{directory} is an orbax checkpoint: the "
-                                  f"orbax format is {_UNPORTED}")
+        raise NotImplementedError(f"{directory} is an orbax checkpoint: "
+                                  f"{_ORBAX}")
     return _load_manifest(directory)
 
 
@@ -294,13 +412,38 @@ def load_checkpoint(directory: str | Path, like: TrainState,
         params=_restore_tree("params", arrays, like.params, cfg),
         opt_state=dict(
             opt,
-            count=int(arrays[f"{_ADAM}/count"]),
+            count=_restore_count(arrays[f"{_ADAM}/count"], opt["count"]),
             mu=_restore_tree(f"{_ADAM}/mu", arrays, opt["mu"], cfg),
             nu=_restore_tree(f"{_ADAM}/nu", arrays, opt["nu"], cfg),
-            schedule_count=int(arrays[f"{_SCHEDULE}/count"]),
+            schedule_count=_restore_count(arrays[f"{_SCHEDULE}/count"],
+                                          opt["schedule_count"]),
         ),
         step=int(arrays["step"]),
+        guard=_restore_guard(arrays, like.guard),
     )
+
+
+def _restore_count(got: np.ndarray, like):
+    """A count like the template's: a Python int, or (guarded state) a 0-d
+    int32 tensor on the template's device."""
+    if torch.is_tensor(like):
+        return torch.tensor(int(got), dtype=like.dtype, device=like.device)
+    return int(got)
+
+
+def _restore_guard(arrays: dict, like: GuardState | None):
+    """The guard leaves into a guarded template; a checkpoint written
+    without them keeps the template's fresh values (JAX's pre-guard
+    upgrade path). An unguarded template takes no guard."""
+    if like is None:
+        return None
+    fields = like._asdict()
+    if not all(f"guard/{k}" in arrays for k in fields):
+        return like
+    return GuardState(**{
+        k: _restore_like(f"guard/{k}",
+                         torch.from_numpy(np.array(arrays[f"guard/{k}"])), v)
+        for k, v in fields.items()})
 
 
 def load_params_checkpoint(directory: str | Path, params,
@@ -361,18 +504,23 @@ def uncommitted_checkpoints(checkpoint_root: str | Path) -> list[str]:
 def prune_checkpoints(checkpoint_root: str | Path, keep: int) -> list[str]:
     """Delete all but the newest ``keep`` ``checkpoint_step_{n}`` dirs, and
     sweep ``.trash_`` leftovers of a swap and temporary save dirs orphaned
-    by a crash mid-save. Call after a completed save (no save is then in
-    flight). Returns the removed paths."""
+    by a crash mid-save. Call after a completed save. Never touches the
+    target of the async save in flight (``pending_async_directory``) or
+    its ``.tmp_`` dir. Returns the removed paths."""
     if keep < 1:
         raise ValueError(f"keep must be >= 1, got {keep}")
     root = Path(checkpoint_root)
     if not root.exists():
         return []
+    pending = pending_async_directory()
+    pending_tmp = None if pending is None else ".tmp_" + pending.name
     for child in root.iterdir():
-        if child.is_dir() and child.name.startswith(
-                (".trash_", ".ckpt_tmp_", ".tmp_")):
+        if child.is_dir() and child.name != pending_tmp and \
+                child.name.startswith((".trash_", ".ckpt_tmp_", ".tmp_")):
             shutil.rmtree(child, ignore_errors=True)
-    steps = sorted(_step_dirs(root), reverse=True)
+    steps = sorted(((s, p) for s, p in _step_dirs(root)
+                    if pending is None or p.resolve() != pending),
+                   reverse=True)
     removed = []
     for _, path in steps[keep:]:
         shutil.rmtree(path, ignore_errors=True)

@@ -34,15 +34,44 @@ position in their metadata) and prunes them, resumes from the newest
 good one, saves once on SIGTERM/SIGINT with ``save_on_preemption``, and
 evaluates. ``train(profiler=...)`` steps a profiler
 (``profiling.ScheduledProfiler``) once per optimizer step and runs each
-step inside its ``step_context``. Not ported yet, and refused: the anomaly
-guard, the fault injector and the async checkpoint (ROADMAP queue 1 item
-5).
+step inside its ``step_context``.
+
+**The anomaly guard** (``train_cfg.anomaly_guard``; ``train/guard``):
+``make_train_step(guard=GuardConfig)`` checks the batch's ids, maps
+out-of-range ids as the JAX package's gathers do (``guard.safe_input_ids``
+and, on the unfused loss, ``guard.safe_targets``: the loss reads NaN where
+JAX's does), runs ``guard_step`` on the loss and gradient norm, and hands
+the anomaly flag to ``Optimizer.update``, which then leaves the state as
+it was; ``metrics["anomaly"]`` is the flag. None of it reads a device
+value on the host. The loop reads the counters only where it syncs
+anyway — at a log boundary (non-finite losses are left out of the
+window's average, and ``anomalies`` joins the entry) and at a save
+boundary (a save inside an anomaly burst is deferred) — and when ``trip``
+is set rolls back to the newest loadable checkpoint
+(``guard_rollback_after``, ``guard_skip_window``, ``guard_max_rollbacks``;
+no checkpoint, or too many rollbacks, raises). A trip pending when the
+loop ends early is logged as a warning, and a preemption save with
+anomalies pending is skipped when a good checkpoint exists.
+
+**Faults** (``set_fault_injector``, ``train/chaos.TrainFaultInjector``):
+host hooks at the step boundary (``on_step``, then ``before_step``, which
+may crash, signal or corrupt the numpy batch) and after each save
+(``after_save``); the injector's ``install`` also sets the checkpoint
+module's save hook (a crash inside a save, before it commits). The step
+never sees the injector.
+
+**Async checkpoints** (``train_cfg.async_checkpoint``): each save is
+``checkpoint.save_checkpoint_async`` (the state copied to host memory
+before it returns, the payload written by a thread), made visible by the
+next save, by ``resume_latest``, by a rollback, and at the end of
+``train`` (also when it raises).
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import signal
 import time
 from pathlib import Path
@@ -58,6 +87,11 @@ from pytorch_distributed_tpu_torch.ops.losses import (
     linear_cross_entropy,
 )
 from pytorch_distributed_tpu_torch.train import checkpoint as ckpt_lib
+from pytorch_distributed_tpu_torch.train import guard as guard_lib
+from pytorch_distributed_tpu_torch.train.guard import (
+    GuardConfig,
+    guard_config_from,
+)
 from pytorch_distributed_tpu_torch.train.optim import (
     Optimizer,
     global_norm,
@@ -72,10 +106,6 @@ from pytorch_distributed_tpu_torch.utils import tree
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 from pytorch_distributed_tpu_torch.utils.logging import get_logger
 from pytorch_distributed_tpu_torch.utils.prng import DropoutKey
-
-_GUARD = ("the anomaly guard is not ported yet (ROADMAP queue 1 item 5: "
-          "train/guard)")
-
 
 def _loss(model: ModelApi, cfg: ModelConfig, params, inputs, targets, *,
           deterministic: bool = True, key: DropoutKey | None = None,
@@ -105,14 +135,15 @@ def make_train_step(
     tx: Optimizer,
     *,
     accum_dtype: str = "float32",
-    guard=None,
+    guard: GuardConfig | None = None,
     seed: int = 42,
 ) -> Callable:
     """Build ``step(state, batch) -> (state, metrics)`` (see the module
     docstring). ``seed`` is the dropout streams' (the JAX Trainer's
-    ``domain_key(train_cfg.seed, "dropout")``)."""
-    if guard is not None or tx.cfg.anomaly_guard:
-        raise NotImplementedError(_GUARD)
+    ``domain_key(train_cfg.seed, "dropout")``). ``guard``: the anomaly
+    guard (``state.guard`` must then be a ``GuardState`` and the optimizer
+    counts device tensors: ``init_train_state(..., guard=...)``)."""
+    vocab = model_cfg.vocab_size
     train_mode = (model_cfg.embd_pdrop > 0 or model_cfg.attn_pdrop > 0
                   or model_cfg.resid_pdrop > 0)
     acc_dtype = getattr(torch, accum_dtype)
@@ -131,6 +162,20 @@ def make_train_step(
                 f"batch inputs/targets must be [A, B, T] of one shape, got "
                 f"{tuple(inputs.shape)} and {tuple(targets.shape)}"
             )
+        nan_target = None
+        if guard is not None:
+            if state.guard is None:
+                raise ValueError("a guarded step needs state.guard: "
+                                 "init_train_state(..., guard=...)")
+            bad_data = (guard_lib.check_batch(batch, guard.vocab_size)
+                        if guard.vocab_size else
+                        torch.zeros((), dtype=torch.bool,
+                                    device=inputs.device))
+            inputs = guard_lib.safe_input_ids(inputs, vocab)
+            if not model_cfg.fused_head_ce:
+                # The fused loss already reads out-of-range targets as JAX's
+                # fused loss does (no column matches them).
+                targets, nan_target = guard_lib.safe_targets(targets, vocab)
         accum = inputs.shape[0]
         ps = tree.leaves(state.params)
         keys = [DropoutKey(seed, state.step, i) for i in range(accum)]
@@ -148,9 +193,20 @@ def make_train_step(
                 del g
             torch._foreach_div_(grads, accum)
             loss = loss / accum
+        if nan_target is not None:
+            loss = torch.where(nan_target, torch.nan, loss)
         metrics = {"loss": loss, "grad_norm": global_norm(grads)}
-        params, opt_state = tx.update(grads, state.opt_state, state.params)
-        return TrainState(params, opt_state, state.step + 1), metrics
+        if guard is None:
+            params, opt_state = tx.update(grads, state.opt_state,
+                                          state.params)
+            return TrainState(params, opt_state, state.step + 1), metrics
+        new_guard, anomaly = guard_lib.guard_step(
+            state.guard, loss, metrics["grad_norm"], bad_data, guard)
+        params, opt_state = tx.update(grads, state.opt_state, state.params,
+                                      anomaly=anomaly)
+        metrics["anomaly"] = anomaly
+        return (TrainState(params, opt_state, state.step + 1, new_guard),
+                metrics)
 
     return step
 
@@ -173,10 +229,10 @@ def make_eval_step(model: ModelApi, model_cfg: ModelConfig) -> Callable:
 
 
 class Trainer:
-    """The single-device training loop (the JAX ``Trainer`` without the
-    guard, chaos and multi-process branches). The loader yields [B, T]
-    (inputs, targets) numpy batches; the trainer groups ``accum`` of them
-    into one [A, B, T] step batch on ``device`` (default: the card)."""
+    """The single-device training loop (the JAX ``Trainer`` without its
+    multi-process branches). The loader yields [B, T] (inputs, targets)
+    numpy batches; the trainer groups ``accum`` of them into one [A, B, T]
+    step batch on ``device`` (default: the card)."""
 
     def __init__(
         self,
@@ -187,28 +243,26 @@ class Trainer:
         device: str | torch.device | None = None,
         log_fn: Callable[[str], None] | None = None,
     ):
-        if train_cfg.anomaly_guard:
-            raise NotImplementedError(_GUARD)
-        if train_cfg.async_checkpoint:
-            raise NotImplementedError(
-                "async_checkpoint is not ported yet (ROADMAP queue 1 item "
-                "5): the port saves npz checkpoints synchronously")
         self.model = model
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
         self.accum = train_cfg.grad_accum_steps()
         self.tx = make_optimizer(train_cfg)
+        self.guard_cfg = guard_config_from(train_cfg, model_cfg)
         self.train_step = make_train_step(model, model_cfg, self.tx,
                                           accum_dtype=train_cfg.accum_dtype,
+                                          guard=self.guard_cfg,
                                           seed=train_cfg.seed)
         self._log = log_fn or get_logger().info
         self._eval_step = make_eval_step(model, model_cfg)
+        self._injector = None  # train/chaos.TrainFaultInjector, or None
+        self._rollbacks = 0
 
     def set_fault_injector(self, injector) -> None:
-        raise NotImplementedError(
-            "the training fault injector is not ported yet (ROADMAP queue 1 "
-            "item 5: train/chaos)")
+        """Install a ``train/chaos.TrainFaultInjector`` (None removes it):
+        host hooks at the step and save boundaries."""
+        self._injector = injector
 
     def put_batch(self, batch: dict) -> dict:
         """Numpy batches -> tensors on the trainer's device."""
@@ -220,11 +274,14 @@ class Trainer:
         """Fresh params (``model.init`` from a generator on the trainer's
         device seeded with ``train_cfg.seed``: the card draws a
         billion-parameter model in well under a second, where the host
-        takes tens of seconds) and the optimizer state."""
+        takes tens of seconds), the optimizer state and, with the guard,
+        a fresh ``GuardState``."""
         g = torch.Generator(device=self.device).manual_seed(
             self.train_cfg.seed)
         params = self.model.init(g, self.model_cfg, device=self.device)
-        return init_train_state(params, self.tx)
+        guard = (guard_lib.init_guard_state(self.device)
+                 if self.guard_cfg is not None else None)
+        return init_train_state(params, self.tx, guard=guard)
 
     # -- checkpointing ----------------------------------------------------
     def checkpoint_path(self, step: int) -> Path:
@@ -237,12 +294,19 @@ class Trainer:
             # The stream position rides the checkpoint, so a resumed run
             # continues the token stream instead of repeating it.
             metadata["loader_state"] = loader.state_dict()
-        path = ckpt_lib.save_checkpoint(self.checkpoint_path(state.step),
-                                        state, self.model_cfg,
-                                        metadata=metadata)
+        save = (ckpt_lib.save_checkpoint_async
+                if self.train_cfg.async_checkpoint
+                else ckpt_lib.save_checkpoint)
+        # The async save finalizes the one before it first; the prune then
+        # keeps disk bounded during the run (it never touches the save in
+        # flight).
+        path = save(self.checkpoint_path(state.step), state, self.model_cfg,
+                    metadata=metadata)
         if self.train_cfg.keep_checkpoints is not None:
             ckpt_lib.prune_checkpoints(self.train_cfg.checkpoint_dir,
                                        self.train_cfg.keep_checkpoints)
+        if self._injector is not None:
+            self._injector.after_save(self.train_cfg.checkpoint_dir)
         return path
 
     def load_checkpoint(self, path: str | Path,
@@ -285,6 +349,7 @@ class Trainer:
 
     def resume_latest(self, state: TrainState, *,
                       loader: Any | None = None) -> TrainState:
+        ckpt_lib.finalize_async_save()  # an in-flight save is invisible
         loaded = self._load_latest_good(state)
         if loaded is None:
             return state
@@ -295,6 +360,47 @@ class Trainer:
             if "loader_state" in meta:
                 loader.load_state_dict(meta["loader_state"])
         return restored
+
+    def _guard_rollback(self, state: TrainState, dataloader, groups):
+        """The guard tripped: restore the newest loadable checkpoint,
+        rewind the data stream to its position (unless
+        ``guard_skip_window``, the policy for persistent corruption) and go
+        on. Returns (state, groups, step). Raises when no checkpoint loads
+        or ``guard_max_rollbacks`` is spent: a thrashing run must fail."""
+        cfg = self.train_cfg
+        self._rollbacks += 1
+        if self._rollbacks > cfg.guard_max_rollbacks:
+            raise RuntimeError(
+                f"anomaly guard rolled back {cfg.guard_max_rollbacks} "
+                "times in one run and tripped again — the anomaly is "
+                "persistent; inspect the data/numerics (or set "
+                "guard_skip_window=True for corrupt-data streams)"
+            )
+        ckpt_lib.finalize_async_save()
+        loaded = self._load_latest_good(state)
+        if loaded is None:
+            raise RuntimeError(
+                "anomaly guard tripped but no checkpoint exists to roll "
+                "back to; set save_every_n_steps (or disable rollback "
+                "with guard_rollback_after=None)"
+            )
+        restored, path = loaded
+        rewound = False
+        if not cfg.guard_skip_window:
+            meta = ckpt_lib.read_metadata(path)
+            if hasattr(dataloader, "load_state_dict") and \
+                    "loader_state" in meta:
+                dataloader.load_state_dict(meta["loader_state"])
+                groups = self._grouped_batches(dataloader)
+                rewound = True
+        self._log(
+            f"anomaly guard tripped: rolled back to {path} (step "
+            f"{restored.step}, rollback {self._rollbacks}/"
+            f"{cfg.guard_max_rollbacks}); data stream "
+            + ("rewound and replayed" if rewound else
+               "NOT rewound — offending window skipped")
+        )
+        return restored, groups, restored.step
 
     # -- data grouping ----------------------------------------------------
     def _grouped_batches(self, dataloader: Iterable):
@@ -324,6 +430,7 @@ class Trainer:
         if state is None:
             state = self.init_state()
         num_steps = num_steps if num_steps is not None else cfg.num_steps
+        guarded = self.guard_cfg is not None
         history: list[dict] = []
         # Per-step losses stay on the device until a log boundary: reading
         # one every step would make the host wait for step n before it
@@ -349,6 +456,7 @@ class Trainer:
         # fetched, or the saved loader position would skip data the
         # resumed run never trains on.
         groups = self._grouped_batches(dataloader)
+        self._rollbacks = 0
         try:
             while step < num_steps:
                 if preempted["flag"]:
@@ -356,6 +464,11 @@ class Trainer:
                 batch = next(groups, None)
                 if batch is None:
                     break
+                if self._injector is not None:
+                    # Arm this step's faults, then let the injector crash,
+                    # signal or corrupt the host batch before it is placed.
+                    self._injector.on_step(step + 1)
+                    batch = self._injector.before_step(step + 1, batch)
                 ctx = (profiler.step_context(step)
                        if profiler is not None
                        and hasattr(profiler, "step_context")
@@ -371,26 +484,109 @@ class Trainer:
                     losses = torch.stack(window_losses).tolist()  # one sync
                     elapsed = time.perf_counter() - t0
                     lr = lr_at_step(cfg, step)
-                    avg_loss = sum(losses) / len(losses)
-                    entry = {"step": step, "lr": lr, "elapsed_s": elapsed,
-                             "loss": avg_loss}
+                    entry = {"step": step, "lr": lr, "elapsed_s": elapsed}
+                    suffix = ""
+                    if guarded:
+                        # The counters ride the window's sync; skipped
+                        # (non-finite) losses stay out of the average, so
+                        # one NaN step does not turn the line NaN.
+                        g = guard_lib.read_guard(state.guard)
+                        finite = [x for x in losses if math.isfinite(x)]
+                        avg_loss = (sum(finite) / len(finite) if finite
+                                    else float("nan"))
+                        entry["anomalies"] = g["total"]
+                        if g["total"]:
+                            suffix = f" | anomalies {g['total']}"
+                    else:
+                        avg_loss = sum(losses) / len(losses)
+                    entry["loss"] = avg_loss
                     self._log(
                         f"step {step}/{num_steps} | loss {avg_loss:.4f} | "
-                        f"lr {lr:.2e} | elapsed {elapsed:.1f}s"
+                        f"lr {lr:.2e} | elapsed {elapsed:.1f}s{suffix}"
                     )
                     history.append(entry)
                     self._write_metrics(entry)
                     window_losses = []
+                    if guarded and g["trip"]:
+                        state, groups, step = self._guard_rollback(
+                            state, dataloader, groups)
+                        continue
                 if cfg.save_every_n_steps and \
                         step % cfg.save_every_n_steps == 0:
+                    if guarded:
+                        # A checkpoint must not capture anomalies not yet
+                        # adjudicated: a later rollback would land on a
+                        # state that silently skipped the poisoned window.
+                        # The save syncs anyway, so this read is free.
+                        g = guard_lib.read_guard(state.guard)
+                        if g["trip"]:
+                            window_losses = []
+                            state, groups, step = self._guard_rollback(
+                                state, dataloader, groups)
+                            continue
+                        if g["consecutive"] > 0:
+                            self._log(
+                                f"deferring checkpoint at step {step}: "
+                                f"anomaly burst in progress "
+                                f"({g['consecutive']} consecutive)")
+                            continue
                     self.save_checkpoint(state, loader=dataloader)
         finally:
             for sig, prev in restore_handlers:
                 signal.signal(sig, prev)
+            if cfg.async_checkpoint:
+                # An in-flight save is committed only by finalize: a raised
+                # step must not discard a fully written checkpoint.
+                ckpt_lib.finalize_async_save()
+        if guarded and step < num_steps:
+            # The loop ended early between boundaries: a pending trip would
+            # vanish unadjudicated, and there is no data left to replay.
+            g = guard_lib.read_guard(state.guard)
+            if g["trip"] or g["consecutive"]:
+                self._log(
+                    f"WARNING: training ended at step {step} with "
+                    f"un-adjudicated anomalies (consecutive "
+                    f"{g['consecutive']}, trip {g['trip']}): the returned "
+                    "state skipped anomalous windows without rollback; "
+                    "resume from the last good checkpoint to replay them"
+                )
         if preempted["flag"]:
-            self._log(f"preemption signal received: checkpointing at step "
-                      f"{step}")
-            self.save_checkpoint(state, loader=dataloader)
+            skip_save = False
+            if guarded:
+                # The clean-history rule of the in-loop saves: a
+                # preemption checkpoint carrying pending anomalies would
+                # anchor every later resume on a state that silently lost
+                # the poisoned window's replay — unless there is no good
+                # checkpoint at all (a tainted one beats losing the run).
+                g = guard_lib.read_guard(state.guard)
+                if g["trip"] or g["consecutive"]:
+                    ckpt_lib.finalize_async_save()
+                    prior = ckpt_lib.latest_checkpoint(cfg.checkpoint_dir)
+                    skip_save = prior is not None
+                    if skip_save:
+                        self._log(
+                            f"preemption checkpoint at step {step} "
+                            f"SKIPPED: un-adjudicated anomalies "
+                            f"(consecutive {g['consecutive']}, trip "
+                            f"{g['trip']}); resume replays from {prior}")
+                    else:
+                        self._log(
+                            f"WARNING: preemption checkpoint at step "
+                            f"{step} carries un-adjudicated anomalies "
+                            f"(consecutive {g['consecutive']}, trip "
+                            f"{g['trip']}) — saved anyway, no earlier "
+                            "checkpoint exists; the skipped windows were "
+                            "not replayed")
+            if not skip_save:
+                self._log(f"preemption signal received: checkpointing at "
+                          f"step {step}")
+                self.save_checkpoint(state, loader=dataloader)
+        if cfg.async_checkpoint:
+            # The last save is committed and visible before train returns.
+            ckpt_lib.finalize_async_save()
+            if cfg.keep_checkpoints is not None:
+                ckpt_lib.prune_checkpoints(cfg.checkpoint_dir,
+                                           cfg.keep_checkpoints)
         return state, history
 
     def _write_metrics(self, entry: dict) -> None:

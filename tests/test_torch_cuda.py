@@ -1350,3 +1350,118 @@ def test_one_oom_point_recovers(cuda):
         cuda).total_memory
     assert rows[2]["peak_bytes_in_use"] == pytest.approx(
         rows[0]["peak_bytes_in_use"], rel=0.05)
+
+
+def _guarded_small(cuda, fused=False):
+    """A small flash GPT-2 (2 layers, E 128, head_dim 64, T 64, bf16
+    activations) with the guard on, its state and step on the card."""
+    from pytorch_distributed_tpu_torch.config import TrainConfig
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.train import guard, optim
+    from pytorch_distributed_tpu_torch.train.state import init_train_state
+    from pytorch_distributed_tpu_torch.train.trainer import make_train_step
+
+    cfg = ModelConfig(vocab_size=512, n_ctx=64, n_embd=128, n_layer=2,
+                      n_head=2, attention_impl="flash", remat="names",
+                      embd_pdrop=0.0, attn_pdrop=0.0, resid_pdrop=0.0,
+                      fused_head_ce=fused)
+    tcfg = TrainConfig(learning_rate=1e-3, anomaly_guard=True)
+    tx = optim.make_optimizer(tcfg)
+    model = get_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                        device=cuda)
+    state = init_train_state(params, tx,
+                             guard=guard.init_guard_state(cuda))
+    step = make_train_step(model, cfg, tx,
+                           guard=guard.guard_config_from(tcfg, cfg))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {k: torch.randint(0, 512, (1, 4, 64), generator=g, device=cuda)
+             for k in ("inputs", "targets")}
+    return state, step, batch
+
+
+def _state_bits(state):
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    opt = state.opt_state
+    return ([t.view(torch.int32).clone() for t in
+             tree.leaves(state.params) + tree.leaves(opt["mu"])
+             + tree.leaves(opt["nu"])]
+            + [opt["count"].clone(), opt["schedule_count"].clone()])
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("where", ["inputs", "targets"])
+def test_guarded_step_skips_a_corrupt_batch_on_the_card(cuda, fused, where):
+    """Ids outside [0, vocab) reach no embedding or loss gather (no device
+    assert: the context still runs work after), the step is a bitwise
+    no-op on params, moments and counts, and the flash kernels launch as
+    on a clean step."""
+    from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
+
+    state, step, batch = _guarded_small(cuda, fused)
+    state, _ = step(state, batch)
+    before = _state_bits(state)
+    bad = {k: v.clone() for k, v in batch.items()}
+    bad[where][0, 0, :8] = torch.tensor([-1, -513, 512, 600, -2, 7, -1, 9])
+    fk.launches.update(forward=0, backward=0)
+    state, m = step(state, bad)
+    torch.cuda.synchronize()
+    assert fk.launches == {"forward": 2, "backward": 2}
+    assert bool(m["anomaly"]) and int(state.guard.total) == 1
+    assert state.step == 2
+    after = _state_bits(state)
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    state, m = step(state, batch)  # the context is healthy: a clean step
+    assert not bool(m["anomaly"]) and int(state.opt_state["count"]) == 2
+
+
+def test_async_snapshot_is_not_mutated_by_the_next_step(cuda, tmp_path):
+    """The async save's host copy is taken before it returns: the next
+    step's in-place update does not reach the checkpoint."""
+    import numpy as np
+
+    from pytorch_distributed_tpu_torch.train import checkpoint as ckpt
+
+    state, step, batch = _guarded_small(cuda)
+    state, _ = step(state, batch)
+    cfg = ModelConfig(vocab_size=512, n_ctx=64, n_embd=128, n_layer=2,
+                      n_head=2)
+    want = {k: np.array(a, copy=True)
+            for k, a in ckpt._state_arrays(state, cfg).items()}
+    ckpt.save_checkpoint_async(tmp_path / "checkpoint_step_1", state, cfg)
+    state, _ = step(state, batch)  # overwrites params and moments
+    torch.cuda.synchronize()
+    assert ckpt.latest_checkpoint(tmp_path) is None
+    ckpt.finalize_async_save()
+    with np.load(tmp_path / "checkpoint_step_1" / "arrays.npz") as got:
+        for k, a in want.items():
+            np.testing.assert_array_equal(got[k], a, err_msg=k)
+    moved = ckpt._state_arrays(state, cfg)
+    assert not np.array_equal(moved["params/wte"], want["params/wte"])
+
+
+def test_native_loader_batches_on_the_card_equal_the_numpy_loader(
+        cuda, tmp_path):
+    from pytorch_distributed_tpu_torch.data import (
+        DistributedTokenShardLoader,
+        NativeTokenShardLoader,
+        make_synthetic_shards,
+    )
+
+    shards = make_synthetic_shards(tmp_path, num_shards=2,
+                                   tokens_per_shard=50_000,
+                                   vocab_size=50257, seed=3)
+    for rank, world in ((0, 1), (1, 2)):
+        nat = NativeTokenShardLoader(shards, 8, 1024, rank=rank,
+                                     world_size=world, prefetch_depth=4)
+        ref = DistributedTokenShardLoader(shards, 8, 1024, rank=rank,
+                                          world_size=world)
+        n = 0
+        for (ni, nt), (ri, rt) in zip(nat, ref):
+            on_card = [torch.from_numpy(x).to(cuda, non_blocking=False)
+                       for x in (ni, nt)]
+            assert torch.equal(on_card[0].cpu(), torch.from_numpy(ri))
+            assert torch.equal(on_card[1].cpu(), torch.from_numpy(rt))
+            n += 1
+        assert n == sum(1 for _ in ref) > 0

@@ -34,6 +34,7 @@ from pytorch_distributed_tpu_torch.models import get_model, gpt2
 from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
 from pytorch_distributed_tpu_torch.ops import remat
 from pytorch_distributed_tpu_torch.train import optim
+from pytorch_distributed_tpu_torch.train.guard import guard_config_from
 from pytorch_distributed_tpu_torch.train.state import init_train_state
 from pytorch_distributed_tpu_torch.train.trainer import make_train_step
 
@@ -278,18 +279,20 @@ def test_names_keeps_the_tagged_products_and_the_flash_outputs(monkeypatch):
 
 
 def test_refusals():
-    """What the port still refuses: the anomaly guard (dropout,
-    ``fused_head_ce``, MoE and every remat mode are ported); an unknown
-    remat mode; a training-mode forward without a dropout stream."""
+    """What the port still refuses: an unknown remat mode; a training-mode
+    forward without a dropout stream. Dropout, ``fused_head_ce``, MoE,
+    every remat mode and the anomaly guard are ported (the guard is the
+    step's ``guard=`` argument, as in JAX: tests/test_torch_guard.py)."""
     cfg = ModelConfig(**CFG_KW)
     tx = optim.make_optimizer(TrainConfig())
     model = get_model(cfg)
     for ok in (dict(attn_pdrop=0.1), dict(embd_pdrop=0.1),
                dict(fused_head_ce=True), dict(n_experts=4)):
         assert callable(make_train_step(model, cfg.replace(**ok), tx))
-    with pytest.raises(NotImplementedError, match="guard"):
-        make_train_step(model, cfg, optim.make_optimizer(
-            TrainConfig(anomaly_guard=True)))
+    guarded = TrainConfig(anomaly_guard=True)
+    assert callable(make_train_step(
+        model, cfg, optim.make_optimizer(guarded),
+        guard=guard_config_from(guarded, cfg)))
     for mode in ("dots", "dots_no_batch", "flash"):
         assert callable(remat.apply_remat(lambda x: x, mode))
     with pytest.raises(KeyError, match="unknown remat"):
