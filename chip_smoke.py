@@ -7,7 +7,7 @@ plain versions.
 Phases (each prints one JSON line; any failure raises and exits nonzero
 with no final line). They run in the order 1-3, profiling_train and
 profiling_serve (13), 7-9, 4-6d, 10-12, the rest of 13, the two
-decode_bench twin phases, 15, 14: the phases whose profiler traces are
+decode_bench twin phases, 15, 16, 14: the phases whose profiler traces are
 counted first, while the process is young (PERF.md section 7).
 
 1. env — the card (``nvidia-smi`` name and power limit), torch and CUDA
@@ -269,8 +269,25 @@ counted first, while the process is young (PERF.md section 7).
     fault-free leg, every fault kind fired, every crash (exit 43)
     followed by a restart; spawned, restarts, exit codes and wall seconds
     printed.
+16. data parallel (slice 13), each rank a subprocess of this script
+    (``--ddp-worker``): GPT-2 124M at full width (bf16, flash, names), the
+    global batch 8 x 1024 split over the ranks, 3 steps a leg through the
+    ``DistributedTrainer``'s loop. ddp_nccl — world 1 on NCCL, the four
+    strategies: losses and params bit-equal to the single-device
+    ``Trainer`` on the same batches, K1/K2 launched as often, collectives
+    issued; a Kineto window of two DDP steps: every ``nccl*`` kernel in it
+    classed communication (NCCL launches none for a one-rank collective:
+    it copies or skips it) and its c10d rows as many as the step's
+    collectives. ddp_gloo2 — two ranks on cuda:0 over gloo (NCCL refuses
+    two ranks on one card), no_shard over data 2 and full_shard over fsdp
+    2: both ranks' losses equal and within ``DDP_GLOO2_LOSS_ATOL`` of
+    ddp_nccl's one-rank losses, K1 = K2 = 12 a step on each rank,
+    full_shard's resident params and moments (allocator bytes) at most
+    ``DDP_RESIDENT_RATIO`` of no_shard's; ms a step and peak bytes
+    printed (gloo stages collectives through the host: no NCCL claim).
 14. The kernels line (K3, K4, K1, K2 and the LoRA delta kernel; K1/K2
-    with ``slice12_paths``, their launches in train_guard's steps and runs;
+    with ``slice13_paths``, their launches in the data-parallel legs, and
+    ``slice12_paths``, their launches in train_guard's steps and runs;
     with their launches per step and times on the llama paths, K3/K4 with
     their launches on each tier leg, ``tier_paths``, on the phases of 6c,
     ``slice9_paths``, of 6d, ``slice10_paths``, and of the decode_bench
@@ -283,6 +300,7 @@ counted first, while the process is young (PERF.md section 7).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -4152,14 +4170,303 @@ def train_storm_phase(smi, timeout_s: int = 400) -> dict:
     return res
 
 
+# Data-parallel training (slice 13): each rank a subprocess of this script
+# (``--ddp-worker``), GPT-2 124M at full width (bf16, flash, names), the
+# global batch 8 x 1024 split over the ranks.
+DDP_STEPS = 3
+# One rank of the global batch against two ranks of half of it each, in
+# bf16: the same sums taken over other batch shapes and another order of
+# the reduction, so each step's loss may move by bf16 rounding (losses
+# near 11, logits in bf16): held to 2e-2 absolute.
+DDP_GLOO2_LOSS_ATOL = 2e-2
+# full_shard's resident params and Adam moments per rank against
+# no_shard's: half of every leaf that fsdp 2 divides (all of GPT-2's
+# matrices) plus the replicated rest.
+DDP_RESIDENT_RATIO = 0.55
+
+
+def _ddp_model(seed: int, world: int):
+    from pytorch_distributed_tpu_torch.config import (
+        TrainConfig,
+        model_config,
+    )
+
+    cfg = model_config("gpt2", attention_impl="flash", remat="names",
+                       logits_dtype="bfloat16", attn_pdrop=0.0,
+                       resid_pdrop=0.0, embd_pdrop=0.0)
+    b, t = 8, 1024
+    tcfg = TrainConfig(global_batch_size=b, micro_batch_size=b // world,
+                       num_steps=DDP_STEPS, learning_rate=3e-4, seed=seed,
+                       log_every_n_steps=1)
+    rng = np.random.default_rng(seed)
+    loader = [(rng.integers(0, cfg.vocab_size, (b, t)),
+               rng.integers(0, cfg.vocab_size, (b, t)))
+              for _ in range(DDP_STEPS)]
+    return cfg, tcfg, loader
+
+
+def _ddp_leg(trainer, loader, fk, zero, profiler=None) -> dict:
+    """Train ``loader`` through the trainer's loop from a fresh state;
+    the launches, collectives, step times, allocator bytes and the final
+    state."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fk.launches.update(forward=0, backward=0)
+    c0 = zero.collectives
+    state, hist = trainer.train(loader, state=state, profiler=profiler)
+    elapsed = [h["elapsed_s"] for h in hist]
+    return dict(state=state, losses=[h["loss"] for h in hist],
+                ms_per_step=[(b - a) * 1e3 for a, b in
+                             zip([0.0] + elapsed[:-1], elapsed)],
+                launches=dict(fk.launches),
+                collectives=zero.collectives - c0,
+                resident_bytes=resident, base_bytes=base,
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def ddp_worker(mode: str, workdir: str, seed: int) -> int:
+    """One rank of the ``ddp_nccl`` (world 1, NCCL) or ``ddp_gloo2`` (two
+    ranks on cuda:0, gloo) phase; writes ``ddp_<mode>_<rank>.json``."""
+    import torch.distributed as dist
+
+    from pytorch_distributed_tpu_torch.config import MeshConfig
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
+    from pytorch_distributed_tpu_torch.parallel import zero
+    from pytorch_distributed_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        make_mesh,
+    )
+    from pytorch_distributed_tpu_torch.profiling import trace_analysis
+    from pytorch_distributed_tpu_torch.profiling.profiler import (
+        ScheduledProfiler,
+        find_trace_files,
+    )
+    from pytorch_distributed_tpu_torch.train.distributed_trainer import (
+        DistributedTrainer,
+    )
+    from pytorch_distributed_tpu_torch.train.trainer import Trainer
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    initialize_distributed(device=dev, backend="nccl" if mode == "nccl"
+                           else "gloo", timeout_s=300)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg, tcfg, loader = _ddp_model(seed, world)
+    model = get_model(cfg)
+    quiet = dict(log_fn=lambda s: None)
+    out = dict(rank=rank, world=world, backend=dist.get_backend(),
+               legs={})
+    ref = None
+    if mode == "nccl":  # the single-device Trainer on the same batches
+        leg = _ddp_leg(Trainer(model, cfg, tcfg, device=dev, **quiet),
+                       loader, fk, zero)
+        ref = leg.pop("state")
+        out["trainer"] = leg
+    strategies = (("no_shard", "full_shard", "shard_grad_op", "shard_opt")
+                  if mode == "nccl" else ("no_shard", "full_shard"))
+    for strategy in strategies:
+        mcfg = (MeshConfig(data=world, strategy=strategy)
+                if strategy == "no_shard" else
+                MeshConfig(fsdp=world, strategy=strategy))
+        trainer = DistributedTrainer(model, cfg, tcfg,
+                                     make_mesh(mcfg, device=dev), mcfg,
+                                     **quiet)
+        # The global batches: the trainer's put_batch keeps this rank's
+        # rows.
+        leg = _ddp_leg(trainer, loader, fk, zero)
+        state = leg.pop("state")
+        if ref is not None:
+            leg["params_equal"] = all(
+                torch.equal(a, b) for a, b in zip(tree.leaves(state.params),
+                                                  tree.leaves(ref.params)))
+        out["legs"][strategy] = leg
+        del trainer, state
+        torch.cuda.empty_cache()
+    if mode == "nccl":
+        # A Kineto window over two DDP steps of the trainer's loop.
+        mcfg = MeshConfig(data=1, strategy="no_shard")
+        trainer = DistributedTrainer(
+            model, cfg, dataclasses.replace(tcfg, num_steps=4),
+            make_mesh(mcfg, device=dev), mcfg, **quiet)
+        prof = ScheduledProfiler(f"{workdir}/trace", wait=1, warmup=1,
+                                 active=2, device=dev)
+        leg = _ddp_leg(trainer, loader + loader[:1], fk, zero,
+                       profiler=prof)
+        prof.close()
+        files = find_trace_files(f"{workdir}/trace")
+        trace = trace_analysis.load_trace(files[0])
+        events = trace["traceEvents"]
+        rows = trace_analysis.device_op_events(trace)
+        c10d = sum(1 for e in events if e.get("cat") == "cpu_op"
+                   and e.get("name", "").startswith("c10d::"))
+        nccl_rows = [r for r in rows if r["name"].removeprefix("void ")
+                     .lower().startswith("nccl")]
+        out["trace"] = dict(
+            files=len(files), nccl_kernels=len(nccl_rows),
+            nccl_kernel_categories=sorted({r["category"]
+                                           for r in nccl_rows}),
+            c10d_ops=c10d,
+            nccl_stream_annotations=sum(
+                1 for e in events if e.get("cat") == "gpu_user_annotation"
+                and e.get("name", "").startswith("nccl:")),
+            collectives_per_step=leg["collectives"] / 4,
+            memcpy_rows=sum(r["category"] == "memcpy" for r in rows),
+            breakdown=trace_analysis.temporal_breakdown(trace))
+    with open(f"{workdir}/ddp_{mode}_{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_ddp_ranks(mode: str, world: int, seed: int,
+                   timeout_s: float) -> tuple[list, float]:
+    """Start ``world`` ranks of ``ddp_worker(mode)`` as subprocesses of
+    this script, wait for all (killing any left at the limit) and read
+    their reports."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--ddp-worker",
+             mode, "--workdir", tmp, "--seed", str(seed)],
+            env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                     LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port)),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            for r in range(world)]
+        errs = []
+        try:
+            for proc in procs:
+                left = max(1.0, t0 + timeout_s - time.perf_counter())
+                errs.append(proc.communicate(timeout=left)[1])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        rcs = [proc.returncode for proc in procs]
+        if any(rcs):
+            raise AssertionError(f"ddp_{mode}: rank exit codes {rcs}: "
+                                 + " | ".join(e[-2000:] for e in errs))
+        reports = []
+        for r in range(world):
+            with open(f"{tmp}/ddp_{mode}_{r}.json") as f:
+                reports.append(json.load(f))
+    return reports, wall
+
+
+def _leg_row(leg: dict) -> dict:
+    return dict(losses=leg["losses"], ms_per_step=leg["ms_per_step"],
+                peak_bytes=leg["peak_bytes"],
+                resident_bytes=leg["resident_bytes"] - leg["base_bytes"],
+                launches=leg["launches"], collectives=leg["collectives"])
+
+
+def ddp_nccl_phase(smi, seed: int) -> dict:
+    """World 1 on NCCL (``ddp_worker``): the four strategies' 3 steps
+    through the DistributedTrainer's loop bit-equal to the single-device
+    Trainer's (losses and params), K1/K2 launched as often; then a Kineto
+    window of two DDP steps: its NCCL kernels (none at one rank: NCCL
+    copies or skips a one-rank collective) classed communication, its
+    c10d collective rows as many as the step issues."""
+    (rep,), wall = _run_ddp_ranks("nccl", 1, seed, 420)
+    ref = rep["trainer"]
+    legs = {k: _leg_row(v) for k, v in rep["legs"].items()}
+    res = dict(wall_s=wall, backend=rep["backend"],
+               trainer=_leg_row(ref), legs=legs, trace=rep["trace"])
+    emit(phase="ddp_nccl", nvidia_smi=smi, **res)
+    if rep["backend"] != "nccl":
+        raise AssertionError(f"ddp_nccl: backend {rep['backend']}")
+    for name, leg in rep["legs"].items():
+        if leg["losses"] != ref["losses"] or not leg["params_equal"]:
+            raise AssertionError(f"ddp_nccl {name}: not bit-equal to the "
+                                 f"Trainer: {leg['losses']} vs "
+                                 f"{ref['losses']}")
+        if leg["launches"] != ref["launches"]:
+            raise AssertionError(f"ddp_nccl {name}: K1/K2 {leg['launches']}"
+                                 f" vs the Trainer's {ref['launches']}")
+        if leg["collectives"] <= 0:
+            raise AssertionError(f"ddp_nccl {name}: no collective issued")
+    tr = rep["trace"]
+    if tr["files"] != 1 or set(tr["nccl_kernel_categories"]) - {
+            "communication"}:
+        raise AssertionError(f"ddp_nccl trace: {tr}")
+    if tr["c10d_ops"] != 2 * tr["collectives_per_step"]:
+        raise AssertionError(f"ddp_nccl trace: {tr['c10d_ops']} c10d rows "
+                             f"for 2 steps of {tr['collectives_per_step']}"
+                             " collectives")
+    res["trainer_losses"] = ref["losses"]
+    return res
+
+
+def ddp_gloo2_phase(smi, seed: int, one_rank_losses: list) -> dict:
+    """Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+    card), no_shard over data 2 and full_shard over fsdp 2: both ranks'
+    losses equal, each within ``DDP_GLOO2_LOSS_ATOL`` of one rank at the
+    same global batch (ddp_nccl's Trainer), K1/K2 12 a step on each rank,
+    full_shard's resident params and moments at most
+    ``DDP_RESIDENT_RATIO`` of no_shard's on each rank. gloo stages every
+    collective through the host: no time here is a claim about NCCL."""
+    reps, wall = _run_ddp_ranks("gloo", 2, seed, 420)
+    legs = {f"{name}_rank{r['rank']}": _leg_row(leg)
+            for r in reps for name, leg in r["legs"].items()}
+    res = dict(wall_s=wall, backend=reps[0]["backend"], legs=legs,
+               one_rank_losses=one_rank_losses,
+               max_loss_diff=max(abs(a - b) for leg in legs.values()
+                                 for a, b in zip(leg["losses"],
+                                                 one_rank_losses)),
+               resident_ratio=[
+                   legs[f"full_shard_rank{r}"]["resident_bytes"]
+                   / legs[f"no_shard_rank{r}"]["resident_bytes"]
+                   for r in range(2)])
+    emit(phase="ddp_gloo2", nvidia_smi=smi, **res)
+    if res["backend"] != "gloo":
+        raise AssertionError(f"ddp_gloo2: backend {res['backend']}")
+    for name in ("no_shard", "full_shard"):
+        a, b = (legs[f"{name}_rank{r}"]["losses"] for r in range(2))
+        if a != b:
+            raise AssertionError(f"ddp_gloo2 {name}: ranks' losses {a} "
+                                 f"vs {b}")
+    if res["max_loss_diff"] > DDP_GLOO2_LOSS_ATOL:
+        raise AssertionError(f"ddp_gloo2: losses {res['max_loss_diff']} "
+                             f"from one rank's {one_rank_losses}")
+    want = 12 * DDP_STEPS
+    for name, leg in legs.items():
+        if leg["launches"] != dict(forward=want, backward=want):
+            raise AssertionError(f"ddp_gloo2 {name}: K1/K2 "
+                                 f"{leg['launches']}, want {want} each")
+    if max(res["resident_ratio"]) > DDP_RESIDENT_RATIO:
+        raise AssertionError(f"ddp_gloo2: full_shard resident "
+                             f"{res['resident_ratio']} of no_shard's")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ddp-worker", choices=["nccl", "gloo"],
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--workdir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script measures the port "
               "on an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.ddp_worker:
+        return ddp_worker(args.ddp_worker, args.workdir, args.seed)
     from pytorch_distributed_tpu_torch.config import model_config
     from pytorch_distributed_tpu_torch.models import gpt2
     from pytorch_distributed_tpu_torch.ops import _build
@@ -4407,6 +4714,17 @@ def main() -> int:
     # 15. the supervisor twin's storm, its workers in processes of their
     # own, last with the other subprocess phases
     train_storm_phase(smi)
+    # 16. data-parallel training (slice 13), each rank a process of its
+    # own: world 1 on NCCL, then two gloo ranks on the one card
+    torch.cuda.empty_cache()
+    ddp_nccl = ddp_nccl_phase(smi, args.seed)
+    ddp_gloo2 = ddp_gloo2_phase(smi, args.seed, ddp_nccl["trainer_losses"])
+    slice13_paths = {
+        **{f"ddp_nccl_{name}_{DDP_STEPS}_steps": leg["launches"]
+           for name, leg in ddp_nccl["legs"].items()},
+        **{f"ddp_gloo2_{name}_{DDP_STEPS}_steps": leg["launches"]
+           for name, leg in ddp_gloo2["legs"].items()},
+    }
     for entry, kid in zip(paged_entries, ("K3", "K4")):
         entry.update(
             trace_launches=prof_paged[kid]["launches_traced"][kid],
@@ -4426,6 +4744,8 @@ def main() -> int:
              trace_window_counted=prof_train["launches_counted"][kn],
              slice12_paths={name: counts[direction]
                             for name, counts in slice12_paths.items()},
+             slice13_paths={name: counts[direction]
+                            for name, counts in slice13_paths.items()},
              llama_paths={phase: dict(
                  T=row["T"],
                  launches_per_step=row["launches_per_step"][direction],

@@ -15,7 +15,10 @@ multi-turn sessions, and the serving tier over it (``serving.router``,
 ``serving.server``; entry points ``serving.serve`` and
 ``serving.loadgen``); training of both families, MoE included, with the
 flash attention kernels (``ops.flash_kernel``; entry point
-``train.baseline``); and the HF weight import (``models.hf_import``).
+``train.baseline``), and over ranks, DDP and ZeRO-1/2/3 on
+``torch.distributed`` (``parallel``, ``train.distributed_trainer``; entry
+points ``train.ddp`` and ``train.fsdp``); and the HF weight import
+(``models.hf_import``).
 """
 
 from pytorch_distributed_tpu_torch.config import ModelConfig, model_config

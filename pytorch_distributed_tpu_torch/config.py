@@ -4,8 +4,9 @@ The same frozen dataclass, field names, defaults and presets as the JAX
 package's ``config.ModelConfig`` / ``model_config``, so one set of keyword
 arguments describes a model to both packages (the tests build each side's
 config from the same dict). ``TrainConfig`` likewise mirrors the JAX
-package's training config; the mesh and data configs arrive with the
-slices that use them.
+package's training config, and ``MeshConfig`` its mesh config (the data
+axes of which the port trains over; the others raise, naming the ROADMAP
+item that ports them).
 """
 
 from __future__ import annotations
@@ -263,3 +264,96 @@ def model_config(name: str, **overrides: Any) -> ModelConfig:
         )
     base.update(overrides)
     return ModelConfig(**base)
+
+
+# The mesh axes the port has not taken yet, each with the ROADMAP queue 1
+# item that ports it.
+_AXIS_NOT_PORTED = {
+    "tensor": "ROADMAP queue 1 item 7(b), tensor parallelism",
+    "seq": "ROADMAP queue 1 item 7(c), sequence parallelism",
+    "pipe": "ROADMAP queue 1 item 7(d), pipeline parallelism",
+    "expert": "ROADMAP queue 1 item 7(e), expert parallelism",
+}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """The JAX package's ``MeshConfig``, field for field with the same
+    defaults. The port's mesh is one rank (process) per device
+    (``parallel/mesh``): ``data`` replicates the model, ``fsdp`` shards it
+    by ``strategy`` — "full_shard" (ZeRO-3: params, grads and optimizer
+    state sharded), "shard_grad_op" (ZeRO-2: grads and optimizer state),
+    "shard_opt" (ZeRO-1: optimizer state only) or "no_shard" (DDP) — and
+    ``rs_buckets`` > 0 coalesces ZeRO-2's gradient reduce-scatters into
+    about that many bucketed collectives. ``tensor``, ``seq``, ``pipe`` and
+    ``expert`` > 1 raise NotImplementedError naming the ROADMAP item that
+    ports them, and so does ``prefetch_buffers`` > 0 (the JAX layer scan's
+    prefetch window, item 7(d)). ``device_ids``: the CUDA device each mesh
+    rank uses, in rank order (None: the rank's ``LOCAL_RANK``)."""
+
+    data: int = 1
+    fsdp: int = 1
+    tensor: int = 1
+    seq: int = 1
+    pipe: int = 1
+    expert: int = 1
+    strategy: str = "full_shard"
+    pipe_schedule: str = "gpipe"
+    prefetch_buffers: int = 0
+    rs_buckets: int = 0
+    axis_order: tuple[str, ...] = (
+        "pipe", "data", "fsdp", "expert", "seq", "tensor"
+    )
+    device_ids: tuple[int, ...] | None = None
+
+    def __post_init__(self) -> None:
+        if self.device_ids is not None:
+            ids = tuple(int(d) for d in self.device_ids)
+            object.__setattr__(self, "device_ids", ids)
+            if len(set(ids)) != len(ids):
+                raise ValueError(f"device_ids must be unique, got {ids}")
+            if len(ids) != self.num_devices:
+                raise ValueError(
+                    f"device_ids has {len(ids)} entries but the mesh "
+                    f"needs {self.num_devices} devices"
+                )
+        if self.strategy not in (
+            "full_shard", "shard_grad_op", "shard_opt", "no_shard"
+        ):
+            raise ValueError(f"unknown FSDP strategy: {self.strategy!r}")
+        if self.pipe_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(
+                f"unknown pipe_schedule: {self.pipe_schedule!r} "
+                "(implemented: gpipe, 1f1b)"
+            )
+        if self.prefetch_buffers < 0:
+            raise ValueError(
+                f"prefetch_buffers must be >= 0, got {self.prefetch_buffers}"
+            )
+        if self.rs_buckets < 0:
+            raise ValueError(
+                f"rs_buckets must be >= 0, got {self.rs_buckets}"
+            )
+        for axis, item in _AXIS_NOT_PORTED.items():
+            if getattr(self, axis) > 1:
+                raise NotImplementedError(
+                    f"mesh axis {axis}={getattr(self, axis)} is not ported: "
+                    f"{item}; the port's mesh has the data and fsdp axes"
+                )
+        if self.prefetch_buffers > 0:
+            raise NotImplementedError(
+                f"prefetch_buffers={self.prefetch_buffers} is not ported: "
+                "the layer scan's prefetch window is ROADMAP queue 1 item "
+                "7(d); the port gathers each layer just in time"
+            )
+
+    @property
+    def num_devices(self) -> int:
+        return (
+            self.data * self.fsdp * self.tensor * self.seq * self.pipe
+            * self.expert
+        )
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {ax: getattr(self, ax) for ax in self.axis_order}

@@ -91,7 +91,7 @@ Cache = dict[str, torch.Tensor]
 
 MESH_NOT_PORTED = (
     "is multi-device (tensor parallelism / ZeRO-3 decode) and not ported "
-    "yet (ROADMAP queue 1 item 7)"
+    "yet (ROADMAP queue 1 item 7(b))"
 )
 
 

@@ -113,14 +113,18 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
-           key: prng.DropoutKey | None) -> torch.Tensor:
+           key: prng.DropoutKey | None, transform=None) -> torch.Tensor:
     """Pre-norm residual block: x + drop(attn(ln_1(x))); x +
     drop(mlp(ln_2(x))), the MLP dense or, for a MoE config, ``ops/moe``'s
     experts. ``key`` None: deterministic; else the masks of ``layer``
     derive from it. The projections the remat policies keep are tagged as
     in the JAX model (``qkv``, ``attn_proj``, ``mlp_fc``, ``mlp_proj``;
     the naive attention output ``attn_out``). Returns x, or (x, aux) for a
-    MoE config (aux: the layer's Switch term)."""
+    MoE config (aux: the layer's Switch term). ``transform``: applied to
+    ``bp`` first, inside the block's checkpoint (``apply``'s
+    ``block_transform``)."""
+    if transform is not None:
+        bp = transform(bp)
     eps = cfg.layer_norm_epsilon
     det = key is None
     sid = (lambda site: None) if det else (
@@ -158,7 +162,8 @@ def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
 def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
           deterministic: bool = True,
           dropout_seed: prng.DropoutKey | None = None,
-          return_aux: bool = False, return_hidden: bool = False):
+          return_aux: bool = False, return_hidden: bool = False,
+          block_transform=None):
     """Forward pass: [B, T] token ids -> [B, T, V] logits in
     ``cfg.logits_dtype``: wte + wpe (cast to ``cfg.dtype``), embedding
     dropout, n_layer pre-norm blocks (each under ``cfg.remat``), ln_f,
@@ -169,7 +174,10 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
     linear_cross_entropy`` consumes). ``return_aux``: also the MoE Switch
     term summed over layers (an f32 scalar, 0 for a dense config). Under
     ``torch.no_grad`` the blocks run without checkpointing: there is no
-    backward to recompute for."""
+    backward to recompute for. ``block_transform``: a function of one
+    layer's params run at the start of that layer, inside its checkpoint
+    (ZeRO-3's just-in-time gather, ``parallel/explicit``: a remat mode
+    then gathers again in backward, as JAX's remat does)."""
     if not deterministic and dropout_seed is None:
         raise ValueError("training-mode apply() requires dropout_seed")
     key = None if deterministic else prng.DropoutKey(*dropout_seed)
@@ -183,7 +191,8 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
                     prng.stream_id(key, prng.EMBD_LAYER, "embd"),
                     deterministic=False)
     remat = cfg.remat if torch.is_grad_enabled() else "none"
-    block = apply_remat(functools.partial(_block, cfg=cfg, key=key), remat)
+    block = apply_remat(functools.partial(_block, cfg=cfg, key=key,
+                                          transform=block_transform), remat)
     aux = None
     for layer, bp in enumerate(params["blocks"]):
         x = block(x, bp, layer)

@@ -100,12 +100,15 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
-           sin: torch.Tensor, *, cfg: ModelConfig):
+           sin: torch.Tensor, *, cfg: ModelConfig, transform=None):
     """x + wo(attn(rope(q), rope(k), v)) over rms_norm(x); then x +
     swiglu(rms_norm(x)), or the MoE MLP. Returns x, or (x, aux) for a MoE
     config (aux: the layer's Switch term). The products are tagged as in
     the JAX block (``q``, ``k``, ``v``, ``attn_out`` on the naive path,
-    ``attn_proj``, ``mlp_gate``, ``mlp_up``, ``mlp_proj``)."""
+    ``attn_proj``, ``mlp_gate``, ``mlp_up``, ``mlp_proj``). ``transform``:
+    applied to ``bp`` first, inside the checkpoint (``gpt2._block``)."""
+    if transform is not None:
+        bp = transform(bp)
     eps = cfg.layer_norm_epsilon
     b, t = x.shape[:2]
     d = cfg.head_dim
@@ -143,9 +146,11 @@ def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
 
 def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
           deterministic: bool = True, dropout_seed=None,
-          return_aux: bool = False, return_hidden: bool = False):
+          return_aux: bool = False, return_hidden: bool = False,
+          block_transform=None):
     """Forward pass: [B, T] token ids -> [B, T, V] logits in
-    ``cfg.logits_dtype`` (the contract of ``gpt2.apply``). The family is
+    ``cfg.logits_dtype`` (the contract of ``gpt2.apply``, its
+    ``block_transform`` included). The family is
     dropout-free, so ``deterministic`` and ``dropout_seed`` change
     nothing. The RoPE angles are built once per call on the ids' device
     and shared by every layer. ``return_hidden``: the final-norm hidden
@@ -160,7 +165,8 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
     cos, sin = rope_angles(t, cfg.head_dim, cfg.rope_theta,
                            device=input_ids.device)
     remat = cfg.remat if torch.is_grad_enabled() else "none"
-    block = apply_remat(functools.partial(_block, cfg=cfg), remat)
+    block = apply_remat(functools.partial(_block, cfg=cfg,
+                                          transform=block_transform), remat)
     aux = None
     for bp in params["blocks"]:
         x = block(x, bp, cos, sin)

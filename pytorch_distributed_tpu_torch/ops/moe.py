@@ -211,7 +211,8 @@ def moe_mlp(x: torch.Tensor, params: dict, *, activation: Callable,
     if expert_axis is not None or tensor_axis is not None:
         raise NotImplementedError(
             "expert_axis/tensor_axis are multi-device (expert and tensor "
-            "parallelism) and not ported yet (ROADMAP queue 1 item 7)")
+            "parallelism) and not ported yet (ROADMAP queue 1 item 7(e); "
+            "the tensor axis item 7(b))")
     b, t, d = x.shape
     n_tokens = b * t
     xt = x.reshape(n_tokens, d)

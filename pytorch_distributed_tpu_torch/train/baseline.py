@@ -69,9 +69,10 @@ def add_model_args(p: argparse.ArgumentParser, *, preset: str) -> None:
                             "names", "flash"])
 
 
-def parse_args(argv=None) -> argparse.Namespace:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    add_model_args(p, preset="gpt2-large")
+def add_common_args(p: argparse.ArgumentParser, *, preset: str) -> None:
+    """The flags of the JAX package's ``scripts/_common.add_common_args``
+    (the baseline and the ddp/fsdp twins share them)."""
+    add_model_args(p, preset=preset)
     p.add_argument("--data", default="synthetic",
                    choices=["synthetic", "fineweb", "local"],
                    help="synthetic (generated shards), local (every *.bin "
@@ -99,11 +100,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "write a resumable checkpoint and exit")
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest good checkpoint")
-    p.add_argument("--eval-batches", type=int, default=0,
-                   help="after training, report the mean validation loss "
-                        "over this many batches; 0 = off")
-    p.add_argument("--device", default="cuda",
-                   help="where to train: cuda (default) or cpu")
     p.add_argument("--async-checkpoint", action="store_true",
                    help="overlap checkpoint writes with training (the npz "
                         "save copied to host memory, written by a thread, "
@@ -128,8 +124,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                         f"{DEFAULT_TRACE_DIR})")
     p.add_argument("--no-profiler", action="store_true",
                    help="train without the profiler")
-    args = p.parse_args(argv)
-    for flag, reason in _REFUSED.items():
+
+
+def check_args(args, refused: dict) -> argparse.Namespace:
+    """Exit with the reason for a flag the port refuses (``refused``:
+    {attribute: reason}) and for ``--data fineweb``."""
+    for flag, reason in refused.items():
         if getattr(args, flag):
             raise SystemExit(reason)
     if args.data == "fineweb":
@@ -137,6 +137,17 @@ def parse_args(argv=None) -> argparse.Namespace:
             "--data fineweb downloads its shards, and the port reads local "
             "and synthetic shards only: use --data local --data-dir DIR")
     return args
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    add_common_args(p, preset="gpt2-large")
+    p.add_argument("--eval-batches", type=int, default=0,
+                   help="after training, report the mean validation loss "
+                        "over this many batches; 0 = off")
+    p.add_argument("--device", default="cuda",
+                   help="where to train: cuda (default) or cpu")
+    return check_args(p.parse_args(argv), _REFUSED)
 
 
 def build_model_cfg(args) -> ModelConfig:
@@ -154,7 +165,7 @@ def build_model_cfg(args) -> ModelConfig:
     return cfg
 
 
-def build_train_cfg(args) -> TrainConfig:
+def build_train_cfg(args, *, data_parallel_size: int = 1) -> TrainConfig:
     cfg = TrainConfig(
         global_batch_size=args.global_batch_size,
         micro_batch_size=args.micro_batch_size,
@@ -175,7 +186,7 @@ def build_train_cfg(args) -> TrainConfig:
                               if args.guard_rollback_after > 0 else None),
         guard_skip_window=args.guard_skip_window,
     )
-    cfg.grad_accum_steps()  # validate divisibility early
+    cfg.grad_accum_steps(data_parallel_size)  # validate divisibility early
     return cfg
 
 
@@ -232,7 +243,8 @@ def val_shard_paths(args, vocab_size: int) -> list[str]:
     )
 
 
-def make_profiler(args):
+def make_profiler(args, default_trace_dir: str = DEFAULT_TRACE_DIR,
+                  device=None):
     """The reference schedule (train_baseline.py:83-86): wait 2, warmup 2,
     active 6, repeat 1; None under ``--no-profiler``."""
     if args.no_profiler:
@@ -241,9 +253,9 @@ def make_profiler(args):
         ScheduledProfiler,
     )
 
-    return ScheduledProfiler(args.trace_dir or DEFAULT_TRACE_DIR, wait=2,
+    return ScheduledProfiler(args.trace_dir or default_trace_dir, wait=2,
                              warmup=2, active=6, repeat=1,
-                             device=args.device)
+                             device=device or args.device)
 
 
 def main(argv=None) -> int:

@@ -29,9 +29,8 @@ manifest first and raises ``CheckpointCorrupt`` on a mismatch;
 directory) the instant before a save becomes visible (the training fault
 injector's crash inside a save).
 
-**The async save** is the npz format's (the JAX package's is orbax, whose
-per-process shard writes belong to multi-rank checkpoints, ROADMAP queue 1
-item 7, and stays refused here). ``save_checkpoint_async`` copies the
+**The async save** is the npz format's, on one rank (the JAX package's is
+orbax's). ``save_checkpoint_async`` copies the
 whole state to host memory before it returns — the next step overwrites
 params and moments in place, so a thread reading live tensors would save
 a later step's values — and writes the npz payload (and takes its
@@ -41,6 +40,24 @@ atomic swap — only in ``finalize_async_save()``, which the next async
 save calls first, so at most one save is in flight.
 ``pending_async_directory`` names its target; ``prune_checkpoints`` never
 touches it or its temporary directory.
+
+**Several ranks** (``train/distributed_trainer``; every rank calls save
+and load, ``sharding`` the ``parallel/sharding.StateSharding`` of its
+state). ``format="orbax"`` is the port's own sharded format, the
+counterpart of JAX's orbax save: in ``tree/`` each rank of the first data
+replica writes its shards (``shard_<f>.npz``, f its fsdp index; shard 0
+also holds the replicated leaves, bf16 as its 16-bit payload) and rank 0
+an ``index.json`` with every leaf's global shape, dtype and shard dim;
+after a barrier rank 0 writes meta.json, a per-file crc32 manifest and
+``COMMIT`` and swaps the directory into place, as JAX's ``_save_orbax``
+does, and every rank waits for the swap. A load rebuilds each leaf from
+the shards and keeps the slice the template's sharding gives this rank,
+so a state restores onto any fsdp size. "npz" on several ranks gathers
+the sharded leaves and only rank 0 writes; "auto" is "orbax" when a leaf
+is sharded, else "npz". **A deliberate difference**: the port's sharded
+directories and JAX's tensorstore ones do not load across (a JAX one is
+refused by name); npz loads both ways. ``prune_checkpoints`` acts on
+rank 0 only.
 """
 
 from __future__ import annotations
@@ -71,9 +88,10 @@ COMMIT_NAME = "COMMIT"
 MANIFEST_NAME = "manifest.json"
 # The optax chain's element holding (count, mu, nu), and the schedule's.
 _ADAM, _SCHEDULE = "opt_state/1", "opt_state/3"
-_ORBAX = ("the orbax checkpoint format is not ported: it is the multi-rank "
-          "checkpoint of ROADMAP queue 1 item 7; the port writes npz (async "
-          "too: save_checkpoint_async)")
+_SHARDED_FORMAT = "pdtpu-torch-sharded-v1"
+_JAX_ORBAX = ("is a JAX orbax (tensorstore) checkpoint: the port's sharded "
+              "format (ROADMAP queue 1 item 7(a)) does not read it; write "
+              "npz on the JAX side, which both packages load")
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -187,17 +205,47 @@ def _commit(tmp: Path, directory: Path, meta_text: str,
     _swap_into_place(tmp, directory)
 
 
+def _rank_world() -> tuple[int, int]:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if _rank_world()[1] > 1:
+        dist.barrier()
+
+
+def _is_sharded(sharding) -> bool:
+    from pytorch_distributed_tpu_torch.parallel.sharding import shard_dim
+
+    return sharding is not None and any(
+        shard_dim(s) is not None
+        for s in tree.leaves([sharding.params, sharding.opt_state]))
+
+
 def save_checkpoint(directory: str | Path, state: TrainState,
                     cfg: ModelConfig, *, metadata: dict | None = None,
-                    format: str = "auto") -> str:
-    """Write ``state`` (the port's TrainState of a ``cfg`` model) as a JAX
-    npz checkpoint. ``format`` "auto" and "npz" are the same here (one
-    process holds every tensor)."""
-    if format == "orbax":
-        raise NotImplementedError(_ORBAX)
-    if format not in ("auto", "npz"):
+                    format: str = "auto", sharding=None) -> str:
+    """Write ``state`` (the port's TrainState of a ``cfg`` model): "npz",
+    the JAX package's npz layout, or "orbax", the port's sharded format
+    (module docstring); "auto" picks "orbax" when ``sharding`` shards a
+    leaf. On several ranks every rank calls it."""
+    if format not in ("auto", "npz", "orbax"):
         raise ValueError(f"unknown checkpoint format {format!r}")
+    if format == "orbax" or (format == "auto" and _is_sharded(sharding)):
+        return _save_sharded(Path(directory), state, cfg, metadata,
+                             sharding)
     directory = Path(directory)
+    if _is_sharded(sharding):
+        state = gather_state(state, sharding)
+    if _rank_world()[0] != 0:
+        _barrier()  # npz has one writer: wait for it
+        return str(directory)
     os.makedirs(directory.parent, exist_ok=True)
     arrays = _state_arrays(state, cfg)
     tmp = Path(tempfile.mkdtemp(dir=directory.parent, prefix=".ckpt_tmp_"))
@@ -208,7 +256,131 @@ def save_checkpoint(directory: str | Path, state: TrainState,
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
+    _barrier()
     return str(directory)
+
+
+def gather_state(state: TrainState, sharding) -> TrainState:
+    """The full train state on every rank: each sharded leaf all-gathered
+    over the fsdp group (every rank calls it)."""
+    from pytorch_distributed_tpu_torch.parallel.zero import unscatter
+
+    mesh = sharding.mesh
+    with torch.no_grad():
+        params = tree.map_tree2(lambda t, s: unscatter(t, s, mesh),
+                                state.params, sharding.params)
+        opt = dict(state.opt_state)
+        for k in ("mu", "nu"):
+            opt[k] = tree.map_tree2(lambda t, s: unscatter(t, s, mesh),
+                                    opt[k], sharding.opt_state[k])
+    return state._replace(params=params, opt_state=opt)
+
+
+def _sharded_leaves(state: TrainState, sharding):
+    """(key, tensor or count, spec) for every leaf of the state, keyed by
+    the port's own tree paths."""
+    specs = sharding.params if sharding is not None else None
+    for path, t in tree.leaves_with_path(state.params):
+        yield ("/".join(map(str, ("params", *path))), t,
+               _spec_at(specs, path))
+    opt = state.opt_state
+    for k in ("mu", "nu"):
+        specs = sharding.opt_state[k] if sharding is not None else None
+        for path, t in tree.leaves_with_path(opt[k]):
+            yield ("/".join(map(str, ("opt_state", k, *path))), t,
+                   _spec_at(specs, path))
+    for k in ("count", "schedule_count"):
+        yield f"opt_state/{k}", opt[k], ()
+    yield "step", state.step, ()
+    if state.guard is not None:
+        for name, v in state.guard._asdict().items():
+            yield f"guard/{name}", v, ()
+
+
+def _spec_at(specs, path) -> tuple:
+    if specs is None:
+        return ()
+    for p in path:
+        specs = specs[p]
+    return specs
+
+
+def _payload(v) -> tuple[np.ndarray, str]:
+    """A leaf as a numpy array and its dtype's name (bf16 as its 16-bit
+    payload; counts as int32)."""
+    if not torch.is_tensor(v):
+        return np.asarray(int(v), np.int32), "int32"
+    v = v.detach().cpu()
+    name = str(v.dtype).replace("torch.", "")
+    if v.dtype == torch.bfloat16:
+        v = v.view(torch.int16)
+    return np.ascontiguousarray(v.numpy()), name
+
+
+def _save_sharded(directory: Path, state: TrainState, cfg: ModelConfig,
+                  metadata: dict | None, sharding) -> str:
+    """The port's sharded format (module docstring); every rank calls."""
+    from pytorch_distributed_tpu_torch.parallel.sharding import (
+        full_shape,
+        shard_dim,
+    )
+
+    rank, _ = _rank_world()
+    mesh = sharding.mesh if sharding is not None else None
+    fsdp = mesh.cfg.fsdp if mesh is not None else 1
+    f = mesh.axis_index("fsdp") if mesh is not None else 0
+    writer = mesh is None or all(
+        i == 0 for ax, i in mesh.coords.items() if ax != "fsdp")
+    directory = directory.resolve()
+    tmp = directory.parent / (".tmp_" + directory.name)
+    if rank == 0:
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        (tmp / "tree").mkdir(parents=True)
+    _barrier()
+    try:
+        if writer:
+            arrays, index = {}, {}
+            for key, v, spec in _sharded_leaves(state, sharding):
+                dim = shard_dim(spec)
+                if dim is None and f != 0:
+                    continue
+                arrays[key], dtype = _payload(v)
+                shape = (full_shape(v, spec, fsdp) if torch.is_tensor(v)
+                         else ())
+                index[key] = {"shape": list(shape), "dtype": dtype,
+                              "dim": dim}
+            np.savez(tmp / "tree" / f"shard_{f}.npz", **arrays)
+            if f == 0:
+                (tmp / "tree" / "index.json").write_text(json.dumps(
+                    {"format": _SHARDED_FORMAT, "shards": fsdp,
+                     "leaves": index}, indent=1))
+        _barrier()  # every shard written
+        if rank == 0:
+            _commit_sharded(tmp, directory, metadata or {})
+    except BaseException:
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    _barrier()  # the swap is done before any rank uses the path
+    return str(directory)
+
+
+def _file_crcs(root: Path) -> dict:
+    return {p.relative_to(root).as_posix(): _crc32(p.read_bytes())
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def _commit_sharded(tmp: Path, directory: Path, metadata: dict) -> None:
+    meta_text = json.dumps({"format": _SHARDED_FORMAT,
+                            "metadata": metadata}, indent=1)
+    (tmp / "meta.json").write_text(meta_text)
+    (tmp / MANIFEST_NAME).write_text(json.dumps(
+        {"format": "pdtpu-ckpt-manifest-v1",
+         "meta_crc32": _crc32(meta_text.encode()),
+         "files": _file_crcs(tmp / "tree")}, indent=1))
+    _write_commit(tmp)
+    _swap_into_place(tmp, directory)
 
 
 # The one async save in flight (module-level, as the JAX package's: the
@@ -241,6 +413,10 @@ def save_checkpoint_async(directory: str | Path, state: TrainState,
     background thread. The checkpoint becomes visible only at
     ``finalize_async_save()``."""
     global _PENDING_ASYNC
+    if _rank_world()[1] > 1:
+        raise NotImplementedError(
+            "the async save writes from one rank; on several ranks use the "
+            "sync save (format 'orbax' or 'npz')")
     finalize_async_save()
     directory = Path(directory).resolve()
     directory.parent.mkdir(parents=True, exist_ok=True)
@@ -347,18 +523,35 @@ def _verify_npz_leaves(directory: Path, manifest: dict, arrays: dict) -> None:
 
 def verify_checkpoint(directory: str | Path) -> None:
     """Integrity check without a restore: COMMIT present, manifest present,
-    meta.json and every leaf checksum matching. Raises ``CheckpointCorrupt``
-    naming the first offending leaf or file."""
+    meta.json and every leaf (npz) or file (sharded) checksum matching.
+    Raises ``CheckpointCorrupt`` naming the first offending leaf or file."""
     directory = Path(directory)
-    manifest = _load_manifest_npz(directory)
+    if _is_sharded_dir(directory):
+        _verify_files(directory, _load_manifest(directory))
+        return
+    manifest = _load_manifest(directory)
     _verify_npz_leaves(directory, manifest, _load_npz_arrays(directory))
 
 
-def _load_manifest_npz(directory: Path) -> dict:
-    if (directory / "tree").exists():
-        raise NotImplementedError(f"{directory} is an orbax checkpoint: "
-                                  f"{_ORBAX}")
-    return _load_manifest(directory)
+def _is_sharded_dir(directory: Path) -> bool:
+    """A ``tree/`` directory: the port's sharded format, or JAX's
+    tensorstore one (refused)."""
+    if not (directory / "tree").exists():
+        return False
+    if not (directory / "tree" / "index.json").exists():
+        raise NotImplementedError(f"{directory} {_JAX_ORBAX}")
+    return True
+
+
+def _verify_files(directory: Path, manifest: dict) -> None:
+    want = manifest.get("files", {})
+    got = _file_crcs(directory / "tree")
+    for name, crc in want.items():
+        if got.get(name) != crc:
+            raise CheckpointCorrupt(
+                f"checkpoint {directory}: file tree/{name} "
+                + ("missing" if name not in got else
+                   f"checksum mismatch (manifest {crc}, file {got[name]})"))
 
 
 def _restore_like(key: str, got: torch.Tensor, like: torch.Tensor):
@@ -373,9 +566,11 @@ def _restore_like(key: str, got: torch.Tensor, like: torch.Tensor):
     return got.to(like.device, like.dtype)
 
 
-def _restore_tree(prefix: str, arrays: dict, like_tree, cfg: ModelConfig):
+def _restore_tree(prefix: str, arrays: dict, like_tree, cfg: ModelConfig,
+                  specs=None, mesh=None):
     """A port params-shaped tree from the ``prefix/...`` keys, each leaf
-    placed and typed like ``like_tree``'s."""
+    placed and typed like ``like_tree``'s (with ``specs``: this rank's
+    slice of it)."""
     try:
         got = interop.params_from_jax(_unflatten(prefix, arrays), cfg)
     except KeyError as e:
@@ -388,19 +583,30 @@ def _restore_tree(prefix: str, arrays: dict, like_tree, cfg: ModelConfig):
         if path not in by_path:
             raise KeyError(f"checkpoint missing leaf {key!r}; has "
                            f"{len(arrays)} leaves")
-        out.append(_restore_like(key, by_path[path], like))
+        got_leaf = by_path[path]
+        if specs is not None:
+            from pytorch_distributed_tpu_torch.parallel.sharding import (
+                shard_slice,
+            )
+
+            got_leaf = shard_slice(got_leaf, _spec_at(specs, path), mesh)
+        out.append(_restore_like(key, got_leaf, like))
     return tree.unflatten(like_tree, out)
 
 
 def load_checkpoint(directory: str | Path, like: TrainState,
-                    cfg: ModelConfig) -> TrainState:
-    """Restore a checkpoint (written by either package) into the structure,
-    dtypes and devices of ``like`` (a port TrainState, e.g. a fresh
-    ``Trainer.init_state()``). The integrity manifest is checked first
-    (``CheckpointCorrupt`` on damage); the npz payload is read once, and
-    the checksums are taken on the arrays the restore uses."""
+                    cfg: ModelConfig, *, sharding=None) -> TrainState:
+    """Restore a checkpoint (npz from either package, or the port's
+    sharded format) into the structure, dtypes and devices of ``like`` (a
+    port TrainState, e.g. a fresh ``Trainer.init_state()``; with
+    ``sharding``, a sharded one, and each rank keeps its slices). The
+    integrity manifest is checked first (``CheckpointCorrupt`` on damage);
+    the npz payload is read once, and the checksums are taken on the
+    arrays the restore uses."""
     directory = Path(directory)
-    manifest = _load_manifest_npz(directory)
+    if _is_sharded_dir(directory):
+        return _load_sharded(directory, like, sharding)
+    manifest = _load_manifest(directory)
     arrays = _load_npz_arrays(directory)
     _verify_npz_leaves(directory, manifest, arrays)
     for key in (f"{_ADAM}/count", f"{_SCHEDULE}/count", "step"):
@@ -408,19 +614,96 @@ def load_checkpoint(directory: str | Path, like: TrainState,
             raise KeyError(f"checkpoint {directory} missing leaf {key!r}; "
                            f"has {len(arrays)} leaves")
     opt = like.opt_state
+    sh = sharding if _is_sharded(sharding) else None
+    mesh = sh.mesh if sh is not None else None
     return TrainState(
-        params=_restore_tree("params", arrays, like.params, cfg),
+        params=_restore_tree("params", arrays, like.params, cfg,
+                             sh and sh.params, mesh),
         opt_state=dict(
             opt,
             count=_restore_count(arrays[f"{_ADAM}/count"], opt["count"]),
-            mu=_restore_tree(f"{_ADAM}/mu", arrays, opt["mu"], cfg),
-            nu=_restore_tree(f"{_ADAM}/nu", arrays, opt["nu"], cfg),
+            mu=_restore_tree(f"{_ADAM}/mu", arrays, opt["mu"], cfg,
+                             sh and sh.opt_state["mu"], mesh),
+            nu=_restore_tree(f"{_ADAM}/nu", arrays, opt["nu"], cfg,
+                             sh and sh.opt_state["nu"], mesh),
             schedule_count=_restore_count(arrays[f"{_SCHEDULE}/count"],
                                           opt["schedule_count"]),
         ),
         step=int(arrays["step"]),
         guard=_restore_guard(arrays, like.guard),
     )
+
+
+def _load_sharded(directory: Path, like: TrainState,
+                  sharding) -> TrainState:
+    """The port's sharded format into ``like``: each leaf rebuilt from its
+    shards, this rank's slice kept (``sharding`` None: the whole leaf)."""
+    from pytorch_distributed_tpu_torch.parallel.sharding import (
+        full_shape,
+        shard_slice,
+    )
+
+    _verify_files(directory, _load_manifest(directory))
+    index = json.loads((directory / "tree" / "index.json").read_text())
+    files = [np.load(directory / "tree" / f"shard_{i}.npz")
+             for i in range(index["shards"])]
+    mesh = sharding.mesh if sharding is not None else None
+    fsdp = mesh.cfg.fsdp if mesh is not None else 1
+    try:
+        def read(key):
+            entry = index["leaves"].get(key)
+            if entry is None:
+                raise KeyError(f"checkpoint {directory} missing leaf "
+                               f"{key!r}")
+            if entry["dim"] is None:
+                a = files[0][key]
+            else:
+                a = np.concatenate([f[key] for f in files],
+                                   axis=entry["dim"])
+            t = torch.from_numpy(np.array(a))
+            if entry["dtype"] == "bfloat16":
+                t = t.view(torch.bfloat16)
+            return t, entry
+
+        out = {}
+        for key, v, spec in _sharded_leaves(like, sharding):
+            got, entry = read(key)
+            if not torch.is_tensor(v):
+                out[key] = int(got)
+                continue
+            want = full_shape(v, spec, fsdp)
+            if tuple(entry["shape"]) != want:
+                raise ValueError(f"checkpoint leaf {key!r} shape "
+                                 f"{tuple(entry['shape'])} != expected "
+                                 f"{want}")
+            if mesh is not None:
+                got = shard_slice(got, spec, mesh)
+            out[key] = _restore_like(key, got, v)
+    finally:
+        for f in files:
+            f.close()
+    guard = like.guard
+    if guard is not None and all(f"guard/{k}" in out
+                                 for k in guard._fields):
+        guard = GuardState(**{k: out[f"guard/{k}"] for k in guard._fields})
+
+    def rebuilt(prefix, like_tree):
+        return tree.map_tree_with_path(
+            lambda path, _: out["/".join(map(str, (prefix, *path)))],
+            like_tree)
+
+    opt = like.opt_state
+    return TrainState(
+        params=rebuilt("params", like.params),
+        opt_state=dict(
+            opt,
+            count=_restore_count(out["opt_state/count"], opt["count"]),
+            mu=rebuilt("opt_state/mu", opt["mu"]),
+            nu=rebuilt("opt_state/nu", opt["nu"]),
+            schedule_count=_restore_count(out["opt_state/schedule_count"],
+                                          opt["schedule_count"])),
+        step=int(out["step"]),
+        guard=guard)
 
 
 def _restore_count(got: np.ndarray, like):
@@ -506,9 +789,11 @@ def prune_checkpoints(checkpoint_root: str | Path, keep: int) -> list[str]:
     sweep ``.trash_`` leftovers of a swap and temporary save dirs orphaned
     by a crash mid-save. Call after a completed save. Never touches the
     target of the async save in flight (``pending_async_directory``) or
-    its ``.tmp_`` dir. Returns the removed paths."""
+    its ``.tmp_`` dir. Acts on rank 0 only. Returns the removed paths."""
     if keep < 1:
         raise ValueError(f"keep must be >= 1, got {keep}")
+    if _rank_world()[0] != 0:
+        return []  # rank 0 prunes, after the save's barriers
     root = Path(checkpoint_root)
     if not root.exists():
         return []

@@ -184,11 +184,8 @@ class Optimizer:
                 f"moments: they must match"
             )
         grads = [g.to(p.dtype) for g, p in zip(grads, ps)]
-        with torch.no_grad():
-            if self.clip is not None:
-                norm = global_norm(grads)
-                factor = torch.where(norm < self.clip, 1.0, self.clip / norm)
-                torch._foreach_mul_(grads, factor)
+        if self.clip is not None:
+            clip_by_global_norm_(grads, global_norm(grads), self.clip)
         if anomaly is not None:
             return self._guarded_update(grads, opt_state, params, with_path,
                                         mu, nu, anomaly)
@@ -265,6 +262,16 @@ def make_optimizer(cfg: TrainConfig, *, with_clip: bool = True) -> Optimizer:
     """The port's counterpart of the JAX ``make_optimizer`` (same chain,
     same order; ``with_clip=False`` drops the clip element)."""
     return Optimizer(cfg, with_clip=with_clip)
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: list[torch.Tensor], norm: torch.Tensor,
+                         clip: float) -> None:
+    """optax's ``clip_by_global_norm`` against a given global ``norm``, in
+    place: every gradient scaled by min(1, clip / norm) (the distributed
+    step passes the norm reduced over ranks, ``parallel/zero``)."""
+    factor = torch.where(norm < clip, 1.0, clip / norm)
+    torch._foreach_mul_(grads, factor)
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:

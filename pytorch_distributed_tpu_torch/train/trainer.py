@@ -109,15 +109,17 @@ from pytorch_distributed_tpu_torch.utils.prng import DropoutKey
 
 def _loss(model: ModelApi, cfg: ModelConfig, params, inputs, targets, *,
           deterministic: bool = True, key: DropoutKey | None = None,
-          with_aux: bool = True):
+          with_aux: bool = True, block_transform=None):
     """The JAX ``micro_loss``: the forward, then the cross-entropy, fused
     with the head when ``cfg.fused_head_ce``; for a MoE config (and
     ``with_aux``) plus ``moe_aux_coef`` times the Switch term summed over
-    layers."""
+    layers. ``block_transform``: the forward's (``parallel/explicit``'s
+    per-layer gather)."""
     aux = bool(cfg.n_experts) and with_aux
     out = model.apply(params, inputs, cfg, deterministic=deterministic,
                       dropout_seed=key, return_aux=aux,
-                      return_hidden=cfg.fused_head_ce)
+                      return_hidden=cfg.fused_head_ce,
+                      block_transform=block_transform)
     out, aux_sum = out if aux else (out, None)
     if not cfg.fused_head_ce:
         loss = cross_entropy_loss(out, targets)
@@ -127,6 +129,26 @@ def _loss(model: ModelApi, cfg: ModelConfig, params, inputs, targets, *,
                                     targets.reshape(-1), w_layout=layout,
                                     logits_dtype=cfg.logits_dtype)
     return loss if aux_sum is None else loss + cfg.moe_aux_coef * aux_sum
+
+
+def accumulate_grads(loss_and_grads: Callable, accum: int, leaves: list,
+                     acc_dtype: torch.dtype):
+    """Gradient accumulation over ``accum`` micro-batches:
+    ``loss_and_grads(i)`` gives micro-batch i's (loss, gradients as a list
+    like ``leaves``). One micro-batch is returned as it is; more are
+    summed in an ``acc_dtype`` buffer and divided by ``accum``, and so is
+    the loss. Returns (loss, grads)."""
+    if accum == 1:
+        return loss_and_grads(0)
+    grads = [torch.zeros_like(p, dtype=acc_dtype) for p in leaves]
+    loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for i in range(accum):
+        loss_i, g = loss_and_grads(i)
+        torch._foreach_add_(grads, [x.to(acc_dtype) for x in g])
+        loss = loss + loss_i
+        del g
+    torch._foreach_div_(grads, accum)
+    return loss / accum, grads
 
 
 def make_train_step(
@@ -176,23 +198,11 @@ def make_train_step(
                 # The fused loss already reads out-of-range targets as JAX's
                 # fused loss does (no column matches them).
                 targets, nan_target = guard_lib.safe_targets(targets, vocab)
-        accum = inputs.shape[0]
         ps = tree.leaves(state.params)
-        keys = [DropoutKey(seed, state.step, i) for i in range(accum)]
-        if accum == 1:
-            loss, grads = loss_and_grads(ps, state.params, inputs[0],
-                                         targets[0], keys[0])
-        else:
-            grads = [torch.zeros_like(p, dtype=acc_dtype) for p in ps]
-            loss = torch.zeros((), dtype=torch.float32, device=ps[0].device)
-            for i in range(accum):
-                loss_i, g = loss_and_grads(ps, state.params, inputs[i],
-                                           targets[i], keys[i])
-                torch._foreach_add_(grads, [x.to(acc_dtype) for x in g])
-                loss = loss + loss_i
-                del g
-            torch._foreach_div_(grads, accum)
-            loss = loss / accum
+        loss, grads = accumulate_grads(
+            lambda i: loss_and_grads(ps, state.params, inputs[i], targets[i],
+                                     DropoutKey(seed, state.step, i)),
+            inputs.shape[0], ps, acc_dtype)
         if nan_target is not None:
             loss = torch.where(nan_target, torch.nan, loss)
         metrics = {"loss": loss, "grad_norm": global_norm(grads)}
@@ -229,10 +239,14 @@ def make_eval_step(model: ModelApi, model_cfg: ModelConfig) -> Callable:
 
 
 class Trainer:
-    """The single-device training loop (the JAX ``Trainer`` without its
-    multi-process branches). The loader yields [B, T] (inputs, targets)
+    """The training loop. The loader yields [B, T] (inputs, targets)
     numpy batches; the trainer groups ``accum`` of them into one [A, B, T]
-    step batch on ``device`` (default: the card)."""
+    step batch on ``device`` (default: the card). The JAX ``Trainer``'s
+    hooks for ``train/distributed_trainer``: ``data_parallel_size`` (the
+    accumulation rule ``global // (micro * dp)``), ``put_batch`` (in place
+    of the move to ``device``), ``train_step`` (in place of the
+    single-device step) and ``_is_metrics_writer``; left at their
+    defaults, the trainer is the single-device one."""
 
     def __init__(
         self,
@@ -241,19 +255,28 @@ class Trainer:
         train_cfg: TrainConfig,
         *,
         device: str | torch.device | None = None,
+        data_parallel_size: int = 1,
+        put_batch: Callable[[dict], dict] | None = None,
+        train_step: Callable | None = None,
         log_fn: Callable[[str], None] | None = None,
     ):
         self.model = model
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.device = resolve_device(device)
-        self.accum = train_cfg.grad_accum_steps()
+        self.accum = train_cfg.grad_accum_steps(data_parallel_size)
         self.tx = make_optimizer(train_cfg)
         self.guard_cfg = guard_config_from(train_cfg, model_cfg)
-        self.train_step = make_train_step(model, model_cfg, self.tx,
-                                          accum_dtype=train_cfg.accum_dtype,
-                                          guard=self.guard_cfg,
-                                          seed=train_cfg.seed)
+        self.train_step = (
+            train_step if train_step is not None
+            else make_train_step(model, model_cfg, self.tx,
+                                 accum_dtype=train_cfg.accum_dtype,
+                                 guard=self.guard_cfg, seed=train_cfg.seed))
+        if put_batch is not None:
+            self.put_batch = put_batch
+        # The state's layout over ranks (train/distributed_trainer); the
+        # checkpoint calls take it. None on one device.
+        self.sharding = None
         self._log = log_fn or get_logger().info
         self._eval_step = make_eval_step(model, model_cfg)
         self._injector = None  # train/chaos.TrainFaultInjector, or None
@@ -301,7 +324,7 @@ class Trainer:
         # keeps disk bounded during the run (it never touches the save in
         # flight).
         path = save(self.checkpoint_path(state.step), state, self.model_cfg,
-                    metadata=metadata)
+                    metadata=metadata, **self._sharding_kw())
         if self.train_cfg.keep_checkpoints is not None:
             ckpt_lib.prune_checkpoints(self.train_cfg.checkpoint_dir,
                                        self.train_cfg.keep_checkpoints)
@@ -311,7 +334,12 @@ class Trainer:
 
     def load_checkpoint(self, path: str | Path,
                         state: TrainState) -> TrainState:
-        return ckpt_lib.load_checkpoint(path, state, self.model_cfg)
+        return ckpt_lib.load_checkpoint(path, state, self.model_cfg,
+                                        **self._sharding_kw())
+
+    def _sharding_kw(self) -> dict:
+        """The checkpoint calls' ``sharding``, where the state has one."""
+        return {} if self.sharding is None else {"sharding": self.sharding}
 
     def _load_latest_good(
         self, state: TrainState
@@ -592,12 +620,15 @@ class Trainer:
     def _write_metrics(self, entry: dict) -> None:
         """Append one JSON line to ``train_cfg.metrics_path`` (if set)."""
         path = self.train_cfg.metrics_path
-        if not path:
+        if not path or not self._is_metrics_writer():
             return
         p = Path(path)
         p.parent.mkdir(parents=True, exist_ok=True)
         with p.open("a") as f:
             f.write(json.dumps(entry) + "\n")
+
+    def _is_metrics_writer(self) -> bool:
+        return True  # the DistributedTrainer writes from rank 0 only
 
     # -- evaluation -------------------------------------------------------
     def evaluate(self, state: TrainState, dataloader: Iterable, *,

@@ -1,5 +1,6 @@
-"""Minimal host-side logging: a configured ``pdtpu`` logger and the
-structured lifecycle line the serving engine emits."""
+"""Minimal host-side logging: a configured ``pdtpu`` logger, the
+structured lifecycle line the serving engine emits, and
+``is_process_zero``, the rank that logs."""
 
 from __future__ import annotations
 
@@ -38,3 +39,12 @@ def log_event(
             if fields[k] is not None
         ]
         lg.debug(" ".join(parts))
+
+
+def is_process_zero() -> bool:
+    """Rank 0 of ``torch.distributed`` (True without a process group): the
+    rank that logs and writes metrics."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0

@@ -35,11 +35,15 @@ EMBD_LAYER = -1
 
 class DropoutKey(NamedTuple):
     """What a forward's masks derive from: the JAX chain's
-    ``fold_in(step_key(domain_key(seed, "dropout"), step), micro)``."""
+    ``fold_in(step_key(domain_key(seed, "dropout"), step), micro)``.
+    ``shard``: 0, or 1 + the rank's batch-shard index when the batch is
+    split over ranks (``parallel/mesh.fold_batch_shard_key``, the JAX
+    package's fold of the shard index into the key)."""
 
     seed: int
     step: int
     micro: int = 0
+    shard: int = 0
 
 
 class StreamId(NamedTuple):
@@ -48,6 +52,7 @@ class StreamId(NamedTuple):
     micro: int
     layer: int
     site: str
+    shard: int = 0
 
 
 def stream_id(key: DropoutKey, layer: int, site: str) -> StreamId:
@@ -58,13 +63,16 @@ def stream_id(key: DropoutKey, layer: int, site: str) -> StreamId:
             f"site {site!r} at layer {layer}: the embedding mask has layer "
             f"{EMBD_LAYER}, the block masks layers >= 0"
         )
-    return StreamId(key.seed, key.step, key.micro, layer, site)
+    return StreamId(key.seed, key.step, key.micro, layer, site, key.shard)
 
 
 def stream_seed(sid: StreamId) -> int:
     """A 64-bit generator seed for ``sid``: blake2b of its fields, so it is
-    the same in every process (Python's ``hash`` of a str is not)."""
+    the same in every process (Python's ``hash`` of a str is not). A shard
+    of 0 packs nothing, so an unsharded id keeps its seed."""
     packed = struct.pack("<qqqq", sid.seed, sid.step, sid.micro, sid.layer)
+    if sid.shard:
+        packed += struct.pack("<q", sid.shard)
     digest = hashlib.blake2b(packed + sid.site.encode(), digest_size=8)
     return int.from_bytes(digest.digest(), "little")
 

@@ -39,3 +39,24 @@ def unflatten(like, flat: list):
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has")
     return out
+
+
+def map_tree_with_path(fn: Callable, tree, path=()):
+    """``map_tree`` with ``fn(path, leaf)`` (paths as ``leaves_with_path``)."""
+    if isinstance(tree, dict):
+        return {k: map_tree_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree_with_path(fn, v, path + (i,))
+                for i, v in enumerate(tree)]
+    return fn(path, tree)
+
+
+def map_tree2(fn: Callable, tree, other):
+    """``fn(leaf, other_leaf)`` over two trees of one structure (``other``'s
+    leaves may be tuples, such as sharding specs)."""
+    if isinstance(tree, dict):
+        return {k: map_tree2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree2(fn, v, o) for v, o in zip(tree, other)]
+    return fn(tree, other)

@@ -1465,3 +1465,93 @@ def test_native_loader_batches_on_the_card_equal_the_numpy_loader(
             assert torch.equal(on_card[1].cpu(), torch.from_numpy(rt))
             n += 1
         assert n == sum(1 for _ in ref) > 0
+
+
+@pytest.fixture
+def world_of_one(cuda):
+    """A world of one in this process on NCCL, and a gloo group over the
+    same rank (gloo stages CUDA tensors through the host)."""
+    import socket
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1,
+                            timeout=timedelta(seconds=120),
+                            device_id=torch.device("cuda", 0))
+    try:
+        yield dist.new_group([0], backend="gloo")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_data_parallel_world_of_one_on_nccl_is_the_trainer(world_of_one,
+                                                           cuda):
+    """Every strategy's DistributedTrainer step on a one-rank NCCL mesh is
+    bit-equal to the single-device Trainer's, flash kernels included."""
+    from pytorch_distributed_tpu_torch.config import MeshConfig, TrainConfig
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
+    from pytorch_distributed_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_distributed_tpu_torch.train.distributed_trainer import (
+        DistributedTrainer,
+    )
+    from pytorch_distributed_tpu_torch.train.trainer import Trainer
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    cfg = ModelConfig(vocab_size=512, n_ctx=128, n_embd=256, n_layer=2,
+                      n_head=4, dtype="bfloat16", attention_impl="flash",
+                      remat="names", embd_pdrop=0.0, attn_pdrop=0.0,
+                      resid_pdrop=0.0)
+    tcfg = TrainConfig(global_batch_size=4, micro_batch_size=2,
+                       num_steps=2, grad_clip_norm=1.0)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    batch = {k: torch.randint(0, 512, (2, 2, 128), generator=g,
+                              device=cuda) for k in ("inputs", "targets")}
+
+    def run(trainer):
+        state = trainer.init_state()
+        before = dict(fk.launches)
+        losses = []
+        for _ in range(2):
+            state, m = trainer.train_step(state, batch)
+            losses.append(m["loss"].item())
+        return losses, tree.leaves(state.params), {
+            k: fk.launches[k] - before[k] for k in before}
+
+    quiet = dict(log_fn=lambda s: None)
+    ref = run(Trainer(get_model(cfg), cfg, tcfg, device=cuda, **quiet))
+    assert ref[2] == dict(forward=8, backward=8)
+    for strategy in ("no_shard", "full_shard", "shard_grad_op",
+                     "shard_opt"):
+        mcfg = MeshConfig(strategy=strategy)
+        got = run(DistributedTrainer(get_model(cfg), cfg, tcfg,
+                                     make_mesh(mcfg, device=cuda), mcfg,
+                                     **quiet))
+        assert got[0] == ref[0] and got[2] == ref[2], strategy
+        assert all(torch.equal(a, b) for a, b in zip(got[1], ref[1]))
+
+
+def test_zero_collectives_on_cuda_tensors_over_gloo(world_of_one, cuda):
+    """The ZeRO collectives on a gloo group take CUDA tensors (staged
+    through the host): a one-rank gather, reduce-scatter and all-reduce
+    are exact, and the gather's backward reduce-scatters."""
+    from pytorch_distributed_tpu_torch.parallel import zero
+
+    x = torch.randn(6, 8, device=cuda)
+    for dim in (0, 1):
+        assert torch.equal(zero.all_gather_dim(x, dim, world_of_one, 1), x)
+        assert torch.equal(zero.reduce_scatter_dim(x, dim, world_of_one, 1),
+                           x)
+    y = x.clone()
+    zero.all_reduce_(y, world_of_one)
+    assert torch.equal(y, x)
+    leaf = x.clone().requires_grad_(True)
+    out = zero.GatherParams.apply(leaf, 1, world_of_one, 1)
+    out.backward(torch.ones_like(out))
+    assert leaf.grad.device == x.device
+    assert torch.equal(leaf.grad, torch.ones_like(x))

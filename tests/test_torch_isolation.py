@@ -96,3 +96,35 @@ def test_hf_import_and_moe_load_no_transformers_and_no_jax(module):
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("ok")
+
+
+DATA_PARALLEL = ("parallel/__init__.py", "parallel/mesh.py",
+                 "parallel/sharding.py", "parallel/zero.py",
+                 "parallel/explicit.py", "parallel/api.py",
+                 "train/distributed_trainer.py", "train/ddp.py",
+                 "train/fsdp.py")
+
+
+@pytest.mark.parametrize("rel", DATA_PARALLEL)
+def test_data_parallel_modules_and_twins_are_scanned_and_load_no_jax(rel):
+    """The data-parallel slice's modules and the ddp/fsdp twins are in the
+    scan above, and importing each loads neither JAX nor the JAX
+    package."""
+    assert PORT / rel in FILES
+    module = "pytorch_distributed_tpu_torch." + rel[:-3].replace(
+        "/", ".").removesuffix(".__init__")
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib',\n"
+        "                                    'pytorch_distributed_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("ok")

@@ -349,11 +349,12 @@ def test_gpt2_preset_defaults_train_through_the_trainer(tmp_path, kw):
     assert hist[-1]["loss"] < hist[0]["loss"]
 
 
-def test_refusals():
-    """What the port still refuses: the orbax checkpoint format (the
-    multi-rank checkpoint of ROADMAP item 7). The anomaly guard, the
-    async save and the fault injector are ported
-    (tests/test_torch_guard.py, tests/test_torch_train_chaos.py)."""
+def test_refusals(tmp_path):
+    """What the port once refused and now takes: the orbax checkpoint
+    format (the port's sharded format since ROADMAP item 7(a),
+    tests/test_torch_checkpoint_sharded.py), the anomaly guard, the async
+    save and the fault injector (tests/test_torch_guard.py,
+    tests/test_torch_train_chaos.py)."""
     _, cfg = _cfgs()
     model = get_model(cfg)
     for kw in (dict(anomaly_guard=True), dict(async_checkpoint=True)):
@@ -367,8 +368,9 @@ def test_refusals():
     injector = object()
     trainer.set_fault_injector(injector)
     assert trainer._injector is injector
-    with pytest.raises(NotImplementedError, match="orbax"):
-        ckpt.save_checkpoint("x", trainer.init_state(), cfg, format="orbax")
+    saved = ckpt.save_checkpoint(tmp_path / "x", trainer.init_state(), cfg,
+                                 format="orbax")
+    assert ckpt.is_committed(saved)
     assert callable(ckpt.save_checkpoint_async)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
