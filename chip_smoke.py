@@ -7,8 +7,9 @@ plain versions.
 Phases (each prints one JSON line; any failure raises and exits nonzero
 with no final line). They run in the order 1-3, profiling_train and
 profiling_serve (13), 7-9, 4-6d, 10-12, the rest of 13, the two
-decode_bench twin phases, 15, 16, 14: the phases whose profiler traces are
-counted first, while the process is young (PERF.md section 7).
+decode_bench twin phases, 15, 16, 17, 14: the phases whose profiler
+traces are counted first, while the process is young (PERF.md section
+7).
 
 1. env — the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; TF32 off for matmuls and convolutions.
@@ -21,7 +22,9 @@ counted first, while the process is young (PERF.md section 7).
    (int8 pages made by the port's ``quantize_kv``, with their f32 scale
    pools) against their plain versions at the GPT-2 124M, Llama-3.2-1B
    and a head_dim-128 decode shape (8 rows, 16-token pages, max_len
-   1024) and the decode_bench twin's (head_dim 32, max_len 384), q in
+   1024), the decode_bench twin's (head_dim 32, max_len 384) and a
+   tensor-2 rank's local heads (GPT-2 6 heads, group 1; Llama 16 over 4
+   KV heads, group 4: ``TP_SHAPES``), q in
    f32 and bf16 (``TOLERANCES``, ``Q8_TOLERANCES``), with
    the split plan (``chunk_tokens``, ``n_splits``, live CTAs), kernel,
    plain and bound times (CUDA events, median of 25 launches, L2 flushed
@@ -39,9 +42,9 @@ counted first, while the process is young (PERF.md section 7).
    dtype) — the main path of K3, whose launches are counted from zero and
    must equal n_layer x decode ticks (K4's 0), and whose kernel inputs at
    its deepest decode tick are replayed against the plain version for the
-   kernels line (with their split plan). The bf16 drive then runs twice
+   kernels line (with their split plan). The bf16 drive then runs once
    more for the spread of its host-clock metrics (tick ms, tok/s, TTFT:
-   serve_spread); profile —
+   serve_spread; twice until slice 14 needed the time); profile —
    ``torch.profiler`` over 10 decode ticks of the bf16 engine (device busy
    share, kernels by device time, host ops by CPU time).
 5. int8 serving — the same requests with ``kv_quant="int8",
@@ -256,7 +259,8 @@ counted first, while the process is young (PERF.md section 7).
     decode ticks: the profiler's host cost inflates a profiled idle share.
     decode_bench_twin_2 — ``serving.decode_bench``'s other modes in
     subprocesses at their default shapes: the default (gpt2 and
-    llama3-1b), ``--speculative 4`` (128 new tokens, not 512), ``--serving``,
+    llama3-1b; 2 timed repeats, not 3), ``--speculative 4`` (64 new
+    tokens, not 512), ``--serving``,
     ``--serving-batched``
     (and ``--chaos``), ``--serving-spec`` and ``--serving-paged --kv-quant
     int8 --weight-quant int8``: each exits 0 (its asserted checks held),
@@ -285,6 +289,25 @@ counted first, while the process is young (PERF.md section 7).
     full_shard's resident params and moments (allocator bytes) at most
     ``DDP_RESIDENT_RATIO`` of no_shard's; ms a step and peak bytes
     printed (gloo stages collectives through the host: no NCCL claim).
+17. tp_serve (slice 14), each rank a subprocess of this script
+    (``--tp-worker``): two gloo ranks sharing cuda:0, ``MeshConfig(tensor=
+    2)``, seed 0, against the one-rank paged engine on the same weights.
+    GPT-2 124M (8 slots, max_len 1024, 16-token pages, the 16 requests of
+    4): f32 tokens equal in >= 15 of 16 rows and the first decode tick's
+    logits within 1e-4; bf16's first-tick relative logit MSE <= 2e-3;
+    Llama-3.2-1B widths at 4 layers with int8 pages and weights (K4 at
+    Hkv 4, G 4): its MSE against the one-rank int8 engine's <= 2e-3;
+    GPT-2 f32 with 4 LoRA tenants at rank 8 (8 requests): every tenanted
+    row equal to its tenant served alone on the TP engine, 2 x n_layer
+    LoRA launches a forward; the ZeRO-3 serial engine (``MeshConfig(fsdp=
+    2)``, 8 new tokens) token-equal to the plain one. In every leg both
+    ranks' tokens are identical, the decode tick's kernel (K3; K4 on int8
+    pages) launches n_layer times a tick on each rank and the other 0,
+    every decode tick issues 2 x n_layer all-reduces (int8 and adapters
+    alike), and each rank's pool is half the one-rank pool. Tick ms, the
+    all-reduce host time and wall are reported, not gated (gloo stages
+    every all-reduce through the host: no NCCL claim). The kernel phase
+    (3) also holds K3/K4 at a rank's local heads (``TP_SHAPES``).
 14. The kernels line (K3, K4, K1, K2 and the LoRA delta kernel; K1/K2
     with ``slice13_paths``, their launches in the data-parallel legs, and
     ``slice12_paths``, their launches in train_guard's steps and runs;
@@ -293,8 +316,10 @@ counted first, while the process is young (PERF.md section 7).
     ``slice9_paths``, of 6d, ``slice10_paths``, and of the decode_bench
     twin's other modes, ``slice11_paths``; K1-K4 with ``trace_launches``,
     the launches profiling_train/profiling_serve's trace recorded, beside
-    ``trace_window_counted``, the wrapper's count over the same window),
-    then ``{"ok": true, "device": {...}}`` last.
+    ``trace_window_counted``, the wrapper's count over the same window;
+    K3/K4 and the LoRA kernel with ``tp_paths``, their launches on each
+    tp_serve leg, and K3/K4 with ``tp_local_shapes``, their times at a
+    rank's local heads), then ``{"ok": true, "device": {...}}`` last.
 """
 
 from __future__ import annotations
@@ -565,11 +590,17 @@ def paged_case(dev, seed, b, h, hkv, d, dtype, q8, page=16, n_pages=64):
     return (q, kq, vq, tables, lengths, ks, vs)
 
 
-def kernel_phase(pk, dev, flush, seed) -> None:
+# The decode shapes each rank of a tensor-parallel engine gives K3/K4
+# (tp_serve: tensor 2): its local heads, the group unchanged.
+TP_SHAPES = ("gpt2-124M-tp2", "llama3.2-1B-tp2")
+
+
+def kernel_phase(pk, dev, flush, seed) -> dict:
     """K3 and K4 against their plain versions at the decode shapes of the
     paths (GPT-2, Llama-3.2-1B, head_dim 128, the decode_bench twin's
-    head_dim 32), q in f32 and bf16, with kernel, plain and bound
-    times."""
+    head_dim 32, and a rank's local heads under tensor 2: ``TP_SHAPES``),
+    q in f32 and bf16, with kernel, plain and bound times. Returns the
+    ``TP_SHAPES`` rows by kernel, shape and dtype."""
     shapes = [  # (name, B, H, Hkv, D, pages per row of 16 tokens)
         ("gpt2-124M", 8, 12, 12, 64, 64),
         ("llama3.2-1B", 8, 32, 8, 64, 64),
@@ -577,7 +608,12 @@ def kernel_phase(pk, dev, flush, seed) -> None:
         # decode_bench twin's serving model (n_embd 256, 8 heads), max_len
         # 384
         ("decode_bench-twin", 8, 8, 8, 32, 24),
+        # tensor 2: GPT-2's 6 heads a rank (group 1), Llama's 16 over 4
+        # KV heads (group 4)
+        ("gpt2-124M-tp2", 8, 6, 6, 64, 64),
+        ("llama3.2-1B-tp2", 8, 16, 4, 64, 64),
     ]
+    tp_rows: dict = {}
     page = 16
     # What time_ms reads for a launch that does no work: the floor under
     # every kernel time here.
@@ -592,20 +628,26 @@ def kernel_phase(pk, dev, flush, seed) -> None:
                 checked = check_kernel(pk, args, f"{kernel} {name} {dtype}")
                 bound_ms, bound_by = paged_bound(args[0], args[1], args[3],
                                                  args[4])
-                emit(
-                    phase="kernel", kernel=kernel, shape=name,
-                    B=b, H=h, Hkv=hkv, D=d, page=page,
-                    max_len=n_pages * page, **split_plan(pk, args),
-                    dtype=str(dtype).replace("torch.", ""),
-                    pages=str(args[1].dtype).replace("torch.", ""),
-                    lengths=args[4].tolist(), **checked,
+                timed = dict(
                     kernel_ms=time_ms(
                         lambda: pk.paged_decode_attention(*args), flush),
                     plain_ms=time_ms(
                         lambda: pk.paged_decode_attention_reference(*args),
                         flush),
-                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                dt = str(dtype).replace("torch.", "")
+                emit(
+                    phase="kernel", kernel=kernel, shape=name,
+                    B=b, H=h, Hkv=hkv, D=d, page=page,
+                    max_len=n_pages * page, **split_plan(pk, args),
+                    dtype=dt, pages=str(args[1].dtype).replace("torch.", ""),
+                    lengths=args[4].tolist(), **checked, **timed,
                 )
+                if name in TP_SHAPES:
+                    tp_rows.setdefault(kernel, {}).setdefault(
+                        name, dict(H=h, Hkv=hkv, D=d))[dt] = dict(
+                            timed, max_abs_err=checked["max_abs_err"])
+    return tp_rows
 
 
 def streams_phase(pk, dev, seed, rounds: int = 25) -> None:
@@ -834,7 +876,7 @@ def kernel_vs_gather(phase, cfg, params, reqs, pk, **quant) -> dict:
     return a
 
 
-def main_path(phase, cfg, params, reqs, pk, flush, spread_runs=2,
+def main_path(phase, cfg, params, reqs, pk, flush, spread_runs=1,
               **quant) -> dict:
     """A serving main path: the drive whose kernel launches count
     (``serve``: from zero, exactly n_layer x decode ticks), ``spread_runs``
@@ -3809,10 +3851,12 @@ def throughput_phase(seed, smi) -> dict:
 
 
 DECODE_BENCH_MODES = {
-    "decode": [],
-    # 128 new tokens where the JAX script's default is 512 (the whole run's
-    # time: 512 made this mode 109 s of the card's run, 256 72 s).
-    "speculative": ["--speculative", "4", "--max-new", "128"],
+    # 2 timed repeats where the twin's default is 3, and 64 new tokens
+    # where the JAX script's default is 512 (the whole run's time: 512 made
+    # the speculative mode 109 s of the card's run, 256 72 s, 128 43 s),
+    # to make room for the tensor-parallel phase (17).
+    "decode": ["--repeats", "2"],
+    "speculative": ["--speculative", "4", "--max-new", "64"],
     "serving": ["--serving"],
     "serving_batched": ["--serving-batched"],
     "serving_batched_chaos": ["--serving-batched", "--chaos"],
@@ -4454,10 +4498,386 @@ def ddp_gloo2_phase(smi, seed: int, one_rank_losses: list) -> dict:
     return res
 
 
+# Tensor-parallel and ZeRO-3 serving (slice 14): two ranks on cuda:0 over
+# gloo (NCCL refuses two ranks on one card), each a subprocess of this
+# script (``--tp-worker``). gloo stages every all-reduce through the host:
+# no time here is a claim about NCCL or NVLink.
+TP_WORLD = 2
+# f32: the first decode tick's logits of the TP engine against the
+# one-rank engine's (each row-parallel sum split in two: summation order
+# only), and the rows whose tokens must be equal (a near-tie may flip).
+TP_F32_LOGITS_ATOL = 1e-4
+TP_F32_MIN_EQUAL = 15
+# bf16 and int8: the relative logit MSE of the first decode tick against
+# the one-rank engine's (the int8 quality budget).
+TP_MSE_LIMIT = 2e-3
+TP_LLAMA_LAYERS = 4  # Llama-3.2-1B widths, depth cut to 4 layers
+TP_LORA_REQUESTS = 8
+TP_ZERO3_NEW = 8
+
+
+def _tp_models(seed: int, dev):
+    """(GPT-2 124M f32 config, bf16 config, their params; Llama-3.2-1B at
+    4 layers and its params): the weights every rank draws alike from
+    ``seed``, as the one-rank phases draw them."""
+    from pytorch_distributed_tpu_torch.config import model_config
+    from pytorch_distributed_tpu_torch.models import gpt2, llama
+
+    cfg = model_config("gpt2")
+    params = gpt2.init(torch.Generator().manual_seed(seed), cfg)
+    lcfg = model_config("llama3-1b", n_layer=TP_LLAMA_LAYERS)
+    lparams = llama.init(torch.Generator(device=dev).manual_seed(seed),
+                         lcfg, device=dev)
+    return cfg.replace(dtype="float32"), cfg, params, lcfg, lparams
+
+
+def _watch_first_tick(eng) -> dict:
+    """Keep the live rows' logits of ``eng``'s first decode forward (a
+    host copy) and the all-reduces of every decode forward."""
+    from pytorch_distributed_tpu_torch.ops import tp
+
+    box = {"decode_allreduces": []}
+    forward = eng._forward
+
+    def watched(params, ids, pos, *args, **kw):
+        c0 = tp.collectives
+        out = forward(params, ids, pos, *args, **kw)
+        if kw.get("window"):
+            box["decode_allreduces"].append(tp.collectives - c0)
+            if "logits" not in box:
+                live = torch.from_numpy(np.asarray(pos) > 0)
+                box["logits"] = out[live.to(out.device), -1].float().cpu()
+        return out
+
+    eng._forward = watched
+    return box
+
+
+def _tp_drive(cfg, params, reqs, pk, lk=None, mesh_cfg=None, **engine_kw):
+    """One drive of ``reqs`` through a fresh warmed paged engine (8 slots,
+    max_len 1024, 16-token pages, the kernel path), with every kernel
+    counter from zero for the drive and the all-reduce host time summed:
+    tokens, first-tick logits and counts."""
+    from pytorch_distributed_tpu_torch.ops import tp
+    from pytorch_distributed_tpu_torch.serving import PagedBatchedDecodeEngine
+
+    eng = PagedBatchedDecodeEngine(cfg, slots=8, max_len=1024, page_size=16,
+                                   paged_attention="kernel",
+                                   mesh_cfg=mesh_cfg, **engine_kw)
+    eng.warmup(params)
+    box = _watch_first_tick(eng)
+    all_reduce, held = tp._all_reduce_, [0.0]
+
+    def timed(t, group):
+        s = time.perf_counter()
+        out = all_reduce(t, group)
+        held[0] += time.perf_counter() - s
+        return out
+
+    tp._all_reduce_ = timed
+    pk.launches = pk.launches_q8 = 0
+    if lk is not None:
+        lk.launches = 0
+    c0 = tp.collectives
+    try:
+        run = drive_engine(eng, params, reqs)
+    finally:
+        tp._all_reduce_ = all_reduce
+    c = eng.counters
+    return dict(
+        tokens=[t.tolist() for t in run["tokens"]],
+        logits=box.get("logits"),
+        counts=dict(K3=pk.launches, K4=pk.launches_q8,
+                    lora=None if lk is None else lk.launches,
+                    decode_ticks=c["decode_ticks"],
+                    prefill_ticks=c["prefill_ticks"],
+                    allreduces=tp.collectives - c0,
+                    decode_allreduces=sorted(set(box["decode_allreduces"]))),
+        pool_bytes=sum(t.numel() * t.element_size()
+                       for t in eng._cache.values()),
+        metrics={k: run["metrics"][k] for k in (
+            "mean_decode_tick_ms", "generated_tok_per_s", "wall_s",
+            "ttft_p50_ms", "decode_ticks")},
+        allreduce_host_s=held[0],
+    )
+
+
+def tp_worker(workdir: str, seed: int) -> int:
+    """One rank of the ``tp_serve`` phase (two ranks on cuda:0, gloo):
+    GPT-2 124M f32 and bf16 on the TP paged engine (MeshConfig(tensor=2)),
+    Llama-3.2-1B at 4 layers with int8 pages and weights, GPT-2 f32 with 4
+    LoRA tenants (the mix and each tenant alone), and the ZeRO-3 serial
+    engine (MeshConfig(fsdp=2)) against the plain one; writes
+    ``tp_<rank>.json`` and the first-tick logits ``tp_<rank>.npz``."""
+    import torch.distributed as dist
+
+    from pytorch_distributed_tpu_torch.config import MeshConfig
+    from pytorch_distributed_tpu_torch.ops import lora_kernel as lk
+    from pytorch_distributed_tpu_torch.ops import paged_kernel as pk
+    from pytorch_distributed_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+    )
+    from pytorch_distributed_tpu_torch.serving.engine import DecodeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    initialize_distributed(device=dev, backend="gloo", timeout_s=300)
+    rank = dist.get_rank()
+    # gloo on CUDA tensors: f32 and bf16 sums staged through the host.
+    probes = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        t = torch.full((4,), 1.5, dtype=dtype, device=dev)
+        try:
+            dist.all_reduce(t)
+            probes[str(dtype).replace("torch.", "")] = t.tolist()
+        except RuntimeError as err:
+            probes[str(dtype).replace("torch.", "")] = repr(err)[:300]
+    f32, bf16, params, lcfg, lparams = _tp_models(seed, dev)
+    tp2, z3 = MeshConfig(tensor=TP_WORLD), MeshConfig(fsdp=TP_WORLD)
+    out = dict(rank=rank, gloo_cuda_all_reduce=probes, legs={})
+    logits = {}
+    legs = (("gpt2_f32", f32, params, requests(f32, seed), {}),
+            ("gpt2_bf16", bf16, params, requests(bf16, seed), {}),
+            ("llama_q8", lcfg, lparams, requests(lcfg, seed), Q8))
+    for name, cfg, prm, reqs, quant in legs:
+        t0 = time.perf_counter()
+        leg = _tp_drive(cfg, prm, reqs, pk, mesh_cfg=tp2, device=dev,
+                        **quant)
+        leg["wall_s"] = time.perf_counter() - t0
+        logits[name] = leg.pop("logits").numpy()
+        out["legs"][name] = leg
+    # LoRA tenants on the TP engine: the mix, then each tenant alone.
+    t0 = time.perf_counter()
+    reg = lora_registry(f32, seed)
+    reqs = lora_requests(f32, seed, n=TP_LORA_REQUESTS)
+    mix = _tp_drive(f32, params, reqs, pk, lk, mesh_cfg=tp2, device=dev,
+                    adapters=reg)
+    mix.pop("logits")
+    alone = {}
+    for i in range(4):
+        tid = f"tenant-{i}"
+        rows = [j for j, r in enumerate(reqs) if r.get("tenant") == tid]
+        got = _tp_drive(f32, params, [reqs[j] for j in rows], pk, lk,
+                        mesh_cfg=tp2, device=dev, adapters=reg)
+        alone[tid] = dict(rows=rows, tokens=got["tokens"],
+                          counts=got["counts"])
+    out["legs"]["lora"] = dict(mix, alone=alone,
+                               wall_s=time.perf_counter() - t0)
+    # ZeRO-3: the serial engine from this rank's full_shard slices.
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 14)
+    prompt = rng.integers(0, f32.vocab_size, (2, 48)).astype(np.int32)
+    max_len = prompt.shape[1] + TP_ZERO3_NEW
+    from pytorch_distributed_tpu_torch.parallel import zero
+
+    c0 = zero.collectives
+    z = DecodeEngine(f32, max_len=max_len, mesh_cfg=z3, device=dev
+                     ).generate(params, prompt, TP_ZERO3_NEW)
+    gathers = zero.collectives - c0
+    plain = DecodeEngine(f32, max_len=max_len, device=dev).generate(
+        params, prompt, TP_ZERO3_NEW)
+    out["legs"]["zero3"] = dict(tokens=z.tolist(), plain=plain.tolist(),
+                                all_gathers=gathers,
+                                wall_s=time.perf_counter() - t0)
+    out["wall_s"] = time.perf_counter() - t_start
+    np.savez(f"{workdir}/tp_{rank}.npz", **logits)
+    with open(f"{workdir}/tp_{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_tp_ranks(seed: int, timeout_s: float) -> tuple[list, list, float]:
+    """Start the ``tp_worker`` ranks, wait for all (killing any left at
+    the limit); their reports and first-tick logits."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tp-worker",
+             "--workdir", tmp, "--seed", str(seed)],
+            env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(TP_WORLD),
+                     LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(port)),
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+            for r in range(TP_WORLD)]
+        errs = []
+        try:
+            for proc in procs:
+                left = max(1.0, t0 + timeout_s - time.perf_counter())
+                errs.append(proc.communicate(timeout=left)[1])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        wall = time.perf_counter() - t0
+        rcs = [proc.returncode for proc in procs]
+        if any(rcs):
+            raise AssertionError(f"tp_serve: rank exit codes {rcs}: "
+                                 + " | ".join(e[-3000:] for e in errs))
+        reports, logits = [], []
+        for r in range(TP_WORLD):
+            with open(f"{tmp}/tp_{r}.json") as f:
+                reports.append(json.load(f))
+            with np.load(f"{tmp}/tp_{r}.npz") as z:
+                logits.append({k: z[k] for k in z.files})
+    return reports, logits, wall
+
+
+def _one_rank_refs(pk, seed, dev) -> dict:
+    """The one-rank paged engine on the same weights and requests: GPT-2
+    f32 (tokens and first-tick logits), GPT-2 bf16 and Llama at 4 layers
+    int8 (first-tick logits: their drives stop after the first decode
+    tick)."""
+    f32, bf16, params, lcfg, lparams = _tp_models(seed, dev)
+    full = _tp_drive(f32, params, requests(f32, seed), pk, device=dev)
+    refs = dict(gpt2_f32=dict(tokens=full["tokens"], logits=full["logits"],
+                              pool_bytes=full["pool_bytes"]))
+    from pytorch_distributed_tpu_torch.serving import PagedBatchedDecodeEngine
+
+    for name, cfg, prm, quant in (("gpt2_bf16", bf16, params, {}),
+                                  ("llama_q8", lcfg, lparams, Q8)):
+        eng = PagedBatchedDecodeEngine(cfg, slots=8, max_len=1024,
+                                       page_size=16,
+                                       paged_attention="kernel", **quant)
+        eng.warmup(prm)
+        box = _watch_first_tick(eng)
+        for r in requests(cfg, seed):
+            eng.submit(**r)
+        while "logits" not in box:
+            eng.step(prm)
+        refs[name] = dict(logits=box["logits"],
+                          pool_bytes=sum(t.numel() * t.element_size()
+                                         for t in eng._cache.values()))
+        del eng
+    del params, lparams
+    torch.cuda.empty_cache()
+    return refs
+
+
+def tp_serve_phase(pk, seed, dev, smi) -> dict:
+    """Tensor-parallel serving on two gloo ranks sharing cuda:0
+    (``tp_worker``) against the one-rank paged engine on the same weights
+    (``_one_rank_refs``). Gates: GPT-2 f32 tokens equal in >= 15 of 16
+    rows and the first tick's logits within ``TP_F32_LOGITS_ATOL``; bf16
+    and the int8 Llama's first-tick relative logit MSE <= 2e-3; both
+    ranks' tokens identical in every leg; each decode tick's kernel (K3,
+    K4 for int8 pages) launched n_layer times on each rank, the other 0;
+    2 x n_layer all-reduces every decode tick, int8 and adapters alike;
+    each rank's pool half the one-rank pool; LoRA rows equal their tenant
+    alone with 2 x n_layer LoRA launches a forward; the ZeRO-3 serial
+    engine's tokens equal the plain engine's. Tick ms, all-reduce host
+    time and wall are reported, not gated (gloo on one card)."""
+    t0 = time.perf_counter()
+    refs = _one_rank_refs(pk, seed, dev)
+    refs_s = time.perf_counter() - t0
+    reports, logits, wall = _run_tp_ranks(seed, 600)
+    rep = reports[0]
+    res = dict(wall_s=wall, refs_s=refs_s, world=TP_WORLD, backend="gloo",
+               gloo_cuda_all_reduce=rep["gloo_cuda_all_reduce"],
+               rank_wall_s=[r["wall_s"] for r in reports], legs={})
+    failures = []
+    n_layer = {"gpt2_f32": 12, "gpt2_bf16": 12, "llama_q8": TP_LLAMA_LAYERS,
+               "lora": 12}
+    for name, leg in rep["legs"].items():
+        same_ranks = all(r["legs"][name].get("tokens")
+                         == leg.get("tokens") for r in reports)
+        row = dict(ranks_identical=same_ranks,
+                   wall_s=[r["legs"][name]["wall_s"] for r in reports])
+        if not same_ranks:
+            failures.append(f"{name}: the ranks' tokens differ")
+        if "counts" in leg:
+            c, nl = leg["counts"], n_layer[name]
+            kid = "K4" if name == "llama_q8" else "K3"
+            other = "K3" if kid == "K4" else "K4"
+            row.update(counts=c, metrics=leg["metrics"],
+                       allreduce_host_s=[r["legs"][name]["allreduce_host_s"]
+                                         for r in reports],
+                       pool_bytes=leg["pool_bytes"])
+            if c[kid] != nl * c["decode_ticks"] or c[other]:
+                failures.append(f"{name}: {kid} {c[kid]} / {other} "
+                                f"{c[other]} for {c['decode_ticks']} ticks "
+                                f"of {nl} layers")
+            if c["decode_allreduces"] != [2 * nl]:
+                failures.append(f"{name}: all-reduces a decode tick "
+                                f"{c['decode_allreduces']}, want {2 * nl}")
+            if c["allreduces"] != 2 * nl * (c["decode_ticks"]
+                                            + c["prefill_ticks"]):
+                failures.append(f"{name}: {c['allreduces']} all-reduces "
+                                f"for {c['decode_ticks']} + "
+                                f"{c['prefill_ticks']} forwards")
+        if name in refs:
+            ref = refs[name]
+            ours = logits[0][name]
+            row["pool_bytes_one_rank"] = ref["pool_bytes"]
+            if 2 * leg["pool_bytes"] != ref["pool_bytes"]:
+                failures.append(f"{name}: pool {leg['pool_bytes']} B a "
+                                f"rank, one rank {ref['pool_bytes']} B")
+            theirs = ref["logits"].numpy()
+            if name == "gpt2_f32":
+                same = sum(a == b for a, b in zip(leg["tokens"],
+                                                  ref["tokens"]))
+                err = float(np.abs(ours - theirs).max())
+                row.update(equal_rows=same, of=len(ref["tokens"]),
+                           first_tick_max_abs_err=err)
+                if same < TP_F32_MIN_EQUAL or err > TP_F32_LOGITS_ATOL:
+                    failures.append(f"{name}: {same} rows equal, logits "
+                                    f"max |diff| {err}")
+            else:
+                from pytorch_distributed_tpu_torch.ops.quant import (
+                    relative_logit_mse,
+                )
+
+                mse = relative_logit_mse(theirs, ours)
+                row["first_tick_relative_logit_mse"] = mse
+                if mse > TP_MSE_LIMIT:
+                    failures.append(f"{name}: relative logit MSE {mse}")
+        if name == "lora":
+            nl = n_layer[name]
+            forwards = c["decode_ticks"] + c["prefill_ticks"]
+            if c["lora"] != 2 * nl * forwards:
+                failures.append(f"lora: {c['lora']} LoRA launches for "
+                                f"{forwards} forwards")
+            alone_equal = 0
+            for tid, a in leg["alone"].items():
+                for j, toks in zip(a["rows"], a["tokens"]):
+                    alone_equal += toks == leg["tokens"][j]
+                ac = a["counts"]
+                if ac["lora"] != 2 * nl * (ac["decode_ticks"]
+                                           + ac["prefill_ticks"]):
+                    failures.append(f"lora {tid} alone: {ac}")
+            n_tenanted = sum(len(a["rows"]) for a in leg["alone"].values())
+            row.update(rows_equal_alone=alone_equal, tenanted=n_tenanted)
+            if alone_equal != n_tenanted:
+                failures.append(f"lora: {alone_equal} of {n_tenanted} rows "
+                                "equal their tenant alone")
+        if name == "zero3":
+            row.update(all_gathers=leg["all_gathers"],
+                       equal=leg["tokens"] == leg["plain"])
+            if leg["tokens"] != leg["plain"]:
+                failures.append("zero3: tokens differ from the plain "
+                                "DecodeEngine's")
+        res["legs"][name] = row
+    emit(phase="tp_serve", nvidia_smi=smi, failures=failures, **res)
+    if failures:
+        raise AssertionError(f"tp_serve: {failures}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ddp-worker", choices=["nccl", "gloo"],
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--tp-worker", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--workdir", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4467,6 +4887,8 @@ def main() -> int:
         return 1
     if args.ddp_worker:
         return ddp_worker(args.ddp_worker, args.workdir, args.seed)
+    if args.tp_worker:
+        return tp_worker(args.workdir, args.seed)
     from pytorch_distributed_tpu_torch.config import model_config
     from pytorch_distributed_tpu_torch.models import gpt2
     from pytorch_distributed_tpu_torch.ops import _build
@@ -4514,7 +4936,7 @@ def main() -> int:
 
     # 3. kernel at the listed shapes; K3/K4 on two streams at once
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    kernel_phase(pk, dev, flush, args.seed)
+    tp_kernel_rows = kernel_phase(pk, dev, flush, args.seed)
     streams_phase(pk, dev, args.seed)
 
     # 13a. the profiler's trace windows, first: they are held to the
@@ -4725,12 +5147,23 @@ def main() -> int:
         **{f"ddp_gloo2_{name}_{DDP_STEPS}_steps": leg["launches"]
            for name, leg in ddp_gloo2["legs"].items()},
     }
+    # 17. tensor-parallel and ZeRO-3 serving (slice 14): two gloo ranks
+    # on the one card, each a process of its own
+    torch.cuda.empty_cache()
+    tp = tp_serve_phase(pk, args.seed, dev, smi)
     for entry, kid in zip(paged_entries, ("K3", "K4")):
         entry.update(
             trace_launches=prof_paged[kid]["launches_traced"][kid],
             trace_window_counted=prof_paged[kid]["launches_counted"][kid],
             slice11_paths={name: counts[kid]
-                           for name, counts in slice11_paths.items()})
+                           for name, counts in slice11_paths.items()},
+            # Each rank's launches on the TP legs (rank 0's; the ranks'
+            # counts are gated equal to n_layer x ticks), and the kernel
+            # at a rank's local heads.
+            tp_paths={f"tp_serve_{name}": row["counts"][kid]
+                      for name, row in tp["legs"].items()
+                      if "counts" in row},
+            tp_local_shapes=tp_kernel_rows[entry["name"]])
 
     inputs = dict(B=fq.shape[0], H=fq.shape[1], Hkv=fkk.shape[1],
                   T=fq.shape[2], D=fq.shape[3], causal=causal,
@@ -4772,7 +5205,8 @@ def main() -> int:
                     din=main["din"], out=main["out"], slots=main["slots"],
                     rank=LORA_RANK),
         slice10_paths={name: counts.get("lora", 0)
-                       for name, counts in slice10_paths.items()})
+                       for name, counts in slice10_paths.items()},
+        tp_paths={"tp_serve_lora": tp["legs"]["lora"]["counts"]["lora"]})
     print(json.dumps(dict(kernels=[*paged_entries, *flash_entries,
                                    lora_entry])), flush=True)
     print(json.dumps(dict(ok=True, device=dict(

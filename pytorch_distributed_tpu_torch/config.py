@@ -269,11 +269,24 @@ def model_config(name: str, **overrides: Any) -> ModelConfig:
 # The mesh axes the port has not taken yet, each with the ROADMAP queue 1
 # item that ports it.
 _AXIS_NOT_PORTED = {
-    "tensor": "ROADMAP queue 1 item 7(b), tensor parallelism",
     "seq": "ROADMAP queue 1 item 7(c), sequence parallelism",
     "pipe": "ROADMAP queue 1 item 7(d), pipeline parallelism",
     "expert": "ROADMAP queue 1 item 7(e), expert parallelism",
 }
+# Tensor-parallel TRAINING (the explicit step's tensor axis, tensor
+# dropout, K1/K2 at local heads); decode takes the tensor axis.
+TP_TRAINING_NOT_PORTED = (
+    "tensor-parallel training (MeshConfig(tensor > 1)) is not ported: "
+    "ROADMAP queue 1 item 7(f); the tensor axis serves decode only "
+    "(models/decode.generate_tp, the engines' mesh_cfg)"
+)
+
+
+def check_trainable_mesh(mesh_cfg: "MeshConfig") -> None:
+    """Raise NotImplementedError for a mesh the training step cannot take
+    yet (``tensor`` > 1, item 7(f))."""
+    if mesh_cfg.tensor > 1:
+        raise NotImplementedError(TP_TRAINING_NOT_PORTED)
 
 
 @dataclass(frozen=True)
@@ -285,11 +298,19 @@ class MeshConfig:
     state sharded), "shard_grad_op" (ZeRO-2: grads and optimizer state),
     "shard_opt" (ZeRO-1: optimizer state only) or "no_shard" (DDP) — and
     ``rs_buckets`` > 0 coalesces ZeRO-2's gradient reduce-scatters into
-    about that many bucketed collectives. ``tensor``, ``seq``, ``pipe`` and
-    ``expert`` > 1 raise NotImplementedError naming the ROADMAP item that
-    ports them, and so does ``prefetch_buffers`` > 0 (the JAX layer scan's
-    prefetch window, item 7(d)). ``device_ids``: the CUDA device each mesh
-    rank uses, in rank order (None: the rank's ``LOCAL_RANK``)."""
+    about that many bucketed collectives. ``tensor`` > 1 is Megatron
+    tensor parallelism, served by the decode paths (``models/decode
+    .generate_tp`` and every engine's ``mesh_cfg``); training with it
+    raises NotImplementedError where it starts (``DistributedTrainer``
+    and the explicit step behind ``parallel.api.make_parallel_train_step``;
+    the ``train.ddp``/``train.fsdp`` twins build data and fsdp meshes
+    only), naming ROADMAP queue 1 item 7(f). ``seq``,
+    ``pipe`` and ``expert`` > 1 raise NotImplementedError here, naming the
+    items that port them (7(c), 7(d), 7(e)), and so does
+    ``prefetch_buffers`` > 0 (the JAX layer scan's prefetch window, item
+    7(d); the port's ZeRO-3 decode gathers each layer just in time).
+    ``device_ids``: the CUDA device each mesh rank uses, in rank order
+    (None: the rank's ``LOCAL_RANK``)."""
 
     data: int = 1
     fsdp: int = 1
@@ -338,7 +359,8 @@ class MeshConfig:
             if getattr(self, axis) > 1:
                 raise NotImplementedError(
                     f"mesh axis {axis}={getattr(self, axis)} is not ported: "
-                    f"{item}; the port's mesh has the data and fsdp axes"
+                    f"{item}; the port's mesh has the data, fsdp and "
+                    "tensor axes"
                 )
         if self.prefetch_buffers > 0:
             raise NotImplementedError(

@@ -47,7 +47,19 @@ layout:
   (``ops/lora_kernel.lora_delta_add``: the JAX package's lowering on the
   CPU, one kernel on the card); slot 0 is the exact-zero adapter;
 - the layers run in a Python loop over the per-layer params list (the JAX
-  package scans over stacked layers).
+  package scans over stacked layers);
+- ``tp_group`` (tensor parallelism, the JAX package's ``tensor_axis``):
+  the block params are this rank's Megatron slices
+  (``parallel/sharding``) and the cache holds this rank's KV heads
+  (``init_cache``/``init_paged_cache`` with ``n_kv``), so attention runs on
+  local heads (K3/K4 on each rank's own heads); each row-parallel
+  projection (attention output, MLP down) issues ONE all-reduce over the
+  group (``ops/layers.dense_epilogue``), after its partial product, the
+  LoRA delta and the int8 scale and before its bias: 2 a layer, whatever
+  the rows, int8 or adapters. Embeddings, norms and the head are
+  replicated, so every rank computes the same logits;
+- ``block_transform`` (ZeRO-3 decode): applied to each layer's params
+  before the layer runs (the just-in-time all-gather of its shards).
 
 Sampling: greedy rows take the float32 argmax; a sampled draw uses a
 ``torch.Generator`` seeded by (request seed, token index), so a sampled
@@ -57,8 +69,14 @@ the JAX package holds on greedy rows only.
 
 Generation: ``generate_monolithic`` is the plain reference loop (prefill,
 then one forward per token); ``generate`` is the shim over
-``serving.engine.DecodeEngine``. The meshed forms (``generate_tp``,
-``generate_fsdp``) wait for the multi-GPU slice and raise.
+``serving.engine.DecodeEngine``. The meshed forms run on every rank of a
+``torch.distributed`` group (one process a rank, the same call on each):
+``generate_tp`` (Megatron-sharded params, a local-head KV cache, the TP
+``DecodeEngine``) and ``generate_fsdp`` (ZeRO-3: params kept as this
+rank's full_shard slices, each layer all-gathered just in time through
+``parallel/zero``, no prefetch window), each with its ``_monolithic``
+reference loop. Both take the FULL params on every rank and keep this
+rank's slices; the output is the same on every rank.
 """
 
 from __future__ import annotations
@@ -75,6 +93,7 @@ from pytorch_distributed_tpu_torch.ops import lora_kernel, paged_kernel
 from pytorch_distributed_tpu_torch.ops.layers import (
     activation,
     dense,
+    dense_epilogue,
     layer_norm,
     rms_norm,
 )
@@ -89,23 +108,20 @@ from pytorch_distributed_tpu_torch.utils.device import resolve_device
 Params = dict[str, Any]
 Cache = dict[str, torch.Tensor]
 
-MESH_NOT_PORTED = (
-    "is multi-device (tensor parallelism / ZeRO-3 decode) and not ported "
-    "yet (ROADMAP queue 1 item 7(b))"
-)
-
-
 def init_cache(
     cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-    device: str | torch.device | None = None,
+    device: str | torch.device | None = None, n_kv: int | None = None,
 ) -> Cache:
     """Zeroed dense ``k``/``v`` of [L, batch, max_len, Hkv, D] in
-    ``dtype`` (default ``cfg.dtype``) on ``device`` (None: the GPU)."""
+    ``dtype`` (default ``cfg.dtype``) on ``device`` (None: the GPU);
+    ``n_kv``: the KV heads this rank holds (tensor parallelism; default
+    all of them)."""
     if max_len > cfg.n_ctx:
         raise ValueError(f"max_len {max_len} exceeds n_ctx {cfg.n_ctx}")
     device = resolve_device(device)
     dtype = dtype or getattr(torch, cfg.dtype)
-    shape = (cfg.n_layer, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.n_layer, batch, max_len, n_kv or cfg.kv_heads,
+             cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -115,15 +131,19 @@ def init_cache(
 def init_paged_cache(
     cfg: ModelConfig, pool_pages: int, page_size: int, dtype=None,
     device: str | torch.device | None = None, kv_quant: str = "none",
+    n_kv: int | None = None,
 ) -> Cache:
     """Zeroed paged pools ``k``/``v`` of [L, pool_pages, page_size, Hkv, D]
     in ``dtype`` (default ``cfg.dtype``) on ``device`` (None: the GPU,
     ``utils.device.resolve_device``); page 0 is the scratch page.
     ``kv_quant="int8"``: int8 pools (zeros) and f32 scale pools
-    ``k_scale``/``v_scale`` of [L, pool_pages, page_size, Hkv] (ones)."""
+    ``k_scale``/``v_scale`` of [L, pool_pages, page_size, Hkv] (ones).
+    ``n_kv``: the KV heads this rank holds (a head-sharded pool under
+    tensor parallelism; default all of them)."""
     check_mode("kv_quant", kv_quant)
     device = resolve_device(device)
-    shape = (cfg.n_layer, pool_pages, page_size, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.n_layer, pool_pages, page_size, n_kv or cfg.kv_heads,
+             cfg.head_dim)
     if kv_quant == "int8":
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -235,19 +255,20 @@ def _write_kv(kv, k_new, v_new, slots, kv_quant="none") -> None:
     _write(kv["v"], v_new, slots)
 
 
-def _moe_mlp(m, mlp_params, cfg, act):
+def _moe_mlp(m, mlp_params, cfg, act, tp_group=None):
     """Routed MLP for decode: routing is per token and cache-free, so only
     the capacity differs from training — the no-drop bound
     (``capacity_factor = n_experts``: every expert could take every
     assignment), as the JAX package's ``_moe_mlp``: a dropped token at
     inference would silently zero its MLP, and with no drops a row's
-    output does not depend on the rows beside it."""
+    output does not depend on the rows beside it. ``tp_group``: TP inside
+    each expert (``ops/moe``), routing on the replicated activations."""
     from pytorch_distributed_tpu_torch.ops.moe import moe_mlp
 
     out, _ = moe_mlp(
         m, mlp_params, activation=act,
         capacity_factor=float(cfg.n_experts), top_k=cfg.moe_top_k,
-        dispatch_impl=cfg.moe_dispatch,
+        dispatch_impl=cfg.moe_dispatch, tensor_axis=tp_group,
     )
     return out
 
@@ -264,13 +285,22 @@ def _lane0(fn, x, *args, alone=False):
     return y
 
 
+def _lora_add(a, lp, rows):
+    """The LoRA delta of input ``a`` as an ``extra_pre_reduce`` function
+    (``ops/layers.dense_epilogue``), or None without adapters."""
+    if lp is None:
+        return None
+    return lambda y: lora_kernel.lora_delta_add(y, a, lp, rows)
+
+
 def _gpt2_block(x, bp, kv, pos, slots, cfg, block_tables,
                 paged_impl="gather", kv_quant="none", lora=None,
-                lora_rows=None, valid=None, window=None, alone=False):
+                lora_rows=None, valid=None, window=None, alone=False,
+                tp_group=None):
     eps = cfg.layer_norm_epsilon
     b, t = x.shape[:2]
     a = layer_norm(x, bp["ln_1"], eps=eps)
-    # [B, T, 3, H, D]
+    # [B, T, 3, H(/tp), D]
     qkv = _lane0(dense, a, bp["attn"]["c_attn"], alone=alone)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if lora is not None:
@@ -281,28 +311,32 @@ def _gpt2_block(x, bp, kv, pos, slots, cfg, block_tables,
                           valid, window)
     a = a.reshape(b, t, -1)
     proj = bp["attn"]["c_proj"]
-    y = _lane0(dense, a, {"kernel": proj["kernel"]}, alone=alone)
-    if lora is not None:
-        # Before the bias, as the JAX block adds it.
-        y = lora_kernel.lora_delta_add(y, a, lora["c_proj"], lora_rows)
-    if proj.get("bias") is not None:
-        y = y + proj["bias"].to(y.dtype)
+    # The (partial) product, the delta, one all-reduce, then the bias.
+    y = dense_epilogue(
+        _lane0(dense, a, {"kernel": proj["kernel"]}, alone=alone), proj,
+        tp_group=tp_group,
+        extra_pre_reduce=_lora_add(a, lora and lora["c_proj"], lora_rows))
     x = x + y
     m = layer_norm(x, bp["ln_2"], eps=eps)
     act = activation(cfg.activation_function)
     if cfg.n_experts:
-        return x + _lane0(_moe_mlp, m, bp["mlp"], cfg, act, alone=alone)
+        return x + _lane0(_moe_mlp, m, bp["mlp"], cfg, act, tp_group,
+                          alone=alone)
     m = act(_lane0(dense, m, bp["mlp"]["c_fc"], alone=alone))
-    return x + _lane0(dense, m, bp["mlp"]["c_proj"], alone=alone)
+    proj = bp["mlp"]["c_proj"]
+    return x + dense_epilogue(
+        _lane0(dense, m, {"kernel": proj["kernel"]}, alone=alone), proj,
+        tp_group=tp_group)
 
 
 def _llama_block(x, bp, kv, pos, slots, cfg, block_tables, cos, sin,
                  paged_impl="gather", kv_quant="none", lora=None,
-                 lora_rows=None, valid=None, window=None, alone=False):
+                 lora_rows=None, valid=None, window=None, alone=False,
+                 tp_group=None):
     """RMSNorm pre-norm block: every projection through ``qdot`` (plain or
     int8 weights), RoPE on q and k at each row's own positions, SwiGLU
     (or SwiGLU experts). ``lora`` adds the tenant deltas to wq and wo
-    (never to wk/wv)."""
+    (never to wk/wv); ``tp_group`` sums wo's and down's partials."""
     eps = cfg.layer_norm_epsilon
     b, t = x.shape[:2]
     d = cfg.head_dim
@@ -318,18 +352,20 @@ def _llama_block(x, bp, kv, pos, slots, cfg, block_tables, cos, sin,
     a = _cached_attention(q, kv, pos, block_tables, paged_impl, kv_quant,
                           valid, window)
     a = a.reshape(b, t, -1)
-    wo_out = _lane0(qdot, a, bp["attn"]["wo"], alone=alone)
-    if lora is not None:
-        wo_out = lora_kernel.lora_delta_add(wo_out, a, lora["wo"], lora_rows)
-    x = x + wo_out
+    x = x + dense_epilogue(
+        _lane0(qdot, a, bp["attn"]["wo"], alone=alone), {},
+        tp_group=tp_group,
+        extra_pre_reduce=_lora_add(a, lora and lora["wo"], lora_rows))
     m = rms_norm(x, bp["ln_mlp"], eps=eps)
     if cfg.n_experts:
         return x + _lane0(_moe_mlp, m, bp["mlp"], cfg,
-                          torch.nn.functional.silu, alone=alone)
+                          torch.nn.functional.silu, tp_group, alone=alone)
     gate = torch.nn.functional.silu(
         _lane0(qdot, m, bp["mlp"]["gate"], alone=alone))
     up = _lane0(qdot, m, bp["mlp"]["up"], alone=alone)
-    return x + _lane0(qdot, gate * up, bp["mlp"]["down"], alone=alone)
+    return x + dense_epilogue(
+        _lane0(qdot, gate * up, bp["mlp"]["down"], alone=alone), {},
+        tp_group=tp_group)
 
 
 def forward(
@@ -345,6 +381,8 @@ def forward(
     lora: tuple | None = None,
     decode_window: bool = False,
     lane0_alone: bool = False,
+    tp_group=None,
+    block_transform=None,
 ) -> tuple[torch.Tensor, Cache]:
     """Run T tokens per row at positions pos..pos+T-1 through the cache.
     Returns ([B, T, V] logits in ``cfg.logits_dtype``, ``cache``), the
@@ -366,7 +404,11 @@ def forward(
     (``serving/adapters.AdapterRegistry.device_tree``): each row's low-rank
     delta joins its query and attention-output projections
     (``ops/lora_kernel.lora_delta_add``), slot 0 the exact-zero adapter. A
-    row's values are those of the same call with that row alone."""
+    row's values are those of the same call with that row alone.
+    ``tp_group``: the tensor group of this rank's Megatron-sharded block
+    params and local-head cache (module docstring); ``block_transform``:
+    a function of each layer's params run before the layer (ZeRO-3's
+    just-in-time gather)."""
     if cfg.family not in ("gpt2", "llama"):
         raise NotImplementedError(
             f"decode.forward serves the gpt2 and llama families, got "
@@ -456,12 +498,14 @@ def forward(
         if t > 1:
             lora_rows = lora_rows.repeat_interleave(t)
     for layer, bp in enumerate(params["blocks"]):
+        if block_transform is not None:
+            bp = block_transform(bp)
         kv = {name: c[layer] for name, c in cache.items()}
         x = block(x, bp, kv, pos, slots, cfg, block_tables,
                   paged_impl=paged_impl, kv_quant=kv_quant,
                   lora=None if lora is None else lora_layers[layer],
                   lora_rows=lora_rows, valid=valid, window=window,
-                  alone=alone)
+                  alone=alone, tp_group=tp_group)
     head = get_model(cfg).head
     return _lane0(lambda h: head(params, h, cfg), x, alone=alone), cache
 
@@ -655,18 +699,33 @@ def generate_monolithic(
     seed = _check_sample_args(prompt, max_new_tokens, temperature, seed,
                               max_len=max_len)
     device = resolve_device(device)
-    params = to_device(params, device)
+    return _generate_loop(to_device(params, device), prompt, cfg,
+                          max_new_tokens, temperature, seed, max_len, top_k,
+                          top_p, device)
+
+
+def _generate_loop(params, prompt, cfg, max_new_tokens, temperature, seed,
+                   max_len, top_k, top_p, device, *, n_kv=None,
+                   top_transform=None, **fwd_kw) -> torch.Tensor:
+    """The reference loop every ``*_monolithic`` path runs (the JAX
+    package's ``_generate_impl``): a fresh zeroed dense cache of ``n_kv``
+    heads, one prefill forward, then one single-token forward per token.
+    ``top_transform``: a function of the params run before each forward
+    (ZeRO-3 gathers the embeddings and the head there); ``fwd_kw`` goes to
+    ``forward`` (``tp_group``, ``block_transform``)."""
     ids = as_prompt(prompt, device)
     b, tp = ids.shape
     sampled = temperature > 0
     t, k, p = sampling_scalars(temperature, top_k, top_p, cfg.vocab_size)
     cache = init_cache(cfg, b, max_len or tp + max_new_tokens,
-                       device=device)
-    logits, cache = forward(params, ids, cfg, cache, 0)
+                       device=device, n_kv=n_kv)
+    top = top_transform or (lambda prm: prm)
+    logits, cache = forward(top(params), ids, cfg, cache, 0, **fwd_kw)
     tok = sample_token(logits[:, -1], sampled, t, sample_seed(seed, 0), k, p)
     out = [ids, tok[:, None]]
     for i in range(max_new_tokens - 1):
-        logits, cache = forward(params, tok[:, None], cfg, cache, tp + i)
+        logits, cache = forward(top(params), tok[:, None], cfg, cache,
+                                tp + i, **fwd_kw)
         tok = sample_token(logits[:, -1], sampled, t,
                            sample_seed(seed, i + 1), k, p)
         out.append(tok[:, None])
@@ -703,31 +762,196 @@ def generate(
 
 
 @functools.lru_cache(maxsize=None)
-def shim_engine(cfg: ModelConfig, max_len: int, device: str):
-    """The engine behind ``generate``: exact-length buckets and no cache
+def shim_engine(cfg: ModelConfig, max_len: int, device: str, mesh_cfg=None):
+    """The engine behind ``generate`` (and, with ``mesh_cfg``, behind
+    ``generate_tp``/``generate_fsdp``): exact-length buckets and no cache
     pool (an engine lives as long as the process, so a pooled cache per
     request shape would grow memory with request diversity)."""
     from pytorch_distributed_tpu_torch.serving.engine import DecodeEngine
 
     return DecodeEngine(cfg, max_len=max_len, pool_caches=False,
-                        device=device)
+                        device=device, mesh_cfg=mesh_cfg)
 
 
-def generate_tp(*args, **kwargs):
-    """Tensor-parallel decode: not ported yet."""
-    raise NotImplementedError(f"generate_tp {MESH_NOT_PORTED}")
+# -- meshed generation (tensor parallelism, ZeRO-3) ---------------------------
+
+_MESH_AXES = ("data", "fsdp", "tensor", "seq", "pipe", "expert")
 
 
-def generate_tp_monolithic(*args, **kwargs):
-    """Tensor-parallel reference decode: not ported yet."""
-    raise NotImplementedError(f"generate_tp_monolithic {MESH_NOT_PORTED}")
+def _validate_tp_mesh(cfg: ModelConfig, mesh_cfg) -> None:
+    """The shared ``generate_tp`` validation (the JAX package's)."""
+    tp_size = mesh_cfg.tensor
+    if tp_size <= 1:
+        raise ValueError("generate_tp needs mesh_cfg.tensor > 1")
+    for ax in _MESH_AXES:
+        if ax != "tensor" and getattr(mesh_cfg, ax) > 1:
+            raise NotImplementedError(
+                f"generate_tp supports a tensor-only mesh (got {ax}="
+                f"{getattr(mesh_cfg, ax)})")
+    if cfg.n_experts and cfg.inner_dim % tp_size:
+        raise ValueError(
+            f"tensor={tp_size} must divide the MoE expert hidden dim "
+            f"inner_dim={cfg.inner_dim} (experts run Megatron TP on F)")
+    if cfg.n_head % tp_size or cfg.kv_heads % tp_size:
+        raise ValueError(
+            f"tensor={tp_size} must divide n_head={cfg.n_head} and "
+            f"kv_heads={cfg.kv_heads}")
 
 
-def generate_fsdp(*args, **kwargs):
-    """ZeRO-3 decode from the training layout: not ported yet."""
-    raise NotImplementedError(f"generate_fsdp {MESH_NOT_PORTED}")
+def _validate_fsdp_mesh(mesh_cfg) -> None:
+    """The shared ``generate_fsdp`` validation (the JAX package's)."""
+    if mesh_cfg.fsdp <= 1:
+        raise ValueError("generate_fsdp needs mesh_cfg.fsdp > 1")
+    for ax in _MESH_AXES:
+        if ax != "fsdp" and getattr(mesh_cfg, ax) > 1:
+            raise NotImplementedError(
+                f"generate_fsdp supports an fsdp-only mesh (got {ax}="
+                f"{getattr(mesh_cfg, ax)}); combine with generate_tp's "
+                "tensor sharding is future surface")
+    if mesh_cfg.strategy != "full_shard":
+        raise ValueError(
+            "generate_fsdp decodes from full_shard (ZeRO-3) param "
+            f"layouts; strategy={mesh_cfg.strategy!r} keeps params "
+            "replicated — plain generate already covers it")
 
 
-def generate_fsdp_monolithic(*args, **kwargs):
-    """ZeRO-3 reference decode: not ported yet."""
-    raise NotImplementedError(f"generate_fsdp_monolithic {MESH_NOT_PORTED}")
+def zero3_transforms(specs, mesh):
+    """(top_transform, block_transform) of ZeRO-3 decode over ``mesh``'s
+    fsdp group: each all-gathers the sharded leaves of its part of this
+    rank's full_shard params (``parallel/zero.all_gather_dim``, no
+    autograd) — the embeddings, final norm and head once per forward, a
+    layer's leaves just before the layer runs."""
+    from pytorch_distributed_tpu_torch.parallel.sharding import shard_dim
+    from pytorch_distributed_tpu_torch.parallel.zero import all_gather_dim
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    group, n = mesh.axis_group("fsdp"), mesh.cfg.fsdp
+
+    def gather(leaves, leaf_specs):
+        return tree.map_tree2(
+            lambda leaf, spec: leaf if shard_dim(spec) is None else
+            all_gather_dim(leaf, shard_dim(spec), group, n),
+            leaves, leaf_specs)
+
+    # Every layer's leaves have the same shapes, hence the same specs.
+    block_specs = specs["blocks"][0]
+    top_specs = {k: v for k, v in specs.items() if k != "blocks"}
+
+    def top(params):
+        out = gather({k: v for k, v in params.items() if k != "blocks"},
+                     top_specs)
+        out["blocks"] = params["blocks"]
+        return out
+
+    return top, lambda bp: gather(bp, block_specs)
+
+
+def _meshed_setup(params, mesh_cfg, device):
+    """(mesh, spec tree, this rank's param slices) of a meshed
+    monolithic path; every rank of the world calls it."""
+    from pytorch_distributed_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_distributed_tpu_torch.parallel.sharding import (
+        param_partition_specs,
+        shard_params,
+    )
+
+    mesh = make_mesh(mesh_cfg, device=device)
+    params = to_device(params, device)
+    specs = param_partition_specs(params, mesh_cfg)
+    return mesh, specs, shard_params(params, specs, mesh)
+
+
+def _meshed_generate(kind, params, prompt, cfg, mesh_cfg, max_new_tokens,
+                     temperature, seed, max_len, top_k, top_p, device):
+    """``generate_tp``/``generate_fsdp``: the shim over the meshed
+    ``DecodeEngine`` (one per (cfg, max_len, device, mesh_cfg))."""
+    (_validate_tp_mesh(cfg, mesh_cfg) if kind == "tp"
+     else _validate_fsdp_mesh(mesh_cfg))
+    seed = _check_sample_args(prompt, max_new_tokens, temperature, seed,
+                              max_len=max_len)
+    engine = shim_engine(
+        cfg, max_len or (np.shape(prompt)[-1] + max_new_tokens),
+        str(resolve_device(device)), mesh_cfg,
+    )
+    return engine.generate(
+        params, prompt, max_new_tokens, temperature=temperature, seed=seed,
+        top_k=top_k, top_p=top_p,
+    )
+
+
+def generate_tp(
+    params: Params, prompt, cfg: ModelConfig, mesh_cfg,
+    max_new_tokens: int, *, temperature: float = 0.0,
+    seed: int | None = None, max_len: int | None = None,
+    top_k: int | None = None, top_p: float | None = None, device=None,
+) -> torch.Tensor:
+    """Tensor-parallel generation over a tensor-only mesh, on every rank
+    of the group: block params sharded Megatron-style
+    (``parallel/sharding``, the layout training would leave them in),
+    attention on this rank's heads against a local-head KV cache (1/tp of
+    the cache memory), one all-reduce after each row-parallel projection,
+    and the replicated logits sampled alike on every rank. ``params``:
+    the full params (this rank keeps its slices); ``device``: this rank's
+    device (None: the card). The shim over the TP ``DecodeEngine``;
+    ``generate_tp_monolithic`` is the reference loop."""
+    return _meshed_generate("tp", params, prompt, cfg, mesh_cfg,
+                            max_new_tokens, temperature, seed, max_len,
+                            top_k, top_p, device)
+
+
+@torch.no_grad()
+def generate_tp_monolithic(
+    params: Params, prompt, cfg: ModelConfig, mesh_cfg,
+    max_new_tokens: int, *, temperature: float = 0.0,
+    seed: int | None = None, max_len: int | None = None,
+    top_k: int | None = None, top_p: float | None = None, device=None,
+) -> torch.Tensor:
+    """The TP reference loop: ``generate_monolithic`` over this rank's
+    param slices and a local-head cache, the tensor group threaded through
+    ``forward``."""
+    _validate_tp_mesh(cfg, mesh_cfg)
+    seed = _check_sample_args(prompt, max_new_tokens, temperature, seed,
+                              max_len=max_len)
+    device = resolve_device(device)
+    mesh, _, local = _meshed_setup(params, mesh_cfg, device)
+    return _generate_loop(local, prompt, cfg, max_new_tokens, temperature,
+                          seed, max_len, top_k, top_p, device,
+                          n_kv=cfg.kv_heads // mesh_cfg.tensor,
+                          tp_group=mesh.axis_group("tensor"))
+
+
+def generate_fsdp(
+    params: Params, prompt, cfg: ModelConfig, mesh_cfg,
+    max_new_tokens: int, *, temperature: float = 0.0,
+    seed: int | None = None, max_len: int | None = None,
+    top_k: int | None = None, top_p: float | None = None, device=None,
+) -> torch.Tensor:
+    """Decode from ZeRO-3-sharded params over an fsdp-only full_shard
+    mesh, on every rank of the group: each rank keeps its full_shard
+    slices (``parallel/sharding``, the layout the ZeRO-3 trainer keeps;
+    1/fsdp of the param memory) and all-gathers each layer just in time
+    (``zero3_transforms``; ``prefetch_buffers`` is 0, item 7(d)). The shim
+    over the ZeRO-3 ``DecodeEngine``; MoE configs work unchanged."""
+    return _meshed_generate("fsdp", params, prompt, cfg, mesh_cfg,
+                            max_new_tokens, temperature, seed, max_len,
+                            top_k, top_p, device)
+
+
+@torch.no_grad()
+def generate_fsdp_monolithic(
+    params: Params, prompt, cfg: ModelConfig, mesh_cfg,
+    max_new_tokens: int, *, temperature: float = 0.0,
+    seed: int | None = None, max_len: int | None = None,
+    top_k: int | None = None, top_p: float | None = None, device=None,
+) -> torch.Tensor:
+    """The ZeRO-3 reference loop: ``generate_monolithic`` over this
+    rank's full_shard slices with the just-in-time gathers."""
+    _validate_fsdp_mesh(mesh_cfg)
+    seed = _check_sample_args(prompt, max_new_tokens, temperature, seed,
+                              max_len=max_len)
+    device = resolve_device(device)
+    mesh, specs, local = _meshed_setup(params, mesh_cfg, device)
+    top, block = zero3_transforms(specs, mesh)
+    return _generate_loop(local, prompt, cfg, max_new_tokens, temperature,
+                          seed, max_len, top_k, top_p, device,
+                          top_transform=top, block_transform=block)

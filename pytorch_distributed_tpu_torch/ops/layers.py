@@ -16,6 +16,10 @@ Conventions shared with the JAX package's ``ops/layers.py``:
 - A quantized kernel (``ops/quant.quantize_weight``: int8 values and a
   per-output-channel f32 scale) goes through ``ops/quant.qdot``, as the
   JAX package's ``dense`` delegates to its ``qdot``.
+- ``dense(tp_group=, extra_pre_reduce=)`` is JAX's ``tp_reduce_axis`` and
+  ``extra_pre_reduce``: a row-parallel product's partial, its addend and
+  its int8 scale, ONE all-reduce (``ops/tp``), then the bias
+  (``dense_epilogue``).
 - ``dropout`` draws its mask through ``utils/prng.draw_keep_mask`` from a
   stream id, where the JAX package's draws ``jax.random.bernoulli`` from a
   key.
@@ -28,21 +32,52 @@ import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch.ops.quant import is_quantized, qdot
 from pytorch_distributed_tpu_torch.ops.remat import product
+from pytorch_distributed_tpu_torch.ops.tp import tp_reduce
 from pytorch_distributed_tpu_torch.utils import prng
 
 
-def dense(x: torch.Tensor, params: dict) -> torch.Tensor:
+def dense(x: torch.Tensor, params: dict, *, tp_group=None,
+          extra_pre_reduce=None) -> torch.Tensor:
     """y = x @ kernel + bias; kernel [in, out...] (trailing output dims
     are kept, e.g. the merged QKV kernel [E, 3, H, D]) or its int8 form
     (``ops/quant.qdot``: the scale applied before the bias); bias
     optional. A plain kernel's product is kept by ``names`` remat under a
-    saved tag (``ops/remat.product``)."""
+    saved tag (``ops/remat.product``).
+
+    ``tp_group``: the tensor group this product is row-parallel over (the
+    JAX package's ``tp_reduce_axis``): the kernel's input dim is sharded,
+    each rank's product is a partial sum, and ONE all-reduce
+    (``ops/tp.tp_reduce``) runs after the partial product and before the
+    replicated bias, so the bias is counted once. The int8 scale is a
+    linear factor applied inside ``qdot``, before the sum.
+    ``extra_pre_reduce``: an addend joined to the (partial) product before
+    the sum — a tensor, or a function ``y -> y + delta`` (the LoRA delta
+    kernel adds in place, ``ops/lora_kernel``). On a row-parallel
+    projection the delta is a partial too, and by linearity one sum of
+    (base + delta) equals the sum of each, so adapters add no collective.
+    """
     w = params["kernel"]
     if is_quantized(w):
         y = qdot(x, w)
     else:
         y = product(x, w.reshape(w.shape[0], -1).to(x.dtype))
         y = y.reshape(*x.shape[:-1], *w.shape[1:])
+    return dense_epilogue(y, params, tp_group=tp_group,
+                          extra_pre_reduce=extra_pre_reduce)
+
+
+def dense_epilogue(y: torch.Tensor, params: dict, *, tp_group=None,
+                   extra_pre_reduce=None) -> torch.Tensor:
+    """The tail of ``dense`` after its product ``y``: the pre-reduce
+    addend, the one all-reduce over ``tp_group``, then ``params``' bias
+    (if any). Decode calls it on a product it computed itself (lane 0
+    alone, ``models/decode._lane0``), so that a projection issues one
+    all-reduce whatever the product's shape."""
+    if callable(extra_pre_reduce):
+        y = extra_pre_reduce(y)
+    elif extra_pre_reduce is not None:
+        y = y + extra_pre_reduce.to(y.dtype)
+    y = tp_reduce(y, tp_group)
     bias = params.get("bias")
     if bias is not None:
         y = y + bias.to(y.dtype)

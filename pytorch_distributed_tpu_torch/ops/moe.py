@@ -45,9 +45,12 @@ the experts); ``names`` nothing (the MoE MLP has no tag), as JAX's
 ``saved_residuals`` show (tests/test_torch_moe.py).
 
 The aux loss is Switch's load-balancing term over first choices,
-X * sum_e(fraction_e * mean_prob_e). Expert and tensor parallelism
-(``expert_axis``, ``tensor_axis``) are multi-device and not ported (ROADMAP
-queue 1 item 7): they are refused.
+X * sum_e(fraction_e * mean_prob_e). Tensor parallelism inside each expert
+(``tensor_axis``, the tensor process group: ``w_in``/``w_gate`` column-
+and ``w_out`` row-parallel on F, one all-reduce after ``w_out``) serves
+TP decode; its backward (``ops/tp``) is in place for the TP training
+slice (ROADMAP queue 1 item 7(f)). Expert parallelism (``expert_axis``)
+is refused: ROADMAP queue 1 item 7(e).
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from typing import Callable
 import torch
 
 from pytorch_distributed_tpu_torch.ops.remat import product
+from pytorch_distributed_tpu_torch.ops.tp import tp_copy, tp_reduce
 
 # "auto" switches einsum -> sort once the [A, X, C] dispatch tensor would
 # exceed this many elements (64 MiB of f32), as in the JAX package.
@@ -83,18 +87,22 @@ def _route(xt: torch.Tensor, router: torch.Tensor, top_k: int):
 
 
 def _expert_compute(expert_in: torch.Tensor, params: dict,
-                    activation: Callable) -> torch.Tensor:
+                    activation: Callable, tensor_axis=None) -> torch.Tensor:
     """[X, C, D] expert batches -> [X, C, D]. Dense experts:
     act(x @ w_in) @ w_out; gated (SwiGLU) experts with ``w_gate``:
     (act(x @ w_gate) * (x @ w_in)) @ w_out; weights cast to the batches'
-    dtype."""
+    dtype. ``tensor_axis`` (the tensor process group): Megatron TP inside
+    each expert — ``w_in``/``w_gate`` hold this rank's columns of F,
+    ``w_out`` its rows, and one all-reduce after ``w_out`` restores the
+    full output (the f/g pair of ``ops/tp``)."""
     dt = expert_in.dtype
+    expert_in = tp_copy(expert_in, tensor_axis)
     h = product(expert_in, params["w_in"].to(dt))
     if "w_gate" in params:
         h = activation(product(expert_in, params["w_gate"].to(dt))) * h
     else:
         h = activation(h)
-    return product(h, params["w_out"].to(dt))
+    return tp_reduce(product(h, params["w_out"].to(dt)), tensor_axis)
 
 
 def _assignment_positions(e_flat: torch.Tensor, n_experts: int):
@@ -149,7 +157,7 @@ def _combine(expert_out: torch.Tensor, slot: torch.Tensor,
 
 
 def _dispatch_einsum(xt, expert_idx, gates, n_experts, cap, params,
-                     activation, out_dtype):
+                     activation, out_dtype, tensor_axis=None):
     """One-hot dispatch through the f32 [A, X, C] tensor."""
     t, k = expert_idx.shape
     a = t * k
@@ -168,13 +176,13 @@ def _dispatch_einsum(xt, expert_idx, gates, n_experts, cap, params,
                ).view(t, k, n_experts, cap).sum(1)
     expert_in = product(dispatch.view(t, n_experts * cap).t(),
                         xt.float()).view(n_experts, cap, -1).to(out_dtype)
-    expert_out = _expert_compute(expert_in, params, activation)
+    expert_out = _expert_compute(expert_in, params, activation, tensor_axis)
     return combine.view(t, n_experts * cap) @ \
         expert_out.float().view(n_experts * cap, -1)
 
 
 def _dispatch_sort(xt, expert_idx, gates, n_experts, cap, params,
-                   activation, out_dtype):
+                   activation, out_dtype, tensor_axis=None):
     """Segment dispatch: no [A, X, C] tensor, the same semantics."""
     t, k = expert_idx.shape
     a = t * k
@@ -196,23 +204,31 @@ def _dispatch_sort(xt, expert_idx, gates, n_experts, cap, params,
     # k in a fixed order).
     x_rep = xt.to(out_dtype)[:, None, :].expand(t, k, d).reshape(a, d)
     expert_in = _Rows.apply(x_rep, src, slot).view(n_experts, cap, d)
-    expert_out = _expert_compute(expert_in, params, activation)
+    expert_out = _expert_compute(expert_in, params, activation, tensor_axis)
     gate_flat = torch.where(keep, gates.reshape(a).float(), 0.0)
     return _combine(expert_out, slot, src, gate_flat, t, k)
 
 
 def moe_mlp(x: torch.Tensor, params: dict, *, activation: Callable,
             capacity_factor: float = 1.25, expert_axis: str | None = None,
-            tensor_axis: str | None = None, top_k: int = 1,
+            tensor_axis=None, top_k: int = 1,
             dispatch_impl: str = "auto"):
     """[B, T, D] -> (output [B, T, D] in x's dtype, aux f32 scalar).
     ``params``: router [D, X]; w_in [X, D, F]; w_out [X, F, D]; optional
-    w_gate [X, D, F] (SwiGLU experts)."""
-    if expert_axis is not None or tensor_axis is not None:
+    w_gate [X, D, F] (SwiGLU experts). ``tensor_axis``: the tensor process
+    group for TP inside each expert (the expert weights this rank's F
+    slice, ``parallel/sharding``); routing runs on the replicated
+    activations, so every rank routes alike. ``expert_axis`` is refused
+    (item 7(e))."""
+    if expert_axis is not None:
         raise NotImplementedError(
-            "expert_axis/tensor_axis are multi-device (expert and tensor "
-            "parallelism) and not ported yet (ROADMAP queue 1 item 7(e); "
-            "the tensor axis item 7(b))")
+            "expert_axis is expert parallelism, not ported yet (ROADMAP "
+            "queue 1 item 7(e))")
+    if isinstance(tensor_axis, str):
+        raise TypeError(
+            f"tensor_axis is the tensor process group in the port "
+            f"(parallel/mesh.Mesh.axis_group('tensor')), got the axis name "
+            f"{tensor_axis!r}")
     b, t, d = x.shape
     n_tokens = b * t
     xt = x.reshape(n_tokens, d)
@@ -233,10 +249,10 @@ def moe_mlp(x: torch.Tensor, params: dict, *, activation: Callable,
                          else "sort")
     if dispatch_impl == "einsum":
         out = _dispatch_einsum(xt, expert_idx, gates, n_experts, cap, params,
-                               activation, x.dtype)
+                               activation, x.dtype, tensor_axis)
     elif dispatch_impl == "sort":
         out = _dispatch_sort(xt, expert_idx, gates, n_experts, cap, params,
-                             activation, x.dtype)
+                             activation, x.dtype, tensor_axis)
     else:
         raise ValueError(f"unknown dispatch_impl {dispatch_impl!r}")
     return out.to(x.dtype).reshape(b, t, d), aux

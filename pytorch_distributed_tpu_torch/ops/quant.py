@@ -23,6 +23,12 @@ scale 1 for an all-zero row, a true division by ``max(scale, 1e-30)``,
 round half to even, clamp to [-127, 127]), so equal f32 inputs give
 bit-equal int8 values and scales on both sides.
 
+Under tensor parallelism a kernel is quantized whole, then sharded
+(``quantized_param_specs``): ``q8`` keeps the kernel's spec and the scale
+drops the contracting dim, so a column-parallel rank holds its channels'
+scales and a row-parallel rank the full scale vector, and ``qdot`` scales
+the partial product before the one all-reduce (a linear factor).
+
 The quality metrics are numpy copies of the JAX module's: the port keeps
 its own so it never imports the JAX package.
 """
@@ -145,6 +151,41 @@ def quantize_decode_params(params: dict) -> dict:
     out = dict(params)
     out["blocks"] = [_quantize_layer(bp) for bp in params["blocks"]]
     return out
+
+
+def _is_quant_path(path) -> bool:
+    keys = tuple(k for k in path if isinstance(k, str))
+    return bool(path) and path[0] == "blocks" and any(
+        keys[-n:] in QUANT_WEIGHT_SUFFIXES for n in (3, 2) if len(keys) >= n)
+
+
+def quantized_param_specs(p_specs, params):
+    """The spec tree of the quantized params (``quantize_decode_params``)
+    from the unquantized one (``parallel/sharding.param_partition_specs``,
+    tuple specs): a quantized kernel keeps its spec on ``q8``, and its
+    ``scale`` drops the contracting dim's entry (a per-layer leaf's dim 0)
+    — column-parallel scales shard with their output channels,
+    row-parallel scales are replicated, matching the local outputs
+    ``qdot`` multiplies them into (JAX's ``quantized_param_specs``).
+    ``params``: the unquantized tree the specs describe."""
+
+    def leaf(path, spec, w):
+        if not _is_quant_path(path):
+            return spec
+        entries = list(spec) + [None] * (w.dim() - len(spec))
+        del entries[0]
+        scale = tuple(entries) if any(e for e in entries) else ()
+        return {"q8": spec, "scale": scale}
+
+    def walk(path, spec, w):
+        if isinstance(spec, dict):
+            return {k: walk(path + (k,), spec[k], w[k]) for k in spec}
+        if isinstance(spec, list):
+            return [walk(path + (i,), s, x)
+                    for i, (s, x) in enumerate(zip(spec, w))]
+        return leaf(path, spec, w)
+
+    return walk((), p_specs, params)
 
 
 # -- quality metrics (numpy copies of the JAX package's) --------------------

@@ -44,7 +44,8 @@ def make_parallel_train_step(
     (state, metrics)`` over this rank's rows (``parallel/explicit``; ``tx``
     may clip: its clip moves into the step), and ``batch_put``, which
     places this rank's rows of a host global [A, B, T] batch on the mesh's
-    device (``parallel/mesh.make_batch_put``)."""
+    device (``parallel/mesh.make_batch_put``). A tensor axis > 1 raises
+    there (``config.check_trainable_mesh``: TP training is item 7(f))."""
     step = make_explicit_train_step(
         model, model_cfg, make_optimizer(tx.cfg, with_clip=False), mesh,
         mesh_cfg, sharding, grad_clip_norm=tx.clip, accum_dtype=accum_dtype,

@@ -50,7 +50,11 @@ from typing import Callable
 
 import torch
 
-from pytorch_distributed_tpu_torch.config import MeshConfig, ModelConfig
+from pytorch_distributed_tpu_torch.config import (
+    MeshConfig,
+    ModelConfig,
+    check_trainable_mesh,
+)
 from pytorch_distributed_tpu_torch.models import ModelApi
 from pytorch_distributed_tpu_torch.parallel import zero
 from pytorch_distributed_tpu_torch.parallel.mesh import (
@@ -97,6 +101,7 @@ def make_explicit_train_step(
     dropout streams' (``train/trainer.make_train_step``). Metrics: the
     global ``loss`` and ``grad_norm``, equal on every rank (and
     ``anomaly`` with ``guard``)."""
+    check_trainable_mesh(mesh_cfg)
     if mesh.cfg != mesh_cfg:
         raise ValueError("mesh_cfg is not the mesh's config")
     if tx.clip is not None:

@@ -9,6 +9,8 @@ device order), and every axis of size > 1 gets the process groups of the
 ranks that differ only along it. Collectives are explicit calls on those
 groups (``parallel/zero``).
 
+- ``spawn_ranks``: the twins' ``--cpu-devices N``, N ranks of a module
+  started on this host as a launcher would.
 - ``initialize_distributed()``: the env:// rendezvous torchrun sets up
   (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``); without
   them a world of one on a free localhost port. Backend ``nccl`` for a
@@ -30,6 +32,8 @@ from __future__ import annotations
 import dataclasses
 import os
 import socket
+import subprocess
+import sys
 from datetime import timedelta
 
 import numpy as np
@@ -48,6 +52,21 @@ def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
+
+
+def spawn_ranks(n: int, module: str, argv: list[str]) -> int:
+    """Start ``n`` ranks of ``python -m module argv`` on this host, as a
+    launcher would (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE`` and a free
+    127.0.0.1 port); wait for all. The highest exit code wins."""
+    port = _free_port()
+    procs = []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port))
+        procs.append(subprocess.Popen([sys.executable, "-m", module, *argv],
+                                      env=env))
+    return max(p.wait() for p in procs)
 
 
 def initialize_distributed(*, device: str | torch.device | None = None,

@@ -15,8 +15,22 @@ last; none such, and the leaf stays replicated. The port's per-layer
 block leaves are JAX's stacked ``[L, ...]`` leaves with L dropped, as
 JAX's own explicit step drops it for its per-layer gathers; so a block
 leaf's spec is JAX's without its leading None, and the embedding tables
-(wte, wpe) shard from dim 1, as in JAX. The tensor and expert rules have
-no counterpart yet (``MeshConfig`` refuses those axes).
+(wte, wpe) shard from dim 1, as in JAX.
+
+The tensor axis (``_TENSOR_RULES``, JAX's Megatron placement): the
+column-parallel projections (QKV, the MLP's up projections, the MoE
+experts' ``w_in``/``w_gate``) shard their output dim, the row-parallel
+ones that follow (``c_proj``/``wo``/``down``/``w_out``) their input dim,
+so one all-reduce after each row-parallel product is the only forward
+collective. JAX's dims count the stacked layer dim; the port's per-layer
+leaves take each dim minus one. GPT-2's fused QKV kernel [E, 3, H, D]
+shards its HEAD dim, never a flat 3E split, so q, k and v stay
+head-aligned on every rank. The tensor rule claims its dim first, then
+fsdp shards the largest remaining divisible dim (JAX's combined spec). A
+tensor dim the axis does not divide is refused, as in JAX. The expert
+axis has no rules yet (``MeshConfig`` refuses it, ROADMAP queue 1 item
+7(e)). ``shard_params`` keeps this rank's slice of every sharded leaf of
+full params, along every axis its spec names.
 
 ``shard_train_state`` keeps, on each rank, only its slice of every
 sharded leaf and of its Adam moments: with F = fsdp, rank f holds
@@ -38,20 +52,68 @@ from pytorch_distributed_tpu_torch.utils import tree
 
 REPLICATED: tuple = ()
 
+# Megatron tensor-parallel placement (JAX's ``_TENSOR_RULES``), keyed by
+# param-path suffix: the dim of a PER-LAYER block leaf the tensor axis
+# splits (JAX's stacked dim minus one).
+_TENSOR_RULES: dict[tuple[str, ...], int] = {
+    # gpt2: the fused QKV kernel [E, 3, H, D] shards its head dim.
+    ("attn", "c_attn", "kernel"): 2,
+    ("attn", "c_attn", "bias"): 1,
+    ("attn", "c_proj", "kernel"): 0,
+    ("mlp", "c_fc", "kernel"): 1,
+    ("mlp", "c_fc", "bias"): 0,
+    ("mlp", "c_proj", "kernel"): 0,
+    # llama
+    ("attn", "wq"): 1,
+    ("attn", "wk"): 1,
+    ("attn", "wv"): 1,
+    ("attn", "wo"): 0,
+    ("mlp", "gate"): 1,
+    ("mlp", "up"): 1,
+    ("mlp", "down"): 0,
+    # MoE experts [X, D, F] / [X, F, D]: TP inside each expert on F; the
+    # router stays replicated (routing must agree across tensor ranks).
+    ("mlp", "w_in"): 2,
+    ("mlp", "w_gate"): 2,
+    ("mlp", "w_out"): 1,
+}
+
+
+def _tensor_dim(path) -> int | None:
+    keys = tuple(k for k in path if isinstance(k, str))
+    for n in (3, 2):
+        if len(keys) >= n and keys[-n:] in _TENSOR_RULES:
+            return _TENSOR_RULES[keys[-n:]]
+    return None
+
 
 def _leaf_spec(shape: tuple[int, ...], mesh_cfg: MeshConfig, *,
-               shard_fsdp: bool, min_dim: int = 0) -> tuple:
-    if not shape or not shard_fsdp or mesh_cfg.fsdp <= 1:
+               shard_fsdp: bool, min_dim: int = 0, path=()) -> tuple:
+    """The combined tensor + fsdp spec of one leaf: the tensor rule (if
+    any) claims its dim, then fsdp shards the largest remaining divisible
+    dim >= ``min_dim`` (ties to the last)."""
+    if not shape:
         return REPLICATED
-    best_dim, best_size = None, 0
-    for i, s in enumerate(shape):
-        if i >= min_dim and s % mesh_cfg.fsdp == 0 and s >= best_size \
-                and s > 1:
-            best_dim, best_size = i, s
-    if best_dim is None:
+    spec: list = [None] * len(shape)
+    tdim = _tensor_dim(path) if mesh_cfg.tensor > 1 else None
+    if tdim is not None:
+        if shape[tdim] % mesh_cfg.tensor:
+            raise ValueError(
+                f"tensor-parallel dim {tdim} of param "
+                f"{'/'.join(map(str, path))} (shape {shape}) is not "
+                f"divisible by tensor={mesh_cfg.tensor}")
+        spec[tdim] = "tensor"
+    if shard_fsdp and mesh_cfg.fsdp > 1:
+        best_dim, best_size = None, 0
+        for i, s in enumerate(shape):
+            if i >= min_dim and spec[i] is None and \
+                    s % mesh_cfg.fsdp == 0 and s >= best_size and s > 1:
+                best_dim, best_size = i, s
+        if best_dim is not None:
+            spec[best_dim] = "fsdp"
+    if all(ax is None for ax in spec):
         return REPLICATED
-    return tuple("fsdp" if i == best_dim else None
-                 for i in range(len(shape)))
+    return tuple(spec)
 
 
 def _min_dim(path) -> int:
@@ -63,13 +125,14 @@ def _min_dim(path) -> int:
 def param_partition_specs(params, mesh_cfg: MeshConfig, *,
                           for_grads: bool = False):
     """The spec tree of ``params`` under the strategy; ``for_grads``: the
-    gradients' (sharded under shard_grad_op too)."""
+    gradients' (sharded under shard_grad_op too). The tensor axis shards
+    under every strategy (TP is orthogonal to the ZeRO level)."""
     shard = mesh_cfg.strategy == "full_shard" or (
         for_grads and mesh_cfg.strategy == "shard_grad_op")
     return tree.map_tree_with_path(
         lambda path, p: _leaf_spec(tuple(p.shape), mesh_cfg,
                                    shard_fsdp=shard,
-                                   min_dim=_min_dim(path)),
+                                   min_dim=_min_dim(path), path=path),
         params)
 
 
@@ -83,7 +146,8 @@ def opt_state_partition_specs(opt_state: dict, mesh_cfg: MeshConfig):
             out[k] = tree.map_tree_with_path(
                 lambda path, p: _leaf_spec(tuple(p.shape), mesh_cfg,
                                            shard_fsdp=shard,
-                                           min_dim=_min_dim(path)), v)
+                                           min_dim=_min_dim(path),
+                                           path=path), v)
         else:
             out[k] = REPLICATED
     return out
@@ -104,14 +168,20 @@ def shard_dim(spec: tuple) -> int | None:
 
 
 def shard_slice(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
-    """This rank's slice of a full leaf (a view; the full leaf for a
-    replicated spec)."""
-    dim = shard_dim(spec)
-    if dim is None:
-        return full
-    f = mesh.cfg.fsdp
-    size = full.shape[dim] // f
-    return full.narrow(dim, mesh.axis_index("fsdp") * size, size)
+    """This rank's slice of a full leaf along every axis ``spec`` names (a
+    view; the full leaf for a replicated spec)."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            size = full.shape[dim] // mesh.axis_size(axis)
+            full = full.narrow(dim, mesh.axis_index(axis) * size, size)
+    return full
+
+
+def shard_params(params, specs, mesh):
+    """This rank's slices of full ``params`` under the spec tree ``specs``
+    (contiguous copies of the sharded leaves, the replicated ones as
+    given)."""
+    return tree.map_tree2(lambda p, s: _take(p, s, mesh), params, specs)
 
 
 def full_shape(shard: torch.Tensor, spec: tuple, fsdp: int) -> tuple:
@@ -131,8 +201,7 @@ def state_sharding(state: TrainState, mesh) -> StateSharding:
 
 
 def _take(t, spec, mesh):
-    return t if shard_dim(spec) is None else \
-        shard_slice(t, spec, mesh).contiguous().clone()
+    return t if not spec else shard_slice(t, spec, mesh).contiguous().clone()
 
 
 def shard_train_state(state: TrainState, mesh

@@ -35,9 +35,16 @@ Registration is host-side and rare; ``device_tree(device)`` keeps one
 upload per (registry version, device), so replicas sharing a card share
 it. Random factors come from an integer ``seed`` through a
 ``torch.Generator`` (JAX's threefry draw cannot be reproduced); explicit
-factors are the deployment path. Tensor-parallel sharding of the factors
-(the JAX package's ``partition_specs``) waits for the multi-GPU slice
-(ROADMAP queue 1 item 7(b)).
+factors are the deployment path.
+
+Tensor parallelism (``partition_specs``, ``device_tree(shard=)``): the
+factors shard with their projections — a column-parallel target (gpt2
+``q``, llama ``wq``) shards B's output axis with the base weight, a
+row-parallel one (``c_proj``, ``wo``) shards A's contracting dim, so its
+delta is a partial that joins the base partial before the projection's
+one all-reduce (``ops/layers.dense_epilogue``): adapters add no
+collective. ``ops/lora_kernel.lora_delta_add`` runs on the sliced factors
+unchanged: it reads its sizes from them.
 """
 
 from __future__ import annotations
@@ -56,8 +63,8 @@ def _targets(cfg: ModelConfig) -> dict[str, tuple[tuple, tuple, int | None]]:
     """target name -> (A shape, B shape, TP axis), the shapes per tenant
     WITH the leading layer dim ([L, in..] / [L, out..]; the registry
     appends or inserts the rank dim); the TP axis is the B-factor axis
-    that would shard under tensor parallelism, None for a row-parallel
-    target (kept for parity with the JAX package)."""
+    that shards under tensor parallelism, None for a row-parallel target
+    (``partition_specs``)."""
     l, e = cfg.n_layer, cfg.n_embd
     h, d = cfg.n_head, cfg.head_dim
     if cfg.family == "gpt2":
@@ -209,7 +216,42 @@ class AdapterRegistry:
         )
         return slot
 
-    def device_tree(self, device) -> list[dict]:
+    def partition_specs(self, tensor_axis: str = "tensor") -> dict:
+        """The JAX package's spec tree for the stacked factors (``a`` [L,
+        slots, in.., r], ``b`` [L, slots, r, out..], the host layout), as
+        tuples: column-parallel targets shard B's output axis, row-parallel
+        ones A's contracting dim."""
+        specs: dict = {}
+        for name, (a_shape, b_shape, b_axis) in self._targets.items():
+            a_spec = [None] * (len(a_shape) + 2)
+            b_spec = [None] * (len(b_shape) + 2)
+            if b_axis is not None:  # column-parallel: B's output dim
+                b_spec[2 + b_axis] = tensor_axis
+            else:  # row-parallel: A's contracting dim
+                a_spec[2] = tensor_axis
+            specs[name] = {"a": tuple(a_spec), "b": tuple(b_spec)}
+        return specs
+
+    def _host_shard(self, shard) -> dict[str, dict[str, np.ndarray]]:
+        """The host factors, or with ``shard`` = (tensor index, tensor
+        size) this rank's slices of them under ``partition_specs``."""
+        if shard is None:
+            return self._host
+        index, size = shard
+        out: dict = {}
+        for name, specs in self.partition_specs().items():
+            out[name] = {}
+            for leaf, spec in specs.items():
+                arr = self._host[name][leaf]
+                for dim, axis in enumerate(spec):
+                    if axis is not None:
+                        n = arr.shape[dim] // size
+                        arr = np.take(arr, range(index * n, (index + 1) * n),
+                                      axis=dim)
+                out[name][leaf] = np.ascontiguousarray(arr)
+        return out
+
+    def device_tree(self, device, shard=None) -> list[dict]:
         """The adapters on ``device`` as one dict per layer, {target: {"a":
         [S, ..in, r], "b": [S, r, ..out], "a_flat": [Din, S*r], "b_flat":
         [r, S*Dout], "kernel_args": the kernel's checked view of the flat
@@ -217,14 +259,16 @@ class AdapterRegistry:
         what ``ops/lora_kernel`` multiplies by, laid out and checked once
         here rather than on every forward). Uploaded once per (registry
         version, device); a registration uploads new tensors, so
-        ``kernel_args``' pointers live as long as the layer dicts."""
-        key = str(torch.device(device))
+        ``kernel_args``' pointers live as long as the layer dicts.
+        ``shard``: (tensor index, tensor size) for a TP engine — this rank's
+        slices of the factors (``partition_specs``)."""
+        key = f"{torch.device(device)}/{shard}"
         with self._lock:
             hit = self._device.get(key)
             if hit is not None and hit[0] == self.version:
                 return hit[1]
             layers = [{} for _ in range(self.cfg.n_layer)]
-            for name, leaves in self._host.items():
+            for name, leaves in self._host_shard(shard).items():
                 a = torch.from_numpy(leaves["a"]).to(device)
                 b = torch.from_numpy(leaves["b"]).to(device)
                 s, r = a.shape[1], self.rank

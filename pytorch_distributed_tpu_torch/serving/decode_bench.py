@@ -1059,8 +1059,9 @@ def bench_serving(args) -> list[dict]:
     prompt lengths every pass (the engine's buckets make its shape set
     finite), two sampling configs, batch 4 per request; cold, steady and
     repeat-stream rates and p50 request latency per path. The JAX leg's
-    ZeRO-3 decode sub-leg needs a mesh of two or more devices: it is
-    skipped here, with that reason on stderr (ROADMAP queue 1 item 7)."""
+    ZeRO-3 decode sub-leg needs a mesh of two or more ranks, and this twin
+    runs one process: it is skipped here, with that reason on stderr
+    (queued behind ROADMAP queue 1 item 7(f))."""
     from pytorch_distributed_tpu_torch.models import decode
     from pytorch_distributed_tpu_torch.serving.engine import (
         BucketSpec,
@@ -1172,8 +1173,8 @@ def bench_serving(args) -> list[dict]:
     engine_row["cache_hbm_bytes"] = hbm["allocated"]
     engine_row["cache_hbm_bytes_peak_in_use"] = hbm["peak_in_use"]
     print("zero3_decode skipped: the ZeRO-3 decode sub-leg needs a mesh of "
-          ">= 2 devices, and the port has no mesh yet (ROADMAP queue 1 "
-          "item 7)", file=sys.stderr)
+          ">= 2 ranks and this twin runs one process (queued behind ROADMAP "
+          "queue 1 item 7(f))", file=sys.stderr)
     return [{
         "leg": "serving_stream",
         "model": _model_row(cfg),
@@ -1777,8 +1778,9 @@ def bench_serving_spec(args) -> list[dict]:
         "plain's bit for bit, for 0 accepts — measured "
         f"{low_row['aggregate_speedup']}x of plain is the cost of leaving "
         "speculation on for non-greedy traffic")
-    print("serving_spec_tp skipped: the tensor-parallel pair needs >= 2 "
-          "devices and a mesh (ROADMAP queue 1 item 7)", file=sys.stderr)
+    print("serving_spec_tp skipped: the tensor-parallel pair needs a mesh "
+          "of >= 2 ranks and this twin runs one process (queued behind "
+          "ROADMAP queue 1 item 7(f))", file=sys.stderr)
     rows = [rep_row, low_row]
     for row in rows:
         row["invariant_failures"] = failures

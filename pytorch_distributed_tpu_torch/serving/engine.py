@@ -147,9 +147,38 @@ indexing on the card, consulted by the fault injector as the dispatch
 kinds "kv_export" and "kv_import"; a failed import is recovered like any
 failed dispatch.
 
-Left out of this port, relative to the JAX engines: tensor parallelism /
-ZeRO-3 decode (``DecodeEngine(mesh_cfg=...)`` raises, naming ROADMAP
-queue 1 item 7).
+**Meshed decode** (``mesh_cfg``, the JAX engines' modes, chosen by
+``_select_mode``): every rank of a ``torch.distributed`` group builds the
+same engine and makes the same calls (SPMD: one process a rank, the same
+host scheduler on every rank, collectives on the mesh's process groups,
+``parallel/mesh``); the engine takes the FULL params and keeps this
+rank's slices (``_MeshPlacement``). ``device`` names this rank's device.
+
+- ``tp`` (a tensor-only mesh; all three engines): Megatron-sharded block
+  params (``parallel/sharding``; int8 weights shard their ``q8`` with the
+  kernel and their scales by ``ops/quant.quantized_param_specs``), a
+  head-sharded cache — the dense cache and the page pool hold this
+  rank's ``Hkv / tp`` heads ([P, page, Hkv/tp, D], int8 scale pools
+  [P, page, Hkv/tp]), so K3/K4 run on each rank's local heads — and one
+  all-reduce after each row-parallel projection: 2 x n_layer a forward,
+  whatever the active rows, int8 or adapters (``ops/tp.collectives``).
+  LoRA factors shard with their projections
+  (``serving/adapters.AdapterRegistry.partition_specs``). The block pool,
+  queue and sampler are the same host structures on every rank, and the
+  logits after the last all-reduce are the same on every rank, so every
+  rank decides the same tokens, retirements, preemptions and quarantines;
+  a fault injector must be installed alike on every rank. A KV handoff
+  moves each rank's own heads' pages. Only injected faults are recovered
+  under ``tp``: a real error on one rank propagates (``RETRYABLE_ERRORS``
+  is empty), and the other ranks' next collective fails within the
+  group's timeout, so no rank retries alone into a mismatched sum.
+- ``zero3`` (an fsdp-only full_shard mesh; ``DecodeEngine`` only): each
+  rank keeps its full_shard slices and all-gathers the embeddings and head
+  once per forward and each layer's params just before the layer
+  (``models/decode.zero3_transforms``); no ``weight_quant``.
+
+The TP x ZeRO-3 mixed mesh is refused (``_reject_tp_zero3_mix``), and the
+router and the HTTP door keep plain replicas, as in the JAX package.
 
 Not thread-safe: one dispatcher per engine (the router and the HTTP
 server serialise every call). Several engines on one card may run in
@@ -256,6 +285,113 @@ def _device_ids(device: torch.device) -> list[int]:
         idx = device.index
         return [torch.cuda.current_device() if idx is None else idx]
     return [0 if device.index is None else device.index]
+
+
+def _reject_tp_zero3_mix(mesh_cfg, entry: str) -> None:
+    """Every engine refuses the TP x ZeRO-3 mixed mesh with one
+    diagnostic naming the supported modes (the JAX package's)."""
+    if mesh_cfg is not None and mesh_cfg.tensor > 1 and mesh_cfg.fsdp > 1:
+        raise NotImplementedError(
+            f"{entry} does not support TP x ZeRO-3 mixed-mesh decode "
+            f"(got tensor={mesh_cfg.tensor}, fsdp={mesh_cfg.fsdp}). "
+            "Supported modes: plain (single device / no mesh), tp "
+            "(tensor-only mesh, Megatron layouts with a head-sharded KV "
+            "cache), and zero3 (fsdp-only full_shard mesh, DecodeEngine "
+            "only). Serve a mixed-mesh checkpoint by resharding to one "
+            "of those layouts; native composition is a future PR."
+        )
+
+
+def _select_mode(cfg: ModelConfig, mesh_cfg, *, entry: str,
+                 allow_zero3: bool = True):
+    """The engine's mode: (mode, mesh_cfg, local KV heads), the mixed-mesh
+    refusal first so every engine gives the same diagnostic."""
+    _reject_tp_zero3_mix(mesh_cfg, entry)
+    if mesh_cfg is None or mesh_cfg.num_devices == 1:
+        return "plain", None, None
+    if mesh_cfg.tensor > 1:
+        decode._validate_tp_mesh(cfg, mesh_cfg)
+        return "tp", mesh_cfg, cfg.kv_heads // mesh_cfg.tensor
+    if not allow_zero3:
+        raise NotImplementedError(
+            f"{entry} supports plain and tp modes; ZeRO-3 slot-batched "
+            "decode is future surface — serve ZeRO-3 layouts through "
+            "DecodeEngine, or decode from a tensor-only mesh"
+        )
+    decode._validate_fsdp_mesh(mesh_cfg)
+    return "zero3", mesh_cfg, None
+
+
+def _kernels_of(tree):
+    """(``tree`` with every int8 weight dict replaced by its ``q8`` values
+    — the kernel's shape, which the sharding rules read —, whether it held
+    any)."""
+    if quant.is_quantized(tree):
+        return tree["q8"], True
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        pairs = {k: _kernels_of(v) for k, v in items}
+        out = {k: v for k, (v, _) in pairs.items()}
+        found = any(q for _, q in pairs.values())
+        return (out if isinstance(tree, dict) else list(out.values())), found
+    return tree, False
+
+
+class _MeshPlacement:
+    """How an engine's params and cache lie over its mesh: ``mode``
+    ("plain", "tp" or "zero3", ``_select_mode``), the mesh (``parallel/
+    mesh.make_mesh`` over the world group), the local KV heads ``n_kv``
+    (None: all), and the forward that threads the tensor group (tp) or the
+    just-in-time gathers (zero3)."""
+
+    def __init__(self, cfg: ModelConfig, mesh_cfg, device, *, entry: str,
+                 allow_zero3: bool = True) -> None:
+        self.mode, self.mesh_cfg, self.n_kv = _select_mode(
+            cfg, mesh_cfg, entry=entry, allow_zero3=allow_zero3)
+        self.mesh = self.tp_group = None
+        self._top = self._block = None
+        if self.mode != "plain":
+            from pytorch_distributed_tpu_torch.parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(self.mesh_cfg, device=device)
+        if self.mode == "tp":
+            self.tp_group = self.mesh.axis_group("tensor")
+
+    @property
+    def tp_shard(self) -> tuple[int, int] | None:
+        """(this rank's tensor index, tensor size) under tp, else None."""
+        if self.mode != "tp":
+            return None
+        return self.mesh.axis_index("tensor"), self.mesh_cfg.tensor
+
+    def place(self, params, cfg: ModelConfig, device: torch.device,
+              weight_quant: str):
+        """``place_params``, then this rank's slices under the mesh."""
+        from pytorch_distributed_tpu_torch.parallel.sharding import (
+            param_partition_specs,
+            shard_params,
+        )
+
+        placed = place_params(params, cfg, device, weight_quant)
+        if self.mode == "plain":
+            return placed
+        # The embeddings, norms and head (``head_w`` too) follow the
+        # generic rule: replicated under tp, sharded under zero3.
+        kernels, quantized = _kernels_of(placed)
+        specs = param_partition_specs(kernels, self.mesh_cfg)
+        if quantized:  # int8 weights, quantized here or given so
+            specs = quant.quantized_param_specs(specs, kernels)
+        if self.mode == "zero3":
+            self._top, self._block = decode.zero3_transforms(specs,
+                                                             self.mesh)
+        return shard_params(placed, specs, self.mesh)
+
+    def forward(self, params, *args, **kw):
+        """``decode.forward`` under this mode."""
+        if self.mode == "zero3":
+            return decode.forward(self._top(params), *args,
+                                  block_transform=self._block, **kw)
+        return decode.forward(params, *args, tp_group=self.tp_group, **kw)
 
 
 def place_params(params, cfg: ModelConfig, device: torch.device,
@@ -410,9 +546,11 @@ class DecodeEngine:
     request allocates and frees its own. ``nan_guard``: a request whose
     logits go non-finite anywhere is retried once on a fresh zeroed cache,
     then raises ``lifecycle.RequestFailed`` (one host read of the flag
-    per request). ``weight_quant="int8"`` (dense configs only), ``device``
-    (None = "cuda"). ``mesh_cfg`` other than None raises (ROADMAP queue 1
-    item 7)."""
+    per request). ``weight_quant="int8"`` (dense configs only; not under
+    zero3), ``device`` (None = "cuda"; under a mesh, this rank's device).
+    ``mesh_cfg``: a tensor-only mesh (``tp``) or an fsdp-only full_shard
+    mesh (``zero3``), every rank of the group running the same calls
+    (module docstring)."""
 
     def __init__(
         self,
@@ -434,14 +572,21 @@ class DecodeEngine:
                 f"the engine serves the gpt2 and llama families, got "
                 f"{cfg.family!r}"
             )
-        if mesh_cfg is not None:
-            raise NotImplementedError(
-                f"DecodeEngine: mesh_cfg {decode.MESH_NOT_PORTED}")
         self.cfg = cfg
         self.max_len = int(max_len)
         self.buckets = buckets or BucketSpec()
         _check_buckets(self.buckets, self.max_len)
+        self.device = resolve_device(device)
+        self._mp = _MeshPlacement(cfg, mesh_cfg, self.device,
+                                  entry="DecodeEngine")
+        self.mode, self.mesh_cfg = self._mp.mode, self._mp.mesh_cfg
         self.weight_quant = quant.check_mode("weight_quant", weight_quant)
+        if self.weight_quant != "none" and self.mode == "zero3":
+            raise NotImplementedError(
+                "weight_quant with ZeRO-3 decode is future surface: the "
+                "layer gathers move full-precision shards — serve quantized "
+                "weights from plain or tensor-only meshes"
+            )
         if self.weight_quant != "none" and cfg.n_experts:
             raise NotImplementedError(
                 "weight_quant does not cover MoE expert stacks (routed "
@@ -452,7 +597,6 @@ class DecodeEngine:
             raise ValueError(
                 f"pool_max_entries must be >= 1, got {pool_max_entries}"
             )
-        self.device = resolve_device(device)
         self._pool_caches = bool(pool_caches)
         self._pool_max = int(pool_max_entries)
         self._cache_pool: dict[int, decode.Cache] = {}
@@ -486,7 +630,7 @@ class DecodeEngine:
         size)."""
         self._bump_cache_peak(batch)
         return decode.init_cache(self.cfg, batch, self.max_len,
-                                 device=self.device)
+                                 device=self.device, n_kv=self._mp.n_kv)
 
     def _cache_bytes(self, batch: int) -> int:
         return batch * self.max_len * kv_bytes_per_position(self.cfg)
@@ -525,7 +669,7 @@ class DecodeEngine:
 
     def _place_params(self, params):
         if self._placed is None or self._placed[0] is not params:
-            self._placed = (params, place_params(
+            self._placed = (params, self._mp.place(
                 params, self.cfg, self.device, self.weight_quant))
         return self._placed[1]
 
@@ -543,15 +687,15 @@ class DecodeEngine:
               index):
         """One single-token forward at ``pos`` and its draw: ([B] token,
         [B] non-finite flag)."""
-        logits, _ = decode.forward(params, tok[:, None], self.cfg, cache,
-                                   pos)
+        logits, _ = self._mp.forward(params, tok[:, None], self.cfg, cache,
+                                     pos)
         last = logits[:, -1]
         nxt = decode.sample_token(last, sampled, t,
                                   decode.sample_seed(seed, index), k, p)
         return nxt, decode.nonfinite_rows(last)
 
     def _prefill(self, params, padded, tp, cache, sampled, t, k, p, seed):
-        logits, _ = decode.forward(params, padded, self.cfg, cache, 0)
+        logits, _ = self._mp.forward(params, padded, self.cfg, cache, 0)
         last = logits[:, tp - 1]
         tok = decode.sample_token(last, sampled, t,
                                   decode.sample_seed(seed, 0), k, p)
@@ -767,7 +911,9 @@ class BatchedDecodeEngine:
     ``(tokens_so_far, k) -> drafts`` replacing the lookup), ``adapters``
     (a ``serving/adapters.AdapterRegistry`` for this config: every
     forward then carries the registry's adapters and a [slots]
-    tenant-slot vector, and ``submit(tenant=)`` picks a row's adapter).
+    tenant-slot vector, and ``submit(tenant=)`` picks a row's adapter),
+    ``mesh_cfg`` (a tensor-only mesh: the ``tp`` mode of the module
+    docstring; ZeRO-3 is the serial engine's alone).
 
     The dense engine serves every admitted prompt in one prefill forward
     per bucket of the fixed shape [slots, bucket] over a scratch cache of
@@ -803,6 +949,7 @@ class BatchedDecodeEngine:
         spec_ngram: int = 2,
         draft_hook=None,
         adapters=None,
+        mesh_cfg=None,
     ) -> None:
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
@@ -873,6 +1020,15 @@ class BatchedDecodeEngine:
         self.dispatch_retries = dispatch_retries
         self.retry_backoff_s = float(retry_backoff_s)
         self.device = resolve_device(device)
+        self._mp = _MeshPlacement(cfg, mesh_cfg, self.device,
+                                  entry=type(self).__name__,
+                                  allow_zero3=False)
+        self.mode, self.mesh_cfg = self._mp.mode, self._mp.mesh_cfg
+        if self.mode == "tp":
+            # Only faults that fire alike on every rank (injected ones)
+            # may be retried: a rank retrying alone would sum mismatched
+            # tensors with the others.
+            self.RETRYABLE_ERRORS = ()
         self.kv_quant = "none"
         self.weight_quant = quant.check_mode("weight_quant", weight_quant)
         self.role = "colocated"
@@ -905,7 +1061,7 @@ class BatchedDecodeEngine:
     def _new_cache(self) -> decode.Cache:
         self.counters["cache_allocs"] += 1
         return decode.init_cache(self.cfg, self.slots, self.max_len,
-                                 device=self.device)
+                                 device=self.device, n_kv=self._mp.n_kv)
 
     def _live_cache(self) -> decode.Cache:
         """The engine's cache, allocated on first use and again after a
@@ -915,9 +1071,10 @@ class BatchedDecodeEngine:
         return self._cache
 
     def _place_params(self, params):
-        """``place_params`` memoized on the identity of ``params``."""
+        """``place_params`` (and this rank's slices under a mesh) memoized
+        on the identity of ``params``."""
         if self._placed is None or self._placed[0] is not params:
-            self._placed = (params, place_params(
+            self._placed = (params, self._mp.place(
                 params, self.cfg, self.device, self.weight_quant))
         return self._placed[1]
 
@@ -932,7 +1089,8 @@ class BatchedDecodeEngine:
         slot 0, the exact-zero adapter) — or None without adapters."""
         if self.adapters is None:
             return None
-        return (self.adapters.device_tree(self.device),
+        return (self.adapters.device_tree(self.device,
+                                          shard=self._mp.tp_shard),
                 torch.from_numpy(np.asarray(tenants, np.int64)).to(
                     self.device))
 
@@ -945,7 +1103,7 @@ class BatchedDecodeEngine:
         ``window`` and ``lane0_alone`` mark a decode forward and one
         holding a sampled row (the paged engine's)."""
         dev = self.device
-        logits, _ = decode.forward(
+        logits, _ = self._mp.forward(
             params, torch.from_numpy(ids).to(dev), self.cfg,
             self._live_cache(), torch.from_numpy(pos).to(dev),
             lora=self._lora(np.zeros((self.slots,), np.int64)
@@ -1243,11 +1401,12 @@ class BatchedDecodeEngine:
         zero_rows = np.zeros((self.slots,), np.int64)
         with torch.no_grad():
             for bucket in self._prefill_buckets:
-                decode.forward(
+                self._mp.forward(
                     params, torch.zeros((self.slots, bucket), dtype=torch.long,
                                         device=self.device),
                     self.cfg, decode.init_cache(self.cfg, self.slots, bucket,
-                                                device=self.device), 0,
+                                                device=self.device,
+                                                n_kv=self._mp.n_kv), 0,
                     lora=self._lora(zero_rows),
                 )
         w = self._decode_width
@@ -1660,10 +1819,11 @@ class BatchedDecodeEngine:
             self.counters["prefill_ticks"] += 1  # forwards that ran
             dev = self.device
             cache = self._live_cache()
-            seg = decode.init_cache(self.cfg, b, bucket, device=dev)
-            logits, _ = decode.forward(params, torch.from_numpy(ids).to(dev),
-                                       self.cfg, seg, 0,
-                                       lora=self._lora(tenants))
+            seg = decode.init_cache(self.cfg, b, bucket, device=dev,
+                                    n_kv=self._mp.n_kv)
+            logits, _ = self._mp.forward(
+                params, torch.from_numpy(ids).to(dev), self.cfg, seg, 0,
+                lora=self._lora(tenants))
             rows_t = torch.tensor(targets, device=dev)
             for name, c in cache.items():
                 c[:, rows_t, :bucket] = seg[name][:, :n]
@@ -2009,7 +2169,7 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
         self.counters["cache_allocs"] += 1
         return decode.init_paged_cache(
             self.cfg, self.pool_pages, self.page_size, device=self.device,
-            kv_quant=self.kv_quant,
+            kv_quant=self.kv_quant, n_kv=self._mp.n_kv,
         )
 
     def _check_prompt_shape(self, tp: int) -> None:
@@ -2024,7 +2184,7 @@ class PagedBatchedDecodeEngine(BatchedDecodeEngine):
         decode's, and with ``lane0_alone`` gives lane 0 the bits of a
         [slots, 1] step; a prefill chunk takes the gather path."""
         dev = self.device
-        logits, _ = decode.forward(
+        logits, _ = self._mp.forward(
             params,
             torch.from_numpy(ids).to(dev),
             self.cfg,

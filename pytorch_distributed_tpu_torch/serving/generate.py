@@ -20,13 +20,26 @@ Routing, as in the JAX script: ``--stream`` prints each token as
 ``BatchedDecodeEngine`` with ``speculative_k=K`` for dense models and
 ``models/speculative.generate_speculative`` for MoE ones (greedy only:
 ``--temperature``, ``--top-k`` and ``--top-p`` are refused with it);
-otherwise ``models/decode.generate``. ``--mesh`` and ``--cpu-devices``
-are refused: meshed decode is not ported yet (ROADMAP queue 1 item 7).
+otherwise ``models/decode.generate``.
+
+Meshed decode: ``--mesh tensor=N`` (``models/decode.generate_tp``:
+Megatron-sharded params, a local-head KV cache) or ``--mesh fsdp=N``
+(``generate_fsdp``: ZeRO-3 slices, each layer gathered just in time) —
+exactly one of the two, as the JAX script checks; ``--speculative`` stays
+single-device. One process a rank: under ``python -m
+torch.distributed.run --nproc-per-node N`` each rank takes
+``cuda:LOCAL_RANK`` and NCCL; ``--cpu-devices N`` (with ``--device
+cpu``) starts the N gloo CPU ranks itself. Every rank loads the same
+weights and keeps its slices; rank 0 prints.
 
     python -m pytorch_distributed_tpu_torch.serving.generate \\
         --prompt-ids 1,2,3 --max-new-tokens 16
     python -m pytorch_distributed_tpu_torch.serving.generate --preset tiny \\
         --device cpu --prompt-ids 5,9,5,9,5 --speculative 4
+    python -m pytorch_distributed_tpu_torch.serving.generate --preset tiny \\
+        --device cpu --mesh tensor=2 --cpu-devices 2 --prompt-ids 1,2,3
+    python -m torch.distributed.run --nproc-per-node 2 \\
+        -m pytorch_distributed_tpu_torch.serving.generate --mesh tensor=2
 
 ``parse_args``, ``load_params`` and ``generate_ids`` are what other
 programs call.
@@ -41,14 +54,46 @@ import sys
 import numpy as np
 import torch
 
-MESH_REFUSED = (
-    "--mesh: meshed decode (tensor parallelism, ZeRO-3 weights) is not "
-    "ported yet (ROADMAP queue 1 item 7); drop it to decode on one device"
-)
 CPU_DEVICES_REFUSED = (
-    "--cpu-devices: the port has no virtual-device mesh (ROADMAP queue 1 "
-    "item 7); use --device cpu"
+    "--cpu-devices N starts N gloo CPU ranks for --mesh (their product "
+    "must be N) and needs --device cpu; to decode on one CPU device use "
+    "--device cpu alone"
 )
+_MESH_AXES = ("data", "fsdp", "tensor", "seq", "pipe", "expert")
+
+
+def parse_mesh(spec: str) -> dict:
+    """``--mesh``'s ``axis=size,...`` (the JAX ``train_parallel.py``
+    parser's)."""
+    out = {}
+    for part in spec.split(","):
+        if not part:
+            continue
+        name, _, val = part.partition("=")
+        if name not in _MESH_AXES:
+            raise SystemExit(f"unknown mesh axis {name!r}; known: "
+                             f"{', '.join(_MESH_AXES)}")
+        try:
+            out[name] = int(val)
+        except ValueError:
+            raise SystemExit(f"bad mesh axis size {part!r}: expected "
+                             f"{name}=<int>") from None
+    return out
+
+
+def mesh_config(args):
+    """The decode ``MeshConfig`` of ``--mesh`` (None without it): exactly
+    one of tensor=N or fsdp=N, checked before any weight IO."""
+    if not args.mesh:
+        return None
+    from pytorch_distributed_tpu_torch.config import MeshConfig
+
+    sizes = parse_mesh(args.mesh)
+    if [ax for ax, n in sizes.items() if n > 1] not in (["fsdp"],
+                                                         ["tensor"]):
+        raise SystemExit("--mesh for decoding must set exactly one of "
+                         f"tensor=N or fsdp=N (got {args.mesh!r})")
+    return MeshConfig(**sizes)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -89,9 +134,28 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="print tokens as DecodeEngine.stream emits them")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise SystemExit(MESH_REFUSED)
-    if args.cpu_devices:
+    if args.speculative and args.mesh:
+        raise SystemExit(
+            "--speculative is single-device (the verify loop owns the "
+            "cache offsets); drop --mesh"
+        )
+    args.mesh_cfg = mesh_config(args)
+    if args.mesh_cfg is not None and args.mesh_cfg.tensor > 1 \
+            and not args.hf:
+        # The preset's head counts are known before any weight IO (an HF
+        # directory's config is checked by generate_tp itself).
+        from pytorch_distributed_tpu_torch.models.decode import (
+            _validate_tp_mesh,
+        )
+
+        try:
+            _validate_tp_mesh(preset_config(args), args.mesh_cfg)
+        except ValueError as err:
+            raise SystemExit(f"--mesh {args.mesh}: {err} (preset "
+                             f"{args.preset!r})") from None
+    if args.cpu_devices and (
+            args.device != "cpu" or args.mesh_cfg is None
+            or args.mesh_cfg.num_devices != args.cpu_devices):
         raise SystemExit(CPU_DEVICES_REFUSED)
     if args.speculative and args.stream:
         raise SystemExit(
@@ -120,16 +184,32 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def preset_config(args):
+    """The preset's config with dropout off and ``--n-ctx``,
+    ``--n-experts``/``--moe-top-k`` applied."""
+    from pytorch_distributed_tpu_torch.config import model_config
+
+    cfg = model_config(args.preset).replace(
+        attn_pdrop=0.0, resid_pdrop=0.0, embd_pdrop=0.0)
+    if args.n_ctx:
+        cfg = cfg.replace(n_ctx=args.n_ctx)
+    if args.n_experts:
+        cfg = cfg.replace(n_experts=args.n_experts,
+                          moe_top_k=args.moe_top_k)
+    return cfg
+
+
 def load_params(args):
     """(cfg, params) as the JAX script builds them: the preset with
     dropout off (``--n-ctx``, ``--n-experts``/``--moe-top-k`` applied),
     weights from ``--checkpoint``, ``--hf`` or a random init from
     ``--seed``, on ``args.device``."""
-    from pytorch_distributed_tpu_torch.config import model_config
     from pytorch_distributed_tpu_torch.models import get_model
     from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(args.device)
+    if args.mesh_cfg is not None and args.device == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
     if args.hf:
         from pytorch_distributed_tpu_torch.models.decode import to_device
         from pytorch_distributed_tpu_torch.models.hf_import import (
@@ -139,13 +219,7 @@ def load_params(args):
         params, cfg = from_hf_pretrained(args.hf, None)
         cfg = cfg.replace(attn_pdrop=0.0, resid_pdrop=0.0, embd_pdrop=0.0)
         return cfg, to_device(params, dev)
-    cfg = model_config(args.preset).replace(
-        attn_pdrop=0.0, resid_pdrop=0.0, embd_pdrop=0.0)
-    if args.n_ctx:
-        cfg = cfg.replace(n_ctx=args.n_ctx)
-    if args.n_experts:
-        cfg = cfg.replace(n_experts=args.n_experts,
-                          moe_top_k=args.moe_top_k)
+    cfg = preset_config(args)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = get_model(cfg).init(gen, cfg, device=dev)
     if args.checkpoint:
@@ -196,9 +270,10 @@ def generate_ids(args, cfg, params, ids, on_token=None) -> np.ndarray:
         seed=args.seed if args.temperature > 0 else None,
         top_k=args.top_k, top_p=args.top_p,
     )
+    device = params["wte"].device
     if args.stream:
         engine = DecodeEngine(cfg, max_len=ids.shape[1] + n,
-                              device=args.device)
+                              device=device, mesh_cfg=args.mesh_cfg)
         out = list(ids[0])
         for step in engine.stream(params, ids, n, **sample_kw):
             out.append(int(step[0]))
@@ -228,6 +303,12 @@ def generate_ids(args, cfg, params, ids, on_token=None) -> np.ndarray:
             raise SystemExit(
                 f"speculative generation ended {res.state}: {res.reason}")
         return np.asarray(res.tokens)
+    if args.mesh_cfg is not None:
+        gen = (decode.generate_tp if args.mesh_cfg.tensor > 1
+               else decode.generate_fsdp)
+        out = gen(params, ids, cfg, args.mesh_cfg, n, device=device,
+                  **sample_kw)
+        return out[0].cpu().numpy()
     out = decode.generate(params, ids, cfg, n, device=args.device,
                           **sample_kw)
     return out[0].cpu().numpy()
@@ -235,6 +316,43 @@ def generate_ids(args, cfg, params, ids, on_token=None) -> np.ndarray:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.mesh_cfg is None:
+        return _main(args)
+    import torch.distributed as dist
+
+    from pytorch_distributed_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+        spawn_ranks,
+    )
+
+    if args.cpu_devices and "RANK" not in os.environ:
+        return spawn_ranks(args.cpu_devices,
+                           "pytorch_distributed_tpu_torch.serving.generate",
+                           sys.argv[1:] if argv is None else list(argv))
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    initialize_distributed(device="cpu" if args.device == "cpu"
+                           else torch.device("cuda", local))
+    try:
+        world = dist.get_world_size()
+        if world != args.mesh_cfg.num_devices:
+            raise SystemExit(f"--mesh {args.mesh} needs "
+                             f"{args.mesh_cfg.num_devices} ranks, the group "
+                             f"has {world} (launch with --nproc-per-node "
+                             f"{args.mesh_cfg.num_devices} or --cpu-devices)")
+        if args.cpu_devices:  # ranks sharing the host's cores
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        return _main(args, quiet=dist.get_rank() != 0)
+    finally:
+        dist.destroy_process_group()
+
+
+def _main(args, quiet: bool = False) -> int:
+    """Load, generate and print (nothing when ``quiet``: the ranks other
+    than 0 of a mesh)."""
+    def say(*a, **kw):
+        if not quiet:
+            print(*a, **kw)
+
     cfg, params = load_params(args)
     tok = _tokenizer(args)
     ids = prompt_ids(args, tok)
@@ -249,20 +367,20 @@ def main(argv=None) -> int:
                 # Re-decode the continuation and print the delta: a BPE
                 # piece can change once the next token lands.
                 text = tok.decode(new)
-                print(text[len(shown):], end="", flush=True)
+                say(text[len(shown):], end="", flush=True)
                 shown = text
             else:
-                print(("," if len(new) > 1 else "") + str(t), end="",
-                      flush=True)
+                say(("," if len(new) > 1 else "") + str(t), end="",
+                    flush=True)
 
         generate_ids(args, cfg, params, ids, on_token=emit)
-        print()
+        say()
         return 0
     out = generate_ids(args, cfg, params, ids)
     if tok is not None:
-        print(tok.decode([int(t) for t in out]))
+        say(tok.decode([int(t) for t in out]))
     else:
-        print(",".join(str(int(t)) for t in out))
+        say(",".join(str(int(t)) for t in out))
     return 0
 
 

@@ -23,8 +23,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import socket
-import subprocess
 import sys
 
 import torch
@@ -53,22 +51,6 @@ def parser(doc: str, *,
     return p
 
 
-def _spawn_ranks(n: int, module: str, argv: list[str]) -> int:
-    """Start ``n`` ranks of ``module`` on this host (what a launcher
-    would); the highest exit code wins."""
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    procs = []
-    for r in range(n):
-        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
-                   WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port))
-        procs.append(subprocess.Popen([sys.executable, "-m", module, *argv],
-                                      env=env))
-    return max(p.wait() for p in procs)
-
-
 def run(args, argv, module: str, mesh_cfg_for, trace_dir: str,
         log_name: str, describe) -> int:
     """The body both twins share: join the group, build the mesh
@@ -83,6 +65,7 @@ def run(args, argv, module: str, mesh_cfg_for, trace_dir: str,
     from pytorch_distributed_tpu_torch.parallel.mesh import (
         initialize_distributed,
         make_mesh,
+        spawn_ranks,
     )
     from pytorch_distributed_tpu_torch.train.distributed_trainer import (
         DistributedTrainer,
@@ -91,7 +74,7 @@ def run(args, argv, module: str, mesh_cfg_for, trace_dir: str,
 
     cpu = bool(args.cpu_devices)
     if cpu and "RANK" not in os.environ and args.cpu_devices > 1:
-        return _spawn_ranks(args.cpu_devices, module,
+        return spawn_ranks(args.cpu_devices, module,
                             sys.argv[1:] if argv is None else argv)
     local = int(os.environ.get("LOCAL_RANK", "0"))
     device = torch.device("cpu") if cpu else torch.device("cuda", local)

@@ -38,6 +38,7 @@ from pytorch_distributed_tpu_torch.config import (
     MeshConfig,
     ModelConfig,
     TrainConfig,
+    check_trainable_mesh,
 )
 from pytorch_distributed_tpu_torch.models import ModelApi
 from pytorch_distributed_tpu_torch.parallel import zero
@@ -76,6 +77,7 @@ class DistributedTrainer(Trainer):
         path: str = "auto",
         log_fn: Callable[[str], None] | None = None,
     ):
+        check_trainable_mesh(mesh_cfg)
         if path not in ("auto", "explicit", "pipeline"):
             raise ValueError(f"unknown parallel path {path!r}")
         if path == "pipeline":

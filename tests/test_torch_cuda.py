@@ -1555,3 +1555,50 @@ def test_zero_collectives_on_cuda_tensors_over_gloo(world_of_one, cuda):
     out.backward(torch.ones_like(out))
     assert leaf.grad.device == x.device
     assert torch.equal(leaf.grad, torch.ones_like(x))
+
+
+# -- tensor-parallel decode (slice 14) ----------------------------------------
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h, hkv", [(6, 6), (16, 4)],
+                         ids=["gpt2-tp2", "llama3.2-1B-tp2"])
+def test_paged_kernels_at_a_tensor_ranks_local_heads(cuda, h, hkv, dtype,
+                                                     q8):
+    """K3 and K4 at the decode shapes one rank of a tensor-2 engine gives
+    them (GPT-2's 6 heads, group 1; Llama-3.2-1B's 16 over 4 KV heads,
+    group 4; 8 rows, max_len 1024) against their plain versions, with
+    chip_smoke's tolerances."""
+    import chip_smoke
+
+    args = chip_smoke.paged_case(cuda, 0, 8, h, hkv, 64, dtype, q8)
+    before = (pk.launches, pk.launches_q8)
+    chip_smoke.check_kernel(pk, args, f"tp2 H {h} Hkv {hkv} {dtype} {q8}")
+    assert (pk.launches, pk.launches_q8) == (before[0] + (not q8),
+                                             before[1] + q8)
+
+
+def test_tensor_parallel_paged_engine_on_two_gloo_ranks(cuda, tmp_path):
+    """Two gloo ranks share cuda:0 (``_torch_tp_jobs.job_cuda_tp_paged``):
+    the TP paged engine's tokens equal the one-rank kernel engine's (a
+    near-tie may flip one row in f32), its first decode tick's logits
+    within 1e-4, both ranks' tokens identical, K3 launched n_layer times a
+    decode tick on each rank and 2 x n_layer all-reduces a tick."""
+    import json
+
+    from _torch_dist_worker import launch
+
+    (tmp_path / "spec.json").write_text("{}")
+    launch("cuda_tp_paged", 2, tmp_path, timeout_s=300)
+    outs = [json.loads((tmp_path / f"out_{r}.json").read_text())
+            for r in range(2)]
+    assert outs[0]["tp"]["tokens"] == outs[1]["tp"]["tokens"]
+    for out in outs:
+        tp, one = out["tp"], out["one_rank"]
+        same = sum(a == b for a, b in zip(tp["tokens"], one["tokens"]))
+        assert same >= len(one["tokens"]) - 1, (tp["tokens"], one["tokens"])
+        assert out["first_tick_max_abs_err"] <= 1e-4
+        n_layer = out["n_layer"]
+        assert tp["K3"] == n_layer * tp["decode_ticks"] > 0
+        assert tp["decode_allreduces"] == [2 * n_layer]

@@ -24,7 +24,7 @@ from pytorch_distributed_tpu.serving.engine import (
     DecodeEngine as JaxDecodeEngine,
 )
 from pytorch_distributed_tpu_torch import interop
-from pytorch_distributed_tpu_torch.config import ModelConfig
+from pytorch_distributed_tpu_torch.config import MeshConfig, ModelConfig
 from pytorch_distributed_tpu_torch.models import decode
 from pytorch_distributed_tpu_torch.serving.engine import (
     BatchedDecodeEngine,
@@ -263,13 +263,18 @@ def test_nan_guard_retries_once_then_fails_like_jax():
 
 def test_refusals_and_uniform_stats():
     _, _, pcfg, _ = _weights("gpt2")
-    for fn in (decode.generate_tp, decode.generate_fsdp,
-               decode.generate_tp_monolithic,
-               decode.generate_fsdp_monolithic):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            fn(None, None, pcfg, None, 4)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        DecodeEngine(pcfg, max_len=16, mesh_cfg=object(), device="cpu")
+    # The meshed paths decode (tests/test_torch_decode_tp.py); what they
+    # still refuse: a mesh that is not tensor-only / fsdp-only, and the
+    # mixed TP x ZeRO-3 mesh on the engine.
+    for fn in (decode.generate_tp, decode.generate_tp_monolithic):
+        with pytest.raises(NotImplementedError, match="tensor-only"):
+            fn(None, None, pcfg, MeshConfig(tensor=2, data=2), 4)
+    for fn in (decode.generate_fsdp, decode.generate_fsdp_monolithic):
+        with pytest.raises(NotImplementedError, match="fsdp-only"):
+            fn(None, None, pcfg, MeshConfig(fsdp=2, tensor=2), 4)
+    with pytest.raises(NotImplementedError, match="TP x ZeRO-3"):
+        DecodeEngine(pcfg, max_len=16, mesh_cfg=MeshConfig(tensor=2, fsdp=2),
+                     device="cpu")
     moe = ModelConfig(**_kw("gpt2", n_experts=2))
     with pytest.raises(NotImplementedError, match="MoE expert stacks"):
         DecodeEngine(moe, max_len=16, weight_quant="int8", device="cpu")

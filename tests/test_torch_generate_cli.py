@@ -2,7 +2,8 @@
 (``python -m pytorch_distributed_tpu_torch.serving.generate``) on the
 CPU: its flags and refusals, its routing (plain, ``--stream``,
 ``--speculative`` on dense and MoE models) and its printed ids, which
-must equal the JAX script's on the same weights for greedy decoding.
+must equal the JAX script's on the same weights for greedy decoding;
+with ``--mesh`` on two gloo CPU ranks the twin prints the same ids.
 """
 
 import subprocess
@@ -110,7 +111,9 @@ def test_sampling_is_a_function_of_the_seed(capsys):
     (["--speculative", "4", "--top-k", "40"], "top-k"),
     (["--speculative", "4", "--top-p", "0.9"], "top-p"),
     (["--speculative", "4", "--stream"], "cannot stream"),
-    (["--mesh", "tensor=2"], "queue 1 item 7"),
+    (["--mesh", "tensor=2,fsdp=2"], "exactly one of tensor=N or fsdp=N"),
+    (["--mesh", "tensor=2", "--speculative", "4"], "single-device"),
+    (["--mesh", "tensor=3"], "must divide n_head"),
     (["--cpu-devices", "8"], "--device cpu"),
     (["--hf", "gpt2"], "downloads nothing"),
     (["--tokenizer", "gpt2"], "downloads nothing"),
@@ -134,3 +137,21 @@ def test_the_module_runs_as_a_program():
          *BASE], capture_output=True, text=True, timeout=300, check=True,
     ).stdout.strip().split(",")
     assert len(out) == 19
+
+
+@pytest.mark.parametrize("mesh, extra", [("tensor=2", []),
+                                         ("fsdp=2", ["--stream"])])
+def test_mesh_on_two_cpu_ranks_prints_the_plain_ids(mesh, extra, capsys):
+    """``--mesh tensor=2|fsdp=2 --cpu-devices 2``: the twin starts two gloo
+    ranks itself; rank 0 alone prints the plain decode's greedy ids
+    (streamed: the new ones)."""
+    plain = _run(BASE, capsys)
+    out = subprocess.run(
+        [sys.executable, "-m",
+         "pytorch_distributed_tpu_torch.serving.generate", *BASE,
+         "--mesh", mesh, "--cpu-devices", "2", *extra],
+        capture_output=True, text=True, timeout=300, check=True,
+    ).stdout.strip().splitlines()
+    assert len(out) == 1, out
+    assert [int(t) for t in out[0].split(",")] == \
+        (plain[7:] if extra else plain)

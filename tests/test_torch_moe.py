@@ -199,9 +199,12 @@ def test_dropped_assignments_contribute_exactly_zero():
 def test_multi_device_axes_are_refused():
     x = torch.zeros(1, 4, D)
     w = {k: torch.from_numpy(v) for k, v in _moe_weights(False).items()}
-    for kw in (dict(expert_axis="expert"), dict(tensor_axis="tensor")):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            moe.moe_mlp(x, w, activation=F.relu, **kw)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        moe.moe_mlp(x, w, activation=F.relu, expert_axis="expert")
+    # The tensor axis is ported (TP inside each expert): it takes the
+    # tensor process group, not JAX's axis name.
+    with pytest.raises(TypeError, match="process group"):
+        moe.moe_mlp(x, w, activation=F.relu, tensor_axis="tensor")
 
 
 # --- the MoE blocks under remat -------------------------------------------

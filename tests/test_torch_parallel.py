@@ -50,7 +50,11 @@ from pytorch_distributed_tpu.parallel.sharding import (
 from pytorch_distributed_tpu.train.optim import make_optimizer as jmake_opt
 from pytorch_distributed_tpu.train.state import init_train_state as jinit
 from pytorch_distributed_tpu_torch import interop
-from pytorch_distributed_tpu_torch.config import MeshConfig, ModelConfig
+from pytorch_distributed_tpu_torch.config import (
+    MeshConfig,
+    ModelConfig,
+    check_trainable_mesh,
+)
 from pytorch_distributed_tpu_torch.config import TrainConfig
 from pytorch_distributed_tpu_torch.parallel import mesh as pmesh
 from pytorch_distributed_tpu_torch.parallel import sharding
@@ -177,14 +181,17 @@ def test_mesh_config_matches_jax_field_for_field():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(tensor=2), "7(b)"), (dict(seq=2), "7(c)"), (dict(pipe=2), "7(d)"),
+    (dict(tensor=2), "7(f)"), (dict(seq=2), "7(c)"), (dict(pipe=2), "7(d)"),
     (dict(expert=2), "7(e)"), (dict(prefetch_buffers=1), "7(d)"),
 ], ids=["tensor", "seq", "pipe", "expert", "prefetch"])
 def test_unported_axes_raise_naming_their_item(kw, item):
     JaxMeshConfig(**kw)  # JAX takes them
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
                        .replace(")", r"\)")):
-        MeshConfig(**kw)
+        if "tensor" in kw:  # decode takes the tensor axis; training not
+            check_trainable_mesh(MeshConfig(**kw))
+        else:
+            MeshConfig(**kw)
 
 
 class _FakeMesh:
