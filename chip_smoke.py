@@ -7,7 +7,7 @@ plain versions.
 Phases (each prints one JSON line; any failure raises and exits nonzero
 with no final line). They run in the order 1-3, profiling_train and
 profiling_serve (13), 7-9, 4-6d, 10-12, the rest of 13, the two
-decode_bench twin phases, 15, 16, 17, 14: the phases whose profiler
+decode_bench twin phases, 15, 16, 16b/17/17b, 14: the phases whose profiler
 traces are counted first, while the process is young (PERF.md section
 7).
 
@@ -157,7 +157,10 @@ traces are counted first, while the process is young (PERF.md section
    and bf16 (``FLASH_TOLERANCES``; bf16 also against the plain versions
    in f32: ``flash_fwd_bf16_vs_f32``, ``FLASH_BF16_VS_F32``), with kernel,
    plain, bound and ``scaled_dot_product_attention`` (forward; backward)
-   times and the names of SDPA's device kernels.
+   times and the names of SDPA's device kernels; then in bf16 at a
+   tensor-2 rank's local heads (``TP_FLASH_SHAPES``: GPT-2's 6 heads at
+   B 8, T 1024; Llama-3.2-1B's 16 over 4 KV heads at B 1, T 4096), the
+   shapes phase 17b's steps give them.
 8. train — the training main path: GPT-2 124M at full width, bf16
    activations over f32 params, flash attention, ``names`` remat, bf16
    logits, no dropout, AdamW (lr 3e-4, wd 0.1, cosine), B=8, T=1024, one
@@ -257,24 +260,35 @@ traces are counted first, while the process is young (PERF.md section
     the training step's device busy time over its profiled window's wall
     and over the throughput phase's unprofiled step, and the same for the
     decode ticks: the profiler's host cost inflates a profiled idle share.
-    decode_bench_twin_2 — ``serving.decode_bench``'s other modes in
-    subprocesses at their default shapes: the default (gpt2 and
-    llama3-1b; 2 timed repeats, not 3), ``--speculative 4`` (64 new
-    tokens, not 512), ``--serving``,
-    ``--serving-batched``
-    (and ``--chaos``), ``--serving-spec`` and ``--serving-paged --kv-quant
-    int8 --weight-quant int8``: each exits 0 (its asserted checks held),
-    K3 launched on ``--serving-spec`` and K4 on the quant leg.
+    decode_bench_twin_2 — ``serving.decode_bench``'s other modes in five
+    subprocesses at their default shapes: ``--serving-spec`` alone (it
+    gates a speedup), here; the default (gpt2 and llama3-1b; 2 timed
+    repeats, not 3), ``--speculative 4`` (64 new tokens, not 512),
+    ``--serving-batched --chaos`` and ``--serving --serving-batched
+    --serving-paged --kv-quant int8 --weight-quant int8`` (one process),
+    which gate nothing on time, beside phases 15-17b: each exits 0 (its
+    asserted checks held), K3 launched on ``--serving-spec`` and K4 on the
+    quant leg.
+The decode_bench twin and ``--serving-spec``, which gate times, run
+    alone. Then 16-17b run side by side with the storm (15,
+    ``storm_in_background``: it gates no time, and its workers are mostly
+    torch start-up) and the four untimed decode_bench runs above
+    (``late_phases``: none of them gates a time), while this script runs
+    the one-rank references of 17 and 17b (a ``side_by_side`` line: the
+    block's wall and its children). Every time 15-17b report is
+    contended: taken with the others on the same card and host.
 15. train_storm (slice 12) — the supervisor twin, ``python -m
-    pytorch_distributed_tpu_torch.train.supervisor --soak --dryrun``, on
-    the card at its default small config (20 steps, the smoke's hotter
-    fault rates; its workers are processes of their own, run after the
-    other subprocess phases): completed, final state bit-equal to its
+    pytorch_distributed_tpu_torch.train.supervisor --dryrun --steps 10``,
+    on the card at its default small config (10 steps, the smoke's hotter
+    fault rates; its workers are processes of their own): completed,
+    final state bit-equal to its
     fault-free leg, every fault kind fired, every crash (exit 43)
     followed by a restart; spawned, restarts, exit codes and wall seconds
     printed.
 16. data parallel (slice 13), each rank a subprocess of this script
-    (``--ddp-worker``): GPT-2 124M at full width (bf16, flash, names), the
+    (``--ddp-worker``; ddp_gloo2's two ranks are the ``--gloo-worker``
+    ranks of 17b, which run its legs first): GPT-2 124M at full width (bf16,
+    flash, names), the
     global batch 8 x 1024 split over the ranks, 3 steps a leg through the
     ``DistributedTrainer``'s loop. ddp_nccl — world 1 on NCCL, the four
     strategies: losses and params bit-equal to the single-device
@@ -290,8 +304,9 @@ traces are counted first, while the process is young (PERF.md section
     ``DDP_RESIDENT_RATIO`` of no_shard's; ms a step and peak bytes
     printed (gloo stages collectives through the host: no NCCL claim).
 17. tp_serve (slice 14), each rank a subprocess of this script
-    (``--tp-worker``): two gloo ranks sharing cuda:0, ``MeshConfig(tensor=
-    2)``, seed 0, against the one-rank paged engine on the same weights.
+    (``--gloo-worker tp_serve``): two gloo ranks sharing cuda:0,
+    ``MeshConfig(tensor=2)``, seed 0, against the one-rank paged engine
+    on the same weights (run by this script while the ranks run).
     GPT-2 124M (8 slots, max_len 1024, 16-token pages, the 16 requests of
     4): f32 tokens equal in >= 15 of 16 rows and the first decode tick's
     logits within 1e-4; bf16's first-tick relative logit MSE <= 2e-3;
@@ -308,6 +323,20 @@ traces are counted first, while the process is young (PERF.md section
     all-reduce host time and wall are reported, not gated (gloo stages
     every all-reduce through the host: no NCCL claim). The kernel phase
     (3) also holds K3/K4 at a rank's local heads (``TP_SHAPES``).
+17b. tp_train (slice 15), the ``--gloo-worker`` ranks' last part
+    (after ddp_gloo2's; a second pair of gloo ranks on cuda:0): training
+    through the ``DistributedTrainer`` at ``MeshConfig(tensor=2)`` — GPT-2
+    124M at
+    full width (bf16, flash, names, dropout 0) on ddp_nccl's 3 batches,
+    and Llama-3.2-1B widths at 4 layers, B 1, T 4096, 2 steps. Gates: both
+    ranks' losses identical, within ``DDP_GLOO2_LOSS_ATOL`` of one rank
+    on the same batches (ddp_nccl's ``Trainer``; the Llama leg's one-rank
+    ``Trainer`` run by this script meanwhile), K1 and K2 launched on every
+    rank, and the GPT-2 state saved at tensor 2 (the sharded format)
+    restored at tensor 1 bit for bit. Reported: K1/K2 launches,
+    all-reduces and other collectives a step, ms a step, resident and
+    peak bytes against one rank's. The flash phase (7) also holds K1/K2 at
+    a rank's local heads (``TP_FLASH_SHAPES``).
 14. The kernels line (K3, K4, K1, K2 and the LoRA delta kernel; K1/K2
     with ``slice13_paths``, their launches in the data-parallel legs, and
     ``slice12_paths``, their launches in train_guard's steps and runs;
@@ -319,13 +348,31 @@ traces are counted first, while the process is young (PERF.md section
     ``trace_window_counted``, the wrapper's count over the same window;
     K3/K4 and the LoRA kernel with ``tp_paths``, their launches on each
     tp_serve leg, and K3/K4 with ``tp_local_shapes``, their times at a
-    rank's local heads), then ``{"ok": true, "device": {...}}`` last.
+    rank's local heads; K1/K2 with ``tp_train_paths``, their launches on
+    each tp_train leg, and ``tp_local_shapes``), after a ``walls`` line
+    (every phase's wall and end, in seconds), then ``{"ok": true,
+    "device": {...}}`` last.
+
+Processes. Every child (nvcc, the twins, the supervisor and its workers,
+the ranks) starts through the port's launcher (``parallel/mesh``: a
+session of its own, its whole group SIGKILLed on a timeout, an error or a
+failed rank, and registered). SIGTERM and SIGINT kill every registered
+group and end the script nonzero (``install_exit_handlers``), as
+``atexit`` does at any other end; the ranks and the twins bind
+themselves to their parent (``bind_to_parent``: the kernel SIGKILLs them
+when it dies, even by SIGKILL) and join their group with a 120 s timeout.
+Every subprocess phase's timeout is cut to the time left before
+``DEADLINE_S`` (1150 s from the start), and after each of them and
+before the kernels line the script lists its living descendants
+(``/proc/<pid>/task/*/children``) and fails if there are any.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -410,12 +457,56 @@ def flash_fwd_bf16_vs_f32(v: torch.Tensor) -> dict:
 
 
 T0 = time.perf_counter()
+# The script's own deadline, under the 1200 s a run is given: every
+# subprocess phase's timeout is cut to the time left before it, so an
+# overrun ends the script with its children killed and an error line,
+# never cut off from outside with children alive.
+DEADLINE_S = 1150.0
+_EMITTED: list = []  # (phase, mode, t_s) of every line, for the walls
 
 
 def emit(**fields) -> None:
     """One JSON line; ``t_s`` is the seconds since the script started."""
-    print(json.dumps(dict(fields, t_s=round(time.perf_counter() - T0, 1))),
-          flush=True)
+    t_s = round(time.perf_counter() - T0, 1)
+    _EMITTED.append((fields.get("phase"), fields.get("mode"), t_s))
+    print(json.dumps(dict(fields, t_s=t_s)), flush=True)
+
+
+def phase_timeout(own_s: float, what: str) -> float:
+    """A subprocess phase's timeout: its own, or the time left before
+    ``DEADLINE_S`` if less; past the deadline the phase does not start."""
+    left = T0 + DEADLINE_S - time.perf_counter()
+    if left < 1.0:
+        raise AssertionError(f"{what}: the script's {DEADLINE_S:.0f} s "
+                             "deadline has passed")
+    return min(own_s, left)
+
+
+def check_survivors(where: str) -> None:
+    """Raise if any process this script started (at any depth) is still
+    alive, but for the children it still runs on purpose (the launcher's
+    register: the background storm) and their descendants: their pids
+    and command lines."""
+    mesh = pmesh()
+    running = set(mesh.registered())  # leaders, and their descendants
+    for leader in list(running):
+        running.update(pid for pid, _ in mesh.live_descendants(leader))
+    left = [(pid, cmd) for pid, cmd in mesh.live_descendants()
+            if pid not in running]
+    if left:
+        raise AssertionError(f"{where}: processes of this script still "
+                             f"alive: {left}")
+
+
+def phase_walls() -> list:
+    """Each emitted line's phase (and mode) with the seconds since the
+    line before it and its end in seconds since the start."""
+    out, prev = [], 0.0
+    for phase, mode, t_s in _EMITTED:
+        out.append(dict(phase=phase if mode is None else f"{phase}/{mode}",
+                        wall_s=round(t_s - prev, 1), end_s=t_s))
+        prev = t_s
+    return out
 
 
 def spin_cycles(ms: float) -> int:
@@ -1267,10 +1358,12 @@ def tier_legs(pk, cfg, params, lg_args, smi, phase, engine_kw=None) -> dict:
 
 
 def tier_profile(fleet, params, requests, smi, phase, cfg,
-                 n_ticks: int = 10) -> None:
+                 n_ticks: int = 3) -> None:
     """``torch.profiler`` over ``n_ticks`` router ticks of ``fleet`` with
     every slot of every replica decoding (after their prefills): the
-    device's busy share of a tier tick, its kernels and host ops."""
+    device's busy share of a tier tick, its kernels and host ops. Three
+    ticks: a tick of four replicas traces thousands of host ops, and
+    summing ten of them took most of the phase."""
     from torch.profiler import ProfilerActivity, profile
 
     n = sum(e.slots for e in fleet.engines().values())
@@ -2395,6 +2488,15 @@ def disagg_phase(pk, seed, dev, smi) -> dict:
     return out
 
 
+def pmesh():
+    """The port's launcher (``parallel/mesh``): every child process of
+    this script starts through it, in a process group of its own that is
+    killed on a timeout, an error or this script's end."""
+    from pytorch_distributed_tpu_torch.parallel import mesh
+
+    return mesh
+
+
 def decode_bench_twin_phase(smi) -> dict:
     """The ``decode_bench`` twin's entry point at its default shapes:
     ``--serving-disagg --serving-scenarios`` in a subprocess, exit code 0
@@ -2405,16 +2507,16 @@ def decode_bench_twin_phase(smi) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         out = f"{tmp}/rows.json"
         t0 = time.perf_counter()
-        proc = subprocess.run(
+        proc = pmesh().run(
             [sys.executable, "-m",
              "pytorch_distributed_tpu_torch.serving.decode_bench",
              "--serving-disagg", "--serving-scenarios", "--json", out],
-            capture_output=True, text=True, timeout=900)
+            timeout=phase_timeout(900, "decode_bench_twin"))
         wall = time.perf_counter() - t0
         if proc.returncode:
             raise AssertionError(
                 f"decode_bench twin exited {proc.returncode}: "
-                f"{proc.stderr[-4000:]}")
+                f"{proc.stdout[-4000:]}")
         with open(out) as f:
             rows = json.load(f)
     keep = ("outputs_match", "interactive_p99_ratio", "handoffs",
@@ -2434,6 +2536,7 @@ def decode_bench_twin_phase(smi) -> dict:
                legs={r["leg"]: {k: r[k] for k in keep if k in r}
                      for r in rows})
     emit(**row)
+    check_survivors("decode_bench_twin")
     if not (launches["K3"] and launches["lora"]):
         raise AssertionError(f"decode_bench twin: {launches}")
     return row
@@ -2674,24 +2777,49 @@ def time_flash(fk, q, k, v, do, causal, flush, chunks: int = 1) -> dict:
     return out
 
 
-def flash_phase(fk, dev, flush, seed) -> None:
+# K1/K2 at a tensor-2 rank's local heads, as the tp_train legs run them
+# (bf16): GPT-2 124M's 6 of 12 heads at T 1024; Llama-3.2-1B's 16 of 32
+# query heads over 4 of 8 KV heads (group 4) at T 4096.
+TP_FLASH_SHAPES = (
+    ("gpt2-124M-tp2", 8, 6, 6, 1024, 64),
+    ("llama3.2-1B-tp2", 1, 16, 4, 4096, 64),
+)
+
+
+def flash_phase(fk, dev, flush, seed) -> dict:
+    """K1 and K2 against their plain versions at the listed shapes in f32
+    and bf16, then at ``TP_FLASH_SHAPES`` in bf16 (plain versions by KV
+    head at T 4096), with kernel, plain, bound and SDPA times. Returns the
+    ``TP_FLASH_SHAPES`` rows by shape and kernel."""
     shapes = [
         ("gpt2-124M", 8, 12, 12, 1024, 64, True),
         ("llama3.2-1B", 1, 32, 8, 2048, 64, True),
         ("head_dim-128 ragged non-causal", 2, 16, 4, 1000, 128, False),
     ]
-    for name, b, h, hkv, t, d, causal in shapes:
-        for dtype in FLASH_TOLERANCES:
-            g = torch.Generator(device=dev).manual_seed(seed)
-            q, k, v, do = (
-                torch.randn(b, n, t, d, generator=g, device=dev).to(dtype)
-                for n in (h, hkv, hkv, h)
-            )
-            checked = check_flash(fk, q, k, v, do, causal, f"{name} {dtype}")
-            timed = time_flash(fk, q, k, v, do, causal, flush)
-            emit(phase="flash", shape=name, B=b, H=h, Hkv=hkv, T=t, D=d,
-                 causal=causal, dtype=str(dtype).replace("torch.", ""),
-                 **{kn: {**checked[kn], **timed[kn]} for kn in ("K1", "K2")})
+    cases = [(name, b, h, hkv, t, d, causal, dtype, 1)
+             for name, b, h, hkv, t, d, causal in shapes
+             for dtype in FLASH_TOLERANCES]
+    cases += [(name, b, h, hkv, t, d, True, torch.bfloat16,
+               hkv if t > 2048 else 1)
+              for name, b, h, hkv, t, d in TP_FLASH_SHAPES]
+    tp_rows = {}
+    for name, b, h, hkv, t, d, causal, dtype, chunks in cases:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        q, k, v, do = (
+            torch.randn(b, n, t, d, generator=g, device=dev).to(dtype)
+            for n in (h, hkv, hkv, h)
+        )
+        checked = check_flash(fk, q, k, v, do, causal, f"{name} {dtype}",
+                              chunks=chunks)
+        timed = time_flash(fk, q, k, v, do, causal, flush, chunks=chunks)
+        row = {kn: {**checked[kn], **timed[kn]} for kn in ("K1", "K2")}
+        emit(phase="flash", shape=name, B=b, H=h, Hkv=hkv, T=t, D=d,
+             causal=causal, dtype=str(dtype).replace("torch.", ""), **row)
+        if name.endswith("-tp2"):
+            tp_rows[name] = dict(B=b, H=h, Hkv=hkv, T=t, D=d,
+                                 dtype="bfloat16", **row)
+        del q, k, v, do
+    return tp_rows
 
 
 def train_setup(cfg, tcfg, b, t, seed, dev, draw_on="cpu"):
@@ -3850,53 +3978,88 @@ def throughput_phase(seed, smi) -> dict:
     return res
 
 
-DECODE_BENCH_MODES = {
+@dataclasses.dataclass(frozen=True)
+class DecodeBenchRun:
+    """One run of the decode_bench twin: its flags; ``side_by_side``:
+    whether it runs beside phases 15-17b (``late_phases``; none of its
+    legs asserts a time ratio) or alone; ``modes``: each mode it runs,
+    with the prefix of that mode's rows' ``leg``."""
+
+    flags: tuple
+    side_by_side: bool
+    modes: dict
+
+
+DECODE_BENCH_RUNS = {
     # 2 timed repeats where the twin's default is 3, and 64 new tokens
     # where the JAX script's default is 512 (the whole run's time: 512 made
     # the speculative mode 109 s of the card's run, 256 72 s, 128 43 s),
     # to make room for the tensor-parallel phase (17).
-    "decode": ["--repeats", "2"],
-    "speculative": ["--speculative", "4", "--max-new", "64"],
-    "serving": ["--serving"],
-    "serving_batched": ["--serving-batched"],
-    "serving_batched_chaos": ["--serving-batched", "--chaos"],
-    "serving_spec": ["--serving-spec"],
-    "serving_quant": ["--serving-paged", "--kv-quant", "int8",
-                      "--weight-quant", "int8"],
+    "decode": DecodeBenchRun(("--repeats", "2"), True, {"decode": ""}),
+    "speculative": DecodeBenchRun(("--speculative", "4", "--max-new", "64"),
+                                  True, {"speculative": ""}),
+    "serving_batched_chaos": DecodeBenchRun(
+        ("--serving-batched", "--chaos"), True,
+        {"serving_batched_chaos": ""}),
+    # Three modes in one process (the twin runs every mode flag it is
+    # given, each its own rows): one torch start-up, not three.
+    "serving_modes": DecodeBenchRun(
+        ("--serving", "--serving-batched", "--serving-paged", "--kv-quant",
+         "int8", "--weight-quant", "int8"), True,
+        {"serving": "serving_stream",
+         "serving_batched": "serving_batched_stream",
+         "serving_quant": "serving_quant_stream"}),
+    # Gates a speedup (the median of five pairs stepped in turns): alone.
+    "serving_spec": DecodeBenchRun(("--serving-spec",), False,
+                                   {"serving_spec": "serving_spec_"}),
 }
 
 
-def decode_bench_twin_2_phase(smi) -> dict:
-    """The ``decode_bench`` twin's other modes, each in a subprocess at its
-    default shapes, one line each: exit 0 (the legs' asserted checks
-    held), and K3 launched on ``--serving-spec``, K4 on the quant leg;
-    each leg's rows and kernel launches. Every mode runs before a failed
-    one raises."""
-    legs, failed = {}, []
-    for name, flags in DECODE_BENCH_MODES.items():
-        with tempfile.TemporaryDirectory() as tmp:
-            out = f"{tmp}/rows.json"
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [sys.executable, "-m",
-                 "pytorch_distributed_tpu_torch.serving.decode_bench",
-                 *flags, "--json", out],
-                capture_output=True, text=True, timeout=300)
-            wall = time.perf_counter() - t0
-            rows = []
-            if proc.returncode == 0:
-                with open(out) as f:
-                    rows = json.load(f)
-        leg = dict(flags=flags, wall_s=wall, exit_code=proc.returncode,
-                   launches={k: sum(r["launches"][k] for r in rows)
-                             for k in ("K3", "K4", "lora")}, rows=rows)
-        if proc.returncode:
-            leg["stderr"] = proc.stderr[-4000:]
-            failed.append(name)
-        emit(phase="decode_bench_twin_2", nvidia_smi=smi, mode=name, **leg)
-        legs[name] = leg["launches"]
-    if failed:
-        raise AssertionError(f"decode_bench modes exited nonzero: {failed}")
+def decode_bench_child(name: str, workdir: str) -> tuple:
+    """(argv, env) of one ``DECODE_BENCH_RUNS`` run, its rows in
+    ``workdir``/<name>.json."""
+    return ([sys.executable, "-m",
+             "pytorch_distributed_tpu_torch.serving.decode_bench",
+             *DECODE_BENCH_RUNS[name].flags, "--json",
+             f"{workdir}/{name}.json"],
+            dict(os.environ))
+
+
+def decode_bench_spec_phase(smi) -> list:
+    """``--serving-spec`` alone (its speedup gate reads host time): exit 0
+    and its rows."""
+    with tempfile.TemporaryDirectory() as tmp:
+        wall, _ = run_children({"serving_spec": decode_bench_child(
+            "serving_spec", tmp)}, 300, "decode_bench_twin_2 serving_spec")
+        with open(f"{tmp}/serving_spec.json") as f:
+            rows = json.load(f)
+    emit_decode_bench_run(smi, "serving_spec", rows, wall, False)
+    return rows
+
+
+def emit_decode_bench_run(smi, name: str, rows: list, wall: float,
+                          side_by_side: bool) -> None:
+    emit(phase="decode_bench_twin_2", nvidia_smi=smi, mode=name,
+         flags=list(DECODE_BENCH_RUNS[name].flags), wall_s=wall,
+         side_by_side=side_by_side, exit_code=0,
+         launches={k: sum(r["launches"][k] for r in rows)
+                   for k in ("K3", "K4", "lora")}, rows=rows)
+
+
+def decode_bench_twin_2_paths(runs: dict) -> dict:
+    """Each mode's kernel launches (``DECODE_BENCH_RUNS``' modes) from
+    every run's rows (``runs``: name -> rows); K3 must be launched on
+    ``--serving-spec``, K4 on the quant leg."""
+    legs = {}
+    for run, spec in DECODE_BENCH_RUNS.items():
+        for mode, prefix in spec.modes.items():
+            rows = [r for r in runs[run]
+                    if r.get("leg", "").startswith(prefix)]
+            if not rows:
+                raise AssertionError(f"decode_bench {mode}: no rows in "
+                                     f"{run}")
+            legs[mode] = {k: sum(r["launches"][k] for r in rows)
+                          for k in ("K3", "K4", "lora")}
     if not legs["serving_spec"]["K3"]:
         raise AssertionError(f"--serving-spec launched no K3: "
                              f"{legs['serving_spec']}")
@@ -4163,29 +4326,66 @@ def train_guard_phase(fk, cfg, seed, dev, smi, tmp, warmup=2,
     return res
 
 
-def train_storm_phase(smi, timeout_s: int = 400) -> dict:
-    """The supervisor twin's ``--soak --dryrun`` storm on the card, its
-    workers in processes of their own (each a fresh CUDA context; a
-    process spends ~8.4 s importing torch on the card's machine, so the
-    64-step storm took 227 s and this 20-step one 131: my chip runs, PR
-    13, calls 2 and 3)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        out = f"{tmp}/report.json"
+# The storm's steps: at 10 the seeded schedule fires every fault kind (a
+# crash, a SIGTERM, two bad batches, a corrupt checkpoint, slow steps) in
+# 3 chaos attempts, where the dryrun's default 20 takes 5: two fewer
+# worker processes, each ~8.4 s of torch start-up on the card's machine.
+STORM_STEPS = 10
+
+
+def _storm_child(workdir: str) -> tuple:
+    """The supervisor twin's ``--dryrun`` storm at ``STORM_STEPS`` (argv,
+    env), its report in ``workdir``/storm_report.json."""
+    return ([sys.executable, "-m", "pytorch_distributed_tpu_torch.train."
+             "supervisor", "--dryrun", "--steps", str(STORM_STEPS),
+             "--workdir", f"{workdir}/storm", "--json",
+             f"{workdir}/storm_report.json"], dict(os.environ))
+
+
+@contextlib.contextmanager
+def storm_in_background():
+    """The storm (``_storm_child``) started now, beside the phases run
+    inside the block; yields ``finish()``, which waits for it (to the
+    script's deadline) and returns (its report, wall s). Its process group
+    is killed at the block's end whatever happened."""
+    with tempfile.TemporaryDirectory() as tmp, \
+            tempfile.TemporaryFile("w+") as err:
+        argv, env = _storm_child(tmp)
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "pytorch_distributed_tpu_torch.train."
-             "supervisor", "--soak", "--dryrun", "--workdir",
-             f"{tmp}/storm", "--json", out],
-            capture_output=True, text=True, timeout=timeout_s)
-        wall = time.perf_counter() - t0
-        report = {}
-        if os.path.exists(out):
-            with open(out) as f:
-                report = json.load(f)
+        proc = pmesh().launch(argv, env=env, stdout=subprocess.DEVNULL,
+                              stderr=err)
+
+        def finish():
+            try:
+                proc.wait(timeout=phase_timeout(400, "train_storm"))
+            except subprocess.TimeoutExpired:
+                raise AssertionError("train_storm: not done by the "
+                                     "deadline") from None
+            finally:
+                pmesh().kill_group(proc)
+            if proc.returncode:
+                err.seek(0)
+                raise AssertionError(f"train_storm exited {proc.returncode}"
+                                     f": {err.read()[-3000:]}")
+            with open(f"{tmp}/storm_report.json") as f:
+                return json.load(f), time.perf_counter() - t0
+
+        try:
+            yield finish
+        finally:
+            pmesh().kill_group(proc)
+
+
+def train_storm_phase(smi, report: dict, wall: float) -> dict:
+    """The storm's report (``_storm_child``) on the card, its workers in
+    processes of their own (each a fresh CUDA context; a process spends
+    ~8.4 s importing torch on the card's machine: the 64-step storm took
+    227 s and the 20-step one 131 on an H100 80GB HBM3). ``wall``: its
+    own, beside the phases of ``storm_in_background``'s block."""
     chaos = report.get("chaos", {})
     rcs = chaos.get("exit_codes", [])
     counts = report.get("fault_counts", {})
-    res = dict(exit_code=proc.returncode, wall_s=wall,
+    res = dict(wall_s=wall,
                spawned=chaos.get("spawned"), restarts=chaos.get("restarts"),
                exit_codes=rcs, fault_counts=counts,
                completed=chaos.get("completed"),
@@ -4196,12 +4396,10 @@ def train_storm_phase(smi, timeout_s: int = 400) -> dict:
                kernel_libraries=sorted({a["compile_count"] for a in
                                         chaos.get("attempts", [])}),
                failures=report.get("failures"))
-    if proc.returncode:
-        res["stderr"] = proc.stderr[-3000:]
     emit(phase="train_storm", nvidia_smi=smi, **res)
     kinds = ("crash", "sigterm", "bad_batch", "ckpt_corrupt", "slow_step")
     crashes = sum(rc == 43 for rc in rcs)
-    if proc.returncode or not report.get("ok") or not res["completed"] \
+    if not report.get("ok") or not res["completed"] \
             or not res["bit_equal"]:
         raise AssertionError(f"train_storm: {res}")
     if not all(counts.get(k) for k in kinds):
@@ -4212,6 +4410,11 @@ def train_storm_phase(smi, timeout_s: int = 400) -> dict:
                              f"{crashes} attempts exited 43, exit codes "
                              f"{rcs}: not a restart for every crash")
     return res
+
+
+# A rank on the card joins its group with this timeout (a rank whose peer
+# is gone waits no longer in a collective; gloo's default is 600 s).
+RANK_GROUP_TIMEOUT_S = 120.0
 
 
 # Data-parallel training (slice 13): each rank a subprocess of this script
@@ -4253,6 +4456,7 @@ def _ddp_leg(trainer, loader, fk, zero, profiler=None) -> dict:
     """Train ``loader`` through the trainer's loop from a fresh state;
     the launches, collectives, step times, allocator bytes and the final
     state."""
+    gc.collect()  # what earlier legs left to the collector goes now
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     state = trainer.init_state()
@@ -4272,9 +4476,46 @@ def _ddp_leg(trainer, loader, fk, zero, profiler=None) -> dict:
                 peak_bytes=torch.cuda.max_memory_allocated())
 
 
-def ddp_worker(mode: str, workdir: str, seed: int) -> int:
-    """One rank of the ``ddp_nccl`` (world 1, NCCL) or ``ddp_gloo2`` (two
-    ranks on cuda:0, gloo) phase; writes ``ddp_<mode>_<rank>.json``."""
+def _ddp_legs(model, cfg, tcfg, loader, dev, world: int, strategies,
+              ref=None) -> dict:
+    """Each strategy's 3 steps through the ``DistributedTrainer``'s loop
+    over data (no_shard) or fsdp (the others) of ``world`` ranks on the
+    global batches; with ``ref`` (a state) whether the params equal
+    its."""
+    from pytorch_distributed_tpu_torch.config import MeshConfig
+    from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
+    from pytorch_distributed_tpu_torch.parallel import zero
+    from pytorch_distributed_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_distributed_tpu_torch.train.distributed_trainer import (
+        DistributedTrainer,
+    )
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    legs = {}
+    for strategy in strategies:
+        mcfg = (MeshConfig(data=world, strategy=strategy)
+                if strategy == "no_shard" else
+                MeshConfig(fsdp=world, strategy=strategy))
+        trainer = DistributedTrainer(model, cfg, tcfg,
+                                     make_mesh(mcfg, device=dev), mcfg,
+                                     log_fn=lambda s: None)
+        # The global batches: the trainer's put_batch keeps this rank's
+        # rows.
+        leg = _ddp_leg(trainer, loader, fk, zero)
+        state = leg.pop("state")
+        if ref is not None:
+            leg["params_equal"] = all(
+                torch.equal(a, b) for a, b in zip(tree.leaves(state.params),
+                                                  tree.leaves(ref.params)))
+        legs[strategy] = leg
+        del trainer, state
+        torch.cuda.empty_cache()
+    return legs
+
+
+def ddp_worker(workdir: str, seed: int) -> int:
+    """The one rank of the ``ddp_nccl`` phase (world 1, NCCL); writes
+    ``ddp_nccl_0.json``."""
     import torch.distributed as dist
 
     from pytorch_distributed_tpu_torch.config import MeshConfig
@@ -4294,122 +4535,104 @@ def ddp_worker(mode: str, workdir: str, seed: int) -> int:
         DistributedTrainer,
     )
     from pytorch_distributed_tpu_torch.train.trainer import Trainer
-    from pytorch_distributed_tpu_torch.utils import tree
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
-    initialize_distributed(device=dev, backend="nccl" if mode == "nccl"
-                           else "gloo", timeout_s=300)
+    initialize_distributed(device=dev, backend="nccl",
+                           timeout_s=RANK_GROUP_TIMEOUT_S)
     rank, world = dist.get_rank(), dist.get_world_size()
     cfg, tcfg, loader = _ddp_model(seed, world)
     model = get_model(cfg)
     quiet = dict(log_fn=lambda s: None)
-    out = dict(rank=rank, world=world, backend=dist.get_backend(),
-               legs={})
-    ref = None
-    if mode == "nccl":  # the single-device Trainer on the same batches
-        leg = _ddp_leg(Trainer(model, cfg, tcfg, device=dev, **quiet),
-                       loader, fk, zero)
-        ref = leg.pop("state")
-        out["trainer"] = leg
-    strategies = (("no_shard", "full_shard", "shard_grad_op", "shard_opt")
-                  if mode == "nccl" else ("no_shard", "full_shard"))
-    for strategy in strategies:
-        mcfg = (MeshConfig(data=world, strategy=strategy)
-                if strategy == "no_shard" else
-                MeshConfig(fsdp=world, strategy=strategy))
-        trainer = DistributedTrainer(model, cfg, tcfg,
-                                     make_mesh(mcfg, device=dev), mcfg,
-                                     **quiet)
-        # The global batches: the trainer's put_batch keeps this rank's
-        # rows.
-        leg = _ddp_leg(trainer, loader, fk, zero)
-        state = leg.pop("state")
-        if ref is not None:
-            leg["params_equal"] = all(
-                torch.equal(a, b) for a, b in zip(tree.leaves(state.params),
-                                                  tree.leaves(ref.params)))
-        out["legs"][strategy] = leg
-        del trainer, state
-        torch.cuda.empty_cache()
-    if mode == "nccl":
-        # A Kineto window over two DDP steps of the trainer's loop.
-        mcfg = MeshConfig(data=1, strategy="no_shard")
-        trainer = DistributedTrainer(
-            model, cfg, dataclasses.replace(tcfg, num_steps=4),
-            make_mesh(mcfg, device=dev), mcfg, **quiet)
-        prof = ScheduledProfiler(f"{workdir}/trace", wait=1, warmup=1,
-                                 active=2, device=dev)
-        leg = _ddp_leg(trainer, loader + loader[:1], fk, zero,
-                       profiler=prof)
-        prof.close()
-        files = find_trace_files(f"{workdir}/trace")
-        trace = trace_analysis.load_trace(files[0])
-        events = trace["traceEvents"]
-        rows = trace_analysis.device_op_events(trace)
-        c10d = sum(1 for e in events if e.get("cat") == "cpu_op"
-                   and e.get("name", "").startswith("c10d::"))
-        nccl_rows = [r for r in rows if r["name"].removeprefix("void ")
-                     .lower().startswith("nccl")]
-        out["trace"] = dict(
-            files=len(files), nccl_kernels=len(nccl_rows),
-            nccl_kernel_categories=sorted({r["category"]
-                                           for r in nccl_rows}),
-            c10d_ops=c10d,
-            nccl_stream_annotations=sum(
-                1 for e in events if e.get("cat") == "gpu_user_annotation"
-                and e.get("name", "").startswith("nccl:")),
-            collectives_per_step=leg["collectives"] / 4,
-            memcpy_rows=sum(r["category"] == "memcpy" for r in rows),
-            breakdown=trace_analysis.temporal_breakdown(trace))
-    with open(f"{workdir}/ddp_{mode}_{rank}.json", "w") as f:
+    out = dict(rank=rank, world=world, backend=dist.get_backend())
+    # the single-device Trainer on the same batches
+    leg = _ddp_leg(Trainer(model, cfg, tcfg, device=dev, **quiet),
+                   loader, fk, zero)
+    ref = leg.pop("state")
+    out["trainer"] = leg
+    out["legs"] = _ddp_legs(model, cfg, tcfg, loader, dev, world,
+                            ("no_shard", "full_shard", "shard_grad_op",
+                             "shard_opt"), ref)
+    del ref
+    # A Kineto window over two DDP steps of the trainer's loop.
+    mcfg = MeshConfig(data=1, strategy="no_shard")
+    trainer = DistributedTrainer(
+        model, cfg, dataclasses.replace(tcfg, num_steps=4),
+        make_mesh(mcfg, device=dev), mcfg, **quiet)
+    prof = ScheduledProfiler(f"{workdir}/trace", wait=1, warmup=1,
+                             active=2, device=dev)
+    leg = _ddp_leg(trainer, loader + loader[:1], fk, zero,
+                   profiler=prof)
+    prof.close()
+    files = find_trace_files(f"{workdir}/trace")
+    trace = trace_analysis.load_trace(files[0])
+    events = trace["traceEvents"]
+    rows = trace_analysis.device_op_events(trace)
+    c10d = sum(1 for e in events if e.get("cat") == "cpu_op"
+               and e.get("name", "").startswith("c10d::"))
+    nccl_rows = [r for r in rows if r["name"].removeprefix("void ")
+                 .lower().startswith("nccl")]
+    out["trace"] = dict(
+        files=len(files), nccl_kernels=len(nccl_rows),
+        nccl_kernel_categories=sorted({r["category"]
+                                       for r in nccl_rows}),
+        c10d_ops=c10d,
+        nccl_stream_annotations=sum(
+            1 for e in events if e.get("cat") == "gpu_user_annotation"
+            and e.get("name", "").startswith("nccl:")),
+        collectives_per_step=leg["collectives"] / 4,
+        memcpy_rows=sum(r["category"] == "memcpy" for r in rows),
+        breakdown=trace_analysis.temporal_breakdown(trace))
+    with open(f"{workdir}/ddp_nccl_{rank}.json", "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
     return 0
 
 
-def _run_ddp_ranks(mode: str, world: int, seed: int,
-                   timeout_s: float) -> tuple[list, float]:
-    """Start ``world`` ranks of ``ddp_worker(mode)`` as subprocesses of
-    this script, wait for all (killing any left at the limit) and read
-    their reports."""
-    import socket
+def run_children(children: dict, timeout_s: float, what: str, *,
+                 while_running=None):
+    """Run ``children`` (name -> (argv, env)) side by side through the
+    port's launcher (``pmesh().run_group``: each in a process group of its
+    own; one that exits nonzero ends the others at once; all end at the
+    timeout, cut to the script's deadline), while
+    this process runs ``while_running()``. Raises with every failed
+    child's exit code and stderr; returns (wall s, ``while_running``'s
+    result)."""
+    names = list(children)
+    box = {}
+    t0 = time.perf_counter()
+    try:
+        out = pmesh().run_group(
+            [children[n][0] for n in names], [children[n][1] for n in names],
+            timeout_s=phase_timeout(timeout_s, what),
+            stdout=subprocess.DEVNULL,
+            while_running=None if while_running is None else
+            lambda: box.update(result=while_running()))
+    except TimeoutError as err:
+        raise AssertionError(f"{what}: {err}") from None
+    wall = time.perf_counter() - t0
+    check_survivors(what)
+    failed = {n: (rc, err[-3000:]) for n, (rc, err) in zip(names, out)
+              if rc}
+    if failed:
+        raise AssertionError(f"{what}: exit codes {failed}")
+    return wall, box.get("result")
 
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--ddp-worker",
-             mode, "--workdir", tmp, "--seed", str(seed)],
-            env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
-                     LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-                     MASTER_PORT=str(port)),
-            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-            for r in range(world)]
-        errs = []
-        try:
-            for proc in procs:
-                left = max(1.0, t0 + timeout_s - time.perf_counter())
-                errs.append(proc.communicate(timeout=left)[1])
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        wall = time.perf_counter() - t0
-        rcs = [proc.returncode for proc in procs]
-        if any(rcs):
-            raise AssertionError(f"ddp_{mode}: rank exit codes {rcs}: "
-                                 + " | ".join(e[-2000:] for e in errs))
-        reports = []
-        for r in range(world):
-            with open(f"{tmp}/ddp_{mode}_{r}.json") as f:
-                reports.append(json.load(f))
-    return reports, wall
+
+def _rank_children(flags: list, world: int, seed: int, workdir: str,
+                   name: str) -> dict:
+    """``world`` ranks of this script with ``flags`` (``RANK``,
+    ``WORLD_SIZE``, a free 127.0.0.1 port; ``LOCAL_RANK`` 0: they share
+    cuda:0), each writing into ``workdir``."""
+    port = pmesh().free_port()
+    argv = [sys.executable, os.path.abspath(__file__), *flags,
+            "--workdir", workdir, "--seed", str(seed)]
+    return {f"{name}_rank{r}": (argv, dict(
+        os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK="0",
+        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)))
+        for r in range(world)}
 
 
 def _leg_row(leg: dict) -> dict:
@@ -4419,14 +4642,14 @@ def _leg_row(leg: dict) -> dict:
                 launches=leg["launches"], collectives=leg["collectives"])
 
 
-def ddp_nccl_phase(smi, seed: int) -> dict:
-    """World 1 on NCCL (``ddp_worker``): the four strategies' 3 steps
-    through the DistributedTrainer's loop bit-equal to the single-device
-    Trainer's (losses and params), K1/K2 launched as often; then a Kineto
-    window of two DDP steps: its NCCL kernels (none at one rank: NCCL
-    copies or skips a one-rank collective) classed communication, its
-    c10d collective rows as many as the step issues."""
-    (rep,), wall = _run_ddp_ranks("nccl", 1, seed, 420)
+def ddp_nccl_phase(smi, rep: dict, wall: float) -> dict:
+    """World 1 on NCCL (``ddp_worker``'s report ``rep``): the four
+    strategies' 3 steps through the DistributedTrainer's loop bit-equal to
+    the single-device Trainer's (losses and params), K1/K2 launched as
+    often; then a Kineto window of two DDP steps: its NCCL kernels (none
+    at one rank: NCCL copies or skips a one-rank collective) classed
+    communication, its c10d collective rows as many as the step issues.
+    ``wall``: the side-by-side run of phases 16-17b (``late_phases``)."""
     ref = rep["trainer"]
     legs = {k: _leg_row(v) for k, v in rep["legs"].items()}
     res = dict(wall_s=wall, backend=rep["backend"],
@@ -4456,15 +4679,17 @@ def ddp_nccl_phase(smi, seed: int) -> dict:
     return res
 
 
-def ddp_gloo2_phase(smi, seed: int, one_rank_losses: list) -> dict:
+def ddp_gloo2_phase(smi, reps: list, wall: float,
+                    one_rank_losses: list) -> dict:
     """Two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
     card), no_shard over data 2 and full_shard over fsdp 2: both ranks'
     losses equal, each within ``DDP_GLOO2_LOSS_ATOL`` of one rank at the
     same global batch (ddp_nccl's Trainer), K1/K2 12 a step on each rank,
     full_shard's resident params and moments at most
     ``DDP_RESIDENT_RATIO`` of no_shard's on each rank. gloo stages every
-    collective through the host: no time here is a claim about NCCL."""
-    reps, wall = _run_ddp_ranks("gloo", 2, seed, 420)
+    collective through the host: no time here is a claim about NCCL. The
+    legs (``_ddp_gloo2_part``) run first in the ranks that then run
+    tp_train's (``late_phases``)."""
     legs = {f"{name}_rank{r['rank']}": _leg_row(leg)
             for r in reps for name, leg in r["legs"].items()}
     res = dict(wall_s=wall, backend=reps[0]["backend"], legs=legs,
@@ -4500,7 +4725,7 @@ def ddp_gloo2_phase(smi, seed: int, one_rank_losses: list) -> dict:
 
 # Tensor-parallel and ZeRO-3 serving (slice 14): two ranks on cuda:0 over
 # gloo (NCCL refuses two ranks on one card), each a subprocess of this
-# script (``--tp-worker``). gloo stages every all-reduce through the host:
+# script (``--gloo-worker``). gloo stages every all-reduce through the host:
 # no time here is a claim about NCCL or NVLink.
 TP_WORLD = 2
 # f32: the first decode tick's logits of the TP engine against the
@@ -4602,30 +4827,59 @@ def _tp_drive(cfg, params, reqs, pk, lk=None, mesh_cfg=None, **engine_kw):
     )
 
 
-def tp_worker(workdir: str, seed: int) -> int:
-    """One rank of the ``tp_serve`` phase (two ranks on cuda:0, gloo):
-    GPT-2 124M f32 and bf16 on the TP paged engine (MeshConfig(tensor=2)),
-    Llama-3.2-1B at 4 layers with int8 pages and weights, GPT-2 f32 with 4
-    LoRA tenants (the mix and each tenant alone), and the ZeRO-3 serial
-    engine (MeshConfig(fsdp=2)) against the plain one; writes
-    ``tp_<rank>.json`` and the first-tick logits ``tp_<rank>.npz``."""
+def gloo_worker(parts: list, workdir: str, seed: int) -> int:
+    """One of two gloo ranks on cuda:0 (``late_phases`` runs two such
+    pairs side by side): each of ``parts`` (``GLOO_PARTS``) in turn, each
+    writing its report, with its own wall, to ``<part>_<rank>.json``."""
+    import torch.distributed as dist
+
+    from pytorch_distributed_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    initialize_distributed(device=dev, backend="gloo",
+                           timeout_s=RANK_GROUP_TIMEOUT_S)
+    rank = dist.get_rank()
+    for part in parts:
+        t0 = time.perf_counter()
+        out = GLOO_PARTS[part](dev, seed, workdir, rank)
+        out.update(rank=rank, world=dist.get_world_size(),
+                   backend=dist.get_backend(),
+                   wall_s=time.perf_counter() - t0)
+        with open(f"{workdir}/{part}_{rank}.json", "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _ddp_gloo2_part(dev, seed: int, workdir: str, rank: int) -> dict:
+    """ddp_gloo2's legs (``_ddp_legs``): no_shard over data 2, full_shard
+    over fsdp 2."""
+    from pytorch_distributed_tpu_torch.models import get_model
+
+    cfg, tcfg, loader = _ddp_model(seed, TP_WORLD)
+    return dict(legs=_ddp_legs(get_model(cfg), cfg, tcfg, loader, dev,
+                               TP_WORLD, ("no_shard", "full_shard")))
+
+
+def _tp_serve_part(dev, seed: int, workdir: str, rank: int) -> dict:
+    """tp_serve's legs: GPT-2 124M f32 and bf16 on the TP paged engine
+    (MeshConfig(tensor=2)), Llama-3.2-1B at 4 layers with int8 pages and
+    weights, GPT-2 f32 with 4 LoRA tenants (the mix and each tenant
+    alone), and the ZeRO-3 serial engine (MeshConfig(fsdp=2)) against the
+    plain one; also gloo's all-reduce of CUDA tensors probed in f32 and
+    bf16, and the first-tick logits written to ``tp_serve_<rank>.npz``."""
     import torch.distributed as dist
 
     from pytorch_distributed_tpu_torch.config import MeshConfig
     from pytorch_distributed_tpu_torch.ops import lora_kernel as lk
     from pytorch_distributed_tpu_torch.ops import paged_kernel as pk
-    from pytorch_distributed_tpu_torch.parallel.mesh import (
-        initialize_distributed,
-    )
     from pytorch_distributed_tpu_torch.serving.engine import DecodeEngine
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
-    dev = torch.device("cuda", 0)
-    torch.cuda.set_device(dev)
-    initialize_distributed(device=dev, backend="gloo", timeout_s=300)
-    rank = dist.get_rank()
     # gloo on CUDA tensors: f32 and bf16 sums staged through the host.
     probes = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -4635,9 +4889,9 @@ def tp_worker(workdir: str, seed: int) -> int:
             probes[str(dtype).replace("torch.", "")] = t.tolist()
         except RuntimeError as err:
             probes[str(dtype).replace("torch.", "")] = repr(err)[:300]
+    out = dict(gloo_cuda_all_reduce=probes, legs={})
     f32, bf16, params, lcfg, lparams = _tp_models(seed, dev)
     tp2, z3 = MeshConfig(tensor=TP_WORLD), MeshConfig(fsdp=TP_WORLD)
-    out = dict(rank=rank, gloo_cuda_all_reduce=probes, legs={})
     logits = {}
     legs = (("gpt2_f32", f32, params, requests(f32, seed), {}),
             ("gpt2_bf16", bf16, params, requests(bf16, seed), {}),
@@ -4682,54 +4936,17 @@ def tp_worker(workdir: str, seed: int) -> int:
     out["legs"]["zero3"] = dict(tokens=z.tolist(), plain=plain.tolist(),
                                 all_gathers=gathers,
                                 wall_s=time.perf_counter() - t0)
-    out["wall_s"] = time.perf_counter() - t_start
-    np.savez(f"{workdir}/tp_{rank}.npz", **logits)
-    with open(f"{workdir}/tp_{rank}.json", "w") as f:
-        json.dump(out, f)
-    dist.destroy_process_group()
-    return 0
+    np.savez(f"{workdir}/tp_serve_{rank}.npz", **logits)
+    return out
 
 
-def _run_tp_ranks(seed: int, timeout_s: float) -> tuple[list, list, float]:
-    """Start the ``tp_worker`` ranks, wait for all (killing any left at
-    the limit); their reports and first-tick logits."""
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--tp-worker",
-             "--workdir", tmp, "--seed", str(seed)],
-            env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(TP_WORLD),
-                     LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-                     MASTER_PORT=str(port)),
-            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-            for r in range(TP_WORLD)]
-        errs = []
-        try:
-            for proc in procs:
-                left = max(1.0, t0 + timeout_s - time.perf_counter())
-                errs.append(proc.communicate(timeout=left)[1])
-        finally:
-            for proc in procs:
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        wall = time.perf_counter() - t0
-        rcs = [proc.returncode for proc in procs]
-        if any(rcs):
-            raise AssertionError(f"tp_serve: rank exit codes {rcs}: "
-                                 + " | ".join(e[-3000:] for e in errs))
-        reports, logits = [], []
-        for r in range(TP_WORLD):
-            with open(f"{tmp}/tp_{r}.json") as f:
-                reports.append(json.load(f))
-            with np.load(f"{tmp}/tp_{r}.npz") as z:
-                logits.append({k: z[k] for k in z.files})
-    return reports, logits, wall
+def _read_part(tmp: str, part: str) -> list:
+    """Each rank's report of ``gloo_worker``'s ``part``."""
+    out = []
+    for r in range(TP_WORLD):
+        with open(f"{tmp}/{part}_{r}.json") as f:
+            out.append(json.load(f))
+    return out
 
 
 def _one_rank_refs(pk, seed, dev) -> dict:
@@ -4763,9 +4980,10 @@ def _one_rank_refs(pk, seed, dev) -> dict:
     return refs
 
 
-def tp_serve_phase(pk, seed, dev, smi) -> dict:
+def tp_serve_phase(smi, reports: list, logits: list, wall: float,
+                   refs: dict, refs_s: float) -> dict:
     """Tensor-parallel serving on two gloo ranks sharing cuda:0
-    (``tp_worker``) against the one-rank paged engine on the same weights
+    (``_tp_serve_part``) against the one-rank paged engine on the same weights
     (``_one_rank_refs``). Gates: GPT-2 f32 tokens equal in >= 15 of 16
     rows and the first tick's logits within ``TP_F32_LOGITS_ATOL``; bf16
     and the int8 Llama's first-tick relative logit MSE <= 2e-3; both
@@ -4775,13 +4993,14 @@ def tp_serve_phase(pk, seed, dev, smi) -> dict:
     each rank's pool half the one-rank pool; LoRA rows equal their tenant
     alone with 2 x n_layer LoRA launches a forward; the ZeRO-3 serial
     engine's tokens equal the plain engine's. Tick ms, all-reduce host
-    time and wall are reported, not gated (gloo on one card)."""
-    t0 = time.perf_counter()
-    refs = _one_rank_refs(pk, seed, dev)
-    refs_s = time.perf_counter() - t0
-    reports, logits, wall = _run_tp_ranks(seed, 600)
+    time and wall are reported, not gated (gloo on one card). ``wall``:
+    the side-by-side run of phases 16-17b; ``refs``: the one-rank
+    engine's, run meanwhile (``late_phases``)."""
     rep = reports[0]
-    res = dict(wall_s=wall, refs_s=refs_s, world=TP_WORLD, backend="gloo",
+    res = dict(wall_s=wall, refs_s=refs_s,
+               rank_legs_s=[sum(leg["wall_s"] for leg in r["legs"].values())
+                            for r in reports],
+               world=TP_WORLD, backend="gloo",
                gloo_cuda_all_reduce=rep["gloo_cuda_all_reduce"],
                rank_wall_s=[r["wall_s"] for r in reports], legs={})
     failures = []
@@ -4872,23 +5091,275 @@ def tp_serve_phase(pk, seed, dev, smi) -> dict:
     return res
 
 
+# Tensor-parallel training (slice 15): the ``--gloo-worker`` ranks' last
+# legs, through the ``DistributedTrainer`` at MeshConfig(tensor=2). GPT-2
+# 124M at full width on ddp_nccl's batches (ddp_nccl's single-device
+# ``Trainer`` is its one-rank reference); Llama-3.2-1B widths at 4 layers,
+# T 4096, its one-rank ``Trainer`` run by this script meanwhile.
+TP_TRAIN_LLAMA_LAYERS = 4
+TP_TRAIN_LLAMA_T = 4096
+TP_TRAIN_LLAMA_STEPS = 2
+
+
+def _tp_train_llama(seed: int):
+    """(config, train config, loader) of the Llama leg: ``llama_cfg``
+    (bf16 params and activations, flash, names, the fused head CE) at 4
+    layers, B 1, T 4096, 2 steps."""
+    from pytorch_distributed_tpu_torch.config import TrainConfig
+
+    cfg = llama_cfg(n_layer=TP_TRAIN_LLAMA_LAYERS)
+    t, n = TP_TRAIN_LLAMA_T, TP_TRAIN_LLAMA_STEPS
+    tcfg = TrainConfig(global_batch_size=1, micro_batch_size=1, num_steps=n,
+                       learning_rate=3e-4, seed=seed, log_every_n_steps=1)
+    rng = np.random.default_rng(seed + 15)
+    loader = [(rng.integers(0, cfg.vocab_size, (1, t)),
+               rng.integers(0, cfg.vocab_size, (1, t))) for _ in range(n)]
+    return cfg, tcfg, loader
+
+
+def _tp_checkpoint(trainer, state, cfg, path: str, rank: int) -> dict:
+    """``state`` (tensor 2) saved in the port's sharded format by every
+    rank; rank 0 restores it at tensor 1 (no sharding: the whole state)
+    into a zeroed state and holds it bit for bit to the state gathered
+    over the ranks."""
+    from pytorch_distributed_tpu_torch.train import checkpoint as ckpt
+    from pytorch_distributed_tpu_torch.train.state import init_train_state
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(path, state, cfg, format="orbax",
+                         sharding=trainer.sharding,
+                         metadata={"step": state.step})
+    out = dict(save_s=time.perf_counter() - t0,
+               files=sorted(os.listdir(f"{path}/tree")))
+    full = ckpt.gather_state(state, trainer.sharding)
+    if rank == 0:
+        zeros = tree.unflatten(full.params, [torch.zeros_like(t) for t in
+                                             tree.leaves(full.params)])
+        t0 = time.perf_counter()
+        got = ckpt.load_checkpoint(path, init_train_state(zeros, trainer.tx),
+                                   cfg)
+        out["load_s"] = time.perf_counter() - t0
+
+        def leaves(s):
+            return tree.leaves([s.params, s.opt_state["mu"],
+                                s.opt_state["nu"]])
+
+        out.update(
+            leaves=len(leaves(full)), step=got.step,
+            bit_equal=(all(torch.equal(a, b) for a, b in
+                           zip(leaves(got), leaves(full)))
+                       and got.step == full.step
+                       and got.opt_state["count"] == full.opt_state["count"]))
+    return out
+
+
+def _tp_train_part(dev, seed: int, workdir: str, rank: int) -> dict:
+    """GPT-2 (3 steps) and the Llama leg (2 steps) through the
+    ``DistributedTrainer`` at MeshConfig(tensor=2): losses, K1/K2
+    launches, all-reduces (``ops/tp``) and other collectives
+    (``parallel/zero``), ms a step, resident and peak bytes; GPT-2's
+    state then through ``_tp_checkpoint``."""
+    from pytorch_distributed_tpu_torch.config import MeshConfig
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
+    from pytorch_distributed_tpu_torch.ops import tp
+    from pytorch_distributed_tpu_torch.parallel import zero
+    from pytorch_distributed_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_distributed_tpu_torch.train.distributed_trainer import (
+        DistributedTrainer,
+    )
+
+    mcfg = MeshConfig(tensor=TP_WORLD, strategy="no_shard")
+    legs = {}
+    for name, (cfg, tcfg, loader) in (("gpt2", _ddp_model(seed, 1)),
+                                      ("llama", _tp_train_llama(seed))):
+        t0 = time.perf_counter()
+        trainer = DistributedTrainer(get_model(cfg), cfg, tcfg,
+                                     make_mesh(mcfg, device=dev), mcfg,
+                                     log_fn=lambda s: None)
+        c0 = tp.collectives
+        leg = _ddp_leg(trainer, loader, fk, zero)
+        leg["tp_allreduces"] = tp.collectives - c0
+        state = leg.pop("state")
+        if name == "gpt2":
+            leg["checkpoint"] = _tp_checkpoint(
+                trainer, state, cfg, f"{workdir}/tp_ckpt", rank)
+        leg["wall_s"] = time.perf_counter() - t0
+        legs[name] = leg
+        del trainer, state
+        torch.cuda.empty_cache()
+    return dict(legs=legs)
+
+
+# ``gloo_worker``'s parts: each phase's legs on a pair of gloo ranks.
+GLOO_PARTS = {"tp_serve": _tp_serve_part, "ddp_gloo2": _ddp_gloo2_part,
+              "tp_train": _tp_train_part}
+
+
+def _tp_train_llama_ref(fk, seed: int, dev) -> dict:
+    """The Llama leg on one rank: the single-device ``Trainer`` on the
+    same batches."""
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.parallel import zero
+    from pytorch_distributed_tpu_torch.train.trainer import Trainer
+
+    cfg, tcfg, loader = _tp_train_llama(seed)
+    leg = _ddp_leg(Trainer(get_model(cfg), cfg, tcfg, device=dev,
+                           log_fn=lambda s: None), loader, fk, zero)
+    del leg["state"]
+    torch.cuda.empty_cache()
+    return _leg_row(leg)
+
+
+def tp_train_phase(smi, reports: list, one_rank: dict) -> dict:
+    """Tensor-parallel training on the two gloo ranks sharing cuda:0
+    (``_tp_train_part``) against one rank on the same batches
+    (``one_rank``: ``_leg_row``s by leg). Gates: both ranks' losses
+    identical; each within ``DDP_GLOO2_LOSS_ATOL`` of one rank's (bf16:
+    sums over other shapes and orders), finite; K1 and K2 launched on
+    every rank; the GPT-2 state saved at tensor 2 restores at tensor 1 bit
+    for bit. Reported: K1/K2 launches, all-reduces and other collectives a
+    step on each rank (12, 12 and 4 x n_layer expected), ms a step and
+    resident bytes against one rank's (gloo stages every all-reduce
+    through the host: no NCCL claim)."""
+    res = dict(world=TP_WORLD, backend=reports[0]["backend"], legs={})
+    failures = []
+    for name, ref in one_rank.items():
+        rows = [r["legs"][name] for r in reports]
+        steps = len(ref["losses"])
+        losses = rows[0]["losses"]
+        diff = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+        row = dict(
+            losses=losses, one_rank_losses=ref["losses"],
+            max_loss_diff=diff,
+            ranks_identical=all(r["losses"] == losses for r in rows),
+            launches=[r["launches"] for r in rows],
+            launches_per_step=[{k: v / steps for k, v in
+                                r["launches"].items()} for r in rows],
+            tp_allreduces_per_step=[r["tp_allreduces"] / steps
+                                    for r in rows],
+            collectives_per_step=[r["collectives"] / steps for r in rows],
+            ms_per_step=[r["ms_per_step"] for r in rows],
+            one_rank_ms_per_step=ref["ms_per_step"],
+            resident_bytes=[r["resident_bytes"] - r["base_bytes"]
+                            for r in rows],
+            one_rank_resident_bytes=ref["resident_bytes"],
+            peak_bytes=[r["peak_bytes"] for r in rows],
+            one_rank_peak_bytes=ref["peak_bytes"],
+            wall_s=[r["wall_s"] for r in rows])
+        row["resident_ratio"] = [b / ref["resident_bytes"]
+                                 for b in row["resident_bytes"]]
+        if not row["ranks_identical"]:
+            failures.append(f"{name}: the ranks' losses differ: "
+                            f"{[r['losses'] for r in rows]}")
+        if not np.isfinite(losses).all() or diff > DDP_GLOO2_LOSS_ATOL:
+            failures.append(f"{name}: losses {losses} vs one rank's "
+                            f"{ref['losses']}")
+        if not all(r["launches"]["forward"] and r["launches"]["backward"]
+                   for r in rows):
+            failures.append(f"{name}: K1/K2 not launched on every rank: "
+                            f"{row['launches']}")
+        if "checkpoint" in rows[0]:
+            ck = row["checkpoint"] = rows[0]["checkpoint"]
+            if not ck.get("bit_equal"):
+                failures.append(f"{name}: the tensor-2 save restored at "
+                                f"tensor 1 is not bit-equal: {ck}")
+        res["legs"][name] = row
+    emit(phase="tp_train", nvidia_smi=smi, failures=failures, **res)
+    if failures:
+        raise AssertionError(f"tp_train: {failures}")
+    return res
+
+
+def late_phases(pk, fk, seed: int, dev, smi) -> dict:
+    """Phases 16 (ddp_nccl), 16b (ddp_gloo2), 17 (tp_serve) and 17b
+    (tp_train), with the decode_bench twin's runs that gate nothing on
+    time (``DecodeBenchRun.side_by_side``), side by side
+    (``run_children``): ddp_nccl's NCCL rank, two pairs of gloo ranks on
+    cuda:0 (``gloo_worker``: one runs tp_serve, the other ddp_gloo2 then
+    tp_train) and four decode_bench runs — while this process runs the
+    one-rank references (tp_serve's engines, the Llama training leg). The
+    GPT-2 training leg's one-rank reference is ddp_nccl's ``Trainer``.
+    The storm (15) runs beside them too (``storm_in_background``, started
+    by the caller). Every time these phases report is taken with the
+    others beside it: contended, not a measure of one phase alone."""
+    def references():
+        t0 = time.perf_counter()
+        serve = _one_rank_refs(pk, seed, dev)
+        serve_s = time.perf_counter() - t0
+        return dict(serve=serve, serve_s=serve_s,
+                    llama=_tp_train_llama_ref(fk, seed, dev))
+
+    side_by_side = [name for name, run in DECODE_BENCH_RUNS.items()
+                    if run.side_by_side]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        children = {**_rank_children(["--ddp-worker", "nccl"], 1, seed, tmp,
+                                     "ddp_nccl"),
+                    **_rank_children(["--gloo-worker", "tp_serve"],
+                                     TP_WORLD, seed, tmp, "tp_serve"),
+                    **_rank_children(["--gloo-worker", "ddp_gloo2,tp_train"],
+                                     TP_WORLD, seed, tmp, "tp_train"),
+                    **{name: decode_bench_child(name, tmp)
+                       for name in side_by_side}}
+        wall, refs = run_children(children, 900, "phases 16-17b",
+                                  while_running=references)
+        with open(f"{tmp}/ddp_nccl_0.json") as f:
+            nccl = json.load(f)
+        reports = {part: _read_part(tmp, part) for part in GLOO_PARTS}
+        logits = []
+        for r in range(TP_WORLD):
+            with np.load(f"{tmp}/tp_serve_{r}.npz") as z:
+                logits.append({k: z[k] for k in z.files})
+        bench = {}
+        for name in side_by_side:
+            with open(f"{tmp}/{name}.json") as f:
+                bench[name] = json.load(f)
+    emit(phase="side_by_side", nvidia_smi=smi, wall_s=wall,
+         children=list(children))
+    for name, rows in bench.items():
+        emit_decode_bench_run(smi, name, rows, wall, True)
+    out = dict(decode_bench=bench, ddp_nccl=ddp_nccl_phase(smi, nccl, wall))
+    out.update(
+        ddp_gloo2=ddp_gloo2_phase(smi, reports["ddp_gloo2"], wall,
+                                  out["ddp_nccl"]["trainer_losses"]),
+        tp=tp_serve_phase(smi, reports["tp_serve"], logits, wall,
+                          refs["serve"], refs["serve_s"]),
+        tp_train=tp_train_phase(smi, reports["tp_train"], dict(
+            gpt2=out["ddp_nccl"]["trainer"], llama=refs["llama"])))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--ddp-worker", choices=["nccl", "gloo"],
+    ap.add_argument("--ddp-worker", choices=["nccl"],
                     help=argparse.SUPPRESS)
-    ap.add_argument("--tp-worker", action="store_true",
+    ap.add_argument("--gloo-worker", type=lambda v: v.split(","),
                     help=argparse.SUPPRESS)
     ap.add_argument("--workdir", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.ddp_worker or args.gloo_worker:
+        # A rank dies with this script's process (PR_SET_PDEATHSIG).
+        pmesh().bind_to_parent()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script measures the port "
               "on an NVIDIA GPU", file=sys.stderr)
         return 1
     if args.ddp_worker:
-        return ddp_worker(args.ddp_worker, args.workdir, args.seed)
-    if args.tp_worker:
-        return tp_worker(args.workdir, args.seed)
+        return ddp_worker(args.workdir, args.seed)
+    if args.gloo_worker:
+        return gloo_worker(args.gloo_worker, args.workdir, args.seed)
+    # SIGTERM / SIGINT kill every child's process group, then end this
+    # script nonzero; atexit kills what is left at any other end.
+    pmesh().install_exit_handlers("chip_smoke")
+    # libtorch symbolizes C++ frames (the memory phase's allocator history)
+    # through addr2line helper processes it keeps for the life of the
+    # process; dladdr symbolizes in the process, so that no process is
+    # left below this one for the survivors checks to find.
+    os.environ["TORCH_DISABLE_ADDR2LINE"] = "1"
+    os.environ["TORCH_SYMBOLIZE_MODE"] = "dladdr"
     from pytorch_distributed_tpu_torch.config import model_config
     from pytorch_distributed_tpu_torch.models import gpt2
     from pytorch_distributed_tpu_torch.ops import _build
@@ -4898,11 +5369,12 @@ def main() -> int:
     # 1. env
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    proc = pmesh().run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], timeout=60)
+    if proc.returncode:
+        raise AssertionError(f"nvidia-smi exited {proc.returncode}: "
+                             f"{proc.stdout}")
+    smi = proc.stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda")
     emit(phase="env", nvidia_smi=smi, torch=torch.__version__,
@@ -4955,7 +5427,7 @@ def main() -> int:
     # 7. flash kernels at the listed shapes, then at the llama training
     # phases' long-context shapes; with 8 and 9, before the serving phases,
     # as their per-kernel profiles (device_kernels) are counted too
-    flash_phase(fk, dev, flush, args.seed)
+    tp_flash_rows = flash_phase(fk, dev, flush, args.seed)
     flash_long = flash_long_phase(fk, dev, flush, args.seed)
 
     # 8. training: the main path
@@ -5100,11 +5572,22 @@ def main() -> int:
              "window_wall_ms", "unprofiled_window_ms",
              "key_averages_device_idle_share", "unprofiled_idle_share")}
              for kid, row in prof_paged.items()})
-    # The decode_bench twins last: each runs in a process of its own, and
+    # The subprocess phases last: each runs in processes of its own, and
     # a profiler window opened after another process used the card can
-    # lose its device rows (PERF.md section 7).
+    # lose its device rows (PERF.md section 7). The decode_bench runs that
+    # gate a time ratio run alone, first.
     torch.cuda.empty_cache()
     slice10["decode_bench_twin"] = decode_bench_twin_phase(smi)
+    spec_rows = decode_bench_spec_phase(smi)
+    # 16-17b side by side with the decode_bench twin's untimed runs and
+    # the storm (15, untimed): data-parallel training (slice 13: world 1
+    # on NCCL, two gloo ranks on the one card), then on pairs of gloo
+    # ranks tensor-parallel serving (slice 14) and training (slice 15)
+    with storm_in_background() as storm_done:
+        late = late_phases(pk, fk, args.seed, dev, smi)
+        storm_report, storm_wall = storm_done()
+    train_storm_phase(smi, storm_report, storm_wall)
+    check_survivors("train_storm")
     slice10_paths = {name: row["launches"] for name, row in slice10.items()
                      if "launches" in row}
 
@@ -5132,25 +5615,16 @@ def main() -> int:
             ("paged_decode_attention_q8", 114, k4, "K4"))
     ]
 
-    slice11_paths = decode_bench_twin_2_phase(smi)
-    # 15. the supervisor twin's storm, its workers in processes of their
-    # own, last with the other subprocess phases
-    train_storm_phase(smi)
-    # 16. data-parallel training (slice 13), each rank a process of its
-    # own: world 1 on NCCL, then two gloo ranks on the one card
-    torch.cuda.empty_cache()
-    ddp_nccl = ddp_nccl_phase(smi, args.seed)
-    ddp_gloo2 = ddp_gloo2_phase(smi, args.seed, ddp_nccl["trainer_losses"])
+    slice11_paths = decode_bench_twin_2_paths(dict(late["decode_bench"],
+                                                   serving_spec=spec_rows))
+    ddp_nccl, ddp_gloo2, tp, tp_train = (
+        late["ddp_nccl"], late["ddp_gloo2"], late["tp"], late["tp_train"])
     slice13_paths = {
         **{f"ddp_nccl_{name}_{DDP_STEPS}_steps": leg["launches"]
            for name, leg in ddp_nccl["legs"].items()},
         **{f"ddp_gloo2_{name}_{DDP_STEPS}_steps": leg["launches"]
            for name, leg in ddp_gloo2["legs"].items()},
     }
-    # 17. tensor-parallel and ZeRO-3 serving (slice 14): two gloo ranks
-    # on the one card, each a process of its own
-    torch.cuda.empty_cache()
-    tp = tp_serve_phase(pk, args.seed, dev, smi)
     for entry, kid in zip(paged_entries, ("K3", "K4")):
         entry.update(
             trace_launches=prof_paged[kid]["launches_traced"][kid],
@@ -5183,7 +5657,17 @@ def main() -> int:
                  T=row["T"],
                  launches_per_step=row["launches_per_step"][direction],
                  **row.get("kernel_times", {}).get(kn, {}))
-                 for phase, row in llama_paths.items()})
+                 for phase, row in llama_paths.items()},
+             # Each rank's launches on the tensor-parallel training legs
+             # (rank 0's, all steps), and the kernel at a tensor-2 rank's
+             # local heads.
+             tp_train_paths={
+                 f"tp_train_{name}_{len(row['losses'])}_steps":
+                     row["launches"][0][direction]
+                 for name, row in tp_train["legs"].items()},
+             tp_local_shapes={shape: dict(
+                 {k: v for k, v in row.items() if k not in ("K1", "K2")},
+                 **row[kn]) for shape, row in tp_flash_rows.items()})
         for name, kn, direction, line in (
             ("flash_forward", "K1", "forward", 92),
             ("flash_backward", "K2", "backward", 221),
@@ -5207,6 +5691,8 @@ def main() -> int:
         slice10_paths={name: counts.get("lora", 0)
                        for name, counts in slice10_paths.items()},
         tp_paths={"tp_serve_lora": tp["legs"]["lora"]["counts"]["lora"]})
+    check_survivors("before the kernels line")
+    emit(phase="walls", walls=phase_walls())
     print(json.dumps(dict(kernels=[*paged_entries, *flash_entries,
                                    lora_entry])), flush=True)
     print(json.dumps(dict(ok=True, device=dict(

@@ -4,9 +4,9 @@ The same frozen dataclass, field names, defaults and presets as the JAX
 package's ``config.ModelConfig`` / ``model_config``, so one set of keyword
 arguments describes a model to both packages (the tests build each side's
 config from the same dict). ``TrainConfig`` likewise mirrors the JAX
-package's training config, and ``MeshConfig`` its mesh config (the data
-axes of which the port trains over; the others raise, naming the ROADMAP
-item that ports them).
+package's training config, and ``MeshConfig`` its mesh config (the port
+trains over its data, fsdp and tensor axes; the others raise, naming the
+ROADMAP item that ports them).
 """
 
 from __future__ import annotations
@@ -43,6 +43,11 @@ class ModelConfig:
     embd_pdrop: float = 0.1
     attn_pdrop: float = 0.1
     resid_pdrop: float = 0.1
+    # Attention dropout under tensor parallelism (the explicit step):
+    # "reject" refuses attn_pdrop > 0 there, as JAX does; "folded" draws
+    # each tensor rank's local heads from a stream with the rank's tensor
+    # index folded in (``utils/prng``), statistically the single-device
+    # draw, not bitwise; embd and resid masks stay replicated.
     tensor_dropout: str = "reject"
 
     # Numerics: params kept in param_dtype, activations computed in dtype.
@@ -273,20 +278,6 @@ _AXIS_NOT_PORTED = {
     "pipe": "ROADMAP queue 1 item 7(d), pipeline parallelism",
     "expert": "ROADMAP queue 1 item 7(e), expert parallelism",
 }
-# Tensor-parallel TRAINING (the explicit step's tensor axis, tensor
-# dropout, K1/K2 at local heads); decode takes the tensor axis.
-TP_TRAINING_NOT_PORTED = (
-    "tensor-parallel training (MeshConfig(tensor > 1)) is not ported: "
-    "ROADMAP queue 1 item 7(f); the tensor axis serves decode only "
-    "(models/decode.generate_tp, the engines' mesh_cfg)"
-)
-
-
-def check_trainable_mesh(mesh_cfg: "MeshConfig") -> None:
-    """Raise NotImplementedError for a mesh the training step cannot take
-    yet (``tensor`` > 1, item 7(f))."""
-    if mesh_cfg.tensor > 1:
-        raise NotImplementedError(TP_TRAINING_NOT_PORTED)
 
 
 @dataclass(frozen=True)
@@ -299,12 +290,11 @@ class MeshConfig:
     "shard_opt" (ZeRO-1: optimizer state only) or "no_shard" (DDP) — and
     ``rs_buckets`` > 0 coalesces ZeRO-2's gradient reduce-scatters into
     about that many bucketed collectives. ``tensor`` > 1 is Megatron
-    tensor parallelism, served by the decode paths (``models/decode
-    .generate_tp`` and every engine's ``mesh_cfg``); training with it
-    raises NotImplementedError where it starts (``DistributedTrainer``
-    and the explicit step behind ``parallel.api.make_parallel_train_step``;
-    the ``train.ddp``/``train.fsdp`` twins build data and fsdp meshes
-    only), naming ROADMAP queue 1 item 7(f). ``seq``,
+    tensor parallelism, in training (the explicit step behind
+    ``parallel.api.make_parallel_train_step``, the ``DistributedTrainer``
+    and the ``train.parallel`` twin; alone and with every strategy) and
+    in the decode paths (``models/decode.generate_tp`` and every engine's
+    ``mesh_cfg``). ``seq``,
     ``pipe`` and ``expert`` > 1 raise NotImplementedError here, naming the
     items that port them (7(c), 7(d), 7(e)), and so does
     ``prefetch_buffers`` > 0 (the JAX layer scan's prefetch window, item

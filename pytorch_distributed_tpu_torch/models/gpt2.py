@@ -45,6 +45,7 @@ from pytorch_distributed_tpu_torch.ops.layers import (
 )
 from pytorch_distributed_tpu_torch.ops.moe import moe_mlp
 from pytorch_distributed_tpu_torch.ops.remat import apply_remat, checkpoint_name
+from pytorch_distributed_tpu_torch.ops.tp import tp_copy
 from pytorch_distributed_tpu_torch.utils import prng
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
@@ -113,7 +114,8 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
-           key: prng.DropoutKey | None, transform=None) -> torch.Tensor:
+           key: prng.DropoutKey | None, transform=None,
+           tp_group=None) -> torch.Tensor:
     """Pre-norm residual block: x + drop(attn(ln_1(x))); x +
     drop(mlp(ln_2(x))), the MLP dense or, for a MoE config, ``ops/moe``'s
     experts. ``key`` None: deterministic; else the masks of ``layer``
@@ -122,7 +124,10 @@ def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
     the naive attention output ``attn_out``). Returns x, or (x, aux) for a
     MoE config (aux: the layer's Switch term). ``transform``: applied to
     ``bp`` first, inside the block's checkpoint (``apply``'s
-    ``block_transform``)."""
+    ``block_transform``). ``tp_group``: Megatron tensor parallelism over
+    that group (the JAX ``tensor_axis``): ``bp`` holds this rank's heads
+    and MLP columns, ``tp_copy`` follows each norm, and the row-parallel
+    ``c_proj``s sum their partials over the group before their bias."""
     if transform is not None:
         bp = transform(bp)
     eps = cfg.layer_norm_epsilon
@@ -130,9 +135,9 @@ def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
     sid = (lambda site: None) if det else (
         lambda site: prng.stream_id(key, layer, site))
     b, t = x.shape[:2]
-    a = layer_norm(x, bp["ln_1"], eps=eps)
+    a = tp_copy(layer_norm(x, bp["ln_1"], eps=eps), tp_group)
     with checkpoint_name("qkv"):
-        qkv = dense(a, bp["attn"]["c_attn"])  # [B, T, 3, H, D]
+        qkv = dense(a, bp["attn"]["c_attn"])  # [B, T, 3, H(local), D]
     q, k, v = qkv.unbind(2)
     a = multi_head_attention(
         q, k, v, impl=cfg.attention_impl, causal=True,
@@ -140,7 +145,7 @@ def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
         deterministic=det, out_name="attn_out",
     ).reshape(b, t, -1)
     with checkpoint_name("attn_proj"):
-        a = dense(a, bp["attn"]["c_proj"])
+        a = dense(a, bp["attn"]["c_proj"], tp_group=tp_group)
     x = x + dropout(a, cfg.resid_pdrop, sid("resid_attn"), deterministic=det)
     m = layer_norm(x, bp["ln_2"], eps=eps)
     aux = None
@@ -148,13 +153,15 @@ def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
         m, aux = moe_mlp(m, bp["mlp"],
                          activation=activation(cfg.activation_function),
                          capacity_factor=cfg.expert_capacity_factor,
-                         top_k=cfg.moe_top_k, dispatch_impl=cfg.moe_dispatch)
+                         tensor_axis=tp_group, top_k=cfg.moe_top_k,
+                         dispatch_impl=cfg.moe_dispatch)
     else:
+        m = tp_copy(m, tp_group)
         with checkpoint_name("mlp_fc"):
             m = dense(m, bp["mlp"]["c_fc"])
         m = activation(cfg.activation_function)(m)
         with checkpoint_name("mlp_proj"):
-            m = dense(m, bp["mlp"]["c_proj"])
+            m = dense(m, bp["mlp"]["c_proj"], tp_group=tp_group)
     x = x + dropout(m, cfg.resid_pdrop, sid("resid_mlp"), deterministic=det)
     return x if aux is None else (x, aux)
 
@@ -163,7 +170,7 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
           deterministic: bool = True,
           dropout_seed: prng.DropoutKey | None = None,
           return_aux: bool = False, return_hidden: bool = False,
-          block_transform=None):
+          block_transform=None, tp_group=None):
     """Forward pass: [B, T] token ids -> [B, T, V] logits in
     ``cfg.logits_dtype``: wte + wpe (cast to ``cfg.dtype``), embedding
     dropout, n_layer pre-norm blocks (each under ``cfg.remat``), ln_f,
@@ -177,7 +184,12 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
     backward to recompute for. ``block_transform``: a function of one
     layer's params run at the start of that layer, inside its checkpoint
     (ZeRO-3's just-in-time gather, ``parallel/explicit``: a remat mode
-    then gathers again in backward, as JAX's remat does)."""
+    then gathers again in backward, as JAX's remat does). ``tp_group``:
+    the blocks' tensor group (``_block``); the embeddings, the final norm
+    and the head are replicated, so the logits are the same on every
+    tensor rank. Under it the attention masks take ``dropout_seed``'s
+    ``tensor`` field (``utils/prng``; set by ``parallel/explicit`` under
+    ``tensor_dropout="folded"``)."""
     if not deterministic and dropout_seed is None:
         raise ValueError("training-mode apply() requires dropout_seed")
     key = None if deterministic else prng.DropoutKey(*dropout_seed)
@@ -192,7 +204,8 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
                     deterministic=False)
     remat = cfg.remat if torch.is_grad_enabled() else "none"
     block = apply_remat(functools.partial(_block, cfg=cfg, key=key,
-                                          transform=block_transform), remat)
+                                          transform=block_transform,
+                                          tp_group=tp_group), remat)
     aux = None
     for layer, bp in enumerate(params["blocks"]):
         x = block(x, bp, layer)

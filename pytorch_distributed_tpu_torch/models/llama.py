@@ -42,6 +42,7 @@ from pytorch_distributed_tpu_torch.ops.remat import (
     product,
 )
 from pytorch_distributed_tpu_torch.ops.rope import apply_rope, rope_angles
+from pytorch_distributed_tpu_torch.ops.tp import tp_copy
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
@@ -100,20 +101,25 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
-           sin: torch.Tensor, *, cfg: ModelConfig, transform=None):
+           sin: torch.Tensor, *, cfg: ModelConfig, transform=None,
+           tp_group=None):
     """x + wo(attn(rope(q), rope(k), v)) over rms_norm(x); then x +
     swiglu(rms_norm(x)), or the MoE MLP. Returns x, or (x, aux) for a MoE
     config (aux: the layer's Switch term). The products are tagged as in
     the JAX block (``q``, ``k``, ``v``, ``attn_out`` on the naive path,
     ``attn_proj``, ``mlp_gate``, ``mlp_up``, ``mlp_proj``). ``transform``:
-    applied to ``bp`` first, inside the checkpoint (``gpt2._block``)."""
+    applied to ``bp`` first, inside the checkpoint (``gpt2._block``).
+    ``tp_group``: tensor parallelism (``gpt2._block``): this rank's q and
+    KV heads (the head counts follow the sharded kernels' widths, so GQA's
+    group is kept), SwiGLU's gate and up columns, and ``wo``/``down``
+    row-parallel, each summed over the group once."""
     if transform is not None:
         bp = transform(bp)
     eps = cfg.layer_norm_epsilon
     b, t = x.shape[:2]
     d = cfg.head_dim
     attn = bp["attn"]
-    a = rms_norm(x, bp["ln_attn"], eps=eps)
+    a = tp_copy(rms_norm(x, bp["ln_attn"], eps=eps), tp_group)
     with checkpoint_name("q"):
         q = product(a, attn["wq"].to(a.dtype))
     with checkpoint_name("k"):
@@ -127,30 +133,33 @@ def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
         out_name="attn_out",
     ).reshape(b, t, -1)
     with checkpoint_name("attn_proj"):
-        a = product(a, attn["wo"].to(a.dtype))
+        a = product(a, attn["wo"].to(a.dtype), group=tp_group)
     x = x + a
     m = rms_norm(x, bp["ln_mlp"], eps=eps)
     if cfg.n_experts:
         m, aux = moe_mlp(m, bp["mlp"], activation=F.silu,
                          capacity_factor=cfg.expert_capacity_factor,
-                         top_k=cfg.moe_top_k, dispatch_impl=cfg.moe_dispatch)
+                         tensor_axis=tp_group, top_k=cfg.moe_top_k,
+                         dispatch_impl=cfg.moe_dispatch)
         return x + m, aux
+    m = tp_copy(m, tp_group)
     mp = bp["mlp"]
     with checkpoint_name("mlp_gate"):
         gate = F.silu(product(m, mp["gate"].to(m.dtype)))
     with checkpoint_name("mlp_up"):
         up = product(m, mp["up"].to(m.dtype))
     with checkpoint_name("mlp_proj"):
-        return x + product(gate * up, mp["down"].to(m.dtype))
+        return x + product(gate * up, mp["down"].to(m.dtype),
+                           group=tp_group)
 
 
 def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
           deterministic: bool = True, dropout_seed=None,
           return_aux: bool = False, return_hidden: bool = False,
-          block_transform=None):
+          block_transform=None, tp_group=None):
     """Forward pass: [B, T] token ids -> [B, T, V] logits in
     ``cfg.logits_dtype`` (the contract of ``gpt2.apply``, its
-    ``block_transform`` included). The family is
+    ``block_transform`` and ``tp_group`` included). The family is
     dropout-free, so ``deterministic`` and ``dropout_seed`` change
     nothing. The RoPE angles are built once per call on the ids' device
     and shared by every layer. ``return_hidden``: the final-norm hidden
@@ -166,7 +175,8 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
                            device=input_ids.device)
     remat = cfg.remat if torch.is_grad_enabled() else "none"
     block = apply_remat(functools.partial(_block, cfg=cfg,
-                                          transform=block_transform), remat)
+                                          transform=block_transform,
+                                          tp_group=tp_group), remat)
     aux = None
     for bp in params["blocks"]:
         x = block(x, bp, cos, sin)

@@ -18,7 +18,6 @@ import hashlib
 import os
 import re
 import shutil
-import subprocess
 import time
 from pathlib import Path
 
@@ -112,10 +111,11 @@ def build(name: str) -> dict:
     t0 = time.perf_counter()
     src = _source(name)
     cmd = _command(name)
-    proc = subprocess.run(
-        [*cmd, "-o", str(tmp), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
+    # Through the port's launcher: the compiler's process group dies with
+    # an interrupted build (parallel/mesh.run).
+    from pytorch_distributed_tpu_torch.parallel.mesh import run
+
+    proc = run([*cmd, "-o", str(tmp), str(src)], timeout=None)
     if proc.returncode:
         raise RuntimeError(
             f"{Path(cmd[0]).name} failed to build csrc/{src.name} "

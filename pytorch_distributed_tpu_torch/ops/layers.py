@@ -60,8 +60,14 @@ def dense(x: torch.Tensor, params: dict, *, tp_group=None,
     if is_quantized(w):
         y = qdot(x, w)
     else:
-        y = product(x, w.reshape(w.shape[0], -1).to(x.dtype))
+        # Without an addend the sum is part of the product
+        # (``ops/remat.product``), so a kept row-parallel projection
+        # keeps its summed value and is not summed again in a recompute.
+        fold = tp_group if extra_pre_reduce is None else None
+        y = product(x, w.reshape(w.shape[0], -1).to(x.dtype), group=fold)
         y = y.reshape(*x.shape[:-1], *w.shape[1:])
+        if fold is not None:
+            tp_group = None
     return dense_epilogue(y, params, tp_group=tp_group,
                           extra_pre_reduce=extra_pre_reduce)
 

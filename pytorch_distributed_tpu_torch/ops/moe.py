@@ -48,9 +48,10 @@ The aux loss is Switch's load-balancing term over first choices,
 X * sum_e(fraction_e * mean_prob_e). Tensor parallelism inside each expert
 (``tensor_axis``, the tensor process group: ``w_in``/``w_gate`` column-
 and ``w_out`` row-parallel on F, one all-reduce after ``w_out``) serves
-TP decode; its backward (``ops/tp``) is in place for the TP training
-slice (ROADMAP queue 1 item 7(f)). Expert parallelism (``expert_axis``)
-is refused: ROADMAP queue 1 item 7(e).
+TP decode and TP training (its backward through ``ops/tp``: ``tp_copy``
+on the expert batches, so the router and the dispatch, which run on
+replicated activations, get whole gradients on every rank). Expert
+parallelism (``expert_axis``) is refused: ROADMAP queue 1 item 7(e).
 """
 
 from __future__ import annotations

@@ -28,6 +28,11 @@ No mode keeps ``mlp_proj``: its value feeds only the dropout and the
 residual add, whose backward needs no value, so JAX's partial evaluation
 never saves it, whatever the policy.
 
+Under tensor parallelism a row-parallel projection's all-reduce belongs
+to its product (``product(..., group=)``): a kept ``attn_proj`` is the
+summed value, so ``names`` keeps one all-reduce per row-parallel
+projection in the forward and none in the recompute.
+
 How a mode picks out what it keeps. PyTorch has no ``checkpoint_name``.
 The model wraps each tagged product in ``with checkpoint_name("qkv"):``,
 which sets a module-level tag for that Python block; the product goes
@@ -59,6 +64,8 @@ import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from pytorch_distributed_tpu_torch.ops.tp import tp_reduce
 
 # The JAX package's names list (gpt2 uses qkv, attn_out — on the naive path
 # only —, attn_proj and mlp_fc; llama the separate projections).
@@ -155,12 +162,14 @@ def keep(compute, name: str = "flash", batched: bool | None = None):
 
 
 class _KeptProduct(torch.autograd.Function):
-    """a @ b whose result ``keep`` holds; saves a and b in both passes."""
+    """a @ b (summed over ``group`` when given: ``ops/tp.tp_reduce``, whose
+    backward is the identity) whose result ``keep`` holds; saves a and b
+    in both passes."""
 
     @staticmethod
-    def forward(ctx, a, b, name):
+    def forward(ctx, a, b, name, group):
         ctx.save_for_backward(a, b)
-        return keep(lambda: a @ b, name, b.dim() > 2)
+        return keep(lambda: tp_reduce(a @ b, group), name, b.dim() > 2)
 
     @staticmethod
     def backward(ctx, g):
@@ -170,16 +179,28 @@ class _KeptProduct(torch.autograd.Function):
             gb = a.reshape(-1, a.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
         else:
             gb = a.transpose(-1, -2) @ g
-        return ga, gb, None
+        return ga, gb, None, None
 
 
-def product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def product(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
     """``a @ b`` (b [K, N]: no batch dimension; b [..., K, N] batched),
     kept by a checkpointed block whose mode keeps a product of this tag
-    (the enclosing ``checkpoint_name``) and kind."""
+    (the enclosing ``checkpoint_name``) and kind.
+
+    ``group``: the tensor group a row-parallel product is summed over
+    (``ops/tp.tp_reduce``, one all-reduce). The product and its sum are
+    one kept value, so a recompute that replays it issues no second
+    all-reduce, as JAX's saved ``attn_proj`` (the psum's output) issues
+    none. A product no mode keeps (``mlp_proj``) skips its all-reduce in
+    the recompute of a block: its value is read by no backward (the reason
+    no mode keeps it), so the recompute's partial sum goes unread. In
+    ``full`` mode (no kept values) a recompute runs the block's
+    collectives again, as JAX's full remat does."""
     if _kept is None or not _keeps(_kept.mode, _tag, b.dim() > 2):
-        return a @ b
-    return _KeptProduct.apply(a, b, _tag)
+        if group is not None and _replaying and _tag in _NEVER_KEPT:
+            return a @ b
+        return tp_reduce(a @ b, group)
+    return _KeptProduct.apply(a, b, _tag, group)
 
 
 def apply_remat(fn, mode: str):

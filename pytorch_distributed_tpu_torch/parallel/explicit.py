@@ -33,15 +33,33 @@ on its rows of the batch.
   FSDP shard_opt (ZeRO-1): gradients all-reduced as in DDP; each rank
     updates its slice against its moments' shard; params all-gathered.
 
-The gradient norm is global and counts each replicated leaf once
-(``zero.global_norm_sharded``); clipping uses it, so every rank scales
-alike. The DDP-style reductions are issued over the mesh's group at every
-size, a world of one included: there they are exact no-ops (a sum of one,
-/ 1), and a world of one is bit-equal to the single-device step.
+  Tensor parallelism (the tensor axis, Megatron): the block leaves are
+    this rank's heads and columns (``parallel/sharding``); the model runs
+    on them with the tensor group (``tp_group``: ``tp_copy`` after each
+    norm, one all-reduce after each row-parallel projection, its backward
+    one all-reduce per ``tp_copy``). It composes with every strategy
+    above: the gradients and the loss reduce over the batch axes only
+    (data and fsdp, the mesh's ``batch_group``), since a replicated
+    leaf's gradient comes out the same on every tensor rank through
+    ``tp_copy``'s backward and a sharded leaf's is its rank's own.
+    Attention dropout under it follows ``tensor_dropout``: "reject"
+    raises (GPT-2 only: the Llama family draws no dropout), as JAX does;
+    "folded" folds the tensor index into the attention masks only
+    (``parallel/mesh.fold_tensor_key``).
+
+The gradient norm is global: each leaf's squares are summed over exactly
+the axes it is sharded on (fsdp and/or tensor) and a replicated leaf is
+counted once (``zero.global_norm_sharded``); clipping uses it, so every
+rank scales alike. The DDP-style reductions are issued over the mesh's
+group at every size, a world of one included: there they are exact
+no-ops (a sum of one, / 1), and a world of one is bit-equal to the
+single-device step.
 
 The anomaly guard (``make_parallel_train_step``'s ``guard``): the loss and
-the norm are already global, so every rank takes the same decision; the
-batch's id check is per rank, so its flag is summed over the ranks first.
+the norm are already global and bitwise the same on every rank (tensor
+ranks included: their replicated activations are the results of the same
+all-reduces), so every rank takes the same decision; the batch's id check
+is per rank, so its flag is summed over the ranks first.
 """
 
 from __future__ import annotations
@@ -50,17 +68,14 @@ from typing import Callable
 
 import torch
 
-from pytorch_distributed_tpu_torch.config import (
-    MeshConfig,
-    ModelConfig,
-    check_trainable_mesh,
-)
+from pytorch_distributed_tpu_torch.config import MeshConfig, ModelConfig
 from pytorch_distributed_tpu_torch.models import ModelApi
 from pytorch_distributed_tpu_torch.parallel import zero
 from pytorch_distributed_tpu_torch.parallel.mesh import (
     Mesh,
     data_parallel_size,
     fold_batch_shard_key,
+    fold_tensor_key,
 )
 from pytorch_distributed_tpu_torch.parallel.sharding import (
     StateSharding,
@@ -76,6 +91,21 @@ from pytorch_distributed_tpu_torch.train.trainer import (
 )
 from pytorch_distributed_tpu_torch.utils import tree
 from pytorch_distributed_tpu_torch.utils.prng import DropoutKey
+
+
+def check_tensor_dropout(model_cfg: ModelConfig,
+                         mesh_cfg: MeshConfig) -> None:
+    """JAX's refusal of attention dropout under a tensor axis with
+    ``tensor_dropout="reject"``: every tensor rank would draw its local
+    heads' masks from one stream (correlated, and not the single-device
+    draw). The Llama family draws no dropout, so it is never refused."""
+    if (mesh_cfg.tensor > 1 and model_cfg.family == "gpt2"
+            and model_cfg.attn_pdrop > 0
+            and model_cfg.tensor_dropout != "folded"):
+        raise NotImplementedError(
+            "attention dropout is not supported with explicit tensor "
+            f"parallelism (attn_pdrop={model_cfg.attn_pdrop}); set "
+            "attn_pdrop=0.0 or opt into tensor_dropout='folded'")
 
 
 def make_explicit_train_step(
@@ -101,7 +131,7 @@ def make_explicit_train_step(
     dropout streams' (``train/trainer.make_train_step``). Metrics: the
     global ``loss`` and ``grad_norm``, equal on every rank (and
     ``anomaly`` with ``guard``)."""
-    check_trainable_mesh(mesh_cfg)
+    check_tensor_dropout(model_cfg, mesh_cfg)
     if mesh.cfg != mesh_cfg:
         raise ValueError("mesh_cfg is not the mesh's config")
     if tx.clip is not None:
@@ -117,16 +147,19 @@ def make_explicit_train_step(
     # ZeRO-2/1 shard grads and moments in the layout full_shard gives the
     # params: the moments' own specs.
     shard_tree = sharding.opt_state["mu"]
-    shard_specs = tree.leaves(shard_tree)
-    p_spec_leaves = tree.leaves(p_specs)
-    norm_specs = (p_spec_leaves if zero3 else
-                  shard_specs if zero2 else
-                  [()] * len(p_spec_leaves))
+
+    def aligned(specs, params):
+        """``specs`` in the order of ``params``' leaves: a state may order
+        its dict keys otherwise than the one ``sharding`` was built from
+        (a tree converted from JAX's sorted keys)."""
+        return tree.map_tree2(lambda _, spec: spec, params, specs)
+
     train_mode = (model_cfg.embd_pdrop > 0 or model_cfg.attn_pdrop > 0
                   or model_cfg.resid_pdrop > 0)
     acc_dtype = getattr(torch, accum_dtype)
     fsdp_group = mesh.axis_group("fsdp") if f > 1 else None
     data_group = mesh.axis_group("data") if d > 1 else None
+    tp_group = mesh.axis_group("tensor") if mesh_cfg.tensor > 1 else None
     block_transform = None
     if zero3:
         block_specs = p_specs["blocks"][0]
@@ -141,14 +174,18 @@ def make_explicit_train_step(
             params = {k: v if k == "blocks"
                       else zero.gather_params(v, p_specs[k], mesh)
                       for k, v in params.items()}
+        key = fold_batch_shard_key(key, mesh)
+        if model_cfg.tensor_dropout == "folded":
+            key = fold_tensor_key(key, mesh)
         loss = _loss(model, model_cfg, params, inputs, targets,
-                     deterministic=not train_mode,
-                     key=fold_batch_shard_key(key, mesh),
-                     block_transform=block_transform)
+                     deterministic=not train_mode, key=key,
+                     block_transform=block_transform, tp_group=tp_group)
         grads = torch.autograd.grad(loss, live)
         return loss.detach(), list(grads)
 
     def mean_over(ts: list, group, n: int) -> None:
+        if group is None:  # the batch is not split: nothing to reduce
+            return
         for t in ts:
             zero.all_reduce_(t, group)
         torch._foreach_div_(ts, n)
@@ -175,6 +212,11 @@ def make_explicit_train_step(
                 targets, nan_target = guard_lib.safe_targets(
                     targets, model_cfg.vocab_size)
         ps = tree.leaves(state.params)
+        p_spec_leaves = tree.leaves(aligned(p_specs, state.params))
+        shard_like = aligned(shard_tree, state.params)
+        shard_specs = tree.leaves(shard_like)
+        # Each gradient's layout: its spec names the axes its norm sums over.
+        norm_specs = shard_specs if zero2 else p_spec_leaves
         loss, grads = accumulate_grads(
             lambda i: loss_and_grads(ps, state.params, inputs[i],
                                      targets[i],
@@ -200,8 +242,9 @@ def make_explicit_train_step(
             if data_group is not None:
                 mean_over(grads, data_group, d)
         else:
-            mean_over(grads, mesh.group, dp)
-        loss = zero.all_reduce_(loss.clone(), mesh.group) / dp
+            mean_over(grads, mesh.batch_group, dp)
+        if mesh.batch_group is not None:
+            loss = zero.all_reduce_(loss.clone(), mesh.batch_group) / dp
         grad_norm = zero.global_norm_sharded(grads, norm_specs, mesh)
         metrics = {"loss": loss, "grad_norm": grad_norm}
 
@@ -221,7 +264,7 @@ def make_explicit_train_step(
             metrics["anomaly"] = anomaly
         if sharded_update:
             params, opt_state = zero.zero_sharded_update(
-                tx, like, state.opt_state, grads, shard_tree, mesh,
+                tx, like, state.opt_state, grads, shard_like, mesh,
                 strategy, anomaly=anomaly)
         else:
             params, opt_state = tx.update(grads, state.opt_state, like,

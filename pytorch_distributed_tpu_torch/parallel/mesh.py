@@ -11,6 +11,20 @@ groups (``parallel/zero``).
 
 - ``spawn_ranks``: the twins' ``--cpu-devices N``, N ranks of a module
   started on this host as a launcher would.
+- The one launcher for every child process the port (and
+  ``chip_smoke.py``) starts: ``launch`` (one child), ``run`` (one child to
+  its end, ``subprocess.run``'s contract) and ``run_group`` (ranks). Each
+  child starts in a session of its own, so its whole process group can be
+  killed; on a timeout, an exception or a rank that exits nonzero the
+  launcher kills the groups (SIGKILL) and waits on them, and when one rank
+  fails the others are killed at once, as torchrun does. Every group is
+  registered until it is reaped (``registered`` lists them), so
+  ``kill_all`` (a signal handler's or ``atexit``'s) reaches every group
+  still alive. A child that is itself Python calls ``bind_to_parent``
+  first thing: the kernel then kills it when its parent dies
+  (``PR_SET_PDEATHSIG``), which ``finally`` blocks and signal handlers
+  cannot do for a parent that is SIGKILLed.
+  ``live_descendants`` lists what is left below a process.
 - ``initialize_distributed()``: the env:// rendezvous torchrun sets up
   (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``); without
   them a world of one on a free localhost port. Backend ``nccl`` for a
@@ -31,10 +45,15 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import signal
 import socket
 import subprocess
 import sys
+import tempfile
+import threading
+import time
 from datetime import timedelta
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -48,25 +67,258 @@ DEFAULT_TIMEOUT_S = 600.0
 BATCH_AXES = ("data", "fsdp", "expert")
 
 
-def _free_port() -> int:
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 (a rendezvous's)."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
+# -- child processes ----------------------------------------------------------
+
+# The launcher's pid, as its children see it (``bind_to_parent``).
+PARENT_PID_ENV = "PDTPU_PARENT_PID"
+_PR_SET_PDEATHSIG = 1  # <linux/prctl.h>
+_POLL_S = 0.05
+_live: dict[int, subprocess.Popen] = {}  # process group id -> its leader
+_live_lock = threading.Lock()
+
+
+def bind_to_parent() -> None:
+    """Die with the launcher: ask the kernel for SIGKILL when the parent
+    exits (``prctl(PR_SET_PDEATHSIG)`` through ``ctypes``), then exit at
+    once if the parent is already gone (it died before the call). A no-op
+    in a process the launcher did not start, or off Linux. The variable
+    naming the launcher is taken out of the environment, so a process this
+    one starts by other means does not read it."""
+    want = os.environ.pop(PARENT_PID_ENV, None)
+    if want is None or not sys.platform.startswith("linux"):
+        return
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(_PR_SET_PDEATHSIG, signal.SIGKILL, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_PDEATHSIG) failed")
+    if os.getppid() != int(want) and not _alive(int(want)):
+        os._exit(1)  # orphaned before the prctl: the parent is gone
+
+
+def _alive(pid: int) -> bool:
+    return _proc_state(pid) not in (None, "Z", "X")
+
+
+def launch(argv: list[str], *, env: dict | None = None, stdout=None,
+           stderr=None) -> subprocess.Popen:
+    """Start ``argv`` in a session of its own (its own process group) and
+    register the group until ``kill_group`` takes it off.
+    ``env`` (default: this process's) gains ``PARENT_PID_ENV``."""
+    env = dict(os.environ if env is None else env)
+    env[PARENT_PID_ENV] = str(os.getpid())
+    proc = subprocess.Popen(argv, env=env, stdout=stdout, stderr=stderr,
+                            text=True, start_new_session=True)
+    with _live_lock:
+        _live[proc.pid] = proc
+    return proc
+
+
+def kill_group(proc: subprocess.Popen) -> None:
+    """SIGKILL ``proc``'s whole process group, wait on ``proc`` and take
+    the group off the register. Safe after ``proc`` exited: the group id
+    is not reused while any member lives, and an empty group is gone."""
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+    proc.wait()
+    with _live_lock:
+        _live.pop(proc.pid, None)
+
+
+def registered() -> list[int]:
+    """The process group ids (their leaders' pids) registered now: the
+    groups ``launch`` started that ``kill_group`` has not reaped."""
+    with _live_lock:
+        return list(_live)
+
+
+def kill_all() -> None:
+    """``kill_group`` every registered group still alive (``atexit``'s)."""
+    with _live_lock:
+        procs = list(_live.values())
+    for proc in procs:
+        kill_group(proc)
+
+
+def _kill_all_from_handler(reap_s: float = 2.0) -> list[int]:
+    """``kill_all`` for a signal handler, which may have interrupted the
+    launcher inside a lock it would need: SIGKILL every registered group
+    without locks, then reap the leaders for up to ``reap_s``."""
+    pids = list(_live)
+    for pid in pids:
+        try:
+            os.killpg(pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            pass
+    left, end = set(pids), time.monotonic() + reap_s
+    while left and time.monotonic() < end:
+        for pid in list(left):
+            try:
+                if os.waitpid(pid, os.WNOHANG)[0]:
+                    left.discard(pid)
+            except ChildProcessError:
+                left.discard(pid)
+        time.sleep(0.01)
+    return pids
+
+
+def install_exit_handlers(name: str) -> None:
+    """For a process that launches children (``chip_smoke.py``, a twin):
+    SIGTERM and SIGINT kill every registered group and end the process
+    with 128 + the signal's number, one line on stderr saying so; and
+    ``atexit`` kills whatever is still registered at a normal exit."""
+    import atexit
+
+    def handler(signum, frame):
+        pids = _kill_all_from_handler()
+        print(f"{name}: ended by signal {signum}; killed the process "
+              f"groups of {pids}", file=sys.stderr, flush=True)
+        os._exit(128 + signum)
+
+    signal.signal(signal.SIGTERM, handler)
+    signal.signal(signal.SIGINT, handler)
+    atexit.register(kill_all)
+
+
+def run(argv: list[str], *, timeout: float | None, env: dict | None = None,
+        log=None) -> subprocess.CompletedProcess:
+    """``subprocess.run(argv, timeout=...)`` through ``launch``: on the
+    timeout (``subprocess.TimeoutExpired``) or any exception the child's
+    whole group is killed, not only the child; after a normal exit the
+    group is swept too, so nothing the child left behind outlives it.
+    The child's stdout and stderr, interleaved, are captured in the
+    result's ``stdout``, or go to the open file ``log``."""
+    proc = launch(argv, env=env,
+                  stdout=subprocess.PIPE if log is None else log,
+                  stderr=subprocess.STDOUT)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        kill_group(proc)
+    return subprocess.CompletedProcess(argv, proc.returncode, out, err)
+
+
+def run_group(argvs: list[list[str]], envs: list[dict], *,
+              timeout_s: float | None, stdout=None,
+              capture_stderr: bool = True,
+              while_running=None) -> list[tuple[int, str]]:
+    """Start one child per ``argvs[i]`` with ``envs[i]`` (``launch``) and
+    wait for all: when one exits nonzero the others are killed at once;
+    at ``timeout_s`` (``TimeoutError``) or on any exception (an
+    interrupt, a signal handler's ``SystemExit``) all of them are.
+    ``while_running``: called here once the children are started (its
+    exception kills them too). Returns each child's (exit code, stderr
+    text; "" unless ``capture_stderr``): -9 for a child the launcher
+    killed."""
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
+    files = [tempfile.TemporaryFile("w+") if capture_stderr else None
+             for _ in argvs]
+    procs = []
+    try:
+        for argv, env, f in zip(argvs, envs, files):
+            procs.append(launch(argv, env=env, stdout=stdout, stderr=f))
+        if while_running is not None:
+            while_running()
+        while True:
+            codes = [p.poll() for p in procs]  # every one polled
+            if None not in codes or any(codes):
+                break  # all done, or one failed: the rest killed below
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"{len(procs)} processes did not finish in "
+                    f"{timeout_s:.0f} s: {argvs[0]}")
+            time.sleep(_POLL_S)
+    finally:
+        for p in procs:
+            kill_group(p)
+    out = []
+    for p, f in zip(procs, files):
+        err = ""
+        if f is not None:
+            f.seek(0)
+            err = f.read()
+            f.close()
+        out.append((p.returncode, err))
+    return out
+
+
+def _proc_state(pid: int) -> str | None:
+    try:
+        stat = Path(f"/proc/{pid}/stat").read_text()
+    except OSError:
+        return None
+    return stat.rsplit(")", 1)[1].split()[0]
+
+
+def _is_process(pid: int) -> bool:
+    """Whether ``pid`` is a process (its thread group's leader), not one
+    of its other threads: some kernels list a child's threads in
+    ``children`` too."""
+    try:
+        status = Path(f"/proc/{pid}/status").read_text()
+    except OSError:
+        return False
+    for line in status.splitlines():
+        if line.startswith("Tgid:"):
+            return int(line.split()[1]) == pid
+    return False
+
+
+def live_descendants(pid: int | None = None) -> list[tuple[int, str]]:
+    """(pid, command line) of every living process below ``pid`` (default:
+    this one), from ``/proc/<pid>/task/*/children`` recursively; a zombie
+    counts as gone, and a thread is not a process."""
+    out = []
+    todo = [os.getpid() if pid is None else pid]
+    seen = set(todo)
+    while todo:
+        p = todo.pop()
+        try:
+            tasks = os.listdir(f"/proc/{p}/task")
+        except OSError:
+            continue
+        for tid in tasks:
+            try:
+                kids = Path(f"/proc/{p}/task/{tid}/children").read_text()
+            except OSError:
+                continue
+            for c in map(int, kids.split()):
+                if c in seen or not _is_process(c):
+                    continue
+                seen.add(c)
+                todo.append(c)
+                if _proc_state(c) not in (None, "Z", "X"):
+                    try:
+                        cmd = Path(f"/proc/{c}/cmdline").read_bytes()
+                    except OSError:
+                        continue
+                    out.append((c, cmd.replace(b"\0", b" ").decode(
+                        errors="replace").strip()))
+    return out
+
+
 def spawn_ranks(n: int, module: str, argv: list[str]) -> int:
     """Start ``n`` ranks of ``python -m module argv`` on this host, as a
     launcher would (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE`` and a free
-    127.0.0.1 port); wait for all. The highest exit code wins."""
-    port = _free_port()
-    procs = []
-    for r in range(n):
-        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
-                   WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
-                   MASTER_PORT=str(port))
-        procs.append(subprocess.Popen([sys.executable, "-m", module, *argv],
-                                      env=env))
-    return max(p.wait() for p in procs)
+    127.0.0.1 port), through ``run_group``: a rank that exits nonzero ends
+    the others at once, so a rank whose peer died does not wait out the
+    group's timeout. The highest exit code wins."""
+    port = free_port()
+    envs = [dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                 WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
+                 MASTER_PORT=str(port)) for r in range(n)]
+    out = run_group([[sys.executable, "-m", module, *argv]] * n, envs,
+                    timeout_s=None, capture_stderr=False)
+    return max(rc for rc, _ in out)
 
 
 def initialize_distributed(*, device: str | torch.device | None = None,
@@ -84,7 +336,7 @@ def initialize_distributed(*, device: str | torch.device | None = None,
         init = "env://"
     else:  # one process, no launcher: a world of one
         rank, world = 0, 1
-        init = f"tcp://127.0.0.1:{_free_port()}"
+        init = f"tcp://127.0.0.1:{free_port()}"
     kw = {}
     if backend == "nccl":
         local = int(env.get("LOCAL_RANK", "0"))
@@ -112,7 +364,12 @@ class Mesh:
     """This rank's place on the mesh: ``coords`` (axis -> index), the
     mesh's process group and, per axis of size > 1, the group of ranks
     that differ only along that axis (``groups``). ``device``: where the
-    rank computes. ``backend``: the groups' backend."""
+    rank computes. ``backend``: the groups' backend. ``batch_group``: the
+    ranks that hold the same model slices and split the batch (the
+    gradients' and the loss's reduction: JAX's data and fsdp axes) — the
+    mesh's group without a tensor axis, the data x fsdp plane of this
+    rank's tensor index with one, None when the batch is not split
+    there."""
 
     cfg: MeshConfig
     rank: int
@@ -121,6 +378,7 @@ class Mesh:
     groups: dict
     device: torch.device
     backend: str
+    batch_group: object = None
 
     @property
     def size(self) -> int:
@@ -184,10 +442,27 @@ def make_mesh(cfg: MeshConfig, *, group=None,
             groups[ax] = dist.new_group(
                 members, timeout=timedelta(seconds=timeout_s),
                 backend=backend, use_local_synchronization=True)
+    batch_group = group
+    if cfg.tensor > 1:
+        batch = [ax for ax in ("data", "fsdp") if getattr(cfg, ax) > 1]
+        if not batch:
+            batch_group = None
+        elif len(batch) == 1:
+            batch_group = groups[batch[0]]
+        else:  # one group per tensor index over the data x fsdp plane
+            planes = np.moveaxis(grid, cfg.axis_order.index("tensor"), 0)
+            for plane in planes.reshape(cfg.tensor, -1):
+                if rank not in plane:
+                    continue
+                batch_group = dist.new_group(
+                    [global_ranks[int(i)] for i in plane],
+                    timeout=timedelta(seconds=timeout_s), backend=backend,
+                    use_local_synchronization=True)
     dev = (torch.device(device) if device is not None
            else _default_device(cfg, rank, backend))
     return Mesh(cfg=cfg, rank=rank, coords=coords, group=group,
-                groups=groups, device=dev, backend=backend)
+                groups=groups, device=dev, backend=backend,
+                batch_group=batch_group)
 
 
 def data_parallel_size(cfg: MeshConfig) -> int:
@@ -247,3 +522,13 @@ def fold_batch_shard_key(key: DropoutKey, mesh: Mesh) -> DropoutKey:
     if data_parallel_size(mesh.cfg) == 1:
         return key
     return key._replace(shard=1 + batch_shard_index(mesh))
+
+
+def fold_tensor_key(key: DropoutKey, mesh: Mesh) -> DropoutKey:
+    """Under tensor parallelism, the key whose attention masks are this
+    tensor rank's own (``tensor`` = 1 + its tensor index; the JAX
+    package's ``fold_in(k_attn, axis_index("tensor"))`` under
+    ``tensor_dropout="folded"``); unchanged without a tensor axis."""
+    if mesh.cfg.tensor == 1:
+        return key
+    return key._replace(tensor=1 + mesh.coords["tensor"])

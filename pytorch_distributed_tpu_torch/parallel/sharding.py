@@ -34,7 +34,8 @@ full params, along every axis its spec names.
 
 ``shard_train_state`` keeps, on each rank, only its slice of every
 sharded leaf and of its Adam moments: with F = fsdp, rank f holds
-elements [f * n / F, (f + 1) * n / F) of the sharded dim — per leaf,
+elements [f * n / F, (f + 1) * n / F) of the sharded dim (and likewise
+along the tensor dim, by its tensor index) — per leaf,
 the same element count as JAX's device shard (per stacked leaf, summed
 over layers). It returns the state and its ``StateSharding``, which
 the step, the checkpoint and the trainer read.
@@ -163,8 +164,15 @@ class StateSharding(NamedTuple):
     opt_state: dict
 
 
-def shard_dim(spec: tuple) -> int | None:
-    return spec.index("fsdp") if "fsdp" in spec else None
+def shard_dim(spec: tuple, axis: str = "fsdp") -> int | None:
+    """The dim ``spec`` shards over ``axis`` (None: not sharded on it)."""
+    return spec.index(axis) if axis in spec else None
+
+
+def sharded_axes(spec: tuple) -> tuple:
+    """The mesh axes ``spec`` shards a leaf over, in the order of its
+    dims."""
+    return tuple(ax for ax in spec if ax is not None)
 
 
 def shard_slice(full: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
@@ -184,12 +192,24 @@ def shard_params(params, specs, mesh):
     return tree.map_tree2(lambda p, s: _take(p, s, mesh), params, specs)
 
 
-def full_shape(shard: torch.Tensor, spec: tuple, fsdp: int) -> tuple:
-    """The global shape of a leaf from one rank's shard."""
-    shape = list(shard.shape)
+def fsdp_slice(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's slice along the fsdp dim of ``spec`` only (a view): of
+    a leaf that is whole over fsdp but may be this rank's tensor slice
+    already (ZeRO-2/1's replicated params and full gradients)."""
     dim = shard_dim(spec)
-    if dim is not None:
-        shape[dim] *= fsdp
+    if dim is None:
+        return t
+    size = t.shape[dim] // mesh.axis_size("fsdp")
+    return t.narrow(dim, mesh.axis_index("fsdp") * size, size)
+
+
+def full_shape(shard: torch.Tensor, spec: tuple, mesh_cfg) -> tuple:
+    """The global shape of a leaf from one rank's shard: each dim ``spec``
+    shards times its axis's size in ``mesh_cfg``."""
+    shape = list(shard.shape)
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            shape[dim] *= getattr(mesh_cfg, axis)
     return tuple(shape)
 
 

@@ -18,12 +18,17 @@ back (``movedim`` and a contiguous copy: plain tensor ops).
   ``n_buckets`` collectives: each leaf's sharded dim moved first and
   reshaped to [F, -1], concatenated per dtype, one reduce-scatter per
   bucket, the pieces cut back out (the same sums, moved together).
-- ``shard_slice`` is a view of this rank's slice; ``unscatter`` rebuilds
-  the full leaf with an all-gather (JAX sums zero-padded slices there for
-  its replication typing, which this port has no use for: the values are
-  the same).
-- ``global_norm_sharded`` sums each leaf's squares once: sharded leaves'
-  over the fsdp group, replicated leaves' on every rank alike.
+- ``fsdp_slice`` is a view of this rank's fsdp slice; ``unscatter``
+  rebuilds the leaf whole over fsdp with an all-gather (JAX sums
+  zero-padded slices there for its replication typing, which this port
+  has no use for: the values are the same), and ``unshard`` gathers the
+  tensor dim too (the full leaf, for a checkpoint).
+- ``global_norm_sharded`` sums each leaf's squares once: over the fsdp
+  and tensor groups it is sharded on, replicated leaves' on every rank
+  alike.
+- A leaf that is also tensor-sharded is gathered and scattered along its
+  fsdp dim only: the tensor dim is another dim of the same leaf, and each
+  tensor rank's fsdp group holds that rank's tensor slices.
 - ``clip_by_global_norm_typed`` scales every gradient by min(1, clip /
   norm) with the reduced norm (``train/optim.clip_by_global_norm_``, the
   optimizer's own clip).
@@ -43,8 +48,8 @@ import torch
 import torch.distributed as dist
 
 from pytorch_distributed_tpu_torch.parallel.sharding import (
+    fsdp_slice,
     shard_dim,
-    shard_slice,
 )
 from pytorch_distributed_tpu_torch.train.optim import (
     Optimizer,
@@ -175,8 +180,8 @@ def scatter_grads_bucketed(grads: list, specs: list, mesh,
 
 
 def unscatter(shard: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
-    """The full leaf from every rank's shard (the inverse of
-    ``shard_slice``)."""
+    """The leaf whole over fsdp from every fsdp rank's shard (the inverse
+    of ``fsdp_slice``)."""
     dim = shard_dim(spec)
     if dim is None:
         return shard
@@ -184,18 +189,37 @@ def unscatter(shard: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
                           mesh.cfg.fsdp)
 
 
+def unshard(shard: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The full leaf from every rank's slice along every axis ``spec``
+    names (the inverse of ``shard_slice``): fsdp, then tensor."""
+    full = unscatter(shard, spec, mesh)
+    dim = shard_dim(spec, "tensor")
+    if dim is None:
+        return full
+    return all_gather_dim(full, dim, mesh.axis_group("tensor"),
+                          mesh.cfg.tensor)
+
+
 def global_norm_sharded(grads: list, specs: list, mesh) -> torch.Tensor:
-    """The global norm of gradients laid out by ``specs``: each replicated
-    leaf counted once, the sharded leaves' squares summed over fsdp. With
-    no sharded leaf it is ``train/optim.global_norm`` itself."""
-    rep = [g for g, s in zip(grads, specs) if shard_dim(s) is None]
-    shd = [g for g, s in zip(grads, specs) if shard_dim(s) is not None]
-    if not shd:
-        return global_norm(rep)
-    sq = global_norm(shd).square()
-    all_reduce_(sq, mesh.axis_group("fsdp"))
-    if rep:
-        sq = sq + global_norm(rep).square()
+    """The global norm of gradients laid out by ``specs``: each leaf's
+    squares summed over exactly the axes it is sharded on (fsdp and/or
+    tensor, one all-reduce per axis per bucket of leaves sharded alike,
+    as JAX's buckets), a replicated leaf counted once. With no sharded
+    leaf it is ``train/optim.global_norm`` itself."""
+    buckets: dict = {}
+    for g, s in zip(grads, specs):
+        axes = tuple(ax for ax in ("fsdp", "tensor")
+                     if ax in s and mesh.axis_size(ax) > 1)
+        buckets.setdefault(axes, []).append(g)
+    if set(buckets) <= {()}:
+        return global_norm(buckets.get((), []))
+    sq = None
+    # The sharded buckets first, the replicated leaves last.
+    for axes in sorted(buckets, key=lambda a: (not a, len(a), a)):
+        val = global_norm(buckets[axes]).square()
+        for ax in axes:
+            all_reduce_(val, mesh.axis_group(ax))
+        sq = val if sq is None else sq + val
     return sq.sqrt()
 
 
@@ -216,9 +240,11 @@ def zero_sharded_update(tx: Optimizer, params, opt_state: dict,
     Returns (params, opt_state): the same params tensors, updated."""
     specs = tree.leaves(shard_specs)
     full = tree.leaves(params)
-    shards = [shard_slice(p, s, mesh) for p, s in zip(full, specs)]
+    # The params and full gradients are this rank's tensor slices already:
+    # only their fsdp dim is cut here.
+    shards = [fsdp_slice(p, s, mesh) for p, s in zip(full, specs)]
     if strategy == "shard_opt":
-        grads = [shard_slice(g, s, mesh) for g, s in zip(grads, specs)]
+        grads = [fsdp_slice(g, s, mesh) for g, s in zip(grads, specs)]
     _, opt_state = tx.update(grads, opt_state,
                              tree.unflatten(params, shards),
                              anomaly=anomaly)

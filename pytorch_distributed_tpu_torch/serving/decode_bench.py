@@ -1060,8 +1060,9 @@ def bench_serving(args) -> list[dict]:
     finite), two sampling configs, batch 4 per request; cold, steady and
     repeat-stream rates and p50 request latency per path. The JAX leg's
     ZeRO-3 decode sub-leg needs a mesh of two or more ranks, and this twin
-    runs one process: it is skipped here, with that reason on stderr
-    (queued behind ROADMAP queue 1 item 7(f))."""
+    runs one process: it is skipped here, with that reason on stderr (it
+    waits for a rank launcher in this twin, ROADMAP queue 1 item 4c, and
+    its prefetch side for item 7(d))."""
     from pytorch_distributed_tpu_torch.models import decode
     from pytorch_distributed_tpu_torch.serving.engine import (
         BucketSpec,
@@ -1173,8 +1174,9 @@ def bench_serving(args) -> list[dict]:
     engine_row["cache_hbm_bytes"] = hbm["allocated"]
     engine_row["cache_hbm_bytes_peak_in_use"] = hbm["peak_in_use"]
     print("zero3_decode skipped: the ZeRO-3 decode sub-leg needs a mesh of "
-          ">= 2 ranks and this twin runs one process (queued behind ROADMAP "
-          "queue 1 item 7(f))", file=sys.stderr)
+          ">= 2 ranks and this twin runs one process (it waits for a rank "
+          "launcher in this twin, ROADMAP queue 1 item 4c; its prefetch "
+          "side for item 7(d))", file=sys.stderr)
     return [{
         "leg": "serving_stream",
         "model": _model_row(cfg),
@@ -1779,8 +1781,9 @@ def bench_serving_spec(args) -> list[dict]:
         f"{low_row['aggregate_speedup']}x of plain is the cost of leaving "
         "speculation on for non-greedy traffic")
     print("serving_spec_tp skipped: the tensor-parallel pair needs a mesh "
-          "of >= 2 ranks and this twin runs one process (queued behind "
-          "ROADMAP queue 1 item 7(f))", file=sys.stderr)
+          "of >= 2 ranks and this twin runs one process (it waits for a "
+          "rank launcher in this twin, ROADMAP queue 1 item 4c)",
+          file=sys.stderr)
     rows = [rep_row, low_row]
     for row in rows:
         row["invariant_failures"] = failures
@@ -1915,4 +1918,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from pytorch_distributed_tpu_torch.parallel.mesh import bind_to_parent
+
+    bind_to_parent()  # a rank or mode started by the port's launcher
     raise SystemExit(main())

@@ -385,4 +385,7 @@ def _main(args, quiet: bool = False) -> int:
 
 
 if __name__ == "__main__":
+    from pytorch_distributed_tpu_torch.parallel.mesh import bind_to_parent
+
+    bind_to_parent()  # a rank or mode started by the port's launcher
     raise SystemExit(main())

@@ -45,14 +45,18 @@ touches it or its temporary directory.
 and load, ``sharding`` the ``parallel/sharding.StateSharding`` of its
 state). ``format="orbax"`` is the port's own sharded format, the
 counterpart of JAX's orbax save: in ``tree/`` each rank of the first data
-replica writes its shards (``shard_<f>.npz``, f its fsdp index; shard 0
-also holds the replicated leaves, bf16 as its 16-bit payload) and rank 0
-an ``index.json`` with every leaf's global shape, dtype and shard dim;
+replica writes its blocks (``shard_<i>.npz``, i = f * tensor + t from its
+fsdp and tensor indices; a leaf is written by the ranks at index 0 along
+each axis it is not split over, so shard 0 holds the replicated leaves and
+every tensor rank's slices are written; bf16 as its 16-bit payload) and
+rank 0 an ``index.json`` with every leaf's global shape, dtype, fsdp dim
+and the axis of each dim (``axes``), and the file grid;
 after a barrier rank 0 writes meta.json, a per-file crc32 manifest and
 ``COMMIT`` and swaps the directory into place, as JAX's ``_save_orbax``
 does, and every rank waits for the swap. A load rebuilds each leaf from
 the shards and keeps the slice the template's sharding gives this rank,
-so a state restores onto any fsdp size. "npz" on several ranks gathers
+so a state restores onto any fsdp and tensor size (saved at tensor 2, it
+restores at tensor 1, and back). "npz" on several ranks gathers
 the sharded leaves and only rank 0 writes; "auto" is "orbax" when a leaf
 is sharded, else "npz". **A deliberate difference**: the port's sharded
 directories and JAX's tensorstore ones do not load across (a JAX one is
@@ -88,7 +92,7 @@ COMMIT_NAME = "COMMIT"
 MANIFEST_NAME = "manifest.json"
 # The optax chain's element holding (count, mu, nu), and the schedule's.
 _ADAM, _SCHEDULE = "opt_state/1", "opt_state/3"
-_SHARDED_FORMAT = "pdtpu-torch-sharded-v1"
+_SHARDED_FORMAT = "pdtpu-torch-sharded-v2"
 _JAX_ORBAX = ("is a JAX orbax (tensorstore) checkpoint: the port's sharded "
               "format (ROADMAP queue 1 item 7(a)) does not read it; write "
               "npz on the JAX side, which both packages load")
@@ -221,10 +225,11 @@ def _barrier() -> None:
 
 
 def _is_sharded(sharding) -> bool:
-    from pytorch_distributed_tpu_torch.parallel.sharding import shard_dim
+    """Whether ``sharding`` splits any leaf (over fsdp or tensor)."""
+    from pytorch_distributed_tpu_torch.parallel.sharding import sharded_axes
 
     return sharding is not None and any(
-        shard_dim(s) is not None
+        sharded_axes(s)
         for s in tree.leaves([sharding.params, sharding.opt_state]))
 
 
@@ -262,16 +267,17 @@ def save_checkpoint(directory: str | Path, state: TrainState,
 
 def gather_state(state: TrainState, sharding) -> TrainState:
     """The full train state on every rank: each sharded leaf all-gathered
-    over the fsdp group (every rank calls it)."""
-    from pytorch_distributed_tpu_torch.parallel.zero import unscatter
+    over the fsdp group, then over the tensor group (every rank calls
+    it)."""
+    from pytorch_distributed_tpu_torch.parallel.zero import unshard
 
     mesh = sharding.mesh
     with torch.no_grad():
-        params = tree.map_tree2(lambda t, s: unscatter(t, s, mesh),
+        params = tree.map_tree2(lambda t, s: unshard(t, s, mesh),
                                 state.params, sharding.params)
         opt = dict(state.opt_state)
         for k in ("mu", "nu"):
-            opt[k] = tree.map_tree2(lambda t, s: unscatter(t, s, mesh),
+            opt[k] = tree.map_tree2(lambda t, s: unshard(t, s, mesh),
                                     opt[k], sharding.opt_state[k])
     return state._replace(params=params, opt_state=opt)
 
@@ -317,6 +323,11 @@ def _payload(v) -> tuple[np.ndarray, str]:
     return np.ascontiguousarray(v.numpy()), name
 
 
+# The mesh axes a sharded save lays its files out over: file i holds the
+# blocks of fsdp index i // tensor and tensor index i % tensor.
+_FILE_AXES = ("fsdp", "tensor")
+
+
 def _save_sharded(directory: Path, state: TrainState, cfg: ModelConfig,
                   metadata: dict | None, sharding) -> str:
     """The port's sharded format (module docstring); every rank calls."""
@@ -327,10 +338,13 @@ def _save_sharded(directory: Path, state: TrainState, cfg: ModelConfig,
 
     rank, _ = _rank_world()
     mesh = sharding.mesh if sharding is not None else None
-    fsdp = mesh.cfg.fsdp if mesh is not None else 1
-    f = mesh.axis_index("fsdp") if mesh is not None else 0
+    grid = {ax: mesh.axis_size(ax) if mesh is not None else 1
+            for ax in _FILE_AXES}
+    at = {ax: mesh.axis_index(ax) if mesh is not None else 0
+          for ax in _FILE_AXES}
     writer = mesh is None or all(
-        i == 0 for ax, i in mesh.coords.items() if ax != "fsdp")
+        i == 0 for ax, i in mesh.coords.items() if ax not in _FILE_AXES)
+    file_i = at["fsdp"] * grid["tensor"] + at["tensor"]
     directory = directory.resolve()
     tmp = directory.parent / (".tmp_" + directory.name)
     if rank == 0:
@@ -342,19 +356,22 @@ def _save_sharded(directory: Path, state: TrainState, cfg: ModelConfig,
         if writer:
             arrays, index = {}, {}
             for key, v, spec in _sharded_leaves(state, sharding):
-                dim = shard_dim(spec)
-                if dim is None and f != 0:
+                # One holder a block: index 0 along each axis the leaf is
+                # not split over.
+                if any(at[ax] for ax in _FILE_AXES if ax not in spec):
                     continue
                 arrays[key], dtype = _payload(v)
-                shape = (full_shape(v, spec, fsdp) if torch.is_tensor(v)
-                         else ())
+                shape = (full_shape(v, spec, mesh.cfg) if mesh is not None
+                         else tuple(v.shape)) if torch.is_tensor(v) else ()
                 index[key] = {"shape": list(shape), "dtype": dtype,
-                              "dim": dim}
-            np.savez(tmp / "tree" / f"shard_{f}.npz", **arrays)
-            if f == 0:
+                              "dim": shard_dim(spec) if spec else None,
+                              "axes": list(spec) if spec else None}
+            np.savez(tmp / "tree" / f"shard_{file_i}.npz", **arrays)
+            if file_i == 0:
                 (tmp / "tree" / "index.json").write_text(json.dumps(
-                    {"format": _SHARDED_FORMAT, "shards": fsdp,
-                     "leaves": index}, indent=1))
+                    {"format": _SHARDED_FORMAT,
+                     "shards": grid["fsdp"] * grid["tensor"],
+                     "grid": grid, "leaves": index}, indent=1))
         _barrier()  # every shard written
         if rank == 0:
             _commit_sharded(tmp, directory, metadata or {})
@@ -364,6 +381,31 @@ def _save_sharded(directory: Path, state: TrainState, cfg: ModelConfig,
         raise
     _barrier()  # the swap is done before any rank uses the path
     return str(directory)
+
+
+def _assemble(files: list, grid: dict, key: str, entry: dict) -> np.ndarray:
+    """A leaf of the sharded format whole: its blocks from the files of
+    the grid points along the axes it is split over (``_FILE_AXES``), each
+    put at its place along its dims."""
+    axes = entry.get("axes")
+    if axes is None and entry.get("dim") is not None:  # fsdp alone
+        axes = [None] * len(entry["shape"])
+        axes[entry["dim"]] = "fsdp"
+    if not axes:
+        return files[0][key]
+    ranges = [range(grid[ax]) if ax in axes else range(1)
+              for ax in _FILE_AXES]
+    full = None
+    for f in ranges[0]:
+        for t in ranges[1]:
+            block = files[f * grid["tensor"] + t][key]
+            if full is None:
+                full = np.empty(entry["shape"], block.dtype)
+            at = {"fsdp": f, "tensor": t}
+            full[tuple(slice(None) if ax is None else
+                       slice(at[ax] * n, (at[ax] + 1) * n)
+                       for ax, n in zip(axes, block.shape))] = block
+    return full
 
 
 def _file_crcs(root: Path) -> dict:
@@ -647,19 +689,15 @@ def _load_sharded(directory: Path, like: TrainState,
     index = json.loads((directory / "tree" / "index.json").read_text())
     files = [np.load(directory / "tree" / f"shard_{i}.npz")
              for i in range(index["shards"])]
+    grid = index.get("grid", {"fsdp": index["shards"], "tensor": 1})
     mesh = sharding.mesh if sharding is not None else None
-    fsdp = mesh.cfg.fsdp if mesh is not None else 1
     try:
         def read(key):
             entry = index["leaves"].get(key)
             if entry is None:
                 raise KeyError(f"checkpoint {directory} missing leaf "
                                f"{key!r}")
-            if entry["dim"] is None:
-                a = files[0][key]
-            else:
-                a = np.concatenate([f[key] for f in files],
-                                   axis=entry["dim"])
+            a = _assemble(files, grid, key, entry)
             t = torch.from_numpy(np.array(a))
             if entry["dtype"] == "bfloat16":
                 t = t.view(torch.bfloat16)
@@ -671,7 +709,8 @@ def _load_sharded(directory: Path, like: TrainState,
             if not torch.is_tensor(v):
                 out[key] = int(got)
                 continue
-            want = full_shape(v, spec, fsdp)
+            want = (full_shape(v, spec, mesh.cfg) if mesh is not None
+                    else tuple(v.shape))
             if tuple(entry["shape"]) != want:
                 raise ValueError(f"checkpoint leaf {key!r} shape "
                                  f"{tuple(entry['shape'])} != expected "

@@ -52,10 +52,13 @@ def parser(doc: str, *,
 
 
 def run(args, argv, module: str, mesh_cfg_for, trace_dir: str,
-        log_name: str, describe) -> int:
-    """The body both twins share: join the group, build the mesh
-    (``mesh_cfg_for(world)``), the loader and the DistributedTrainer, and
-    train (``argv``: the flags, for the ranks ``--cpu-devices`` starts)."""
+        log_name: str, describe, model_cfg_for=None) -> int:
+    """The body the data-parallel twins share (``train.ddp``,
+    ``train.fsdp``, ``train.parallel``): join the group, build the mesh
+    (``mesh_cfg_for(world)``), the model config (``model_cfg_for(args)``,
+    default ``build_model_cfg``), the loader (this rank's batch shard) and
+    the DistributedTrainer, and train (``argv``: the flags, for the ranks
+    ``--cpu-devices`` starts)."""
     import torch.distributed as dist
 
     from pytorch_distributed_tpu_torch.data import (
@@ -63,6 +66,8 @@ def run(args, argv, module: str, mesh_cfg_for, trace_dir: str,
     )
     from pytorch_distributed_tpu_torch.models import get_model
     from pytorch_distributed_tpu_torch.parallel.mesh import (
+        batch_shard_index,
+        data_parallel_size,
         initialize_distributed,
         make_mesh,
         spawn_ranks,
@@ -89,18 +94,23 @@ def run(args, argv, module: str, mesh_cfg_for, trace_dir: str,
         mesh_cfg = mesh_cfg_for(world)
         mesh = make_mesh(mesh_cfg, device=device)
         log = get_logger(log_name)
-        model_cfg = build_model_cfg(args)
-        train_cfg = build_train_cfg(args, data_parallel_size=world)
+        model_cfg = (build_model_cfg(args) if model_cfg_for is None
+                     else model_cfg_for(args))
+        # The batch splits over the batch axes only (tensor ranks read the
+        # same rows): the accumulation rule's dp and the loader's slice.
+        dp = data_parallel_size(mesh_cfg)
+        train_cfg = build_train_cfg(args, data_parallel_size=dp)
         if dist.get_rank() == 0:  # one writer for the shared shards
             shard_paths(args, model_cfg.vocab_size)
         dist.barrier()
         paths = shard_paths(args, model_cfg.vocab_size)
-        loader = DistributedTokenShardLoader(paths, args.micro_batch_size,
-                                             args.seq_len)
+        loader = DistributedTokenShardLoader(
+            paths, args.micro_batch_size, args.seq_len,
+            rank=batch_shard_index(mesh), world_size=dp)
         if dist.get_rank() == 0:
             log.info(f"{describe(mesh_cfg)} over {world} ranks "
                      f"({mesh.backend}, {device.type}), accum="
-                     f"{train_cfg.grad_accum_steps(world)}, "
+                     f"{train_cfg.grad_accum_steps(dp)}, "
                      f"path={args.path}")
         trainer = DistributedTrainer(get_model(model_cfg), model_cfg,
                                      train_cfg, mesh, mesh_cfg,
@@ -132,4 +142,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from pytorch_distributed_tpu_torch.parallel.mesh import bind_to_parent
+
+    bind_to_parent()  # a rank or mode started by the port's launcher
     raise SystemExit(main())

@@ -20,6 +20,10 @@
   collective, and the npz save gathers to rank 0 (``train/checkpoint``).
 - ``evaluate`` gathers ZeRO-3's params once, runs each rank's batches and
   averages over the ranks.
+- Under a tensor axis (Megatron TP) each rank holds its slices of the
+  block leaves and runs the forward with the tensor group; the loss, the
+  gradient norm and so the guard's decision come out bitwise the same on
+  every rank, and tensor ranks take the same rows of a batch.
 
 ``path``: "auto" or "explicit", the same hand-scheduled step here
 (``parallel/api``); "pipeline" raises, naming ROADMAP queue 1 item 7(d).
@@ -38,7 +42,6 @@ from pytorch_distributed_tpu_torch.config import (
     MeshConfig,
     ModelConfig,
     TrainConfig,
-    check_trainable_mesh,
 )
 from pytorch_distributed_tpu_torch.models import ModelApi
 from pytorch_distributed_tpu_torch.parallel import zero
@@ -46,6 +49,7 @@ from pytorch_distributed_tpu_torch.parallel.api import (
     make_parallel_train_step,
 )
 from pytorch_distributed_tpu_torch.parallel.explicit import (
+    check_tensor_dropout,
     make_explicit_train_step,
 )
 from pytorch_distributed_tpu_torch.parallel.mesh import (
@@ -58,7 +62,10 @@ from pytorch_distributed_tpu_torch.parallel.sharding import (
 )
 from pytorch_distributed_tpu_torch.train.optim import make_optimizer
 from pytorch_distributed_tpu_torch.train.state import TrainState
-from pytorch_distributed_tpu_torch.train.trainer import Trainer
+from pytorch_distributed_tpu_torch.train.trainer import (
+    Trainer,
+    make_eval_step,
+)
 from pytorch_distributed_tpu_torch.utils.logging import (
     get_logger,
     is_process_zero,
@@ -77,7 +84,7 @@ class DistributedTrainer(Trainer):
         path: str = "auto",
         log_fn: Callable[[str], None] | None = None,
     ):
-        check_trainable_mesh(mesh_cfg)
+        check_tensor_dropout(model_cfg, mesh_cfg)
         if path not in ("auto", "explicit", "pipeline"):
             raise ValueError(f"unknown parallel path {path!r}")
         if path == "pipeline":
@@ -107,6 +114,9 @@ class DistributedTrainer(Trainer):
             data_parallel_size=data_parallel_size(mesh_cfg),
             put_batch=self._put_batch_impl, log_fn=gated_log)
         self.train_step = None  # init_state builds it, knowing the layout
+        if mesh_cfg.tensor > 1:
+            self._eval_step = make_eval_step(
+                model, model_cfg, tp_group=mesh.axis_group("tensor"))
 
     # -- state ------------------------------------------------------------
     def init_state(self) -> TrainState:

@@ -37,11 +37,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+
+from pytorch_distributed_tpu_torch.parallel.mesh import bind_to_parent, run
 
 DONE_NAME = "DONE.json"
 FAULT_KINDS = ("crash", "sigterm", "bad_batch", "ckpt_corrupt", "slow_step")
@@ -188,11 +189,14 @@ def _spawn_worker(args, leg: str, attempt: int, log_dir: Path) -> int:
         p for p in (str(_REPO_ROOT), env.get("PYTHONPATH")) if p)
     log = log_dir / f"worker_{leg}_{attempt}.log"
     with log.open("w") as f:
-        return subprocess.call(
+        # The port's launcher: the worker's group is killed if the
+        # supervisor is interrupted, and the worker dies with the
+        # supervisor (``bind_to_parent``).
+        return run(
             [sys.executable, "-m", "pytorch_distributed_tpu_torch.train."
              "supervisor", "--worker", "--workdir", str(args.workdir),
              "--leg", leg, "--attempt", str(attempt)],
-            stdout=f, stderr=subprocess.STDOUT, env=env)
+            timeout=None, env=env, log=f).returncode
 
 
 def _run_leg(args, leg: str) -> dict:
@@ -377,4 +381,5 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    bind_to_parent()
     raise SystemExit(main())

@@ -109,17 +109,17 @@ from pytorch_distributed_tpu_torch.utils.prng import DropoutKey
 
 def _loss(model: ModelApi, cfg: ModelConfig, params, inputs, targets, *,
           deterministic: bool = True, key: DropoutKey | None = None,
-          with_aux: bool = True, block_transform=None):
+          with_aux: bool = True, block_transform=None, tp_group=None):
     """The JAX ``micro_loss``: the forward, then the cross-entropy, fused
     with the head when ``cfg.fused_head_ce``; for a MoE config (and
     ``with_aux``) plus ``moe_aux_coef`` times the Switch term summed over
-    layers. ``block_transform``: the forward's (``parallel/explicit``'s
-    per-layer gather)."""
+    layers. ``block_transform`` and ``tp_group``: the forward's
+    (``parallel/explicit``'s per-layer gather and tensor group)."""
     aux = bool(cfg.n_experts) and with_aux
     out = model.apply(params, inputs, cfg, deterministic=deterministic,
                       dropout_seed=key, return_aux=aux,
                       return_hidden=cfg.fused_head_ce,
-                      block_transform=block_transform)
+                      block_transform=block_transform, tp_group=tp_group)
     out, aux_sum = out if aux else (out, None)
     if not cfg.fused_head_ce:
         loss = cross_entropy_loss(out, targets)
@@ -221,10 +221,12 @@ def make_train_step(
     return step
 
 
-def make_eval_step(model: ModelApi, model_cfg: ModelConfig) -> Callable:
+def make_eval_step(model: ModelApi, model_cfg: ModelConfig, *,
+                   tp_group=None) -> Callable:
     """Build ``eval_fn(params, batch) -> loss`` (a device scalar): the
     deterministic forward and the training loss on "inputs"/"targets" of
-    shape [B, T] or [A, B, T] (flattened to [A*B, T])."""
+    shape [B, T] or [A, B, T] (flattened to [A*B, T]). ``tp_group``: the
+    forward's tensor group (``params`` then this rank's slices)."""
 
     @torch.no_grad()
     def eval_fn(params, batch):
@@ -233,7 +235,7 @@ def make_eval_step(model: ModelApi, model_cfg: ModelConfig) -> Callable:
             inputs = inputs.reshape(-1, inputs.shape[-1])
             targets = targets.reshape(-1, targets.shape[-1])
         return _loss(model, model_cfg, params, inputs, targets,
-                     with_aux=False)
+                     with_aux=False, tp_group=tp_group)
 
     return eval_fn
 

@@ -13,7 +13,12 @@ seed for an explicit ``torch.Generator`` on the mask's device.
 Each mask is a pure function of its id. A remat recompute draws it again
 bit for bit, as JAX's key-based masks are, which
 ``torch.utils.checkpoint(preserve_rng_state=True)`` (it restores only the
-default generators) would not give. ``draw_keep_mask`` is looked up on this
+default generators) would not give. Under tensor parallelism with
+``tensor_dropout="folded"`` (the JAX package's ``fold_in(k_attn,
+axis_index("tensor"))``) the key's ``tensor`` field, 1 + the rank's tensor
+index, enters the attention masks' ids only: the embedding and residual
+masks act on activations every tensor rank holds alike, so they stay the
+same on every rank. ``draw_keep_mask`` is looked up on this
 module at every call, so a test can replace it, for example with one that
 returns the JAX package's mask for the same id.
 """
@@ -38,12 +43,15 @@ class DropoutKey(NamedTuple):
     ``fold_in(step_key(domain_key(seed, "dropout"), step), micro)``.
     ``shard``: 0, or 1 + the rank's batch-shard index when the batch is
     split over ranks (``parallel/mesh.fold_batch_shard_key``, the JAX
-    package's fold of the shard index into the key)."""
+    package's fold of the shard index into the key). ``tensor``: 0, or 1 +
+    the rank's tensor index under folded tensor dropout (the attention
+    masks' only)."""
 
     seed: int
     step: int
     micro: int = 0
     shard: int = 0
+    tensor: int = 0
 
 
 class StreamId(NamedTuple):
@@ -53,6 +61,7 @@ class StreamId(NamedTuple):
     layer: int
     site: str
     shard: int = 0
+    tensor: int = 0
 
 
 def stream_id(key: DropoutKey, layer: int, site: str) -> StreamId:
@@ -63,16 +72,19 @@ def stream_id(key: DropoutKey, layer: int, site: str) -> StreamId:
             f"site {site!r} at layer {layer}: the embedding mask has layer "
             f"{EMBD_LAYER}, the block masks layers >= 0"
         )
-    return StreamId(key.seed, key.step, key.micro, layer, site, key.shard)
+    return StreamId(key.seed, key.step, key.micro, layer, site, key.shard,
+                    key.tensor if site == "attn" else 0)
 
 
 def stream_seed(sid: StreamId) -> int:
     """A 64-bit generator seed for ``sid``: blake2b of its fields, so it is
     the same in every process (Python's ``hash`` of a str is not). A shard
-    of 0 packs nothing, so an unsharded id keeps its seed."""
+    (or tensor) of 0 packs nothing, so an unsharded id keeps its seed."""
     packed = struct.pack("<qqqq", sid.seed, sid.step, sid.micro, sid.layer)
     if sid.shard:
         packed += struct.pack("<q", sid.shard)
+    if sid.tensor:
+        packed += struct.pack("<qq", -1, sid.tensor)
     digest = hashlib.blake2b(packed + sid.site.encode(), digest_size=8)
     return int.from_bytes(digest.digest(), "little")
 

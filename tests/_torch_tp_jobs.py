@@ -392,5 +392,202 @@ def job_cuda_tp_paged(workdir: Path) -> None:
     _write(workdir, rank, out)
 
 
+# -- tensor-parallel training ---------------------------------------------------
+
+
+def job_tp_train(workdir: Path) -> None:
+    """Tensor-parallel training on four ranks: every case of
+    ``spec["cases"]`` (one explicit step on its group: "a" = ranks {0, 1},
+    "b" = {2, 3}, both at once, or "world"), writing the loss, grad norm,
+    the all-reduces ``ops/tp`` issued and the gathered params; then folded
+    attention dropout on "a" (two runs of a step, and the deterministic
+    step), the sharded checkpoint on the world (saved at fsdp 2 x tensor
+    2, restored at tensor 1 and onto data 2 x tensor 2) and the JAX npz
+    restored at tensor 2; last the ``DistributedTrainer``'s loop at
+    tensor 4 with the anomaly guard and one corrupt batch."""
+    import torch
+    import torch.distributed as dist
+
+    from _torch_dist_worker import _save_params
+    from pytorch_distributed_tpu_torch.config import (
+        MeshConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.ops import tp
+    from pytorch_distributed_tpu_torch.parallel.api import (
+        make_parallel_train_step,
+    )
+    from pytorch_distributed_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_distributed_tpu_torch.parallel.sharding import (
+        shard_slice,
+        shard_train_state,
+    )
+    from pytorch_distributed_tpu_torch.train import checkpoint as ckpt
+    from pytorch_distributed_tpu_torch.train.optim import make_optimizer
+    from pytorch_distributed_tpu_torch.train.state import init_train_state
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    import hashlib
+
+    spec, rank = _setup(workdir)
+    groups = {"a": dist.new_group([0, 1]), "b": dist.new_group([2, 3]),
+              "world": dist.group.WORLD}
+    members = {"a": (0, 1), "b": (2, 3), "world": (0, 1, 2, 3)}
+    tcfg = TrainConfig(**spec["train"])
+    with np.load(workdir / "batch.npz") as f:
+        batch = {k: f[k] for k in f.files}
+    out: dict = {"rank": rank, "cases": {}}
+
+    def build(model, mesh_kw, group="world", **cfg_kw):
+        cfg = ModelConfig(**dict(spec["models"][model], **cfg_kw))
+        mcfg = MeshConfig(**mesh_kw)
+        mesh = make_mesh(mcfg, group=groups[group], device="cpu")
+        tx = make_optimizer(tcfg)
+        state, sh = shard_train_state(init_train_state(
+            _params(workdir, cfg, f"{model}.npz"), tx), mesh)
+        step, put = make_parallel_train_step(get_model(cfg), cfg, tx, mesh,
+                                             mcfg, sh)
+        return cfg, mesh, state, sh, step, put
+
+    for case in spec["cases"]:
+        if rank not in members[case["group"]]:
+            continue
+        cfg, mesh, state, sh, step, put = build(case["model"], case["mesh"],
+                                                case["group"])
+        c0 = tp.collectives
+        state, m = step(state, put(batch))
+        res = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                   tp_collectives=tp.collectives - c0, coords=mesh.coords)
+        full = ckpt.gather_state(state, sh)
+        if mesh.rank == 0:
+            _save_params(workdir / f"params_{case['name']}.npz",
+                         full.params, cfg)
+        out["cases"][case["name"]] = res
+
+    # Folded attention dropout (group a, tensor 2): the same seed gives
+    # the same masks, so two runs of the step are bit-equal; the masks
+    # act (the deterministic step's loss differs).
+    if rank in members["a"]:
+        losses = []
+        for pdrop in (0.5, 0.5, 0.0):
+            _, _, state, _, step, put = build(
+                "gpt2", dict(tensor=2, strategy="no_shard"), "a",
+                attn_pdrop=pdrop, tensor_dropout="folded")
+            state, m = step(state, put(batch))
+            losses.append(m["loss"].item())
+            out.setdefault("folded_params_sha", []).append(
+                hashlib.sha256(b"".join(
+                    t.detach().numpy().tobytes()
+                    for t in tree.leaves(state.params))).hexdigest())
+        out["folded_losses"] = losses
+
+    # Residual dropout under names (group b): the masks are saved, so the
+    # recompute of a block runs past mlp_proj, whose sum it must not issue
+    # again.
+    if rank in members["b"]:
+        _, _, state, _, step, put = build(
+            "gpt2", dict(tensor=2, strategy="no_shard"), "b",
+            resid_pdrop=0.1, embd_pdrop=0.1)
+        c0 = tp.collectives
+        step(state, put(batch))
+        out["resid_dropout_tp_collectives"] = tp.collectives - c0
+
+    # The sharded checkpoint at fsdp 2 x tensor 2 (full_shard: leaves
+    # split over both axes), restored at tensor 1 (no sharding: the whole
+    # state) and onto data 2 x tensor 2.
+    cfg, mesh, state, sh, step, put = build(
+        "gpt2", dict(fsdp=2, tensor=2, strategy="full_shard"))
+    state, _ = step(state, put(batch))
+    ckpt.save_checkpoint(workdir / "tp_orbax", state, cfg, format="orbax",
+                         sharding=sh, metadata={"step": 1})
+    ckpt.save_checkpoint(workdir / "tp_npz", state, cfg, format="npz",
+                         sharding=sh)
+    full = ckpt.gather_state(state, sh)
+    full_leaves = tree.leaves([full.params, full.opt_state["mu"],
+                               full.opt_state["nu"]])
+
+    def fresh_full():
+        return init_train_state(_params(workdir, cfg, "other.npz"),
+                                make_optimizer(tcfg))
+
+    def same_bits(a_leaves, b_leaves):
+        return all(torch.equal(a, b) for a, b in zip(a_leaves, b_leaves))
+
+    ck: dict = {}
+    for fmt in ("tp_orbax", "tp_npz"):
+        whole = ckpt.load_checkpoint(workdir / fmt, fresh_full(), cfg)
+        ck[f"{fmt}_tensor1_bit_equal"] = same_bits(
+            tree.leaves([whole.params, whole.opt_state["mu"],
+                         whole.opt_state["nu"]]), full_leaves)
+        ck[f"{fmt}_step"] = whole.step
+    mcfg2 = MeshConfig(data=2, tensor=2, strategy="no_shard")
+    mesh2 = make_mesh(mcfg2, device="cpu")
+    like, sh2 = shard_train_state(fresh_full(), mesh2)
+    got = ckpt.load_checkpoint(workdir / "tp_orbax", like, cfg,
+                               sharding=sh2)
+    want = [shard_slice(t, s, mesh2) for t, s in zip(
+        full_leaves, tree.leaves([sh2.params, sh2.opt_state["mu"],
+                                  sh2.opt_state["nu"]]))]
+    ck["onto_data2_tensor2_bit_equal"] = same_bits(
+        tree.leaves([got.params, got.opt_state["mu"], got.opt_state["nu"]]),
+        want)
+    index = json.loads((workdir / "tp_orbax" / "tree" / "index.json")
+                       .read_text())
+    ck["files"] = sorted(p.name for p in (workdir / "tp_orbax" / "tree")
+                         .iterdir())
+    ck["grid"] = index["grid"]
+    # The JAX package's npz (one single-device step) at tensor 2.
+    like, sh2 = shard_train_state(fresh_full(), mesh2)
+    got = ckpt.load_checkpoint(workdir / "jax_ckpt", like, cfg, sharding=sh2)
+    whole = ckpt.gather_state(got, sh2)
+    ck["jax_step"] = got.step
+    if rank == 0:
+        _save_params(workdir / "jax_ckpt_params.npz", whole.params, cfg)
+        _save_params(workdir / "jax_ckpt_mu.npz", whole.opt_state["mu"],
+                     cfg)
+    out["ckpt"] = ck
+
+    # The DistributedTrainer's loop at tensor 4 with the anomaly guard: the
+    # third step's batch holds an out-of-range id, and every tensor rank
+    # takes the same decision (the same global loss and norm).
+    from pytorch_distributed_tpu_torch.train.distributed_trainer import (
+        DistributedTrainer,
+    )
+    from pytorch_distributed_tpu_torch.train.guard import init_guard_state
+
+    gcfg = TrainConfig(**dict(spec["train"], anomaly_guard=True,
+                              num_steps=4, log_every_n_steps=1,
+                              guard_rollback_after=None))
+    mcfg = MeshConfig(tensor=4, strategy="no_shard")
+    mesh = make_mesh(mcfg, device="cpu")
+    cfg = ModelConfig(**spec["models"]["gpt2"])
+    tr = DistributedTrainer(get_model(cfg), cfg, gcfg, mesh, mcfg,
+                            log_fn=lambda s: None)
+    tr.init_state()
+    state, sh = shard_train_state(init_train_state(
+        _params(workdir, cfg, "gpt2.npz"), tr.tx,
+        guard=init_guard_state(mesh.device)), mesh)
+    rng = np.random.default_rng(7)
+    b, t = gcfg.micro_batch_size, cfg.n_ctx
+    loader = []
+    for i in range(4 * tr.accum):
+        x = rng.integers(0, cfg.vocab_size, (b, t))
+        if i == 2 * tr.accum:
+            x[0, 3] = cfg.vocab_size + 5
+        loader.append((x, rng.integers(0, cfg.vocab_size, (b, t))))
+    state, hist = tr.train(loader, state=state)
+    full = ckpt.gather_state(state, sh)
+    out["guard"] = dict(
+        anomalies=hist[-1]["anomalies"], losses=[h["loss"] for h in hist],
+        params_sha=hashlib.sha256(b"".join(
+            p.detach().numpy().tobytes()
+            for p in tree.leaves(full.params))).hexdigest())
+    _write(workdir, rank, out)
+    dist.barrier()
+
+
 TP_JOBS = {"tp_ops": job_tp_ops, "decode_tp": job_decode_tp,
-           "serving_tp": job_serving_tp, "cuda_tp_paged": job_cuda_tp_paged}
+           "serving_tp": job_serving_tp, "cuda_tp_paged": job_cuda_tp_paged,
+           "tp_train": job_tp_train}

@@ -1579,6 +1579,27 @@ def test_paged_kernels_at_a_tensor_ranks_local_heads(cuda, h, hkv, dtype,
                                              before[1] + q8)
 
 
+# -- tensor-parallel training (slice 15) ----------------------------------------
+
+
+@pytest.mark.parametrize("b, h, hkv, t", [(8, 6, 6, 1024), (1, 16, 4, 4096)],
+                         ids=["gpt2-tp2", "llama3.2-1B-tp2"])
+def test_flash_kernels_at_a_tensor_ranks_local_heads(cuda, b, h, hkv, t):
+    """K1 and K2 at the training shapes one rank of a tensor-2 step gives
+    them (bf16, head_dim 64, causal): GPT-2 124M's 6 of 12 heads at B 8,
+    T 1024; Llama-3.2-1B's 16 of 32 query heads over 4 of 8 KV heads
+    (group 4) at B 1, T 4096 (plain versions by KV head). chip_smoke's
+    check and tolerances; one launch of each."""
+    import chip_smoke
+
+    fk, q, k, v, do = _flash_case(cuda, b, h, hkv, t, 64, torch.bfloat16)
+    before = dict(fk.launches)
+    chip_smoke.check_flash(fk, q, k, v, do, True, f"tp2 H {h} Hkv {hkv}",
+                           chunks=hkv if t > 2048 else 1)
+    assert fk.launches == {"forward": before["forward"] + 1,
+                           "backward": before["backward"] + 1}
+
+
 def test_tensor_parallel_paged_engine_on_two_gloo_ranks(cuda, tmp_path):
     """Two gloo ranks share cuda:0 (``_torch_tp_jobs.job_cuda_tp_paged``):
     the TP paged engine's tokens equal the one-rank kernel engine's (a

@@ -53,10 +53,13 @@ from pytorch_distributed_tpu_torch import interop
 from pytorch_distributed_tpu_torch.config import (
     MeshConfig,
     ModelConfig,
-    check_trainable_mesh,
+    TrainConfig,
 )
-from pytorch_distributed_tpu_torch.config import TrainConfig
+from pytorch_distributed_tpu_torch.models import get_model
 from pytorch_distributed_tpu_torch.parallel import mesh as pmesh
+from pytorch_distributed_tpu_torch.parallel.api import (
+    make_parallel_train_step,
+)
 from pytorch_distributed_tpu_torch.parallel import sharding
 from pytorch_distributed_tpu_torch.train.optim import make_optimizer
 from pytorch_distributed_tpu_torch.train.state import init_train_state
@@ -181,15 +184,22 @@ def test_mesh_config_matches_jax_field_for_field():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(tensor=2), "7(f)"), (dict(seq=2), "7(c)"), (dict(pipe=2), "7(d)"),
-    (dict(expert=2), "7(e)"), (dict(prefetch_buffers=1), "7(d)"),
+    (dict(tensor=2), "tensor_dropout"), (dict(seq=2), "7(c)"),
+    (dict(pipe=2), "7(d)"), (dict(expert=2), "7(e)"),
+    (dict(prefetch_buffers=1), "7(d)"),
 ], ids=["tensor", "seq", "pipe", "expert", "prefetch"])
 def test_unported_axes_raise_naming_their_item(kw, item):
     JaxMeshConfig(**kw)  # JAX takes them
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
                        .replace(")", r"\)")):
-        if "tensor" in kw:  # decode takes the tensor axis; training not
-            check_trainable_mesh(MeshConfig(**kw))
+        if "tensor" in kw:
+            # The tensor axis trains (item 7(f), done); what stays refused
+            # under it is JAX's: attention dropout with tensor_dropout
+            # "reject".
+            cfg = ModelConfig(**dict(MODEL_KW, attn_pdrop=0.1))
+            make_parallel_train_step(
+                get_model(cfg), cfg, make_optimizer(TrainConfig()), None,
+                MeshConfig(**kw), None)
         else:
             MeshConfig(**kw)
 

@@ -2,8 +2,8 @@
 and paged engines, on the CPU, against the JAX package's engines.
 
 The cases of the JAX ``tests/test_serving_spec.py`` that have a meaning
-without a mesh (its TP case is queued behind ROADMAP queue 1 item
-7(f)). Weights are made by the JAX ``init`` and converted with
+without a mesh (its TP case is in ``tests/test_torch_serving_tp.py``).
+Weights are made by the JAX ``init`` and converted with
 ``interop.params_from_jax`` (f32, vocab 97, 2 layers, E 64). Greedy
 speculative output must be token-equal to the port's plain engine and to
 the JAX speculative engine on the same requests, with equal ``spec_*``

@@ -11,8 +11,9 @@
   tensor axis (alone and with fsdp), ``quantized_param_specs`` and
   ``AdapterRegistry.partition_specs`` equal JAX's, as tuples (a stacked
   leaf's layer dim dropped).
-- ``MeshConfig(tensor > 1)`` builds; training with it raises, naming
-  ROADMAP queue 1 item 7(f).
+- ``MeshConfig(tensor > 1)`` builds; training with it refuses only what
+  JAX refuses there (attention dropout under ``tensor_dropout="reject"``;
+  it trains in ``tests/test_torch_tp_train.py``).
 """
 
 import json
@@ -239,12 +240,16 @@ def test_adapter_shards_concatenate_to_the_full_factors():
 
 
 def test_tensor_mesh_builds_and_training_refuses_it():
+    """The tensor axis builds and trains (item 7(f), done); what training
+    refuses under it is JAX's refusal: attention dropout with
+    ``tensor_dropout="reject"`` (tests/test_torch_tp_train.py trains)."""
     m = MeshConfig(tensor=2)
     assert m.num_devices == 2 and m.shape["tensor"] == 2
-    cfg = ModelConfig(**C.MODELS["gpt2"])
+    cfg = ModelConfig(**dict(C.MODELS["gpt2"], attn_pdrop=0.1))
+    assert cfg.tensor_dropout == "reject"
     tcfg = TrainConfig(global_batch_size=4, micro_batch_size=2)
-    with pytest.raises(NotImplementedError, match=r"item 7\(f\)"):
+    with pytest.raises(NotImplementedError, match="tensor_dropout"):
         make_parallel_train_step(get_model(cfg), cfg, make_optimizer(tcfg),
                                  None, m, None)
-    with pytest.raises(NotImplementedError, match=r"item 7\(f\)"):
+    with pytest.raises(NotImplementedError, match="tensor_dropout"):
         DistributedTrainer(get_model(cfg), cfg, tcfg, None, m)
