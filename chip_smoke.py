@@ -73,8 +73,8 @@ traces are counted first, while the process is young (PERF.md section
    429 with Retry-After (``--queue-limit 2``); K3 counted from zero over
    the phase, launched from the server's drive thread. tier_storm — ``serving.loadgen``'s
    legs at full width: GPT-2 124M, 4 replicas x 4 slots, max_len 1024,
-   40 requests of ``workload.request_stream`` (prompts 4-341 tokens, 24
-   new), the twin's kill schedule (ticks 12 and 36, Bernoulli 0.005,
+   ``TIER_REQUESTS`` (24) requests of ``workload.request_stream``
+   (prompts 4-341 tokens, 24 new), the twin's kill schedule (ticks 12 and 36, Bernoulli 0.005,
    restart after 40 ticks), rates 0.5 and 2.0 of the calibrated
    capacity, clean and storm, in f32 and bf16: per leg achieved QPS,
    goodput, p50/p99 request seconds, sheds, failovers, restarts,
@@ -123,8 +123,9 @@ traces are counted first, while the process is young (PERF.md section
    time.
    lora_float32/lora_bfloat16 — GPT-2 124M on the paged engine (8 slots,
    max_len 1024, 16-token pages, 64-token chunks, K3) with 4 tenants at
-   rank 8 from the seed: 32 requests striped over the tenants and no
-   tenant (prompts 32-512, 64 new, 24 greedy and 8 sampled); a tenant
+   rank 8 from the seed: ``LORA_REQUESTS`` (16) requests striped over the
+   tenants and no tenant (prompts 32-512, 64 new, 12 greedy and 4
+   sampled); a tenant
    registered after the warmup; gates: every row equal to its tenant
    served alone, untenanted rows equal to the adapter-less engine, some
    tenant row differing from it, compile_count flat, K3 == n_layer x
@@ -160,7 +161,10 @@ traces are counted first, while the process is young (PERF.md section
    times and the names of SDPA's device kernels; then in bf16 at a
    tensor-2 rank's local heads (``TP_FLASH_SHAPES``: GPT-2's 6 heads at
    B 8, T 1024; Llama-3.2-1B's 16 over 4 KV heads at B 1, T 4096), the
-   shapes phase 17b's steps give them.
+   shapes phase 17b's steps give them, and at a seq-2 Ulysses rank's
+   (``SEQ_FLASH_SHAPES``: Llama-3.2-1B's 16 over 4 KV heads at the whole
+   T 8192; GPT-2's is the tensor-2 shape), the shapes phase 17c's give
+   them.
 8. train — the training main path: GPT-2 124M at full width, bf16
    activations over f32 params, flash attention, ``names`` remat, bf16
    logits, no dropout, AdamW (lr 3e-4, wd 0.1, cosine), B=8, T=1024, one
@@ -260,22 +264,26 @@ traces are counted first, while the process is young (PERF.md section
     the training step's device busy time over its profiled window's wall
     and over the throughput phase's unprofiled step, and the same for the
     decode ticks: the profiler's host cost inflates a profiled idle share.
-    decode_bench_twin_2 — ``serving.decode_bench``'s other modes in five
+    decode_bench_twin_2 — ``serving.decode_bench``'s other modes in six
     subprocesses at their default shapes: ``--serving-spec`` alone (it
     gates a speedup), here; the default (gpt2 and llama3-1b; 2 timed
     repeats, not 3), ``--speculative 4`` (64 new tokens, not 512),
     ``--serving-batched --chaos`` and ``--serving --serving-batched
-    --serving-paged --kv-quant int8 --weight-quant int8`` (one process),
-    which gate nothing on time, beside phases 15-17b: each exits 0 (its
-    asserted checks held), K3 launched on ``--serving-spec`` and K4 on the
-    quant leg.
+    --serving-paged --kv-quant int8 --weight-quant int8`` (one process;
+    these two with ``--rank-legs skip``) and ``--serving --serving-spec
+    --rank-legs only`` (the two multi-rank sub-legs, each on two gloo
+    ranks sharing cuda:0: serving_spec_tp's outputs equal and no steady
+    loads, asserted by the twin; zero3_decode's row), which gate nothing
+    on time, beside phases 15-17c: each exits 0 (its asserted checks
+    held), K3 launched on ``--serving-spec``, on serving_spec_tp and K4 on
+    the quant leg.
 The decode_bench twin and ``--serving-spec``, which gate times, run
-    alone. Then 16-17b run side by side with the storm (15,
+    alone. Then 16-17c run side by side with the storm (15,
     ``storm_in_background``: it gates no time, and its workers are mostly
-    torch start-up) and the four untimed decode_bench runs above
+    torch start-up) and the five untimed decode_bench runs above
     (``late_phases``: none of them gates a time), while this script runs
-    the one-rank references of 17 and 17b (a ``side_by_side`` line: the
-    block's wall and its children). Every time 15-17b report is
+    the one-rank references of 17, 17b and 17c (a ``side_by_side`` line: the
+    block's wall and its children). Every time 15-17c report is
     contended: taken with the others on the same card and host.
 15. train_storm (slice 12) — the supervisor twin, ``python -m
     pytorch_distributed_tpu_torch.train.supervisor --dryrun --steps 10``,
@@ -337,6 +345,21 @@ The decode_bench twin and ``--serving-spec``, which gate times, run
     all-reduces and other collectives a step, ms a step, resident and
     peak bytes against one rank's. The flash phase (7) also holds K1/K2 at
     a rank's local heads (``TP_FLASH_SHAPES``).
+17c. seq_train (slice 16), the 17b ranks' third part: sequence
+    parallelism through the ``DistributedTrainer`` at ``MeshConfig(seq=
+    2)`` (each rank half of every sequence), ring and Ulysses, 2 steps a
+    leg — GPT-2 124M at full width (bf16, flash, names, dropout 0) on
+    ddp_nccl's first 2 batches, Llama-3.2-1B widths at 4 layers with the
+    ring at T 4096 (17b's batches) and Ulysses at T 8192 (the exchanges
+    stage each block through the host: gloo on CUDA tensors). Gates: both
+    ranks' losses identical and within ``DDP_GLOO2_LOSS_ATOL`` of one rank
+    on the same batches (ddp_nccl's ``Trainer``, 17b's one-rank Llama run,
+    and a one-rank Llama run at T 8192 by this script meanwhile); K1 and K2
+    launches a step on each rank, ring exchanges and all-to-alls a step
+    equal to the counts ``seq_counts`` derives (Ulysses: K1 = K2 = n_layer,
+    12 n_layer all-to-alls; the ring: 3 n_layer exchanges, no kernel); the
+    GPT-2 ring state saved at seq 2 restored at seq 1 bit for bit. ms a
+    step reported (contended).
 14. The kernels line (K3, K4, K1, K2 and the LoRA delta kernel; K1/K2
     with ``slice13_paths``, their launches in the data-parallel legs, and
     ``slice12_paths``, their launches in train_guard's steps and runs;
@@ -349,7 +372,9 @@ The decode_bench twin and ``--serving-spec``, which gate times, run
     K3/K4 and the LoRA kernel with ``tp_paths``, their launches on each
     tp_serve leg, and K3/K4 with ``tp_local_shapes``, their times at a
     rank's local heads; K1/K2 with ``tp_train_paths``, their launches on
-    each tp_train leg, and ``tp_local_shapes``), after a ``walls`` line
+    each tp_train leg, and ``tp_local_shapes``, and with ``seq_paths``,
+    their launches on each seq_train leg, and ``seq_local_shapes``), after
+    a ``walls`` line
     (every phase's wall and end, in seconds), then ``{"ok": true,
     "device": {...}}`` last.
 
@@ -1467,19 +1492,26 @@ def failover_paths_phase(pk, seed, dev, smi) -> dict:
     return out
 
 
+# Requests a tier leg (tier_storm, tier_llama_q8): 24 (40 earlier), to
+# keep the script's last phase within 1000 s on a slow call (its serial
+# prefix has spread 1.6x between runs on one machine type); the kill
+# schedule's first kill (tick 12) still fires within every storm leg.
+TIER_REQUESTS = 24
+
+
 def tier_storm_args(replicas: int, rates: list[float]):
     from pytorch_distributed_tpu_torch.serving import loadgen
 
     return loadgen.parse_args([
         "--replicas", str(replicas), "--slots", "4", "--max-len", "1024",
-        "--requests", "40", "--max-new", "24", "--device", "cuda",
-        "--rates", *map(str, rates)])
+        "--requests", str(TIER_REQUESTS), "--max-new", "24", "--device",
+        "cuda", "--rates", *map(str, rates)])
 
 
 def tier_storm_phase(pk, seed, smi) -> dict:
-    """GPT-2 124M at full width, 4 replicas x 4 slots, max_len 1024, 40
-    requests (prompts 4-341 tokens, 24 new; the workload's greedy/sampled
-    cycle), the loadgen twin's kill schedule, rates 0.5 and 2.0 of the
+    """GPT-2 124M at full width, 4 replicas x 4 slots, max_len 1024,
+    ``TIER_REQUESTS`` requests (prompts 4-341 tokens, 24 new; the
+    workload's greedy/sampled cycle), the loadgen twin's kill schedule, rates 0.5 and 2.0 of the
     calibrated capacity; in f32 and in bf16 (``tier_legs``)."""
     from pytorch_distributed_tpu_torch.config import model_config
     from pytorch_distributed_tpu_torch.models import gpt2
@@ -1494,7 +1526,8 @@ def tier_storm_phase(pk, seed, smi) -> dict:
 
 def tier_llama_q8_phase(pk, seed, dev, smi) -> dict:
     """Llama-3.2-1B at full width with int8 KV pages and weights (K4),
-    2 replicas x 4 slots, max_len 1024, 40 requests, rate 1.0, clean and
+    2 replicas x 4 slots, max_len 1024, ``TIER_REQUESTS`` requests, rate
+    1.0, clean and
     storm (``tier_legs``; bf16, so the output match is reported)."""
     from pytorch_distributed_tpu_torch.config import model_config
     from pytorch_distributed_tpu_torch.models import llama
@@ -2015,7 +2048,12 @@ def lora_registry(cfg, seed, n=4, spare=1):
     return reg
 
 
-def lora_requests(cfg, seed, n=32) -> list[dict]:
+# Requests of the GPT-2 LoRA legs: 16 (32 earlier), cut as
+# ``TIER_REQUESTS`` was, for the same reason.
+LORA_REQUESTS = 16
+
+
+def lora_requests(cfg, seed, n=LORA_REQUESTS) -> list[dict]:
     """``n`` requests, prompts of 32-512 tokens, 64 new tokens each, every
     fourth sampled; striped over tenant-0..3 and no tenant (i % 5)."""
     rng = np.random.default_rng(seed + 10)
@@ -2234,7 +2272,7 @@ def lora_pins(pk, lk, cfg, params, reqs, reg, smi, phase, **engine_kw):
 
 def lora_phase(pk, lk, seed, dev, smi) -> dict:
     """GPT-2 124M at full width with 4 tenants at rank 8 (``lora_pins``),
-    32 requests, in f32 and bf16; then Llama-3.2-1B with int8 pages and
+    ``LORA_REQUESTS`` requests, in f32 and bf16; then Llama-3.2-1B with int8 pages and
     weights (K4), 8 requests."""
     from pytorch_distributed_tpu_torch.config import model_config
     from pytorch_distributed_tpu_torch.models import gpt2, llama
@@ -2784,13 +2822,22 @@ TP_FLASH_SHAPES = (
     ("gpt2-124M-tp2", 8, 6, 6, 1024, 64),
     ("llama3.2-1B-tp2", 1, 16, 4, 4096, 64),
 )
+# K1/K2 at a seq-2 Ulysses rank's heads over the whole sequence (phase
+# 17c): Llama-3.2-1B at T 8192. GPT-2's is "gpt2-124M-tp2".
+SEQ_FLASH_SHAPES = (
+    ("llama3.2-1B-ulysses2", 1, 16, 4, 8192, 64),
+)
+# The kernels line's ``seq_local_shapes``: each Ulysses leg's K1/K2 shape
+# and the flash phase's row that holds it.
+SEQ_LOCAL_SHAPES = {"gpt2-124M-ulysses2": "gpt2-124M-tp2",
+                    "llama3.2-1B-ulysses2": "llama3.2-1B-ulysses2"}
 
 
 def flash_phase(fk, dev, flush, seed) -> dict:
     """K1 and K2 against their plain versions at the listed shapes in f32
-    and bf16, then at ``TP_FLASH_SHAPES`` in bf16 (plain versions by KV
-    head at T 4096), with kernel, plain, bound and SDPA times. Returns the
-    ``TP_FLASH_SHAPES`` rows by shape and kernel."""
+    and bf16, then at ``TP_FLASH_SHAPES`` and ``SEQ_FLASH_SHAPES`` in bf16
+    (plain versions by KV head past T 2048), with kernel, plain, bound and
+    SDPA times. Returns those shapes' rows by shape and kernel."""
     shapes = [
         ("gpt2-124M", 8, 12, 12, 1024, 64, True),
         ("llama3.2-1B", 1, 32, 8, 2048, 64, True),
@@ -2801,7 +2848,8 @@ def flash_phase(fk, dev, flush, seed) -> dict:
              for dtype in FLASH_TOLERANCES]
     cases += [(name, b, h, hkv, t, d, True, torch.bfloat16,
                hkv if t > 2048 else 1)
-              for name, b, h, hkv, t, d in TP_FLASH_SHAPES]
+              for name, b, h, hkv, t, d in TP_FLASH_SHAPES
+              + SEQ_FLASH_SHAPES]
     tp_rows = {}
     for name, b, h, hkv, t, d, causal, dtype, chunks in cases:
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -2815,7 +2863,7 @@ def flash_phase(fk, dev, flush, seed) -> dict:
         row = {kn: {**checked[kn], **timed[kn]} for kn in ("K1", "K2")}
         emit(phase="flash", shape=name, B=b, H=h, Hkv=hkv, T=t, D=d,
              causal=causal, dtype=str(dtype).replace("torch.", ""), **row)
-        if name.endswith("-tp2"):
+        if name.endswith(("-tp2", "-ulysses2")):
             tp_rows[name] = dict(B=b, H=h, Hkv=hkv, T=t, D=d,
                                  dtype="bfloat16", **row)
         del q, k, v, do
@@ -3981,7 +4029,7 @@ def throughput_phase(seed, smi) -> dict:
 @dataclasses.dataclass(frozen=True)
 class DecodeBenchRun:
     """One run of the decode_bench twin: its flags; ``side_by_side``:
-    whether it runs beside phases 15-17b (``late_phases``; none of its
+    whether it runs beside phases 15-17c (``late_phases``; none of its
     legs asserts a time ratio) or alone; ``modes``: each mode it runs,
     with the prefix of that mode's rows' ``leg``."""
 
@@ -4005,13 +4053,22 @@ DECODE_BENCH_RUNS = {
     # given, each its own rows): one torch start-up, not three.
     "serving_modes": DecodeBenchRun(
         ("--serving", "--serving-batched", "--serving-paged", "--kv-quant",
-         "int8", "--weight-quant", "int8"), True,
+         "int8", "--weight-quant", "int8", "--rank-legs", "skip"), True,
         {"serving": "serving_stream",
          "serving_batched": "serving_batched_stream",
          "serving_quant": "serving_quant_stream"}),
     # Gates a speedup (the median of five pairs stepped in turns): alone.
-    "serving_spec": DecodeBenchRun(("--serving-spec",), False,
+    "serving_spec": DecodeBenchRun(("--serving-spec", "--rank-legs",
+                                    "skip"), False,
                                    {"serving_spec": "serving_spec_"}),
+    # The two multi-rank sub-legs (slice 16), each on two gloo ranks
+    # sharing cuda:0: serving_spec_tp's equality and no-steady-load gates
+    # (the twin exits nonzero when they break), zero3_decode's row.
+    "rank_legs": DecodeBenchRun(("--serving", "--serving-spec",
+                                 "--rank-legs", "only", "--repeats", "2"),
+                                True,
+                                {"serving_spec_tp": "serving_spec_tp",
+                                 "zero3_decode": "zero3_decode"}),
 }
 
 
@@ -4066,6 +4123,9 @@ def decode_bench_twin_2_paths(runs: dict) -> dict:
     if not legs["serving_quant"]["K4"]:
         raise AssertionError(f"the quant leg launched no K4: "
                              f"{legs['serving_quant']}")
+    if not legs["serving_spec_tp"]["K3"]:
+        raise AssertionError(f"serving_spec_tp launched no K3: "
+                             f"{legs['serving_spec_tp']}")
     return legs
 
 
@@ -5101,14 +5161,14 @@ TP_TRAIN_LLAMA_T = 4096
 TP_TRAIN_LLAMA_STEPS = 2
 
 
-def _tp_train_llama(seed: int):
+def _tp_train_llama(seed: int, t: int = TP_TRAIN_LLAMA_T):
     """(config, train config, loader) of the Llama leg: ``llama_cfg``
     (bf16 params and activations, flash, names, the fused head CE) at 4
-    layers, B 1, T 4096, 2 steps."""
+    layers, B 1, T ``t``, 2 steps."""
     from pytorch_distributed_tpu_torch.config import TrainConfig
 
     cfg = llama_cfg(n_layer=TP_TRAIN_LLAMA_LAYERS)
-    t, n = TP_TRAIN_LLAMA_T, TP_TRAIN_LLAMA_STEPS
+    n = TP_TRAIN_LLAMA_STEPS
     tcfg = TrainConfig(global_batch_size=1, micro_batch_size=1, num_steps=n,
                        learning_rate=3e-4, seed=seed, log_every_n_steps=1)
     rng = np.random.default_rng(seed + 15)
@@ -5118,10 +5178,10 @@ def _tp_train_llama(seed: int):
 
 
 def _tp_checkpoint(trainer, state, cfg, path: str, rank: int) -> dict:
-    """``state`` (tensor 2) saved in the port's sharded format by every
-    rank; rank 0 restores it at tensor 1 (no sharding: the whole state)
-    into a zeroed state and holds it bit for bit to the state gathered
-    over the ranks."""
+    """``state`` (laid out over the trainer's mesh: tensor 2, or seq 2)
+    saved in the port's sharded format by every rank; rank 0 restores it
+    on one rank (no sharding: the whole state) into a zeroed state and
+    holds it bit for bit to the state gathered over the ranks."""
     from pytorch_distributed_tpu_torch.train import checkpoint as ckpt
     from pytorch_distributed_tpu_torch.train.state import init_train_state
     from pytorch_distributed_tpu_torch.utils import tree
@@ -5192,19 +5252,96 @@ def _tp_train_part(dev, seed: int, workdir: str, rank: int) -> dict:
     return dict(legs=legs)
 
 
+# Sequence-parallel training (slice 16): phase 17c's legs, each
+# ``SEQ_STEPS`` steps through the ``DistributedTrainer`` at
+# MeshConfig(seq=2) on the 17b pair of gloo ranks: (name, seq_impl,
+# model) — GPT-2 124M on ddp_nccl's batches, the Llama leg of 17b at T
+# 4096 (the ring: a block's f32 scores are [1, 32, 2048, 2048], 537 MB)
+# and at T 8192 (Ulysses: K1/K2 at 16 over 4 heads, the whole T).
+SEQ_STEPS = 2
+SEQ_ULYSSES_LLAMA_T = 8192
+SEQ_LEGS = (("gpt2_ring", "ring", "gpt2"),
+            ("gpt2_ulysses", "ulysses", "gpt2"),
+            ("llama_ring", "ring", TP_TRAIN_LLAMA_T),
+            ("llama_ulysses", "ulysses", SEQ_ULYSSES_LLAMA_T))
+
+
+def seq_counts(impl: str, n_layer: int) -> dict:
+    """K1 and K2 launches, ring exchanges and all-to-alls a step on each
+    rank at seq 2, A = 1, ``names`` remat, as the code gives them. Ulysses
+    (``ops/ulysses``): K1 and K2 once a layer (``names`` keeps the flash
+    op's (o, lse): the recompute launches no K1), and four all-to-alls a
+    layer (q, k, v, the output) in each of the forward, the recompute and
+    the backward. The ring (``ops/ring_attention``): no kernel, and n - 1
+    = 1 exchange a layer in each of the three."""
+    if impl == "ulysses":
+        return dict(K1=n_layer, K2=n_layer, exchanges=0,
+                    all_to_alls=12 * n_layer)
+    return dict(K1=0, K2=0, exchanges=3 * n_layer, all_to_alls=0)
+
+
+def _seq_model(seed: int, model):
+    """(config, train config, loader) of a ``SEQ_LEGS`` model."""
+    if model == "gpt2":
+        cfg, tcfg, loader = _ddp_model(seed, 1)
+        return (cfg, dataclasses.replace(tcfg, num_steps=SEQ_STEPS),
+                loader[:SEQ_STEPS])
+    return _tp_train_llama(seed, t=model)
+
+
+def _seq_train_part(dev, seed: int, workdir: str, rank: int) -> dict:
+    """Each ``SEQ_LEGS`` leg at MeshConfig(seq=2): losses, K1/K2
+    launches, ring exchanges, all-to-alls, ms a step, resident and peak
+    bytes; the GPT-2 ring leg's state through ``_tp_checkpoint``."""
+    from pytorch_distributed_tpu_torch.config import MeshConfig
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
+    from pytorch_distributed_tpu_torch.ops import ring_attention, ulysses
+    from pytorch_distributed_tpu_torch.parallel import zero
+    from pytorch_distributed_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_distributed_tpu_torch.train.distributed_trainer import (
+        DistributedTrainer,
+    )
+
+    mcfg = MeshConfig(seq=TP_WORLD, strategy="no_shard")
+    legs = {}
+    for name, impl, model in SEQ_LEGS:
+        cfg, tcfg, loader = _seq_model(seed, model)
+        cfg = cfg.replace(seq_impl=impl)
+        t0 = time.perf_counter()
+        trainer = DistributedTrainer(get_model(cfg), cfg, tcfg,
+                                     make_mesh(mcfg, device=dev), mcfg,
+                                     log_fn=lambda s: None)
+        c0 = (ring_attention.exchanges, ulysses.all_to_alls)
+        leg = _ddp_leg(trainer, loader, fk, zero)
+        leg.update(exchanges=ring_attention.exchanges - c0[0],
+                   all_to_alls=ulysses.all_to_alls - c0[1],
+                   n_layer=cfg.n_layer, T=loader[0][0].shape[1])
+        state = leg.pop("state")
+        if name == "gpt2_ring":
+            leg["checkpoint"] = _tp_checkpoint(
+                trainer, state, cfg, f"{workdir}/seq_ckpt", rank)
+        leg["wall_s"] = time.perf_counter() - t0
+        legs[name] = leg
+        del trainer, state
+        torch.cuda.empty_cache()
+    return dict(legs=legs)
+
+
 # ``gloo_worker``'s parts: each phase's legs on a pair of gloo ranks.
 GLOO_PARTS = {"tp_serve": _tp_serve_part, "ddp_gloo2": _ddp_gloo2_part,
-              "tp_train": _tp_train_part}
+              "tp_train": _tp_train_part, "seq_train": _seq_train_part}
 
 
-def _tp_train_llama_ref(fk, seed: int, dev) -> dict:
-    """The Llama leg on one rank: the single-device ``Trainer`` on the
-    same batches."""
+def _tp_train_llama_ref(fk, seed: int, dev,
+                        t: int = TP_TRAIN_LLAMA_T) -> dict:
+    """The Llama leg at T ``t`` on one rank: the single-device
+    ``Trainer`` on the same batches."""
     from pytorch_distributed_tpu_torch.models import get_model
     from pytorch_distributed_tpu_torch.parallel import zero
     from pytorch_distributed_tpu_torch.train.trainer import Trainer
 
-    cfg, tcfg, loader = _tp_train_llama(seed)
+    cfg, tcfg, loader = _tp_train_llama(seed, t=t)
     leg = _ddp_leg(Trainer(get_model(cfg), cfg, tcfg, device=dev,
                            log_fn=lambda s: None), loader, fk, zero)
     del leg["state"]
@@ -5272,15 +5409,72 @@ def tp_train_phase(smi, reports: list, one_rank: dict) -> dict:
     return res
 
 
+def seq_train_phase(smi, reports: list, one_rank: dict) -> dict:
+    """Sequence-parallel training on the two gloo ranks sharing cuda:0
+    (``_seq_train_part``) against one rank on the same batches
+    (``one_rank``: ``_leg_row``s by leg). Gates: both ranks' losses
+    identical, within ``DDP_GLOO2_LOSS_ATOL`` of one rank's, finite; K1/K2
+    launches, ring exchanges and all-to-alls a step on each rank equal to
+    ``seq_counts``; the GPT-2 ring state saved at seq 2 restored on one
+    rank bit for bit. Reported: ms a step (contended) and bytes."""
+    res = dict(world=TP_WORLD, backend=reports[0]["backend"], legs={})
+    failures = []
+    for name, impl, _ in SEQ_LEGS:
+        ref = one_rank[name]
+        rows = [r["legs"][name] for r in reports]
+        steps = len(rows[0]["losses"])
+        losses = rows[0]["losses"]
+        ref_losses = ref["losses"][:steps]
+        diff = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        want = seq_counts(impl, rows[0]["n_layer"])
+        per_step = [dict(K1=r["launches"]["forward"] / steps,
+                         K2=r["launches"]["backward"] / steps,
+                         exchanges=r["exchanges"] / steps,
+                         all_to_alls=r["all_to_alls"] / steps)
+                    for r in rows]
+        row = dict(
+            seq_impl=impl, T=rows[0]["T"], losses=losses,
+            one_rank_losses=ref_losses, max_loss_diff=diff,
+            ranks_identical=all(r["losses"] == losses for r in rows),
+            launches=[r["launches"] for r in rows],
+            per_step=per_step, derived_per_step=want,
+            ms_per_step=[r["ms_per_step"] for r in rows],
+            one_rank_ms_per_step=ref["ms_per_step"][:steps],
+            resident_bytes=[r["resident_bytes"] - r["base_bytes"]
+                            for r in rows],
+            peak_bytes=[r["peak_bytes"] for r in rows],
+            wall_s=[r["wall_s"] for r in rows])
+        if not row["ranks_identical"]:
+            failures.append(f"{name}: the ranks' losses differ: "
+                            f"{[r['losses'] for r in rows]}")
+        if not np.isfinite(losses).all() or diff > DDP_GLOO2_LOSS_ATOL:
+            failures.append(f"{name}: losses {losses} vs one rank's "
+                            f"{ref_losses}")
+        if any(p != want for p in per_step):
+            failures.append(f"{name}: a step's counts {per_step}, derived "
+                            f"{want}")
+        if "checkpoint" in rows[0]:
+            ck = row["checkpoint"] = rows[0]["checkpoint"]
+            if not ck.get("bit_equal"):
+                failures.append(f"{name}: the seq-2 save restored on one "
+                                f"rank is not bit-equal: {ck}")
+        res["legs"][name] = row
+    emit(phase="seq_train", nvidia_smi=smi, failures=failures, **res)
+    if failures:
+        raise AssertionError(f"seq_train: {failures}")
+    return res
+
+
 def late_phases(pk, fk, seed: int, dev, smi) -> dict:
-    """Phases 16 (ddp_nccl), 16b (ddp_gloo2), 17 (tp_serve) and 17b
-    (tp_train), with the decode_bench twin's runs that gate nothing on
-    time (``DecodeBenchRun.side_by_side``), side by side
+    """Phases 16 (ddp_nccl), 16b (ddp_gloo2), 17 (tp_serve), 17b
+    (tp_train) and 17c (seq_train), with the decode_bench twin's runs that
+    gate nothing on time (``DecodeBenchRun.side_by_side``), side by side
     (``run_children``): ddp_nccl's NCCL rank, two pairs of gloo ranks on
-    cuda:0 (``gloo_worker``: one runs tp_serve, the other ddp_gloo2 then
-    tp_train) and four decode_bench runs — while this process runs the
-    one-rank references (tp_serve's engines, the Llama training leg). The
-    GPT-2 training leg's one-rank reference is ddp_nccl's ``Trainer``.
+    cuda:0 (``gloo_worker``: one runs tp_serve, the other ddp_gloo2,
+    tp_train then seq_train) and five decode_bench runs — while this
+    process runs the one-rank references (tp_serve's engines, the Llama
+    training leg at T 4096 and at T 8192). The GPT-2 training legs'
+    one-rank reference is ddp_nccl's ``Trainer``.
     The storm (15) runs beside them too (``storm_in_background``, started
     by the caller). Every time these phases report is taken with the
     others beside it: contended, not a measure of one phase alone."""
@@ -5289,7 +5483,9 @@ def late_phases(pk, fk, seed: int, dev, smi) -> dict:
         serve = _one_rank_refs(pk, seed, dev)
         serve_s = time.perf_counter() - t0
         return dict(serve=serve, serve_s=serve_s,
-                    llama=_tp_train_llama_ref(fk, seed, dev))
+                    llama=_tp_train_llama_ref(fk, seed, dev),
+                    llama_long=_tp_train_llama_ref(
+                        fk, seed, dev, t=SEQ_ULYSSES_LLAMA_T))
 
     side_by_side = [name for name, run in DECODE_BENCH_RUNS.items()
                     if run.side_by_side]
@@ -5299,8 +5495,9 @@ def late_phases(pk, fk, seed: int, dev, smi) -> dict:
                                      "ddp_nccl"),
                     **_rank_children(["--gloo-worker", "tp_serve"],
                                      TP_WORLD, seed, tmp, "tp_serve"),
-                    **_rank_children(["--gloo-worker", "ddp_gloo2,tp_train"],
-                                     TP_WORLD, seed, tmp, "tp_train"),
+                    **_rank_children(
+                        ["--gloo-worker", "ddp_gloo2,tp_train,seq_train"],
+                        TP_WORLD, seed, tmp, "tp_train"),
                     **{name: decode_bench_child(name, tmp)
                        for name in side_by_side}}
         wall, refs = run_children(children, 900, "phases 16-17b",
@@ -5328,6 +5525,10 @@ def late_phases(pk, fk, seed: int, dev, smi) -> dict:
                           refs["serve"], refs["serve_s"]),
         tp_train=tp_train_phase(smi, reports["tp_train"], dict(
             gpt2=out["ddp_nccl"]["trainer"], llama=refs["llama"])))
+    gpt2 = out["ddp_nccl"]["trainer"]
+    out["seq_train"] = seq_train_phase(smi, reports["seq_train"], dict(
+        gpt2_ring=gpt2, gpt2_ulysses=gpt2, llama_ring=refs["llama"],
+        llama_ulysses=refs["llama_long"]))
     return out
 
 
@@ -5617,8 +5818,9 @@ def main() -> int:
 
     slice11_paths = decode_bench_twin_2_paths(dict(late["decode_bench"],
                                                    serving_spec=spec_rows))
-    ddp_nccl, ddp_gloo2, tp, tp_train = (
-        late["ddp_nccl"], late["ddp_gloo2"], late["tp"], late["tp_train"])
+    ddp_nccl, ddp_gloo2, tp, tp_train, seq_train = (
+        late["ddp_nccl"], late["ddp_gloo2"], late["tp"], late["tp_train"],
+        late["seq_train"])
     slice13_paths = {
         **{f"ddp_nccl_{name}_{DDP_STEPS}_steps": leg["launches"]
            for name, leg in ddp_nccl["legs"].items()},
@@ -5667,7 +5869,20 @@ def main() -> int:
                  for name, row in tp_train["legs"].items()},
              tp_local_shapes={shape: dict(
                  {k: v for k, v in row.items() if k not in ("K1", "K2")},
-                 **row[kn]) for shape, row in tp_flash_rows.items()})
+                 **row[kn]) for shape, row in tp_flash_rows.items()
+                 if shape.endswith("-tp2")},
+             # Each rank's launches on the sequence-parallel legs (rank
+             # 0's, all steps; the ring's 0), and the kernel at a seq-2
+             # Ulysses rank's heads over the whole sequence.
+             seq_paths={
+                 f"seq_train_{name}_T{row['T']}_{len(row['losses'])}_steps":
+                     row["launches"][0][direction]
+                 for name, row in seq_train["legs"].items()},
+             seq_local_shapes={shape: dict(
+                 {k: v for k, v in tp_flash_rows[src].items()
+                  if k not in ("K1", "K2")}, **tp_flash_rows[src][kn],
+                 **({"same_as": src} if src != shape else {}))
+                 for shape, src in SEQ_LOCAL_SHAPES.items()})
         for name, kn, direction, line in (
             ("flash_forward", "K1", "forward", 92),
             ("flash_backward", "K2", "backward", 221),

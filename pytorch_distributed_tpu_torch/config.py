@@ -274,7 +274,6 @@ def model_config(name: str, **overrides: Any) -> ModelConfig:
 # The mesh axes the port has not taken yet, each with the ROADMAP queue 1
 # item that ports it.
 _AXIS_NOT_PORTED = {
-    "seq": "ROADMAP queue 1 item 7(c), sequence parallelism",
     "pipe": "ROADMAP queue 1 item 7(d), pipeline parallelism",
     "expert": "ROADMAP queue 1 item 7(e), expert parallelism",
 }
@@ -294,9 +293,12 @@ class MeshConfig:
     ``parallel.api.make_parallel_train_step``, the ``DistributedTrainer``
     and the ``train.parallel`` twin; alone and with every strategy) and
     in the decode paths (``models/decode.generate_tp`` and every engine's
-    ``mesh_cfg``). ``seq``,
-    ``pipe`` and ``expert`` > 1 raise NotImplementedError here, naming the
-    items that port them (7(c), 7(d), 7(e)), and so does
+    ``mesh_cfg``). ``seq`` > 1 splits each sequence over that axis in
+    training (sequence parallelism: ring or Ulysses attention by the model
+    config's ``seq_impl``, ``ops/ring_attention``, ``ops/ulysses``),
+    alone and with the axes above. ``pipe`` and ``expert`` > 1 raise
+    NotImplementedError here, naming the items that port them (7(d),
+    7(e)), and so does
     ``prefetch_buffers`` > 0 (the JAX layer scan's prefetch window, item
     7(d); the port's ZeRO-3 decode gathers each layer just in time).
     ``device_ids``: the CUDA device each mesh rank uses, in rank order
@@ -349,8 +351,8 @@ class MeshConfig:
             if getattr(self, axis) > 1:
                 raise NotImplementedError(
                     f"mesh axis {axis}={getattr(self, axis)} is not ported: "
-                    f"{item}; the port's mesh has the data, fsdp and "
-                    "tensor axes"
+                    f"{item}; the port's mesh has the data, fsdp, seq "
+                    "and tensor axes"
                 )
         if self.prefetch_buffers > 0:
             raise NotImplementedError(

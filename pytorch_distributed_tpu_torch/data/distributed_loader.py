@@ -13,7 +13,11 @@ yielding the same stream for every rank.
 
 ``rank``/``world_size`` default to ``torch.distributed``'s rank and world
 size when a process group is initialised, and to (0, 1) otherwise (where
-the JAX package reads ``jax.process_index()``/``process_count()``).
+the JAX package reads ``jax.process_index()``/``process_count()``). Under
+a tensor or seq axis the ranks of one group must read the same rows:
+pass the mesh's batch shard and batch-split size
+(``parallel/mesh.batch_shard_index``, ``data_parallel_size``), as the
+training twins do.
 """
 
 from __future__ import annotations

@@ -12,10 +12,11 @@ class ModelApi(NamedTuple):
     init: Callable[..., dict]
     head: Callable[..., object]
     # (params, input_ids [B, T], cfg, *, deterministic, dropout_seed,
-    # return_aux, return_hidden, block_transform, tp_group) -> logits
-    # [B, T, V] (or hidden [B, T, E]; with return_aux, a pair with the
-    # summed MoE Switch term): the training forward (the JAX ModelApi's
-    # ``apply``; ``tp_group`` is its ``tensor_axis``).
+    # return_aux, return_hidden, block_transform, tp_group, seq_group)
+    # -> logits [B, T, V] (or hidden [B, T, E]; with return_aux, a pair
+    # with the summed MoE Switch term): the training forward (the JAX
+    # ModelApi's ``apply``; ``tp_group`` is its ``tensor_axis``,
+    # ``seq_group`` its ``seq_axis``).
     apply: Callable[..., object]
     # (params) -> (head weight, ops.losses layout tag): the LM-head matrix
     # the fused head + cross-entropy multiplies against — the tied wte

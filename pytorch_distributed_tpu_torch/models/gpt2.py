@@ -52,6 +52,16 @@ from pytorch_distributed_tpu_torch.utils.device import resolve_device
 Params = dict[str, Any]
 
 
+def seq_span(t: int, seq_group) -> tuple[int, int]:
+    """(this rank's first position, the global length) of a sequence of
+    ``t`` tokens a rank split over ``seq_group`` (None: (0, t))."""
+    if seq_group is None:
+        return 0, t
+    import torch.distributed as dist
+
+    return dist.get_rank(seq_group) * t, dist.get_world_size(seq_group) * t
+
+
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
@@ -115,7 +125,7 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
            key: prng.DropoutKey | None, transform=None,
-           tp_group=None) -> torch.Tensor:
+           tp_group=None, seq_group=None) -> torch.Tensor:
     """Pre-norm residual block: x + drop(attn(ln_1(x))); x +
     drop(mlp(ln_2(x))), the MLP dense or, for a MoE config, ``ops/moe``'s
     experts. ``key`` None: deterministic; else the masks of ``layer``
@@ -127,7 +137,10 @@ def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
     ``block_transform``). ``tp_group``: Megatron tensor parallelism over
     that group (the JAX ``tensor_axis``): ``bp`` holds this rank's heads
     and MLP columns, ``tp_copy`` follows each norm, and the row-parallel
-    ``c_proj``s sum their partials over the group before their bias."""
+    ``c_proj``s sum their partials over the group before their bias.
+    ``seq_group``: the sequence is split over that group (the JAX
+    ``seq_axis``): ``x`` holds this rank's tokens, and attention crosses
+    the ranks by ``cfg.seq_impl`` (``ops/attention``)."""
     if transform is not None:
         bp = transform(bp)
     eps = cfg.layer_norm_epsilon
@@ -142,7 +155,8 @@ def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
     a = multi_head_attention(
         q, k, v, impl=cfg.attention_impl, causal=True,
         dropout_rate=cfg.attn_pdrop, dropout_sid=sid("attn"),
-        deterministic=det, out_name="attn_out",
+        deterministic=det, out_name="attn_out", seq_group=seq_group,
+        seq_impl=cfg.seq_impl,
     ).reshape(b, t, -1)
     with checkpoint_name("attn_proj"):
         a = dense(a, bp["attn"]["c_proj"], tp_group=tp_group)
@@ -170,7 +184,7 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
           deterministic: bool = True,
           dropout_seed: prng.DropoutKey | None = None,
           return_aux: bool = False, return_hidden: bool = False,
-          block_transform=None, tp_group=None):
+          block_transform=None, tp_group=None, seq_group=None):
     """Forward pass: [B, T] token ids -> [B, T, V] logits in
     ``cfg.logits_dtype``: wte + wpe (cast to ``cfg.dtype``), embedding
     dropout, n_layer pre-norm blocks (each under ``cfg.remat``), ln_f,
@@ -189,14 +203,21 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
     and the head are replicated, so the logits are the same on every
     tensor rank. Under it the attention masks take ``dropout_seed``'s
     ``tensor`` field (``utils/prng``; set by ``parallel/explicit`` under
-    ``tensor_dropout="folded"``)."""
+    ``tensor_dropout="folded"``). ``seq_group``: ``input_ids`` are this
+    rank's slice of a sequence split over that group (the JAX
+    ``seq_axis``), rank i's the positions ``[i T, (i+1) T)``: its position
+    rows are those, the global length (ranks x T) must fit ``n_ctx``, and
+    the logits are this rank's tokens'."""
     if not deterministic and dropout_seed is None:
         raise ValueError("training-mode apply() requires dropout_seed")
     key = None if deterministic else prng.DropoutKey(*dropout_seed)
     t = input_ids.shape[1]
-    if t > cfg.n_ctx:
-        raise ValueError(f"sequence length {t} exceeds n_ctx {cfg.n_ctx}")
-    x = F.embedding(input_ids, params["wte"]) + params["wpe"][:t]
+    start, global_t = seq_span(t, seq_group)
+    if global_t > cfg.n_ctx:
+        raise ValueError(
+            f"sequence length {global_t} exceeds n_ctx {cfg.n_ctx}")
+    x = F.embedding(input_ids, params["wte"]) + \
+        params["wpe"][start:start + t]
     x = x.to(_dtype(cfg.dtype))
     if key is not None:
         x = dropout(x, cfg.embd_pdrop,
@@ -205,7 +226,8 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
     remat = cfg.remat if torch.is_grad_enabled() else "none"
     block = apply_remat(functools.partial(_block, cfg=cfg, key=key,
                                           transform=block_transform,
-                                          tp_group=tp_group), remat)
+                                          tp_group=tp_group,
+                                          seq_group=seq_group), remat)
     aux = None
     for layer, bp in enumerate(params["blocks"]):
         x = block(x, bp, layer)

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch.config import ModelConfig
+from pytorch_distributed_tpu_torch.models.gpt2 import seq_span
 from pytorch_distributed_tpu_torch.ops.attention import multi_head_attention
 from pytorch_distributed_tpu_torch.ops.layers import rms_norm
 from pytorch_distributed_tpu_torch.ops.moe import moe_mlp
@@ -102,7 +103,7 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
            sin: torch.Tensor, *, cfg: ModelConfig, transform=None,
-           tp_group=None):
+           tp_group=None, seq_group=None):
     """x + wo(attn(rope(q), rope(k), v)) over rms_norm(x); then x +
     swiglu(rms_norm(x)), or the MoE MLP. Returns x, or (x, aux) for a MoE
     config (aux: the layer's Switch term). The products are tagged as in
@@ -112,7 +113,8 @@ def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
     ``tp_group``: tensor parallelism (``gpt2._block``): this rank's q and
     KV heads (the head counts follow the sharded kernels' widths, so GQA's
     group is kept), SwiGLU's gate and up columns, and ``wo``/``down``
-    row-parallel, each summed over the group once."""
+    row-parallel, each summed over the group once. ``seq_group``:
+    sequence parallelism (``gpt2._block``)."""
     if transform is not None:
         bp = transform(bp)
     eps = cfg.layer_norm_epsilon
@@ -130,7 +132,7 @@ def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
     k = apply_rope(k.view(b, t, -1, d), cos, sin)
     a = multi_head_attention(
         q, k, v.view(b, t, -1, d), impl=cfg.attention_impl, causal=True,
-        out_name="attn_out",
+        out_name="attn_out", seq_group=seq_group, seq_impl=cfg.seq_impl,
     ).reshape(b, t, -1)
     with checkpoint_name("attn_proj"):
         a = product(a, attn["wo"].to(a.dtype), group=tp_group)
@@ -156,27 +158,31 @@ def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
 def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
           deterministic: bool = True, dropout_seed=None,
           return_aux: bool = False, return_hidden: bool = False,
-          block_transform=None, tp_group=None):
+          block_transform=None, tp_group=None, seq_group=None):
     """Forward pass: [B, T] token ids -> [B, T, V] logits in
     ``cfg.logits_dtype`` (the contract of ``gpt2.apply``, its
-    ``block_transform`` and ``tp_group`` included). The family is
-    dropout-free, so ``deterministic`` and ``dropout_seed`` change
-    nothing. The RoPE angles are built once per call on the ids' device
-    and shared by every layer. ``return_hidden``: the final-norm hidden
-    states [B, T, E] in place of the logits; ``return_aux``: also the
-    Switch term summed over layers (an f32 scalar, 0 for a dense
+    ``block_transform``, ``tp_group`` and ``seq_group`` included; under a
+    sequence group the RoPE angles start at this rank's first position).
+    The family is dropout-free, so ``deterministic`` and ``dropout_seed``
+    change nothing. The RoPE angles are built once per call on the ids'
+    device and shared by every layer. ``return_hidden``: the final-norm
+    hidden states [B, T, E] in place of the logits; ``return_aux``: also
+    the Switch term summed over layers (an f32 scalar, 0 for a dense
     config)."""
     del deterministic, dropout_seed
     t = input_ids.shape[1]
-    if t > cfg.n_ctx:
-        raise ValueError(f"sequence length {t} exceeds n_ctx {cfg.n_ctx}")
+    start, global_t = seq_span(t, seq_group)
+    if global_t > cfg.n_ctx:
+        raise ValueError(
+            f"sequence length {global_t} exceeds n_ctx {cfg.n_ctx}")
     x = F.embedding(input_ids, params["wte"]).to(getattr(torch, cfg.dtype))
-    cos, sin = rope_angles(t, cfg.head_dim, cfg.rope_theta,
+    cos, sin = rope_angles(t, cfg.head_dim, cfg.rope_theta, offset=start,
                            device=input_ids.device)
     remat = cfg.remat if torch.is_grad_enabled() else "none"
     block = apply_remat(functools.partial(_block, cfg=cfg,
                                           transform=block_transform,
-                                          tp_group=tp_group), remat)
+                                          tp_group=tp_group,
+                                          seq_group=seq_group), remat)
     aux = None
     for bp in params["blocks"]:
         x = block(x, bp, cos, sin)

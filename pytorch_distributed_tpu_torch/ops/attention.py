@@ -30,12 +30,16 @@ NEG_INF = -1e30  # finite mask value: -inf breaks softmax when a row is all-mask
 
 def flash_active(impl: str, dropout_rate: float,
                  deterministic: bool) -> bool:
-    """Whether ``multi_head_attention`` runs the flash kernels: flash was
-    asked for and no attention dropout is drawn. The port of the JAX
-    ``models/gpt2._flash_kernel_active``, whose other clauses do not apply
-    here (no sequence axis; the port's kernels take every training
-    length). Where it is true, the flash op keeps its own (o, lse) for
-    remat, and the naive path's ``attn_out`` tag does not exist."""
+    """Whether ``multi_head_attention`` without a sequence group runs the
+    flash kernels: flash was asked for and no attention dropout is drawn.
+    The port of the JAX ``models/gpt2._flash_kernel_active`` (the port's
+    kernels take every training length, so its length clause does not
+    apply). Where it is true, the flash op keeps its own (o, lse) for
+    remat, and the naive path's ``attn_out`` tag does not exist. Under a
+    sequence group (JAX's ``seq_axis``) the flash op of this dispatch is
+    not taken, as in JAX: the ring runs plain products, and Ulysses'
+    local backend is the flash kernels K1/K2 on a head group
+    (``ops/ulysses``)."""
     return impl == "flash" and (deterministic or dropout_rate == 0.0)
 
 
@@ -85,13 +89,55 @@ def multi_head_attention(q, k, v, *, impl: str = "naive",
                          causal: bool = True, dropout_rate: float = 0.0,
                          dropout_sid: StreamId | None = None,
                          deterministic: bool = True,
-                         out_name: str | None = None) -> torch.Tensor:
+                         out_name: str | None = None, seq_group=None,
+                         seq_impl: str = "ring") -> torch.Tensor:
     """Dispatch over attention implementations; inputs [B, T, H(kv), D].
     ``impl="flash"`` with attention dropout drawn runs the naive path, as
     in the JAX package. ``out_name`` tags the naive path's output for
-    ``names`` remat; the flash path keeps its (o, lse) itself."""
+    ``names`` remat; the flash path keeps its (o, lse) itself.
+
+    ``seq_group``: the process group the sequence dim is split over (JAX's
+    ``seq_axis``): sequence parallelism whatever ``impl``, by
+    ``seq_impl``, "ring" (``ops/ring_attention``) or "ulysses"
+    (``ops/ulysses``), as JAX dispatches: under Ulysses ``impl="naive"``
+    is promoted to flash with JAX's warning (not when attention dropout
+    is drawn: the local backend is naive then anyway); the ring refuses
+    attention dropout (its weights exist only per block inside the
+    online softmax); any other ``seq_impl`` raises KeyError. The sequence
+    paths' outputs carry no ``attn_out`` tag: their backward rebuilds the
+    exchanged blocks in a recompute anyway (``ops/remat``)."""
     if impl not in ("naive", "flash"):
         raise KeyError(f"unknown attention impl {impl!r}")
+    if seq_group is not None:
+        if seq_impl == "ulysses":
+            from pytorch_distributed_tpu_torch.ops.ulysses import (
+                ulysses_attention,
+            )
+
+            if impl == "naive" and (deterministic or dropout_rate == 0.0):
+                import warnings
+
+                warnings.warn(
+                    "impl='naive' with seq_impl='ulysses' is promoted to "
+                    "flash (same math up to online-softmax reordering); "
+                    "pass impl='flash' to silence this", stacklevel=2)
+            return ulysses_attention(
+                q, k, v, group=seq_group, causal=causal, impl="flash",
+                dropout_rate=dropout_rate, dropout_sid=dropout_sid,
+                deterministic=deterministic)
+        if seq_impl != "ring":
+            raise KeyError(
+                f"unknown seq_impl {seq_impl!r}; known: ring, ulysses")
+        if not deterministic and dropout_rate > 0.0:
+            raise NotImplementedError(
+                "attention dropout is not supported with ring attention "
+                "(weights exist only per KV block inside the online-softmax "
+                "merge); use seq_impl='ulysses' or attn_pdrop=0.0")
+        from pytorch_distributed_tpu_torch.ops.ring_attention import (
+            ring_attention,
+        )
+
+        return ring_attention(q, k, v, group=seq_group, causal=causal)
     if flash_active(impl, dropout_rate, deterministic):
         return flash_attention(q, k, v, causal=causal)
     return naive_attention(q, k, v, causal=causal, dropout_rate=dropout_rate,

@@ -33,6 +33,18 @@ to its product (``product(..., group=)``): a kept ``attn_proj`` is the
 summed value, so ``names`` keeps one all-reduce per row-parallel
 projection in the forward and none in the recompute.
 
+Under a sequence axis every mode keeps what it keeps without one: the
+tagged projections; ``dots`` the ring's block products (untagged,
+batched, as JAX's ``checkpoint_dots`` saves the ring's einsums); and
+under Ulysses the flash op's (o, lse) (``names``, ``flash``). The
+sequence attention's output is not tagged ``attn_out`` (JAX tags it):
+its backward needs the exchanged blocks, which only a recompute of the
+exchanges rebuilds, so a kept copy would save nothing. A recompute of a
+ring or Ulysses block issues its exchanges again, as JAX's remat does
+(``ops/ring_attention.exchanges``, ``ops/ulysses.all_to_alls`` count
+them: under ``names`` one exchange a layer at seq 2 in each of the
+forward, the recompute and the backward; four all-to-alls in each).
+
 How a mode picks out what it keeps. PyTorch has no ``checkpoint_name``.
 The model wraps each tagged product in ``with checkpoint_name("qkv"):``,
 which sets a module-level tag for that Python block; the product goes

@@ -45,7 +45,7 @@ def make_parallel_train_step(
     may clip: its clip moves into the step), and ``batch_put``, which
     places this rank's rows of a host global [A, B, T] batch on the mesh's
     device (``parallel/mesh.make_batch_put``; tensor ranks take the same
-    rows)."""
+    rows, and seq ranks the same rows, each its span of T)."""
     step = make_explicit_train_step(
         model, model_cfg, make_optimizer(tx.cfg, with_clip=False), mesh,
         mesh_cfg, sharding, grad_clip_norm=tx.clip, accum_dtype=accum_dtype,

@@ -47,19 +47,34 @@ on its rows of the batch.
     "folded" folds the tensor index into the attention masks only
     (``parallel/mesh.fold_tensor_key``).
 
+  Sequence parallelism (the seq axis): each rank holds a span of every
+    sequence of its rows (``parallel/mesh.make_batch_put``) and the params
+    whole; attention crosses the spans by ring or Ulysses
+    (``cfg.seq_impl``, the model's ``seq_group``), and the seq index is
+    folded into the dropout key with the batch shard's. Each rank's loss
+    is the mean over its tokens, so the gradients are averaged over seq
+    after the batch axes and the loss over seq before them (JAX's
+    ``pmean``s, in JAX's order). A ring refuses attention dropout (GPT-2
+    only), and Ulysses needs seq to divide a rank's head counts (H /
+    tensor and Hkv / tensor): both raise when the step is built
+    (``check_seq``). MoE routes each rank's local tokens, capacity
+    counted per span, as JAX does. It composes with every strategy and
+    with the tensor axis.
+
 The gradient norm is global: each leaf's squares are summed over exactly
 the axes it is sharded on (fsdp and/or tensor) and a replicated leaf is
-counted once (``zero.global_norm_sharded``); clipping uses it, so every
-rank scales alike. The DDP-style reductions are issued over the mesh's
-group at every size, a world of one included: there they are exact
-no-ops (a sum of one, / 1), and a world of one is bit-equal to the
-single-device step.
+counted once (``zero.global_norm_sharded``; never summed over seq, where
+the gradients are equal); clipping uses it, so every rank scales alike. The
+DDP-style reductions are issued over the mesh's group at every size, a
+world of one included: there they are exact no-ops (a sum of one, / 1), and
+a world of one is bit-equal to the single-device step.
 
 The anomaly guard (``make_parallel_train_step``'s ``guard``): the loss and
 the norm are already global and bitwise the same on every rank (tensor
 ranks included: their replicated activations are the results of the same
-all-reduces), so every rank takes the same decision; the batch's id check
-is per rank, so its flag is summed over the ranks first.
+all-reduces; seq ranks: their gradients and loss are), so every rank
+takes the same decision; the batch's id check is per rank, so its flag
+is summed over the ranks first.
 """
 
 from __future__ import annotations
@@ -108,6 +123,31 @@ def check_tensor_dropout(model_cfg: ModelConfig,
             "attn_pdrop=0.0 or opt into tensor_dropout='folded'")
 
 
+def check_seq(model_cfg: ModelConfig, mesh_cfg: MeshConfig) -> None:
+    """JAX's build-time refusals under a seq axis: attention dropout with
+    the ring (GPT-2 only: the Llama family draws none), whose weights
+    exist only per block inside the online softmax; and Ulysses with a
+    seq size that does not divide a rank's head counts (the message of
+    ``ops/ulysses``, which JAX raises at its first trace)."""
+    n = mesh_cfg.seq
+    if n == 1:
+        return
+    if (model_cfg.family == "gpt2" and model_cfg.attn_pdrop > 0
+            and model_cfg.seq_impl != "ulysses"):
+        raise NotImplementedError(
+            "attention dropout is not supported with ring-attention "
+            f"sequence parallelism (attn_pdrop={model_cfg.attn_pdrop}); "
+            "set attn_pdrop=0.0 or use seq_impl='ulysses'")
+    if model_cfg.seq_impl == "ulysses":
+        h = model_cfg.n_head // mesh_cfg.tensor
+        hkv = model_cfg.kv_heads // mesh_cfg.tensor
+        if h % n or hkv % n:
+            raise ValueError(
+                f"ulysses needs the mesh axis ({n}) to divide both head "
+                f"counts (H={h}, Hkv={hkv}); use ring attention (or repeat "
+                "KV heads) otherwise")
+
+
 def make_explicit_train_step(
     model: ModelApi,
     model_cfg: ModelConfig,
@@ -132,6 +172,7 @@ def make_explicit_train_step(
     global ``loss`` and ``grad_norm``, equal on every rank (and
     ``anomaly`` with ``guard``)."""
     check_tensor_dropout(model_cfg, mesh_cfg)
+    check_seq(model_cfg, mesh_cfg)
     if mesh.cfg != mesh_cfg:
         raise ValueError("mesh_cfg is not the mesh's config")
     if tx.clip is not None:
@@ -160,6 +201,8 @@ def make_explicit_train_step(
     fsdp_group = mesh.axis_group("fsdp") if f > 1 else None
     data_group = mesh.axis_group("data") if d > 1 else None
     tp_group = mesh.axis_group("tensor") if mesh_cfg.tensor > 1 else None
+    sq = mesh_cfg.seq
+    seq_group = mesh.axis_group("seq") if sq > 1 else None
     block_transform = None
     if zero3:
         block_specs = p_specs["blocks"][0]
@@ -179,12 +222,13 @@ def make_explicit_train_step(
             key = fold_tensor_key(key, mesh)
         loss = _loss(model, model_cfg, params, inputs, targets,
                      deterministic=not train_mode, key=key,
-                     block_transform=block_transform, tp_group=tp_group)
+                     block_transform=block_transform, tp_group=tp_group,
+                     seq_group=seq_group)
         grads = torch.autograd.grad(loss, live)
         return loss.detach(), list(grads)
 
     def mean_over(ts: list, group, n: int) -> None:
-        if group is None:  # the batch is not split: nothing to reduce
+        if group is None:  # not split over the group: nothing to reduce
             return
         for t in ts:
             zero.all_reduce_(t, group)
@@ -243,6 +287,9 @@ def make_explicit_train_step(
                 mean_over(grads, data_group, d)
         else:
             mean_over(grads, mesh.batch_group, dp)
+        mean_over(grads, seq_group, sq)
+        if seq_group is not None:
+            loss = zero.all_reduce_(loss.clone(), seq_group) / sq
         if mesh.batch_group is not None:
             loss = zero.all_reduce_(loss.clone(), mesh.batch_group) / dp
         grad_norm = zero.global_norm_sharded(grads, norm_specs, mesh)

@@ -9,8 +9,12 @@ device order), and every axis of size > 1 gets the process groups of the
 ranks that differ only along it. Collectives are explicit calls on those
 groups (``parallel/zero``).
 
-- ``spawn_ranks``: the twins' ``--cpu-devices N``, N ranks of a module
-  started on this host as a launcher would.
+- ``spawn_ranks``: the twins' ``--cpu-devices N`` (and the
+  ``decode_bench`` twin's multi-rank sub-legs), N ranks of a module
+  started on this host as a launcher would, ended at ``SPAWN_LIMIT_S``;
+  its ranks join their group with the ``RANK_TIMEOUT_S`` timeout, so a
+  rank stuck in a collective its peers never reach fails well inside
+  that limit.
 - The one launcher for every child process the port (and
   ``chip_smoke.py``) starts: ``launch`` (one child), ``run`` (one child to
   its end, ``subprocess.run``'s contract) and ``run_group`` (ranks). Each
@@ -30,15 +34,19 @@ groups (``parallel/zero``).
   them a world of one on a free localhost port. Backend ``nccl`` for a
   CUDA rank and ``gloo`` for a CPU rank, unless the caller names one
   (gloo on CUDA tensors stages them through the host: the way two ranks
-  share one card, which NCCL refuses). Every group gets ``timeout``.
+  share one card, which NCCL refuses). Every group gets ``timeout``
+  (default: ``RANK_TIMEOUT_S`` in a rank ``spawn_ranks`` started,
+  ``DEFAULT_TIMEOUT_S`` otherwise).
 - ``process_info()``, ``data_parallel_size``, ``batch_partition_spec``
-  (JAX's spec as a tuple) and ``batch_rows`` (the rows of the global
-  [A, B, T] batch a rank owns: B split over data x fsdp, data major).
+  (JAX's spec as a tuple), ``batch_rows`` (the rows of the global
+  [A, B, T] batch a rank owns: B split over data x fsdp, data major) and
+  ``seq_cols`` (the positions of T a rank owns: T split over seq).
 - ``fold_batch_shard_key``: the JAX package folds the batch shard's index
-  into the dropout key; the port's ``DropoutKey`` takes ``shard`` = 1 +
-  the index (0 stays "not folded"). JAX's threefry streams cannot be
-  matched, so this is held to the port itself: each shard's masks differ,
-  and a world of one keeps the single-device masks.
+  and the seq index into the dropout key; the port's ``DropoutKey`` takes
+  ``shard`` = 1 + (batch shard index x seq + seq index) (0 stays "not
+  folded"). JAX's threefry streams cannot be matched, so this is held to
+  the port itself: each shard's masks differ, and a world of one keeps
+  the single-device masks.
 """
 
 from __future__ import annotations
@@ -63,6 +71,11 @@ from pytorch_distributed_tpu_torch.config import MeshConfig
 from pytorch_distributed_tpu_torch.utils.prng import DropoutKey
 
 DEFAULT_TIMEOUT_S = 600.0
+# A twin's ranks that ``spawn_ranks`` started: the group timeout each
+# joins with, and the wall the whole group may take.
+RANK_TIMEOUT_S = 120.0
+SPAWN_LIMIT_S = 900.0
+_TIMEOUT_ENV = "PDTPU_GROUP_TIMEOUT_S"
 # The axes a batch is split over, in the order of JAX's batch spec.
 BATCH_AXES = ("data", "fsdp", "expert")
 
@@ -311,23 +324,34 @@ def spawn_ranks(n: int, module: str, argv: list[str]) -> int:
     launcher would (``RANK``, ``LOCAL_RANK``, ``WORLD_SIZE`` and a free
     127.0.0.1 port), through ``run_group``: a rank that exits nonzero ends
     the others at once, so a rank whose peer died does not wait out the
-    group's timeout. The highest exit code wins."""
+    group's timeout; and all of them end at ``SPAWN_LIMIT_S``, which then
+    returns 124 with a line on stderr. Each rank joins its group with
+    ``RANK_TIMEOUT_S``. The highest exit code wins."""
     port = free_port()
     envs = [dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
                  WORLD_SIZE=str(n), MASTER_ADDR="127.0.0.1",
-                 MASTER_PORT=str(port)) for r in range(n)]
-    out = run_group([[sys.executable, "-m", module, *argv]] * n, envs,
-                    timeout_s=None, capture_stderr=False)
+                 MASTER_PORT=str(port),
+                 **{_TIMEOUT_ENV: str(RANK_TIMEOUT_S)})
+            for r in range(n)]
+    try:
+        out = run_group([[sys.executable, "-m", module, *argv]] * n, envs,
+                        timeout_s=SPAWN_LIMIT_S, capture_stderr=False)
+    except TimeoutError as err:
+        print(f"spawn_ranks: {err}; killed", file=sys.stderr, flush=True)
+        return 124
     return max(rc for rc, _ in out)
 
 
 def initialize_distributed(*, device: str | torch.device | None = None,
                            backend: str | None = None,
-                           timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+                           timeout_s: float | None = None) -> None:
     """Join the process group (idempotent). ``device``: where this rank
-    computes (None: the card), which picks the default backend."""
+    computes (None: the card), which picks the default backend.
+    ``timeout_s`` None: the module docstring's default."""
     if dist.is_initialized():
         return
+    if timeout_s is None:
+        timeout_s = float(os.environ.get(_TIMEOUT_ENV, DEFAULT_TIMEOUT_S))
     dev = torch.device("cuda" if device is None else device)
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     env = os.environ
@@ -365,11 +389,11 @@ class Mesh:
     mesh's process group and, per axis of size > 1, the group of ranks
     that differ only along that axis (``groups``). ``device``: where the
     rank computes. ``backend``: the groups' backend. ``batch_group``: the
-    ranks that hold the same model slices and split the batch (the
-    gradients' and the loss's reduction: JAX's data and fsdp axes) — the
-    mesh's group without a tensor axis, the data x fsdp plane of this
-    rank's tensor index with one, None when the batch is not split
-    there."""
+    ranks that differ only in the rows of the batch they hold (the
+    gradients' and the loss's reduction over JAX's data and fsdp axes) —
+    the mesh's group without a tensor or seq axis, else the data x fsdp
+    plane of this rank's tensor and seq indices, None when the batch is
+    not split there."""
 
     cfg: MeshConfig
     rank: int
@@ -443,15 +467,17 @@ def make_mesh(cfg: MeshConfig, *, group=None,
                 members, timeout=timedelta(seconds=timeout_s),
                 backend=backend, use_local_synchronization=True)
     batch_group = group
-    if cfg.tensor > 1:
+    if cfg.tensor > 1 or cfg.seq > 1:
         batch = [ax for ax in ("data", "fsdp") if getattr(cfg, ax) > 1]
         if not batch:
             batch_group = None
         elif len(batch) == 1:
             batch_group = groups[batch[0]]
-        else:  # one group per tensor index over the data x fsdp plane
-            planes = np.moveaxis(grid, cfg.axis_order.index("tensor"), 0)
-            for plane in planes.reshape(cfg.tensor, -1):
+        else:  # one group per (seq, tensor) index: a data x fsdp plane
+            planes = np.moveaxis(
+                grid, [cfg.axis_order.index(ax) for ax in batch],
+                [-2, -1])
+            for plane in planes.reshape(-1, cfg.data * cfg.fsdp):
                 if rank not in plane:
                     continue
                 batch_group = dist.new_group(
@@ -500,28 +526,44 @@ def batch_rows(mesh: Mesh, global_rows: int) -> slice:
     return slice(i * per, (i + 1) * per)
 
 
+def seq_cols(mesh: Mesh, global_len: int) -> slice:
+    """The positions of a global sequence of ``global_len`` tokens this
+    rank owns: rank i of the seq axis the i-th of ``seq`` equal spans."""
+    n = mesh.cfg.seq
+    if global_len % n:
+        raise ValueError(f"sequence of {global_len} tokens does not split "
+                         f"over seq={n}")
+    per = global_len // n
+    i = mesh.coords.get("seq", 0)
+    return slice(i * per, (i + 1) * per)
+
+
 def make_batch_put(mesh: Mesh):
     """``put(batch)``: a host {inputs, targets} batch of GLOBAL [A, B, T]
-    arrays -> this rank's rows as tensors on the mesh's device."""
+    arrays -> this rank's block as tensors on the mesh's device: its rows
+    of B (the batch axes) and its span of T (the seq axis), JAX's
+    ``P(None, batch_axes, "seq")``."""
 
     def put(batch: dict) -> dict:
         out = {}
         for k, v in batch.items():
             v = np.asarray(v)
             rows = batch_rows(mesh, v.shape[1])
+            cols = seq_cols(mesh, v.shape[2])
             out[k] = torch.from_numpy(
-                np.ascontiguousarray(v[:, rows])).to(mesh.device)
+                np.ascontiguousarray(v[:, rows, cols])).to(mesh.device)
         return out
 
     return put
 
 
 def fold_batch_shard_key(key: DropoutKey, mesh: Mesh) -> DropoutKey:
-    """The key of this rank's batch shard (module docstring): unchanged
-    when the batch is not split."""
-    if data_parallel_size(mesh.cfg) == 1:
+    """The key of this rank's batch and sequence shard (module
+    docstring): unchanged when neither is split."""
+    if data_parallel_size(mesh.cfg) == 1 and mesh.cfg.seq == 1:
         return key
-    return key._replace(shard=1 + batch_shard_index(mesh))
+    idx = batch_shard_index(mesh) * mesh.cfg.seq + mesh.coords.get("seq", 0)
+    return key._replace(shard=1 + idx)
 
 
 def fold_tensor_key(key: DropoutKey, mesh: Mesh) -> DropoutKey:

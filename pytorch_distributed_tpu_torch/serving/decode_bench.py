@@ -13,9 +13,8 @@ the K3, K4 and LoRA kernel launches its leg made.
   ``--speculative K``: plain against prompt-lookup speculative greedy
   decode at B 1; speedup and both tok/s from one pair of medians.
 - ``--serving``: the serial engine against the per-call
-  ``generate_monolithic`` on distinct prompt lengths every pass. The JAX
-  leg's ZeRO-3 decode sub-leg needs a mesh and is skipped (stderr says
-  so).
+  ``generate_monolithic`` on distinct prompt lengths every pass; and the
+  ``zero3_decode`` sub-leg on two ranks (below).
 - ``--serving-batched``: the dense ``BatchedDecodeEngine`` against the
   serial engine on one arrival stream, replayed in virtual time over
   measured service times; with ``--chaos``, the batched engine clean and
@@ -36,8 +35,8 @@ the K3, K4 and LoRA kernel launches its leg made.
   tokens equal, every request DONE, no steady compiles, no drafts on
   sampled rows, and outside ``--dryrun`` a repetitive-leg speedup of at
   least 1.2x, the median of ``SPEC_PAIRS`` pairs stepped in turns (the
-  JAX leg drains each engine once). The JAX leg's tensor-parallel pair
-  needs two or more devices and is skipped.
+  JAX leg drains each engine once); and the ``serving_spec_tp`` sub-leg
+  on two ranks (below).
 - ``--serving-disagg``: a colocated two-replica fleet against a
   prefill + decode fleet (``role=``) on one ``workload.disagg_stream`` and
   one Poisson arrival schedule. Asserted: DONE tokens equal request for
@@ -65,6 +64,36 @@ the K3, K4 and LoRA kernel launches its leg made.
   ``--dryrun`` the two wall-clock ratios carry the JAX script's noise
   margins (1.75x and 0.7x).
 
+**The multi-rank sub-legs** run on two ranks that the twin starts
+through the port's launcher (``parallel/mesh.spawn_ranks``), gloo ranks
+sharing cuda:0 on the card (NCCL refuses two ranks on one card) or, with
+``--cpu-devices 2``, on the CPU; rank 0 writes the rows, which this
+process prints with its own. With ``--device cpu`` alone there is one
+device, and they are skipped with the reason on stderr, as the JAX
+script skips them on one device. ``--rank-legs skip`` leaves them out,
+``--rank-legs only`` runs them alone (the modes' one-process legs left
+out).
+
+- ``serving_spec_tp`` (``--serving-spec``): the plain and speculative
+  paged engines at ``MeshConfig(tensor=2)``, 2 slots each, on a
+  repetitive stream of ``max(4, n // 4)`` requests; asserted: DONE
+  tokens equal request for request and no steady compiles. K3 runs on
+  each rank's 4 of the 8 KV heads. JAX guards it with ``kv_heads % 2 ==
+  0``; so does this twin. Its stream is drawn from a generator of its
+  own (the JAX leg continues the one its other legs drew from).
+- ``zero3_decode`` (``--serving``): the serial ``DecodeEngine`` at
+  ``MeshConfig(fsdp=2, strategy="full_shard")``, batch 48 (8 under
+  ``--dryrun``), 15 decode steps after a prompt of 50 in bucket 64,
+  ``max_len`` 128, the cache rewritten in place each repeat: tokens/s
+  over ``--repeats`` runs, and the hidden share of communication
+  (``profiling/trace_analysis.comm_comp_overlap``) over paired traced
+  trials. The trace marks NCCL kernels as communication; gloo issues no
+  device kernel (it copies through the host), so over gloo the share is
+  not measurable: the row reports it as null with that reason, not as 0
+  (one traced trial shows it; the JAX leg's five are taken on NCCL).
+  The ``prefetch_buffers=1`` side is ROADMAP queue 1 item 7(d) (the
+  layer scan's prefetch window) and is skipped, stderr naming it.
+
 Differences from the JAX script: ``compile_count`` counts CUDA kernel
 libraries loaded (``serving/engine``), so "no steady compiles" means
 nothing loads after warmup. The rows' ``roofline`` field (the JAX
@@ -91,7 +120,9 @@ import argparse
 import heapq
 import json
 import logging
+import os
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -106,10 +137,12 @@ TIERED_ROUNDS = 3
 LORA_PAIRS = 5
 SPEC_PAIRS = 5
 
-NOT_PORTED = {
-    "cpu_devices": "--cpu-devices: the port has no virtual-device mesh; "
-                   "use --device cpu",
-}
+# The multi-rank sub-legs' world (module docstring).
+RANK_WORLD = 2
+CPU_DEVICES_REFUSED = (
+    "--cpu-devices N: the port has no virtual-device mesh; its multi-rank "
+    f"sub-legs run {RANK_WORLD} gloo CPU ranks (--cpu-devices "
+    f"{RANK_WORLD}); for one process on the CPU use --device cpu")
 
 
 def _pct(xs, q):
@@ -1058,11 +1091,8 @@ def bench_serving(args) -> list[dict]:
     ``decode.generate_monolithic`` on a mixed-length stream: distinct
     prompt lengths every pass (the engine's buckets make its shape set
     finite), two sampling configs, batch 4 per request; cold, steady and
-    repeat-stream rates and p50 request latency per path. The JAX leg's
-    ZeRO-3 decode sub-leg needs a mesh of two or more ranks, and this twin
-    runs one process: it is skipped here, with that reason on stderr (it
-    waits for a rank launcher in this twin, ROADMAP queue 1 item 4c, and
-    its prefetch side for item 7(d))."""
+    repeat-stream rates and p50 request latency per path. Then the
+    ``zero3_decode`` sub-leg on two ranks (module docstring)."""
     from pytorch_distributed_tpu_torch.models import decode
     from pytorch_distributed_tpu_torch.serving.engine import (
         BucketSpec,
@@ -1070,6 +1100,8 @@ def bench_serving(args) -> list[dict]:
         _compile_count,
     )
 
+    if args.rank_legs == "only":
+        return _zero3_decode(args)
     start = _launches()
     cfg = _serving_cfg(args.dryrun)
     max_new = 16 if args.dryrun else 32
@@ -1173,10 +1205,7 @@ def bench_serving(args) -> list[dict]:
     hbm = engine.cache_hbm_bytes()
     engine_row["cache_hbm_bytes"] = hbm["allocated"]
     engine_row["cache_hbm_bytes_peak_in_use"] = hbm["peak_in_use"]
-    print("zero3_decode skipped: the ZeRO-3 decode sub-leg needs a mesh of "
-          ">= 2 ranks and this twin runs one process (it waits for a rank "
-          "launcher in this twin, ROADMAP queue 1 item 4c; its prefetch "
-          "side for item 7(d))", file=sys.stderr)
+    zero3 = _zero3_decode(args)
     return [{
         "leg": "serving_stream",
         "model": _model_row(cfg),
@@ -1194,7 +1223,7 @@ def bench_serving(args) -> list[dict]:
         "launches": _launches(start),
         "platform": _platform(args.device),
         "device": str(args.device),
-    }]
+    }, *zero3]
 
 
 def _replay(eng, params, requests, arrivals) -> tuple:
@@ -1650,9 +1679,9 @@ def bench_serving_spec(args) -> list[dict]:
     speedup of at least 1.2x: the median of ``SPEC_PAIRS`` pairs, which
     one steps first alternating (the JAX leg drains each engine once,
     one after the other; the first pair's ratio is reported as
-    ``aggregate_speedup_single_pass``). The JAX leg's tensor-parallel
-    pair needs two or more devices and is skipped, as JAX skips it on
-    one."""
+    ``aggregate_speedup_single_pass``). Then the ``serving_spec_tp``
+    sub-leg on two ranks (module docstring), its equality and
+    no-steady-compile gates among these."""
     from pytorch_distributed_tpu_torch.serving.engine import (
         PagedBatchedDecodeEngine,
     )
@@ -1661,6 +1690,8 @@ def bench_serving_spec(args) -> list[dict]:
         request_stream,
     )
 
+    if args.rank_legs == "only":
+        return _checked_spec_rows(_rank_leg(args, "serving_spec_tp"))
     cfg = _serving_cfg(args.dryrun)
     slots = 4 if args.dryrun else 8
     max_new = 16 if args.dryrun else 48
@@ -1780,19 +1811,269 @@ def bench_serving_spec(args) -> list[dict]:
         "plain's bit for bit, for 0 accepts — measured "
         f"{low_row['aggregate_speedup']}x of plain is the cost of leaving "
         "speculation on for non-greedy traffic")
-    print("serving_spec_tp skipped: the tensor-parallel pair needs a mesh "
-          "of >= 2 ranks and this twin runs one process (it waits for a "
-          "rank launcher in this twin, ROADMAP queue 1 item 4c)",
-          file=sys.stderr)
+    tp_rows = _rank_leg(args, "serving_spec_tp")
     rows = [rep_row, low_row]
     for row in rows:
         row["invariant_failures"] = failures
+    return _checked_spec_rows(rows + tp_rows)
+
+
+def _checked_spec_rows(rows: list) -> list:
+    """``rows``, or SystemExit naming every row's invariant failures."""
+    failures = sorted({f for row in rows for f in row["invariant_failures"]})
     if failures:
         for row in rows:
             print(json.dumps(row), file=sys.stderr)
         raise SystemExit("serving_spec invariants violated: "
                          + "; ".join(failures))
     return rows
+
+
+# -- the multi-rank sub-legs (module docstring) -------------------------------
+
+
+def _rank_leg(args, leg: str) -> list[dict]:
+    """The rows of sub-leg ``leg`` (``RANK_LEGS``) from ``RANK_WORLD``
+    ranks of this module (``_rank_main``), or none, the reason on stderr,
+    where it is skipped."""
+    from pytorch_distributed_tpu_torch.parallel.mesh import spawn_ranks
+
+    if args.rank_legs == "skip":
+        print(f"{leg} skipped: --rank-legs skip", file=sys.stderr)
+        return []
+    if args.device == "cpu" and not args.cpu_devices:
+        print(f"{leg} skipped: it needs {RANK_WORLD} ranks and this run has "
+              f"one CPU device (--cpu-devices {RANK_WORLD} starts "
+              f"{RANK_WORLD} gloo CPU ranks)", file=sys.stderr)
+        return []
+    flags = ["--device", args.device, "--chaos-seed", str(args.chaos_seed),
+             "--repeats", str(args.repeats)]
+    if args.dryrun:
+        flags.append("--dryrun")
+    if args.speculative:
+        flags += ["--speculative", str(args.speculative)]
+    if args.ngram is not None:
+        flags += ["--ngram", str(args.ngram)]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rows.json")
+        rc = spawn_ranks(RANK_WORLD,
+                         "pytorch_distributed_tpu_torch.serving.decode_bench",
+                         [*flags, "--rank-leg", leg, "--rank-rows", path])
+        if rc:
+            raise SystemExit(f"{leg}: its ranks exited {rc}")
+        with open(path) as f:
+            return json.load(f)
+
+
+def _rank_main(args) -> int:
+    """One rank of a sub-leg: gloo on cuda:0 (the ranks share the card)
+    or on the CPU; rank 0 writes the rows to ``--rank-rows``."""
+    import torch.distributed as dist
+
+    from pytorch_distributed_tpu_torch.parallel.mesh import (
+        initialize_distributed,
+    )
+
+    if args.device == "cpu":
+        dev = torch.device("cpu")
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // RANK_WORLD))
+    else:
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+    args.device = str(dev)
+    initialize_distributed(device=dev, backend="gloo")
+    try:
+        rows = RANK_LEGS[args.rank_leg](args)
+        if dist.get_rank() == 0:
+            with open(args.rank_rows, "w") as f:
+                json.dump(rows, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _serving_spec_tp_rows(args) -> list[dict]:
+    """``serving_spec_tp`` on this rank (module docstring): the row, its
+    failures in ``invariant_failures``."""
+    from pytorch_distributed_tpu_torch.config import MeshConfig
+    from pytorch_distributed_tpu_torch.serving.engine import (
+        PagedBatchedDecodeEngine,
+    )
+    from pytorch_distributed_tpu_torch.serving.workload import (
+        repetitive_request_stream,
+    )
+
+    cfg = _serving_cfg(args.dryrun)
+    if cfg.kv_heads % RANK_WORLD:
+        print(f"serving_spec_tp skipped: {cfg.kv_heads} KV heads do not "
+              f"split over tensor={RANK_WORLD}", file=sys.stderr)
+        return []
+    max_new = 16 if args.dryrun else 48
+    max_len = 160 if args.dryrun else 384
+    page, slots = 16, 2
+    chunk = 16 if args.dryrun else 32
+    n_req = 12 if args.dryrun else 32
+    spec_k = args.speculative or 4
+    ngram = 1 if args.ngram is None else args.ngram
+    seed = args.chaos_seed
+    params = _params(cfg, args)
+    tp_n = max(4, n_req // 4)
+    reqs = repetitive_request_stream(
+        np.random.default_rng(seed + 2), n=tp_n, vocab_size=cfg.vocab_size,
+        max_new=max(8, max_new // 2))
+    mesh = MeshConfig(tensor=RANK_WORLD, strategy="no_shard")
+
+    def make_engine(spec):
+        return PagedBatchedDecodeEngine(
+            cfg, slots=slots, max_len=max_len, page_size=page,
+            prefill_chunk=chunk, pool_pages=slots * max_len // page + 1,
+            speculative_k=spec, spec_ngram=ngram, device=args.device,
+            mesh_cfg=mesh)
+
+    start = _launches()
+    plain, spec = make_engine(0), make_engine(spec_k)
+    warm_p, warm_s = plain.warmup(params), spec.warmup(params)
+    p_span, _, p_res = _drive_engine(plain, params, reqs)
+    s_span, _, s_res = _drive_engine(spec, params, reqs)
+    matched = sum(int(np.array_equal(p_res[i].tokens, s_res[i].tokens))
+                  for i in p_res)
+    steady = (plain.compile_count() - warm_p
+              + spec.compile_count() - warm_s)
+    failures = []
+    if matched != tp_n:
+        failures.append(f"tp leg: {matched}/{tp_n} outputs bit-equal")
+    if steady:
+        failures.append(f"tp leg leaked {steady} steady compiles")
+    return [{
+        "leg": "serving_spec_tp",
+        "mesh": f"tensor={RANK_WORLD}", "requests": tp_n,
+        "speculative_k": spec_k, "seed": seed,
+        "plain_tokens_per_sec_span_s": round(p_span, 3),
+        "spec_tokens_per_sec_span_s": round(s_span, 3),
+        "aggregate_speedup": round(p_span / s_span, 3),
+        "spec_accept_rate": spec.stats()["spec_accept_rate"],
+        "outputs_match": f"{matched}/{tp_n}",
+        "observed_compile_count_steady": steady,
+        "invariant_failures": failures,
+        "ranks": RANK_WORLD, "backend": "gloo",
+        "launches": _launches(start),
+        "platform": _platform(args.device),
+        "device": str(args.device),
+    }]
+
+
+# Why a gloo leg's hidden-communication share is null.
+GLOO_COMM_NOTE = (
+    "not measurable over gloo: its collectives are host copies, which put "
+    "no communication kernel on the device for the trace to see")
+
+
+def _zero3_decode(args) -> list[dict]:
+    """The ``zero3_decode`` rows; the ``prefetch_buffers=1`` side skipped,
+    stderr naming its item."""
+    rows = _rank_leg(args, "zero3_decode")
+    print("zero3_decode prefetch_buffers=1 skipped: the layer scan's "
+          "prefetch window is ROADMAP queue 1 item 7(d)", file=sys.stderr)
+    return rows
+
+
+def _zero3_decode_rows(args) -> list[dict]:
+    """``zero3_decode`` at ``prefetch_buffers=0`` on this rank (module
+    docstring; the JAX script's leg)."""
+    from pytorch_distributed_tpu_torch.config import MeshConfig
+    from pytorch_distributed_tpu_torch.models import decode
+    from pytorch_distributed_tpu_torch.profiling.trace_analysis import (
+        comm_comp_overlap,
+        load_trace,
+    )
+    from pytorch_distributed_tpu_torch.serving.engine import (
+        BucketSpec,
+        DecodeEngine,
+    )
+
+    import torch.distributed as dist
+
+    cfg = _serving_cfg(args.dryrun)
+    zbatch = 8 if args.dryrun else 48
+    # Over gloo one traced trial shows the trace's communication rows
+    # empty (GLOO_COMM_NOTE); more would only repeat it.
+    gloo = dist.get_backend() == "gloo"
+    ztrials = 1 if args.dryrun or gloo else 5
+    zruns_per_trace = 1 if args.dryrun else 2
+    zsteps, zmax_len, zbucket, zp = 15, 128, 64, 50
+    seed = args.chaos_seed
+    params = _params(cfg, args)
+    rng = np.random.default_rng(seed + 3)
+    dev = torch.device(args.device)
+    eng = DecodeEngine(cfg, max_len=zmax_len, buckets=BucketSpec((zbucket,)),
+                       device=dev, mesh_cfg=MeshConfig(
+                           fsdp=RANK_WORLD, strategy="full_shard"))
+    pp = eng._place_params(params)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (zbatch, zp)),
+                             device=dev)
+    padded = torch.nn.functional.pad(prompt, (0, zbucket - zp))
+    t, k, p = decode.sampling_scalars(0.8, 20, None, cfg.vocab_size)
+    start = _launches()
+    with torch.no_grad():
+        cache = eng.new_cache(zbatch)
+        tok, _ = eng._prefill(pp, padded, zp, cache, True, t, k, p, seed)
+
+        def run():
+            """The JAX leg's ``decode_run``: ``zsteps`` steps from the
+            prompt's end, rewriting the same cache rows each call."""
+            out = tok
+            for i in range(zsteps):
+                out, _ = eng._step(pp, out, cache, zp + i, True, t, k, p,
+                                   seed, i + 1)
+            return out.cpu()  # the fence
+
+        run()  # warm
+        t0 = time.perf_counter()
+        for _ in range(args.repeats):
+            run()
+        elapsed = time.perf_counter() - t0
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if dev.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        trials = []
+        with tempfile.TemporaryDirectory() as tmp:
+            for i in range(ztrials):
+                with torch.profiler.profile(activities=activities) as prof:
+                    for _ in range(zruns_per_trace):
+                        run()
+                path = os.path.join(tmp, f"trial_{i}.json")
+                prof.export_chrome_trace(path)
+                ov = comm_comp_overlap(load_trace(path))
+                trials.append((ov["overlap_pct"], ov["comm_total_us"]))
+    measured = [tr for tr in trials if tr[1] > 0]
+    med, comm_us = (sorted(measured)[len(measured) // 2] if measured
+                    else (None, 0.0))
+    row = {
+        "leg": "zero3_decode",
+        "prefetch_buffers": 0,
+        "effective_window": 1,
+        "fsdp": RANK_WORLD,
+        "batch": zbatch,
+        "decode_steps": zsteps,
+        "tokens_per_sec": round(args.repeats * zbatch * zsteps / elapsed, 1),
+        "hidden_comm_pct": None if med is None else round(med, 2),
+        "hidden_comm_pct_trials": [None if c == 0 else round(o, 2)
+                                   for o, c in trials],
+        "comm_total_us": round(comm_us),
+        "backend": "gloo",
+        "launches": _launches(start),
+        "platform": _platform(args.device),
+        "device": str(args.device),
+    }
+    if med is None:
+        row["hidden_comm_pct_note"] = (GLOO_COMM_NOTE if gloo else
+                                       "no communication kernel traced")
+    return [row]
+
+
+RANK_LEGS = {"serving_spec_tp": _serving_spec_tp_rows,
+             "zero3_decode": _zero3_decode_rows}
+
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -1854,11 +2135,21 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--cpu-devices", type=int, default=0,
-                    help=argparse.SUPPRESS)
+                    help=f"{RANK_WORLD}: the multi-rank sub-legs on "
+                         f"{RANK_WORLD} gloo CPU ranks (every leg on the "
+                         "CPU)")
+    ap.add_argument("--rank-legs", default="run",
+                    choices=("run", "skip", "only"),
+                    help="the multi-rank sub-legs: run them, leave them "
+                         "out, or run only them")
+    ap.add_argument("--rank-leg", default=None, choices=sorted(RANK_LEGS),
+                    help=argparse.SUPPRESS)  # one rank of a sub-leg
+    ap.add_argument("--rank-rows", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    for flag, why in NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(why)
+    if args.cpu_devices:
+        if args.cpu_devices != RANK_WORLD:
+            raise SystemExit(CPU_DEVICES_REFUSED)
+        args.device = "cpu"
     if args.chaos and not args.serving_batched:
         ap.error("--chaos requires --serving-batched")
     if args.kv_quant != "none" and not args.serving_paged:
@@ -1873,6 +2164,8 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.rank_leg:
+        return _rank_main(args)
     serving = (args.serving or args.serving_batched or args.serving_paged
                or args.serving_spec or args.serving_disagg
                or args.serving_scenarios)

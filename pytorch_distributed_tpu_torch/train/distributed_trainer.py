@@ -24,6 +24,12 @@
   block leaves and runs the forward with the tensor group; the loss, the
   gradient norm and so the guard's decision come out bitwise the same on
   every rank, and tensor ranks take the same rows of a batch.
+- Under a seq axis (sequence parallelism) each rank takes its span of
+  every sequence of its rows (``parallel/mesh.seq_cols``): the loader
+  reads the rank's rows whole (its rank is the batch shard's, so seq
+  ranks read the same rows) and ``put_batch`` cuts the span. The params
+  are whole on every seq rank, and the loss and gradient norm come out
+  the same on each.
 
 ``path``: "auto" or "explicit", the same hand-scheduled step here
 (``parallel/api``); "pipeline" raises, naming ROADMAP queue 1 item 7(d).
@@ -49,6 +55,7 @@ from pytorch_distributed_tpu_torch.parallel.api import (
     make_parallel_train_step,
 )
 from pytorch_distributed_tpu_torch.parallel.explicit import (
+    check_seq,
     check_tensor_dropout,
     make_explicit_train_step,
 )
@@ -56,6 +63,7 @@ from pytorch_distributed_tpu_torch.parallel.mesh import (
     Mesh,
     batch_rows,
     data_parallel_size,
+    seq_cols,
 )
 from pytorch_distributed_tpu_torch.parallel.sharding import (
     shard_train_state,
@@ -85,6 +93,7 @@ class DistributedTrainer(Trainer):
         log_fn: Callable[[str], None] | None = None,
     ):
         check_tensor_dropout(model_cfg, mesh_cfg)
+        check_seq(model_cfg, mesh_cfg)
         if path not in ("auto", "explicit", "pipeline"):
             raise ValueError(f"unknown parallel path {path!r}")
         if path == "pipeline":
@@ -144,8 +153,8 @@ class DistributedTrainer(Trainer):
 
     # -- data placement ---------------------------------------------------
     def _put_batch_impl(self, batch: dict) -> dict:
-        """This rank's rows of a host [A, B, T] batch on its device (module
-        docstring)."""
+        """This rank's rows of a host [A, B, T] batch, and its span of T,
+        on its device (module docstring)."""
         micro = self.train_cfg.micro_batch_size
         dp = data_parallel_size(self.mesh_cfg)
         out = {}
@@ -157,6 +166,7 @@ class DistributedTrainer(Trainer):
                 raise ValueError(
                     f"batch of {v.shape[1]} rows: this rank takes "
                     f"{micro} (its own) or {micro * dp} (global)")
+            v = v[:, :, seq_cols(self.mesh, v.shape[2])]
             out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(
                 self.device)
         return out

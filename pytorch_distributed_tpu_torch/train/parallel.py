@@ -1,6 +1,6 @@
-"""Mesh-parallel training over the data, fsdp and tensor axes: the port's
-twin of the JAX package's ``scripts/train_parallel.py``, with its flags,
-one process per rank:
+"""Mesh-parallel training over the data, fsdp, seq and tensor axes: the
+port's twin of the JAX package's ``scripts/train_parallel.py``, with its
+flags, one process per rank:
 
     python -m torch.distributed.run --nproc-per-node 4 \\
         -m pytorch_distributed_tpu_torch.train.parallel \\
@@ -9,21 +9,27 @@ one process per rank:
         --cpu-devices 8 --mesh data=2,fsdp=2,tensor=2 --preset tiny \\
         --seq-len 64 --global-batch-size 16 --micro-batch-size 2 \\
         --steps 4 --no-dropout                               # 8 CPU ranks
+    python -m pytorch_distributed_tpu_torch.train.parallel \
+        --cpu-devices 4 --mesh data=2,seq=2 --seq-impl ulysses \
+        --preset tiny --seq-len 64 --no-dropout              # 4 CPU ranks
 
 ``--mesh`` names each axis's size (its product is the number of ranks);
 ``--strategy`` is the ZeRO level over fsdp, and a tensor axis is
-Megatron tensor parallelism composed with it (``parallel/explicit``).
+Megatron tensor parallelism composed with it, and a seq axis splits
+each sequence over its ranks, attention crossing them by ``--seq-impl``
+(ring or Ulysses; ``parallel/explicit``).
 ``--path`` is "auto" or "explicit" (the same hand-scheduled step here,
 ``parallel/api``). ``--cpu-devices N`` starts N gloo CPU ranks through the
 port's launcher (``parallel/mesh.spawn_ranks``) unless a launcher already
 started them; on cards each rank takes ``cuda:LOCAL_RANK`` and NCCL.
 
-Refused, naming the ROADMAP queue 1 item that ports them: the seq axis
-and ``--seq-impl ulysses`` (7(c)), the pipe axis, ``--path pipeline`` and
-``--pipe-schedule 1f1b`` (7(d)), the expert axis (7(e)). Attention
-dropout under a tensor axis is refused as the explicit step refuses it
-(``--no-dropout``, or a preset without it): the port's "auto" path is
-that step. Traces: ``outputs/traces/parallel/rank<r>``.
+Refused, naming the ROADMAP queue 1 item that ports them: the pipe axis,
+``--path pipeline`` and ``--pipe-schedule 1f1b`` (7(d)), the expert axis
+(7(e)). Refused as the explicit step refuses them, before any rank
+starts (the port's "auto" path is that step): attention dropout under a
+tensor axis, or under a seq axis with the ring (``--no-dropout``, or a
+preset without it), and Ulysses with a seq size that does not divide a
+rank's head counts. Traces: ``outputs/traces/parallel/rank<r>``.
 """
 
 from __future__ import annotations
@@ -64,8 +70,8 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_common_args(p, preset="tiny")
     p.add_argument("--mesh", default="data=8",
-                   help="comma-separated axis=size (data, fsdp, tensor; "
-                        "pipe, expert and seq are refused); the product "
+                   help="comma-separated axis=size (data, fsdp, seq, "
+                        "tensor; pipe and expert are refused); the product "
                         "must equal the rank count")
     p.add_argument("--strategy", default="full_shard",
                    choices=["full_shard", "shard_grad_op", "shard_opt",
@@ -91,15 +97,13 @@ def refusals(args, axes: dict) -> str | None:
     if args.pipe_schedule != "gpipe":
         return (f"--pipe-schedule {args.pipe_schedule} is the pipeline's: "
                 f"{_ITEM['pipe']}")
-    if args.seq_impl != "ring":
-        return (f"--seq-impl {args.seq_impl} is sequence parallelism's: "
-                f"{_ITEM['seq']}")
     return None
 
 
 def model_cfg_from(args):
-    """The preset's config with ``--n-experts`` and ``--no-dropout``."""
-    cfg = build_model_cfg(args)
+    """The preset's config with ``--n-experts``, ``--seq-impl`` and
+    ``--no-dropout``."""
+    cfg = build_model_cfg(args).replace(seq_impl=args.seq_impl)
     if args.n_experts:
         cfg = cfg.replace(n_experts=args.n_experts)
     if args.no_dropout:
@@ -110,6 +114,7 @@ def model_cfg_from(args):
 def main(argv=None) -> int:
     from pytorch_distributed_tpu_torch.config import MeshConfig
     from pytorch_distributed_tpu_torch.parallel.explicit import (
+        check_seq,
         check_tensor_dropout,
     )
 
@@ -121,8 +126,11 @@ def main(argv=None) -> int:
     mesh_cfg = MeshConfig(**axes, strategy=args.strategy)
     try:  # before any rank starts
         check_tensor_dropout(model_cfg_from(args), mesh_cfg)
+        check_seq(model_cfg_from(args), mesh_cfg)
     except NotImplementedError as err:
         raise SystemExit(f"{err}; or pass --no-dropout") from None
+    except ValueError as err:
+        raise SystemExit(str(err)) from None
 
     def mesh_cfg_for(world: int):
         if math.prod(axes.values()) != world:

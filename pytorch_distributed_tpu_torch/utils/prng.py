@@ -18,9 +18,12 @@ default generators) would not give. Under tensor parallelism with
 axis_index("tensor"))``) the key's ``tensor`` field, 1 + the rank's tensor
 index, enters the attention masks' ids only: the embedding and residual
 masks act on activations every tensor rank holds alike, so they stay the
-same on every rank. ``draw_keep_mask`` is looked up on this
-module at every call, so a test can replace it, for example with one that
-returns the JAX package's mask for the same id.
+same on every rank. Under Ulysses sequence parallelism with attention
+dropout (``ops/ulysses``, the JAX package's ``fold_in(key,
+axis_index(seq))``) the stream id's ``seq`` field, 1 + the rank's seq
+index, enters that rank's attention masks. ``draw_keep_mask`` is looked up
+on this module at every call, so a test can replace it, for example with
+one that returns the JAX package's mask for the same id.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ class StreamId(NamedTuple):
     site: str
     shard: int = 0
     tensor: int = 0
+    seq: int = 0
 
 
 def stream_id(key: DropoutKey, layer: int, site: str) -> StreamId:
@@ -79,12 +83,14 @@ def stream_id(key: DropoutKey, layer: int, site: str) -> StreamId:
 def stream_seed(sid: StreamId) -> int:
     """A 64-bit generator seed for ``sid``: blake2b of its fields, so it is
     the same in every process (Python's ``hash`` of a str is not). A shard
-    (or tensor) of 0 packs nothing, so an unsharded id keeps its seed."""
+    (tensor, seq) of 0 packs nothing, so an unsharded id keeps its seed."""
     packed = struct.pack("<qqqq", sid.seed, sid.step, sid.micro, sid.layer)
     if sid.shard:
         packed += struct.pack("<q", sid.shard)
     if sid.tensor:
         packed += struct.pack("<qq", -1, sid.tensor)
+    if sid.seq:
+        packed += struct.pack("<qq", -2, sid.seq)
     digest = hashlib.blake2b(packed + sid.site.encode(), digest_size=8)
     return int.from_bytes(digest.digest(), "little")
 

@@ -445,10 +445,13 @@ JOBS = {"parallel": job_parallel, "world1": job_world1,
         "ckpt_kill": job_ckpt_kill}
 
 if __name__ == "__main__":
-    # The tensor-parallel jobs live beside this file and import from it.
+    # The tensor- and sequence-parallel jobs live beside this file and
+    # import from it.
+    from _torch_seq_jobs import SEQ_JOBS
     from _torch_tp_jobs import TP_JOBS
 
     JOBS.update(TP_JOBS)
+    JOBS.update(SEQ_JOBS)
     job, workdir = sys.argv[1], Path(sys.argv[2])
     try:
         JOBS[job](workdir)

@@ -658,6 +658,49 @@ def test_bf16_flash_kernels_at_llama_long_context(cuda, t):
     chip_smoke.check_flash(fk, q, k, v, do, True, f"llama T={t}", chunks=8)
 
 
+def test_bf16_flash_kernels_at_the_ulysses_llama_shape(cuda):
+    """K1 and K2 at a seq-2 Ulysses rank's Llama-3.2-1B heads: 16 query
+    over 4 KV heads over the whole T 8192 (B 1, head_dim 64, causal)."""
+    import chip_smoke
+
+    fk, q, k, v, do = _flash_case(cuda, 1, 16, 4, 8192, 64, torch.bfloat16)
+    chip_smoke.check_flash(fk, q, k, v, do, True, "llama ulysses-2",
+                           chunks=4)
+
+
+def test_seq_exchanges_on_cuda_tensors_over_gloo(cuda, tmp_path):
+    """Two gloo ranks share cuda:0 (``_torch_seq_jobs.job_cuda_seq``): a
+    ring exchange hands each rank its peer's block, its backward hands
+    back the peer's cotangent; Ulysses' heads-to-sequence all-to-all gives
+    each rank its head group over the whole sequence, the reverse one
+    restores the input, and its backward is that reverse; every result on
+    the card."""
+    import json
+
+    from _torch_dist_worker import launch
+
+    (tmp_path / "spec.json").write_text("{}")
+    launch("cuda_seq", 2, tmp_path, timeout_s=300)
+    outs = [json.loads((tmp_path / f"out_{r}.json").read_text())
+            for r in range(2)]
+    base = np.arange(6, dtype=np.float32).reshape(2, 3)
+    q = np.arange(16, dtype=np.float32).reshape(1, 2, 4, 2)
+    for r, o in enumerate(outs):
+        peer = 1 - r
+        assert o["device"] == o["heads_to_seq_device"] == "cuda:0"
+        np.testing.assert_array_equal(o["ring"], base + 100 * peer)
+        np.testing.assert_array_equal(o["ring_grad"],
+                                      np.full((2, 3), peer + 1.0))
+        # rank r's heads [2r, 2r + 2) over T = rank 0's tokens, rank 1's
+        want = np.concatenate([q[:, :, 2 * r:2 * r + 2] + 1000 * i
+                               for i in range(2)], axis=1)
+        np.testing.assert_array_equal(o["heads_to_seq"], want)
+        assert o["round_trip_equal"]
+        grad = np.concatenate([np.full((1, 2, 2, 2), i + 1.0)
+                               for i in range(2)], axis=2)
+        np.testing.assert_array_equal(o["all_to_all_grad"], grad)
+
+
 @pytest.mark.parametrize("family, top_k", [("gpt2", 2), ("llama", 2),
                                            ("gpt2", 3)])
 def test_moe_step_is_bit_deterministic(cuda, family, top_k):

@@ -1,7 +1,8 @@
 """The ``decode_bench`` twin on the CPU: its paged, disaggregated and
 scenario legs at ``--dryrun`` exit 0 and carry their invariant fields, and
-``--cpu-devices`` is refused (the other modes:
-``tests/test_torch_decode_bench_legs.py``).
+``--cpu-devices`` other than 2 is refused (the other modes:
+``tests/test_torch_decode_bench_legs.py``; the two ranks:
+``tests/test_torch_decode_bench_ranks.py``).
 
 The legs' clock is replaced by a counter that advances 1 ms per read, so
 their latencies and rates count steps, not this host's load: the timing
@@ -87,11 +88,12 @@ def test_serving_scenarios_legs(capsys):
 
 @pytest.mark.parametrize("argv, item", [
     (["--serving-paged", "--cpu-devices", "8"], "--device cpu"),
-    (["--cpu-devices", "2"], "virtual-device mesh"),
+    (["--cpu-devices", "3"], "virtual-device mesh"),
 ])
 def test_other_modes_are_refused_naming_their_item(argv, item):
-    """Every mode of the JAX script runs since the last slice
-    (tests/test_torch_decode_bench_legs.py); only the virtual-device mesh
-    is still refused."""
+    """Every mode of the JAX script runs (tests/test_torch_decode_bench_
+    legs.py), and ``--cpu-devices 2`` starts the multi-rank sub-legs' two
+    gloo CPU ranks (tests/test_torch_decode_bench_ranks.py); a virtual
+    mesh of any other size is refused."""
     with pytest.raises(SystemExit, match=item):
         decode_bench.parse_args(argv)

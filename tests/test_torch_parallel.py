@@ -184,7 +184,7 @@ def test_mesh_config_matches_jax_field_for_field():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(tensor=2), "tensor_dropout"), (dict(seq=2), "7(c)"),
+    (dict(tensor=2), "tensor_dropout"), (dict(seq=2), "ring-attention"),
     (dict(pipe=2), "7(d)"), (dict(expert=2), "7(e)"),
     (dict(prefetch_buffers=1), "7(d)"),
 ], ids=["tensor", "seq", "pipe", "expert", "prefetch"])
@@ -192,10 +192,10 @@ def test_unported_axes_raise_naming_their_item(kw, item):
     JaxMeshConfig(**kw)  # JAX takes them
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
                        .replace(")", r"\)")):
-        if "tensor" in kw:
-            # The tensor axis trains (item 7(f), done); what stays refused
-            # under it is JAX's: attention dropout with tensor_dropout
-            # "reject".
+        if "tensor" in kw or "seq" in kw:
+            # The tensor and seq axes train (items 7(f) and 7(c), done);
+            # what stays refused under them is JAX's: attention dropout
+            # with tensor_dropout "reject", and with the ring.
             cfg = ModelConfig(**dict(MODEL_KW, attn_pdrop=0.1))
             make_parallel_train_step(
                 get_model(cfg), cfg, make_optimizer(TrainConfig()), None,

@@ -344,12 +344,19 @@ def test_parallel_twin_trains_at_tensor2_on_cpu_ranks(tmp_path):
 
 
 @pytest.mark.parametrize("argv, item", [
-    (["--mesh", "seq=2"], "7(c)"), (["--mesh", "pipe=2"], "7(d)"),
+    (["--mesh", "seq=2", "--preset", "tiny"], "ring-attention"),
+    (["--mesh", "pipe=2"], "7(d)"),
     (["--mesh", "expert=2"], "7(e)"), (["--path", "pipeline"], "7(d)"),
     (["--pipe-schedule", "1f1b"], "7(d)"),
-    (["--seq-impl", "ulysses"], "7(c)"),
+    (["--mesh", "seq=8", "--seq-impl", "ulysses", "--preset", "tiny",
+      "--no-dropout"], "divide both head counts"),
 ], ids=["seq", "pipe", "expert", "pipeline", "1f1b", "ulysses"])
 def test_parallel_twin_refuses_what_is_not_ported(argv, item):
+    """What the twin refuses before any rank starts: the axes and paths
+    not ported (naming their items), and since the seq axis is ported
+    (item 7(c)) what the explicit step refuses under it, as JAX does: the
+    ring with attention dropout (the tiny preset draws it), and Ulysses
+    with a seq size that does not divide the heads (tiny: 4)."""
     from pytorch_distributed_tpu_torch.train import parallel
 
     with pytest.raises(SystemExit, match=item.replace("(", r"\(")
