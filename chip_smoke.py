@@ -7,7 +7,7 @@ plain versions.
 Phases (each prints one JSON line; any failure raises and exits nonzero
 with no final line). They run in the order 1-3, profiling_train and
 profiling_serve (13), 7-9, 4-6d, 10-12, the rest of 13, the two
-decode_bench twin phases, 15, 16, 16b/17/17b, 14: the phases whose profiler
+decode_bench twin phases, 15, 16, 16b/17/17b-17d, 14: the phases whose profiler
 traces are counted first, while the process is young (PERF.md section
 7).
 
@@ -274,16 +274,18 @@ traces are counted first, while the process is young (PERF.md section
     --rank-legs only`` (the two multi-rank sub-legs, each on two gloo
     ranks sharing cuda:0: serving_spec_tp's outputs equal and no steady
     loads, asserted by the twin; zero3_decode's row), which gate nothing
-    on time, beside phases 15-17c: each exits 0 (its asserted checks
+    on time, beside phases 15-17d: each exits 0 (its asserted checks
     held), K3 launched on ``--serving-spec``, on serving_spec_tp and K4 on
     the quant leg.
 The decode_bench twin and ``--serving-spec``, which gate times, run
-    alone. Then 16-17c run side by side with the storm (15,
+    alone. Then 16-17d run side by side with the storm (15,
     ``storm_in_background``: it gates no time, and its workers are mostly
     torch start-up) and the five untimed decode_bench runs above
     (``late_phases``: none of them gates a time), while this script runs
-    the one-rank references of 17, 17b and 17c (a ``side_by_side`` line: the
-    block's wall and its children). Every time 15-17c report is
+    the one-rank references of 17, 17b, 17c and 17d (a ``side_by_side``
+    line: the block's wall, its children, and ``ends_s``: each gloo
+    part's end on each rank and the references' end, in s from the
+    block's start). Every time 15-17d report is
     contended: taken with the others on the same card and host.
 15. train_storm (slice 12) — the supervisor twin, ``python -m
     pytorch_distributed_tpu_torch.train.supervisor --dryrun --steps 10``,
@@ -309,8 +311,11 @@ The decode_bench twin and ``--serving-spec``, which gate times, run
     2: both ranks' losses equal and within ``DDP_GLOO2_LOSS_ATOL`` of
     ddp_nccl's one-rank losses, K1 = K2 = 12 a step on each rank,
     full_shard's resident params and moments (allocator bytes) at most
-    ``DDP_RESIDENT_RATIO`` of no_shard's; ms a step and peak bytes
-    printed (gloo stages collectives through the host: no NCCL claim).
+    ``DDP_RESIDENT_RATIO`` of no_shard's, and a third leg, full_shard at
+    ``prefetch_buffers=1`` (the layer scan's prefetch window, 2 layers),
+    bit-equal to full_shard in its losses, params and moments; ms a step
+    and peak bytes printed (gloo stages collectives through the host: no
+    NCCL claim).
 17. tp_serve (slice 14), each rank a subprocess of this script
     (``--gloo-worker tp_serve``): two gloo ranks sharing cuda:0,
     ``MeshConfig(tensor=2)``, seed 0, against the one-rank paged engine
@@ -360,6 +365,28 @@ The decode_bench twin and ``--serving-spec``, which gate times, run
     12 n_layer all-to-alls; the ring: 3 n_layer exchanges, no kernel); the
     GPT-2 ring state saved at seq 2 restored at seq 1 bit for bit. ms a
     step reported (contended).
+17d. pipe_train (slice 17), the tp_serve ranks' second part (its Llama
+    leg the 17b ranks' fourth part, so that both pairs end about
+    together): pipeline
+    parallelism through the ``DistributedTrainer`` on ``path="pipeline"``
+    at ``MeshConfig(pipe=2)`` (rank 0 stage 0, rank 1 stage 1), 2 steps a
+    leg — GPT-2 124M at full depth (bf16, flash, names, dropout 0; 6
+    layers a stage) with GPipe and with 1F1B, M = 4 micro-batches of
+    [2, 1024] (ddp_nccl's first 2 batches), and Llama-3.2-1B widths at 4
+    layers with 1F1B, M = 2 micro-batches of [1, 4096]; every hop a CUDA
+    tensor staged through the host. Gates: both stages' losses identical
+    and within ``DDP_GLOO2_LOSS_ATOL`` of one rank's ``Trainer`` on the
+    same micro-batches and accumulation (run by this script meanwhile),
+    each step's gradient norm and the final params', mu's and nu's norms
+    (per layer, per other entry) within ``PIPE_STATE_RTOL`` of its;
+    K1/K2 launches and pipe sends a step on each stage equal to the
+    counts ``pipeline.pipe_counts`` derives; the GPT-2 1F1B state saved
+    at pipe 2 (each stage its layers) restored on one rank bit for bit.
+    Reported: GPipe against 1F1B, resident and peak bytes a stage against
+    one rank's, ms a step (contended). The flash phase (7) also holds
+    K1/K2 at the GPT-2 micro-batch (``PIPE_FLASH_SHAPES``). The rank_legs
+    decode_bench run's ``zero3_decode`` at ``prefetch_buffers=1`` must
+    give prefetch 0's tokens.
 14. The kernels line (K3, K4, K1, K2 and the LoRA delta kernel; K1/K2
     with ``slice13_paths``, their launches in the data-parallel legs, and
     ``slice12_paths``, their launches in train_guard's steps and runs;
@@ -373,8 +400,9 @@ The decode_bench twin and ``--serving-spec``, which gate times, run
     tp_serve leg, and K3/K4 with ``tp_local_shapes``, their times at a
     rank's local heads; K1/K2 with ``tp_train_paths``, their launches on
     each tp_train leg, and ``tp_local_shapes``, and with ``seq_paths``,
-    their launches on each seq_train leg, and ``seq_local_shapes``), after
-    a ``walls`` line
+    their launches on each seq_train leg, and ``seq_local_shapes``, and
+    with ``pipe_paths``, their launches on each stage of each pipe_train
+    leg, and ``pipe_local_shapes``), after a ``walls`` line
     (every phase's wall and end, in seconds), then ``{"ok": true,
     "device": {...}}`` last.
 
@@ -397,6 +425,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -2827,6 +2856,12 @@ TP_FLASH_SHAPES = (
 SEQ_FLASH_SHAPES = (
     ("llama3.2-1B-ulysses2", 1, 16, 4, 8192, 64),
 )
+# K1/K2 at a pipeline micro-batch (phase 17d): GPT-2 124M at [2, 1024]
+# (M = 4 micro-batches of the global 8). The Llama leg's [1, 4096] is
+# flash_long's T 4096 row.
+PIPE_FLASH_SHAPES = (
+    ("gpt2-124M-pipe-mb", 2, 12, 12, 1024, 64),
+)
 # The kernels line's ``seq_local_shapes``: each Ulysses leg's K1/K2 shape
 # and the flash phase's row that holds it.
 SEQ_LOCAL_SHAPES = {"gpt2-124M-ulysses2": "gpt2-124M-tp2",
@@ -2835,7 +2870,8 @@ SEQ_LOCAL_SHAPES = {"gpt2-124M-ulysses2": "gpt2-124M-tp2",
 
 def flash_phase(fk, dev, flush, seed) -> dict:
     """K1 and K2 against their plain versions at the listed shapes in f32
-    and bf16, then at ``TP_FLASH_SHAPES`` and ``SEQ_FLASH_SHAPES`` in bf16
+    and bf16, then at ``TP_FLASH_SHAPES``, ``SEQ_FLASH_SHAPES`` and
+    ``PIPE_FLASH_SHAPES`` in bf16
     (plain versions by KV head past T 2048), with kernel, plain, bound and
     SDPA times. Returns those shapes' rows by shape and kernel."""
     shapes = [
@@ -2849,7 +2885,7 @@ def flash_phase(fk, dev, flush, seed) -> dict:
     cases += [(name, b, h, hkv, t, d, True, torch.bfloat16,
                hkv if t > 2048 else 1)
               for name, b, h, hkv, t, d in TP_FLASH_SHAPES
-              + SEQ_FLASH_SHAPES]
+              + SEQ_FLASH_SHAPES + PIPE_FLASH_SHAPES]
     tp_rows = {}
     for name, b, h, hkv, t, d, causal, dtype, chunks in cases:
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -2863,7 +2899,7 @@ def flash_phase(fk, dev, flush, seed) -> dict:
         row = {kn: {**checked[kn], **timed[kn]} for kn in ("K1", "K2")}
         emit(phase="flash", shape=name, B=b, H=h, Hkv=hkv, T=t, D=d,
              causal=causal, dtype=str(dtype).replace("torch.", ""), **row)
-        if name.endswith(("-tp2", "-ulysses2")):
+        if name.endswith(("-tp2", "-ulysses2", "-pipe-mb")):
             tp_rows[name] = dict(B=b, H=h, Hkv=hkv, T=t, D=d,
                                  dtype="bfloat16", **row)
         del q, k, v, do
@@ -4029,7 +4065,7 @@ def throughput_phase(seed, smi) -> dict:
 @dataclasses.dataclass(frozen=True)
 class DecodeBenchRun:
     """One run of the decode_bench twin: its flags; ``side_by_side``:
-    whether it runs beside phases 15-17c (``late_phases``; none of its
+    whether it runs beside phases 15-17d (``late_phases``; none of its
     legs asserts a time ratio) or alone; ``modes``: each mode it runs,
     with the prefix of that mode's rows' ``leg``."""
 
@@ -4106,7 +4142,8 @@ def emit_decode_bench_run(smi, name: str, rows: list, wall: float,
 def decode_bench_twin_2_paths(runs: dict) -> dict:
     """Each mode's kernel launches (``DECODE_BENCH_RUNS``' modes) from
     every run's rows (``runs``: name -> rows); K3 must be launched on
-    ``--serving-spec``, K4 on the quant leg."""
+    ``--serving-spec``, K4 on the quant leg, and ``zero3_decode``'s
+    ``prefetch_buffers=1`` row must give prefetch 0's tokens."""
     legs = {}
     for run, spec in DECODE_BENCH_RUNS.items():
         for mode, prefix in spec.modes.items():
@@ -4126,6 +4163,12 @@ def decode_bench_twin_2_paths(runs: dict) -> dict:
     if not legs["serving_spec_tp"]["K3"]:
         raise AssertionError(f"serving_spec_tp launched no K3: "
                              f"{legs['serving_spec_tp']}")
+    prefetch = [r for r in runs["rank_legs"]
+                if r.get("leg") == "zero3_decode"
+                and r.get("prefetch_buffers") == 1]
+    if len(prefetch) != 1 or not prefetch[0]["tokens_equal_prefetch0"]:
+        raise AssertionError(f"zero3_decode prefetch_buffers=1: "
+                             f"{prefetch} (want prefetch 0's tokens)")
     return legs
 
 
@@ -4514,8 +4557,8 @@ def _ddp_model(seed: int, world: int):
 
 def _ddp_leg(trainer, loader, fk, zero, profiler=None) -> dict:
     """Train ``loader`` through the trainer's loop from a fresh state;
-    the launches, collectives, step times, allocator bytes and the final
-    state."""
+    the launches, collectives, step times, each step's gradient norm,
+    allocator bytes and the final state."""
     gc.collect()  # what earlier legs left to the collector goes now
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -4525,9 +4568,19 @@ def _ddp_leg(trainer, loader, fk, zero, profiler=None) -> dict:
     torch.cuda.reset_peak_memory_stats()
     fk.launches.update(forward=0, backward=0)
     c0 = zero.collectives
+    norms, step_fn = [], trainer.train_step
+
+    def step(state, batch):
+        state, m = step_fn(state, batch)
+        norms.append(m["grad_norm"])  # read after the loop: no sync here
+        return state, m
+
+    trainer.train_step = step
     state, hist = trainer.train(loader, state=state, profiler=profiler)
+    trainer.train_step = step_fn
     elapsed = [h["elapsed_s"] for h in hist]
     return dict(state=state, losses=[h["loss"] for h in hist],
+                grad_norms=[float(g) for g in norms],
                 ms_per_step=[(b - a) * 1e3 for a, b in
                              zip([0.0] + elapsed[:-1], elapsed)],
                 launches=dict(fk.launches),
@@ -4537,11 +4590,13 @@ def _ddp_leg(trainer, loader, fk, zero, profiler=None) -> dict:
 
 
 def _ddp_legs(model, cfg, tcfg, loader, dev, world: int, strategies,
-              ref=None) -> dict:
+              ref=None, keep: str | None = None):
     """Each strategy's 3 steps through the ``DistributedTrainer``'s loop
-    over data (no_shard) or fsdp (the others) of ``world`` ranks on the
-    global batches; with ``ref`` (a state) whether the params equal
-    its."""
+    over data (no_shard) or fsdp (the others; "full_shard_prefetch1":
+    full_shard with the layer scan's prefetch window, ``prefetch_buffers``
+    1) of ``world`` ranks on the global batches; with ``ref`` (a state)
+    whether the params and moments equal its. ``keep``: a strategy whose
+    final state is returned beside the legs."""
     from pytorch_distributed_tpu_torch.config import MeshConfig
     from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
     from pytorch_distributed_tpu_torch.parallel import zero
@@ -4551,10 +4606,13 @@ def _ddp_legs(model, cfg, tcfg, loader, dev, world: int, strategies,
     )
     from pytorch_distributed_tpu_torch.utils import tree
 
-    legs = {}
+    legs, kept = {}, None
     for strategy in strategies:
         mcfg = (MeshConfig(data=world, strategy=strategy)
                 if strategy == "no_shard" else
+                MeshConfig(fsdp=world, strategy="full_shard",
+                           prefetch_buffers=1)
+                if strategy == "full_shard_prefetch1" else
                 MeshConfig(fsdp=world, strategy=strategy))
         trainer = DistributedTrainer(model, cfg, tcfg,
                                      make_mesh(mcfg, device=dev), mcfg,
@@ -4565,12 +4623,17 @@ def _ddp_legs(model, cfg, tcfg, loader, dev, world: int, strategies,
         state = leg.pop("state")
         if ref is not None:
             leg["params_equal"] = all(
-                torch.equal(a, b) for a, b in zip(tree.leaves(state.params),
-                                                  tree.leaves(ref.params)))
+                torch.equal(a, b) for a, b in zip(
+                    tree.leaves([state.params, state.opt_state["mu"],
+                                 state.opt_state["nu"]]),
+                    tree.leaves([ref.params, ref.opt_state["mu"],
+                                 ref.opt_state["nu"]])))
         legs[strategy] = leg
+        if strategy == keep:
+            kept = state
         del trainer, state
         torch.cuda.empty_cache()
-    return legs
+    return legs if keep is None else (legs, kept)
 
 
 def ddp_worker(workdir: str, seed: int) -> int:
@@ -4746,12 +4809,19 @@ def ddp_gloo2_phase(smi, reps: list, wall: float,
     losses equal, each within ``DDP_GLOO2_LOSS_ATOL`` of one rank at the
     same global batch (ddp_nccl's Trainer), K1/K2 12 a step on each rank,
     full_shard's resident params and moments at most
-    ``DDP_RESIDENT_RATIO`` of no_shard's on each rank. gloo stages every
+    ``DDP_RESIDENT_RATIO`` of no_shard's on each rank; full_shard at
+    ``prefetch_buffers=1`` (the layer scan's window of 2) bit-equal to
+    full_shard, losses, params and moments, on each rank. gloo stages every
     collective through the host: no time here is a claim about NCCL. The
     legs (``_ddp_gloo2_part``) run first in the ranks that then run
     tp_train's (``late_phases``)."""
     legs = {f"{name}_rank{r['rank']}": _leg_row(leg)
             for r in reps for name, leg in r["legs"].items()}
+    prefetch = [r["legs"]["full_shard_prefetch1"] for r in reps]
+    for r, leg in zip(reps, prefetch):
+        legs[f"full_shard_prefetch1_rank{r['rank']}"]["bit_equal"] = (
+            leg["params_equal"]
+            and leg["losses"] == r["legs"]["full_shard"]["losses"])
     res = dict(wall_s=wall, backend=reps[0]["backend"], legs=legs,
                one_rank_losses=one_rank_losses,
                max_loss_diff=max(abs(a - b) for leg in legs.values()
@@ -4780,6 +4850,11 @@ def ddp_gloo2_phase(smi, reps: list, wall: float,
     if max(res["resident_ratio"]) > DDP_RESIDENT_RATIO:
         raise AssertionError(f"ddp_gloo2: full_shard resident "
                              f"{res['resident_ratio']} of no_shard's")
+    for r in range(TP_WORLD):
+        if not legs[f"full_shard_prefetch1_rank{r}"]["bit_equal"]:
+            raise AssertionError(
+                f"ddp_gloo2 rank {r}: prefetch_buffers=1 is not bit-equal "
+                f"to full_shard: {legs[f'full_shard_prefetch1_rank{r}']}")
     return res
 
 
@@ -4909,7 +4984,7 @@ def gloo_worker(parts: list, workdir: str, seed: int) -> int:
         out = GLOO_PARTS[part](dev, seed, workdir, rank)
         out.update(rank=rank, world=dist.get_world_size(),
                    backend=dist.get_backend(),
-                   wall_s=time.perf_counter() - t0)
+                   wall_s=time.perf_counter() - t0, ended_at=time.time())
         with open(f"{workdir}/{part}_{rank}.json", "w") as f:
             json.dump(out, f)
     dist.destroy_process_group()
@@ -4918,12 +4993,17 @@ def gloo_worker(parts: list, workdir: str, seed: int) -> int:
 
 def _ddp_gloo2_part(dev, seed: int, workdir: str, rank: int) -> dict:
     """ddp_gloo2's legs (``_ddp_legs``): no_shard over data 2, full_shard
-    over fsdp 2."""
+    over fsdp 2, then full_shard at ``prefetch_buffers=1`` held to
+    full_shard's final state."""
     from pytorch_distributed_tpu_torch.models import get_model
 
     cfg, tcfg, loader = _ddp_model(seed, TP_WORLD)
-    return dict(legs=_ddp_legs(get_model(cfg), cfg, tcfg, loader, dev,
-                               TP_WORLD, ("no_shard", "full_shard")))
+    model = get_model(cfg)
+    legs, state = _ddp_legs(model, cfg, tcfg, loader, dev, TP_WORLD,
+                            ("no_shard", "full_shard"), keep="full_shard")
+    legs.update(_ddp_legs(model, cfg, tcfg, loader, dev, TP_WORLD,
+                          ("full_shard_prefetch1",), ref=state))
+    return dict(legs=legs)
 
 
 def _tp_serve_part(dev, seed: int, workdir: str, rank: int) -> dict:
@@ -5328,9 +5408,126 @@ def _seq_train_part(dev, seed: int, workdir: str, rank: int) -> dict:
     return dict(legs=legs)
 
 
+# Pipeline-parallel training (slice 17): phase 17d's legs, each
+# ``PIPE_STEPS`` steps through the ``DistributedTrainer`` on
+# ``path="pipeline"`` at MeshConfig(pipe=2): (name, schedule, model) —
+# GPT-2 124M at full depth (6 layers a stage), M = 4 micro-batches of
+# [2, 1024] (ddp_nccl's first 2 global batches, cut in four), on the
+# tp_serve pair of gloo ranks (part "pipe_train"), and the Llama leg of
+# 17b's widths at 4 layers, M = 2 micro-batches of [1, 4096], on the 17b
+# pair after seq_train (part "pipe_train_llama"): the two pairs end about
+# together.
+PIPE_STEPS = 2
+# The backward's gate: each step's gradient norm and the final params',
+# mu's and nu's squared norms (per layer, per other entry) against one
+# rank's, relative. A dropped cotangent zeroes a stage's block
+# gradients, a lost head part of the tied wte changes wte's moments, a
+# state left unchanged has zero moments: each differs by O(1).
+PIPE_STATE_RTOL = 1e-3
+PIPE_GPT2_MICRO = 2
+PIPE_LLAMA_M = 2
+PIPE_LEGS = (("gpt2_gpipe", "gpipe", "gpt2"),
+             ("gpt2_1f1b", "1f1b", "gpt2"),
+             ("llama_1f1b", "1f1b", "llama"))
+
+
+def _pipe_model(seed: int, model: str):
+    """(config, train config, loader of micro-batches) of a ``PIPE_LEGS``
+    model; one rank's ``Trainer`` on the same takes the same
+    accumulation."""
+    from pytorch_distributed_tpu_torch.config import TrainConfig
+
+    if model == "gpt2":
+        cfg, tcfg, loader = _ddp_model(seed, 1)
+        m = PIPE_GPT2_MICRO
+        return (cfg, dataclasses.replace(tcfg, micro_batch_size=m,
+                                         num_steps=PIPE_STEPS),
+                [(x[i:i + m], y[i:i + m]) for x, y in loader[:PIPE_STEPS]
+                 for i in range(0, x.shape[0], m)])
+    cfg = llama_cfg(n_layer=TP_TRAIN_LLAMA_LAYERS)
+    tcfg = TrainConfig(global_batch_size=PIPE_LLAMA_M, micro_batch_size=1,
+                       num_steps=PIPE_STEPS, learning_rate=3e-4, seed=seed,
+                       log_every_n_steps=1)
+    rng = np.random.default_rng(seed + 17)
+    t = TP_TRAIN_LLAMA_T
+    return cfg, tcfg, [(rng.integers(0, cfg.vocab_size, (1, t)),
+                        rng.integers(0, cfg.vocab_size, (1, t)))
+                       for _ in range(PIPE_STEPS * PIPE_LLAMA_M)]
+
+
+def _state_norms(state, first_layer: int = 0) -> dict:
+    """Squared norms of ``state``'s params, mu and nu: per global layer
+    id of the blocks it holds (its first ``first_layer``), and per other
+    top-level entry."""
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    trees = [state.params, state.opt_state["mu"], state.opt_state["nu"]]
+
+    def sq(t):
+        return sum(x.float().square().sum().item() for x in tree.leaves(t))
+
+    out = {}
+    for k in state.params:
+        if k == "blocks":
+            for i in range(len(state.params["blocks"])):
+                out[f"blocks/{first_layer + i}"] = [sq(t["blocks"][i])
+                                                    for t in trees]
+        else:
+            out[k] = [sq(t[k]) for t in trees]
+    return out
+
+
+def _pipe_train_part(dev, seed: int, workdir: str, rank: int,
+                     models=("gpt2",)) -> dict:
+    """Each ``PIPE_LEGS`` leg of ``models`` at MeshConfig(pipe=2): losses,
+    gradient norms, the final state's norms (``_state_norms``), K1/K2
+    launches and pipe sends, this rank's stage, ms a step, resident and
+    peak bytes; the GPT-2 1F1B leg's state through ``_tp_checkpoint``."""
+    from pytorch_distributed_tpu_torch.config import MeshConfig
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
+    from pytorch_distributed_tpu_torch.parallel import pipeline, zero
+    from pytorch_distributed_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_distributed_tpu_torch.parallel.sharding import stage_range
+    from pytorch_distributed_tpu_torch.train.distributed_trainer import (
+        DistributedTrainer,
+    )
+
+    legs = {}
+    for name, schedule, model in PIPE_LEGS:
+        if model not in models:
+            continue
+        cfg, tcfg, loader = _pipe_model(seed, model)
+        mcfg = MeshConfig(pipe=TP_WORLD, strategy="no_shard",
+                          pipe_schedule=schedule)
+        t0 = time.perf_counter()
+        mesh = make_mesh(mcfg, device=dev)
+        trainer = DistributedTrainer(get_model(cfg), cfg, tcfg, mesh, mcfg,
+                                     path="pipeline", log_fn=lambda s: None)
+        s0 = pipeline.sends
+        leg = _ddp_leg(trainer, loader, fk, zero)
+        leg.update(sends=pipeline.sends - s0,
+                   stage=mesh.axis_index("pipe"), n_layer=cfg.n_layer,
+                   M=trainer.accum, micro=list(loader[0][0].shape))
+        state = leg.pop("state")
+        leg["state_norms"] = _state_norms(
+            state, stage_range(cfg.n_layer, mesh).start)
+        if name == "gpt2_1f1b":
+            leg["checkpoint"] = _tp_checkpoint(
+                trainer, state, cfg, f"{workdir}/pipe_ckpt", rank)
+        leg["wall_s"] = time.perf_counter() - t0
+        legs[name] = leg
+        del trainer, state
+        torch.cuda.empty_cache()
+    return dict(legs=legs)
+
+
 # ``gloo_worker``'s parts: each phase's legs on a pair of gloo ranks.
 GLOO_PARTS = {"tp_serve": _tp_serve_part, "ddp_gloo2": _ddp_gloo2_part,
-              "tp_train": _tp_train_part, "seq_train": _seq_train_part}
+              "tp_train": _tp_train_part, "seq_train": _seq_train_part,
+              "pipe_train": _pipe_train_part,
+              "pipe_train_llama": functools.partial(_pipe_train_part,
+                                                    models=("llama",))}
 
 
 def _tp_train_llama_ref(fk, seed: int, dev,
@@ -5347,6 +5544,121 @@ def _tp_train_llama_ref(fk, seed: int, dev,
     del leg["state"]
     torch.cuda.empty_cache()
     return _leg_row(leg)
+
+
+def _pipe_ref(fk, seed: int, dev, model: str) -> dict:
+    """A ``PIPE_LEGS`` model on one rank: the single-device ``Trainer``
+    on the same micro-batches and accumulation (its gradient norms and
+    final state's norms beside ``_leg_row``)."""
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.parallel import zero
+    from pytorch_distributed_tpu_torch.train.trainer import Trainer
+
+    cfg, tcfg, loader = _pipe_model(seed, model)
+    leg = _ddp_leg(Trainer(get_model(cfg), cfg, tcfg, device=dev,
+                           log_fn=lambda s: None), loader, fk, zero)
+    norms = _state_norms(leg.pop("state"))
+    torch.cuda.empty_cache()
+    return dict(_leg_row(leg), grad_norms=leg["grad_norms"],
+                state_norms=norms)
+
+
+def pipe_train_phase(smi, reports: list, one_rank: dict) -> dict:
+    """Pipeline-parallel training on the two gloo ranks sharing cuda:0
+    (``_pipe_train_part``: stage 0 and stage 1; ``reports``: both parts'
+    reports of each rank) against one rank on the
+    same micro-batches and accumulation (``one_rank``: ``_leg_row``s by
+    model). Gates: both stages' losses identical, within
+    ``DDP_GLOO2_LOSS_ATOL`` of one rank's, finite; each step's gradient
+    norm and the final state's norms within ``PIPE_STATE_RTOL`` of one
+    rank's, every layer held by a stage; K1/K2 launches and pipe
+    sends a step on each stage equal to ``pipeline.pipe_counts``; the
+    GPT-2 state saved at pipe 2 restored on one rank bit for bit.
+    Reported: GPipe against 1F1B, resident bytes a stage over one rank's,
+    peak bytes, ms a step (contended, host-staged: not scored)."""
+    from pytorch_distributed_tpu_torch.parallel.pipeline import pipe_counts
+
+    res = dict(world=TP_WORLD, backend=reports[0]["backend"], legs={})
+    failures = []
+    for name, schedule, model in PIPE_LEGS:
+        ref = one_rank[model]
+        rows = sorted((r["legs"][name] for r in reports if name in r["legs"]),
+                      key=lambda r: r["stage"])
+        steps = len(rows[0]["losses"])
+        losses = rows[0]["losses"]
+        diff = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+        per_step = [dict(K1=r["launches"]["forward"] / steps,
+                         K2=r["launches"]["backward"] / steps,
+                         sends=r["sends"] / steps) for r in rows]
+        derived = [pipe_counts(schedule, r["stage"], TP_WORLD, r["n_layer"],
+                               r["M"]) for r in rows]
+        row = dict(
+            schedule=schedule, M=rows[0]["M"], micro_batch=rows[0]["micro"],
+            losses=losses, one_rank_losses=ref["losses"],
+            max_loss_diff=diff,
+            ranks_identical=all(r["losses"] == losses for r in rows),
+            launches=[r["launches"] for r in rows],
+            per_step=per_step, derived_per_step=derived,
+            ms_per_step=[r["ms_per_step"] for r in rows],
+            one_rank_ms_per_step=ref["ms_per_step"],
+            resident_bytes=[r["resident_bytes"] - r["base_bytes"]
+                            for r in rows],
+            one_rank_resident_bytes=ref["resident_bytes"],
+            peak_bytes=[r["peak_bytes"] for r in rows],
+            one_rank_peak_bytes=ref["peak_bytes"],
+            wall_s=[r["wall_s"] for r in rows])
+        row["resident_ratio"] = [b / ref["resident_bytes"]
+                                 for b in row["resident_bytes"]]
+
+        def rel(a, b):
+            return abs(a - b) / abs(b) if b else abs(a)
+
+        row.update(grad_norms=rows[0]["grad_norms"],
+                   one_rank_grad_norms=ref["grad_norms"],
+                   max_grad_norm_rel_diff=max(
+                       rel(a, b) for r in rows for a, b in
+                       zip(r["grad_norms"], ref["grad_norms"])))
+        worst = max(((rel(a, b), key) for r in rows
+                     for key, v in r["state_norms"].items()
+                     for a, b in zip(v, ref["state_norms"][key])))
+        row.update(max_state_rel_diff=worst[0], worst_state_entry=worst[1],
+                   state_entries=sorted(set().union(
+                       *(r["state_norms"] for r in rows))))
+        if row["state_entries"] != sorted(ref["state_norms"]):
+            failures.append(f"{name}: the stages hold {row['state_entries']}"
+                            f", one rank {sorted(ref['state_norms'])}")
+        if not (row["max_grad_norm_rel_diff"] <= PIPE_STATE_RTOL
+                and worst[0] <= PIPE_STATE_RTOL
+                and len(rows[0]["grad_norms"]) == len(losses)):
+            failures.append(
+                f"{name}: gradient norms {[r['grad_norms'] for r in rows]}"
+                f" vs one rank's {ref['grad_norms']}; the state's worst "
+                f"entry {worst[1]} at {worst[0]:.3g} (limit "
+                f"{PIPE_STATE_RTOL})")
+        if not row["ranks_identical"]:
+            failures.append(f"{name}: the stages' losses differ: "
+                            f"{[r['losses'] for r in rows]}")
+        if not np.isfinite(losses).all() or diff > DDP_GLOO2_LOSS_ATOL:
+            failures.append(f"{name}: losses {losses} vs one rank's "
+                            f"{ref['losses']}")
+        if per_step != derived:
+            failures.append(f"{name}: a step's counts {per_step}, derived "
+                            f"{derived}")
+        if "checkpoint" in rows[0]:
+            ck = row["checkpoint"] = rows[0]["checkpoint"]
+            if not ck.get("bit_equal"):
+                failures.append(f"{name}: the pipe-2 save restored on one "
+                                f"rank is not bit-equal: {ck}")
+        res["legs"][name] = row
+    gp, fb = res["legs"]["gpt2_gpipe"], res["legs"]["gpt2_1f1b"]
+    res["gpipe_vs_1f1b_max_loss_diff"] = max(
+        abs(a - b) for a, b in zip(gp["losses"], fb["losses"]))
+    res["stage0_peak_1f1b_over_gpipe"] = (fb["peak_bytes"][0]
+                                          / gp["peak_bytes"][0])
+    emit(phase="pipe_train", nvidia_smi=smi, failures=failures, **res)
+    if failures:
+        raise AssertionError(f"pipe_train: {failures}")
+    return res
 
 
 def tp_train_phase(smi, reports: list, one_rank: dict) -> dict:
@@ -5467,13 +5779,16 @@ def seq_train_phase(smi, reports: list, one_rank: dict) -> dict:
 
 def late_phases(pk, fk, seed: int, dev, smi) -> dict:
     """Phases 16 (ddp_nccl), 16b (ddp_gloo2), 17 (tp_serve), 17b
-    (tp_train) and 17c (seq_train), with the decode_bench twin's runs that
-    gate nothing on time (``DecodeBenchRun.side_by_side``), side by side
-    (``run_children``): ddp_nccl's NCCL rank, two pairs of gloo ranks on
-    cuda:0 (``gloo_worker``: one runs tp_serve, the other ddp_gloo2,
-    tp_train then seq_train) and five decode_bench runs — while this
-    process runs the one-rank references (tp_serve's engines, the Llama
-    training leg at T 4096 and at T 8192). The GPT-2 training legs'
+    (tp_train), 17c (seq_train) and 17d (pipe_train), with the
+    decode_bench twin's runs that gate nothing on time
+    (``DecodeBenchRun.side_by_side``), side by side (``run_children``):
+    ddp_nccl's NCCL rank, two pairs of gloo ranks on cuda:0
+    (``gloo_worker``: one runs tp_serve then pipe_train's GPT-2 legs, the
+    other ddp_gloo2, tp_train, seq_train then pipe_train's Llama leg) and
+    five decode_bench runs — while
+    this process runs the one-rank references (tp_serve's engines, the
+    Llama training leg at T 4096 and at T 8192, the pipeline legs' GPT-2
+    and Llama at their accumulation). The other GPT-2 training legs'
     one-rank reference is ddp_nccl's ``Trainer``.
     The storm (15) runs beside them too (``storm_in_background``, started
     by the caller). Every time these phases report is taken with the
@@ -5485,23 +5800,29 @@ def late_phases(pk, fk, seed: int, dev, smi) -> dict:
         return dict(serve=serve, serve_s=serve_s,
                     llama=_tp_train_llama_ref(fk, seed, dev),
                     llama_long=_tp_train_llama_ref(
-                        fk, seed, dev, t=SEQ_ULYSSES_LLAMA_T))
+                        fk, seed, dev, t=SEQ_ULYSSES_LLAMA_T),
+                    pipe={m: _pipe_ref(fk, seed, dev, m)
+                          for m in ("gpt2", "llama")})
 
     side_by_side = [name for name, run in DECODE_BENCH_RUNS.items()
                     if run.side_by_side]
     torch.cuda.empty_cache()
+    started = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         children = {**_rank_children(["--ddp-worker", "nccl"], 1, seed, tmp,
                                      "ddp_nccl"),
-                    **_rank_children(["--gloo-worker", "tp_serve"],
+                    **_rank_children(["--gloo-worker",
+                                      "tp_serve,pipe_train"],
                                      TP_WORLD, seed, tmp, "tp_serve"),
                     **_rank_children(
-                        ["--gloo-worker", "ddp_gloo2,tp_train,seq_train"],
+                        ["--gloo-worker",
+                         "ddp_gloo2,tp_train,seq_train,pipe_train_llama"],
                         TP_WORLD, seed, tmp, "tp_train"),
                     **{name: decode_bench_child(name, tmp)
                        for name in side_by_side}}
-        wall, refs = run_children(children, 900, "phases 16-17b",
-                                  while_running=references)
+        wall, refs = run_children(
+            children, 900, "phases 16-17d",
+            while_running=lambda: dict(references(), ended_at=time.time()))
         with open(f"{tmp}/ddp_nccl_0.json") as f:
             nccl = json.load(f)
         reports = {part: _read_part(tmp, part) for part in GLOO_PARTS}
@@ -5513,8 +5834,13 @@ def late_phases(pk, fk, seed: int, dev, smi) -> dict:
         for name in side_by_side:
             with open(f"{tmp}/{name}.json") as f:
                 bench[name] = json.load(f)
+    # Where the block's wall goes: each gloo part's end on each rank and
+    # the one-rank references' end, in s from the block's start.
+    ends = {f"{part}_rank{r['rank']}": r["ended_at"] - started
+            for part, rows in reports.items() for r in rows}
+    ends["references"] = refs["ended_at"] - started
     emit(phase="side_by_side", nvidia_smi=smi, wall_s=wall,
-         children=list(children))
+         children=list(children), ends_s=ends)
     for name, rows in bench.items():
         emit_decode_bench_run(smi, name, rows, wall, True)
     out = dict(decode_bench=bench, ddp_nccl=ddp_nccl_phase(smi, nccl, wall))
@@ -5529,6 +5855,9 @@ def late_phases(pk, fk, seed: int, dev, smi) -> dict:
     out["seq_train"] = seq_train_phase(smi, reports["seq_train"], dict(
         gpt2_ring=gpt2, gpt2_ulysses=gpt2, llama_ring=refs["llama"],
         llama_ulysses=refs["llama_long"]))
+    out["pipe_train"] = pipe_train_phase(
+        smi, reports["pipe_train"] + reports["pipe_train_llama"],
+        refs["pipe"])
     return out
 
 
@@ -5818,9 +6147,9 @@ def main() -> int:
 
     slice11_paths = decode_bench_twin_2_paths(dict(late["decode_bench"],
                                                    serving_spec=spec_rows))
-    ddp_nccl, ddp_gloo2, tp, tp_train, seq_train = (
+    ddp_nccl, ddp_gloo2, tp, tp_train, seq_train, pipe_train = (
         late["ddp_nccl"], late["ddp_gloo2"], late["tp"], late["tp_train"],
-        late["seq_train"])
+        late["seq_train"], late["pipe_train"])
     slice13_paths = {
         **{f"ddp_nccl_{name}_{DDP_STEPS}_steps": leg["launches"]
            for name, leg in ddp_nccl["legs"].items()},
@@ -5882,7 +6211,19 @@ def main() -> int:
                  {k: v for k, v in tp_flash_rows[src].items()
                   if k not in ("K1", "K2")}, **tp_flash_rows[src][kn],
                  **({"same_as": src} if src != shape else {}))
-                 for shape, src in SEQ_LOCAL_SHAPES.items()})
+                 for shape, src in SEQ_LOCAL_SHAPES.items()},
+             # Each stage's launches on the pipeline legs (all steps),
+             # and the kernel at a GPT-2 micro-batch ([2, 1024]; the
+             # Llama leg's [1, 4096] is llama_paths' T 4096).
+             pipe_paths={
+                 f"pipe_train_{name}_stage{st}_{len(row['losses'])}_steps":
+                     launches[direction]
+                 for name, row in pipe_train["legs"].items()
+                 for st, launches in enumerate(row["launches"])},
+             pipe_local_shapes={shape: dict(
+                 {k: v for k, v in tp_flash_rows[shape].items()
+                  if k not in ("K1", "K2")}, **tp_flash_rows[shape][kn])
+                 for shape, *_ in PIPE_FLASH_SHAPES})
         for name, kn, direction, line in (
             ("flash_forward", "K1", "forward", 92),
             ("flash_backward", "K2", "backward", 221),

@@ -274,7 +274,6 @@ def model_config(name: str, **overrides: Any) -> ModelConfig:
 # The mesh axes the port has not taken yet, each with the ROADMAP queue 1
 # item that ports it.
 _AXIS_NOT_PORTED = {
-    "pipe": "ROADMAP queue 1 item 7(d), pipeline parallelism",
     "expert": "ROADMAP queue 1 item 7(e), expert parallelism",
 }
 
@@ -296,12 +295,14 @@ class MeshConfig:
     ``mesh_cfg``). ``seq`` > 1 splits each sequence over that axis in
     training (sequence parallelism: ring or Ulysses attention by the model
     config's ``seq_impl``, ``ops/ring_attention``, ``ops/ulysses``),
-    alone and with the axes above. ``pipe`` and ``expert`` > 1 raise
-    NotImplementedError here, naming the items that port them (7(d),
-    7(e)), and so does
-    ``prefetch_buffers`` > 0 (the JAX layer scan's prefetch window, item
-    7(d); the port's ZeRO-3 decode gathers each layer just in time).
-    ``device_ids``: the CUDA device each mesh rank uses, in rank order
+    alone and with the axes above. ``pipe`` > 1 splits the layers into
+    that many stages (``parallel/pipeline``: GPipe or 1F1B by
+    ``pipe_schedule``), composed with every axis above.
+    ``prefetch_buffers`` > 0 is the layer scan's prefetch window
+    (``ops/layer_scan``): ZeRO-3's per-layer gathers issued a window
+    ahead, in the explicit step and in ZeRO-3 decode. ``expert`` > 1
+    raises NotImplementedError here, naming the item that ports it
+    (7(e)). ``device_ids``: the CUDA device each mesh rank uses, in rank order
     (None: the rank's ``LOCAL_RANK``)."""
 
     data: int = 1
@@ -351,15 +352,9 @@ class MeshConfig:
             if getattr(self, axis) > 1:
                 raise NotImplementedError(
                     f"mesh axis {axis}={getattr(self, axis)} is not ported: "
-                    f"{item}; the port's mesh has the data, fsdp, seq "
-                    "and tensor axes"
+                    f"{item}; the port's mesh has the pipe, data, fsdp, "
+                    "seq and tensor axes"
                 )
-        if self.prefetch_buffers > 0:
-            raise NotImplementedError(
-                f"prefetch_buffers={self.prefetch_buffers} is not ported: "
-                "the layer scan's prefetch window is ROADMAP queue 1 item "
-                "7(d); the port gathers each layer just in time"
-            )
 
     @property
     def num_devices(self) -> int:

@@ -19,7 +19,9 @@ import), so a bf16 array is viewed as int16 and reinterpreted as
 arrays when that type is registered with numpy (JAX has loaded it), else
 the raw uint16 payload.
 
-``opt_state_from_jax`` / ``opt_state_to_jax`` convert the optimizer state
+``stage_params_from_jax`` gives one pipeline stage's params (its layers
+only) from the JAX tree. ``opt_state_from_jax`` / ``opt_state_to_jax``
+convert the optimizer state
 of the JAX chain (``train/optim.make_optimizer``: a tuple holding a
 ``ScaleByAdamState(count, mu, nu)`` and a ``ScaleByScheduleState(count)``)
 to and from the port's ``train/optim`` state, with mu and nu in the same
@@ -93,6 +95,26 @@ def params_from_jax(tree: dict[str, Any], cfg: ModelConfig) -> dict:
     return {
         k: [_map(blocks, lambda x, i=i: _to_torch(np.asarray(x)[i]))
             for i in range(n_layer)]
+        if k == "blocks" else _map(tree[k], _to_torch)
+        for k in keys
+    }
+
+
+def stage_params_from_jax(tree: dict[str, Any], cfg: ModelConfig,
+                          stage: int, n_stages: int) -> dict:
+    """``params_from_jax`` for pipeline stage ``stage`` of ``n_stages``:
+    the blocks of layers ``[stage L/S, (stage+1) L/S)`` only (the JAX
+    pipeline's slice of its stacked leaves), every other entry whole, as
+    ``parallel/pipeline.shard_pipeline_state`` keeps them."""
+    from pytorch_distributed_tpu_torch.parallel.sharding import (
+        layers_of_stage,
+    )
+
+    layers = layers_of_stage(cfg.n_layer, stage, n_stages)
+    keys = _top_level(cfg)
+    return {
+        k: [_map(tree["blocks"], lambda x, i=i: _to_torch(np.asarray(x)[i]))
+            for i in layers]
         if k == "blocks" else _map(tree[k], _to_torch)
         for k in keys
     }

@@ -12,7 +12,8 @@ class ModelApi(NamedTuple):
     init: Callable[..., dict]
     head: Callable[..., object]
     # (params, input_ids [B, T], cfg, *, deterministic, dropout_seed,
-    # return_aux, return_hidden, block_transform, tp_group, seq_group)
+    # return_aux, return_hidden, block_transform, tp_group, seq_group,
+    # prefetch_buffers)
     # -> logits [B, T, V] (or hidden [B, T, E]; with return_aux, a pair
     # with the summed MoE Switch term): the training forward (the JAX
     # ModelApi's ``apply``; ``tp_group`` is its ``tensor_axis``,
@@ -24,6 +25,15 @@ class ModelApi(NamedTuple):
     head_weight: Callable[[dict], tuple]
     # ln_f alone: head() without the vocab product.
     final_norm: Callable[..., object]
+    # The pipeline's phase functions (``parallel/pipeline``; ``apply`` is
+    # built from them): (params, input_ids, cfg, *, seq_group) -> the
+    # embedded [B, T, E] in cfg.dtype (GPT-2: wte + wpe, no dropout);
+    # (blocks, x, cfg, *, block_transform, return_aux, tp_group,
+    # seq_group, dropout_seed, deterministic, layer_offset,
+    # prefetch_buffers) -> x (with return_aux: (x, the layers' Switch
+    # term)) over a list of layers, all of them or a stage's.
+    embed: Callable[..., object]
+    run_blocks: Callable[..., object]
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
@@ -32,13 +42,13 @@ def get_model(cfg: ModelConfig) -> ModelApi:
 
         return ModelApi(gpt2.init, gpt2.head, gpt2.apply,
                         lambda params: (params["wte"], "ve"),
-                        gpt2.final_norm)
+                        gpt2.final_norm, gpt2.embed, gpt2.run_blocks)
     if cfg.family == "llama":
         from pytorch_distributed_tpu_torch.models import llama
 
         return ModelApi(llama.init, llama.head, llama.apply,
                         lambda params: (params["lm_head"], "ev"),
-                        llama.final_norm)
+                        llama.final_norm, llama.embed, llama.run_blocks)
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported (gpt2, llama)"
     )

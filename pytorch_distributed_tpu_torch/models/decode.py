@@ -59,7 +59,9 @@ layout:
   the rows, int8 or adapters. Embeddings, norms and the head are
   replicated, so every rank computes the same logits;
 - ``block_transform`` (ZeRO-3 decode): applied to each layer's params
-  before the layer runs (the just-in-time all-gather of its shards).
+  before the layer runs (the just-in-time all-gather of its shards), the
+  layers looped through ``ops/layer_scan.scan_layers`` so that
+  ``prefetch_buffers`` issues a window of gathers ahead.
 
 Sampling: greedy rows take the float32 argmax; a sampled draw uses a
 ``torch.Generator`` seeded by (request seed, token index), so a sampled
@@ -74,7 +76,8 @@ then one forward per token); ``generate`` is the shim over
 ``generate_tp`` (Megatron-sharded params, a local-head KV cache, the TP
 ``DecodeEngine``) and ``generate_fsdp`` (ZeRO-3: params kept as this
 rank's full_shard slices, each layer all-gathered just in time through
-``parallel/zero``, no prefetch window), each with its ``_monolithic``
+``parallel/zero``, or a window ahead by ``prefetch_buffers``), each
+with its ``_monolithic``
 reference loop. Both take the FULL params on every rank and keep this
 rank's slices; the output is the same on every rank.
 """
@@ -90,6 +93,7 @@ import torch
 from pytorch_distributed_tpu_torch.config import ModelConfig
 from pytorch_distributed_tpu_torch.models import get_model
 from pytorch_distributed_tpu_torch.ops import lora_kernel, paged_kernel
+from pytorch_distributed_tpu_torch.ops.layer_scan import scan_layers
 from pytorch_distributed_tpu_torch.ops.layers import (
     activation,
     dense,
@@ -383,6 +387,7 @@ def forward(
     lane0_alone: bool = False,
     tp_group=None,
     block_transform=None,
+    prefetch_buffers: int = 0,
 ) -> tuple[torch.Tensor, Cache]:
     """Run T tokens per row at positions pos..pos+T-1 through the cache.
     Returns ([B, T, V] logits in ``cfg.logits_dtype``, ``cache``), the
@@ -408,7 +413,9 @@ def forward(
     ``tp_group``: the tensor group of this rank's Megatron-sharded block
     params and local-head cache (module docstring); ``block_transform``:
     a function of each layer's params run before the layer (ZeRO-3's
-    just-in-time gather)."""
+    just-in-time gather), and ``prefetch_buffers`` its prefetch window
+    (``ops/layer_scan``: a window's gathers issued before its first
+    layer; the same logits)."""
     if cfg.family not in ("gpt2", "llama"):
         raise NotImplementedError(
             f"decode.forward serves the gpt2 and llama families, got "
@@ -497,15 +504,18 @@ def forward(
         lora_rows = torch.as_tensor(rows, device=dev).long()
         if t > 1:
             lora_rows = lora_rows.repeat_interleave(t)
-    for layer, bp in enumerate(params["blocks"]):
-        if block_transform is not None:
-            bp = block_transform(bp)
+    def layer_fn(x, bp, layer):
         kv = {name: c[layer] for name, c in cache.items()}
-        x = block(x, bp, kv, pos, slots, cfg, block_tables,
-                  paged_impl=paged_impl, kv_quant=kv_quant,
-                  lora=None if lora is None else lora_layers[layer],
-                  lora_rows=lora_rows, valid=valid, window=window,
-                  alone=alone, tp_group=tp_group)
+        return block(x, bp, kv, pos, slots, cfg, block_tables,
+                     paged_impl=paged_impl, kv_quant=kv_quant,
+                     lora=None if lora is None else lora_layers[layer],
+                     lora_rows=lora_rows, valid=valid, window=window,
+                     alone=alone, tp_group=tp_group)
+
+    x = scan_layers(layer_fn, x, params["blocks"],
+                    list(range(len(params["blocks"]))), remat_mode="none",
+                    block_transform=block_transform,
+                    prefetch_buffers=prefetch_buffers)
     head = get_model(cfg).head
     return _lane0(lambda h: head(params, h, cfg), x, alone=alone), cache
 
@@ -712,7 +722,8 @@ def _generate_loop(params, prompt, cfg, max_new_tokens, temperature, seed,
     heads, one prefill forward, then one single-token forward per token.
     ``top_transform``: a function of the params run before each forward
     (ZeRO-3 gathers the embeddings and the head there); ``fwd_kw`` goes to
-    ``forward`` (``tp_group``, ``block_transform``)."""
+    ``forward`` (``tp_group``, ``block_transform``,
+    ``prefetch_buffers``)."""
     ids = as_prompt(prompt, device)
     b, tp = ids.shape
     sampled = temperature > 0
@@ -818,32 +829,22 @@ def _validate_fsdp_mesh(mesh_cfg) -> None:
 def zero3_transforms(specs, mesh):
     """(top_transform, block_transform) of ZeRO-3 decode over ``mesh``'s
     fsdp group: each all-gathers the sharded leaves of its part of this
-    rank's full_shard params (``parallel/zero.all_gather_dim``, no
-    autograd) — the embeddings, final norm and head once per forward, a
-    layer's leaves just before the layer runs."""
-    from pytorch_distributed_tpu_torch.parallel.sharding import shard_dim
-    from pytorch_distributed_tpu_torch.parallel.zero import all_gather_dim
-    from pytorch_distributed_tpu_torch.utils import tree
-
-    group, n = mesh.axis_group("fsdp"), mesh.cfg.fsdp
-
-    def gather(leaves, leaf_specs):
-        return tree.map_tree2(
-            lambda leaf, spec: leaf if shard_dim(spec) is None else
-            all_gather_dim(leaf, shard_dim(spec), group, n),
-            leaves, leaf_specs)
+    rank's full_shard params (``parallel/zero.LayerGather``) — the
+    embeddings, final norm and head once per forward, a
+    layer's leaves just before the layer runs (or a window ahead, with
+    ``forward``'s ``prefetch_buffers``)."""
+    from pytorch_distributed_tpu_torch.parallel.zero import LayerGather
 
     # Every layer's leaves have the same shapes, hence the same specs.
-    block_specs = specs["blocks"][0]
-    top_specs = {k: v for k, v in specs.items() if k != "blocks"}
+    top_gather = LayerGather({k: v for k, v in specs.items()
+                              if k != "blocks"}, mesh)
 
     def top(params):
-        out = gather({k: v for k, v in params.items() if k != "blocks"},
-                     top_specs)
+        out = top_gather({k: v for k, v in params.items() if k != "blocks"})
         out["blocks"] = params["blocks"]
         return out
 
-    return top, lambda bp: gather(bp, block_specs)
+    return top, LayerGather(specs["blocks"][0], mesh)
 
 
 def _meshed_setup(params, mesh_cfg, device):
@@ -930,8 +931,10 @@ def generate_fsdp(
     mesh, on every rank of the group: each rank keeps its full_shard
     slices (``parallel/sharding``, the layout the ZeRO-3 trainer keeps;
     1/fsdp of the param memory) and all-gathers each layer just in time
-    (``zero3_transforms``; ``prefetch_buffers`` is 0, item 7(d)). The shim
-    over the ZeRO-3 ``DecodeEngine``; MoE configs work unchanged."""
+    (``zero3_transforms``), or a window of layers ahead under
+    ``mesh_cfg.prefetch_buffers`` (``ops/layer_scan``; the same tokens).
+    The shim over the ZeRO-3 ``DecodeEngine``; MoE configs work
+    unchanged."""
     return _meshed_generate("fsdp", params, prompt, cfg, mesh_cfg,
                             max_new_tokens, temperature, seed, max_len,
                             top_k, top_p, device)
@@ -954,4 +957,5 @@ def generate_fsdp_monolithic(
     top, block = zero3_transforms(specs, mesh)
     return _generate_loop(local, prompt, cfg, max_new_tokens, temperature,
                           seed, max_len, top_k, top_p, device,
-                          top_transform=top, block_transform=block)
+                          top_transform=top, block_transform=block,
+                          prefetch_buffers=mesh_cfg.prefetch_buffers)

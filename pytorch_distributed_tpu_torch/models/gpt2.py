@@ -18,7 +18,9 @@ H=n_head, D=head_dim):
   ln_f {scale[E], bias[E]}
 
 The LM head is tied to wte (no separate leaf). ``apply`` is the training
-forward: a Python loop over ``params["blocks"]``, each block wrapped by
+forward, built from the phase functions the pipeline calls (``embed``,
+``run_blocks``, ``final_norm``, ``head``): ``run_blocks`` loops over the
+blocks through ``ops/layer_scan.scan_layers``, each block wrapped by
 ``ops.remat.apply_remat(cfg.remat)``, attention through
 ``ops.attention.multi_head_attention(impl=cfg.attention_impl)``. In
 training mode (``deterministic=False``) it draws the embedding, attention
@@ -29,7 +31,6 @@ after ``attn_proj``, residual after ``mlp_proj``.
 
 from __future__ import annotations
 
-import functools
 from typing import Any
 
 import torch
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 
 from pytorch_distributed_tpu_torch.config import ModelConfig
 from pytorch_distributed_tpu_torch.ops.attention import multi_head_attention
+from pytorch_distributed_tpu_torch.ops.layer_scan import scan_layers
 from pytorch_distributed_tpu_torch.ops.layers import (
     activation,
     dense,
@@ -44,7 +46,7 @@ from pytorch_distributed_tpu_torch.ops.layers import (
     layer_norm,
 )
 from pytorch_distributed_tpu_torch.ops.moe import moe_mlp
-from pytorch_distributed_tpu_torch.ops.remat import apply_remat, checkpoint_name
+from pytorch_distributed_tpu_torch.ops.remat import checkpoint_name
 from pytorch_distributed_tpu_torch.ops.tp import tp_copy
 from pytorch_distributed_tpu_torch.utils import prng
 from pytorch_distributed_tpu_torch.utils.device import resolve_device
@@ -124,25 +126,21 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
-           key: prng.DropoutKey | None, transform=None,
-           tp_group=None, seq_group=None) -> torch.Tensor:
+           key: prng.DropoutKey | None, tp_group=None,
+           seq_group=None) -> torch.Tensor:
     """Pre-norm residual block: x + drop(attn(ln_1(x))); x +
     drop(mlp(ln_2(x))), the MLP dense or, for a MoE config, ``ops/moe``'s
     experts. ``key`` None: deterministic; else the masks of ``layer``
     derive from it. The projections the remat policies keep are tagged as
     in the JAX model (``qkv``, ``attn_proj``, ``mlp_fc``, ``mlp_proj``;
     the naive attention output ``attn_out``). Returns x, or (x, aux) for a
-    MoE config (aux: the layer's Switch term). ``transform``: applied to
-    ``bp`` first, inside the block's checkpoint (``apply``'s
-    ``block_transform``). ``tp_group``: Megatron tensor parallelism over
+    MoE config (aux: the layer's Switch term). ``tp_group``: Megatron tensor parallelism over
     that group (the JAX ``tensor_axis``): ``bp`` holds this rank's heads
     and MLP columns, ``tp_copy`` follows each norm, and the row-parallel
     ``c_proj``s sum their partials over the group before their bias.
     ``seq_group``: the sequence is split over that group (the JAX
     ``seq_axis``): ``x`` holds this rank's tokens, and attention crosses
     the ranks by ``cfg.seq_impl`` (``ops/attention``)."""
-    if transform is not None:
-        bp = transform(bp)
     eps = cfg.layer_norm_epsilon
     det = key is None
     sid = (lambda site: None) if det else (
@@ -184,13 +182,14 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
           deterministic: bool = True,
           dropout_seed: prng.DropoutKey | None = None,
           return_aux: bool = False, return_hidden: bool = False,
-          block_transform=None, tp_group=None, seq_group=None):
+          block_transform=None, tp_group=None, seq_group=None,
+          prefetch_buffers: int = 0):
     """Forward pass: [B, T] token ids -> [B, T, V] logits in
-    ``cfg.logits_dtype``: wte + wpe (cast to ``cfg.dtype``), embedding
-    dropout, n_layer pre-norm blocks (each under ``cfg.remat``), ln_f,
-    tied head. ``deterministic=False`` (training) draws the dropout masks
-    from ``dropout_seed`` and raises without one, as the JAX ``apply``
-    does without a key. ``return_hidden``: the final-norm hidden states
+    ``cfg.logits_dtype``: ``embed``, embedding dropout, ``run_blocks``
+    (n_layer pre-norm blocks, each under ``cfg.remat``), ln_f, tied head.
+    ``deterministic=False`` (training) draws the dropout masks from
+    ``dropout_seed`` and raises without one, as the JAX ``apply`` does
+    without a key. ``return_hidden``: the final-norm hidden states
     [B, T, E] in place of the logits (what ``ops/losses.
     linear_cross_entropy`` consumes). ``return_aux``: also the MoE Switch
     term summed over layers (an f32 scalar, 0 for a dense config). Under
@@ -198,19 +197,44 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
     backward to recompute for. ``block_transform``: a function of one
     layer's params run at the start of that layer, inside its checkpoint
     (ZeRO-3's just-in-time gather, ``parallel/explicit``: a remat mode
-    then gathers again in backward, as JAX's remat does). ``tp_group``:
-    the blocks' tensor group (``_block``); the embeddings, the final norm
-    and the head are replicated, so the logits are the same on every
-    tensor rank. Under it the attention masks take ``dropout_seed``'s
-    ``tensor`` field (``utils/prng``; set by ``parallel/explicit`` under
-    ``tensor_dropout="folded"``). ``seq_group``: ``input_ids`` are this
-    rank's slice of a sequence split over that group (the JAX
-    ``seq_axis``), rank i's the positions ``[i T, (i+1) T)``: its position
-    rows are those, the global length (ranks x T) must fit ``n_ctx``, and
-    the logits are this rank's tokens'."""
+    then gathers again in backward, as JAX's remat does), and
+    ``prefetch_buffers`` its prefetch window (``ops/layer_scan``).
+    ``tp_group``: the blocks' tensor group (``_block``); the embeddings,
+    the final norm and the head are replicated, so the logits are the
+    same on every tensor rank. Under it the attention masks take
+    ``dropout_seed``'s ``tensor`` field (``utils/prng``; set by
+    ``parallel/explicit`` under ``tensor_dropout="folded"``).
+    ``seq_group``: ``input_ids`` are this rank's slice of a sequence split
+    over that group (the JAX ``seq_axis``), rank i's the positions
+    ``[i T, (i+1) T)``: its position rows are those, the global length
+    (ranks x T) must fit ``n_ctx``, and the logits are this rank's
+    tokens'."""
     if not deterministic and dropout_seed is None:
         raise ValueError("training-mode apply() requires dropout_seed")
-    key = None if deterministic else prng.DropoutKey(*dropout_seed)
+    x = embed(params, input_ids, cfg, seq_group=seq_group)
+    if not deterministic:
+        x = embed_dropout(x, cfg, prng.DropoutKey(*dropout_seed))
+    x = run_blocks(params["blocks"], x, cfg, block_transform=block_transform,
+                   return_aux=return_aux, tp_group=tp_group,
+                   seq_group=seq_group, dropout_seed=dropout_seed,
+                   deterministic=deterministic,
+                   prefetch_buffers=prefetch_buffers)
+    x, aux = x if return_aux else (x, None)
+    out = final_norm(params, x, cfg) if return_hidden else \
+        head(params, x, cfg)
+    return (out, aux) if return_aux else out
+
+
+# -- phase functions (pipeline parallelism, ``parallel/pipeline``) ------------
+# The forward split where the pipeline splits it: embed | blocks | head;
+# ``apply`` is built from them, so the two paths cannot drift.
+
+
+def embed(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
+          seq_group=None) -> torch.Tensor:
+    """wte + wpe rows, in ``cfg.dtype``. ``seq_group``: ``input_ids`` are
+    this rank's span of a sequence split over it, whose position rows are
+    taken (``apply``)."""
     t = input_ids.shape[1]
     start, global_t = seq_span(t, seq_group)
     if global_t > cfg.n_ctx:
@@ -218,28 +242,59 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
             f"sequence length {global_t} exceeds n_ctx {cfg.n_ctx}")
     x = F.embedding(input_ids, params["wte"]) + \
         params["wpe"][start:start + t]
-    x = x.to(_dtype(cfg.dtype))
-    if key is not None:
-        x = dropout(x, cfg.embd_pdrop,
-                    prng.stream_id(key, prng.EMBD_LAYER, "embd"),
-                    deterministic=False)
-    remat = cfg.remat if torch.is_grad_enabled() else "none"
-    block = apply_remat(functools.partial(_block, cfg=cfg, key=key,
-                                          transform=block_transform,
-                                          tp_group=tp_group,
-                                          seq_group=seq_group), remat)
-    aux = None
-    for layer, bp in enumerate(params["blocks"]):
-        x = block(x, bp, layer)
-        if cfg.n_experts:
-            x, layer_aux = x
-            aux = layer_aux if aux is None else aux + layer_aux
-    out = final_norm(params, x, cfg) if return_hidden else \
-        head(params, x, cfg)
+    return x.to(_dtype(cfg.dtype))
+
+
+def embed_dropout(x: torch.Tensor, cfg: ModelConfig,
+                  key: prng.DropoutKey) -> torch.Tensor:
+    """The embedding's dropout mask of ``key`` (its stream id's layer is
+    ``prng.EMBD_LAYER``)."""
+    return dropout(x, cfg.embd_pdrop,
+                   prng.stream_id(key, prng.EMBD_LAYER, "embd"),
+                   deterministic=False)
+
+
+def run_blocks(blocks: list, x: torch.Tensor, cfg: ModelConfig, *,
+               block_transform=None, return_aux: bool = False,
+               tp_group=None, seq_group=None,
+               dropout_seed: prng.DropoutKey | None = None,
+               deterministic: bool = True, layer_offset: int = 0,
+               prefetch_buffers: int = 0):
+    """The blocks of ``blocks`` (all of the model's, or a pipeline
+    stage's) over ``x`` through ``ops/layer_scan.scan_layers``, each under
+    ``cfg.remat`` (none under ``torch.no_grad``). Returns x, or with
+    ``return_aux`` (x, the Switch term summed over these layers: an f32
+    scalar, 0 for a dense config). ``layer_offset``: the global id of the
+    first layer, so a stage draws the dropout masks of the global layer
+    ids (``utils/prng.stream_id``), the single-device forward's. The rest
+    as ``apply``."""
+    if not deterministic and dropout_seed is None:
+        raise ValueError("training-mode run_blocks requires dropout_seed")
+    key = None if deterministic else prng.DropoutKey(*dropout_seed)
+    moe = bool(cfg.n_experts)
+
+    def block_fn(carry, bp, layer):
+        h = carry[0] if moe else carry
+        out = _block(h, bp, layer, cfg=cfg, key=key, tp_group=tp_group,
+                     seq_group=seq_group)
+        if not moe:
+            return out
+        h, aux = out
+        return h, carry[1] + aux
+
+    carry = x
+    if moe:
+        carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
+    carry = scan_layers(
+        block_fn, carry, blocks,
+        list(range(layer_offset, layer_offset + len(blocks))),
+        remat_mode=cfg.remat if torch.is_grad_enabled() else "none",
+        block_transform=block_transform, prefetch_buffers=prefetch_buffers)
     if not return_aux:
-        return out
-    return out, aux if aux is not None else torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+        return carry[0] if moe else carry
+    if moe:
+        return carry
+    return carry, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def final_norm(params: Params, x: torch.Tensor,

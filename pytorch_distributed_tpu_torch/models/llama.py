@@ -17,8 +17,10 @@ V=vocab, F=inner_dim, H=n_head, K=kv_heads, D=head_dim:
   ln_f {scale[E]}
   lm_head [E, V]
 
-``apply`` is the training forward (a Python loop over the blocks, each
-under ``ops.remat.apply_remat(cfg.remat)``, attention through
+``apply`` is the training forward, built from the phase functions the
+pipeline calls (``embed``, ``run_blocks``: the blocks through
+``ops/layer_scan.scan_layers``, each under
+``ops.remat.apply_remat(cfg.remat)``, attention through
 ``ops.attention.multi_head_attention``); the family has no dropout, so
 training and eval forwards coincide. The serving forward is
 ``models/decode`` (``_llama_block``).
@@ -26,7 +28,6 @@ training and eval forwards coincide. The serving forward is
 
 from __future__ import annotations
 
-import functools
 from typing import Any
 
 import torch
@@ -35,10 +36,10 @@ import torch.nn.functional as F
 from pytorch_distributed_tpu_torch.config import ModelConfig
 from pytorch_distributed_tpu_torch.models.gpt2 import seq_span
 from pytorch_distributed_tpu_torch.ops.attention import multi_head_attention
+from pytorch_distributed_tpu_torch.ops.layer_scan import scan_layers
 from pytorch_distributed_tpu_torch.ops.layers import rms_norm
 from pytorch_distributed_tpu_torch.ops.moe import moe_mlp
 from pytorch_distributed_tpu_torch.ops.remat import (
-    apply_remat,
     checkpoint_name,
     product,
 )
@@ -102,21 +103,17 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
-           sin: torch.Tensor, *, cfg: ModelConfig, transform=None,
-           tp_group=None, seq_group=None):
+           sin: torch.Tensor, *, cfg: ModelConfig, tp_group=None,
+           seq_group=None):
     """x + wo(attn(rope(q), rope(k), v)) over rms_norm(x); then x +
     swiglu(rms_norm(x)), or the MoE MLP. Returns x, or (x, aux) for a MoE
     config (aux: the layer's Switch term). The products are tagged as in
     the JAX block (``q``, ``k``, ``v``, ``attn_out`` on the naive path,
-    ``attn_proj``, ``mlp_gate``, ``mlp_up``, ``mlp_proj``). ``transform``:
-    applied to ``bp`` first, inside the checkpoint (``gpt2._block``).
-    ``tp_group``: tensor parallelism (``gpt2._block``): this rank's q and
+    ``attn_proj``, ``mlp_gate``, ``mlp_up``, ``mlp_proj``). ``tp_group``: tensor parallelism (``gpt2._block``): this rank's q and
     KV heads (the head counts follow the sharded kernels' widths, so GQA's
     group is kept), SwiGLU's gate and up columns, and ``wo``/``down``
     row-parallel, each summed over the group once. ``seq_group``:
     sequence parallelism (``gpt2._block``)."""
-    if transform is not None:
-        bp = transform(bp)
     eps = cfg.layer_norm_epsilon
     b, t = x.shape[:2]
     d = cfg.head_dim
@@ -158,43 +155,81 @@ def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
 def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
           deterministic: bool = True, dropout_seed=None,
           return_aux: bool = False, return_hidden: bool = False,
-          block_transform=None, tp_group=None, seq_group=None):
+          block_transform=None, tp_group=None, seq_group=None,
+          prefetch_buffers: int = 0):
     """Forward pass: [B, T] token ids -> [B, T, V] logits in
-    ``cfg.logits_dtype`` (the contract of ``gpt2.apply``, its
-    ``block_transform``, ``tp_group`` and ``seq_group`` included; under a
+    ``cfg.logits_dtype``: ``embed``, ``run_blocks``, the head (the
+    contract of ``gpt2.apply``, its ``block_transform``,
+    ``prefetch_buffers``, ``tp_group`` and ``seq_group`` included; under a
     sequence group the RoPE angles start at this rank's first position).
     The family is dropout-free, so ``deterministic`` and ``dropout_seed``
-    change nothing. The RoPE angles are built once per call on the ids'
-    device and shared by every layer. ``return_hidden``: the final-norm
-    hidden states [B, T, E] in place of the logits; ``return_aux``: also
-    the Switch term summed over layers (an f32 scalar, 0 for a dense
-    config)."""
+    change nothing. ``return_hidden``: the final-norm hidden states
+    [B, T, E] in place of the logits; ``return_aux``: also the Switch term
+    summed over layers (an f32 scalar, 0 for a dense config)."""
     del deterministic, dropout_seed
-    t = input_ids.shape[1]
-    start, global_t = seq_span(t, seq_group)
+    x = embed(params, input_ids, cfg, seq_group=seq_group)
+    x = run_blocks(params["blocks"], x, cfg, block_transform=block_transform,
+                   return_aux=return_aux, tp_group=tp_group,
+                   seq_group=seq_group, prefetch_buffers=prefetch_buffers)
+    x, aux = x if return_aux else (x, None)
+    out = final_norm(params, x, cfg) if return_hidden else \
+        head(params, x, cfg)
+    return (out, aux) if return_aux else out
+
+
+# -- phase functions (pipeline parallelism) — see models/gpt2.py --------------
+
+
+def embed(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
+          seq_group=None) -> torch.Tensor:
+    """The token rows in ``cfg.dtype`` (positions are rotary, applied in
+    ``run_blocks``); under ``seq_group`` the global length (ranks x T) is
+    held to ``n_ctx``."""
+    _, global_t = seq_span(input_ids.shape[1], seq_group)
     if global_t > cfg.n_ctx:
         raise ValueError(
             f"sequence length {global_t} exceeds n_ctx {cfg.n_ctx}")
-    x = F.embedding(input_ids, params["wte"]).to(getattr(torch, cfg.dtype))
+    return F.embedding(input_ids, params["wte"]).to(
+        getattr(torch, cfg.dtype))
+
+
+def run_blocks(blocks: list, x: torch.Tensor, cfg: ModelConfig, *,
+               block_transform=None, return_aux: bool = False,
+               tp_group=None, seq_group=None, dropout_seed=None,
+               deterministic: bool = True, layer_offset: int = 0,
+               prefetch_buffers: int = 0):
+    """``gpt2.run_blocks`` for the family: the RoPE angles built once per
+    call on x's device, from this rank's first position under
+    ``seq_group``, and shared by every layer. The dropout arguments are
+    taken for the pipeline's sake and ignored (no dropout here)."""
+    del dropout_seed, deterministic, layer_offset
+    t = x.shape[1]
+    start, _ = seq_span(t, seq_group)
     cos, sin = rope_angles(t, cfg.head_dim, cfg.rope_theta, offset=start,
-                           device=input_ids.device)
-    remat = cfg.remat if torch.is_grad_enabled() else "none"
-    block = apply_remat(functools.partial(_block, cfg=cfg,
-                                          transform=block_transform,
-                                          tp_group=tp_group,
-                                          seq_group=seq_group), remat)
-    aux = None
-    for bp in params["blocks"]:
-        x = block(x, bp, cos, sin)
-        if cfg.n_experts:
-            x, layer_aux = x
-            aux = layer_aux if aux is None else aux + layer_aux
-    out = final_norm(params, x, cfg) if return_hidden else \
-        head(params, x, cfg)
+                           device=x.device)
+    moe = bool(cfg.n_experts)
+
+    def block_fn(carry, bp, _):
+        h = carry[0] if moe else carry
+        out = _block(h, bp, cos, sin, cfg=cfg, tp_group=tp_group,
+                     seq_group=seq_group)
+        if not moe:
+            return out
+        h, aux = out
+        return h, carry[1] + aux
+
+    carry = x
+    if moe:
+        carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
+    carry = scan_layers(
+        block_fn, carry, blocks,
+        remat_mode=cfg.remat if torch.is_grad_enabled() else "none",
+        block_transform=block_transform, prefetch_buffers=prefetch_buffers)
     if not return_aux:
-        return out
-    return out, aux if aux is not None else torch.zeros(
-        (), dtype=torch.float32, device=x.device)
+        return carry[0] if moe else carry
+    if moe:
+        return carry
+    return carry, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def final_norm(params: Params, x: torch.Tensor,

@@ -14,9 +14,11 @@ on its rows of the batch.
   FSDP full_shard (ZeRO-3):
     - each rank holds its shards; the embeddings and the final norm are
       gathered before the forward, each block's leaves at the start of
-      that block (``block_transform``, inside the block's checkpoint: a
-      remat mode gathers again in backward, as JAX's remat does) and
-      dropped after it;
+      that block (``block_transform``, ``zero.LayerGather``, inside the
+      block's checkpoint: a remat mode gathers again in backward, as
+      JAX's remat does) and dropped after it; ``prefetch_buffers`` > 0
+      issues a window of layers' gathers ahead (``ops/layer_scan``), bit
+      for bit the same step;
     - the gather's backward reduce-scatters (``zero.GatherParams``), so
       the shards' gradients arrive summed over fsdp, once per
       micro-batch as in JAX (the forward needs the gathered params, so
@@ -148,6 +150,51 @@ def check_seq(model_cfg: ModelConfig, mesh_cfg: MeshConfig) -> None:
                 "KV heads) otherwise")
 
 
+def _mean_over(ts: list, group, n: int) -> None:
+    if group is None:  # not split over the group: nothing to reduce
+        return
+    for t in ts:
+        zero.all_reduce_(t, group)
+    torch._foreach_div_(ts, n)
+
+
+def reduce_at_boundary(grads: list, loss: torch.Tensor, mesh: Mesh,
+                       p_spec_leaves: list, shard_specs: list):
+    """The accumulation boundary's collectives (module docstring): the
+    gradients (this rank's, summed over its micro-batches and divided by
+    their count; laid out by ``p_spec_leaves``, ZeRO-2 scattering them
+    onto ``shard_specs``) reduced over fsdp by strategy, then data, then
+    seq; the loss over seq, then data and fsdp. Returns (grads, loss),
+    the same on every rank of the batch and seq axes. The pipeline step shares it
+    (``parallel/pipeline``)."""
+    cfg = mesh.cfg
+    f, d, sq = cfg.fsdp, cfg.data, cfg.seq
+    data_group = mesh.axis_group("data") if d > 1 else None
+    seq_group = mesh.axis_group("seq") if sq > 1 else None
+    if cfg.strategy == "full_shard" and f > 1:
+        for g, spec in zip(grads, p_spec_leaves):
+            if shard_dim(spec) is None:
+                zero.all_reduce_(g, mesh.axis_group("fsdp"))
+        torch._foreach_div_(grads, f)
+        _mean_over(grads, data_group, d)
+    elif cfg.strategy == "shard_grad_op" and f > 1:
+        grads = (zero.scatter_grads_bucketed(grads, shard_specs, mesh,
+                                             cfg.rs_buckets)
+                 if cfg.rs_buckets > 0 else
+                 zero.scatter_grads(grads, shard_specs, mesh))
+        torch._foreach_div_(grads, f)
+        _mean_over(grads, data_group, d)
+    else:
+        _mean_over(grads, mesh.batch_group, data_parallel_size(cfg))
+    _mean_over(grads, seq_group, sq)
+    if seq_group is not None:
+        loss = zero.all_reduce_(loss.clone(), seq_group) / sq
+    if mesh.batch_group is not None:
+        loss = zero.all_reduce_(loss.clone(), mesh.batch_group) / \
+            data_parallel_size(cfg)
+    return grads, loss
+
+
 def make_explicit_train_step(
     model: ModelApi,
     model_cfg: ModelConfig,
@@ -179,8 +226,10 @@ def make_explicit_train_step(
         raise ValueError("the explicit step needs a clip-free optimizer "
                          "(make_optimizer(cfg, with_clip=False)); pass "
                          "grad_clip_norm instead")
-    strategy, f, d = mesh_cfg.strategy, mesh_cfg.fsdp, mesh_cfg.data
-    dp = data_parallel_size(mesh_cfg)
+    if mesh_cfg.pipe > 1:
+        raise ValueError("a pipe axis trains on the pipeline path "
+                         "(parallel/pipeline.make_pipeline_train_step)")
+    strategy, f = mesh_cfg.strategy, mesh_cfg.fsdp
     zero3 = strategy == "full_shard" and f > 1
     zero2 = strategy == "shard_grad_op" and f > 1
     sharded_update = strategy in ("shard_grad_op", "shard_opt") and f > 1
@@ -198,17 +247,12 @@ def make_explicit_train_step(
     train_mode = (model_cfg.embd_pdrop > 0 or model_cfg.attn_pdrop > 0
                   or model_cfg.resid_pdrop > 0)
     acc_dtype = getattr(torch, accum_dtype)
-    fsdp_group = mesh.axis_group("fsdp") if f > 1 else None
-    data_group = mesh.axis_group("data") if d > 1 else None
     tp_group = mesh.axis_group("tensor") if mesh_cfg.tensor > 1 else None
-    sq = mesh_cfg.seq
-    seq_group = mesh.axis_group("seq") if sq > 1 else None
-    block_transform = None
-    if zero3:
-        block_specs = p_specs["blocks"][0]
-
-        def block_transform(bp):
-            return zero.gather_params(bp, block_specs, mesh)
+    seq_group = mesh.axis_group("seq") if mesh_cfg.seq > 1 else None
+    block_transform = (zero.LayerGather(p_specs["blocks"][0], mesh)
+                       if zero3 else None)
+    # A window prefetches gathers: there are none outside full_shard.
+    prefetch_buffers = mesh_cfg.prefetch_buffers if zero3 else 0
 
     def loss_and_grads(ps, params_like, inputs, targets, key):
         live = [p.detach().requires_grad_(True) for p in ps]
@@ -223,16 +267,10 @@ def make_explicit_train_step(
         loss = _loss(model, model_cfg, params, inputs, targets,
                      deterministic=not train_mode, key=key,
                      block_transform=block_transform, tp_group=tp_group,
-                     seq_group=seq_group)
+                     seq_group=seq_group,
+                     prefetch_buffers=prefetch_buffers)
         grads = torch.autograd.grad(loss, live)
         return loss.detach(), list(grads)
-
-    def mean_over(ts: list, group, n: int) -> None:
-        if group is None:  # not split over the group: nothing to reduce
-            return
-        for t in ts:
-            zero.all_reduce_(t, group)
-        torch._foreach_div_(ts, n)
 
     def step(state: TrainState, batch: dict):
         inputs, targets = batch["inputs"], batch["targets"]
@@ -269,29 +307,8 @@ def make_explicit_train_step(
         if nan_target is not None:
             loss = torch.where(nan_target, torch.nan, loss)
 
-        # -- the boundary: the step's gradient collectives ---------------
-        if zero3:
-            for g, spec in zip(grads, p_spec_leaves):
-                if shard_dim(spec) is None:
-                    zero.all_reduce_(g, fsdp_group)
-            torch._foreach_div_(grads, f)
-            if data_group is not None:
-                mean_over(grads, data_group, d)
-        elif zero2:
-            grads = (zero.scatter_grads_bucketed(grads, shard_specs, mesh,
-                                                 mesh_cfg.rs_buckets)
-                     if mesh_cfg.rs_buckets > 0 else
-                     zero.scatter_grads(grads, shard_specs, mesh))
-            torch._foreach_div_(grads, f)
-            if data_group is not None:
-                mean_over(grads, data_group, d)
-        else:
-            mean_over(grads, mesh.batch_group, dp)
-        mean_over(grads, seq_group, sq)
-        if seq_group is not None:
-            loss = zero.all_reduce_(loss.clone(), seq_group) / sq
-        if mesh.batch_group is not None:
-            loss = zero.all_reduce_(loss.clone(), mesh.batch_group) / dp
+        grads, loss = reduce_at_boundary(grads, loss, mesh, p_spec_leaves,
+                                         shard_specs)
         grad_norm = zero.global_norm_sharded(grads, norm_specs, mesh)
         metrics = {"loss": loss, "grad_norm": grad_norm}
 

@@ -391,9 +391,12 @@ class Mesh:
     rank computes. ``backend``: the groups' backend. ``batch_group``: the
     ranks that differ only in the rows of the batch they hold (the
     gradients' and the loss's reduction over JAX's data and fsdp axes) —
-    the mesh's group without a tensor or seq axis, else the data x fsdp
-    plane of this rank's tensor and seq indices, None when the batch is
-    not split there."""
+    the mesh's group without a tensor, seq or pipe axis, else the data x
+    fsdp plane of this rank's other indices, None when the batch is
+    not split there. Under a pipe axis ``axis_index("pipe")`` is this
+    rank's stage, and the pipe group joins the ranks that hold the same
+    rows and slices in every stage (``parallel/pipeline``'s hops); the
+    batch group is then a data x fsdp plane too."""
 
     cfg: MeshConfig
     rank: int
@@ -467,7 +470,7 @@ def make_mesh(cfg: MeshConfig, *, group=None,
                 members, timeout=timedelta(seconds=timeout_s),
                 backend=backend, use_local_synchronization=True)
     batch_group = group
-    if cfg.tensor > 1 or cfg.seq > 1:
+    if cfg.tensor > 1 or cfg.seq > 1 or cfg.pipe > 1:
         batch = [ax for ax in ("data", "fsdp") if getattr(cfg, ax) > 1]
         if not batch:
             batch_group = None

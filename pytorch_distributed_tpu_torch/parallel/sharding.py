@@ -39,6 +39,15 @@ along the tensor dim, by its tensor index) — per leaf,
 the same element count as JAX's device shard (per stacked leaf, summed
 over layers). It returns the state and its ``StateSharding``, which
 the step, the checkpoint and the trainer read.
+
+The pipe axis (``parallel/pipeline``; JAX's ``pipeline_state_specs``):
+stage s keeps only layers ``[s L/S, (s+1) L/S)`` of ``params["blocks"]``
+and of the moments (``stage_state``), and every other leaf whole over
+pipe; within the stage the rules above apply unchanged (the tensor rule,
+then the ZeRO ladder over fsdp), so a stage's specs are the ones
+``state_sharding`` gives its own state. A leaf a stage holds alone is a
+block leaf (``staged``): the gradient norm sums it over pipe, and the
+checkpoint keys it by its global layer id (``stage_range``).
 """
 
 from __future__ import annotations
@@ -247,3 +256,47 @@ def local_numel(state: TrainState) -> dict:
         "mu": sum(p.numel() for p in tree.leaves(state.opt_state["mu"])),
         "nu": sum(p.numel() for p in tree.leaves(state.opt_state["nu"])),
     }
+
+
+# -- the pipe axis -------------------------------------------------------------
+
+
+def layers_of_stage(n_layer: int, stage: int, n_stages: int) -> range:
+    """The global ids of the layers pipeline stage ``stage`` of
+    ``n_stages`` holds: ``[stage L/S, (stage+1) L/S)``."""
+    if n_layer % n_stages:
+        raise ValueError(f"n_layer={n_layer} not divisible by "
+                         f"pipe={n_stages} stages")
+    if not 0 <= stage < n_stages:
+        raise ValueError(f"stage {stage} of {n_stages}")
+    per = n_layer // n_stages
+    return range(stage * per, (stage + 1) * per)
+
+
+def stage_range(n_layer: int, mesh) -> range:
+    """The global ids of the layers this rank's pipeline stage holds
+    (all of them without a pipe axis or a mesh)."""
+    n = 1 if mesh is None else mesh.axis_size("pipe")
+    return layers_of_stage(n_layer, mesh.axis_index("pipe") if n > 1 else 0,
+                           n)
+
+
+def stage_state(state: TrainState, mesh) -> TrainState:
+    """``state`` (whole: every layer) with only this stage's layers of the
+    params and of the moments."""
+    layers = stage_range(len(state.params["blocks"]), mesh)
+
+    def cut(tree_):
+        return dict(tree_, blocks=[tree_["blocks"][i] for i in layers])
+
+    opt = dict(state.opt_state)
+    for k in ("mu", "nu"):
+        opt[k] = cut(opt[k])
+    return state._replace(params=cut(state.params), opt_state=opt)
+
+
+def staged(params) -> list:
+    """Per leaf of ``params`` (``tree.leaves`` order): whether it is a
+    block leaf, which a pipeline stage holds alone."""
+    return [path[0] == "blocks" for path, _ in tree.leaves_with_path(params)]
+

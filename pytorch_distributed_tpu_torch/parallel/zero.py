@@ -12,7 +12,11 @@ back (``movedim`` and a contiguous copy: plain tensor ops).
 - ``gather_params`` all-gathers each sharded leaf through ``GatherParams``,
   an autograd function whose backward is the reduce-scatter (sum): the
   transpose pair JAX gets from AD, so a gathered leaf's gradient arrives
-  on the shard already summed over the fsdp ranks.
+  on the shard already summed over the fsdp ranks. ``LayerGather`` is
+  that gather for one layer's leaves as a ``block_transform``, and its
+  ``issue`` starts the same gathers asynchronously (``async_op=True``),
+  each finished by ``WaitGather`` when its layer runs: the prefetch
+  window of ``ops/layer_scan``.
 - ``scatter_grads`` reduce-scatters each sharded leaf (sum) and
   all-reduces the others, and ``scatter_grads_bucketed`` does it in about
   ``n_buckets`` collectives: each leaf's sharded dim moved first and
@@ -25,7 +29,11 @@ back (``movedim`` and a contiguous copy: plain tensor ops).
   tensor dim too (the full leaf, for a checkpoint).
 - ``global_norm_sharded`` sums each leaf's squares once: over the fsdp
   and tensor groups it is sharded on, replicated leaves' on every rank
-  alike.
+  alike; under a pipe axis a stage's own leaves (its layers) are summed
+  over the pipe group too.
+- ``unstage_blocks``: every stage's layers, in order, on every rank of a
+  pipe group (an all-gather per leaf; the checkpoint's and ``evaluate``'s
+  whole model).
 - A leaf that is also tensor-sharded is gathered and scattered along its
   fsdp dim only: the tensor dim is another dim of the same leaf, and each
   tensor rank's fsdp group holds that rank's tensor slices.
@@ -114,6 +122,72 @@ class GatherParams(torch.autograd.Function):
             None, None
 
 
+class _InFlight:
+    """An all-gather started with ``async_op=True``: its work handle and
+    output buffer, kept alive until ``WaitGather`` waits on it."""
+
+    def __init__(self, shard, dim, group, n):
+        src = shard.detach().movedim(dim, 0).contiguous()
+        self.out = src.new_empty((n * src.shape[0], *src.shape[1:]))
+        self.dim, self.group, self.n = dim, group, n
+        _count()
+        self.work = _all_gather(self.out, src, group=group, async_op=True)
+
+
+class WaitGather(torch.autograd.Function):
+    """Forward: wait for ``pending`` (an ``_InFlight`` gather of
+    ``shard``) and return the gathered leaf; backward: reduce-scatter
+    (sum), as ``GatherParams``."""
+
+    @staticmethod
+    def forward(ctx, shard, pending):
+        ctx.dim, ctx.group, ctx.n = pending.dim, pending.group, pending.n
+        pending.work.wait()
+        out = pending.out.movedim(0, pending.dim)
+        pending.out = pending.work = None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.dim, ctx.group, ctx.n), None
+
+
+class LayerGather:
+    """ZeRO-3's ``block_transform`` for one layer's leaves laid out by
+    ``specs``: calling it gathers them now (``gather_params``); ``issue``
+    starts the same gathers without waiting and returns a function that
+    waits and gives the gathered leaves (``ops/layer_scan``'s window).
+    Decode uses it too: leaves that need no gradient record no graph."""
+
+    def __init__(self, specs, mesh):
+        self.specs, self.mesh = specs, mesh
+
+    def __call__(self, bp):
+        return gather_params(bp, self.specs, self.mesh)
+
+    def issue(self, bp):
+        group, n = self.mesh.axis_group("fsdp"), self.mesh.cfg.fsdp
+
+        def start(leaf, spec):
+            dim = shard_dim(spec)
+            return leaf if dim is None else (leaf,
+                                             _InFlight(leaf, dim, group, n))
+
+        pending = tree.map_tree2(start, bp, self.specs)
+        return lambda: _map_pending(
+            lambda p: WaitGather.apply(*p) if isinstance(p, tuple) else p,
+            pending)
+
+
+def _map_pending(fn, t):
+    """``tree.map_tree`` with a (shard, in-flight gather) pair as a leaf."""
+    if isinstance(t, dict):
+        return {k: _map_pending(fn, v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_map_pending(fn, v) for v in t]
+    return fn(t)
+
+
 def gather_params(params, specs, mesh):
     """Each sharded leaf gathered over the fsdp group (differentiable)."""
     n = mesh.cfg.fsdp
@@ -200,16 +274,21 @@ def unshard(shard: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
                           mesh.cfg.tensor)
 
 
-def global_norm_sharded(grads: list, specs: list, mesh) -> torch.Tensor:
+def global_norm_sharded(grads: list, specs: list, mesh,
+                        staged: list | None = None) -> torch.Tensor:
     """The global norm of gradients laid out by ``specs``: each leaf's
     squares summed over exactly the axes it is sharded on (fsdp and/or
-    tensor, one all-reduce per axis per bucket of leaves sharded alike,
-    as JAX's buckets), a replicated leaf counted once. With no sharded
-    leaf it is ``train/optim.global_norm`` itself."""
+    tensor, and pipe for a leaf ``staged`` marks as a stage's own: one
+    all-reduce per axis per bucket of leaves sharded alike, as JAX's
+    buckets), a replicated leaf counted once. With no sharded leaf it is
+    ``train/optim.global_norm`` itself."""
     buckets: dict = {}
-    for g, s in zip(grads, specs):
+    piped = mesh.axis_size("pipe") > 1
+    for i, (g, s) in enumerate(zip(grads, specs)):
         axes = tuple(ax for ax in ("fsdp", "tensor")
                      if ax in s and mesh.axis_size(ax) > 1)
+        if piped and staged is not None and staged[i]:
+            axes = ("pipe",) + axes
         buckets.setdefault(axes, []).append(g)
     if set(buckets) <= {()}:
         return global_norm(buckets.get((), []))
@@ -221,6 +300,22 @@ def global_norm_sharded(grads: list, specs: list, mesh) -> torch.Tensor:
             all_reduce_(val, mesh.axis_group(ax))
         sq = val if sq is None else sq + val
     return sq.sqrt()
+
+
+def unstage_blocks(blocks: list, mesh) -> list:
+    """Every stage's layers in layer order, from each stage's ``blocks``
+    (the same number of layers, shaped alike, on every stage): one
+    all-gather over the pipe group per leaf (no autograd). Without a pipe
+    axis, ``blocks`` itself."""
+    n = mesh.axis_size("pipe")
+    if n == 1:
+        return blocks
+    group = mesh.axis_group("pipe")
+    gathered = [tree.map_tree(
+        lambda t: all_gather_dim(t.detach().unsqueeze(0), 0, group, n), bp)
+        for bp in blocks]
+    return [tree.map_tree(lambda t, s=s: t[s], bp)
+            for s in range(n) for bp in gathered]
 
 
 def clip_by_global_norm_typed(grads: list, grad_norm: torch.Tensor,

@@ -91,8 +91,11 @@ out).
   device kernel (it copies through the host), so over gloo the share is
   not measurable: the row reports it as null with that reason, not as 0
   (one traced trial shows it; the JAX leg's five are taken on NCCL).
-  The ``prefetch_buffers=1`` side is ROADMAP queue 1 item 7(d) (the
-  layer scan's prefetch window) and is skipped, stderr naming it.
+  Both sides run, ``prefetch_buffers`` 0 and 1 (the layer scan's
+  prefetch window, ``ops/layer_scan``: each window's gathers issued
+  before its first layer), built and warmed first and traced in turns,
+  as the JAX leg does; the prefetch-1 row says whether its tokens equal
+  prefetch 0's.
 
 Differences from the JAX script: ``compile_count`` counts CUDA kernel
 libraries loaded (``serving/engine``), so "no steady compiles" means
@@ -1969,19 +1972,20 @@ GLOO_COMM_NOTE = (
 
 
 def _zero3_decode(args) -> list[dict]:
-    """The ``zero3_decode`` rows; the ``prefetch_buffers=1`` side skipped,
-    stderr naming its item."""
-    rows = _rank_leg(args, "zero3_decode")
-    print("zero3_decode prefetch_buffers=1 skipped: the layer scan's "
-          "prefetch window is ROADMAP queue 1 item 7(d)", file=sys.stderr)
-    return rows
+    """The ``zero3_decode`` rows (``prefetch_buffers`` 0 and 1)."""
+    return _rank_leg(args, "zero3_decode")
 
 
 def _zero3_decode_rows(args) -> list[dict]:
-    """``zero3_decode`` at ``prefetch_buffers=0`` on this rank (module
-    docstring; the JAX script's leg)."""
+    """``zero3_decode`` at ``prefetch_buffers`` 0 and 1 on this rank
+    (module docstring; the JAX script's leg): both engines built and
+    warmed first, then each timed, then the traced trials taken in turns
+    (0, 1, 0, 1, ...). The prefetch-1 row also says whether its tokens
+    equal prefetch 0's (``tokens_equal_prefetch0``); each row's
+    ``launches`` are its warm and timed runs'."""
     from pytorch_distributed_tpu_torch.config import MeshConfig
     from pytorch_distributed_tpu_torch.models import decode
+    from pytorch_distributed_tpu_torch.ops.layer_scan import effective_window
     from pytorch_distributed_tpu_torch.profiling.trace_analysis import (
         comm_comp_overlap,
         load_trace,
@@ -2005,70 +2009,87 @@ def _zero3_decode_rows(args) -> list[dict]:
     params = _params(cfg, args)
     rng = np.random.default_rng(seed + 3)
     dev = torch.device(args.device)
-    eng = DecodeEngine(cfg, max_len=zmax_len, buckets=BucketSpec((zbucket,)),
-                       device=dev, mesh_cfg=MeshConfig(
-                           fsdp=RANK_WORLD, strategy="full_shard"))
-    pp = eng._place_params(params)
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (zbatch, zp)),
                              device=dev)
     padded = torch.nn.functional.pad(prompt, (0, zbucket - zp))
     t, k, p = decode.sampling_scalars(0.8, 20, None, cfg.vocab_size)
-    start = _launches()
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    legs = {}
     with torch.no_grad():
-        cache = eng.new_cache(zbatch)
-        tok, _ = eng._prefill(pp, padded, zp, cache, True, t, k, p, seed)
+        for prefetch in (0, 1):
+            start = _launches()
+            eng = DecodeEngine(cfg, max_len=zmax_len,
+                               buckets=BucketSpec((zbucket,)), device=dev,
+                               mesh_cfg=MeshConfig(
+                                   fsdp=RANK_WORLD, strategy="full_shard",
+                                   prefetch_buffers=prefetch))
+            pp = eng._place_params(params)
+            cache = eng.new_cache(zbatch)
+            tok, _ = eng._prefill(pp, padded, zp, cache, True, t, k, p, seed)
 
-        def run():
-            """The JAX leg's ``decode_run``: ``zsteps`` steps from the
-            prompt's end, rewriting the same cache rows each call."""
-            out = tok
-            for i in range(zsteps):
-                out, _ = eng._step(pp, out, cache, zp + i, True, t, k, p,
-                                   seed, i + 1)
-            return out.cpu()  # the fence
+            def run(eng=eng, pp=pp, cache=cache, tok=tok):
+                """The JAX leg's ``decode_run``: ``zsteps`` steps from the
+                prompt's end, rewriting the same cache rows each call."""
+                out, outs = tok, [tok]
+                for i in range(zsteps):
+                    out, _ = eng._step(pp, out, cache, zp + i, True, t, k,
+                                       p, seed, i + 1)
+                    outs.append(out)
+                return torch.stack(outs).cpu()  # the fence
 
-        run()  # warm
-        t0 = time.perf_counter()
-        for _ in range(args.repeats):
-            run()
-        elapsed = time.perf_counter() - t0
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if dev.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        trials = []
+            tokens = run()  # warm
+            t0 = time.perf_counter()
+            for _ in range(args.repeats):
+                run()
+            legs[prefetch] = dict(run=run, tokens=tokens, trials=[],
+                                  elapsed=time.perf_counter() - t0,
+                                  launches=_launches(start))
         with tempfile.TemporaryDirectory() as tmp:
             for i in range(ztrials):
-                with torch.profiler.profile(activities=activities) as prof:
-                    for _ in range(zruns_per_trace):
-                        run()
-                path = os.path.join(tmp, f"trial_{i}.json")
-                prof.export_chrome_trace(path)
-                ov = comm_comp_overlap(load_trace(path))
-                trials.append((ov["overlap_pct"], ov["comm_total_us"]))
-    measured = [tr for tr in trials if tr[1] > 0]
-    med, comm_us = (sorted(measured)[len(measured) // 2] if measured
-                    else (None, 0.0))
-    row = {
-        "leg": "zero3_decode",
-        "prefetch_buffers": 0,
-        "effective_window": 1,
-        "fsdp": RANK_WORLD,
-        "batch": zbatch,
-        "decode_steps": zsteps,
-        "tokens_per_sec": round(args.repeats * zbatch * zsteps / elapsed, 1),
-        "hidden_comm_pct": None if med is None else round(med, 2),
-        "hidden_comm_pct_trials": [None if c == 0 else round(o, 2)
-                                   for o, c in trials],
-        "comm_total_us": round(comm_us),
-        "backend": "gloo",
-        "launches": _launches(start),
-        "platform": _platform(args.device),
-        "device": str(args.device),
-    }
-    if med is None:
-        row["hidden_comm_pct_note"] = (GLOO_COMM_NOTE if gloo else
-                                       "no communication kernel traced")
-    return [row]
+                for prefetch, leg in legs.items():
+                    with torch.profiler.profile(
+                            activities=activities) as prof:
+                        for _ in range(zruns_per_trace):
+                            leg["run"]()
+                    path = os.path.join(tmp, f"trial_{prefetch}_{i}.json")
+                    prof.export_chrome_trace(path)
+                    ov = comm_comp_overlap(load_trace(path))
+                    leg["trials"].append((ov["overlap_pct"],
+                                          ov["comm_total_us"]))
+    rows = []
+    for prefetch, leg in legs.items():
+        trials = leg["trials"]
+        measured = [tr for tr in trials if tr[1] > 0]
+        med, comm_us = (sorted(measured)[len(measured) // 2] if measured
+                        else (None, 0.0))
+        row = {
+            "leg": "zero3_decode",
+            "prefetch_buffers": prefetch,
+            "effective_window": effective_window(prefetch, cfg.n_layer),
+            "fsdp": RANK_WORLD,
+            "batch": zbatch,
+            "decode_steps": zsteps,
+            "tokens_per_sec": round(
+                args.repeats * zbatch * zsteps / leg["elapsed"], 1),
+            "hidden_comm_pct": None if med is None else round(med, 2),
+            "hidden_comm_pct_trials": [None if c == 0 else round(o, 2)
+                                       for o, c in trials],
+            "comm_total_us": round(comm_us),
+            "backend": "gloo",
+            "launches": leg["launches"],
+            "platform": _platform(args.device),
+            "device": str(args.device),
+        }
+        if prefetch:
+            row["tokens_equal_prefetch0"] = bool(torch.equal(
+                leg["tokens"], legs[0]["tokens"]))
+        if med is None:
+            row["hidden_comm_pct_note"] = (GLOO_COMM_NOTE if gloo else
+                                           "no communication kernel traced")
+        rows.append(row)
+    return rows
 
 
 RANK_LEGS = {"serving_spec_tp": _serving_spec_tp_rows,

@@ -175,7 +175,8 @@ rank's slices (``_MeshPlacement``). ``device`` names this rank's device.
 - ``zero3`` (an fsdp-only full_shard mesh; ``DecodeEngine`` only): each
   rank keeps its full_shard slices and all-gathers the embeddings and head
   once per forward and each layer's params just before the layer
-  (``models/decode.zero3_transforms``); no ``weight_quant``.
+  (``models/decode.zero3_transforms``), or a window of layers ahead under
+  the mesh config's ``prefetch_buffers``; no ``weight_quant``.
 
 The TP x ZeRO-3 mixed mesh is refused (``_reject_tp_zero3_mix``), and the
 router and the HTTP door keep plain replicas, as in the JAX package.
@@ -389,8 +390,9 @@ class _MeshPlacement:
     def forward(self, params, *args, **kw):
         """``decode.forward`` under this mode."""
         if self.mode == "zero3":
-            return decode.forward(self._top(params), *args,
-                                  block_transform=self._block, **kw)
+            return decode.forward(
+                self._top(params), *args, block_transform=self._block,
+                prefetch_buffers=self.mesh_cfg.prefetch_buffers, **kw)
         return decode.forward(params, *args, tp_group=self.tp_group, **kw)
 
 

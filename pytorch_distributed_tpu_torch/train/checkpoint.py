@@ -56,8 +56,14 @@ after a barrier rank 0 writes meta.json, a per-file crc32 manifest and
 does, and every rank waits for the swap. A load rebuilds each leaf from
 the shards and keeps the slice the template's sharding gives this rank,
 so a state restores onto any fsdp and tensor size (saved at tensor 2, it
-restores at tensor 1, and back). "npz" on several ranks gathers
-the sharded leaves and only rank 0 writes; "auto" is "orbax" when a leaf
+restores at tensor 1, and back). Under a pipe axis a stage holds only
+its layers (``parallel/sharding.stage_state``): the files are laid out
+over pipe x fsdp x tensor (shard i = (p * fsdp + f) * tensor + t), each
+stage writes its own layers under their global ids, the leaves every
+stage holds are written by stage 0 only, and ``index.json`` names each
+layer's stage; a pipe-2 save restores at pipe 1 and back. "npz" on
+several ranks gathers the sharded leaves (and every stage's layers) and
+only rank 0 writes; "auto" is "orbax" when a leaf
 is sharded, else "npz". **A deliberate difference**: the port's sharded
 directories and JAX's tensorstore ones do not load across (a JAX one is
 refused by name); npz loads both ways. ``prune_checkpoints`` acts on
@@ -67,6 +73,7 @@ rank 0 only.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import tempfile
@@ -225,12 +232,31 @@ def _barrier() -> None:
 
 
 def _is_sharded(sharding) -> bool:
-    """Whether ``sharding`` splits any leaf (over fsdp or tensor)."""
+    """Whether ``sharding`` splits any leaf (over fsdp or tensor, or the
+    layers over pipe stages)."""
     from pytorch_distributed_tpu_torch.parallel.sharding import sharded_axes
 
-    return sharding is not None and any(
+    if sharding is None:
+        return False
+    return sharding.mesh.axis_size("pipe") > 1 or any(
         sharded_axes(s)
         for s in tree.leaves([sharding.params, sharding.opt_state]))
+
+
+def _offset(state: TrainState, sharding) -> int:
+    """The global id of ``state``'s first layer (a pipeline stage's)."""
+    from pytorch_distributed_tpu_torch.parallel.sharding import stage_range
+
+    mesh = sharding and sharding.mesh
+    n_stages = 1 if mesh is None else mesh.axis_size("pipe")
+    return stage_range(len(state.params["blocks"]) * n_stages, mesh).start
+
+
+def _global(path: tuple, offset: int) -> tuple:
+    """A port tree path with a block's local layer index made global."""
+    if offset and len(path) > 1 and path[0] == "blocks":
+        return ("blocks", path[1] + offset, *path[2:])
+    return path
 
 
 def save_checkpoint(directory: str | Path, state: TrainState,
@@ -267,33 +293,41 @@ def save_checkpoint(directory: str | Path, state: TrainState,
 
 def gather_state(state: TrainState, sharding) -> TrainState:
     """The full train state on every rank: each sharded leaf all-gathered
-    over the fsdp group, then over the tensor group (every rank calls
-    it)."""
-    from pytorch_distributed_tpu_torch.parallel.zero import unshard
+    over the fsdp group, then over the tensor group, and every stage's
+    layers over the pipe group (every rank calls it)."""
+    from pytorch_distributed_tpu_torch.parallel.zero import (
+        unshard,
+        unstage_blocks,
+    )
 
     mesh = sharding.mesh
+
+    def whole(t, specs):
+        t = tree.map_tree2(lambda x, s: unshard(x, s, mesh), t, specs)
+        return dict(t, blocks=unstage_blocks(t["blocks"], mesh))
+
     with torch.no_grad():
-        params = tree.map_tree2(lambda t, s: unshard(t, s, mesh),
-                                state.params, sharding.params)
+        params = whole(state.params, sharding.params)
         opt = dict(state.opt_state)
         for k in ("mu", "nu"):
-            opt[k] = tree.map_tree2(lambda t, s: unshard(t, s, mesh),
-                                    opt[k], sharding.opt_state[k])
+            opt[k] = whole(opt[k], sharding.opt_state[k])
     return state._replace(params=params, opt_state=opt)
 
 
 def _sharded_leaves(state: TrainState, sharding):
     """(key, tensor or count, spec) for every leaf of the state, keyed by
-    the port's own tree paths."""
+    the port's own tree paths, a block's by its global layer id."""
+    offset = _offset(state, sharding)
     specs = sharding.params if sharding is not None else None
     for path, t in tree.leaves_with_path(state.params):
-        yield ("/".join(map(str, ("params", *path))), t,
+        yield ("/".join(map(str, ("params", *_global(path, offset)))), t,
                _spec_at(specs, path))
     opt = state.opt_state
     for k in ("mu", "nu"):
         specs = sharding.opt_state[k] if sharding is not None else None
         for path, t in tree.leaves_with_path(opt[k]):
-            yield ("/".join(map(str, ("opt_state", k, *path))), t,
+            yield ("/".join(map(str, ("opt_state", k,
+                                      *_global(path, offset)))), t,
                    _spec_at(specs, path))
     for k in ("count", "schedule_count"):
         yield f"opt_state/{k}", opt[k], ()
@@ -324,8 +358,20 @@ def _payload(v) -> tuple[np.ndarray, str]:
 
 
 # The mesh axes a sharded save lays its files out over: file i holds the
-# blocks of fsdp index i // tensor and tensor index i % tensor.
-_FILE_AXES = ("fsdp", "tensor")
+# blocks of pipe index i // (fsdp x tensor), fsdp index i // tensor % fsdp
+# and tensor index i % tensor.
+_FILE_AXES = ("pipe", "fsdp", "tensor")
+
+
+def _file_index(at: dict, grid: dict) -> int:
+    return (at["pipe"] * grid["fsdp"] + at["fsdp"]) * grid["tensor"] + \
+        at["tensor"]
+
+
+def _stage_key(key: str) -> bool:
+    """Whether ``key`` is a block leaf's (a pipeline stage's own)."""
+    parts = key.split("/")
+    return "blocks" in parts[:3]
 
 
 def _save_sharded(directory: Path, state: TrainState, cfg: ModelConfig,
@@ -344,7 +390,8 @@ def _save_sharded(directory: Path, state: TrainState, cfg: ModelConfig,
           for ax in _FILE_AXES}
     writer = mesh is None or all(
         i == 0 for ax, i in mesh.coords.items() if ax not in _FILE_AXES)
-    file_i = at["fsdp"] * grid["tensor"] + at["tensor"]
+    file_i = _file_index(at, grid)
+    n_local = len(state.params["blocks"])
     directory = directory.resolve()
     tmp = directory.parent / (".tmp_" + directory.name)
     if rank == 0:
@@ -357,21 +404,37 @@ def _save_sharded(directory: Path, state: TrainState, cfg: ModelConfig,
             arrays, index = {}, {}
             for key, v, spec in _sharded_leaves(state, sharding):
                 # One holder a block: index 0 along each axis the leaf is
-                # not split over.
-                if any(at[ax] for ax in _FILE_AXES if ax not in spec):
+                # not split over (a block leaf is split over pipe).
+                split = set(spec) | ({"pipe"} if _stage_key(key) else set())
+                if any(at[ax] for ax in _FILE_AXES if ax not in split):
                     continue
                 arrays[key], dtype = _payload(v)
                 shape = (full_shape(v, spec, mesh.cfg) if mesh is not None
                          else tuple(v.shape)) if torch.is_tensor(v) else ()
-                index[key] = {"shape": list(shape), "dtype": dtype,
-                              "dim": shard_dim(spec) if spec else None,
-                              "axes": list(spec) if spec else None}
+                entry = {"shape": list(shape), "dtype": dtype,
+                         "dim": shard_dim(spec) if spec else None,
+                         "axes": list(spec) if spec else None}
+                if grid["pipe"] > 1 and _stage_key(key):
+                    # Every stage's layers are shaped alike: file 0's
+                    # writer (stage 0) indexes each stage's under its ids.
+                    parts = key.split("/")
+                    i = parts.index("blocks") + 1
+                    layer = int(parts[i])
+                    for s in range(grid["pipe"]):
+                        parts[i] = str(layer + s * n_local)
+                        index["/".join(parts)] = dict(entry, pipe=s)
+                else:
+                    index[key] = entry
             np.savez(tmp / "tree" / f"shard_{file_i}.npz", **arrays)
             if file_i == 0:
                 (tmp / "tree" / "index.json").write_text(json.dumps(
                     {"format": _SHARDED_FORMAT,
-                     "shards": grid["fsdp"] * grid["tensor"],
-                     "grid": grid, "leaves": index}, indent=1))
+                     "shards": math.prod(grid.values()),
+                     # pipe named only when it splits: an index without
+                     # it reads as pipe 1
+                     "grid": {ax: n for ax, n in grid.items()
+                              if ax != "pipe" or n > 1},
+                     "leaves": index}, indent=1))
         _barrier()  # every shard written
         if rank == 0:
             _commit_sharded(tmp, directory, metadata or {})
@@ -385,20 +448,25 @@ def _save_sharded(directory: Path, state: TrainState, cfg: ModelConfig,
 
 def _assemble(files: list, grid: dict, key: str, entry: dict) -> np.ndarray:
     """A leaf of the sharded format whole: its blocks from the files of
-    the grid points along the axes it is split over (``_FILE_AXES``), each
-    put at its place along its dims."""
+    the grid points along the axes it is split over (fsdp, tensor), in
+    its stage's files (``entry["pipe"]``), each put at its place along its
+    dims."""
+    grid = dict({"pipe": 1}, **grid)
+    pipe = entry.get("pipe", 0)
     axes = entry.get("axes")
     if axes is None and entry.get("dim") is not None:  # fsdp alone
         axes = [None] * len(entry["shape"])
         axes[entry["dim"]] = "fsdp"
     if not axes:
-        return files[0][key]
+        return files[_file_index(dict(pipe=pipe, fsdp=0, tensor=0),
+                                 grid)][key]
     ranges = [range(grid[ax]) if ax in axes else range(1)
-              for ax in _FILE_AXES]
+              for ax in ("fsdp", "tensor")]
     full = None
     for f in ranges[0]:
         for t in ranges[1]:
-            block = files[f * grid["tensor"] + t][key]
+            block = files[_file_index(dict(pipe=pipe, fsdp=f, tensor=t),
+                                      grid)][key]
             if full is None:
                 full = np.empty(entry["shape"], block.dtype)
             at = {"fsdp": f, "tensor": t}
@@ -609,10 +677,11 @@ def _restore_like(key: str, got: torch.Tensor, like: torch.Tensor):
 
 
 def _restore_tree(prefix: str, arrays: dict, like_tree, cfg: ModelConfig,
-                  specs=None, mesh=None):
+                  specs=None, mesh=None, offset: int = 0):
     """A port params-shaped tree from the ``prefix/...`` keys, each leaf
     placed and typed like ``like_tree``'s (with ``specs``: this rank's
-    slice of it)."""
+    slice of it; ``offset``: the global id of ``like_tree``'s first
+    layer, a pipeline stage's)."""
     try:
         got = interop.params_from_jax(_unflatten(prefix, arrays), cfg)
     except KeyError as e:
@@ -621,11 +690,12 @@ def _restore_tree(prefix: str, arrays: dict, like_tree, cfg: ModelConfig,
     by_path = dict(tree.leaves_with_path(got))
     out = []
     for path, like in tree.leaves_with_path(like_tree):
-        key = "/".join(map(str, (prefix, *path)))
-        if path not in by_path:
+        gpath = _global(path, offset)
+        key = "/".join(map(str, (prefix, *gpath)))
+        if gpath not in by_path:
             raise KeyError(f"checkpoint missing leaf {key!r}; has "
                            f"{len(arrays)} leaves")
-        got_leaf = by_path[path]
+        got_leaf = by_path[gpath]
         if specs is not None:
             from pytorch_distributed_tpu_torch.parallel.sharding import (
                 shard_slice,
@@ -658,16 +728,17 @@ def load_checkpoint(directory: str | Path, like: TrainState,
     opt = like.opt_state
     sh = sharding if _is_sharded(sharding) else None
     mesh = sh.mesh if sh is not None else None
+    off = _offset(like, sh)
     return TrainState(
         params=_restore_tree("params", arrays, like.params, cfg,
-                             sh and sh.params, mesh),
+                             sh and sh.params, mesh, off),
         opt_state=dict(
             opt,
             count=_restore_count(arrays[f"{_ADAM}/count"], opt["count"]),
             mu=_restore_tree(f"{_ADAM}/mu", arrays, opt["mu"], cfg,
-                             sh and sh.opt_state["mu"], mesh),
+                             sh and sh.opt_state["mu"], mesh, off),
             nu=_restore_tree(f"{_ADAM}/nu", arrays, opt["nu"], cfg,
-                             sh and sh.opt_state["nu"], mesh),
+                             sh and sh.opt_state["nu"], mesh, off),
             schedule_count=_restore_count(arrays[f"{_SCHEDULE}/count"],
                                           opt["schedule_count"]),
         ),
@@ -726,10 +797,12 @@ def _load_sharded(directory: Path, like: TrainState,
                                  for k in guard._fields):
         guard = GuardState(**{k: out[f"guard/{k}"] for k in guard._fields})
 
+    offset = _offset(like, sharding)
+
     def rebuilt(prefix, like_tree):
         return tree.map_tree_with_path(
-            lambda path, _: out["/".join(map(str, (prefix, *path)))],
-            like_tree)
+            lambda path, _: out["/".join(map(
+                str, (prefix, *_global(path, offset))))], like_tree)
 
     opt = like.opt_state
     return TrainState(

@@ -31,9 +31,16 @@
   are whole on every seq rank, and the loss and gradient norm come out
   the same on each.
 
+- Under a pipe axis (``path="pipeline"``, ``parallel/pipeline``) each
+  rank holds its stage's layers; the step is built with a clip-free
+  optimizer and clips against the pipe-aware norm, as JAX's
+  ``init_state`` does; every stage takes the same rows, and ``evaluate``
+  gathers every stage's layers.
+
 ``path``: "auto" or "explicit", the same hand-scheduled step here
-(``parallel/api``); "pipeline" raises, naming ROADMAP queue 1 item 7(d).
-The anomaly guard rides "auto", as in JAX. The async save is a one-rank
+(``parallel/api``), or "pipeline" (GPipe or 1F1B by the mesh config's
+``pipe_schedule``), which a pipe axis needs. The anomaly guard rides
+"auto", as in JAX. The async save is a one-rank
 save here: on several ranks it raises.
 """
 
@@ -58,6 +65,11 @@ from pytorch_distributed_tpu_torch.parallel.explicit import (
     check_seq,
     check_tensor_dropout,
     make_explicit_train_step,
+)
+from pytorch_distributed_tpu_torch.parallel.pipeline import (
+    check_pipeline,
+    make_pipeline_train_step,
+    shard_pipeline_state,
 )
 from pytorch_distributed_tpu_torch.parallel.mesh import (
     Mesh,
@@ -97,9 +109,10 @@ class DistributedTrainer(Trainer):
         if path not in ("auto", "explicit", "pipeline"):
             raise ValueError(f"unknown parallel path {path!r}")
         if path == "pipeline":
-            raise NotImplementedError(
-                "path='pipeline' is not ported: the pipeline step is ROADMAP "
-                "queue 1 item 7(d)")
+            check_pipeline(model_cfg, mesh_cfg)
+        elif mesh_cfg.pipe > 1:
+            raise ValueError(f"a pipe axis trains on path='pipeline', not "
+                             f"path={path!r}")
         if train_cfg.anomaly_guard and path != "auto":
             raise ValueError(
                 f"anomaly_guard is supported on path='auto', not "
@@ -131,9 +144,20 @@ class DistributedTrainer(Trainer):
     def init_state(self) -> TrainState:
         """The full state from the seed (the same on every rank), sharded;
         builds the step."""
+        cfg = self.train_cfg
+        if self.path == "pipeline":
+            state, self.sharding = shard_pipeline_state(
+                super().init_state(), self.mesh)
+            # Clip-free: the step clips against the pipe-aware norm.
+            self.train_step = make_pipeline_train_step(
+                self.model, self.model_cfg,
+                make_optimizer(cfg, with_clip=False), self.mesh,
+                self.mesh_cfg, self.sharding, cfg,
+                grad_clip_norm=cfg.grad_clip_norm,
+                accum_dtype=cfg.accum_dtype, seed=cfg.seed)
+            return state
         state, self.sharding = shard_train_state(super().init_state(),
                                                  self.mesh)
-        cfg = self.train_cfg
         if self.path == "explicit":
             self.train_step = make_explicit_train_step(
                 self.model, self.model_cfg,
@@ -189,6 +213,8 @@ class DistributedTrainer(Trainer):
         with torch.no_grad():
             params = zero.gather_params(state.params, self.sharding.params,
                                         self.mesh)
+            params = dict(params, blocks=zero.unstage_blocks(
+                params["blocks"], self.mesh))
             losses = []
             for i, (inputs, targets) in enumerate(dataloader):
                 if max_batches is not None and i >= max_batches:

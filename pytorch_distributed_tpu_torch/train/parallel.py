@@ -1,6 +1,6 @@
-"""Mesh-parallel training over the data, fsdp, seq and tensor axes: the
-port's twin of the JAX package's ``scripts/train_parallel.py``, with its
-flags, one process per rank:
+"""Mesh-parallel training over the pipe, data, fsdp, seq and tensor
+axes: the port's twin of the JAX package's ``scripts/train_parallel.py``,
+with its flags, one process per rank:
 
     python -m torch.distributed.run --nproc-per-node 4 \\
         -m pytorch_distributed_tpu_torch.train.parallel \\
@@ -9,27 +9,34 @@ flags, one process per rank:
         --cpu-devices 8 --mesh data=2,fsdp=2,tensor=2 --preset tiny \\
         --seq-len 64 --global-batch-size 16 --micro-batch-size 2 \\
         --steps 4 --no-dropout                               # 8 CPU ranks
-    python -m pytorch_distributed_tpu_torch.train.parallel \
-        --cpu-devices 4 --mesh data=2,seq=2 --seq-impl ulysses \
+    python -m pytorch_distributed_tpu_torch.train.parallel \\
+        --cpu-devices 4 --mesh data=2,seq=2 --seq-impl ulysses \\
         --preset tiny --seq-len 64 --no-dropout              # 4 CPU ranks
+    python -m pytorch_distributed_tpu_torch.train.parallel \\
+        --cpu-devices 4 --mesh pipe=2,data=2 --path pipeline \\
+        --pipe-schedule 1f1b --preset tiny --seq-len 64      # 4 CPU ranks
 
 ``--mesh`` names each axis's size (its product is the number of ranks);
 ``--strategy`` is the ZeRO level over fsdp, and a tensor axis is
 Megatron tensor parallelism composed with it, and a seq axis splits
 each sequence over its ranks, attention crossing them by ``--seq-impl``
-(ring or Ulysses; ``parallel/explicit``).
-``--path`` is "auto" or "explicit" (the same hand-scheduled step here,
-``parallel/api``). ``--cpu-devices N`` starts N gloo CPU ranks through the
+(ring or Ulysses; ``parallel/explicit``). ``--path`` is "auto" or
+"explicit" (the same hand-scheduled step here, ``parallel/api``) or
+"pipeline": the layers split over a pipe axis into stages, the
+micro-batches streamed through them by ``--pipe-schedule`` (GPipe or
+1F1B, ``parallel/pipeline``), composed with every other axis. A pipe
+axis needs ``--path pipeline`` and ``--path pipeline`` a pipe axis.
+``--cpu-devices N`` starts N gloo CPU ranks through the
 port's launcher (``parallel/mesh.spawn_ranks``) unless a launcher already
 started them; on cards each rank takes ``cuda:LOCAL_RANK`` and NCCL.
 
-Refused, naming the ROADMAP queue 1 item that ports them: the pipe axis,
-``--path pipeline`` and ``--pipe-schedule 1f1b`` (7(d)), the expert axis
-(7(e)). Refused as the explicit step refuses them, before any rank
-starts (the port's "auto" path is that step): attention dropout under a
-tensor axis, or under a seq axis with the ring (``--no-dropout``, or a
-preset without it), and Ulysses with a seq size that does not divide a
-rank's head counts. Traces: ``outputs/traces/parallel/rank<r>``.
+Refused, naming the ROADMAP queue 1 item that ports it: the expert axis
+(7(e)). Refused as the explicit and pipeline steps refuse them, before
+any rank starts: attention dropout under a tensor axis, or under a seq
+axis with the ring (``--no-dropout``, or a preset without it), Ulysses
+with a seq size that does not divide a rank's head counts, and a layer
+count the stages do not divide. Traces:
+``outputs/traces/parallel/rank<r>``.
 """
 
 from __future__ import annotations
@@ -70,9 +77,9 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_common_args(p, preset="tiny")
     p.add_argument("--mesh", default="data=8",
-                   help="comma-separated axis=size (data, fsdp, seq, "
-                        "tensor; pipe and expert are refused); the product "
-                        "must equal the rank count")
+                   help="comma-separated axis=size (pipe, data, fsdp, seq, "
+                        "tensor; expert is refused); the product must "
+                        "equal the rank count")
     p.add_argument("--strategy", default="full_shard",
                    choices=["full_shard", "shard_grad_op", "shard_opt",
                             "no_shard"])
@@ -81,7 +88,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--n-experts", type=int, default=0)
     p.add_argument("--seq-impl", default="ring", choices=["ring", "ulysses"])
     p.add_argument("--pipe-schedule", default="gpipe",
-                   choices=["gpipe", "1f1b"])
+                   choices=["gpipe", "1f1b"],
+                   help="the pipeline's schedule (--path pipeline)")
     p.add_argument("--no-dropout", action="store_true",
                    help="zero all dropout")
     return p
@@ -92,11 +100,12 @@ def refusals(args, axes: dict) -> str | None:
     for axis, item in _ITEM.items():
         if axes.get(axis, 1) > 1:
             return f"mesh axis {axis}={axes[axis]} is not ported: {item}"
-    if args.path == "pipeline":
-        return f"--path pipeline is not ported: {_ITEM['pipe']}"
-    if args.pipe_schedule != "gpipe":
-        return (f"--pipe-schedule {args.pipe_schedule} is the pipeline's: "
-                f"{_ITEM['pipe']}")
+    pipe = axes.get("pipe", 1) > 1
+    if pipe and args.path != "pipeline":
+        return (f"mesh axis pipe={axes['pipe']} trains on --path pipeline, "
+                f"not --path {args.path}")
+    if args.path == "pipeline" and not pipe:
+        return "--path pipeline requires a pipe>1 mesh axis"
     return None
 
 
@@ -117,16 +126,22 @@ def main(argv=None) -> int:
         check_seq,
         check_tensor_dropout,
     )
+    from pytorch_distributed_tpu_torch.parallel.pipeline import (
+        check_pipeline,
+    )
 
     args = check_args(parser().parse_args(argv), _REFUSED)
     axes = parse_mesh(args.mesh)
     why = refusals(args, axes)
     if why:
         raise SystemExit(why)
-    mesh_cfg = MeshConfig(**axes, strategy=args.strategy)
+    mesh_cfg = MeshConfig(**axes, strategy=args.strategy,
+                          pipe_schedule=args.pipe_schedule)
     try:  # before any rank starts
         check_tensor_dropout(model_cfg_from(args), mesh_cfg)
         check_seq(model_cfg_from(args), mesh_cfg)
+        if args.path == "pipeline":
+            check_pipeline(model_cfg_from(args), mesh_cfg)
     except NotImplementedError as err:
         raise SystemExit(f"{err}; or pass --no-dropout") from None
     except ValueError as err:
@@ -141,7 +156,9 @@ def main(argv=None) -> int:
 
     return run(args, argv, "pytorch_distributed_tpu_torch.train.parallel",
                mesh_cfg_for, "outputs/traces/parallel", "pdtpu.parallel",
-               lambda m: f"mesh={dict(m.shape)} strategy={m.strategy}",
+               lambda m: f"mesh={dict(m.shape)} strategy={m.strategy}" + (
+                   f" pipe_schedule={m.pipe_schedule}" if m.pipe > 1
+                   else ""),
                model_cfg_for=model_cfg_from)
 
 

@@ -110,20 +110,20 @@ from pytorch_distributed_tpu_torch.utils.prng import DropoutKey
 def _loss(model: ModelApi, cfg: ModelConfig, params, inputs, targets, *,
           deterministic: bool = True, key: DropoutKey | None = None,
           with_aux: bool = True, block_transform=None, tp_group=None,
-          seq_group=None):
+          seq_group=None, prefetch_buffers: int = 0):
     """The JAX ``micro_loss``: the forward, then the cross-entropy, fused
     with the head when ``cfg.fused_head_ce``; for a MoE config (and
     ``with_aux``) plus ``moe_aux_coef`` times the Switch term summed over
-    layers. ``block_transform``, ``tp_group`` and ``seq_group``: the
-    forward's (``parallel/explicit``'s per-layer gather, tensor group and
-    sequence group; under the last the loss is the mean over this rank's
-    tokens)."""
+    layers. ``block_transform``, ``prefetch_buffers``, ``tp_group`` and
+    ``seq_group``: the forward's (``parallel/explicit``'s per-layer gather
+    and its prefetch window, tensor group and sequence group; under the
+    last the loss is the mean over this rank's tokens)."""
     aux = bool(cfg.n_experts) and with_aux
     out = model.apply(params, inputs, cfg, deterministic=deterministic,
                       dropout_seed=key, return_aux=aux,
                       return_hidden=cfg.fused_head_ce,
                       block_transform=block_transform, tp_group=tp_group,
-                      seq_group=seq_group)
+                      seq_group=seq_group, prefetch_buffers=prefetch_buffers)
     out, aux_sum = out if aux else (out, None)
     if not cfg.fused_head_ce:
         loss = cross_entropy_loss(out, targets)

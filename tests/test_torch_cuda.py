@@ -701,6 +701,35 @@ def test_seq_exchanges_on_cuda_tensors_over_gloo(cuda, tmp_path):
         np.testing.assert_array_equal(o["all_to_all_grad"], grad)
 
 
+def test_pipe_hops_and_windowed_gathers_on_cuda_tensors_over_gloo(
+        cuda, tmp_path):
+    """Two gloo ranks share cuda:0 (``_torch_pipe_jobs.job_cuda_pipe``):
+    a GPipe and a 1F1B step at pipe 2 (every hop a CUDA tensor staged
+    through the host) give the single-device step's loss and params, with
+    M = 2 sends a step on each stage and the state on the card; one
+    layer's windowed gathers (``LayerGather.issue``, async work handles)
+    give the synchronous gather's leaf and its backward's reduce-scatter
+    bit for bit."""
+    import json
+
+    from _torch_dist_worker import launch
+
+    (tmp_path / "spec.json").write_text("{}")
+    launch("cuda_pipe", 2, tmp_path, timeout_s=300)
+    outs = [json.loads((tmp_path / f"out_{r}.json").read_text())
+            for r in range(2)]
+    for o in outs:
+        for schedule in ("gpipe", "1f1b"):
+            s = o[schedule]
+            assert s["device"] == "cuda:0"
+            assert s["sends"] == 2
+            assert s["loss"] == pytest.approx(s["ref_loss"], abs=1e-5)
+            assert s["max_param_diff"] < 1e-4
+        w = o["window"]
+        assert w["forward_equal"] and w["backward_equal"]
+        assert w["shape"] == [8, 3] and w["device"] == "cuda:0"
+
+
 @pytest.mark.parametrize("family, top_k", [("gpt2", 2), ("llama", 2),
                                            ("gpt2", 3)])
 def test_moe_step_is_bit_deterministic(cuda, family, top_k):

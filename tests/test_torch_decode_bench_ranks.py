@@ -7,7 +7,8 @@ and the limit of the port's rank launcher.
   outputs equal and no steady loads; the ``zero3_decode`` row at
   ``prefetch_buffers=0`` carries the JAX leg's fields, its hidden
   communication share null over gloo (no device kernel to see), with the
-  reason; the ``prefetch_buffers=1`` side is skipped, naming item 7(d).
+  reason; the ``prefetch_buffers=1`` row beside it, window 2, its tokens
+  equal prefetch 0's.
   Neither sub-leg's old skip line (item 4c) is printed.
 - The one-process modes at ``--device cpu`` alone skip both sub-legs,
   saying why (one device).
@@ -54,8 +55,9 @@ def test_rank_legs_on_two_cpu_ranks(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     rows = [json.loads(x) for x in proc.stdout.splitlines()
             if x.startswith("{")]
-    assert [r["leg"] for r in rows] == ["zero3_decode", "serving_spec_tp"]
-    zero3, tp = rows
+    assert [r["leg"] for r in rows] == ["zero3_decode", "zero3_decode",
+                                        "serving_spec_tp"]
+    zero3, zero3_pf, tp = rows
     assert tp["outputs_match"] == f"{tp['requests']}/{tp['requests']}"
     assert tp["requests"] == 4 and tp["mesh"] == "tensor=2"
     assert tp["observed_compile_count_steady"] == 0
@@ -69,8 +71,15 @@ def test_rank_legs_on_two_cpu_ranks(tmp_path):
     assert zero3["hidden_comm_pct"] is None
     assert zero3["hidden_comm_pct_trials"] == [None]
     assert "gloo" in zero3["hidden_comm_pct_note"]
-    assert "prefetch_buffers=1 skipped" in proc.stderr
-    assert "7(d)" in proc.stderr
+    # The prefetch-1 side runs since item 7(d): window 2, prefetch 0's
+    # tokens; nothing is skipped.
+    assert zero3_pf["prefetch_buffers"] == 1
+    assert zero3_pf["effective_window"] == 2
+    assert zero3_pf["tokens_equal_prefetch0"] is True
+    assert zero3_pf["tokens_per_sec"] > 0
+    assert zero3_pf["hidden_comm_pct"] is None
+    assert "skipped" not in proc.stderr
+    assert "7(d)" not in proc.stderr
     assert "4c" not in proc.stderr
 
 

@@ -60,6 +60,9 @@ from pytorch_distributed_tpu_torch.parallel import mesh as pmesh
 from pytorch_distributed_tpu_torch.parallel.api import (
     make_parallel_train_step,
 )
+from pytorch_distributed_tpu_torch.parallel.pipeline import (
+    make_pipeline_train_step,
+)
 from pytorch_distributed_tpu_torch.parallel import sharding
 from pytorch_distributed_tpu_torch.train.optim import make_optimizer
 from pytorch_distributed_tpu_torch.train.state import init_train_state
@@ -185,23 +188,32 @@ def test_mesh_config_matches_jax_field_for_field():
 
 @pytest.mark.parametrize("kw, item", [
     (dict(tensor=2), "tensor_dropout"), (dict(seq=2), "ring-attention"),
-    (dict(pipe=2), "7(d)"), (dict(expert=2), "7(e)"),
-    (dict(prefetch_buffers=1), "7(d)"),
+    (dict(pipe=2, tensor=2), "tensor_dropout"), (dict(expert=2), "7(e)"),
+    (dict(prefetch_buffers=1, expert=2), "7(e)"),
 ], ids=["tensor", "seq", "pipe", "expert", "prefetch"])
 def test_unported_axes_raise_naming_their_item(kw, item):
     JaxMeshConfig(**kw)  # JAX takes them
+    if "prefetch_buffers" in kw:  # the prefetch window is ported (7(d))
+        MeshConfig(prefetch_buffers=kw["prefetch_buffers"])
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
                        .replace(")", r"\)")):
-        if "tensor" in kw or "seq" in kw:
-            # The tensor and seq axes train (items 7(f) and 7(c), done);
-            # what stays refused under them is JAX's: attention dropout
-            # with tensor_dropout "reject", and with the ring.
-            cfg = ModelConfig(**dict(MODEL_KW, attn_pdrop=0.1))
-            make_parallel_train_step(
-                get_model(cfg), cfg, make_optimizer(TrainConfig()), None,
-                MeshConfig(**kw), None)
-        else:
+        if "expert" in kw:
             MeshConfig(**kw)
+        else:
+            # The tensor, seq and pipe axes train (items 7(f), 7(c) and
+            # 7(d), done); what stays refused under them is JAX's:
+            # attention dropout with tensor_dropout "reject" (in-stage
+            # under pipe), and with the ring.
+            cfg = ModelConfig(**dict(MODEL_KW, attn_pdrop=0.1))
+            if "pipe" in kw:
+                make_pipeline_train_step(
+                    get_model(cfg), cfg,
+                    make_optimizer(TrainConfig(), with_clip=False), None,
+                    MeshConfig(**kw), None)
+            else:
+                make_parallel_train_step(
+                    get_model(cfg), cfg, make_optimizer(TrainConfig()),
+                    None, MeshConfig(**kw), None)
 
 
 class _FakeMesh:
