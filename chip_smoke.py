@@ -274,18 +274,18 @@ traces are counted first, while the process is young (PERF.md section
     --rank-legs only`` (the two multi-rank sub-legs, each on two gloo
     ranks sharing cuda:0: serving_spec_tp's outputs equal and no steady
     loads, asserted by the twin; zero3_decode's row), which gate nothing
-    on time, beside phases 15-17d: each exits 0 (its asserted checks
+    on time, beside phases 15-17e: each exits 0 (its asserted checks
     held), K3 launched on ``--serving-spec``, on serving_spec_tp and K4 on
     the quant leg.
 The decode_bench twin and ``--serving-spec``, which gate times, run
-    alone. Then 16-17d run side by side with the storm (15,
+    alone. Then 16-17e run side by side with the storm (15,
     ``storm_in_background``: it gates no time, and its workers are mostly
     torch start-up) and the five untimed decode_bench runs above
     (``late_phases``: none of them gates a time), while this script runs
-    the one-rank references of 17, 17b, 17c and 17d (a ``side_by_side``
+    the one-rank references of 17, 17b, 17c, 17d and 17e (a ``side_by_side``
     line: the block's wall, its children, and ``ends_s``: each gloo
     part's end on each rank and the references' end, in s from the
-    block's start). Every time 15-17d report is
+    block's start). Every time 15-17e report is
     contended: taken with the others on the same card and host.
 15. train_storm (slice 12) — the supervisor twin, ``python -m
     pytorch_distributed_tpu_torch.train.supervisor --dryrun --steps 10``,
@@ -387,6 +387,29 @@ The decode_bench twin and ``--serving-spec``, which gate times, run
     K1/K2 at the GPT-2 micro-batch (``PIPE_FLASH_SHAPES``). The rank_legs
     decode_bench run's ``zero3_decode`` at ``prefetch_buffers=1`` must
     give prefetch 0's tokens.
+17e. expert_train (slice 18), a third pair of gloo ranks on cuda:0:
+    expert parallelism through the ``DistributedTrainer`` at
+    ``MeshConfig(expert=2)`` — GPT-2 124M at full width (f32, flash,
+    names, dropout 0) with 8 experts top-2 at capacity factor 4.0 (no
+    assignment drops), each rank 4 experts of every layer and 2 of the 4
+    rows of a global [4, 1024] batch, 2 steps; the slots cross the ranks
+    by two all-to-alls a MoE layer, staged through the host. Gates, against
+    one rank's ``Trainer`` on the same batches (run by this script
+    meanwhile): both ranks' losses identical and within
+    ``EXPERT_LOSS_ATOL``, each step's gradient norm and the final state's
+    norms (the experts' parts summed over the ranks) within
+    ``PIPE_STATE_RTOL``; the leaves the expert axis does not split
+    bitwise equal on both ranks; all-to-alls a step (6 x n_layer) and
+    K1/K2 a step (n_layer) on each rank equal to the derived counts; the
+    expert-2 save restored on one rank (in host memory) bit for bit;
+    resident bytes a rank under ``EXPERT_RESIDENT_RATIO`` of one rank's.
+    The steps run with the Switch term off (JAX's expert-parallel tests'
+    convention); the loss at init with it on, each token shard's term
+    against the whole batch's, is reported. ms a step reported
+    (contended). The flash phase (7) also holds K1/K2 at an expert rank's
+    shape in f32 (``EXPERT_FLASH_SHAPES``). The leg is f32: in bf16 a
+    rank's GEMM shapes flip near-tied routing decisions against one
+    rank's, so bf16 cannot hold it to one rank.
 14. The kernels line (K3, K4, K1, K2 and the LoRA delta kernel; K1/K2
     with ``slice13_paths``, their launches in the data-parallel legs, and
     ``slice12_paths``, their launches in train_guard's steps and runs;
@@ -402,7 +425,9 @@ The decode_bench twin and ``--serving-spec``, which gate times, run
     each tp_train leg, and ``tp_local_shapes``, and with ``seq_paths``,
     their launches on each seq_train leg, and ``seq_local_shapes``, and
     with ``pipe_paths``, their launches on each stage of each pipe_train
-    leg, and ``pipe_local_shapes``), after a ``walls`` line
+    leg, and ``pipe_local_shapes``, and with ``expert_paths``, their
+    launches on each expert_train rank, and ``expert_local_shapes``),
+    after a ``walls`` line
     (every phase's wall and end, in seconds), then ``{"ok": true,
     "device": {...}}`` last.
 
@@ -2862,6 +2887,11 @@ SEQ_FLASH_SHAPES = (
 PIPE_FLASH_SHAPES = (
     ("gpt2-124M-pipe-mb", 2, 12, 12, 1024, 64),
 )
+# K1/K2 at an expert rank's shape (phase 17e: 2 of the 4 rows of [1024],
+# in f32).
+EXPERT_FLASH_SHAPES = (
+    ("gpt2-124M-expert2-f32", 2, 12, 12, 1024, 64),
+)
 # The kernels line's ``seq_local_shapes``: each Ulysses leg's K1/K2 shape
 # and the flash phase's row that holds it.
 SEQ_LOCAL_SHAPES = {"gpt2-124M-ulysses2": "gpt2-124M-tp2",
@@ -2871,7 +2901,7 @@ SEQ_LOCAL_SHAPES = {"gpt2-124M-ulysses2": "gpt2-124M-tp2",
 def flash_phase(fk, dev, flush, seed) -> dict:
     """K1 and K2 against their plain versions at the listed shapes in f32
     and bf16, then at ``TP_FLASH_SHAPES``, ``SEQ_FLASH_SHAPES`` and
-    ``PIPE_FLASH_SHAPES`` in bf16
+    ``PIPE_FLASH_SHAPES`` in bf16 and ``EXPERT_FLASH_SHAPES`` in f32
     (plain versions by KV head past T 2048), with kernel, plain, bound and
     SDPA times. Returns those shapes' rows by shape and kernel."""
     shapes = [
@@ -2886,6 +2916,8 @@ def flash_phase(fk, dev, flush, seed) -> dict:
                hkv if t > 2048 else 1)
               for name, b, h, hkv, t, d in TP_FLASH_SHAPES
               + SEQ_FLASH_SHAPES + PIPE_FLASH_SHAPES]
+    cases += [(name, b, h, hkv, t, d, True, torch.float32, 1)
+              for name, b, h, hkv, t, d in EXPERT_FLASH_SHAPES]
     tp_rows = {}
     for name, b, h, hkv, t, d, causal, dtype, chunks in cases:
         g = torch.Generator(device=dev).manual_seed(seed)
@@ -2899,9 +2931,11 @@ def flash_phase(fk, dev, flush, seed) -> dict:
         row = {kn: {**checked[kn], **timed[kn]} for kn in ("K1", "K2")}
         emit(phase="flash", shape=name, B=b, H=h, Hkv=hkv, T=t, D=d,
              causal=causal, dtype=str(dtype).replace("torch.", ""), **row)
-        if name.endswith(("-tp2", "-ulysses2", "-pipe-mb")):
+        if name.endswith(("-tp2", "-ulysses2", "-pipe-mb",
+                          "-expert2-f32")):
             tp_rows[name] = dict(B=b, H=h, Hkv=hkv, T=t, D=d,
-                                 dtype="bfloat16", **row)
+                                 dtype=str(dtype).replace("torch.", ""),
+                                 **row)
         del q, k, v, do
     return tp_rows
 
@@ -4065,7 +4099,7 @@ def throughput_phase(seed, smi) -> dict:
 @dataclasses.dataclass(frozen=True)
 class DecodeBenchRun:
     """One run of the decode_bench twin: its flags; ``side_by_side``:
-    whether it runs beside phases 15-17d (``late_phases``; none of its
+    whether it runs beside phases 15-17e (``late_phases``; none of its
     legs asserts a time ratio) or alone; ``modes``: each mode it runs,
     with the prefix of that mode's rows' ``leg``."""
 
@@ -4555,10 +4589,12 @@ def _ddp_model(seed: int, world: int):
     return cfg, tcfg, loader
 
 
-def _ddp_leg(trainer, loader, fk, zero, profiler=None) -> dict:
+def _ddp_leg(trainer, loader, fk, zero, profiler=None,
+             on_step=None) -> dict:
     """Train ``loader`` through the trainer's loop from a fresh state;
     the launches, collectives, step times, each step's gradient norm,
-    allocator bytes and the final state."""
+    allocator bytes and the final state. ``on_step(i, state)``: called
+    with the state after step i (from 1)."""
     gc.collect()  # what earlier legs left to the collector goes now
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
@@ -4573,6 +4609,8 @@ def _ddp_leg(trainer, loader, fk, zero, profiler=None) -> dict:
     def step(state, batch):
         state, m = step_fn(state, batch)
         norms.append(m["grad_norm"])  # read after the loop: no sync here
+        if on_step is not None:
+            on_step(len(norms), state)
         return state, m
 
     trainer.train_step = step
@@ -5257,11 +5295,13 @@ def _tp_train_llama(seed: int, t: int = TP_TRAIN_LLAMA_T):
     return cfg, tcfg, loader
 
 
-def _tp_checkpoint(trainer, state, cfg, path: str, rank: int) -> dict:
-    """``state`` (laid out over the trainer's mesh: tensor 2, or seq 2)
-    saved in the port's sharded format by every rank; rank 0 restores it
-    on one rank (no sharding: the whole state) into a zeroed state and
-    holds it bit for bit to the state gathered over the ranks."""
+def _tp_checkpoint(trainer, state, cfg, path: str, rank: int,
+                   load_on=None) -> dict:
+    """``state`` (laid out over the trainer's mesh: tensor 2, seq 2, pipe
+    2 or expert 2) saved in the port's sharded format by every rank; rank
+    0 restores it on one rank (no sharding: the whole state) into a zeroed
+    state on ``load_on`` (None: the card) and holds it bit for bit to the
+    state gathered over the ranks."""
     from pytorch_distributed_tpu_torch.train import checkpoint as ckpt
     from pytorch_distributed_tpu_torch.train.state import init_train_state
     from pytorch_distributed_tpu_torch.utils import tree
@@ -5274,8 +5314,9 @@ def _tp_checkpoint(trainer, state, cfg, path: str, rank: int) -> dict:
                files=sorted(os.listdir(f"{path}/tree")))
     full = ckpt.gather_state(state, trainer.sharding)
     if rank == 0:
-        zeros = tree.unflatten(full.params, [torch.zeros_like(t) for t in
-                                             tree.leaves(full.params)])
+        zeros = tree.unflatten(full.params, [
+            torch.zeros_like(t, device=load_on)
+            for t in tree.leaves(full.params)])
         t0 = time.perf_counter()
         got = ckpt.load_checkpoint(path, init_train_state(zeros, trainer.tx),
                                    cfg)
@@ -5287,7 +5328,7 @@ def _tp_checkpoint(trainer, state, cfg, path: str, rank: int) -> dict:
 
         out.update(
             leaves=len(leaves(full)), step=got.step,
-            bit_equal=(all(torch.equal(a, b) for a, b in
+            bit_equal=(all(torch.equal(a, b.to(a.device)) for a, b in
                            zip(leaves(got), leaves(full)))
                        and got.step == full.step
                        and got.opt_state["count"] == full.opt_state["count"]))
@@ -5522,12 +5563,180 @@ def _pipe_train_part(dev, seed: int, workdir: str, rank: int,
     return dict(legs=legs)
 
 
+# Expert-parallel training (slice 18, phase 17e): GPT-2 124M at full width
+# with train_moe's experts (8, top-2) at capacity factor 4.0 = X / k, so no
+# assignment drops on either side and the loss gap is defined; a global
+# batch of 4 x [1024] (2 rows a rank at expert 2, no accumulation), 2
+# steps, through the ``DistributedTrainer`` at MeshConfig(expert=2).
+# In f32: a rank's GEMMs run at other shapes than one rank's, and in bf16
+# their one-ulp differences flip near-tied routing decisions (discrete: a
+# token's MoE output changes), which moved the loss by 7.7e-4 at the first
+# step and the state's norms by up to 0.24 after two on the card, so bf16
+# cannot hold the leg to one rank. The Switch term is off in the steps,
+# as in JAX's own expert-parallel tests: under expert parallelism it is
+# each token shard's, another objective; the phase reports the shift at
+# init with it on at the train_moe coefficient ``EXPERT_AUX_COEF``,
+# ungated.
+EXPERT_STEPS = 2
+EXPERT_BATCH = 4
+EXPERT_CAPACITY = 4.0
+EXPERT_AUX_COEF = 0.01
+# The gates: the loss gap to one rank, and resident params and moments a
+# rank over one rank's (the replicated 67.9 M params and half the 453.0 M
+# expert params: 0.565 of the 520.9 M).
+EXPERT_LOSS_ATOL = 1e-3
+EXPERT_RESIDENT_RATIO = 0.65
+
+
+def _expert_model(seed: int, world: int):
+    """(config, train config, loader of global batches) of phase 17e; one
+    rank's ``Trainer`` takes the same batches whole (``world`` 1)."""
+    from pytorch_distributed_tpu_torch.config import (
+        TrainConfig,
+        model_config,
+    )
+
+    cfg = model_config("gpt2", attention_impl="flash", remat="names",
+                       dtype="float32", logits_dtype="float32",
+                       attn_pdrop=0.0, resid_pdrop=0.0, embd_pdrop=0.0,
+                       n_experts=8, moe_top_k=2,
+                       expert_capacity_factor=EXPERT_CAPACITY,
+                       moe_aux_coef=0.0)
+    b, t = EXPERT_BATCH, 1024
+    tcfg = TrainConfig(global_batch_size=b, micro_batch_size=b // world,
+                       num_steps=EXPERT_STEPS, learning_rate=3e-4,
+                       seed=seed, log_every_n_steps=1)
+    rng = np.random.default_rng(seed + 23)
+    loader = [(rng.integers(0, cfg.vocab_size, (b, t)),
+               rng.integers(0, cfg.vocab_size, (b, t)))
+              for _ in range(EXPERT_STEPS)]
+    return cfg, tcfg, loader
+
+
+def _aux_on_loss(model, cfg, params, batch: dict, expert_group=None):
+    """The loss of ``batch``'s first micro-batch (this rank's rows) with
+    the Switch term on at ``EXPERT_AUX_COEF``, averaged over
+    ``expert_group``: each token shard's term under expert parallelism,
+    the whole batch's on one rank."""
+    from pytorch_distributed_tpu_torch.parallel import zero
+    from pytorch_distributed_tpu_torch.train.trainer import _loss
+
+    with torch.no_grad():
+        loss = _loss(model, cfg.replace(moe_aux_coef=EXPERT_AUX_COEF),
+                     params, batch["inputs"][0], batch["targets"][0],
+                     expert_group=expert_group)
+        if expert_group is not None:
+            n = torch.distributed.get_world_size(expert_group)
+            loss = zero.all_reduce_(loss.float(), expert_group) / n
+    return float(loss)
+
+
+def _expert_state_norms(state, sharding) -> dict:
+    """``_state_norms`` of an expert rank's state, each squared norm split
+    in two: [the leaves the expert axis does not split (the same on every
+    rank), this rank's experts (the phase sums them over the ranks)]."""
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    trees = [state.params, state.opt_state["mu"], state.opt_state["nu"]]
+    specs = [sharding.params, sharding.opt_state["mu"],
+             sharding.opt_state["nu"]]
+
+    def sq(t, spec):
+        parts = [0.0, 0.0]
+        for x, s in zip(tree.leaves(t), tree.leaves(spec)):
+            parts["expert" in s] += x.float().square().sum().item()
+        return parts
+
+    out = {}
+    for k in state.params:
+        if k == "blocks":
+            for i in range(len(state.params["blocks"])):
+                out[f"blocks/{i}"] = [sq(t["blocks"][i], s["blocks"][i])
+                                      for t, s in zip(trees, specs)]
+        else:
+            out[k] = [sq(t[k], s[k]) for t, s in zip(trees, specs)]
+    return out
+
+
+def _stacked(batch) -> dict:
+    """A loader's (inputs, targets) [B, T] as a one-micro-batch step batch
+    ([1, B, T] numpy) for a trainer's ``put_batch``."""
+    return {"inputs": batch[0][None], "targets": batch[1][None]}
+
+
+def _expert_train_part(dev, seed: int, workdir: str, rank: int) -> dict:
+    """Phase 17e's leg at MeshConfig(expert=2) through the
+    ``DistributedTrainer``: losses, gradient norms, the final state's
+    split norms (``_expert_state_norms``), a digest of the leaves the
+    expert axis does not split, K1/K2 launches, all-to-alls
+    (``ops/moe``), ms a step, resident and peak bytes, this rank's
+    element counts; the state through ``_tp_checkpoint`` (restored on one
+    rank in host memory)."""
+    import hashlib
+
+    from pytorch_distributed_tpu_torch.config import MeshConfig
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
+    from pytorch_distributed_tpu_torch.ops import moe
+    from pytorch_distributed_tpu_torch.parallel import zero
+    from pytorch_distributed_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_distributed_tpu_torch.parallel.sharding import local_numel
+    from pytorch_distributed_tpu_torch.train.distributed_trainer import (
+        DistributedTrainer,
+    )
+    from pytorch_distributed_tpu_torch.utils import tree
+
+    t0 = time.perf_counter()
+    cfg, tcfg, loader = _expert_model(seed, TP_WORLD)
+    mcfg = MeshConfig(expert=TP_WORLD, strategy="no_shard")
+    mesh = make_mesh(mcfg, device=dev)
+    model = get_model(cfg)
+    trainer = DistributedTrainer(model, cfg, tcfg, mesh, mcfg,
+                                 log_fn=lambda s: None)
+    aux_on = _aux_on_loss(model, cfg, trainer.init_state().params,
+                          trainer.put_batch(_stacked(loader[0])),
+                          mesh.axis_group("expert"))
+    first = {}
+
+    def after(i, state):
+        if i == 1:
+            first.update(_expert_state_norms(state, trainer.sharding))
+
+    a0 = moe.all_to_alls
+    leg = _ddp_leg(trainer, loader, fk, zero, on_step=after)
+    leg.update(aux_on_loss_at_init=aux_on, state_norms_step1=first)
+    leg.update(all_to_alls=moe.all_to_alls - a0, n_layer=cfg.n_layer,
+               accum=trainer.accum, expert=mesh.axis_index("expert"),
+               micro=[tcfg.micro_batch_size, loader[0][0].shape[1]])
+    state = leg.pop("state")
+    leg["state_norms"] = _expert_state_norms(state, trainer.sharding)
+    sh = trainer.sharding
+    digest = hashlib.sha256()
+    for t, spec in zip(
+            tree.leaves([state.params, state.opt_state["mu"],
+                         state.opt_state["nu"]]),
+            tree.leaves([sh.params, sh.opt_state["mu"],
+                         sh.opt_state["nu"]])):
+        if "expert" not in spec:  # the leaves every rank holds whole
+            digest.update(t.detach().contiguous().cpu().numpy().tobytes())
+    leg["replicated_sha256"] = digest.hexdigest()
+    leg["local_numel"] = local_numel(state)
+    leg["checkpoint"] = _tp_checkpoint(trainer, state, cfg,
+                                       f"{workdir}/expert_ckpt", rank,
+                                       load_on="cpu")
+    leg["wall_s"] = time.perf_counter() - t0
+    del trainer, state
+    torch.cuda.empty_cache()
+    return dict(legs={"gpt2_moe": leg})
+
+
 # ``gloo_worker``'s parts: each phase's legs on a pair of gloo ranks.
 GLOO_PARTS = {"tp_serve": _tp_serve_part, "ddp_gloo2": _ddp_gloo2_part,
               "tp_train": _tp_train_part, "seq_train": _seq_train_part,
               "pipe_train": _pipe_train_part,
               "pipe_train_llama": functools.partial(_pipe_train_part,
-                                                    models=("llama",))}
+                                                    models=("llama",)),
+              "expert_train": _expert_train_part}
 
 
 def _tp_train_llama_ref(fk, seed: int, dev,
@@ -5561,6 +5770,33 @@ def _pipe_ref(fk, seed: int, dev, model: str) -> dict:
     torch.cuda.empty_cache()
     return dict(_leg_row(leg), grad_norms=leg["grad_norms"],
                 state_norms=norms)
+
+
+def _expert_ref(fk, seed: int, dev) -> dict:
+    """Phase 17e's model on one rank: the single-device ``Trainer`` on the
+    same global batches (its gradient norms and final state's norms beside
+    ``_leg_row``)."""
+    from pytorch_distributed_tpu_torch.models import get_model
+    from pytorch_distributed_tpu_torch.parallel import zero
+    from pytorch_distributed_tpu_torch.train.trainer import Trainer
+
+    cfg, tcfg, loader = _expert_model(seed, 1)
+    model = get_model(cfg)
+    trainer = Trainer(model, cfg, tcfg, device=dev, log_fn=lambda s: None)
+    aux_on = _aux_on_loss(model, cfg, trainer.init_state().params,
+                          trainer.put_batch(_stacked(loader[0])))
+    first = {}
+
+    def after(i, state):
+        if i == 1:
+            first.update(_state_norms(state))
+
+    leg = _ddp_leg(trainer, loader, fk, zero, on_step=after)
+    norms = _state_norms(leg.pop("state"))
+    torch.cuda.empty_cache()
+    return dict(_leg_row(leg), grad_norms=leg["grad_norms"],
+                state_norms=norms, state_norms_step1=first,
+                aux_on_loss_at_init=aux_on)
 
 
 def pipe_train_phase(smi, reports: list, one_rank: dict) -> dict:
@@ -5658,6 +5894,127 @@ def pipe_train_phase(smi, reports: list, one_rank: dict) -> dict:
     emit(phase="pipe_train", nvidia_smi=smi, failures=failures, **res)
     if failures:
         raise AssertionError(f"pipe_train: {failures}")
+    return res
+
+
+def expert_train_phase(smi, reports: list, one_rank: dict) -> dict:
+    """Expert-parallel training on the two gloo ranks sharing cuda:0
+    (``_expert_train_part``: each rank 4 of the 8 experts of every layer
+    and 2 of the 4 rows) against one rank on the same batches
+    (``one_rank``: ``_expert_ref``). Gates: both ranks' losses identical,
+    within ``EXPERT_LOSS_ATOL`` of one rank's, finite; each step's
+    gradient norm and the params', mu's and nu's norms after the first
+    step (per layer, per other entry; the experts' parts summed over the
+    ranks) within ``PIPE_STATE_RTOL`` of one rank's; the leaves the expert
+    axis does not
+    split bitwise equal on both ranks; all-to-alls a step equal to
+    ``moe.exchanges_per_layer`` x n_layer x accumulation, K1 and K2 a step
+    on each rank n_layer x accumulation; the expert-2 save restored on one
+    rank bit for bit; resident params and moments a rank under
+    ``EXPERT_RESIDENT_RATIO`` of one rank's. Reported: the state's norms
+    after the last step (routing is discontinuous: one step's last-bit
+    differences, which Adam's first update turns into whole steps on
+    near-zero gradients, flip near-tied tokens' experts in the next, and
+    the routers' moments part by percents), ms a step (contended, every
+    exchange staged through the host: not scored), peak bytes."""
+    from pytorch_distributed_tpu_torch.ops.moe import exchanges_per_layer
+
+    res = dict(world=TP_WORLD, backend=reports[0]["backend"], legs={})
+    failures = []
+    ref = one_rank
+    rows = sorted((r["legs"]["gpt2_moe"] for r in reports),
+                  key=lambda r: r["expert"])
+    steps = len(rows[0]["losses"])
+    losses = rows[0]["losses"]
+    diff = max(abs(a - b) for a, b in zip(losses, ref["losses"]))
+    layers = rows[0]["n_layer"] * rows[0]["accum"]
+    derived = dict(K1=layers, K2=layers,
+                   all_to_alls=exchanges_per_layer("names") * layers)
+    per_step = [dict(K1=r["launches"]["forward"] / steps,
+                     K2=r["launches"]["backward"] / steps,
+                     all_to_alls=r["all_to_alls"] / steps) for r in rows]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b) if b else abs(a)
+
+    def gap(field):
+        """The worst relative gap of the state's squared norms to one
+        rank's, and its entry: each entry's replicated part (rank 0's)
+        plus every rank's experts."""
+        norms = {key: [v[0] + sum(r[field][key][j][1] for r in rows)
+                       for j, v in enumerate(rows[0][field][key])]
+                 for key in rows[0][field]}
+        if sorted(norms) != sorted(ref[field]):
+            failures.append(f"{field}: the ranks hold {sorted(norms)}, one "
+                            f"rank {sorted(ref[field])}")
+        return max((rel(a, b), key) for key, v in norms.items()
+                   for a, b in zip(v, ref[field][key]))
+
+    worst = gap("state_norms_step1")
+    final = gap("state_norms")
+    row = dict(
+        experts_per_rank=8 // TP_WORLD, micro_batch=rows[0]["micro"],
+        losses=losses, one_rank_losses=ref["losses"], max_loss_diff=diff,
+        ranks_identical=all(r["losses"] == losses for r in rows),
+        replicated_bitwise_equal=len({r["replicated_sha256"]
+                                      for r in rows}) == 1,
+        replicated_norms_equal=all(
+            r["state_norms"][k][j][0] == rows[0]["state_norms"][k][j][0]
+            for r in rows for k in rows[0]["state_norms"]
+            for j in range(3)),
+        grad_norms=rows[0]["grad_norms"],
+        one_rank_grad_norms=ref["grad_norms"],
+        max_grad_norm_rel_diff=max(rel(a, b) for r in rows for a, b in
+                                   zip(r["grad_norms"], ref["grad_norms"])),
+        max_state_rel_diff_step1=worst[0], worst_state_entry_step1=worst[1],
+        max_state_rel_diff=final[0], worst_state_entry=final[1],
+        launches=[r["launches"] for r in rows],
+        per_step=per_step, derived_per_step=derived,
+        local_numel=[r["local_numel"] for r in rows],
+        ms_per_step=[r["ms_per_step"] for r in rows],
+        one_rank_ms_per_step=ref["ms_per_step"],
+        resident_bytes=[r["resident_bytes"] - r["base_bytes"] for r in rows],
+        one_rank_resident_bytes=ref["resident_bytes"],
+        peak_bytes=[r["peak_bytes"] for r in rows],
+        one_rank_peak_bytes=ref["peak_bytes"],
+        checkpoint=rows[0]["checkpoint"],
+        aux_on_loss_at_init=rows[0]["aux_on_loss_at_init"],
+        one_rank_aux_on_loss_at_init=ref["aux_on_loss_at_init"],
+        wall_s=[r["wall_s"] for r in rows])
+    row["resident_ratio"] = [b / ref["resident_bytes"]
+                             for b in row["resident_bytes"]]
+    row["aux_on_loss_shift"] = (row["aux_on_loss_at_init"]
+                                - row["one_rank_aux_on_loss_at_init"])
+    if not row["ranks_identical"]:
+        failures.append(f"the ranks' losses differ: "
+                        f"{[r['losses'] for r in rows]}")
+    if not np.isfinite(losses).all() or diff > EXPERT_LOSS_ATOL:
+        failures.append(f"losses {losses} vs one rank's {ref['losses']} "
+                        f"(limit {EXPERT_LOSS_ATOL})")
+    if not (row["max_grad_norm_rel_diff"] <= PIPE_STATE_RTOL
+            and worst[0] <= PIPE_STATE_RTOL
+            and len(row["grad_norms"]) == steps):
+        failures.append(
+            f"gradient norms {[r['grad_norms'] for r in rows]} vs one "
+            f"rank's {ref['grad_norms']}; the state's worst entry after "
+            f"step 1 {worst[1]} at {worst[0]:.3g} (limit "
+            f"{PIPE_STATE_RTOL})")
+    if not (row["replicated_bitwise_equal"]
+            and row["replicated_norms_equal"]):
+        failures.append("the leaves the expert axis does not split differ "
+                        "between the ranks")
+    if any(p != derived for p in per_step):
+        failures.append(f"a step's counts {per_step}, derived {derived}")
+    if not row["checkpoint"].get("bit_equal"):
+        failures.append(f"the expert-2 save restored on one rank is not "
+                        f"bit-equal: {row['checkpoint']}")
+    if max(row["resident_ratio"]) >= EXPERT_RESIDENT_RATIO:
+        failures.append(f"resident bytes a rank {row['resident_ratio']} of "
+                        f"one rank's (limit {EXPERT_RESIDENT_RATIO})")
+    res["legs"]["gpt2_moe"] = row
+    emit(phase="expert_train", nvidia_smi=smi, failures=failures, **res)
+    if failures:
+        raise AssertionError(f"expert_train: {failures}")
     return res
 
 
@@ -5779,20 +6136,20 @@ def seq_train_phase(smi, reports: list, one_rank: dict) -> dict:
 
 def late_phases(pk, fk, seed: int, dev, smi) -> dict:
     """Phases 16 (ddp_nccl), 16b (ddp_gloo2), 17 (tp_serve), 17b
-    (tp_train), 17c (seq_train) and 17d (pipe_train), with the
-    decode_bench twin's runs that gate nothing on time
-    (``DecodeBenchRun.side_by_side``), side by side (``run_children``):
-    ddp_nccl's NCCL rank, two pairs of gloo ranks on cuda:0
-    (``gloo_worker``: one runs tp_serve then pipe_train's GPT-2 legs, the
-    other ddp_gloo2, tp_train, seq_train then pipe_train's Llama leg) and
-    five decode_bench runs — while
-    this process runs the one-rank references (tp_serve's engines, the
-    Llama training leg at T 4096 and at T 8192, the pipeline legs' GPT-2
-    and Llama at their accumulation). The other GPT-2 training legs'
-    one-rank reference is ddp_nccl's ``Trainer``.
-    The storm (15) runs beside them too (``storm_in_background``, started
-    by the caller). Every time these phases report is taken with the
-    others beside it: contended, not a measure of one phase alone."""
+    (tp_train), 17c (seq_train), 17d (pipe_train) and 17e
+    (expert_train), with the decode_bench twin's runs that gate nothing
+    on time (``DecodeBenchRun.side_by_side``), side by side
+    (``run_children``): ddp_nccl's NCCL rank, three pairs of gloo ranks on
+    cuda:0 (``gloo_worker``: one runs tp_serve then pipe_train's GPT-2
+    legs, one ddp_gloo2, tp_train, seq_train then pipe_train's Llama leg,
+    one expert_train) and five decode_bench runs — while
+    this process runs the one-rank references (tp_serve's engines, the Llama
+    training leg at T 4096 and at T 8192, the pipeline legs' GPT-2 and
+    Llama at their accumulation, expert_train's MoE GPT-2). The other GPT-2
+    training legs' one-rank reference is ddp_nccl's ``Trainer``. The storm
+    (15) runs beside them too (``storm_in_background``, started by the
+    caller). Every time these phases report is taken with the others beside
+    it: contended, not a measure of one phase alone."""
     def references():
         t0 = time.perf_counter()
         serve = _one_rank_refs(pk, seed, dev)
@@ -5802,7 +6159,8 @@ def late_phases(pk, fk, seed: int, dev, smi) -> dict:
                     llama_long=_tp_train_llama_ref(
                         fk, seed, dev, t=SEQ_ULYSSES_LLAMA_T),
                     pipe={m: _pipe_ref(fk, seed, dev, m)
-                          for m in ("gpt2", "llama")})
+                          for m in ("gpt2", "llama")},
+                    expert=_expert_ref(fk, seed, dev))
 
     side_by_side = [name for name, run in DECODE_BENCH_RUNS.items()
                     if run.side_by_side]
@@ -5818,10 +6176,12 @@ def late_phases(pk, fk, seed: int, dev, smi) -> dict:
                         ["--gloo-worker",
                          "ddp_gloo2,tp_train,seq_train,pipe_train_llama"],
                         TP_WORLD, seed, tmp, "tp_train"),
+                    **_rank_children(["--gloo-worker", "expert_train"],
+                                     TP_WORLD, seed, tmp, "expert_train"),
                     **{name: decode_bench_child(name, tmp)
                        for name in side_by_side}}
         wall, refs = run_children(
-            children, 900, "phases 16-17d",
+            children, 900, "phases 16-17e",
             while_running=lambda: dict(references(), ended_at=time.time()))
         with open(f"{tmp}/ddp_nccl_0.json") as f:
             nccl = json.load(f)
@@ -5858,6 +6218,8 @@ def late_phases(pk, fk, seed: int, dev, smi) -> dict:
     out["pipe_train"] = pipe_train_phase(
         smi, reports["pipe_train"] + reports["pipe_train_llama"],
         refs["pipe"])
+    out["expert_train"] = expert_train_phase(smi, reports["expert_train"],
+                                             refs["expert"])
     return out
 
 
@@ -6150,6 +6512,7 @@ def main() -> int:
     ddp_nccl, ddp_gloo2, tp, tp_train, seq_train, pipe_train = (
         late["ddp_nccl"], late["ddp_gloo2"], late["tp"], late["tp_train"],
         late["seq_train"], late["pipe_train"])
+    expert_train = late["expert_train"]
     slice13_paths = {
         **{f"ddp_nccl_{name}_{DDP_STEPS}_steps": leg["launches"]
            for name, leg in ddp_nccl["legs"].items()},
@@ -6223,7 +6586,19 @@ def main() -> int:
              pipe_local_shapes={shape: dict(
                  {k: v for k, v in tp_flash_rows[shape].items()
                   if k not in ("K1", "K2")}, **tp_flash_rows[shape][kn])
-                 for shape, *_ in PIPE_FLASH_SHAPES})
+                 for shape, *_ in PIPE_FLASH_SHAPES},
+             # Each rank's launches on the expert-parallel leg (all
+             # steps), and the kernel at an expert rank's [2, 1024] in
+             # f32, the leg's dtype.
+             expert_paths={
+                 f"expert_train_{name}_rank{r}_{len(row['losses'])}_steps":
+                     launches[direction]
+                 for name, row in expert_train["legs"].items()
+                 for r, launches in enumerate(row["launches"])},
+             expert_local_shapes={shape: dict(
+                 {k: v for k, v in tp_flash_rows[shape].items()
+                  if k not in ("K1", "K2")}, **tp_flash_rows[shape][kn])
+                 for shape, *_ in EXPERT_FLASH_SHAPES})
         for name, kn, direction, line in (
             ("flash_forward", "K1", "forward", 92),
             ("flash_backward", "K2", "backward", 221),

@@ -271,13 +271,6 @@ def model_config(name: str, **overrides: Any) -> ModelConfig:
     return ModelConfig(**base)
 
 
-# The mesh axes the port has not taken yet, each with the ROADMAP queue 1
-# item that ports it.
-_AXIS_NOT_PORTED = {
-    "expert": "ROADMAP queue 1 item 7(e), expert parallelism",
-}
-
-
 @dataclass(frozen=True)
 class MeshConfig:
     """The JAX package's ``MeshConfig``, field for field with the same
@@ -300,10 +293,15 @@ class MeshConfig:
     ``pipe_schedule``), composed with every axis above.
     ``prefetch_buffers`` > 0 is the layer scan's prefetch window
     (``ops/layer_scan``): ZeRO-3's per-layer gathers issued a window
-    ahead, in the explicit step and in ZeRO-3 decode. ``expert`` > 1
-    raises NotImplementedError here, naming the item that ports it
-    (7(e)). ``device_ids``: the CUDA device each mesh rank uses, in rank order
-    (None: the rank's ``LOCAL_RANK``)."""
+    ahead, in the explicit step and in ZeRO-3 decode. ``expert`` > 1 is
+    expert parallelism for an MoE model (``n_experts`` divisible by it):
+    each expert rank holds ``n_experts / expert`` of every MoE layer's
+    experts and its own rows of the batch (the axis splits the batch
+    like data), and two all-to-alls a MoE layer move each token to its
+    experts' owner and back (``ops/moe``), in the explicit and pipeline
+    steps, composed with every axis above. ``device_ids``: the CUDA
+    device each mesh rank uses, in rank order (None: the rank's
+    ``LOCAL_RANK``)."""
 
     data: int = 1
     fsdp: int = 1
@@ -348,13 +346,6 @@ class MeshConfig:
             raise ValueError(
                 f"rs_buckets must be >= 0, got {self.rs_buckets}"
             )
-        for axis, item in _AXIS_NOT_PORTED.items():
-            if getattr(self, axis) > 1:
-                raise NotImplementedError(
-                    f"mesh axis {axis}={getattr(self, axis)} is not ported: "
-                    f"{item}; the port's mesh has the pipe, data, fsdp, "
-                    "seq and tensor axes"
-                )
 
     @property
     def num_devices(self) -> int:

@@ -13,11 +13,12 @@ class ModelApi(NamedTuple):
     head: Callable[..., object]
     # (params, input_ids [B, T], cfg, *, deterministic, dropout_seed,
     # return_aux, return_hidden, block_transform, tp_group, seq_group,
-    # prefetch_buffers)
+    # expert_group, prefetch_buffers)
     # -> logits [B, T, V] (or hidden [B, T, E]; with return_aux, a pair
     # with the summed MoE Switch term): the training forward (the JAX
     # ModelApi's ``apply``; ``tp_group`` is its ``tensor_axis``,
-    # ``seq_group`` its ``seq_axis``).
+    # ``seq_group`` its ``seq_axis``, ``expert_group`` its
+    # ``expert_axis``).
     apply: Callable[..., object]
     # (params) -> (head weight, ops.losses layout tag): the LM-head matrix
     # the fused head + cross-entropy multiplies against — the tied wte
@@ -29,7 +30,7 @@ class ModelApi(NamedTuple):
     # built from them): (params, input_ids, cfg, *, seq_group) -> the
     # embedded [B, T, E] in cfg.dtype (GPT-2: wte + wpe, no dropout);
     # (blocks, x, cfg, *, block_transform, return_aux, tp_group,
-    # seq_group, dropout_seed, deterministic, layer_offset,
+    # seq_group, expert_group, dropout_seed, deterministic, layer_offset,
     # prefetch_buffers) -> x (with return_aux: (x, the layers' Switch
     # term)) over a list of layers, all of them or a stage's.
     embed: Callable[..., object]

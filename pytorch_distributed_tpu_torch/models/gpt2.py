@@ -126,8 +126,8 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 
 def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
-           key: prng.DropoutKey | None, tp_group=None,
-           seq_group=None) -> torch.Tensor:
+           key: prng.DropoutKey | None, tp_group=None, seq_group=None,
+           expert_group=None) -> torch.Tensor:
     """Pre-norm residual block: x + drop(attn(ln_1(x))); x +
     drop(mlp(ln_2(x))), the MLP dense or, for a MoE config, ``ops/moe``'s
     experts. ``key`` None: deterministic; else the masks of ``layer``
@@ -140,7 +140,10 @@ def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
     ``c_proj``s sum their partials over the group before their bias.
     ``seq_group``: the sequence is split over that group (the JAX
     ``seq_axis``): ``x`` holds this rank's tokens, and attention crosses
-    the ranks by ``cfg.seq_impl`` (``ops/attention``)."""
+    the ranks by ``cfg.seq_impl`` (``ops/attention``). ``expert_group``:
+    expert parallelism over that group (the JAX ``expert_axis``): ``bp``'s
+    MoE experts are this rank's share, and ``ops/moe`` moves each token to
+    its experts' owner and back."""
     eps = cfg.layer_norm_epsilon
     det = key is None
     sid = (lambda site: None) if det else (
@@ -165,6 +168,7 @@ def _block(x: torch.Tensor, bp: Params, layer: int, *, cfg: ModelConfig,
         m, aux = moe_mlp(m, bp["mlp"],
                          activation=activation(cfg.activation_function),
                          capacity_factor=cfg.expert_capacity_factor,
+                         expert_axis=expert_group,
                          tensor_axis=tp_group, top_k=cfg.moe_top_k,
                          dispatch_impl=cfg.moe_dispatch)
     else:
@@ -183,7 +187,7 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
           dropout_seed: prng.DropoutKey | None = None,
           return_aux: bool = False, return_hidden: bool = False,
           block_transform=None, tp_group=None, seq_group=None,
-          prefetch_buffers: int = 0):
+          expert_group=None, prefetch_buffers: int = 0):
     """Forward pass: [B, T] token ids -> [B, T, V] logits in
     ``cfg.logits_dtype``: ``embed``, embedding dropout, ``run_blocks``
     (n_layer pre-norm blocks, each under ``cfg.remat``), ln_f, tied head.
@@ -208,7 +212,8 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
     over that group (the JAX ``seq_axis``), rank i's the positions
     ``[i T, (i+1) T)``: its position rows are those, the global length
     (ranks x T) must fit ``n_ctx``, and the logits are this rank's
-    tokens'."""
+    tokens'. ``expert_group``: the MoE blocks' expert group (``_block``;
+    the rows of ``input_ids`` are this rank's)."""
     if not deterministic and dropout_seed is None:
         raise ValueError("training-mode apply() requires dropout_seed")
     x = embed(params, input_ids, cfg, seq_group=seq_group)
@@ -216,8 +221,8 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
         x = embed_dropout(x, cfg, prng.DropoutKey(*dropout_seed))
     x = run_blocks(params["blocks"], x, cfg, block_transform=block_transform,
                    return_aux=return_aux, tp_group=tp_group,
-                   seq_group=seq_group, dropout_seed=dropout_seed,
-                   deterministic=deterministic,
+                   seq_group=seq_group, expert_group=expert_group,
+                   dropout_seed=dropout_seed, deterministic=deterministic,
                    prefetch_buffers=prefetch_buffers)
     x, aux = x if return_aux else (x, None)
     out = final_norm(params, x, cfg) if return_hidden else \
@@ -256,7 +261,7 @@ def embed_dropout(x: torch.Tensor, cfg: ModelConfig,
 
 def run_blocks(blocks: list, x: torch.Tensor, cfg: ModelConfig, *,
                block_transform=None, return_aux: bool = False,
-               tp_group=None, seq_group=None,
+               tp_group=None, seq_group=None, expert_group=None,
                dropout_seed: prng.DropoutKey | None = None,
                deterministic: bool = True, layer_offset: int = 0,
                prefetch_buffers: int = 0):
@@ -276,7 +281,7 @@ def run_blocks(blocks: list, x: torch.Tensor, cfg: ModelConfig, *,
     def block_fn(carry, bp, layer):
         h = carry[0] if moe else carry
         out = _block(h, bp, layer, cfg=cfg, key=key, tp_group=tp_group,
-                     seq_group=seq_group)
+                     seq_group=seq_group, expert_group=expert_group)
         if not moe:
             return out
         h, aux = out

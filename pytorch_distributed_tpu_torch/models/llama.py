@@ -104,7 +104,7 @@ def init(generator: torch.Generator, cfg: ModelConfig,
 
 def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
            sin: torch.Tensor, *, cfg: ModelConfig, tp_group=None,
-           seq_group=None):
+           seq_group=None, expert_group=None):
     """x + wo(attn(rope(q), rope(k), v)) over rms_norm(x); then x +
     swiglu(rms_norm(x)), or the MoE MLP. Returns x, or (x, aux) for a MoE
     config (aux: the layer's Switch term). The products are tagged as in
@@ -113,7 +113,8 @@ def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
     KV heads (the head counts follow the sharded kernels' widths, so GQA's
     group is kept), SwiGLU's gate and up columns, and ``wo``/``down``
     row-parallel, each summed over the group once. ``seq_group``:
-    sequence parallelism (``gpt2._block``)."""
+    sequence parallelism, ``expert_group``: expert parallelism
+    (``gpt2._block``)."""
     eps = cfg.layer_norm_epsilon
     b, t = x.shape[:2]
     d = cfg.head_dim
@@ -138,6 +139,7 @@ def _block(x: torch.Tensor, bp: Params, cos: torch.Tensor,
     if cfg.n_experts:
         m, aux = moe_mlp(m, bp["mlp"], activation=F.silu,
                          capacity_factor=cfg.expert_capacity_factor,
+                         expert_axis=expert_group,
                          tensor_axis=tp_group, top_k=cfg.moe_top_k,
                          dispatch_impl=cfg.moe_dispatch)
         return x + m, aux
@@ -156,12 +158,13 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
           deterministic: bool = True, dropout_seed=None,
           return_aux: bool = False, return_hidden: bool = False,
           block_transform=None, tp_group=None, seq_group=None,
-          prefetch_buffers: int = 0):
+          expert_group=None, prefetch_buffers: int = 0):
     """Forward pass: [B, T] token ids -> [B, T, V] logits in
     ``cfg.logits_dtype``: ``embed``, ``run_blocks``, the head (the
     contract of ``gpt2.apply``, its ``block_transform``,
-    ``prefetch_buffers``, ``tp_group`` and ``seq_group`` included; under a
-    sequence group the RoPE angles start at this rank's first position).
+    ``prefetch_buffers``, ``tp_group``, ``seq_group`` and ``expert_group``
+    included; under a sequence group the RoPE angles start at this rank's
+    first position).
     The family is dropout-free, so ``deterministic`` and ``dropout_seed``
     change nothing. ``return_hidden``: the final-norm hidden states
     [B, T, E] in place of the logits; ``return_aux``: also the Switch term
@@ -170,7 +173,8 @@ def apply(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
     x = embed(params, input_ids, cfg, seq_group=seq_group)
     x = run_blocks(params["blocks"], x, cfg, block_transform=block_transform,
                    return_aux=return_aux, tp_group=tp_group,
-                   seq_group=seq_group, prefetch_buffers=prefetch_buffers)
+                   seq_group=seq_group, expert_group=expert_group,
+                   prefetch_buffers=prefetch_buffers)
     x, aux = x if return_aux else (x, None)
     out = final_norm(params, x, cfg) if return_hidden else \
         head(params, x, cfg)
@@ -195,8 +199,9 @@ def embed(params: Params, input_ids: torch.Tensor, cfg: ModelConfig, *,
 
 def run_blocks(blocks: list, x: torch.Tensor, cfg: ModelConfig, *,
                block_transform=None, return_aux: bool = False,
-               tp_group=None, seq_group=None, dropout_seed=None,
-               deterministic: bool = True, layer_offset: int = 0,
+               tp_group=None, seq_group=None, expert_group=None,
+               dropout_seed=None, deterministic: bool = True,
+               layer_offset: int = 0,
                prefetch_buffers: int = 0):
     """``gpt2.run_blocks`` for the family: the RoPE angles built once per
     call on x's device, from this rank's first position under
@@ -212,7 +217,7 @@ def run_blocks(blocks: list, x: torch.Tensor, cfg: ModelConfig, *,
     def block_fn(carry, bp, _):
         h = carry[0] if moe else carry
         out = _block(h, bp, cos, sin, cfg=cfg, tp_group=tp_group,
-                     seq_group=seq_group)
+                     seq_group=seq_group, expert_group=expert_group)
         if not moe:
             return out
         h, aux = out

@@ -50,8 +50,25 @@ X * sum_e(fraction_e * mean_prob_e). Tensor parallelism inside each expert
 and ``w_out`` row-parallel on F, one all-reduce after ``w_out``) serves
 TP decode and TP training (its backward through ``ops/tp``: ``tp_copy``
 on the expert batches, so the router and the dispatch, which run on
-replicated activations, get whole gradients on every rank). Expert
-parallelism (``expert_axis``) is refused: ROADMAP queue 1 item 7(e).
+replicated activations, get whole gradients on every rank).
+
+Expert parallelism (``expert_axis``, the expert process group of n ranks,
+JAX's ``_expert_compute``): each rank holds X/n experts' weights (``w_in``
+[X/n, D, F] ..., ``parallel/sharding``) and its own tokens; the router is
+whole on every rank, so each rank routes its tokens over all X experts and
+fills its [X, C, D] slots as on one device. One all-to-all (split 0,
+concat 1, ``ops/all_to_all``) sends each expert's slots to its owner:
+[X, C, D] -> [X/n, n C, D], rank i's slots at place i; the owner runs its
+experts on every rank's slots, and the reverse exchange (split 1, concat
+0) brings each rank its slots' outputs back. Capacity and the aux term
+are per token shard: C counts this rank's tokens, and the aux term is
+this rank's (the training step averages it over the ranks, as JAX does).
+The backward of each exchange is the reverse exchange, so an expert's
+weight gradient sums every rank's tokens routed to it. It composes with
+``tensor_axis`` (TP inside each local expert, after the dispatch
+exchange). ``all_to_alls`` counts the exchanges this module issues: 2 a
+MoE layer in the forward and 2 in the backward, and 2 more in the
+recompute of a checkpointed block (``exchanges_per_layer``).
 """
 
 from __future__ import annotations
@@ -59,13 +76,32 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
+from pytorch_distributed_tpu_torch.ops.all_to_all import all_to_all
 from pytorch_distributed_tpu_torch.ops.remat import product
 from pytorch_distributed_tpu_torch.ops.tp import tp_copy, tp_reduce
 
 # "auto" switches einsum -> sort once the [A, X, C] dispatch tensor would
 # exceed this many elements (64 MiB of f32), as in the JAX package.
 _AUTO_EINSUM_LIMIT = 16 * 1024 * 1024
+
+all_to_alls = 0  # expert exchanges issued by this module
+
+
+def _count() -> None:
+    global all_to_alls
+    all_to_alls += 1
+
+
+def exchanges_per_layer(remat_mode: str) -> int:
+    """Expert all-to-alls a MoE layer issues for one micro-batch's forward
+    and backward under ``expert_axis``: the dispatch and return exchanges
+    in the forward and their reverses in the backward, and under every
+    checkpointing mode both again in the block's recompute (no mode keeps
+    an exchange's result: the expert products' backward needs the
+    exchanged slots, and the combine the returned outputs)."""
+    return 4 if remat_mode == "none" else 6
 
 
 def expert_capacity(tokens: int, n_experts: int,
@@ -88,22 +124,31 @@ def _route(xt: torch.Tensor, router: torch.Tensor, top_k: int):
 
 
 def _expert_compute(expert_in: torch.Tensor, params: dict,
-                    activation: Callable, tensor_axis=None) -> torch.Tensor:
+                    activation: Callable, expert_axis=None,
+                    tensor_axis=None) -> torch.Tensor:
     """[X, C, D] expert batches -> [X, C, D]. Dense experts:
     act(x @ w_in) @ w_out; gated (SwiGLU) experts with ``w_gate``:
     (act(x @ w_gate) * (x @ w_in)) @ w_out; weights cast to the batches'
-    dtype. ``tensor_axis`` (the tensor process group): Megatron TP inside
-    each expert — ``w_in``/``w_gate`` hold this rank's columns of F,
-    ``w_out`` its rows, and one all-reduce after ``w_out`` restores the
-    full output (the f/g pair of ``ops/tp``)."""
+    dtype. ``expert_axis`` (the expert process group): the weights are
+    this rank's X/n experts, and the all-to-all pair (module docstring)
+    moves the slots to their owners and back. ``tensor_axis`` (the tensor
+    process group): Megatron TP inside each expert — ``w_in``/``w_gate``
+    hold this rank's columns of F, ``w_out`` its rows, and one all-reduce
+    after ``w_out`` restores the full output (the f/g pair of
+    ``ops/tp``)."""
     dt = expert_in.dtype
+    if expert_axis is not None:  # [X, C, D] -> [X/n, n C, D]
+        expert_in = all_to_all(expert_in, expert_axis, 0, 1, _count)
     expert_in = tp_copy(expert_in, tensor_axis)
     h = product(expert_in, params["w_in"].to(dt))
     if "w_gate" in params:
         h = activation(product(expert_in, params["w_gate"].to(dt))) * h
     else:
         h = activation(h)
-    return tp_reduce(product(h, params["w_out"].to(dt)), tensor_axis)
+    out = tp_reduce(product(h, params["w_out"].to(dt)), tensor_axis)
+    if expert_axis is not None:  # back to [X, C, D]
+        out = all_to_all(out, expert_axis, 1, 0, _count)
+    return out
 
 
 def _assignment_positions(e_flat: torch.Tensor, n_experts: int):
@@ -158,7 +203,8 @@ def _combine(expert_out: torch.Tensor, slot: torch.Tensor,
 
 
 def _dispatch_einsum(xt, expert_idx, gates, n_experts, cap, params,
-                     activation, out_dtype, tensor_axis=None):
+                     activation, out_dtype, expert_axis=None,
+                     tensor_axis=None):
     """One-hot dispatch through the f32 [A, X, C] tensor."""
     t, k = expert_idx.shape
     a = t * k
@@ -177,13 +223,15 @@ def _dispatch_einsum(xt, expert_idx, gates, n_experts, cap, params,
                ).view(t, k, n_experts, cap).sum(1)
     expert_in = product(dispatch.view(t, n_experts * cap).t(),
                         xt.float()).view(n_experts, cap, -1).to(out_dtype)
-    expert_out = _expert_compute(expert_in, params, activation, tensor_axis)
+    expert_out = _expert_compute(expert_in, params, activation, expert_axis,
+                                 tensor_axis)
     return combine.view(t, n_experts * cap) @ \
         expert_out.float().view(n_experts * cap, -1)
 
 
 def _dispatch_sort(xt, expert_idx, gates, n_experts, cap, params,
-                   activation, out_dtype, tensor_axis=None):
+                   activation, out_dtype, expert_axis=None,
+                   tensor_axis=None):
     """Segment dispatch: no [A, X, C] tensor, the same semantics."""
     t, k = expert_idx.shape
     a = t * k
@@ -205,37 +253,44 @@ def _dispatch_sort(xt, expert_idx, gates, n_experts, cap, params,
     # k in a fixed order).
     x_rep = xt.to(out_dtype)[:, None, :].expand(t, k, d).reshape(a, d)
     expert_in = _Rows.apply(x_rep, src, slot).view(n_experts, cap, d)
-    expert_out = _expert_compute(expert_in, params, activation, tensor_axis)
+    expert_out = _expert_compute(expert_in, params, activation, expert_axis,
+                                 tensor_axis)
     gate_flat = torch.where(keep, gates.reshape(a).float(), 0.0)
     return _combine(expert_out, slot, src, gate_flat, t, k)
 
 
 def moe_mlp(x: torch.Tensor, params: dict, *, activation: Callable,
-            capacity_factor: float = 1.25, expert_axis: str | None = None,
+            capacity_factor: float = 1.25, expert_axis=None,
             tensor_axis=None, top_k: int = 1,
             dispatch_impl: str = "auto"):
     """[B, T, D] -> (output [B, T, D] in x's dtype, aux f32 scalar).
     ``params``: router [D, X]; w_in [X, D, F]; w_out [X, F, D]; optional
-    w_gate [X, D, F] (SwiGLU experts). ``tensor_axis``: the tensor process
-    group for TP inside each expert (the expert weights this rank's F
-    slice, ``parallel/sharding``); routing runs on the replicated
-    activations, so every rank routes alike. ``expert_axis`` is refused
-    (item 7(e))."""
-    if expert_axis is not None:
-        raise NotImplementedError(
-            "expert_axis is expert parallelism, not ported yet (ROADMAP "
-            "queue 1 item 7(e))")
-    if isinstance(tensor_axis, str):
-        raise TypeError(
-            f"tensor_axis is the tensor process group in the port "
-            f"(parallel/mesh.Mesh.axis_group('tensor')), got the axis name "
-            f"{tensor_axis!r}")
+    w_gate [X, D, F] (SwiGLU experts). ``expert_axis``: the expert process
+    group of expert parallelism (module docstring; the expert weights are
+    this rank's X/n experts, ``x`` this rank's tokens). ``tensor_axis``:
+    the tensor process group for TP inside each expert (the expert weights
+    this rank's F slice, ``parallel/sharding``); routing runs on the
+    replicated activations, so every rank routes alike."""
+    for name, group, axis in (("expert_axis", expert_axis, "expert"),
+                              ("tensor_axis", tensor_axis, "tensor")):
+        if isinstance(group, str):
+            raise TypeError(
+                f"{name} is the {axis} process group in the port "
+                f"(parallel/mesh.Mesh.axis_group({axis!r})), got the axis "
+                f"name {group!r}")
     b, t, d = x.shape
     n_tokens = b * t
     xt = x.reshape(n_tokens, d)
     n_experts = params["router"].shape[-1]
     if not 1 <= top_k <= n_experts:
         raise ValueError(f"top_k={top_k} out of range for {n_experts} experts")
+    if expert_axis is not None:
+        n = dist.get_world_size(expert_axis)
+        if params["w_in"].shape[0] * n != n_experts:
+            raise ValueError(
+                f"an expert_axis of {n} ranks needs n_experts={n_experts} "
+                f"split evenly over them; w_in holds "
+                f"{params['w_in'].shape[0]} experts")
     expert_idx, gates, probs = _route(xt, params["router"], top_k)
     # Capacity scales with the assignment count (GShard), as in JAX.
     cap = expert_capacity(n_tokens * top_k, n_experts, capacity_factor)
@@ -250,10 +305,10 @@ def moe_mlp(x: torch.Tensor, params: dict, *, activation: Callable,
                          else "sort")
     if dispatch_impl == "einsum":
         out = _dispatch_einsum(xt, expert_idx, gates, n_experts, cap, params,
-                               activation, x.dtype, tensor_axis)
+                               activation, x.dtype, expert_axis, tensor_axis)
     elif dispatch_impl == "sort":
         out = _dispatch_sort(xt, expert_idx, gates, n_experts, cap, params,
-                             activation, x.dtype, tensor_axis)
+                             activation, x.dtype, expert_axis, tensor_axis)
     else:
         raise ValueError(f"unknown dispatch_impl {dispatch_impl!r}")
     return out.to(x.dtype).reshape(b, t, d), aux

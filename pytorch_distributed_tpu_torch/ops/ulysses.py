@@ -11,11 +11,10 @@ streams K/V blocks around the ranks, Ulysses re-shards once a call:
 Inside, the local attention sees the whole sequence, so the causal mask
 and the softmax are the single-device computation on a head group.
 
-- **The all-to-all** (``all_to_all``) is an autograd function whose
-  backward is the reverse all-to-all, as JAX's AD transposes
-  ``lax.all_to_all``: one ``all_to_all_single`` on the group, issued in
-  the same order on every rank; through host memory for CUDA tensors on
-  a gloo group (``ring_attention.staged``). ``all_to_alls`` counts them.
+- **The all-to-all** is ``ops/all_to_all``'s (JAX's tiled
+  ``lax.all_to_all``, differentiable, its backward the reverse exchange;
+  through host memory for CUDA tensors on a gloo group), shared with
+  ``ops/moe``. ``all_to_alls`` counts this module's.
 - **Heads**: n must divide both H and Hkv (JAX's message otherwise). KV
   heads scatter as the query heads do, so a rank's H/n query heads read
   its Hkv/n KV heads in GQA's grouping.
@@ -38,57 +37,25 @@ import warnings
 import torch
 import torch.distributed as dist
 
-from pytorch_distributed_tpu_torch.ops.ring_attention import staged
+from pytorch_distributed_tpu_torch.ops.all_to_all import all_to_all
 from pytorch_distributed_tpu_torch.utils.prng import StreamId
 
 all_to_alls = 0  # all-to-alls issued by this module
 
 
-def _all_to_all(x: torch.Tensor, group, split: int,
-                concat: int) -> torch.Tensor:
-    """JAX's tiled ``all_to_all``: ``x`` cut into n chunks along
-    ``split``, chunk j sent to group rank j; the chunks received, rank i's
-    at place i, joined along ``concat``."""
+def _count() -> None:
     global all_to_alls
     all_to_alls += 1
-    n = dist.get_world_size(group)
-    send = torch.stack(x.detach().chunk(n, dim=split))
-    stage = staged(group, send)
-    if stage:
-        send = send.cpu()
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    if stage:
-        recv = recv.to(x.device)
-    return torch.cat(recv.unbind(0), dim=concat)
-
-
-class _AllToAll(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group, split, concat):
-        ctx.group, ctx.split, ctx.concat = group, split, concat
-        return _all_to_all(x, group, split, concat)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_to_all(g, ctx.group, ctx.concat, ctx.split), None, \
-            None, None
-
-
-def all_to_all(x: torch.Tensor, group, split: int,
-               concat: int) -> torch.Tensor:
-    """Differentiable ``_all_to_all``; its backward the reverse one."""
-    return _AllToAll.apply(x, group, split, concat)
 
 
 def heads_to_seq(x: torch.Tensor, group) -> torch.Tensor:
     """[B, T/n, H, D] -> [B, T, H/n, D]."""
-    return all_to_all(x, group, 2, 1)
+    return all_to_all(x, group, 2, 1, _count)
 
 
 def seq_to_heads(x: torch.Tensor, group) -> torch.Tensor:
     """[B, T, H/n, D] -> [B, T/n, H, D]."""
-    return all_to_all(x, group, 1, 2)
+    return all_to_all(x, group, 1, 2, _count)
 
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -63,13 +63,28 @@ on its rows of the batch.
     counted per span, as JAX does. It composes with every strategy and
     with the tensor axis.
 
+  Expert parallelism (the expert axis; an MoE model whose ``n_experts``
+    the axis divides, ``check_expert``): the axis splits the batch's rows
+    like data, and each rank holds ``n_experts / expert`` experts of every
+    MoE layer (``parallel/sharding``'s expert rule); two all-to-alls a MoE
+    layer move each token's slots to their expert's owner and back (the
+    model's ``expert_group``, ``ops/moe``), capacity and the Switch term
+    per rank's tokens as in JAX. At the boundary, after the batch axes
+    (JAX's order): an expert-sharded leaf already holds the sum over every
+    expert rank's tokens (the backward exchange routed each token's
+    contribution to its expert's owner), so it is divided by ``expert``
+    and never reduced over the axis, which would add different experts
+    together; every other leaf is averaged over the expert group, and so
+    is the loss. It composes with every strategy and with the tensor and
+    seq axes.
+
 The gradient norm is global: each leaf's squares are summed over exactly
-the axes it is sharded on (fsdp and/or tensor) and a replicated leaf is
-counted once (``zero.global_norm_sharded``; never summed over seq, where
-the gradients are equal); clipping uses it, so every rank scales alike. The
-DDP-style reductions are issued over the mesh's group at every size, a
-world of one included: there they are exact no-ops (a sum of one, / 1), and
-a world of one is bit-equal to the single-device step.
+the axes it is sharded on (fsdp, tensor and/or expert) and a replicated
+leaf is counted once (``zero.global_norm_sharded``; never summed over seq,
+where the gradients are equal); clipping uses it, so every rank scales
+alike. The DDP-style reductions are issued over the mesh's group at every
+size, a world of one included: there they are exact no-ops (a sum of one,
+/ 1), and a world of one is bit-equal to the single-device step.
 
 The anomaly guard (``make_parallel_train_step``'s ``guard``): the loss and
 the norm are already global and bitwise the same on every rank (tensor
@@ -90,7 +105,6 @@ from pytorch_distributed_tpu_torch.models import ModelApi
 from pytorch_distributed_tpu_torch.parallel import zero
 from pytorch_distributed_tpu_torch.parallel.mesh import (
     Mesh,
-    data_parallel_size,
     fold_batch_shard_key,
     fold_tensor_key,
 )
@@ -150,6 +164,18 @@ def check_seq(model_cfg: ModelConfig, mesh_cfg: MeshConfig) -> None:
                 "KV heads) otherwise")
 
 
+def check_expert(model_cfg: ModelConfig, mesh_cfg: MeshConfig) -> None:
+    """JAX's build-time refusals under an expert axis: a dense model, and
+    an expert count the axis does not divide."""
+    if mesh_cfg.expert == 1:
+        return
+    if not model_cfg.n_experts:
+        raise ValueError("expert axis > 1 needs an MoE model (n_experts > 0)")
+    if model_cfg.n_experts % mesh_cfg.expert:
+        raise ValueError(f"n_experts={model_cfg.n_experts} not divisible by "
+                         f"expert={mesh_cfg.expert}")
+
+
 def _mean_over(ts: list, group, n: int) -> None:
     if group is None:  # not split over the group: nothing to reduce
         return
@@ -164,13 +190,14 @@ def reduce_at_boundary(grads: list, loss: torch.Tensor, mesh: Mesh,
     gradients (this rank's, summed over its micro-batches and divided by
     their count; laid out by ``p_spec_leaves``, ZeRO-2 scattering them
     onto ``shard_specs``) reduced over fsdp by strategy, then data, then
-    seq; the loss over seq, then data and fsdp. Returns (grads, loss),
-    the same on every rank of the batch and seq axes. The pipeline step shares it
-    (``parallel/pipeline``)."""
+    expert, then seq; the loss over seq, then data and fsdp, then expert.
+    Returns (grads, loss), the same on every rank of the batch and seq
+    axes. The pipeline step shares it (``parallel/pipeline``)."""
     cfg = mesh.cfg
-    f, d, sq = cfg.fsdp, cfg.data, cfg.seq
+    f, d, sq, e = cfg.fsdp, cfg.data, cfg.seq, cfg.expert
     data_group = mesh.axis_group("data") if d > 1 else None
     seq_group = mesh.axis_group("seq") if sq > 1 else None
+    expert_group = mesh.axis_group("expert") if e > 1 else None
     if cfg.strategy == "full_shard" and f > 1:
         for g, spec in zip(grads, p_spec_leaves):
             if shard_dim(spec) is None:
@@ -185,13 +212,21 @@ def reduce_at_boundary(grads: list, loss: torch.Tensor, mesh: Mesh,
         torch._foreach_div_(grads, f)
         _mean_over(grads, data_group, d)
     else:
-        _mean_over(grads, mesh.batch_group, data_parallel_size(cfg))
+        _mean_over(grads, mesh.batch_group, d * f)
+    if expert_group is not None:
+        # An expert-sharded leaf holds the sum over the expert ranks'
+        # tokens already (module docstring): divided, never reduced.
+        _mean_over([g for g, spec in zip(grads, p_spec_leaves)
+                    if "expert" not in spec], expert_group, e)
+        torch._foreach_div_([g for g, spec in zip(grads, p_spec_leaves)
+                             if "expert" in spec], e)
     _mean_over(grads, seq_group, sq)
     if seq_group is not None:
         loss = zero.all_reduce_(loss.clone(), seq_group) / sq
     if mesh.batch_group is not None:
-        loss = zero.all_reduce_(loss.clone(), mesh.batch_group) / \
-            data_parallel_size(cfg)
+        loss = zero.all_reduce_(loss.clone(), mesh.batch_group) / (d * f)
+    if expert_group is not None:
+        loss = zero.all_reduce_(loss.clone(), expert_group) / e
     return grads, loss
 
 
@@ -220,6 +255,7 @@ def make_explicit_train_step(
     ``anomaly`` with ``guard``)."""
     check_tensor_dropout(model_cfg, mesh_cfg)
     check_seq(model_cfg, mesh_cfg)
+    check_expert(model_cfg, mesh_cfg)
     if mesh.cfg != mesh_cfg:
         raise ValueError("mesh_cfg is not the mesh's config")
     if tx.clip is not None:
@@ -249,6 +285,8 @@ def make_explicit_train_step(
     acc_dtype = getattr(torch, accum_dtype)
     tp_group = mesh.axis_group("tensor") if mesh_cfg.tensor > 1 else None
     seq_group = mesh.axis_group("seq") if mesh_cfg.seq > 1 else None
+    expert_group = (mesh.axis_group("expert") if mesh_cfg.expert > 1
+                    else None)
     block_transform = (zero.LayerGather(p_specs["blocks"][0], mesh)
                        if zero3 else None)
     # A window prefetches gathers: there are none outside full_shard.
@@ -267,7 +305,7 @@ def make_explicit_train_step(
         loss = _loss(model, model_cfg, params, inputs, targets,
                      deterministic=not train_mode, key=key,
                      block_transform=block_transform, tp_group=tp_group,
-                     seq_group=seq_group,
+                     seq_group=seq_group, expert_group=expert_group,
                      prefetch_buffers=prefetch_buffers)
         grads = torch.autograd.grad(loss, live)
         return loss.detach(), list(grads)

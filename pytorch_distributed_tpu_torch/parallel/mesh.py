@@ -39,14 +39,15 @@ groups (``parallel/zero``).
   ``DEFAULT_TIMEOUT_S`` otherwise).
 - ``process_info()``, ``data_parallel_size``, ``batch_partition_spec``
   (JAX's spec as a tuple), ``batch_rows`` (the rows of the global
-  [A, B, T] batch a rank owns: B split over data x fsdp, data major) and
+  [A, B, T] batch a rank owns: B split over data x fsdp x expert, data
+  major) and
   ``seq_cols`` (the positions of T a rank owns: T split over seq).
 - ``fold_batch_shard_key``: the JAX package folds the batch shard's index
-  and the seq index into the dropout key; the port's ``DropoutKey`` takes
-  ``shard`` = 1 + (batch shard index x seq + seq index) (0 stays "not
-  folded"). JAX's threefry streams cannot be matched, so this is held to
-  the port itself: each shard's masks differ, and a world of one keeps
-  the single-device masks.
+  (over data, fsdp and expert) and the seq index into the dropout key; the
+  port's ``DropoutKey`` takes ``shard`` = 1 + (batch shard index x seq +
+  seq index) (0 stays "not folded"). JAX's threefry streams cannot be
+  matched, so this is held to the port itself: each shard's masks differ,
+  and a world of one keeps the single-device masks.
 """
 
 from __future__ import annotations
@@ -389,14 +390,17 @@ class Mesh:
     mesh's process group and, per axis of size > 1, the group of ranks
     that differ only along that axis (``groups``). ``device``: where the
     rank computes. ``backend``: the groups' backend. ``batch_group``: the
-    ranks that differ only in the rows of the batch they hold (the
-    gradients' and the loss's reduction over JAX's data and fsdp axes) —
-    the mesh's group without a tensor, seq or pipe axis, else the data x
-    fsdp plane of this rank's other indices, None when the batch is
-    not split there. Under a pipe axis ``axis_index("pipe")`` is this
-    rank's stage, and the pipe group joins the ranks that hold the same
-    rows and slices in every stage (``parallel/pipeline``'s hops); the
-    batch group is then a data x fsdp plane too."""
+    ranks that differ only in their data and fsdp indices (the gradients'
+    and the loss's reduction over JAX's data and fsdp axes) — the mesh's
+    group without a tensor, seq, pipe or expert axis, else the data x fsdp
+    plane of this rank's other indices, None when the batch is not split
+    there. The expert axis splits the batch too, but its ranks hold
+    different experts, so it reduces on its own group
+    (``parallel/explicit.reduce_at_boundary``). Under a pipe axis
+    ``axis_index("pipe")`` is this rank's stage, and the pipe group joins
+    the ranks that hold the same rows and slices in every stage
+    (``parallel/pipeline``'s hops); the batch group is then a data x fsdp
+    plane too."""
 
     cfg: MeshConfig
     rank: int
@@ -470,13 +474,13 @@ def make_mesh(cfg: MeshConfig, *, group=None,
                 members, timeout=timedelta(seconds=timeout_s),
                 backend=backend, use_local_synchronization=True)
     batch_group = group
-    if cfg.tensor > 1 or cfg.seq > 1 or cfg.pipe > 1:
+    if cfg.tensor > 1 or cfg.seq > 1 or cfg.pipe > 1 or cfg.expert > 1:
         batch = [ax for ax in ("data", "fsdp") if getattr(cfg, ax) > 1]
         if not batch:
             batch_group = None
         elif len(batch) == 1:
             batch_group = groups[batch[0]]
-        else:  # one group per (seq, tensor) index: a data x fsdp plane
+        else:  # one group per index of the other axes: a data x fsdp plane
             planes = np.moveaxis(
                 grid, [cfg.axis_order.index(ax) for ax in batch],
                 [-2, -1])

@@ -30,20 +30,24 @@ point to point on the pipe group.
   the host (``ops/ring_attention.staged``: gloo's own send of a CUDA
   tensor kills the rank). ``sends`` counts the sends this module issued.
 
-Composition (JAX's): the batch's rows split over data and fsdp and its
-tokens over seq as on the explicit path (every stage of a pipe group
-takes the same rows); each stage's layers run Megatron-style on the
-tensor group and the ring or Ulysses on the seq group; fsdp follows the
+Composition (JAX's): the batch's rows split over data, fsdp and expert
+and its tokens over seq as on the explicit path (every stage of a pipe
+group takes the same rows); each stage's layers run Megatron-style on
+the tensor group and the ring or Ulysses on the seq group; fsdp follows the
 ZeRO ladder (full_shard gathers the embeddings and final norm per
 micro-batch and each layer just in time, ``zero.LayerGather``). After
 the step, the gradients of the leaves every stage holds are summed over
 pipe (GPT-2's tied ``wte``: its embedding part from stage 0, its head part
 from the last stage), then the explicit path's boundary reduces them over
-fsdp, data and seq (``explicit.reduce_at_boundary``), and the loss,
+fsdp, data, expert and seq (``explicit.reduce_at_boundary``), and the loss,
 summed over pipe and divided by M, likewise. The gradient norm sums a
 block leaf's squares over pipe too (``zero.global_norm_sharded``), and
 the clip uses it. MoE models run with their experts replicated in each
-stage: each stage adds its layers' Switch term to its loss. Dropout
+stage, or split over an in-stage expert axis (the batch's rows split
+over it as over data; each stage's MoE layers exchange tokens with the
+expert group, ``ops/moe``, and the boundary divides expert-sharded
+leaves by the axis and averages the rest over it, as the explicit step):
+each stage adds its layers' Switch term to its loss. Dropout
 (GPT-2 only; the Llama family draws none, as in JAX) draws each
 micro-batch's masks from ``DropoutKey(seed, step, m)`` at the global
 layer ids, so a pipe-only mesh draws the single-device step's masks.
@@ -59,8 +63,8 @@ state, and keys its dropout on ``seed`` and the state's step.
 Refused as JAX refuses them: attention dropout under in-stage tensor
 parallelism unless ``tensor_dropout="folded"``, the ring with attention
 dropout, a ``tx`` that clips (the step clips against the pipe-aware
-norm), ``n_layer`` not divisible by the stage count; and the expert axis
-(ROADMAP queue 1 item 7(e)).
+norm), ``n_layer`` not divisible by the stage count, an expert axis on
+a dense model or with an expert count it does not divide.
 """
 
 from __future__ import annotations
@@ -84,6 +88,7 @@ from pytorch_distributed_tpu_torch.ops.losses import (
 from pytorch_distributed_tpu_torch.ops.ring_attention import staged
 from pytorch_distributed_tpu_torch.parallel import zero
 from pytorch_distributed_tpu_torch.parallel.explicit import (
+    check_expert,
     check_seq,
     check_tensor_dropout,
     reduce_at_boundary,
@@ -112,12 +117,9 @@ def check_pipeline(model_cfg: ModelConfig, mesh_cfg: MeshConfig) -> None:
     ``MeshConfig`` refuses an unknown ``pipe_schedule``)."""
     if mesh_cfg.pipe <= 1:
         raise ValueError("pipeline path needs mesh_cfg.pipe > 1")
-    if mesh_cfg.expert > 1:
-        raise NotImplementedError(
-            "the pipeline's expert axis is not ported: ROADMAP queue 1 "
-            "item 7(e), expert parallelism")
     check_tensor_dropout(model_cfg, mesh_cfg)
     check_seq(model_cfg, mesh_cfg)
+    check_expert(model_cfg, mesh_cfg)
     if model_cfg.n_layer % mesh_cfg.pipe:
         raise ValueError(f"n_layer={model_cfg.n_layer} not divisible by "
                          f"pipe={mesh_cfg.pipe} stages")
@@ -225,6 +227,8 @@ def make_pipeline_train_step(
     shard_tree = sharding.opt_state["mu"]
     tp_group = mesh.axis_group("tensor") if mesh_cfg.tensor > 1 else None
     seq_group = mesh.axis_group("seq") if mesh_cfg.seq > 1 else None
+    expert_group = (mesh.axis_group("expert") if mesh_cfg.expert > 1
+                    else None)
     # Dropout is the GPT-2 family's alone (JAX's ``train_mode``).
     train_mode = model_cfg.family == "gpt2" and (
         model_cfg.embd_pdrop > 0 or model_cfg.attn_pdrop > 0
@@ -268,6 +272,7 @@ def make_pipeline_train_step(
         y = model.run_blocks(
             params["blocks"], x, model_cfg, block_transform=block_transform,
             return_aux=moe, tp_group=tp_group, seq_group=seq_group,
+            expert_group=expert_group,
             dropout_seed=key if train_mode else None,
             deterministic=not train_mode, layer_offset=offset)
         loss = None

@@ -27,10 +27,17 @@ leaves take each dim minus one. GPT-2's fused QKV kernel [E, 3, H, D]
 shards its HEAD dim, never a flat 3E split, so q, k and v stay
 head-aligned on every rank. The tensor rule claims its dim first, then
 fsdp shards the largest remaining divisible dim (JAX's combined spec). A
-tensor dim the axis does not divide is refused, as in JAX. The expert
-axis has no rules yet (``MeshConfig`` refuses it, ROADMAP queue 1 item
-7(e)). ``shard_params`` keeps this rank's slice of every sharded leaf of
-full params, along every axis its spec names.
+tensor dim the axis does not divide is refused, as in JAX.
+
+The expert axis (``_EXPERT_RULES``, JAX's): the MoE experts' stacks
+``w_in``/``w_gate``/``w_out`` [X, ...] shard their expert dim (JAX's
+stacked dim 1) over "expert"; the router stays replicated, so every rank
+routes alike. A count the expert size does not divide is refused with
+JAX's message. It composes with the tensor rule (TP inside each expert,
+on F) and with fsdp, which takes the largest dim left, so a leaf can be
+split over two or three axes at once (expert and fsdp, expert and
+tensor). ``shard_params`` keeps this rank's slice of every sharded leaf
+of full params, along every axis its spec names.
 
 ``shard_train_state`` keeps, on each rank, only its slice of every
 sharded leaf and of its Adam moments: with F = fsdp, rank f holds
@@ -88,6 +95,14 @@ _TENSOR_RULES: dict[tuple[str, ...], int] = {
     ("mlp", "w_out"): 1,
 }
 
+# Expert-parallel placement (JAX's ``_EXPERT_RULES``): the dim of a
+# per-layer MoE expert stack [X, ...] the expert axis splits.
+_EXPERT_RULES: dict[tuple[str, ...], int] = {
+    ("mlp", "w_in"): 0,
+    ("mlp", "w_gate"): 0,
+    ("mlp", "w_out"): 0,
+}
+
 
 def _tensor_dim(path) -> int | None:
     keys = tuple(k for k in path if isinstance(k, str))
@@ -99,9 +114,10 @@ def _tensor_dim(path) -> int | None:
 
 def _leaf_spec(shape: tuple[int, ...], mesh_cfg: MeshConfig, *,
                shard_fsdp: bool, min_dim: int = 0, path=()) -> tuple:
-    """The combined tensor + fsdp spec of one leaf: the tensor rule (if
-    any) claims its dim, then fsdp shards the largest remaining divisible
-    dim >= ``min_dim`` (ties to the last)."""
+    """The combined tensor + expert + fsdp spec of one leaf: the tensor
+    rule (if any) claims its dim, the expert rule its, then fsdp shards
+    the largest remaining divisible dim >= ``min_dim`` (ties to the
+    last)."""
     if not shape:
         return REPLICATED
     spec: list = [None] * len(shape)
@@ -113,6 +129,15 @@ def _leaf_spec(shape: tuple[int, ...], mesh_cfg: MeshConfig, *,
                 f"{'/'.join(map(str, path))} (shape {shape}) is not "
                 f"divisible by tensor={mesh_cfg.tensor}")
         spec[tdim] = "tensor"
+    keys = tuple(k for k in path if isinstance(k, str))
+    edim = _EXPERT_RULES.get(keys[-2:]) if mesh_cfg.expert > 1 else None
+    if edim is not None:
+        if shape[edim] % mesh_cfg.expert:
+            raise ValueError(
+                f"expert dim {edim} of param {'/'.join(map(str, path))} "
+                f"(shape {shape}) is not divisible by "
+                f"expert={mesh_cfg.expert}")
+        spec[edim] = "expert"
     if shard_fsdp and mesh_cfg.fsdp > 1:
         best_dim, best_size = None, 0
         for i, s in enumerate(shape):

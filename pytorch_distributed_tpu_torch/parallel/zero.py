@@ -26,17 +26,18 @@ back (``movedim`` and a contiguous copy: plain tensor ops).
   rebuilds the leaf whole over fsdp with an all-gather (JAX sums
   zero-padded slices there for its replication typing, which this port
   has no use for: the values are the same), and ``unshard`` gathers the
-  tensor dim too (the full leaf, for a checkpoint).
-- ``global_norm_sharded`` sums each leaf's squares once: over the fsdp
-  and tensor groups it is sharded on, replicated leaves' on every rank
-  alike; under a pipe axis a stage's own leaves (its layers) are summed
-  over the pipe group too.
+  expert and tensor dims too (the full leaf, for a checkpoint).
+- ``global_norm_sharded`` sums each leaf's squares once: over the fsdp,
+  tensor and expert groups it is sharded on, replicated leaves' on every
+  rank alike; under a pipe axis a stage's own leaves (its layers) are
+  summed over the pipe group too.
 - ``unstage_blocks``: every stage's layers, in order, on every rank of a
   pipe group (an all-gather per leaf; the checkpoint's and ``evaluate``'s
   whole model).
-- A leaf that is also tensor-sharded is gathered and scattered along its
-  fsdp dim only: the tensor dim is another dim of the same leaf, and each
-  tensor rank's fsdp group holds that rank's tensor slices.
+- A leaf that is also tensor- or expert-sharded is gathered and
+  scattered along its fsdp dim only: the tensor or expert dim is another
+  dim of the same leaf, and each tensor (expert) rank's fsdp group holds
+  that rank's tensor slices (experts).
 - ``clip_by_global_norm_typed`` scales every gradient by min(1, clip /
   norm) with the reduced norm (``train/optim.clip_by_global_norm_``, the
   optimizer's own clip).
@@ -265,27 +266,29 @@ def unscatter(shard: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 
 def unshard(shard: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """The full leaf from every rank's slice along every axis ``spec``
-    names (the inverse of ``shard_slice``): fsdp, then tensor."""
+    names (the inverse of ``shard_slice``): fsdp, then expert and
+    tensor."""
     full = unscatter(shard, spec, mesh)
-    dim = shard_dim(spec, "tensor")
-    if dim is None:
-        return full
-    return all_gather_dim(full, dim, mesh.axis_group("tensor"),
-                          mesh.cfg.tensor)
+    for axis in ("expert", "tensor"):
+        dim = shard_dim(spec, axis)
+        if dim is not None:
+            full = all_gather_dim(full, dim, mesh.axis_group(axis),
+                                  mesh.axis_size(axis))
+    return full
 
 
 def global_norm_sharded(grads: list, specs: list, mesh,
                         staged: list | None = None) -> torch.Tensor:
     """The global norm of gradients laid out by ``specs``: each leaf's
-    squares summed over exactly the axes it is sharded on (fsdp and/or
-    tensor, and pipe for a leaf ``staged`` marks as a stage's own: one
+    squares summed over exactly the axes it is sharded on (fsdp, tensor
+    and expert, and pipe for a leaf ``staged`` marks as a stage's own: one
     all-reduce per axis per bucket of leaves sharded alike, as JAX's
     buckets), a replicated leaf counted once. With no sharded leaf it is
     ``train/optim.global_norm`` itself."""
     buckets: dict = {}
     piped = mesh.axis_size("pipe") > 1
     for i, (g, s) in enumerate(zip(grads, specs)):
-        axes = tuple(ax for ax in ("fsdp", "tensor")
+        axes = tuple(ax for ax in ("fsdp", "tensor", "expert")
                      if ax in s and mesh.axis_size(ax) > 1)
         if piped and staged is not None and staged[i]:
             axes = ("pipe",) + axes

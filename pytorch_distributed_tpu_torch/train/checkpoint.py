@@ -61,7 +61,11 @@ its layers (``parallel/sharding.stage_state``): the files are laid out
 over pipe x fsdp x tensor (shard i = (p * fsdp + f) * tensor + t), each
 stage writes its own layers under their global ids, the leaves every
 stage holds are written by stage 0 only, and ``index.json`` names each
-layer's stage; a pipe-2 save restores at pipe 1 and back. "npz" on
+layer's stage; a pipe-2 save restores at pipe 1 and back. Under an
+expert axis the files are laid out over pipe x fsdp x expert x tensor
+(shard i = ((p * fsdp + f) * expert + e) * tensor + t): each expert rank
+writes its experts' blocks, a leaf not split over expert is written by
+expert rank 0 only, and an expert-2 save restores on one rank. "npz" on
 several ranks gathers the sharded leaves (and every stage's layers) and
 only rank 0 writes; "auto" is "orbax" when a leaf
 is sharded, else "npz". **A deliberate difference**: the port's sharded
@@ -72,6 +76,7 @@ rank 0 only.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -232,8 +237,8 @@ def _barrier() -> None:
 
 
 def _is_sharded(sharding) -> bool:
-    """Whether ``sharding`` splits any leaf (over fsdp or tensor, or the
-    layers over pipe stages)."""
+    """Whether ``sharding`` splits any leaf (over fsdp, expert or tensor,
+    or the layers over pipe stages)."""
     from pytorch_distributed_tpu_torch.parallel.sharding import sharded_axes
 
     if sharding is None:
@@ -293,8 +298,8 @@ def save_checkpoint(directory: str | Path, state: TrainState,
 
 def gather_state(state: TrainState, sharding) -> TrainState:
     """The full train state on every rank: each sharded leaf all-gathered
-    over the fsdp group, then over the tensor group, and every stage's
-    layers over the pipe group (every rank calls it)."""
+    over the fsdp group, then over the expert and tensor groups, and
+    every stage's layers over the pipe group (every rank calls it)."""
     from pytorch_distributed_tpu_torch.parallel.zero import (
         unshard,
         unstage_blocks,
@@ -357,15 +362,17 @@ def _payload(v) -> tuple[np.ndarray, str]:
     return np.ascontiguousarray(v.numpy()), name
 
 
-# The mesh axes a sharded save lays its files out over: file i holds the
-# blocks of pipe index i // (fsdp x tensor), fsdp index i // tensor % fsdp
-# and tensor index i % tensor.
-_FILE_AXES = ("pipe", "fsdp", "tensor")
+# The mesh axes a sharded save lays its files out over, major first: file
+# i holds the blocks of the grid point whose row-major index is i. An axis
+# an index leaves out has size 1 (older saves name no expert axis).
+_FILE_AXES = ("pipe", "fsdp", "expert", "tensor")
 
 
 def _file_index(at: dict, grid: dict) -> int:
-    return (at["pipe"] * grid["fsdp"] + at["fsdp"]) * grid["tensor"] + \
-        at["tensor"]
+    i = 0
+    for ax in _FILE_AXES:
+        i = i * grid.get(ax, 1) + at.get(ax, 0)
+    return i
 
 
 def _stage_key(key: str) -> bool:
@@ -430,10 +437,10 @@ def _save_sharded(directory: Path, state: TrainState, cfg: ModelConfig,
                 (tmp / "tree" / "index.json").write_text(json.dumps(
                     {"format": _SHARDED_FORMAT,
                      "shards": math.prod(grid.values()),
-                     # pipe named only when it splits: an index without
-                     # it reads as pipe 1
+                     # pipe and expert named only when they split: an
+                     # index without one reads it as 1
                      "grid": {ax: n for ax, n in grid.items()
-                              if ax != "pipe" or n > 1},
+                              if ax not in ("pipe", "expert") or n > 1},
                      "leaves": index}, indent=1))
         _barrier()  # every shard written
         if rank == 0:
@@ -448,31 +455,27 @@ def _save_sharded(directory: Path, state: TrainState, cfg: ModelConfig,
 
 def _assemble(files: list, grid: dict, key: str, entry: dict) -> np.ndarray:
     """A leaf of the sharded format whole: its blocks from the files of
-    the grid points along the axes it is split over (fsdp, tensor), in
-    its stage's files (``entry["pipe"]``), each put at its place along its
-    dims."""
-    grid = dict({"pipe": 1}, **grid)
+    the grid points along the axes it is split over (fsdp, expert,
+    tensor), in its stage's files (``entry["pipe"]``), each put at its
+    place along its dims."""
     pipe = entry.get("pipe", 0)
     axes = entry.get("axes")
     if axes is None and entry.get("dim") is not None:  # fsdp alone
         axes = [None] * len(entry["shape"])
         axes[entry["dim"]] = "fsdp"
     if not axes:
-        return files[_file_index(dict(pipe=pipe, fsdp=0, tensor=0),
-                                 grid)][key]
-    ranges = [range(grid[ax]) if ax in axes else range(1)
-              for ax in ("fsdp", "tensor")]
+        return files[_file_index(dict(pipe=pipe), grid)][key]
+    split = [ax for ax in _FILE_AXES[1:] if ax in axes]
     full = None
-    for f in ranges[0]:
-        for t in ranges[1]:
-            block = files[_file_index(dict(pipe=pipe, fsdp=f, tensor=t),
-                                      grid)][key]
-            if full is None:
-                full = np.empty(entry["shape"], block.dtype)
-            at = {"fsdp": f, "tensor": t}
-            full[tuple(slice(None) if ax is None else
-                       slice(at[ax] * n, (at[ax] + 1) * n)
-                       for ax, n in zip(axes, block.shape))] = block
+    for point in itertools.product(*(range(grid.get(ax, 1))
+                                     for ax in split)):
+        at = dict(zip(split, point), pipe=pipe)
+        block = files[_file_index(at, grid)][key]
+        if full is None:
+            full = np.empty(entry["shape"], block.dtype)
+        full[tuple(slice(None) if ax is None else
+                   slice(at[ax] * n, (at[ax] + 1) * n)
+                   for ax, n in zip(axes, block.shape))] = block
     return full
 
 

@@ -30,6 +30,11 @@
   ranks read the same rows) and ``put_batch`` cuts the span. The params
   are whole on every seq rank, and the loss and gradient norm come out
   the same on each.
+- Under an expert axis (expert parallelism, an MoE model) each rank
+  holds its share of every MoE layer's experts and takes its own rows,
+  as under data; the forward (training and ``evaluate``) exchanges
+  tokens with the expert group, so every expert rank must run as many
+  steps and evaluation batches.
 
 - Under a pipe axis (``path="pipeline"``, ``parallel/pipeline``) each
   rank holds its stage's layers; the step is built with a clip-free
@@ -62,6 +67,7 @@ from pytorch_distributed_tpu_torch.parallel.api import (
     make_parallel_train_step,
 )
 from pytorch_distributed_tpu_torch.parallel.explicit import (
+    check_expert,
     check_seq,
     check_tensor_dropout,
     make_explicit_train_step,
@@ -106,6 +112,7 @@ class DistributedTrainer(Trainer):
     ):
         check_tensor_dropout(model_cfg, mesh_cfg)
         check_seq(model_cfg, mesh_cfg)
+        check_expert(model_cfg, mesh_cfg)
         if path not in ("auto", "explicit", "pipeline"):
             raise ValueError(f"unknown parallel path {path!r}")
         if path == "pipeline":
@@ -136,9 +143,13 @@ class DistributedTrainer(Trainer):
             data_parallel_size=data_parallel_size(mesh_cfg),
             put_batch=self._put_batch_impl, log_fn=gated_log)
         self.train_step = None  # init_state builds it, knowing the layout
-        if mesh_cfg.tensor > 1:
+        if mesh_cfg.tensor > 1 or mesh_cfg.expert > 1:
             self._eval_step = make_eval_step(
-                model, model_cfg, tp_group=mesh.axis_group("tensor"))
+                model, model_cfg,
+                tp_group=(mesh.axis_group("tensor") if mesh_cfg.tensor > 1
+                          else None),
+                expert_group=(mesh.axis_group("expert")
+                              if mesh_cfg.expert > 1 else None))
 
     # -- state ------------------------------------------------------------
     def init_state(self) -> TrainState:

@@ -1,6 +1,6 @@
-"""Mesh-parallel training over the pipe, data, fsdp, seq and tensor
-axes: the port's twin of the JAX package's ``scripts/train_parallel.py``,
-with its flags, one process per rank:
+"""Mesh-parallel training over the pipe, data, fsdp, expert, seq and
+tensor axes: the port's twin of the JAX package's
+``scripts/train_parallel.py``, with its flags, one process per rank:
 
     python -m torch.distributed.run --nproc-per-node 4 \\
         -m pytorch_distributed_tpu_torch.train.parallel \\
@@ -15,12 +15,17 @@ with its flags, one process per rank:
     python -m pytorch_distributed_tpu_torch.train.parallel \\
         --cpu-devices 4 --mesh pipe=2,data=2 --path pipeline \\
         --pipe-schedule 1f1b --preset tiny --seq-len 64      # 4 CPU ranks
+    python -m pytorch_distributed_tpu_torch.train.parallel \\
+        --cpu-devices 4 --mesh expert=2,data=2 --n-experts 4 \\
+        --preset tiny --seq-len 64                           # 4 CPU ranks
 
 ``--mesh`` names each axis's size (its product is the number of ranks);
 ``--strategy`` is the ZeRO level over fsdp, and a tensor axis is
-Megatron tensor parallelism composed with it, and a seq axis splits
-each sequence over its ranks, attention crossing them by ``--seq-impl``
-(ring or Ulysses; ``parallel/explicit``). ``--path`` is "auto" or
+Megatron tensor parallelism composed with it, a seq axis splits each
+sequence over its ranks, attention crossing them by ``--seq-impl`` (ring
+or Ulysses; ``parallel/explicit``), and an expert axis splits the
+``--n-experts`` experts of every MoE layer over its ranks, tokens moving
+to their experts' owners by all-to-all (``ops/moe``). ``--path`` is "auto" or
 "explicit" (the same hand-scheduled step here, ``parallel/api``) or
 "pipeline": the layers split over a pipe axis into stages, the
 micro-batches streamed through them by ``--pipe-schedule`` (GPipe or
@@ -30,12 +35,12 @@ axis needs ``--path pipeline`` and ``--path pipeline`` a pipe axis.
 port's launcher (``parallel/mesh.spawn_ranks``) unless a launcher already
 started them; on cards each rank takes ``cuda:LOCAL_RANK`` and NCCL.
 
-Refused, naming the ROADMAP queue 1 item that ports it: the expert axis
-(7(e)). Refused as the explicit and pipeline steps refuse them, before
-any rank starts: attention dropout under a tensor axis, or under a seq
-axis with the ring (``--no-dropout``, or a preset without it), Ulysses
-with a seq size that does not divide a rank's head counts, and a layer
-count the stages do not divide. Traces:
+Refused as the explicit and pipeline steps refuse them, before any rank
+starts: attention dropout under a tensor axis, or under a seq axis with
+the ring (``--no-dropout``, or a preset without it), Ulysses with a seq
+size that does not divide a rank's head counts, a layer count the stages
+do not divide, and an expert axis without ``--n-experts`` or with a
+count it does not divide. Traces:
 ``outputs/traces/parallel/rank<r>``.
 """
 
@@ -44,7 +49,6 @@ from __future__ import annotations
 import argparse
 import math
 
-from pytorch_distributed_tpu_torch.config import _AXIS_NOT_PORTED as _ITEM
 from pytorch_distributed_tpu_torch.train.baseline import (
     add_common_args,
     build_model_cfg,
@@ -77,9 +81,9 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     add_common_args(p, preset="tiny")
     p.add_argument("--mesh", default="data=8",
-                   help="comma-separated axis=size (pipe, data, fsdp, seq, "
-                        "tensor; expert is refused); the product must "
-                        "equal the rank count")
+                   help="comma-separated axis=size (pipe, data, fsdp, "
+                        "expert, seq, tensor); the product must equal the "
+                        "rank count")
     p.add_argument("--strategy", default="full_shard",
                    choices=["full_shard", "shard_grad_op", "shard_opt",
                             "no_shard"])
@@ -97,9 +101,6 @@ def parser() -> argparse.ArgumentParser:
 
 def refusals(args, axes: dict) -> str | None:
     """Why this run is refused (None: it is not)."""
-    for axis, item in _ITEM.items():
-        if axes.get(axis, 1) > 1:
-            return f"mesh axis {axis}={axes[axis]} is not ported: {item}"
     pipe = axes.get("pipe", 1) > 1
     if pipe and args.path != "pipeline":
         return (f"mesh axis pipe={axes['pipe']} trains on --path pipeline, "
@@ -123,6 +124,7 @@ def model_cfg_from(args):
 def main(argv=None) -> int:
     from pytorch_distributed_tpu_torch.config import MeshConfig
     from pytorch_distributed_tpu_torch.parallel.explicit import (
+        check_expert,
         check_seq,
         check_tensor_dropout,
     )
@@ -140,6 +142,7 @@ def main(argv=None) -> int:
     try:  # before any rank starts
         check_tensor_dropout(model_cfg_from(args), mesh_cfg)
         check_seq(model_cfg_from(args), mesh_cfg)
+        check_expert(model_cfg_from(args), mesh_cfg)
         if args.path == "pipeline":
             check_pipeline(model_cfg_from(args), mesh_cfg)
     except NotImplementedError as err:

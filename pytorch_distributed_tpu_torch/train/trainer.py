@@ -110,20 +110,22 @@ from pytorch_distributed_tpu_torch.utils.prng import DropoutKey
 def _loss(model: ModelApi, cfg: ModelConfig, params, inputs, targets, *,
           deterministic: bool = True, key: DropoutKey | None = None,
           with_aux: bool = True, block_transform=None, tp_group=None,
-          seq_group=None, prefetch_buffers: int = 0):
+          seq_group=None, expert_group=None, prefetch_buffers: int = 0):
     """The JAX ``micro_loss``: the forward, then the cross-entropy, fused
     with the head when ``cfg.fused_head_ce``; for a MoE config (and
     ``with_aux``) plus ``moe_aux_coef`` times the Switch term summed over
-    layers. ``block_transform``, ``prefetch_buffers``, ``tp_group`` and
-    ``seq_group``: the forward's (``parallel/explicit``'s per-layer gather
-    and its prefetch window, tensor group and sequence group; under the
-    last the loss is the mean over this rank's tokens)."""
+    layers. ``block_transform``, ``prefetch_buffers``, ``tp_group``,
+    ``seq_group`` and ``expert_group``: the forward's
+    (``parallel/explicit``'s per-layer gather and its prefetch window,
+    tensor, sequence and expert groups; under a sequence group the loss is
+    the mean over this rank's tokens)."""
     aux = bool(cfg.n_experts) and with_aux
     out = model.apply(params, inputs, cfg, deterministic=deterministic,
                       dropout_seed=key, return_aux=aux,
                       return_hidden=cfg.fused_head_ce,
                       block_transform=block_transform, tp_group=tp_group,
-                      seq_group=seq_group, prefetch_buffers=prefetch_buffers)
+                      seq_group=seq_group, expert_group=expert_group,
+                      prefetch_buffers=prefetch_buffers)
     out, aux_sum = out if aux else (out, None)
     if not cfg.fused_head_ce:
         loss = cross_entropy_loss(out, targets)
@@ -226,11 +228,12 @@ def make_train_step(
 
 
 def make_eval_step(model: ModelApi, model_cfg: ModelConfig, *,
-                   tp_group=None) -> Callable:
+                   tp_group=None, expert_group=None) -> Callable:
     """Build ``eval_fn(params, batch) -> loss`` (a device scalar): the
     deterministic forward and the training loss on "inputs"/"targets" of
-    shape [B, T] or [A, B, T] (flattened to [A*B, T]). ``tp_group``: the
-    forward's tensor group (``params`` then this rank's slices)."""
+    shape [B, T] or [A, B, T] (flattened to [A*B, T]). ``tp_group``,
+    ``expert_group``: the forward's tensor and expert groups (``params``
+    then this rank's slices and experts)."""
 
     @torch.no_grad()
     def eval_fn(params, batch):
@@ -239,7 +242,8 @@ def make_eval_step(model: ModelApi, model_cfg: ModelConfig, *,
             inputs = inputs.reshape(-1, inputs.shape[-1])
             targets = targets.reshape(-1, targets.shape[-1])
         return _loss(model, model_cfg, params, inputs, targets,
-                     with_aux=False, tp_group=tp_group)
+                     with_aux=False, tp_group=tp_group,
+                     expert_group=expert_group)
 
     return eval_fn
 

@@ -445,8 +445,9 @@ JOBS = {"parallel": job_parallel, "world1": job_world1,
         "ckpt_kill": job_ckpt_kill}
 
 if __name__ == "__main__":
-    # The tensor-, sequence- and pipeline-parallel jobs live beside this
-    # file and import from it.
+    # The tensor-, sequence-, pipeline- and expert-parallel jobs live
+    # beside this file and import from it.
+    from _torch_expert_jobs import EXPERT_JOBS
     from _torch_pipe_jobs import PIPE_JOBS
     from _torch_seq_jobs import SEQ_JOBS
     from _torch_tp_jobs import TP_JOBS
@@ -454,6 +455,7 @@ if __name__ == "__main__":
     JOBS.update(TP_JOBS)
     JOBS.update(SEQ_JOBS)
     JOBS.update(PIPE_JOBS)
+    JOBS.update(EXPERT_JOBS)
     job, workdir = sys.argv[1], Path(sys.argv[2])
     try:
         JOBS[job](workdir)

@@ -60,7 +60,8 @@ WEIGHTS = {"gpt2": "gpt2.npz", "llama": "llama.npz",
 TRAIN = dict(global_batch_size=24, micro_batch_size=8, num_steps=1,
              learning_rate=1e-3)
 M, B, T = 3, 8, 16
-RANKS = {"a": (0, 1), "b": (2, 3), "world": (0, 1, 2, 3)}
+RANKS = {"a": (0, 1), "b": (2, 3), "world": (0, 1, 2, 3),
+         "b4": (4, 5, 6, 7), "all8": tuple(range(8))}
 
 
 def _jax_cfg(model: str) -> JaxModelConfig:
@@ -131,9 +132,11 @@ def case(name, model, group, mesh, schedule, ref="pipeline", **kw):
                 schedule=schedule, ref=ref, **kw)
 
 
-def start(tmp_path_factory, cases: list, parts: list, tag: str):
-    """Write the inputs, start the port's four ranks, run JAX meanwhile:
-    (workdir, JAX results by case name, the ranks' outputs)."""
+def start(tmp_path_factory, cases: list, parts: list, tag: str,
+          n: int = 4):
+    """Write the inputs, start the port's ``n`` ranks (4, or 8 for the
+    groups "b4" and "all8"), run JAX meanwhile: (workdir, JAX results by
+    case name, the ranks' outputs)."""
     wd = tmp_path_factory.mktemp(tag)
     params = {}
     for model, f in WEIGHTS.items():
@@ -151,7 +154,7 @@ def start(tmp_path_factory, cases: list, parts: list, tag: str):
                for c in cases])))
     box: dict = {}
     th = threading.Thread(target=lambda: box.update(
-        results=launch("pipe_train", 4, wd, timeout_s=300)))
+        results=launch("pipe_train", n, wd, timeout_s=300)))
     th.start()
 
     def reference(c):
@@ -164,7 +167,7 @@ def start(tmp_path_factory, cases: list, parts: list, tag: str):
                                                             cases)))
     th.join()
     assert "results" in box, "the port's ranks did not finish"
-    return wd, want, read_outputs(wd, box["results"], n=4)
+    return wd, want, read_outputs(wd, box["results"], n=n)
 
 
 def check_step(runs, c) -> None:

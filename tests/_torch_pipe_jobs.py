@@ -1,6 +1,6 @@
 """The rank side of the port's pipeline and prefetch-window tests
-(``_torch_dist_worker`` runs ``job_pipe_train`` on four gloo ranks,
-``job_layer_scan`` on two, ``job_cuda_pipe`` on two sharing cuda:0; no
+(``_torch_dist_worker`` runs ``job_pipe_train`` on four or eight gloo
+ranks, ``job_layer_scan`` on two, ``job_cuda_pipe`` on two sharing cuda:0; no
 JAX here).
 
 Each job reads ``spec.json`` and the inputs the test wrote (the JAX
@@ -20,14 +20,26 @@ import numpy as np
 
 from _torch_dist_worker import _save_params, _setup
 
-MEMBERS = {"a": (0, 1), "b": (2, 3), "world": (0, 1, 2, 3)}
+# On eight ranks "world" is still ranks 0-3; "b4" is 4-7 and "all8" all.
+MEMBERS = {"a": (0, 1), "b": (2, 3), "world": (0, 1, 2, 3),
+           "b4": (4, 5, 6, 7), "all8": tuple(range(8))}
 
 
 def _groups():
     import torch.distributed as dist
 
-    return {"a": dist.new_group([0, 1]), "b": dist.new_group([2, 3]),
-            "world": dist.group.WORLD}
+    groups = {"a": dist.new_group([0, 1]), "b": dist.new_group([2, 3]),
+              "world": dist.group.WORLD}
+    if dist.get_world_size() == 8:
+        # Every rank joins as many groups ([4, 5] and [6, 7] to match "a"
+        # and "b"): ``make_mesh``'s groups, made by their members alone,
+        # are named by their ranks and by how many groups a rank holds.
+        dist.new_group([4, 5])
+        dist.new_group([6, 7])
+        groups.update(world=dist.new_group([0, 1, 2, 3]),
+                      b4=dist.new_group([4, 5, 6, 7]),
+                      all8=dist.group.WORLD)
+    return groups
 
 
 def _jax_tree(workdir: Path, name: str) -> dict:
@@ -39,10 +51,11 @@ def _jax_tree(workdir: Path, name: str) -> dict:
 
 def _counts() -> dict:
     from pytorch_distributed_tpu_torch.ops import flash_kernel as fk
+    from pytorch_distributed_tpu_torch.ops import moe
     from pytorch_distributed_tpu_torch.parallel import pipeline
 
     return dict(k1=fk.plain_calls["forward"], k2=fk.plain_calls["backward"],
-                sends=pipeline.sends)
+                sends=pipeline.sends, all_to_alls=moe.all_to_alls)
 
 
 def _since(c0: dict) -> dict:

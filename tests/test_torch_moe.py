@@ -199,11 +199,11 @@ def test_dropped_assignments_contribute_exactly_zero():
 def test_multi_device_axes_are_refused():
     x = torch.zeros(1, 4, D)
     w = {k: torch.from_numpy(v) for k, v in _moe_weights(False).items()}
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # Both axes are ported (TP inside each expert, and expert
+    # parallelism): each takes its process group, not JAX's axis name.
+    with pytest.raises(TypeError, match="expert process group"):
         moe.moe_mlp(x, w, activation=F.relu, expert_axis="expert")
-    # The tensor axis is ported (TP inside each expert): it takes the
-    # tensor process group, not JAX's axis name.
-    with pytest.raises(TypeError, match="process group"):
+    with pytest.raises(TypeError, match="tensor process group"):
         moe.moe_mlp(x, w, activation=F.relu, tensor_axis="tensor")
 
 

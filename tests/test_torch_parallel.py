@@ -188,32 +188,53 @@ def test_mesh_config_matches_jax_field_for_field():
 
 @pytest.mark.parametrize("kw, item", [
     (dict(tensor=2), "tensor_dropout"), (dict(seq=2), "ring-attention"),
-    (dict(pipe=2, tensor=2), "tensor_dropout"), (dict(expert=2), "7(e)"),
-    (dict(prefetch_buffers=1, expert=2), "7(e)"),
+    (dict(pipe=2, tensor=2), "tensor_dropout"), (dict(expert=2), "n_experts"),
+    (dict(prefetch_buffers=1, expert=2), None),
 ], ids=["tensor", "seq", "pipe", "expert", "prefetch"])
 def test_unported_axes_raise_naming_their_item(kw, item):
     JaxMeshConfig(**kw)  # JAX takes them
-    if "prefetch_buffers" in kw:  # the prefetch window is ported (7(d))
-        MeshConfig(prefetch_buffers=kw["prefetch_buffers"])
+    # Every axis is ported (the expert axis is item 7(e), done): what stays
+    # refused is JAX's own refusal of the same mesh.
+    mcfg = MeshConfig(**kw)
+    if "expert" in kw:
+        # A dense model names n_experts; an MoE model builds, the prefetch
+        # window with it.
+        moe_cfg = ModelConfig(**dict(MODEL_KW, n_experts=4))
+        if item is not None:
+            with pytest.raises(ValueError, match=item):
+                make_parallel_train_step(
+                    get_model(ModelConfig(**MODEL_KW)),
+                    ModelConfig(**MODEL_KW), make_optimizer(TrainConfig()),
+                    None, mcfg, None)
+            return
+        mesh = pmesh.Mesh(cfg=mcfg, rank=0, coords=dict(
+            pipe=0, data=0, fsdp=0, expert=0, seq=0, tensor=0), group=None,
+            groups={"expert": None}, device=torch.device("cpu"),
+            backend="gloo")
+        tx = make_optimizer(TrainConfig())
+        state = init_train_state(get_model(moe_cfg).init(
+            torch.Generator().manual_seed(0), moe_cfg, device="cpu"), tx)
+        step, _ = make_parallel_train_step(
+            get_model(moe_cfg), moe_cfg, tx, mesh, mcfg,
+            sharding.state_sharding(state, mesh))
+        assert callable(step)
+        return
     with pytest.raises(NotImplementedError, match=item.replace("(", r"\(")
                        .replace(")", r"\)")):
-        if "expert" in kw:
-            MeshConfig(**kw)
+        # The tensor, seq and pipe axes train (items 7(f), 7(c) and 7(d),
+        # done); what stays refused under them is JAX's: attention dropout
+        # with tensor_dropout "reject" (in-stage under pipe), and with the
+        # ring.
+        cfg = ModelConfig(**dict(MODEL_KW, attn_pdrop=0.1))
+        if "pipe" in kw:
+            make_pipeline_train_step(
+                get_model(cfg), cfg,
+                make_optimizer(TrainConfig(), with_clip=False), None,
+                mcfg, None)
         else:
-            # The tensor, seq and pipe axes train (items 7(f), 7(c) and
-            # 7(d), done); what stays refused under them is JAX's:
-            # attention dropout with tensor_dropout "reject" (in-stage
-            # under pipe), and with the ring.
-            cfg = ModelConfig(**dict(MODEL_KW, attn_pdrop=0.1))
-            if "pipe" in kw:
-                make_pipeline_train_step(
-                    get_model(cfg), cfg,
-                    make_optimizer(TrainConfig(), with_clip=False), None,
-                    MeshConfig(**kw), None)
-            else:
-                make_parallel_train_step(
-                    get_model(cfg), cfg, make_optimizer(TrainConfig()),
-                    None, MeshConfig(**kw), None)
+            make_parallel_train_step(
+                get_model(cfg), cfg, make_optimizer(TrainConfig()),
+                None, mcfg, None)
 
 
 class _FakeMesh:

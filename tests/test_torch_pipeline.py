@@ -197,7 +197,8 @@ def _build(cfg_kw=None, mesh_kw=None, train_kw=None, *, clip=False,
 
 def test_pipeline_refusals():
     """JAX's refusals, raised when the step is built (before the mesh is
-    read), and the expert axis naming item 7(e)."""
+    read), the expert axis's among them: on a dense model it names
+    n_experts, and an expert count the axis does not divide."""
     with pytest.raises(ValueError, match="pipe > 1"):
         _build(mesh_kw=dict(pipe=1))
     with pytest.raises(ValueError, match="unknown pipe_schedule"):
@@ -213,8 +214,10 @@ def test_pipeline_refusals():
     with pytest.raises(ValueError, match="clip-free optimizer"):
         _build(train_kw=dict(grad_clip_norm=1.0), clip=True,
                grad_clip_norm=1.0)
-    with pytest.raises(NotImplementedError, match=r"7\(e\)"):
-        MeshConfig(pipe=2, expert=2)
+    with pytest.raises(ValueError, match="n_experts"):
+        _build(mesh_kw=dict(expert=2))
+    with pytest.raises(ValueError, match="not divisible by expert=2"):
+        _build(dict(n_experts=3), dict(expert=2))
     # Llama draws no dropout: its pdrop fields refuse nothing (JAX's).
     llama = ModelConfig(**dict(MODELS["llama"], attn_pdrop=0.1))
     pipeline.check_pipeline(llama, MeshConfig(pipe=2, tensor=2))

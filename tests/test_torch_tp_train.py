@@ -346,21 +346,24 @@ def test_parallel_twin_trains_at_tensor2_on_cpu_ranks(tmp_path):
 @pytest.mark.parametrize("argv, item", [
     (["--mesh", "seq=2", "--preset", "tiny"], "ring-attention"),
     (["--mesh", "pipe=2"], "--path pipeline"),
-    (["--mesh", "expert=2"], "7(e)"),
+    (["--mesh", "expert=2"], "n_experts > 0"),
+    (["--mesh", "expert=3", "--n-experts", "4"], "not divisible by expert=3"),
     (["--path", "pipeline"], "requires a pipe>1 mesh axis"),
     (["--mesh", "pipe=3", "--path", "pipeline", "--pipe-schedule", "1f1b",
       "--preset", "tiny"], "not divisible by pipe=3"),
     (["--mesh", "seq=8", "--seq-impl", "ulysses", "--preset", "tiny",
       "--no-dropout"], "divide both head counts"),
-], ids=["seq", "pipe", "expert", "pipeline", "1f1b", "ulysses"])
+], ids=["seq", "pipe", "expert", "expert_count", "pipeline", "1f1b",
+        "ulysses"])
 def test_parallel_twin_refuses_what_is_not_ported(argv, item):
-    """What the twin refuses before any rank starts: the axis not ported
-    (expert, naming its item), and since the seq and pipe axes are ported
-    (items 7(c), 7(d)) what the explicit and pipeline steps refuse, as
-    JAX does: the ring with attention dropout (the tiny preset draws it),
-    Ulysses with a seq size that does not divide the heads (tiny: 4), a
-    pipe axis off ``--path pipeline`` and that path without one, and a
-    layer count (tiny: 2) the stages do not divide."""
+    """What the twin refuses before any rank starts: since every axis is
+    ported (the seq, pipe and expert axes are items 7(c), 7(d), 7(e)),
+    what the explicit and pipeline steps refuse, as JAX does: the ring
+    with attention dropout (the tiny preset draws it), Ulysses with a seq
+    size that does not divide the heads (tiny: 4), a pipe axis off
+    ``--path pipeline`` and that path without one, a layer count (tiny:
+    2) the stages do not divide, an expert axis without ``--n-experts``
+    and an expert count the axis does not divide."""
     from pytorch_distributed_tpu_torch.train import parallel
 
     with pytest.raises(SystemExit, match=item.replace("(", r"\(")
